@@ -1,0 +1,129 @@
+"""YT-8M frame-level record reader (ref: readers.py).
+
+Host-side decode producing NumPy: per-frame uint8 features are **kept
+quantized** on the host and padded/truncated to ``max_frames`` with
+:func:`resize_axis` (ref: readers.py#YT8MFrameFeatureReader.
+prepare_serialized_examples); dequantization runs on the device.  Uses the
+TF-free wire decoder in ``data/tfrecord_io.py``.
+"""
+
+from __future__ import annotations
+
+import glob as _glob
+from typing import Dict, Iterator, List, Sequence
+
+import numpy as np
+
+from learnablepoolingmethods_torch.data import tfrecord_io
+
+
+def resize_axis(arr: np.ndarray, axis: int, new_size: int) -> np.ndarray:
+    """Truncate or zero-pad ``arr`` along ``axis`` to exactly ``new_size``
+    (ref: readers.py#resize_axis)."""
+    shape = list(arr.shape)
+    if shape[axis] == new_size:
+        return arr
+    if shape[axis] > new_size:
+        slicer = [slice(None)] * arr.ndim
+        slicer[axis] = slice(0, new_size)
+        return arr[tuple(slicer)]
+    pad_shape = shape.copy()
+    pad_shape[axis] = new_size - shape[axis]
+    return np.concatenate([arr, np.zeros(pad_shape, dtype=arr.dtype)], axis=axis)
+
+
+def _multi_hot(labels: Sequence[int], num_classes: int) -> np.ndarray:
+    out = np.zeros(num_classes, dtype=np.float32)
+    idx = [l for l in labels if 0 <= l < num_classes]
+    out[idx] = 1.0
+    return out
+
+
+def _get_id(features: Dict[str, tfrecord_io.Feature]) -> bytes:
+    for key in ("id", "video_id"):
+        if key in features and features[key].bytes_list:
+            return features[key].bytes_list[0]
+    return b""
+
+
+class BaseReader:
+    """Reader contract (ref: readers.py#BaseReader.prepare_reader)."""
+
+    def read_file(self, path: str) -> Iterator[dict]:
+        raise NotImplementedError()
+
+    def read_pattern(self, pattern: str) -> Iterator[dict]:
+        files = sorted(_glob.glob(pattern))
+        if not files:
+            raise IOError(f"Unable to find input files. data_pattern='{pattern}'")
+        for path in files:
+            yield from self.read_file(path)
+
+
+class YT8MFrameFeatureReader(BaseReader):
+    """Frame-level reader: per-frame uint8 features, padded to max_frames."""
+
+    def __init__(
+        self,
+        num_classes: int = 3862,
+        feature_sizes: Sequence[int] = (1024, 128),
+        feature_names: Sequence[str] = ("rgb", "audio"),
+        max_frames: int = 300,
+    ):
+        if len(feature_names) != len(feature_sizes):
+            raise ValueError(
+                f"length of feature_names (={len(feature_names)}) != "
+                f"length of feature_sizes (={len(feature_sizes)})"
+            )
+        self.num_classes = num_classes
+        self.feature_sizes = list(feature_sizes)
+        self.feature_names = list(feature_names)
+        self.max_frames = max_frames
+
+    def read_file(self, path: str) -> Iterator[dict]:
+        total_size = sum(self.feature_sizes)
+        for record in tfrecord_io.read_tfrecords(path):
+            context, feature_lists = tfrecord_io.parse_sequence_example(record)
+
+            per_name: List[np.ndarray] = []
+            num_frames = None
+            for name, size in zip(self.feature_names, self.feature_sizes):
+                feats = feature_lists.get(name, [])
+                if feats:
+                    mat = np.stack(
+                        [
+                            np.frombuffer(f.bytes_list[0], dtype=np.uint8)
+                            for f in feats
+                        ]
+                    )
+                    if mat.shape[1] != size:
+                        raise ValueError(
+                            f"feature_list {name!r} frame size {mat.shape[1]}, "
+                            f"expected {size}"
+                        )
+                else:
+                    mat = np.zeros((0, size), np.uint8)
+                if num_frames is None:
+                    num_frames = mat.shape[0]
+                else:
+                    # reference asserts equal lengths across modalities
+                    num_frames = min(num_frames, mat.shape[0])
+                per_name.append(mat)
+
+            num_frames = int(min(num_frames or 0, self.max_frames))
+            frames = np.zeros((self.max_frames, total_size), np.uint8)
+            col = 0
+            for mat, size in zip(per_name, self.feature_sizes):
+                mat = resize_axis(mat, 0, self.max_frames)
+                frames[:, col : col + size] = mat
+                col += size
+
+            labels = context.get("labels")
+            yield {
+                "video_id": _get_id(context),
+                "features": frames,  # [max_frames, total_size] uint8
+                "num_frames": np.int32(num_frames),
+                "labels": _multi_hot(
+                    labels.int64_list if labels else (), self.num_classes
+                ),
+            }

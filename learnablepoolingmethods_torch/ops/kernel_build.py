@@ -1,0 +1,100 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+its own shared library with a plain C interface, which the wrappers call
+through ``ctypes``.  Libraries go to ``build/kernels/`` at the root of the
+checkout (git-ignored), named by a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is reused.  Nothing here runs
+at import time: a module that wraps a kernel imports this one freely, and
+the first launch builds what it needs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNEL_SOURCES = ("fused_frontend", "netvlad_fused")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by its sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, one ``nvcc``
+    per source, all started together.  Returns the seconds each took (0 for
+    one already built); raises with the compiler's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    seconds = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            target,
+            time.perf_counter(),
+        )
+    failures = []
+    for name, (proc, tmp, target, start) in procs.items():
+        output, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - start
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu:\n{output}")
+            continue
+        os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+def load_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu``, building the library
+    first if needed; it returns a ``cudaError_t`` as ``int``."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = _loaded[name] = ctypes.CDLL(str(path))
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
