@@ -9,5 +9,8 @@ the CPU tests run that version, and ``chip_smoke.py`` holds the kernel
 against it on the card.
 
 Ported so far: ``NetVLADModelLF`` inference through the fast path
-(``python -m learnablepoolingmethods_torch.inference --fast_infer``).
+(``python -m learnablepoolingmethods_torch.inference --fast_infer``) and its
+training as ``nn.Module``s (``python -m learnablepoolingmethods_torch.train``),
+whose NetVLAD aggregation runs the CUDA forward and backward kernels of
+``ops/netvlad_train.py`` with ``--fused_train_aggregation``.
 """

@@ -9,7 +9,10 @@ orbax.  On the JAX side:
                         "batch_stats": tree["batch_stats"]}, train_dir)
 
 and the port reads it back with :func:`load_variables_npz` and
-:func:`convert_flax_variables`.  Keys keep the flax layout: ``[D, K]``
+:func:`convert_flax_variables` (the fast path) or :func:`load_flax_variables`
+(the ``nn.Module`` model).  :func:`state_dict_to_flax` goes the other way,
+so the train CLI writes a ``variables.npz`` that both CLIs of either package
+layout read.  Keys keep the flax layout: ``[D, K]``
 cluster weights, ``[1, D, K]`` C₂, the d-major ``[D·K + D_a·K_a, H]``
 hidden FC and the vocab-major MoE kernels (column m·V + v).
 
@@ -121,6 +124,39 @@ def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig) -> Tree:
         return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
     return {"params": convert(tree_np["params"]), "batch_stats": convert(tree_np["batch_stats"])}
+
+
+def flax_to_state_dict(tree_np: Tree) -> Dict[str, torch.Tensor]:
+    """Flax ``{params, batch_stats}`` tree → the port model's ``state_dict``:
+    the path ``params/NetVLAD_0/cluster_bn/scale`` becomes the key
+    ``NetVLAD_0.cluster_bn.scale`` and ``batch_stats/input_bn/mean`` the
+    buffer ``input_bn.mean``; values become float32 tensors."""
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(tree_np.get(collection, {})).items():
+            arr = np.ascontiguousarray(np.asarray(value).astype(np.float32, copy=False))
+            out[path.replace("/", ".")] = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    return out
+
+
+def state_dict_to_flax(model: torch.nn.Module) -> Tree:
+    """The inverse of :func:`flax_to_state_dict`: a model's parameters under
+    ``params`` and its buffers (BN statistics) under ``batch_stats``, as
+    nested dicts of float32 NumPy arrays in the flax layout."""
+
+    def tree(named):
+        return _unflatten({
+            name.replace(".", "/"): t.detach().float().cpu().numpy() for name, t in named
+        })
+
+    return {"params": tree(model.named_parameters()), "batch_stats": tree(model.named_buffers())}
+
+
+def load_flax_variables(model: torch.nn.Module, tree_np: Tree) -> torch.nn.Module:
+    """Copy a flax-layout tree into ``model`` (every key must match, with its
+    shape); returns the model."""
+    model.load_state_dict(flax_to_state_dict(tree_np), strict=True)
+    return model
 
 
 def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0) -> Tree:

@@ -1,6 +1,6 @@
-// Fused inference front end: uint8 frames [B, F, DT] + sampled frame
-// indices [B, S] → bf16 NetVLAD descriptors rgb [B, d_rgb, k_rgb] and
-// audio [B, d_aud, k_aud].
+// Fused inference front end: uint8 frames [B, F, DT], frame counts [B] and a
+// threefry key → S sampled frames per video → bf16 NetVLAD descriptors rgb
+// [B, d_rgb, k_rgb] and audio [B, d_aud, k_aud].
 //
 // Replaces the TPU kernel learnablepoolingmethods_tpu/ops/fused_frontend.py
 // #netvlad_frontend_fused (kernel body _make_kernel), which per video
@@ -18,13 +18,18 @@
 // (see PERF.md for the numbers of each run).
 //
 // Design:
+//  - Each block draws its own frame index: floor(U·min(nf, F)) clamped to
+//    F−1, with U = jax.random.uniform(key, (B, S))[b, s] computed by the
+//    threefry2x32 hash of counter (0, b·S + s) (jax_threefry_partitionable),
+//    bit for bit the index that utils/prng.py and the JAX package draw.  The
+//    host passes only the key's two words; drawing U there cost each batch
+//    host time the device then waited for (PERF.md).
 //  - Sampling is a direct gather: ℓ2 and BN act row by row, so normalising
 //    only the S sampled rows gives the same rows as normalising all F and
 //    then selecting.  One block per sampled row loads the 1152-byte row as
 //    16-byte vectors, reduces Σx² over all DT columns (rgb and audio stay
 //    coupled in the norm), and writes the row, normalised, BN'd and rounded
 //    to bf16 once, into a [B·S, DT] scratch tensor (35 MB at B=512, S=30).
-//    An index outside [0, F) yields a zero row, as the one-hot matmul does.
 //  - Both NetVLADs then run the shared core (netvlad_core.cuh) on column
 //    slices of that scratch tensor: rgb on columns [0, d_rgb), audio on
 //    [d_rgb, DT), with row stride DT.  No f32 [B, D, K] tensor is stored.
@@ -52,23 +57,53 @@ __device__ __forceinline__ float deq(uint32_t q, float scale, float bias) {
   return __fadd_rn(__fmul_rn((float)q, scale), bias);
 }
 
-// One block per sampled row (b, s): gather, dequantize, per-frame ℓ2 over
-// DT columns, folded input BN, one rounding to bf16.
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds (jax._src.prng._threefry2x32_lowering).
+__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t x0,
+                                              uint32_t x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i & 1][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  return make_uint2(x0, x1);
+}
+
+// The frame sampled for row b·S + s: floor(U·min(nf, F)) clamped to F−1,
+// U the row's jax.random.uniform draw (top 23 bits as a mantissa in [1, 2)).
+__device__ __forceinline__ int sample_frame(uint32_t k0, uint32_t k1, long long row, int nf,
+                                            int F) {
+  const uint2 h = threefry2x32(k0, k1, (uint32_t)(row >> 32), (uint32_t)row);
+  const float u = __uint_as_float(((h.x ^ h.y) >> 9) | 0x3F800000u) - 1.0f;
+  return min((int)__fmul_rn(u, (float)min(nf, F)), F - 1);
+}
+
+// One block per sampled row (b, s): draw the frame, gather, dequantize,
+// per-frame ℓ2 over DT columns, folded input BN, one rounding to bf16.
 template <bool kVec>
 __global__ void __launch_bounds__(kPrepThreads)
-frontend_prep_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ idx,
+frontend_prep_kernel(const uint8_t* __restrict__ x, uint32_t k0, uint32_t k1,
+                     const int32_t* __restrict__ num_frames,
                      const float* __restrict__ in_scale, const float* __restrict__ in_bias,
                      __nv_bfloat16* __restrict__ xs, int F, int DT, int S, float deq_scale,
                      float deq_bias) {
   __shared__ float red[kPrepThreads / 32];
   const long long row = blockIdx.x;  // b·S + s
   const int b = (int)(row / S);
-  const int f = idx[row];
+  const int f = sample_frame(k0, k1, row, num_frames[b], F);
   __nv_bfloat16* dst = xs + row * DT;
-  if (f < 0 || f >= F) {
-    for (int c = threadIdx.x; c < DT; c += kPrepThreads) dst[c] = __float2bfloat16_rn(0.f);
-    return;
-  }
   const uint8_t* src = x + ((long long)b * F + f) * DT;
 
   float ss = 0.f;
@@ -125,7 +160,8 @@ frontend_prep_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ 
 }  // namespace lpm
 
 extern "C" int lpm_netvlad_frontend(
-    const void* x, const void* idx, const void* in_scale, const void* in_bias,
+    const void* x, unsigned int k0, unsigned int k1, const void* num_frames,
+    const void* in_scale, const void* in_bias,
     const void* c_rgb, const void* s_rgb, const void* b_rgb, const void* c2_rgb,
     const void* c_aud, const void* s_aud, const void* b_aud, const void* c2_aud,
     void* out_rgb, void* out_aud, void* ws_x, void* ws_a_rgb, void* ws_a_aud,
@@ -140,16 +176,16 @@ extern "C" int lpm_netvlad_frontend(
   const bool vec = (DT % 16) == 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
                    (reinterpret_cast<uintptr_t>(ws_x) % 16) == 0;
   const uint8_t* xu = static_cast<const uint8_t*>(x);
-  const int32_t* iu = static_cast<const int32_t*>(idx);
+  const int32_t* nf = static_cast<const int32_t*>(num_frames);
   const float* isc = static_cast<const float*>(in_scale);
   const float* ibi = static_cast<const float*>(in_bias);
   bf16* xs = static_cast<bf16*>(ws_x);
   if (vec)
     lpm::frontend_prep_kernel<true><<<rows, lpm::kPrepThreads, 0, st>>>(
-        xu, iu, isc, ibi, xs, F, DT, S, deq_scale, deq_bias);
+        xu, k0, k1, nf, isc, ibi, xs, F, DT, S, deq_scale, deq_bias);
   else
     lpm::frontend_prep_kernel<false><<<rows, lpm::kPrepThreads, 0, st>>>(
-        xu, iu, isc, ibi, xs, F, DT, S, deq_scale, deq_bias);
+        xu, k0, k1, nf, isc, ibi, xs, F, DT, S, deq_scale, deq_bias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = lpm::run_netvlad<bf16>(

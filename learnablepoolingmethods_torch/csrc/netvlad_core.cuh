@@ -30,7 +30,10 @@
 //
 // Rounding follows the TPU kernel: the logits are products of the input
 // type with an f32 sum, the aggregation reads X as f32 with A in f32, and
-// the descriptor is rounded to T only at the end.  Products and sums are
+// the descriptor is rounded to T only at the end.  The training kernels
+// (netvlad_train.cu) run the same aggregation with kRoundA, which rounds A
+// to T before the product, as ops/netvlad_train.py#_fwd_kernel does; a_sum
+// still sums the unrounded A.  Products and sums are
 // plain f32 FMAs (no tensor cores yet); the kernels move few bytes, so the
 // FMA and shared-memory issue rates bound them (see PERF.md).
 
@@ -57,6 +60,12 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// v, or v rounded to T and widened back when kRound is set
+template <typename T, bool kRound>
+__device__ __forceinline__ float round_to(float v) {
+  return kRound ? to_float(from_float<T>(v)) : v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -163,7 +172,8 @@ constexpr int kAggSamples = 32;   // samples staged per chunk
 
 // Pass kWrite=false writes colsq[b, k] = Σ_d vlad[d, k]²; pass kWrite=true
 // reads the whole colsq[b, :] row and writes out[b] = the normalised vlad.
-template <typename T, bool kWrite>
+// kRoundA rounds A to T where it enters the product (not in a_sum).
+template <typename T, bool kWrite, bool kRoundA = false>
 __global__ void __launch_bounds__(kThreads)
 aggregate_kernel(const T* __restrict__ x, long long ldx, const float* __restrict__ a,
                  const float* __restrict__ c2, float* __restrict__ colsq,
@@ -221,7 +231,9 @@ aggregate_kernel(const T* __restrict__ x, long long ldx, const float* __restrict
       const int sn = min(kAggSamples, S - s0);
       for (int i = tid; i < kAggSamples * kAggClusters; i += kThreads) {
         const int s = i / kAggClusters, kk = i % kAggClusters;
-        a_s[s][kk] = (s < sn && k0 + kk < K) ? a[(row0 + s0 + s) * K + k0 + kk] : 0.f;
+        a_s[s][kk] = (s < sn && k0 + kk < K)
+                         ? round_to<T, kRoundA>(a[(row0 + s0 + s) * K + k0 + kk])
+                         : 0.f;
       }
       for (int i = tid; i < kAggSamples * kAggRows; i += kThreads) {
         const int s = i / kAggRows, dd = i % kAggRows;

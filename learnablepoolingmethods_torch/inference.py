@@ -26,24 +26,10 @@ from learnablepoolingmethods_torch.core.weights import convert_flax_variables, l
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path
-from learnablepoolingmethods_torch.utils.misc import InFlight, format_lines, resolve_device
+from learnablepoolingmethods_torch.utils import prng
+from learnablepoolingmethods_torch.utils.misc import InFlight, add_bool_flag, format_lines, resolve_device
 
 log = logging.getLogger(__name__)
-
-
-def _bool(text: str) -> bool:
-    value = text.strip().lower()
-    if value in ("1", "true", "t", "yes", "y"):
-        return True
-    if value in ("0", "false", "f", "no", "n"):
-        return False
-    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
-
-
-def _add_bool(parser: argparse.ArgumentParser, name: str, default: bool, help: str):
-    """absl-style boolean: ``--name``, ``--name=false`` and ``--noname``."""
-    parser.add_argument(f"--{name}", nargs="?", const=True, default=default, type=_bool, help=help)
-    parser.add_argument(f"--no{name}", dest=name, action="store_false", help=argparse.SUPPRESS)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,15 +38,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train_dir", default="/tmp/yt8m_model/", help="Directory (or file) of variables.npz.")
     p.add_argument("--output_file", default="", help="Destination CSV path.")
     p.add_argument("--top_k", type=int, default=20, help="How many predictions to write per video.")
-    _add_bool(p, "fast_infer", False, "Use the fused inference path (BN folding, CUDA kernels, bf16).")
-    _add_bool(p, "int8_hidden", False, "Weight-only int8 hidden FC (not ported yet).")
+    add_bool_flag(p, "fast_infer", False, "Use the fused inference path (BN folding, CUDA kernels, bf16).")
+    add_bool_flag(p, "int8_hidden", False, "Weight-only int8 hidden FC (not ported yet).")
     p.add_argument("--pipeline_depth", type=int, default=2,
                    help="Batches kept in flight before fetching results (1 = synchronous).")
     p.add_argument("--batch_size", type=int, default=1024, help="Videos per batch.")
     # data
     p.add_argument("--feature_names", default="mean_rgb,mean_audio", help="Name of the feature columns.")
     p.add_argument("--feature_sizes", default="1024,128", help="Length of the feature vectors.")
-    _add_bool(p, "frame_features", False, "Input is frame-level tf.SequenceExample.")
+    add_bool_flag(p, "frame_features", False, "Input is frame-level tf.SequenceExample.")
     p.add_argument("--max_frames", type=int, default=300, help="Frame pad/truncate length.")
     p.add_argument("--num_classes", type=int, default=3862, help="Vocabulary size.")
     # model
@@ -69,13 +55,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Video-level classifier used by frame-level models.")
     p.add_argument("--moe_num_mixtures", type=int, default=2, help="Mixtures per class for MoeModel.")
     p.add_argument("--iterations", type=int, default=30, help="Number of frames to sample per video.")
-    _add_bool(p, "sample_random_frames", True, "Sample random frames (with replacement).")
+    add_bool_flag(p, "sample_random_frames", True, "Sample random frames (with replacement).")
     p.add_argument("--netvlad_cluster_size", type=int, default=256, help="NetVLAD clusters (rgb).")
     p.add_argument("--netvlad_hidden_size", type=int, default=1024, help="NetVLAD hidden size.")
-    _add_bool(p, "netvlad_add_batch_norm", True, "BN in NetVLAD models.")
-    _add_bool(p, "netvlad_relu", False, "relu6 after the hidden layer.")
+    add_bool_flag(p, "netvlad_add_batch_norm", True, "BN in NetVLAD models.")
+    add_bool_flag(p, "netvlad_relu", False, "relu6 after the hidden layer.")
     p.add_argument("--netvlad_dimred", type=int, default=-1, help="Input dim-reduction width (-1 = off).")
-    _add_bool(p, "gating", True, "Context gating before the classifier.")
+    add_bool_flag(p, "gating", True, "Context gating before the classifier.")
     p.add_argument("--device", default="cuda", help="Torch device: cuda (default), cuda:N or cpu.")
     return p
 
@@ -145,12 +131,12 @@ def inference(args) -> int:
         out_file.write(b"VideoId,LabelConfidencePairs\n")
         batches = batch_iterator(reader, args.input_data_pattern, args.batch_size, num_epochs=1)
         for batch_idx, batch in enumerate(batches):
-            # a fresh sampling generator per batch, seeded from its index
-            gen = torch.Generator(device=device)
-            gen.manual_seed(batch_idx)
+            # a fresh sampling key per batch, as the JAX CLI's
+            # fold_in(key(0), batch_idx): the same frames, bit for bit
+            key = prng.fold_in(prng.key(0), batch_idx)
             feats = torch.from_numpy(batch["features"]).to(device)
             nf = torch.from_numpy(batch["num_frames"]).to(device)
-            values, indices = fast(fp, feats, nf, gen)
+            values, indices = fast(fp, feats, nf, key)
             real = np.asarray(batch["weights"]) > 0
             vids = [v for v, keep in zip(batch["video_id"], real) if keep]
             done = pipe.add((vids, real, values, indices))

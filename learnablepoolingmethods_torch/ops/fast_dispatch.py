@@ -5,7 +5,7 @@
   and casts weights once → a flat dict of tensors on ``device``.  Raises
   ``ValueError`` on configs the fast path does not cover.
 - ``build(mcfg, top_k=20, use_kernels=True, return_probs=False)`` →
-  ``fn(fp, features, num_frames, gen, presampled=False)``.
+  ``fn(fp, features, num_frames, key, presampled=False)``.
 
 Only ``NetVLADModelLF`` is ported so far; every other model of the JAX
 package raises an error naming the ROADMAP item that ports it.

@@ -16,10 +16,10 @@ inference-time simplification applied:
 
     fp = prepare_fast_params(variables, mcfg, device="cuda")
     fn = build_fast_netvlad_inference(mcfg, top_k=20)
-    values, indices = fn(fp, features_u8, num_frames, gen)
+    values, indices = fn(fp, features_u8, num_frames, key)
 
-``gen`` is a ``torch.Generator`` on the features' device; it draws the
-sampled frame indices.
+``key`` is a ``utils/prng.py`` key; it draws the sampled frame indices as
+``jax.random.uniform`` would.
 """
 
 from __future__ import annotations
@@ -43,12 +43,6 @@ from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
 from learnablepoolingmethods_torch.utils.misc import resolve_device
 from learnablepoolingmethods_torch.utils.quantization import dequantize
-
-
-def _fold_bn(params_bn: Dict[str, Any], stats_bn: Dict[str, Any]):
-    return fold_assignment_bn(
-        params_bn["scale"], params_bn["bias"], stats_bn["mean"], stats_bn["var"]
-    )
 
 
 def _require_moe_head(params: Dict[str, Any], mcfg: ModelConfig):
@@ -137,7 +131,7 @@ def prepare_fast_params(
         return torch.as_tensor(t).to(device=dev, dtype=dtype).contiguous()
 
     def vlad_consts(name):
-        scale, bias = _fold_bn(p[name]["cluster_bn"], s[name]["cluster_bn"])
+        scale, bias = fold_assignment_bn(**p[name]["cluster_bn"], **s[name]["cluster_bn"])
         cluster = p[name]["cluster_weights"]
         return {
             "cluster": put(cluster, ct),
@@ -150,8 +144,8 @@ def prepare_fast_params(
     aud = vlad_consts("NetVLAD_1")
     d_rgb = rgb["cluster"].shape[0]
 
-    in_scale, in_bias = _fold_bn(p["input_bn"], s["input_bn"])
-    g_scale, g_bias = _fold_bn(p["gating"]["gating_bn"], s["gating"]["gating_bn"])
+    in_scale, in_bias = fold_assignment_bn(**p["input_bn"], **s["input_bn"])
+    g_scale, g_bias = fold_assignment_bn(**p["gating"]["gating_bn"], **s["gating"]["gating_bn"])
     hidden_w = p["hidden1_weights"]
     moe = p["MoeModel_0"]
     return {
@@ -188,7 +182,7 @@ def build_fast_netvlad_inference(
     fuse_frontend: bool = True,
     return_probs: bool = False,
 ):
-    """Return ``fn(fast_params, features, num_frames, gen, presampled=False)``
+    """Return ``fn(fast_params, features, num_frames, key, presampled=False)``
     → (values [B,k], indices [B,k]), or the probabilities [B, V] when
     ``return_probs``.
 
@@ -208,7 +202,7 @@ def build_fast_netvlad_inference(
         out = fn(x, consts["cluster"], consts["scale"], consts["bias"], consts["c2"])
         return out.reshape(-1, d * k)
 
-    def forward(fp, features, num_frames, gen, presampled: bool = False):
+    def forward(fp, features, num_frames, key, presampled: bool = False):
         b = features.shape[0]
         d_rgb, k_rgb = fp["rgb"]["cluster"].shape
         d_aud, k_aud = fp["aud"]["cluster"].shape
@@ -220,9 +214,8 @@ def build_fast_netvlad_inference(
             and features.dtype == torch.uint8
             and ct == torch.bfloat16  # the fused kernel is bf16-internal
         ):
-            idx = sample_indices(gen, num_frames, features.shape[1], iterations)
             out_rgb, out_aud = netvlad_frontend(
-                features, idx,
+                features, key, num_frames, iterations,
                 fp["in_scale"], fp["in_bias"],
                 fp["rgb"]["cluster"], fp["rgb"]["scale"], fp["rgb"]["bias"], fp["rgb"]["c2"],
                 fp["aud"]["cluster"], fp["aud"]["scale"], fp["aud"]["bias"], fp["aud"]["c2"],
@@ -232,7 +225,7 @@ def build_fast_netvlad_inference(
             return _tail(fp, vlad_rgb, vlad_aud)
 
         if not presampled:
-            idx = sample_indices(gen, num_frames, features.shape[1], iterations)
+            idx = sample_indices(key, num_frames, features.shape[1], iterations)
             features = gather_frames(features, idx)
 
         x = staged_frames(features, fp["in_scale"], fp["in_bias"], ct)

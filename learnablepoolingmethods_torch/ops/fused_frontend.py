@@ -1,14 +1,16 @@
 """Fused inference front end: uint8 frames → both NetVLAD descriptors.
 
-Per video: dequantize → per-frame ℓ2 over the full 1152-d vector (the norm
-couples rgb and audio, so the kernel takes the unsplit tensor) → folded
-input BN → frame sampling → NetVLAD on the rgb slice (K) and on the audio
+Per video: frame sampling → dequantize → per-frame ℓ2 over the full 1152-d
+vector (the norm couples rgb and audio, so the kernel takes the unsplit
+tensor) → folded input BN → NetVLAD on the rgb slice (K) and on the audio
 slice (K/2).  The kernel (``csrc/fused_frontend.cu``) replaces
 ``learnablepoolingmethods_tpu/ops/fused_frontend.py#netvlad_frontend_fused``;
 :func:`netvlad_frontend_reference` transcribes that module's
-``netvlad_frontend_reference``.  Sampled indices come from the caller
-(:func:`sample_indices`), so the fused and staged routes see the same
-frames.
+``netvlad_frontend_reference``.  The caller passes a ``utils/prng.py`` key;
+the kernel draws each video's frames from it on the card, the plain version
+through :func:`sample_indices`, and both draw the indices the JAX package's
+``sample_indices`` draws from the same key, so the fused and staged routes
+see the same frames.
 """
 
 from __future__ import annotations
@@ -20,38 +22,45 @@ import torch
 from learnablepoolingmethods_torch.ops import kernel_build
 from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS, netvlad_reference
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
+from learnablepoolingmethods_torch.utils import prng
 
 DEQ_SCALE = 4.0 / 255.0
 DEQ_BIAS = 4.0 / 512.0 - 2.0
 
-_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-]
+_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_uint] * 2 + [ctypes.c_void_p] * 18 + [
+    ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
 def sample_indices(
-    gen: torch.Generator, num_frames: torch.Tensor, max_frames: int, num_samples: int
+    key: torch.Tensor, num_frames: torch.Tensor, max_frames: int, num_samples: int
 ) -> torch.Tensor:
     """floor(U·min(num_frames, F)) clamped to F−1: ``[B, num_samples]``
     int32 on ``num_frames``' device (ref: model_utils.py#SampleRandomFrames).
-    ``gen`` must live on that device."""
+    ``key`` is a ``utils/prng.py`` key; U is ``jax.random.uniform(key,
+    (B, num_samples))`` bit for bit, so the indices are those of the JAX
+    package's ``sample_indices`` under the same key."""
     b = num_frames.shape[0]
     nf = torch.clamp(num_frames.to(torch.int32), max=max_frames)
-    u = torch.rand(
-        (b, num_samples), generator=gen, device=num_frames.device, dtype=torch.float32
-    )
+    u = prng.uniform(key, (b, num_samples), device=num_frames.device)
     return torch.clamp((u * nf[:, None].float()).to(torch.int32), max=max_frames - 1)
 
 
 def gather_frames(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``x[b, idx[b, s]]`` of ``x`` [B, F, C] → [B, S, C]."""
-    return torch.gather(x, 1, idx.long()[:, :, None].expand(-1, -1, x.shape[2]))
+    """Rows ``x[b, idx[b, s]]`` of ``x`` [B, F, C] → [B, S, C]; an index
+    outside [0, F) gives a zero row, as the TPU's one-hot matmul on float
+    rows does."""
+    valid = (idx >= 0) & (idx < x.shape[1])
+    safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
+    rows = torch.gather(x, 1, safe[:, :, None].expand(-1, -1, x.shape[2]))
+    return torch.where(valid[:, :, None], rows, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def netvlad_frontend(
-    x_u8: torch.Tensor,      # [B, F, DT] uint8
-    idx: torch.Tensor,       # [B, S] int32 sampled frame indices
-    in_scale, in_bias,       # [DT] folded input-BN affine
+    x_u8: torch.Tensor,         # [B, F, DT] uint8
+    key: torch.Tensor,          # utils/prng.py key of the frame draws
+    num_frames: torch.Tensor,   # [B] int32 valid frames per video
+    num_samples: int,           # S, frames drawn per video
+    in_scale, in_bias,          # [DT] folded input-BN affine
     c_rgb, s_rgb, b_rgb, c2_rgb,   # rgb NetVLAD consts
     c_aud, s_aud, b_aud, c2_aud,   # audio NetVLAD consts
 ):
@@ -62,7 +71,7 @@ def netvlad_frontend(
     """
     args = (in_scale, in_bias, c_rgb, s_rgb, b_rgb, c2_rgb, c_aud, s_aud, b_aud, c2_aud)
     if x_u8.device.type == "cpu":
-        return netvlad_frontend_reference(x_u8, idx, *args)
+        return netvlad_frontend_reference(x_u8, key, num_frames, num_samples, *args)
     if x_u8.device.type != "cuda":
         raise ValueError(f"netvlad_frontend: unsupported device {x_u8.device}")
     if x_u8.dim() != 3 or x_u8.dtype != torch.uint8 or not x_u8.is_contiguous():
@@ -71,15 +80,14 @@ def netvlad_frontend(
             f"{tuple(x_u8.shape)} {x_u8.dtype}"
         )
     b, f, dt = x_u8.shape
-    if (
-        idx.dim() != 2 or idx.shape[0] != b or idx.dtype != torch.int32
-        or not idx.is_contiguous() or idx.device != x_u8.device
-    ):
+    if num_frames.shape != (b,) or num_frames.device != x_u8.device:
         raise ValueError(
-            f"netvlad_frontend: idx must be contiguous [B, S] int32 on {x_u8.device}, "
-            f"got {tuple(idx.shape)} {idx.dtype} on {idx.device}"
+            f"netvlad_frontend: num_frames must be [B] on {x_u8.device}, got "
+            f"{tuple(num_frames.shape)} on {num_frames.device}"
         )
-    s = idx.shape[1]
+    k0, k1 = prng.key_words(key)
+    nf = num_frames.to(torch.int32).contiguous()
+    s = int(num_samples)
     d_rgb, k_rgb = c_rgb.shape
     d_aud, k_aud = c_aud.shape
     if d_rgb + d_aud != dt:
@@ -114,7 +122,7 @@ def netvlad_frontend(
     fn = kernel_build.load_function("fused_frontend", "lpm_netvlad_frontend", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
-            x_u8.data_ptr(), idx.data_ptr(), *(t.data_ptr() for t in consts),
+            x_u8.data_ptr(), k0, k1, nf.data_ptr(), *(t.data_ptr() for t in consts),
             out_rgb.data_ptr(), out_aud.data_ptr(), ws_x.data_ptr(),
             ws_a_rgb.data_ptr(), ws_a_aud.data_ptr(), ws_cs_rgb.data_ptr(), ws_cs_aud.data_ptr(),
             b, f, dt, s, d_rgb, k_rgb, d_aud, k_aud, DEQ_SCALE, DEQ_BIAS,
@@ -129,13 +137,14 @@ netvlad_frontend.launches = 0
 
 
 def netvlad_frontend_reference(
-    x_u8, idx, in_scale, in_bias,
+    x_u8, key, num_frames, num_samples, in_scale, in_bias,
     c_rgb, s_rgb, b_rgb, c2_rgb,
     c_aud, s_aud, b_aud, c2_aud,
 ):
     """Plain PyTorch twin (gather-based) of the fused front end — the
     parity oracle."""
     d_rgb = c_rgb.shape[0]
+    idx = sample_indices(key, num_frames, x_u8.shape[1], num_samples)
     xf = x_u8.float() * DEQ_SCALE + DEQ_BIAS
     xf = l2_normalize(xf, dim=-1)
     xf = xf * in_scale.reshape(1, 1, -1) + in_bias.reshape(1, 1, -1)

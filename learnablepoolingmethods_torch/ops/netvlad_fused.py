@@ -114,9 +114,8 @@ def netvlad_reference(x, cluster_weights, assign_scale, assign_bias, cluster_wei
     return vlad.to(x.dtype)
 
 
-def fold_assignment_bn(gamma, beta, mean, var, epsilon: float = 1e-3):
-    """Inference-mode BN affine for the assignment logits:
-    scale = γ/√(σ²+ε);  bias = β − μ·scale."""
-    scale = gamma / torch.sqrt(var + epsilon)
-    bias = beta - mean * scale
-    return scale, bias
+def fold_assignment_bn(scale, bias, mean, var, epsilon: float = 1e-3):
+    """Inference-mode BN affine (γ = ``scale``, β = ``bias``, the flax
+    names): scale' = γ/√(σ²+ε);  bias' = β − μ·scale'."""
+    folded = scale / torch.sqrt(var + epsilon)
+    return folded, bias - mean * folded

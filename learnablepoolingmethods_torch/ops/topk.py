@@ -8,11 +8,8 @@ import torch
 
 
 def top_k_exact(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k along the last axis, sorted descending: (values, indices).
-
-    Values equal those of ``jax.lax.top_k``.  Among exactly tied scores
-    ``torch.topk`` does not promise the lowest index first, as
-    ``lax.top_k`` does, so the indices of ties may be ordered otherwise.
-    """
-    values, indices = torch.topk(scores, k, dim=-1, largest=True, sorted=True)
-    return values, indices
+    """Exact top-k along the last axis, sorted descending: (values, indices),
+    as ``jax.lax.top_k``: among exactly tied scores the lowest index comes
+    first (a stable descending sort keeps the index order of ties)."""
+    values, indices = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import argparse
 from collections import deque
 
 import torch
@@ -18,6 +19,21 @@ def resolve_device(device) -> torch.device:
             "to run the plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def _bool(text: str) -> bool:
+    value = text.strip().lower()
+    if value in ("1", "true", "t", "yes", "y"):
+        return True
+    if value in ("0", "false", "f", "no", "n"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+
+
+def add_bool_flag(parser: argparse.ArgumentParser, name: str, default: bool, help: str):
+    """absl-style boolean: ``--name``, ``--name=false`` and ``--noname``."""
+    parser.add_argument(f"--{name}", nargs="?", const=True, default=default, type=_bool, help=help)
+    parser.add_argument(f"--no{name}", dest=name, action="store_false", help=argparse.SUPPRESS)
 
 
 def format_lines(video_ids, top_values, top_indices):

@@ -19,6 +19,7 @@ from learnablepoolingmethods_torch.config import ModelConfig
 from learnablepoolingmethods_torch.core.weights import convert_flax_variables
 from learnablepoolingmethods_torch.ops import fast_infer as tfi
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path
+from learnablepoolingmethods_torch.utils import prng
 
 CFG_KW = dict(vocab_size=20, iterations=6, netvlad_cluster_size=8, netvlad_hidden_size=16)
 JCFG = JModelConfig(**CFG_KW, presampled=True)
@@ -94,7 +95,7 @@ def test_fast_path_fp32_matches_model_and_jax(setup):
     fast = tfi.build_fast_netvlad_inference(TCFG, top_k=20, compute_dtype=torch.float32)
     tv, ti = fast(
         _port(variables, torch.float32), torch.from_numpy(feats_u8), torch.from_numpy(nf),
-        torch.Generator().manual_seed(0), presampled=True,
+        prng.key(0), presampled=True,
     )
     got = _scatter(tv.numpy(), ti.numpy())
     # fp32 end to end; the flax path sums in another order
@@ -104,14 +105,16 @@ def test_fast_path_fp32_matches_model_and_jax(setup):
 
 
 @pytest.mark.parametrize("route", ["fused", "staged"])
-def test_bf16_routes_match_jax_with_its_indices(setup, monkeypatch, route):
+def test_bf16_routes_match_jax_with_its_indices(setup, route):
     """bf16 uint8 input, unsampled: the fused front end (the CPU wrapper takes
     its plain version) against the JAX fused kernel in interpret mode, and the
-    staged route against the JAX staged route, both fed JAX's indices."""
+    staged route against the JAX staged route, both drawing JAX's indices
+    from the same key."""
     _, variables, feats_u8, nf = setup
     key = jax.random.key(3)
     idx = np.array(j_sample_indices(key, jnp.asarray(nf), feats_u8.shape[1], JCFG.iterations))
-    monkeypatch.setattr(tfi, "sample_indices", lambda *a: torch.from_numpy(idx))
+    got_idx = tfi.sample_indices(prng.key(3), torch.from_numpy(nf), feats_u8.shape[1], JCFG.iterations)
+    np.testing.assert_array_equal(got_idx.numpy(), idx)
     fused = route == "fused"
     jfp = jfi.prepare_fast_params(variables, JCFG, compute_dtype=jnp.bfloat16)
     want = jfi.build_fast_netvlad_inference(
@@ -120,7 +123,7 @@ def test_bf16_routes_match_jax_with_its_indices(setup, monkeypatch, route):
     )(jfp, jnp.asarray(feats_u8), jnp.asarray(nf), key)
     got = tfi.build_fast_netvlad_inference(
         TCFG, use_kernels=fused, fuse_frontend=fused, return_probs=True
-    )(_port(variables, torch.bfloat16), torch.from_numpy(feats_u8), torch.from_numpy(nf), None)
+    )(_port(variables, torch.bfloat16), torch.from_numpy(feats_u8), torch.from_numpy(nf), prng.key(3))
     # bf16 rounding points are the same; f32 sums run in another order and
     # XLA may keep bf16 intermediates in f32 (test_fast_infer.py:141's 3e-2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-2)
@@ -132,7 +135,7 @@ def test_staged_kernel_route_equals_plain_route_on_cpu(setup):
     args = (fp, torch.from_numpy(feats_u8), torch.from_numpy(nf))
     outs = [
         tfi.build_fast_netvlad_inference(TCFG, use_kernels=k, fuse_frontend=False, return_probs=True)(
-            *args, torch.Generator().manual_seed(7)
+            *args, prng.key(7)
         )
         for k in (True, False)
     ]
@@ -142,7 +145,7 @@ def test_staged_kernel_route_equals_plain_route_on_cpu(setup):
 def test_return_probs(setup):
     _, variables, feats_u8, nf = setup
     fp = _port(variables, torch.float32)
-    args = (fp, torch.from_numpy(feats_u8), torch.from_numpy(nf), torch.Generator())
+    args = (fp, torch.from_numpy(feats_u8), torch.from_numpy(nf), prng.key(0))
     probs = tfi.build_fast_netvlad_inference(TCFG, compute_dtype=torch.float32, return_probs=True)(
         *args, presampled=True
     )

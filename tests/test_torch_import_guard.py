@@ -1,5 +1,5 @@
-"""The port and chip_smoke.py import nothing of JAX or of the JAX package:
-the machine with the card has neither."""
+"""The port, chip_smoke.py and the port's tools import nothing of JAX or of
+the JAX package: the machine with the card has neither."""
 
 import ast
 import os
@@ -10,10 +10,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "learnablepoolingmethods_torch"
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "learnablepoolingmethods_tpu")
+SCRIPTS = [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + SCRIPTS
 
 
 def _module_names():
@@ -27,9 +28,12 @@ def _module_names():
 
 def test_importing_the_port_loads_no_jax():
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for name in {_module_names() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(name)\n"
+        f"for path in {[str(p) for p in SCRIPTS[1:]]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('tool', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
         "print('BAD', bad)\n"
     )

@@ -88,11 +88,12 @@ def _parse(csv_text):
 
 
 def test_cli_csv_matches_jax_fast_path(tmp_path, rng):
-    """Every video has one frame, so both samplers must pick frame 0 whatever
-    their random numbers; the port's CLI (fused route, plain version on the
-    CPU) then equals the JAX fused route (interpret mode) video by video."""
+    """Videos of 1 to 12 frames: the port's CLI draws each batch's frames
+    from fold_in(key(0), batch) bit for bit as the JAX CLI does, so its CSV
+    (fused route, plain version on the CPU) equals the JAX fused route's
+    (interpret mode) video by video."""
     data = str(tmp_path / "in-0.tfrecord")
-    tfix.write_frame_level_fixture(data, 6, num_classes=20, max_frames=1, seed=5)
+    tfix.write_frame_level_fixture(data, 6, num_classes=20, max_frames=12, seed=5)
     feats = rng.integers(0, 256, size=(2, 4, 1152), dtype=np.uint8)
     jcfg = JModelConfig(**CFG_KW)
     variables = create_model("NetVLADModelLF", jcfg).init(
@@ -106,7 +107,7 @@ def test_cli_csv_matches_jax_fast_path(tmp_path, rng):
     out = str(tmp_path / "out.csv")
     n = inference.main([
         "--fast_infer", "--model=NetVLADModelLF", "--frame_features",
-        "--feature_names=rgb,audio", "--feature_sizes=1024,128", "--max_frames=4",
+        "--feature_names=rgb,audio", "--feature_sizes=1024,128", "--max_frames=12",
         f"--input_data_pattern={data}", f"--train_dir={tmp_path}", f"--output_file={out}",
         "--batch_size=4", "--num_classes=20", "--iterations=6",
         "--netvlad_cluster_size=8", "--netvlad_hidden_size=16", "--top_k=5", "--device=cpu",
@@ -116,8 +117,7 @@ def test_cli_csv_matches_jax_fast_path(tmp_path, rng):
     jfp = jfi.prepare_fast_params(variables, jcfg)
     fast = jfi.build_fast_netvlad_inference(jcfg, top_k=5, use_pallas=True, pallas_interpret=True)
     lines = ["VideoId,LabelConfidencePairs\n"]
-    for i, batch in enumerate(j_batch_iterator(JReader(20, max_frames=4), data, 4)):
-        assert np.all(batch["num_frames"][batch["weights"] > 0] == 1)
+    for i, batch in enumerate(j_batch_iterator(JReader(20, max_frames=12), data, 4)):
         vals, idx = fast(jfp, jnp.asarray(batch["features"]), jnp.asarray(batch["num_frames"]),
                          jax.random.fold_in(jax.random.key(0), i))
         real = batch["weights"] > 0
@@ -127,6 +127,9 @@ def test_cli_csv_matches_jax_fast_path(tmp_path, rng):
     with open(out) as f:
         got = _parse(f.read())
     assert got.keys() == want.keys() and len(got) == 6
+    nfs = {t["video_id"].decode(): t["num_frames"] for t in tfix.write_frame_level_fixture(
+        str(tmp_path / "again.tfrecord"), 6, num_classes=20, max_frames=12, seed=5)}
+    assert max(nfs.values()) > 1  # the sampler's draws decide which frames are read
     for vid, (g_idx, g_val) in got.items():
         w_idx, w_val = want[vid]
         assert g_idx == w_idx, vid

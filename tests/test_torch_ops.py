@@ -18,6 +18,7 @@ from learnablepoolingmethods_torch.ops import fused_frontend as tff
 from learnablepoolingmethods_torch.ops import netvlad_fused as tnv
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
+from learnablepoolingmethods_torch.utils import prng
 from learnablepoolingmethods_torch.utils import quantization as tq
 
 
@@ -52,6 +53,16 @@ def test_l2_normalize_tf_semantics(rng):
 
 def test_top_k_matches_lax(rng):
     scores = rng.random((4, 300)).astype(np.float32)  # no ties
+    wv, wi = j_topk(jnp.asarray(scores), 20)
+    gv, gi = top_k_exact(_t(scores), 20)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+def test_top_k_ties_lowest_index_first(rng):
+    """Scores from {0, 1, 2, 3}: every top-20 is made of exact ties, which
+    lax.top_k orders by index, lowest first."""
+    scores = rng.integers(0, 4, size=(4, 3862)).astype(np.float32)
     wv, wi = j_topk(jnp.asarray(scores), 20)
     gv, gi = top_k_exact(_t(scores), 20)
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
@@ -106,14 +117,16 @@ def _frontend_args(rng, dt, d_rgb, k_rgb, d_aud, k_aud):
 
 
 def test_frontend_reference_matches_jax_interpret_kernel(rng):
+    """The port draws the frames itself from the key, bit for bit JAX's."""
     b, f, d_rgb, d_aud, k_rgb, k_aud = 2, 10, 24, 8, 4, 2
     x = rng.integers(0, 256, size=(b, f, d_rgb + d_aud), dtype=np.uint8)
-    idx = np.asarray(jff.sample_indices(jax.random.key(1), jnp.asarray([10, 4], np.int32), f, 6))
+    nf = np.array([10, 4], np.int32)
+    idx = np.asarray(jff.sample_indices(jax.random.key(1), jnp.asarray(nf), f, 6))
     args = _frontend_args(rng, d_rgb + d_aud, d_rgb, k_rgb, d_aud, k_aud)
     w_rgb, w_aud = jff.netvlad_frontend_fused(
         jnp.asarray(x), jnp.asarray(idx), *map(jnp.asarray, args), interpret=True
     )
-    g_rgb, g_aud = tff.netvlad_frontend_reference(_t(x), _t(idx), *map(_t, args))
+    g_rgb, g_aud = tff.netvlad_frontend_reference(_t(x), prng.key(1), _t(nf), 6, *map(_t, args))
     # one bf16 rounding of the sampled rows and of the output, with f32
     # sums in another order (tests/unit/test_fused_frontend.py's 2e-2)
     for got, want in ((g_rgb, w_rgb), (g_aud, w_aud)):
@@ -124,9 +137,8 @@ def test_frontend_reference_matches_jax_interpret_kernel(rng):
 
 
 def test_sample_indices_bounds():
-    gen = torch.Generator().manual_seed(0)
     nf = torch.tensor([1, 5, 10, 500], dtype=torch.int32)
-    idx = tff.sample_indices(gen, nf, 10, 50)
+    idx = tff.sample_indices(prng.key(0), nf, 10, 50)
     assert idx.shape == (4, 50) and idx.dtype == torch.int32
     assert torch.all(idx[0] == 0)       # only frame 0 valid
     assert torch.all(idx[1] < 5)
@@ -142,11 +154,31 @@ def test_wrappers_take_plain_path_on_cpu(rng, wrapper):
         fn, ref = tnv.netvlad_fused, tnv.netvlad_reference
     else:
         x = _t(rng.integers(0, 256, size=(2, 10, 32), dtype=np.uint8))
-        idx = tff.sample_indices(torch.Generator().manual_seed(0), torch.tensor([10, 4]), 10, 6)
-        args = [x, idx] + [_t(a) for a in _frontend_args(rng, 32, 24, 4, 8, 2)]
+        args = [x, prng.key(0), torch.tensor([10, 4]), 6] + [_t(a) for a in _frontend_args(rng, 32, 24, 4, 8, 2)]
         fn, ref = tff.netvlad_frontend, tff.netvlad_frontend_reference
     before = fn.launches
     got, want = fn(*args), ref(*args)
     for g, w in zip(got if isinstance(got, tuple) else [got], want if isinstance(want, tuple) else [want]):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert fn.launches == before == 0
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_sample_indices_equal_jax(seed):
+    """The same key draws the same frames in both packages."""
+    nf = np.array([1, 7, 300, 150, 1000, 42], np.int32)
+    want = np.asarray(jff.sample_indices(jax.random.fold_in(jax.random.key(seed), 3), jnp.asarray(nf), 300, 30))
+    got = tff.sample_indices(prng.fold_in(prng.key(seed), 3), torch.from_numpy(nf), 300, 30)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_frames_zero_row_out_of_range(rng):
+    """An index outside [0, F) gives a zero row, as the front-end kernel and
+    the TPU's one-hot matmul do; the rows in range are gathered exactly."""
+    x = rng.normal(size=(2, 5, 3)).astype(np.float32)
+    idx = np.array([[0, 4, 5, -1], [7, 2, 2, 1]], np.int32)
+    got = tff.gather_frames(_t(x), _t(idx)).numpy()
+    onehot = (np.arange(5)[None, None, :] == idx[:, :, None]).astype(np.float32)
+    np.testing.assert_array_equal(got, np.einsum("bsf,bfc->bsc", onehot, x))
+    np.testing.assert_array_equal(got[0, 2], 0.0)
+    np.testing.assert_array_equal(got[1, 0], 0.0)
