@@ -50,7 +50,27 @@ error, and prints one JSON line per phase:
 8. train_throughput
               the train step at B=256, S=30, bf16, fused: videos/s (the median
               of five rounds), forward, backward and optimizer ms, peak
-              memory; then train_profile, torch.profiler over five steps.
+              memory; then train_profile, torch.profiler over five steps;
+9. lf_kernels the NetFV and SoftDBoW kernels against their plain versions at
+              the full widths of NetFVModelLF-64 (D 1024/128, K 64/32) and
+              SoftDbofModelLF-4096 (K 4096/2048), B=64, S=30, S=300 and S=1,
+              num_frames including 1 and 300, on the staged route's rows in
+              bf16 and f32, and at one small shape off every tile width, with
+              the tolerances of phase 3 (NetFV's plain version takes the
+              kernels' rounding points there; its gap to the reference's is
+              reported); times at B=512, S=30 and S=300;
+10. lf_e2e    for each of NetFVModelLF, SoftDbofModelLF, NetRVLADModelLF and
+              NeXtVLADModel at its full default width (weights from a seed,
+              BN statistics perturbed): the inference CLI on the 96 videos of
+              phase 4 with the launch counters zeroed before and read after
+              (its kernel once per modality per batch: netfv_fused,
+              softdbow_fused, netvlad_fused; none for NeXtVLAD), then its
+              kernel and plain routes on the same batches and sampled
+              indices, within 1e-2 in probability;
+11. lf_throughput
+              each of the four models' kernel route at B=512, S=30 in
+              videos/s (the median of five rounds), the plain route beside
+              it; then lf_profile, torch.profiler over each kernel route.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -60,6 +80,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -85,6 +106,7 @@ from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader
 from learnablepoolingmethods_torch.losses import CrossEntropyLoss
 from learnablepoolingmethods_torch.models import create_model
 from learnablepoolingmethods_torch.ops import kernel_build
+from learnablepoolingmethods_torch.ops.fast_dispatch import FAST_LF_MODELS, get_fast_path
 from learnablepoolingmethods_torch.ops.fast_infer import (
     build_fast_netvlad_inference,
     gated_moe_tail,
@@ -98,7 +120,9 @@ from learnablepoolingmethods_torch.ops.fused_frontend import (
     netvlad_frontend_reference,
     sample_indices,
 )
+from learnablepoolingmethods_torch.ops.netfv_fused import netfv_fused, netfv_reference
 from learnablepoolingmethods_torch.ops.netvlad_fused import netvlad_fused, netvlad_reference
+from learnablepoolingmethods_torch.ops.softdbow_fused import softdbow_fused, softdbow_reference
 from learnablepoolingmethods_torch.ops.netvlad_train import (
     netvlad_aggregate_backward,
     netvlad_aggregate_backward_plain,
@@ -133,6 +157,16 @@ KERNELS = {
         fn=netvlad_aggregate_backward,
         source="learnablepoolingmethods_torch/csrc/netvlad_train.cu",
         replaces="learnablepoolingmethods_tpu/ops/netvlad_train.py:140",
+    ),
+    "netfv_fused": dict(
+        fn=netfv_fused,
+        source="learnablepoolingmethods_torch/csrc/netfv_fused.cu",
+        replaces="learnablepoolingmethods_tpu/ops/netfv_pallas.py:82",
+    ),
+    "softdbow_fused": dict(
+        fn=softdbow_fused,
+        source="learnablepoolingmethods_torch/csrc/softdbow_fused.cu",
+        replaces="learnablepoolingmethods_tpu/ops/softdbow_pallas.py:61",
     ),
 }
 TRAIN_KERNELS = ("netvlad_aggregate_forward", "netvlad_aggregate_backward")
@@ -437,6 +471,60 @@ def phase_train_kernels(dev, smi):
     return errors, timing
 
 
+def read_csv(out_csv: str, written: int, truth) -> dict:
+    """The inference CLI's CSV → {video id: (top-20 ids, values)}; raises
+    unless it has one well-formed row per video of ``truth``: 20 ids in
+    range with falling values."""
+    with open(out_csv) as f:
+        lines = f.read().splitlines()
+    if lines[0] != "VideoId,LabelConfidencePairs" or len(lines) != 1 + len(truth) or written != len(truth):
+        raise AssertionError(f"CSV has {len(lines) - 1} rows for {len(truth)} videos")
+    csv = {}
+    for line in lines[1:]:
+        vid, pairs = line.split(",")
+        nums = pairs.split()
+        ids, vals = [int(i) for i in nums[::2]], [float(v) for v in nums[1::2]]
+        if len(ids) != 20 or any(a < b for a, b in zip(vals, vals[1:])) or not all(0 <= i < 3862 for i in ids):
+            raise AssertionError(f"bad CSV row for {vid}: {line[:120]}")
+        csv[vid] = (ids, np.array(vals))
+    if sorted(csv) != sorted(t["video_id"].decode() for t in truth):
+        raise AssertionError("CSV video ids differ from the fixture's")
+    return csv
+
+
+def load_batches(data: str, dev) -> list:
+    """The CLI's batches of 32 videos of ``data`` on the card: (features,
+    num_frames, real-row mask, real video ids)."""
+    reader = YT8MFrameFeatureReader(feature_names=("rgb", "audio"))
+    batches = []
+    for batch in batch_iterator(reader, data, 32):
+        real = batch["weights"] > 0
+        batches.append((torch.from_numpy(batch["features"]).to(dev),
+                        torch.from_numpy(batch["num_frames"]).to(dev),
+                        torch.from_numpy(real).to(dev),
+                        [v for v, keep in zip(batch["video_id"], real) if keep]))
+    return batches
+
+
+def run_batches(batches, fp, fn) -> torch.Tensor:
+    """A route's probabilities on every real video of ``batches``, each
+    batch drawn from the CLI's per-batch key fold_in(key(0), batch)."""
+    out = []
+    for batch_idx, (feats, nf, real, _) in enumerate(batches):
+        out.append(fn(fp, feats, nf, prng.fold_in(prng.key(0), batch_idx))[real])
+    return torch.cat(out)
+
+
+def check_csv_rows(csv, probs, batches, route: str) -> None:
+    """Each CSV row is the top 20 of ``route``'s probabilities."""
+    vals, ids = torch.topk(probs, 20)
+    vids = [vid for *_, batch_vids in batches for vid in batch_vids]
+    for vid, v_row, i_row in zip(vids, vals.cpu().numpy(), ids.cpu().numpy()):
+        c_ids, c_vals = csv[vid.decode()]
+        if list(i_row) != c_ids or np.abs(v_row - c_vals).max() > 1e-5:
+            raise AssertionError(f"CSV row of {vid!r} differs from the {route} route's top-20")
+
+
 def phase_e2e(dev, workdir):
     mcfg = ModelConfig()  # Willow: K=256 (audio 128), H=1024, V=3862, M=2, 30 samples
     fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
@@ -469,39 +557,15 @@ def phase_e2e(dev, workdir):
     cli_s = time.perf_counter() - start
     paths = {"cli": counters()}
     n_batches = -(-len(truth) // 32)
-    with open(out_csv) as f:
-        lines = f.read().splitlines()
-    if lines[0] != "VideoId,LabelConfidencePairs" or len(lines) != 1 + len(truth) or written != len(truth):
-        raise AssertionError(f"CSV has {len(lines) - 1} rows for {len(truth)} videos")
-    csv = {}
-    for line in lines[1:]:
-        vid, pairs = line.split(",")
-        nums = pairs.split()
-        ids, vals = [int(i) for i in nums[::2]], [float(v) for v in nums[1::2]]
-        if len(ids) != 20 or any(a < b for a, b in zip(vals, vals[1:])) or not all(0 <= i < 3862 for i in ids):
-            raise AssertionError(f"bad CSV row for {vid}: {line[:120]}")
-        csv[vid] = (ids, np.array(vals))
-    if sorted(csv) != sorted(t["video_id"].decode() for t in truth):
-        raise AssertionError("CSV video ids differ from the fixture's")
+    csv = read_csv(out_csv, written, truth)
     # path 2: the staged route (the NetVLAD kernel once per modality) through
     # build_fast_netvlad_inference on the same batches and sampled indices
     fp = prepare_fast_params(convert_flax_variables(tree, mcfg), mcfg, device=dev)
     del tree
-    reader = YT8MFrameFeatureReader(feature_names=("rgb", "audio"))
-    batches = []
-    for batch in batch_iterator(reader, data, 32):
-        real = batch["weights"] > 0
-        batches.append((torch.from_numpy(batch["features"]).to(dev),
-                        torch.from_numpy(batch["num_frames"]).to(dev),
-                        torch.from_numpy(real).to(dev),
-                        [v for v, keep in zip(batch["video_id"], real) if keep]))
+    batches = load_batches(data, dev)
 
     def run_route(fn):
-        out = []
-        for batch_idx, (feats, nf, real, _) in enumerate(batches):
-            key = prng.fold_in(prng.key(0), batch_idx)  # the CLI's per-batch key
-            out.append(fn(fp, feats, nf, key)[real])
-        return torch.cat(out)
+        return run_batches(batches, fp, fn)
 
     reset_counters()
     probs = {"staged": run_route(
@@ -526,12 +590,7 @@ def phase_e2e(dev, workdir):
         gaps[f"{a}_vs_{b}"] = (probs[a] - probs[b]).abs().max().item()
     if max(gaps.values()) > 1e-2:
         raise AssertionError(f"routes disagree: {gaps}")
-    vals, ids = torch.topk(probs["fused"], 20)
-    vids = [vid for *_, batch_vids in batches for vid in batch_vids]
-    for vid, v_row, i_row in zip(vids, vals.cpu().numpy(), ids.cpu().numpy()):
-        c_ids, c_vals = csv[vid.decode()]
-        if list(i_row) != c_ids or np.abs(v_row - c_vals).max() > 1e-5:
-            raise AssertionError(f"CSV row of {vid!r} differs from the fused route's top-20")
+    check_csv_rows(csv, probs["fused"], batches, "fused")
     emit({"phase": "e2e", "videos": len(truth), "batches": n_batches, "setup_s": setup_s,
           "cli_s": cli_s, "launches_per_path": paths, "max_abs_prob_gap": gaps})
     return fp, {name: sum(p[name] for p in paths.values()) for name in ("netvlad_frontend", "netvlad_fused")}
@@ -776,6 +835,234 @@ def phase_train_throughput(dev, smi):
           **profile_device(lambda: step(state, batch, key)), "card": smi})
 
 
+# (D, K) of the rgb and audio modules at the full default widths of
+# NetFVModelLF-64 and SoftDbofModelLF-4096, and a small shape off every tile
+# width (NetFV: 32 clusters, 64 rows, 32 samples; SoftDBoW: 128 clusters,
+# 32-deep D chunks, 32 rows)
+LF_KERNEL_MODS = {"netfv_fused": ((D_RGB, 64), (D_AUD, 32)),
+                  "softdbow_fused": ((D_RGB, 4096), (D_AUD, 2048))}
+LF_SMALL_MODS = {"netfv_fused": ((42, 20), (8, 10)), "softdbow_fused": ((42, 150), (8, 10))}
+LF_PLAIN = {"netfv_fused": netfv_reference, "softdbow_fused": softdbow_reference}
+# the inference CLI's flags for the LF models (each at its default width)
+LF_CLI_FLAGS = ["--frame_features", "--feature_names=rgb,audio", "--feature_sizes=1024,128",
+                "--batch_size=32", "--fast_infer", "--device=cuda"]
+# the kernel each LF model's inference launches, once per modality per batch
+LF_MODEL_KERNEL = {"NetFVModelLF": "netfv_fused", "SoftDbofModelLF": "softdbow_fused",
+                   "NetRVLADModelLF": "netvlad_fused", "NeXtVLADModel": None}
+
+
+def lf_consts(rng: np.random.Generator, dev, kernel: str, d: int, k: int, dtype) -> list:
+    """One modality's (C in ``dtype``, scale, bias) and for NetFV (C₂, σ²),
+    at the scales of the modules' initialisers: C, C₂ and covar_weights
+    normal(1/√D), σ² = covar_weights² + 1e-6."""
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    out = [t(rng.normal(scale=d ** -0.5, size=(d, k)), dtype), t(rng.uniform(0.5, 1.5, k)),
+           t(rng.normal(scale=0.1, size=k))]
+    if kernel == "netfv_fused":
+        out += [t(rng.normal(scale=d ** -0.5, size=(d, k))),
+                t(np.square(rng.normal(scale=d ** -0.5, size=(d, k))) + 1e-6)]
+    return out
+
+
+def lf_rows(rng: np.random.Generator, dev, b: int, f: int, s: int, mods, dtype) -> list:
+    """The rgb and audio column slices (strided views, as ops/fast_lf.py
+    passes them) of the staged route's rows [b, s, ΣD] in ``dtype``, drawn
+    from random uint8 frames with num_frames including 1 and f."""
+    dt = sum(d for d, _ in mods)
+    x, nf = frames(rng, b, dev, f, dt)
+    in_scale = torch.from_numpy(rng.uniform(0.8, 1.2, dt).astype(np.float32)).to(dev)
+    in_bias = torch.from_numpy(rng.normal(scale=0.05, size=dt).astype(np.float32)).to(dev)
+    rows = staged_frames(gather_frames(x, sample_indices(prng.key(s), nf, f, s)), in_scale, in_bias, dtype)
+    return [rows[:, :, :mods[0][0]], rows[:, :, mods[0][0]:]]
+
+
+def check_lf_kernel(kernel: str, x, consts, errors) -> dict:
+    """One kernel against its plain version on one modality's rows.  NetFV's
+    plain version takes the kernels' rounding points here (A and X² rounded
+    to X's dtype, as on the TPU); its gap to the reference's rounding (A in
+    f32) is reported beside it."""
+    got = KERNELS[kernel]["fn"](x, *consts)
+    torch.cuda.synchronize()
+    label = f"{kernel} B={x.shape[0]} S={x.shape[1]} D={x.shape[2]} K={consts[0].shape[1]} {x.dtype}"
+    if kernel == "netfv_fused":
+        want = netfv_reference(x, *consts, kernel_rounding=True)
+        err = max(compare(f"{label} fv{i}", g, w) for i, (g, w) in enumerate(zip(got, want), 1))
+        ref = netfv_reference(x, *consts)
+        out = {"max_abs_err": err, "max_ref": max(w.float().abs().max().item() for w in want),
+               "max_abs_gap_to_f32_a": max((g.float() - r.float()).abs().max().item()
+                                           for g, r in zip(got, ref))}
+    else:
+        want = softdbow_reference(x, *consts)
+        out = {"max_abs_err": compare(label, got, want), "max_ref": want.abs().max().item()}
+    errors[kernel] = max(errors[kernel], out["max_abs_err"])
+    return out
+
+
+def lf_bound(kernel: str, b: int, s: int, mods):
+    """Least time (ms) for the rgb and audio calls of one LF kernel, bf16 X:
+    X, C, the folded BN (and NetFV's C₂ and σ²) read once and the outputs
+    written once over the HBM rate, or the products (the logits; NetFV also
+    XᵀA and (X²)ᵀA) over the bf16 tensor-core rate, whichever is larger."""
+    nbytes, flops = 0, 0
+    for d, k in mods:
+        nbytes += b * s * d * 2 + d * k * 2 + 2 * k * 4
+        if kernel == "netfv_fused":
+            nbytes += 2 * d * k * 4 + 2 * b * d * k * 2
+            flops += 3 * 2 * b * s * d * k
+        else:
+            nbytes += b * k * 4
+            flops += 2 * b * s * d * k
+    ops_ms = flops / PEAK_BF16 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", nbytes, flops
+
+
+def phase_lf_kernels(dev, smi):
+    """The NetFV and SoftDBoW kernels against their plain versions
+    (check_lf_kernel), X in bf16 and f32, both modalities at full width,
+    B=64, S=30, 300 and 1, and at one small shape off every tile width;
+    then the times of the rgb and audio calls at B=512, S=30 and S=300."""
+    rng = np.random.default_rng(3)
+    errors = dict.fromkeys(LF_KERNEL_MODS, 0.0)
+    for b, f, s, table in ((64, F, 30, LF_KERNEL_MODS), (64, F, 300, LF_KERNEL_MODS),
+                           (64, F, 1, LF_KERNEL_MODS), (3, 10, 7, LF_SMALL_MODS)):
+        for kernel, mods in table.items():
+            before = counters()
+            checks = []
+            for dtype in (torch.bfloat16, torch.float32):
+                for label, x, (d, k) in zip(("rgb", "aud"), lf_rows(rng, dev, b, f, s, mods, dtype), mods):
+                    consts = lf_consts(rng, dev, kernel, d, k, dtype)
+                    checks.append({"modality": label, "dtype": str(dtype), "D": d, "K": k,
+                                   **check_lf_kernel(kernel, x, consts, errors)})
+            after = counters()
+            emit({"phase": "lf_kernels", "kernel": kernel, "B": b, "F": f, "S": s, "checks": checks,
+                  "launch_deltas": {n: after[n] - before[n] for n in after}})
+
+    timing = {}
+    b = 512
+    for s in (30, 300):
+        for kernel, mods in LF_KERNEL_MODS.items():
+            xs = lf_rows(rng, dev, b, F, s, mods, torch.bfloat16)
+            consts = [lf_consts(rng, dev, kernel, d, k, torch.bfloat16) for d, k in mods]
+            fn, plain = KERNELS[kernel]["fn"], LF_PLAIN[kernel]
+            ms = time_ms(lambda: [fn(x, *c) for x, c in zip(xs, consts)], reps=10 if s == 300 else 20)
+            plain_ms = time_ms(lambda: [plain(x, *c) for x, c in zip(xs, consts)], reps=5)
+            bound_ms, by, nbytes, flops = lf_bound(kernel, b, s, mods)
+            emit({"phase": "kernel_times", "kernel": kernel, "B": b, "S": s, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+                  "flop": flops, "card": smi})
+            timing.setdefault(s, {})[kernel] = (ms, plain_ms, (bound_ms, by))
+    return errors, timing[30]
+
+
+def lf_config() -> ModelConfig:
+    """The model configuration that the inference CLI builds from LF_CLI_FLAGS."""
+    return inference.model_config_from_args(inference.build_parser().parse_args(LF_CLI_FLAGS))
+
+
+def lf_tree(name: str, mcfg: ModelConfig, fcfg: FeatureConfig) -> dict:
+    """``name``'s weights from init_variables_np(seed=0) with every BN's
+    statistics moved off their initial values, so that folding is exercised."""
+    tree = init_variables_np(mcfg, fcfg, seed=0, model_name=name)
+
+    def perturb(node):
+        if "mean" in node:
+            ramp = np.arange(node["mean"].size, dtype=np.float32) / node["mean"].size
+            node["mean"] += np.float32(0.05) * ramp
+            node["var"] += np.float32(0.5) * ramp
+            return
+        for child in node.values():
+            perturb(child)
+
+    perturb(tree["batch_stats"])
+    return tree
+
+
+def phase_lf_e2e(dev, workdir, smi):
+    """Each fast-LF model at its full default width: the inference CLI on the
+    96 videos of phase_e2e (--batch_size=32 --fast_infer --device=cuda) with
+    the launch counters zeroed just before and read just after, then its
+    kernel and plain routes on the same batches and sampled indices.
+    Returns ({model: fast params}, {kernel: launches in the CLI runs})."""
+    mcfg = lf_config()
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    data = os.path.join(workdir, "videos-0.tfrecord")
+    truth = write_frame_level_fixture(data, 96, seed=0)
+    n_batches = -(-len(truth) // 32)
+    batches = load_batches(data, dev)
+    fps, launches = {}, dict.fromkeys(KERNELS, 0)
+    for name in FAST_LF_MODELS:
+        start = time.perf_counter()
+        tree = lf_tree(name, mcfg, fcfg)
+        train_dir = os.path.join(workdir, name)
+        os.makedirs(train_dir)
+        save_variables_npz(tree, train_dir)
+        setup_s = time.perf_counter() - start
+        out_csv = os.path.join(workdir, f"{name}.csv")
+        reset_counters()
+        start = time.perf_counter()
+        written = inference.main(LF_CLI_FLAGS + [
+            f"--model={name}", f"--input_data_pattern={data}", f"--train_dir={train_dir}",
+            f"--output_file={out_csv}",
+        ])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - start
+        got = counters()
+        kernel = LF_MODEL_KERNEL[name]
+        want = {**dict.fromkeys(KERNELS, 0), **({kernel: 2 * n_batches} if kernel else {})}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        for n, c in got.items():
+            launches[n] += c
+        csv = read_csv(out_csv, written, truth)
+        shutil.rmtree(train_dir)
+
+        path = get_fast_path(name)
+        fp = path.prepare(convert_flax_variables(tree, mcfg, name), mcfg, device=dev)
+        del tree
+        probs = {route: run_batches(batches, fp, path.build(mcfg, use_kernels=route == "kernel",
+                                                            return_probs=True))
+                 for route in ("kernel", "plain")}
+        for route, p in probs.items():
+            if p.shape != (len(truth), mcfg.vocab_size) or not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"{name} {route}: probabilities of shape {tuple(p.shape)} or non-finite")
+        gap = (probs["kernel"] - probs["plain"]).abs().max().item()
+        if gap > 1e-2:
+            raise AssertionError(f"{name}: kernel and plain routes differ by {gap}")
+        check_csv_rows(csv, probs["kernel"], batches, f"{name} kernel")
+        fps[name] = fp
+        emit({"phase": "lf_e2e", "model": name, "videos": len(truth), "batches": n_batches,
+              "setup_s": setup_s, "cli_s": cli_s, "launches": got,
+              "max_abs_prob_gap_kernel_vs_plain": gap, "card": smi})
+    return fps, launches
+
+
+def phase_lf_throughput(dev, fps, smi):
+    """Each fast-LF model's kernel route at B=512, S=30, uint8 in and top-20
+    out: videos/s (the median of five rounds) with the plain route beside
+    it, then torch.profiler over the kernel route (lf_profile)."""
+    mcfg = lf_config()
+    b, s = 512, mcfg.iterations
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    x = torch.randint(0, 256, (b, F, DT), generator=gen, device=dev, dtype=torch.uint8)
+    nf = torch.randint(1, F + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    key = prng.key(4)
+    for name, fp in fps.items():
+        path = get_fast_path(name)
+        fn, plain = path.build(mcfg, top_k=20), path.build(mcfg, top_k=20, use_kernels=False)
+        rounds = [time_ms(lambda: fn(fp, x, nf, key), reps=10) for _ in range(5)]
+        plain_ms = time_ms(lambda: plain(fp, x, nf, key), reps=5)
+        ms = statistics.median(rounds)
+        emit({"phase": "lf_throughput", "model": name, "B": b, "S": s, "videos_per_s": b / (ms / 1e3),
+              "videos_per_s_rounds": [b / (r / 1e3) for r in rounds], "batch_ms": ms,
+              "plain_batch_ms": plain_ms, "plain_videos_per_s": b / (plain_ms / 1e3), "card": smi})
+        emit({"phase": "lf_profile", "model": name, "route": "kernel", "B": b, "S": s,
+              **profile_device(lambda: fn(fp, x, nf, key)), "card": smi})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -799,6 +1086,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         launches.update(phase_train_e2e(dev, workdir, smi))
     phase_train_throughput(dev, smi)
+    e, t = phase_lf_kernels(dev, smi)
+    errors.update(e)
+    timing.update(t)
+    shapes.update(dict.fromkeys(t, "B=512 S=30, rgb and audio calls"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lf_") as workdir:
+        fps, lf_launches = phase_lf_e2e(dev, workdir, smi)
+    for name, n in lf_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    phase_lf_throughput(dev, fps, smi)
+    del fps
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], "max_abs_err": errors[name], "ms": timing[name][0],

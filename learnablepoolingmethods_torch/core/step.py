@@ -5,12 +5,16 @@ uint8 frames → presampled frames (gathered in uint8) → dequantize →
 place) → weighted label loss + penalty · L2 over the head kernels →
 gradients → per-tensor clip → Adam.
 
-Frames are sampled as the JAX step does under ``--presample_frames``:
-``fold_in(key, step)`` → ``split`` → the first key draws floor(U·nf) per
-video (``models/model_utils.py#sample_frame_features``), so both packages
-pick the same frames from the same seed.  The port always samples this way;
-without ``--presample_frames`` the JAX step draws from a flax-derived key
-instead, which the port does not reproduce.
+Frames are sampled as the JAX step samples them, so both packages pick the
+same frames from the same seed: ``fold_in(key, step)`` → ``split`` → the
+first key, ``sampling_key``, draws floor(U·nf) per video
+(``models/model_utils.py#sample_frame_features``).  Under
+``--presample_frames`` the JAX step draws from ``sampling_key`` itself;
+without it the flax model draws inside its forward from
+``make_rng("sampling")``, the key flax derives from ``sampling_key``
+(``utils/prng.py#flax_make_rng``).  The port always gathers the uint8 rows
+first and builds the model ``presampled``, which is exact either way:
+dequantize and ℓ2 are per frame and the BN runs after sampling.
 """
 
 from __future__ import annotations
@@ -89,6 +93,9 @@ class TrainStep:
     def loss(self, state: TrainState, batch: Dict[str, torch.Tensor], key: torch.Tensor):
         """Forward in training mode → (total loss, label loss, reg loss, predictions)."""
         sampling_key, _ = prng.split(prng.fold_in(key, state.step))
+        if not self.tcfg.presample_frames:
+            # the key of the flax model's own make_rng("sampling") call
+            sampling_key = prng.flax_make_rng(sampling_key)
         features = batch["features"]
         num_frames = batch.get("num_frames") if self.frame_features else None
         if self.frame_features:

@@ -1,8 +1,8 @@
 """Weight bridge between the JAX package's flax variables and the port.
 
-The flax ``{params, batch_stats}`` tree of a ``NetVLADModelLF`` crosses
-over as nested dicts of NumPy arrays, so the port needs neither JAX nor
-orbax.  On the JAX side:
+The flax ``{params, batch_stats}`` tree of an LF model (``NetVLADModelLF``
+and the rest of the LOUPE family) crosses over as nested dicts of NumPy
+arrays, so the port needs neither JAX nor orbax.  On the JAX side:
 
     tree = jax.tree.map(np.asarray, CheckpointManager(d).restore(step))
     save_variables_npz({"params": tree["params"],
@@ -30,6 +30,12 @@ import numpy as np
 import torch
 
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig
+from learnablepoolingmethods_torch.models.frame_level import (
+    LF_MODULE_PREFIX,
+    PoolLayout,
+    lf_hparams,
+    lf_layout,
+)
 
 NPZ_NAME = "variables.npz"
 
@@ -97,20 +103,57 @@ def _expect(tree: Tree, path: str, shape) -> None:
         raise ValueError(f"{path}: shape {got}, expected {tuple(shape)}")
 
 
-def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig) -> Tree:
+def _pool_spec(model_name: str, mod: PoolLayout, mcfg: ModelConfig, add_bn: bool):
+    """One pooling module's parameters in flax's order of creation:
+    ``(name, shape, std)``, ``std`` None for a BatchNorm of that width."""
+    d, k = mod.feature_size, mod.cluster_size
+    std = 1 / np.sqrt(d)
+    if model_name == "NeXtVLADModel":
+        lam_d = mcfg.nextvlad_expansion * d
+        dp = lam_d // mod.groups
+        spec = [("expansion_weights", (d, lam_d), std),
+                ("group_attention_weights", (lam_d, mod.groups), 1 / np.sqrt(lam_d)),
+                ("cluster_weights", (lam_d, mod.groups * k), 1 / np.sqrt(lam_d))]
+        if add_bn:
+            spec.append(("cluster_bn", (mod.groups * k,), None))
+        spec.append(("cluster_weights2", (k, dp), std))
+        if add_bn:
+            spec.append(("vlad_bn", (k * dp,), None))
+        return spec
+    spec = [("cluster_weights", (d, k), std)]
+    if model_name == "NetFVModelLF":
+        spec.append(("covar_weights", (d, k), std))
+    spec.append(("cluster_bn", (k,), None) if add_bn else ("cluster_biases", (k,), std))
+    if model_name in ("NetVLADModelLF", "NetFVModelLF"):
+        spec.append(("cluster_weights2", (1, d, k), std))
+    return spec
+
+
+def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "NetVLADModelLF") -> Tree:
     """Flax ``{params, batch_stats}`` tree of NumPy arrays → the same tree
-    of float32 CPU tensors, after checking the NetVLADModelLF layout against
-    ``mcfg`` (cluster sizes, hidden width, MoE width)."""
+    of float32 CPU tensors, after checking the layout of the LF model
+    ``model_name`` against ``mcfg``: every pooling module's parameters and
+    BN statistics, the hidden FC and the MoE head."""
     params = tree_np["params"]
-    k, h = mcfg.netvlad_cluster_size, mcfg.netvlad_hidden_size
-    d_rgb = _shape(tree_np, "params/NetVLAD_0/cluster_weights")[0]
-    _expect(tree_np, "params/NetVLAD_0/cluster_weights", (d_rgb, k))
-    dk = d_rgb * k
-    if "NetVLAD_1" in params:
-        d_aud = _shape(tree_np, "params/NetVLAD_1/cluster_weights")[0]
-        _expect(tree_np, "params/NetVLAD_1/cluster_weights", (d_aud, max(k // 2, 1)))
-        dk += d_aud * max(k // 2, 1)
-    _expect(tree_np, "params/hidden1_weights", (dk, h))
+    if model_name not in LF_MODULE_PREFIX:
+        raise ValueError(f"convert_flax_variables reads the LF models {sorted(LF_MODULE_PREFIX)}, "
+                         f"not {model_name!r}")
+    prefix = LF_MODULE_PREFIX[model_name]
+    first = "expansion_weights" if model_name == "NeXtVLADModel" else "cluster_weights"
+    input_size = sum(_shape(tree_np, f"params/{prefix}_{i}/{first}")[0]
+                     for i in (0, 1) if i == 0 or f"{prefix}_{i}" in params)
+    add_bn = mcfg.netvlad_add_batch_norm
+    layout = lf_layout(model_name, mcfg, input_size)
+    for mod in layout:
+        for name, shape, std in _pool_spec(model_name, mod, mcfg, add_bn):
+            if std is not None:
+                _expect(tree_np, f"params/{mod.name}/{name}", shape)
+                continue
+            for collection, leaves in (("params", ("scale", "bias")), ("batch_stats", ("mean", "var"))):
+                for leaf in leaves:
+                    _expect(tree_np, f"{collection}/{mod.name}/{name}/{leaf}", shape)
+    _, h, _ = lf_hparams(model_name, mcfg)
+    _expect(tree_np, "params/hidden1_weights", (sum(mod.width for mod in layout), h))
     if "MoeModel_0" in params:
         m, v = mcfg.moe_num_mixtures, mcfg.vocab_size
         _expect(tree_np, "params/MoeModel_0/gates_kernel", (h, (m + 1) * v))
@@ -159,15 +202,20 @@ def load_flax_variables(model: torch.nn.Module, tree_np: Tree) -> torch.nn.Modul
     return model
 
 
-def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0) -> Tree:
-    """A NetVLADModelLF ``{params, batch_stats}`` tree with flax's key set,
-    shapes and initial scales, drawn from ``seed`` with NumPy:
-    ``normal(1/√fan)`` for cluster, hidden and gating weights
-    (models/modules.py, models/frame_level.py), ``normal(0.01)`` for the
+def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
+                      model_name: str = "NetVLADModelLF") -> Tree:
+    """The ``{params, batch_stats}`` tree of the LF model ``model_name`` with
+    flax's key set, shapes and initial scales, drawn from ``seed`` with
+    NumPy: ``normal(1/√fan)`` for the pooling modules' matrices (NeXtVLAD's
+    C₂ ``[K, D′]`` at ``1/√D``) and the gating weights, ``normal(1/√K)`` for
+    the hidden FC with K the rgb cluster count, ``normal(0.01)`` for the
     hidden bias, xavier-uniform MoE kernels with a zero bias
-    (models/video_level.py), and BN scale 1, bias 0, mean 0, var 1."""
+    (models/modules.py, models/frame_level.py, models/video_level.py), and
+    BN scale 1, bias 0, mean 0, var 1."""
     if mcfg.video_level_classifier_model != "MoeModel":
         raise ValueError("init_variables_np builds the MoeModel head only")
+    if mcfg.netvlad_dimred > 0:
+        raise NotImplementedError("--netvlad_dimred is not ported yet")
     rng = np.random.default_rng(seed)
     params: Tree = {}
     stats: Tree = {}
@@ -185,38 +233,22 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0) -> 
             {"mean": np.zeros(width, np.float32), "var": np.ones(width, np.float32)},
         )
 
-    feature_size = fcfg.total_size
     add_bn = mcfg.netvlad_add_batch_norm
     if add_bn:
-        params["input_bn"], stats["input_bn"] = bn(feature_size)
-    if mcfg.netvlad_dimred > 0:
-        params["dimred"] = normal((feature_size, mcfg.netvlad_dimred), 1 / np.sqrt(feature_size))
-        feature_size = mcfg.netvlad_dimred
+        params["input_bn"], stats["input_bn"] = bn(fcfg.total_size)
+    layout = lf_layout(model_name, mcfg, fcfg.total_size)
+    for mod in layout:
+        p = {}
+        for name, shape, std in _pool_spec(model_name, mod, mcfg, add_bn):
+            if std is None:
+                p[name], stats.setdefault(mod.name, {})[name] = bn(shape[0])
+            else:
+                p[name] = normal(shape, std)
+        params[mod.name] = p
 
-    k = mcfg.netvlad_cluster_size
-    if feature_size > 128:
-        rgb_dim = min(1024, feature_size)
-        modules = [(rgb_dim, k)]
-        if feature_size > rgb_dim:
-            modules.append((feature_size - rgb_dim, max(k // 2, 1)))
-    else:
-        modules = [(feature_size, k)]
-    pooled = 0
-    for i, (d, kk) in enumerate(modules):
-        name = f"NetVLAD_{i}"
-        p = {"cluster_weights": normal((d, kk), 1 / np.sqrt(d))}
-        if add_bn:
-            p["cluster_bn"], bn_stats = bn(kk)
-            stats[name] = {"cluster_bn": bn_stats}
-        else:
-            p["cluster_biases"] = normal((kk,), 1 / np.sqrt(d))
-        p["cluster_weights2"] = normal((1, d, kk), 1 / np.sqrt(d))
-        params[name] = p
-        pooled += d * kk
-
-    h = mcfg.netvlad_hidden_size
-    params["hidden1_weights"] = normal((pooled, h), 1 / np.sqrt(k))
-    if add_bn and mcfg.netvlad_relu:
+    k, h, relu = lf_hparams(model_name, mcfg)
+    params["hidden1_weights"] = normal((sum(mod.width for mod in layout), h), 1 / np.sqrt(k))
+    if add_bn and relu:
         params["hidden1_bn"], stats["hidden1_bn"] = bn(h)
     else:
         params["hidden1_biases"] = normal((h,), 0.01)

@@ -300,6 +300,19 @@ cudaError_t launch_logits(const T* x, long long ldx, const T* c, const float* sc
   return cudaGetLastError();
 }
 
+// The softmax assignment A [M, K] f32 of M frame rows, K <= kMaxClusters.
+template <typename T>
+cudaError_t launch_softmax_assignment(const T* x, long long ldx, const T* c,
+                                      const float* scale, const float* bias, float* a,
+                                      long long M, int D, int K, cudaStream_t stream) {
+  const int nj = (K + 31) / 32;
+  if (nj <= 1) return launch_logits<T, 1>(x, ldx, c, scale, bias, a, M, D, K, stream);
+  if (nj <= 2) return launch_logits<T, 2>(x, ldx, c, scale, bias, a, M, D, K, stream);
+  if (nj <= 4) return launch_logits<T, 4>(x, ldx, c, scale, bias, a, M, D, K, stream);
+  if (nj <= 8) return launch_logits<T, 8>(x, ldx, c, scale, bias, a, M, D, K, stream);
+  return launch_logits<T, 16>(x, ldx, c, scale, bias, a, M, D, K, stream);
+}
+
 // The three launches for one modality.  ws_a holds B·S·K floats and
 // ws_colsq B·K floats; both are scratch allocated by the caller.
 template <typename T>
@@ -309,18 +322,7 @@ cudaError_t run_netvlad(const T* x, long long ldx, const T* c, const float* scal
   if (B < 1 || B > 65535 || S < 1 || D < 1 || K < 1 || K > kMaxClusters)
     return cudaErrorInvalidValue;
   const long long M = (long long)B * S;
-  const int nj = (K + 31) / 32;
-  cudaError_t err;
-  if (nj <= 1)
-    err = launch_logits<T, 1>(x, ldx, c, scale, bias, ws_a, M, D, K, stream);
-  else if (nj <= 2)
-    err = launch_logits<T, 2>(x, ldx, c, scale, bias, ws_a, M, D, K, stream);
-  else if (nj <= 4)
-    err = launch_logits<T, 4>(x, ldx, c, scale, bias, ws_a, M, D, K, stream);
-  else if (nj <= 8)
-    err = launch_logits<T, 8>(x, ldx, c, scale, bias, ws_a, M, D, K, stream);
-  else
-    err = launch_logits<T, 16>(x, ldx, c, scale, bias, ws_a, M, D, K, stream);
+  cudaError_t err = launch_softmax_assignment<T>(x, ldx, c, scale, bias, ws_a, M, D, K, stream);
   if (err != cudaSuccess) return err;
   const dim3 grid((K + kAggClusters - 1) / kAggClusters, B);
   aggregate_kernel<T, false><<<grid, kThreads, 0, stream>>>(x, ldx, ws_a, c2, ws_colsq, out,

@@ -1,7 +1,9 @@
 """Inference entry point (ref: inference.py#main / #inference / #format_lines).
 
-Streams frame-level TFRecords through the fast NetVLADModelLF forward and
-on-device top-k, and writes the Kaggle submission CSV
+Streams frame-level TFRecords through the fast forward of ``--model`` (any
+LF model: ``NetVLADModelLF``, ``NetRVLADModelLF``, ``NetFVModelLF``,
+``SoftDbofModelLF``, ``NeXtVLADModel``) and on-device top-k, and writes
+the Kaggle submission CSV
 ``VideoId,LabelConfidencePairs``.  The flags keep the JAX CLI's names;
 ``--device`` (default ``cuda``) is the port's own.  Weights come from
 ``<train_dir>/variables.npz`` (``core/weights.py#save_variables_npz``).
@@ -62,6 +64,17 @@ def build_parser() -> argparse.ArgumentParser:
     add_bool_flag(p, "netvlad_relu", False, "relu6 after the hidden layer.")
     p.add_argument("--netvlad_dimred", type=int, default=-1, help="Input dim-reduction width (-1 = off).")
     add_bool_flag(p, "gating", True, "Context gating before the classifier.")
+    p.add_argument("--fv_cluster_size", type=int, default=64, help="NetFV clusters.")
+    p.add_argument("--fv_hidden_size", type=int, default=1024, help="NetFV hidden size.")
+    add_bool_flag(p, "fv_relu", False, "relu6 in NetFV tail.")
+    add_bool_flag(p, "fv_couple_weights", False, "Couple FV covar to clusters.")
+    p.add_argument("--fv_coupling_factor", type=float, default=0.01, help="FV coupling factor.")
+    p.add_argument("--dbow_cluster_size", type=int, default=4096, help="SoftDBoW clusters.")
+    p.add_argument("--rvlad_cluster_size", type=int, default=256, help="NetRVLAD clusters.")
+    p.add_argument("--nextvlad_cluster_size", type=int, default=128, help="NeXtVLAD clusters.")
+    p.add_argument("--nextvlad_groups", type=int, default=8, help="NeXtVLAD attention groups.")
+    p.add_argument("--nextvlad_expansion", type=int, default=2, help="NeXtVLAD expansion λ.")
+    p.add_argument("--nextvlad_hidden_size", type=int, default=1024, help="NeXtVLAD hidden FC.")
     p.add_argument("--device", default="cuda", help="Torch device: cuda (default), cuda:N or cpu.")
     return p
 
@@ -78,6 +91,17 @@ def model_config_from_args(args) -> ModelConfig:
         netvlad_relu=args.netvlad_relu,
         netvlad_dimred=args.netvlad_dimred,
         gating=args.gating,
+        fv_cluster_size=args.fv_cluster_size,
+        fv_hidden_size=args.fv_hidden_size,
+        fv_relu=args.fv_relu,
+        fv_couple_weights=args.fv_couple_weights,
+        fv_coupling_factor=args.fv_coupling_factor,
+        dbow_cluster_size=args.dbow_cluster_size,
+        rvlad_cluster_size=args.rvlad_cluster_size,
+        nextvlad_cluster_size=args.nextvlad_cluster_size,
+        nextvlad_groups=args.nextvlad_groups,
+        nextvlad_expansion=args.nextvlad_expansion,
+        nextvlad_hidden_size=args.nextvlad_hidden_size,
         video_level_classifier_model=args.video_level_classifier_model,
     )
 
@@ -86,19 +110,20 @@ def inference(args) -> int:
     """Write the CSV for ``args``; returns the number of videos written."""
     if not args.fast_infer:
         raise NotImplementedError(
-            "the flax-forward route (without --fast_infer) needs the trainable "
-            "NetVLADModelLF modules: ROADMAP item 4; pass --fast_infer"
+            "the model-forward route (without --fast_infer, the nn.Module model's "
+            "forward) is not ported to the inference CLI yet: ROADMAP item 6; "
+            "pass --fast_infer"
         )
     device = resolve_device(args.device)
     fcfg = FeatureConfig.from_flag_strings(
         args.feature_names, args.feature_sizes, args.frame_features, args.max_frames
     )
     if not fcfg.frame_features:
-        raise ValueError("--fast_infer with NetVLADModelLF needs --frame_features")
+        raise ValueError(f"--fast_infer with {args.model} needs --frame_features")
     mcfg = model_config_from_args(args)
     path = get_fast_path(args.model)
 
-    variables = convert_flax_variables(load_variables_npz(args.train_dir), mcfg)
+    variables = convert_flax_variables(load_variables_npz(args.train_dir), mcfg, args.model)
     fp = path.prepare(variables, mcfg, int8_hidden=args.int8_hidden, device=device)
     del variables
     fast = path.build(mcfg, top_k=args.top_k)

@@ -26,7 +26,6 @@ _MODEL_REGISTRY: Dict[str, Type["BaseModel"]] = {}
 
 # models of the JAX zoo that the port has not built yet → ROADMAP.md queue-1 item
 _PENDING = {
-    "NetFVModelLF": 8, "NetRVLADModelLF": 8, "SoftDbofModelLF": 8, "NeXtVLADModel": 8,
     "DbofModel": 9, "LogisticModel": 9, "FrameLevelLogisticModel": 9,
     "TransformerEncoderModel": 10, "AttentionPoolingModel": 10, "AttentionNetVLADModel": 10,
     "LstmModel": 11, "GruModel": 11,

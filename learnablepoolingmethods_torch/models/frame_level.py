@@ -1,6 +1,8 @@
-"""Frame-level models (ref: models/frame_level.py): ``NetVLADModelLF``.
+"""Frame-level models (ref: models/frame_level.py): the LOUPE "LF" family,
+``NetVLADModelLF``, ``NetRVLADModelLF``, ``NetFVModelLF``,
+``SoftDbofModelLF`` and ``NeXtVLADModel``.
 
-The model takes ``model_input`` ``[B, F, D]``, the dequantized and
+A model takes ``model_input`` ``[B, F, D]``, the dequantized and
 ℓ2-normalized frames in the compute dtype (``core/step.py#preprocess_input``),
 and ``num_frames`` ``[B]``.  With ``cfg.presampled`` the frames were sampled
 already (the train step gathers them in uint8); otherwise the model draws
@@ -11,59 +13,142 @@ already (the train step gathers them in uint8); otherwise the model draws
 
 from __future__ import annotations
 
+import logging
+from typing import List, NamedTuple, Tuple
+
 import torch
 from torch import nn
 
 from learnablepoolingmethods_torch.config import ModelConfig
 from learnablepoolingmethods_torch.models import model_utils
 from learnablepoolingmethods_torch.models.base import BaseModel, create_model, register_model
-from learnablepoolingmethods_torch.models.modules import BatchNorm, ContextGating, NetVLAD, matmul_f32
+from learnablepoolingmethods_torch.models.modules import (
+    BatchNorm,
+    ContextGating,
+    NetFV,
+    NetRVLAD,
+    NetVLAD,
+    NeXtVLAD,
+    SoftDBoW,
+    matmul_f32,
+)
 from learnablepoolingmethods_torch.utils import prng
 
+log = logging.getLogger(__name__)
 
-@register_model
-class NetVLADModelLF(BaseModel):
-    """Gated NetVLAD, late feature fusion (ref: frame_level.py#NetVLADModelLF
-    and _LoupeLFBase._lf_forward / _FrameModelBase._lf_tail).
+# LF model → its pooling module's class, which names the flax submodules
+# ``<prefix>_0`` (rgb, or all columns) and ``<prefix>_1`` (audio)
+LF_MODULE_PREFIX = {
+    "NetVLADModelLF": "NetVLAD",
+    "NetRVLADModelLF": "NetRVLAD",
+    "NetFVModelLF": "NetFV",
+    "SoftDbofModelLF": "SoftDBoW",
+    "NeXtVLADModel": "NeXtVLAD",
+}
 
-    sample → input BN → NetVLAD on the rgb columns (K clusters) and on the
-    audio columns (K/2) → concat → hidden FC (+bias, or BN and relu6 with
-    ``netvlad_relu``) → context gating → the video-level classifier.
-    Submodule and parameter names are the flax ones (``NetVLAD_0``,
-    ``hidden1_weights``, ``MoeModel_0`` ...).
-    """
+
+class PoolLayout(NamedTuple):
+    """One pooling module of an LF model: its flax name, input width D,
+    clusters K, NeXtVLAD groups G (0 for the others) and descriptor width."""
+
+    name: str
+    feature_size: int
+    cluster_size: int
+    groups: int
+    width: int
+
+
+def lf_hparams(model_name: str, cfg: ModelConfig) -> Tuple[int, int, bool]:
+    """(rgb cluster size, hidden size, relu6 after the hidden FC) of an LF
+    model, from the flags it reads (ref: frame_level.py#_cluster_size etc.)."""
+    if model_name == "NetFVModelLF":
+        return cfg.fv_cluster_size, cfg.fv_hidden_size, cfg.fv_relu
+    if model_name == "NeXtVLADModel":
+        return cfg.nextvlad_cluster_size, cfg.nextvlad_hidden_size, cfg.netvlad_relu
+    if model_name == "NetRVLADModelLF":
+        return cfg.rvlad_cluster_size, cfg.netvlad_hidden_size, cfg.netvlad_relu
+    if model_name == "SoftDbofModelLF":
+        return cfg.dbow_cluster_size, cfg.netvlad_hidden_size, cfg.netvlad_relu
+    if model_name == "NetVLADModelLF":
+        return cfg.netvlad_cluster_size, cfg.netvlad_hidden_size, cfg.netvlad_relu
+    raise ValueError(f"not an LF model: {model_name!r}")
+
+
+def nextvlad_groups(cfg: ModelConfig, feature_size: int) -> int:
+    """The largest G <= --nextvlad_groups that divides λ·D (the flax model's
+    adjustment for narrow inputs)."""
+    if cfg.nextvlad_groups < 1:
+        raise ValueError(f"--nextvlad_groups must be >= 1, got {cfg.nextvlad_groups}")
+    groups = cfg.nextvlad_groups
+    while (cfg.nextvlad_expansion * feature_size) % groups:
+        groups -= 1
+    return groups
+
+
+def lf_layout(model_name: str, cfg: ModelConfig, input_size: int) -> List[PoolLayout]:
+    """The pooling modules of an LF model on ``input_size`` columns: above
+    128 columns one module on the first min(1024, D) (rgb, K clusters) and
+    one on the rest (audio, K/2), else one module on all (ref:
+    frame_level.py#_LoupeLFBase._lf_forward)."""
+    prefix = LF_MODULE_PREFIX[model_name]
+    k, _, _ = lf_hparams(model_name, cfg)
+    if input_size > 128:
+        rgb_dim = min(1024, input_size)
+        widths = [(rgb_dim, k)]
+        if input_size > rgb_dim:
+            widths.append((input_size - rgb_dim, max(k // 2, 1)))
+    else:
+        widths = [(input_size, k)]
+    out = []
+    for i, (d, kk) in enumerate(widths):
+        groups = 0
+        if model_name == "NeXtVLADModel":
+            groups = nextvlad_groups(cfg, d)
+            width = kk * cfg.nextvlad_expansion * d // groups
+        elif model_name == "NetFVModelLF":
+            width = 2 * d * kk
+        elif model_name == "SoftDbofModelLF":
+            width = kk
+        else:
+            width = d * kk
+        out.append(PoolLayout(f"{prefix}_{i}", d, kk, groups, width))
+    return out
+
+
+class _LoupeLFBase(BaseModel):
+    """The template of the LF models (ref: frame_level.py#_LoupeLFBase,
+    ``_lf_forward`` and ``_lf_tail``): sample → input BN → a pooling module
+    on the rgb columns (K clusters) and one on the audio columns (K/2) →
+    concat → hidden FC (+bias, or BN and relu6 with relu on) → context
+    gating → the video-level classifier.  Submodule and parameter names are
+    the flax ones (``NetVLAD_0``, ``hidden1_weights``, ``MoeModel_0`` ...)."""
+
+    def _pool_module(self, layout: PoolLayout) -> nn.Module:
+        raise NotImplementedError
 
     def __init__(self, cfg: ModelConfig, input_size: int):
         super().__init__(cfg, input_size)
         if cfg.netvlad_dimred > 0:
             raise NotImplementedError("--netvlad_dimred is not ported yet")
+        name = type(self).__name__
         add_bn = cfg.netvlad_add_batch_norm
+        _, hidden, self.relu = lf_hparams(name, cfg)
         if add_bn:
             self.input_bn = BatchNorm(input_size)
-        k = cfg.netvlad_cluster_size
-        if input_size > 128:
-            rgb_dim = min(1024, input_size)
-            widths = [(rgb_dim, k)]
-            if input_size > rgb_dim:
-                widths.append((input_size - rgb_dim, max(k // 2, 1)))
+        self.layout = lf_layout(name, cfg, input_size)
+        self.split = self.layout[0].feature_size if len(self.layout) > 1 else None
+        for mod in self.layout:
+            setattr(self, mod.name, self._pool_module(mod))
+        self.hidden1_weights = nn.Parameter(torch.zeros(sum(m.width for m in self.layout), hidden))
+        if add_bn and self.relu:
+            self.hidden1_bn = BatchNorm(hidden)
         else:
-            widths = [(input_size, k)]
-        self.split = widths[0][0] if len(widths) > 1 else None
-        for i, (d, kk) in enumerate(widths):
-            mod = NetVLAD(d, kk, add_batch_norm=add_bn,
-                          fused_aggregation=cfg.fused_train_aggregation, dtype=self.dtype)
-            setattr(self, f"NetVLAD_{i}", mod)
-        h = cfg.netvlad_hidden_size
-        self.hidden1_weights = nn.Parameter(torch.zeros(sum(d * kk for d, kk in widths), h))
-        if add_bn and cfg.netvlad_relu:
-            self.hidden1_bn = BatchNorm(h)
-        else:
-            self.hidden1_biases = nn.Parameter(torch.zeros(h))
+            self.hidden1_biases = nn.Parameter(torch.zeros(hidden))
         if cfg.gating:
-            self.gating = ContextGating(h, add_batch_norm=add_bn,
+            self.gating = ContextGating(hidden, add_batch_norm=add_bn,
                                         remove_diag=cfg.gating_remove_diag, dtype=self.dtype)
         self.head_name = f"{cfg.video_level_classifier_model}_0"
-        setattr(self, self.head_name, create_model(cfg.video_level_classifier_model, cfg, h))
+        setattr(self, self.head_name, create_model(cfg.video_level_classifier_model, cfg, hidden))
 
     def forward(self, model_input, num_frames=None, training: bool = False, sampling_key=None):
         cfg, dtype = self.cfg, self.dtype
@@ -77,12 +162,13 @@ class NetVLADModelLF(BaseModel):
             frames = model_utils.sample_frame_features(model_input, num_frames, cfg.iterations, key)
         if cfg.netvlad_add_batch_norm:
             frames = self.input_bn(frames, training)
+        pools = [getattr(self, mod.name) for mod in self.layout]
         if self.split is None:
-            pooled = self.NetVLAD_0(frames.to(dtype), training)
+            pooled = pools[0](frames.to(dtype), training)
         else:
             pooled = torch.cat([
-                self.NetVLAD_0(frames[:, :, :self.split].to(dtype), training),
-                self.NetVLAD_1(frames[:, :, self.split:].to(dtype), training),
+                pools[0](frames[:, :, :self.split].to(dtype), training),
+                pools[1](frames[:, :, self.split:].to(dtype), training),
             ], dim=1)
 
         activation = matmul_f32(pooled.to(dtype), self.hidden1_weights.to(dtype))
@@ -90,8 +176,67 @@ class NetVLADModelLF(BaseModel):
             activation = self.hidden1_bn(activation, training)
         else:
             activation = activation + self.hidden1_biases
-        if cfg.netvlad_relu:
+        if self.relu:
             activation = torch.clamp(activation, 0.0, 6.0)
         if cfg.gating:
             activation = self.gating(activation, training)
         return getattr(self, self.head_name)(activation.to(dtype), training=training)
+
+
+@register_model
+class NetVLADModelLF(_LoupeLFBase):
+    """Gated NetVLAD, late feature fusion (ref: frame_level.py#NetVLADModelLF):
+    the Willow configuration, NetVLAD-256 (audio 128), hidden 1024, gating."""
+
+    def _pool_module(self, layout):
+        return NetVLAD(layout.feature_size, layout.cluster_size,
+                       add_batch_norm=self.cfg.netvlad_add_batch_norm,
+                       fused_aggregation=self.cfg.fused_train_aggregation, dtype=self.dtype)
+
+
+@register_model
+class NetRVLADModelLF(_LoupeLFBase):
+    """NetVLAD without the centre subtraction (ref: frame_level.py#NetRVLADModelLF)."""
+
+    def _pool_module(self, layout):
+        return NetRVLAD(layout.feature_size, layout.cluster_size,
+                        add_batch_norm=self.cfg.netvlad_add_batch_norm,
+                        fused_aggregation=self.cfg.fused_train_aggregation, dtype=self.dtype)
+
+
+@register_model
+class NetFVModelLF(_LoupeLFBase):
+    """Net Fisher Vector model (ref: frame_level.py#NetFVModelLF)."""
+
+    def _pool_module(self, layout):
+        cfg = self.cfg
+        return NetFV(layout.feature_size, layout.cluster_size,
+                     add_batch_norm=cfg.netvlad_add_batch_norm,
+                     couple_weights=cfg.fv_couple_weights,
+                     coupling_factor=cfg.fv_coupling_factor, dtype=self.dtype)
+
+
+@register_model
+class SoftDbofModelLF(_LoupeLFBase):
+    """Soft bag-of-words model (ref: frame_level.py#SoftDbofModelLF)."""
+
+    def _pool_module(self, layout):
+        return SoftDBoW(layout.feature_size, layout.cluster_size,
+                        add_batch_norm=self.cfg.netvlad_add_batch_norm, dtype=self.dtype)
+
+
+@register_model
+class NeXtVLADModel(_LoupeLFBase):
+    """NeXtVLAD pooling behind the LF tail (ref: frame_level.py#NeXtVLADModel).
+    G must divide λ·D: on a narrow input the model takes the largest divisor
+    below --nextvlad_groups and says so, as the flax model does."""
+
+    def _pool_module(self, layout):
+        cfg = self.cfg
+        if layout.groups != cfg.nextvlad_groups:
+            log.warning("NeXtVLAD: groups adjusted %d -> %d so it divides expansion*feature_size = %d",
+                        cfg.nextvlad_groups, layout.groups,
+                        cfg.nextvlad_expansion * layout.feature_size)
+        return NeXtVLAD(layout.feature_size, layout.cluster_size, groups=layout.groups,
+                        expansion=cfg.nextvlad_expansion,
+                        add_batch_norm=cfg.netvlad_add_batch_norm, dtype=self.dtype)

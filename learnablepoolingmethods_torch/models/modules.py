@@ -1,5 +1,6 @@
 """Learnable pooling modules (ref: models/modules.py): the flax-compatible
-BatchNorm, NetVLAD and context gating.
+BatchNorm, the LOUPE pooling modules (NetVLAD, NetRVLAD, NetFV, SoftDBoW),
+NeXtVLAD and context gating.
 
 Parameter and statistic names follow the flax tree, so a module's
 ``state_dict`` key ``NetVLAD_0.cluster_bn.scale`` is the flax path
@@ -93,7 +94,30 @@ class BatchNorm(nn.Module):
         return (x - mean) * mul + self.bias
 
 
-class NetVLAD(nn.Module):
+class _AssignmentBase(nn.Module):
+    """The shared front of the LOUPE pooling modules: ``cluster_weights``
+    [D, K] and the assignment logits X·C summed in f32, then ``cluster_bn``
+    (or ``cluster_biases`` without BN)."""
+
+    def __init__(self, feature_size: int, cluster_size: int, add_batch_norm: bool,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.feature_size, self.cluster_size = feature_size, cluster_size
+        self.dtype = dtype
+        self.cluster_weights = nn.Parameter(torch.zeros(feature_size, cluster_size))
+        if add_batch_norm:
+            self.cluster_bn = BatchNorm(cluster_size)
+        else:
+            self.cluster_biases = nn.Parameter(torch.zeros(cluster_size))
+
+    def _logits(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        activation = matmul_f32(x, self.cluster_weights.to(self.dtype))
+        if hasattr(self, "cluster_bn"):
+            return self.cluster_bn(activation, training)
+        return activation + self.cluster_biases
+
+
+class NetVLAD(_AssignmentBase):
     """NetVLAD aggregation (ref: models/modules.py#NetVLAD) → ``[B, D·K]``.
 
     A = softmax(BN(X·C)); V = XᵀA − (Σ_F A)⊙C₂; intra-ℓ2 over D; the d-major
@@ -105,26 +129,14 @@ class NetVLAD(nn.Module):
 
     def __init__(self, feature_size: int, cluster_size: int, add_batch_norm: bool = True,
                  fused_aggregation: bool = False, dtype: torch.dtype = torch.float32):
-        super().__init__()
-        d, k = feature_size, cluster_size
-        self.feature_size, self.cluster_size = d, k
+        super().__init__(feature_size, cluster_size, add_batch_norm, dtype)
         self.fused_aggregation = fused_aggregation
-        self.dtype = dtype
-        self.cluster_weights = nn.Parameter(torch.zeros(d, k))
-        if add_batch_norm:
-            self.cluster_bn = BatchNorm(k)
-        else:
-            self.cluster_biases = nn.Parameter(torch.zeros(k))
-        self.cluster_weights2 = nn.Parameter(torch.zeros(1, d, k))
+        self.cluster_weights2 = nn.Parameter(torch.zeros(1, feature_size, cluster_size))
 
     def forward(self, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
         d, k = self.feature_size, self.cluster_size
         x = frames.to(self.dtype)
-        activation = matmul_f32(x, self.cluster_weights.to(self.dtype))  # [B, F, K]
-        if hasattr(self, "cluster_bn"):
-            activation = self.cluster_bn(activation, training)
-        else:
-            activation = activation + self.cluster_biases
+        activation = self._logits(x, training)                          # [B, F, K]
         if self.fused_aggregation:
             vlad = netvlad_aggregate(x, activation, self.cluster_weights2.reshape(d, k))
             return vlad.reshape(-1, d * k).to(self.dtype)
@@ -134,6 +146,119 @@ class NetVLAD(nn.Module):
         vlad = l2_normalize(vlad, dim=1)
         vlad = l2_normalize(vlad.reshape(-1, d * k), dim=1)
         return vlad.to(self.dtype)
+
+
+class NetRVLAD(_AssignmentBase):
+    """NetVLAD without the learned centres (ref: models/modules.py#NetRVLAD)
+    → ``[B, D·K]``: V = XᵀA, intra-ℓ2 over D, d-major flatten, global ℓ2.
+    With ``fused_aggregation`` the aggregation is :func:`netvlad_aggregate`
+    with C₂ = 0."""
+
+    def __init__(self, feature_size: int, cluster_size: int, add_batch_norm: bool = True,
+                 fused_aggregation: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__(feature_size, cluster_size, add_batch_norm, dtype)
+        self.fused_aggregation = fused_aggregation
+
+    def forward(self, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
+        d, k = self.feature_size, self.cluster_size
+        x = frames.to(self.dtype)
+        activation = self._logits(x, training)
+        if self.fused_aggregation:
+            zeros = torch.zeros(d, k, dtype=torch.float32, device=x.device)
+            return netvlad_aggregate(x, activation, zeros).reshape(-1, d * k).to(self.dtype)
+        a = torch.softmax(activation, dim=-1)
+        vlad = l2_normalize(torch.einsum("bfk,bfd->bdk", a, x.float()), dim=1)
+        return l2_normalize(vlad.reshape(-1, d * k), dim=1).to(self.dtype)
+
+
+class NetFV(_AssignmentBase):
+    """Net Fisher Vector (ref: models/modules.py#NetFV) → ``[B, 2·D·K]``.
+
+    σ² = (``covar_weights``, or ``coupling_factor``·C with
+    ``couple_weights``)² + 1e-6; fv1 = (XᵀA − a_sum⊙C₂)/σ² and
+    fv2 = (a_sum⊙C₂² + (X²)ᵀA − 2·(XᵀA)⊙C₂)/σ⁴ − a_sum, each intra-ℓ2 over
+    D, flattened d-major and globally ℓ2-normalised, then concatenated.
+    ``covar_weights`` exists whether or not it is used, as in flax."""
+
+    def __init__(self, feature_size: int, cluster_size: int, add_batch_norm: bool = True,
+                 couple_weights: bool = False, coupling_factor: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(feature_size, cluster_size, add_batch_norm, dtype)
+        self.couple_weights, self.coupling_factor = couple_weights, coupling_factor
+        self.covar_weights = nn.Parameter(torch.zeros(feature_size, cluster_size))
+        self.cluster_weights2 = nn.Parameter(torch.zeros(1, feature_size, cluster_size))
+
+    def forward(self, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
+        d, k = self.feature_size, self.cluster_size
+        x = frames.to(self.dtype)
+        covar = self.coupling_factor * self.cluster_weights if self.couple_weights else self.covar_weights
+        covar = torch.square(covar).float() + 1e-6
+        a = torch.softmax(self._logits(x, training), dim=-1)            # [B, F, K]
+        a_sum = torch.sum(a, dim=1, keepdim=True)                        # [B, 1, K]
+        cw2 = self.cluster_weights2.float()
+        fv1 = torch.einsum("bfk,bfd->bdk", a, x.float())
+        fv2 = torch.einsum("bfk,bfd->bdk", a, torch.square(x).float())  # X² rounded in x's dtype
+        fv2 = (a_sum * torch.square(cw2) + fv2 - 2.0 * (fv1 * cw2)) / torch.square(covar) - a_sum
+        fv2 = l2_normalize(l2_normalize(fv2, dim=1).reshape(-1, d * k), dim=1)
+        fv1 = (fv1 - a_sum * cw2) / covar
+        fv1 = l2_normalize(l2_normalize(fv1, dim=1).reshape(-1, d * k), dim=1)
+        return torch.cat([fv1, fv2], dim=1).to(self.dtype)
+
+
+class SoftDBoW(_AssignmentBase):
+    """Soft bag of words (ref: models/modules.py#SoftDBoW) → ``[B, K]``:
+    the ℓ2-normalised sum over frames of the soft assignment."""
+
+    def forward(self, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
+        a = torch.softmax(self._logits(frames.to(self.dtype), training), dim=-1)
+        return l2_normalize(torch.sum(a, dim=1), dim=1).to(self.dtype)
+
+
+class NeXtVLAD(nn.Module):
+    """NeXtVLAD (ref: models/modules.py#NeXtVLAD; Lin et al. 2018) →
+    ``[B, K·D′]`` with D′ = λD/G.
+
+    x̃ = X·W_e [B, F, λD]; α = σ(x̃·W_g) [B, F, G]; a = softmax over K of
+    BN(x̃·W_a) [B, F, G, K] times α; v[k, d′] = Σ_{f,g} a·x̂[f, g, d′] −
+    (Σ_{f,g} a)·C₂[k, d′] with x̂ = x̃ as [B, F, G, D′]; intra-ℓ2 over d′,
+    flatten k-major, ``vlad_bn``.  Without BN neither BN exists and no bias
+    takes its place, as in flax."""
+
+    def __init__(self, feature_size: int, cluster_size: int, groups: int = 8, expansion: int = 2,
+                 add_batch_norm: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        lam_d = expansion * feature_size
+        if groups < 1:
+            raise ValueError(f"NeXtVLAD groups must be >= 1, got {groups}")
+        if lam_d % groups:
+            raise ValueError(f"NeXtVLAD groups ({groups}) must divide expansion·D ({lam_d})")
+        self.groups, self.cluster_size, self.group_dim = groups, cluster_size, lam_d // groups
+        self.dtype = dtype
+        self.expansion_weights = nn.Parameter(torch.zeros(feature_size, lam_d))
+        self.group_attention_weights = nn.Parameter(torch.zeros(lam_d, groups))
+        self.cluster_weights = nn.Parameter(torch.zeros(lam_d, groups * cluster_size))
+        if add_batch_norm:
+            self.cluster_bn = BatchNorm(groups * cluster_size)
+        self.cluster_weights2 = nn.Parameter(torch.zeros(cluster_size, self.group_dim))
+        if add_batch_norm:
+            self.vlad_bn = BatchNorm(cluster_size * self.group_dim)
+
+    def forward(self, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
+        b, f, _ = frames.shape
+        g, k, dp, dtype = self.groups, self.cluster_size, self.group_dim, self.dtype
+        xt = matmul_f32(frames.to(dtype), self.expansion_weights.to(dtype))          # [B, F, λD]
+        alpha = torch.sigmoid(matmul_f32(xt.to(dtype), self.group_attention_weights.to(dtype)))
+        logits = matmul_f32(xt.to(dtype), self.cluster_weights.to(dtype))           # [B, F, G·K]
+        if hasattr(self, "cluster_bn"):
+            logits = self.cluster_bn(logits, training)
+        assign = torch.softmax(logits.reshape(b, f, g, k), dim=-1) * alpha[..., None]
+        agg = torch.einsum("bfgk,bfgd->bkd", assign, xt.reshape(b, f, g, dp))
+        a_sum = torch.sum(assign, dim=(1, 2))                                        # [B, K]
+        vlad = agg - a_sum[:, :, None] * self.cluster_weights2.float()[None]
+        vlad = l2_normalize(vlad, dim=-1).reshape(b, k * dp)
+        if hasattr(self, "vlad_bn"):
+            vlad = self.vlad_bn(vlad, training)
+        return vlad.to(dtype)
 
 
 class ContextGating(nn.Module):

@@ -7,8 +7,9 @@
 - ``build(mcfg, top_k=20, use_kernels=True, return_probs=False)`` →
   ``fn(fp, features, num_frames, key, presampled=False)``.
 
-Only ``NetVLADModelLF`` is ported so far; every other model of the JAX
-package raises an error naming the ROADMAP item that ports it.
+``NetVLADModelLF`` (``ops/fast_infer.py``) and the rest of the LOUPE family
+(``ops/fast_lf.py``) are ported; every other model of the JAX package
+raises an error naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -23,10 +24,6 @@ class FastPath(NamedTuple):
 
 # model name → ROADMAP.md queue-1 item that ports it
 _PENDING = {
-    "NetFVModelLF": 8,
-    "NetRVLADModelLF": 8,
-    "SoftDbofModelLF": 8,
-    "NeXtVLADModel": 8,
     "DbofModel": 9,
     "LogisticModel": 9,
     "MoeModel": 9,
@@ -56,7 +53,31 @@ def _netvlad() -> FastPath:
     return FastPath(prepare, build)
 
 
-_FACTORIES: Dict[str, Callable[[], FastPath]] = {"NetVLADModelLF": _netvlad}
+def _lf(model_name: str) -> FastPath:
+    from learnablepoolingmethods_torch.ops.fast_lf import (
+        build_fast_lf_inference,
+        prepare_fast_lf_params,
+    )
+
+    def prepare(variables, mcfg, int8_hidden=False, device="cuda"):
+        return prepare_fast_lf_params(variables, mcfg, model_name, int8_hidden=int8_hidden,
+                                      device=device)
+
+    def build(mcfg, top_k=20, use_kernels=True, return_probs=False):
+        return build_fast_lf_inference(mcfg, model_name, top_k=top_k, use_kernels=use_kernels,
+                                       return_probs=return_probs)
+
+    return FastPath(prepare, build)
+
+
+# the LOUPE-family models that ops/fast_lf.py serves (the JAX package's
+# fast_dispatch.py#FAST_LF_MODELS)
+FAST_LF_MODELS = ("NetFVModelLF", "NetRVLADModelLF", "SoftDbofModelLF", "NeXtVLADModel")
+
+_FACTORIES: Dict[str, Callable[[], FastPath]] = {
+    "NetVLADModelLF": _netvlad,
+    **{name: (lambda n=name: _lf(n)) for name in FAST_LF_MODELS},
+}
 
 
 def fast_path_models() -> Tuple[str, ...]:

@@ -31,6 +31,30 @@ _ARGTYPES = (
 )
 
 
+def check_frames(name: str, x: torch.Tensor, cluster_weights: torch.Tensor, max_k: int = None):
+    """Validate the frames ``x`` [B, F, D] on a CUDA device and the cluster
+    matrix [D, K] of a fused aggregation kernel; returns (B, F, D, K).  The
+    rows of ``x`` may be a column slice of a wider tensor: its last axis
+    must be contiguous and its rows evenly strided."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: x must be [B, F, D] bf16/f32, got {tuple(x.shape)} {x.dtype}")
+    b, f, d = x.shape
+    if x.stride(2) != 1 or x.stride(0) != f * x.stride(1):
+        raise ValueError(
+            f"{name}: x rows must be evenly strided with a contiguous last axis, "
+            f"got strides {x.stride()}"
+        )
+    if cluster_weights.dim() != 2 or cluster_weights.shape[0] != d:
+        raise ValueError(f"{name}: cluster_weights {tuple(cluster_weights.shape)} for D={d}")
+    k = cluster_weights.shape[1]
+    if k < 1 or (max_k is not None and k > max_k) or not 1 <= b <= 65535 or f < 1:
+        raise ValueError(f"{name}: needs 1 <= K <= {max_k or 'any'}, 1 <= B <= 65535, F >= 1; "
+                         f"got K={k}, B={b}, F={f}")
+    return b, f, d, k
+
+
 def netvlad_fused(
     x: torch.Tensor,                 # [B, F, D] bf16 or f32
     cluster_weights: torch.Tensor,   # [D, K]
@@ -49,25 +73,7 @@ def netvlad_fused(
         return netvlad_reference(
             x, cluster_weights, assign_scale, assign_bias, cluster_weights2
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"netvlad_fused: unsupported device {x.device}")
-    if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(
-            f"netvlad_fused: x must be [B, F, D] bf16/f32, got {tuple(x.shape)} {x.dtype}"
-        )
-    b, f, d = x.shape
-    if x.stride(2) != 1 or x.stride(0) != f * x.stride(1):
-        raise ValueError(
-            f"netvlad_fused: x rows must be evenly strided with a contiguous last "
-            f"axis, got strides {x.stride()}"
-        )
-    if cluster_weights.dim() != 2 or cluster_weights.shape[0] != d:
-        raise ValueError(
-            f"netvlad_fused: cluster_weights {tuple(cluster_weights.shape)} for D={d}"
-        )
-    k = cluster_weights.shape[1]
-    if not 1 <= k <= MAX_CLUSTERS or not 1 <= b <= 65535:
-        raise ValueError(f"netvlad_fused: needs K <= {MAX_CLUSTERS}, B <= 65535; got K={k}, B={b}")
+    b, f, d, k = check_frames("netvlad_fused", x, cluster_weights, MAX_CLUSTERS)
     dev = x.device
     c = cluster_weights.to(device=dev, dtype=x.dtype).contiguous()
     scale = assign_scale.to(device=dev, dtype=torch.float32).reshape(k).contiguous()

@@ -13,7 +13,8 @@ layout, which the inference CLI reads:
 The flags keep the JAX CLI's names; ``--device`` (default ``cuda``) is the
 port's own.  With ``--fused_train_aggregation`` each NetVLAD's aggregation
 runs the CUDA forward and backward kernels of ``ops/netvlad_train.py``.
-Frames are always sampled as the JAX step does under ``--presample_frames``.
+Frames are the ones the JAX step draws from the same ``--seed``, with or
+without ``--presample_frames``; the port gathers them in uint8 either way.
 The weights start from ``core/weights.py#init_variables_np(seed)``.  Flags
 of the JAX CLI that the port does not take yet raise when set: restoring a
 checkpoint (an existing ``variables.npz`` without ``--start_new_model``),
@@ -61,6 +62,9 @@ _NOT_PORTED = {
     "adam_bf16_momentum": False, "bf16_params": False, "fused_adam": False,
     "grad_accum_steps": 1, "export_model_steps": 0,
 }
+# registered models whose training is not ported yet → ROADMAP.md queue-1 item
+_NOT_TRAINED = dict.fromkeys(
+    ("NetRVLADModelLF", "NetFVModelLF", "SoftDbofModelLF", "NeXtVLADModel"), "8b")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -113,7 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every_n_steps", type=int, default=10, help="Steps between log lines.")
     p.add_argument("--seed", type=int, default=0, help="Seed of the weights, shuffle and sampling.")
     add_bool_flag(p, "presample_frames", False,
-                  "Accepted for the JAX CLI's sake: the port always samples frames in uint8 first.")
+                  "Draw the frames from the step's sampling key as the JAX step does with it; "
+                  "without it from the key the flax model derives (uint8 rows are gathered first "
+                  "either way).")
     p.add_argument("--device", default="cuda", help="Torch device: cuda (default), cuda:N or cpu.")
     for name, off in _NOT_PORTED.items():
         kind = "not ported yet; raises if set"
@@ -128,9 +134,13 @@ def configs_from_args(args):
     for name, off in _NOT_PORTED.items():
         if getattr(args, name) != off:
             raise NotImplementedError(f"--{name} is not ported to the PyTorch trainer yet (ROADMAP.md)")
+    if args.model in _NOT_TRAINED:
+        raise NotImplementedError(
+            f"training {args.model} is not ported yet: ROADMAP item {_NOT_TRAINED[args.model]} "
+            "(its fast inference is)"
+        )
     if not args.sample_random_frames:
-        # the step always draws random frames, as the JAX step under
-        # --presample_frames; JAX's contiguous windows are not ported
+        # the step always draws iid frames; JAX's contiguous windows are not ported
         raise NotImplementedError("--nosample_random_frames is not ported to the PyTorch trainer yet")
     fcfg = FeatureConfig.from_flag_strings(args.feature_names, args.feature_sizes,
                                            args.frame_features, args.max_frames)
@@ -154,7 +164,7 @@ def configs_from_args(args):
         regularization_penalty=args.regularization_penalty, label_loss=args.label_loss,
         num_epochs=args.num_epochs, max_steps=args.max_steps,
         save_checkpoint_every_n_steps=args.save_checkpoint_every_n_steps,
-        presample_frames=True,
+        presample_frames=args.presample_frames,
     )
     return fcfg, mcfg, tcfg
 

@@ -25,6 +25,7 @@ A key is a ``[2]`` int64 tensor of two 32-bit words.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -77,6 +78,17 @@ def fold_in(key_: torch.Tensor, data: int) -> torch.Tensor:
     x0, x1 = threefry2x32(*key_words(key_), np.zeros(1, np.uint32),
                          np.array([int(data) & _MASK], np.uint32))
     return _key_of(x0, x1)[0]
+
+
+def flax_make_rng(key_: torch.Tensor, counter: int = 1) -> torch.Tensor:
+    """The key that flax's ``make_rng(name)`` hands out on its ``counter``-th
+    call in the module where ``key_`` was passed as ``rngs={name: key_}``
+    (flax/core/scope.py ``LazyRng.as_jax_rng``): ``fold_in`` of the first 4
+    bytes of SHA-1 of the counter's big-endian bytes, read as a big-endian
+    uint32.  This pins flax's default ``flax_fix_rng_separator=False``,
+    under which no separator byte enters the hash."""
+    data = counter.to_bytes((counter.bit_length() + 7) // 8, "big")
+    return fold_in(key_, int.from_bytes(hashlib.sha1(data).digest()[:4], "big"))
 
 
 def split(key_: torch.Tensor, num: int = 2) -> torch.Tensor:

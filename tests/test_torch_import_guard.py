@@ -46,6 +46,16 @@ def test_importing_the_port_loads_no_jax():
     assert "BAD []" in out.stdout, out.stdout
 
 
+def test_the_guard_covers_the_kernel_modules():
+    """Every kernel wrapper and fast path of the port is among the modules
+    that the guard imports, down to the newest ones."""
+    names = _module_names()
+    for module in ("fast_infer", "fast_lf", "fast_dispatch", "fused_frontend", "netvlad_fused",
+                   "netvlad_train", "netfv_fused", "softdbow_fused", "kernel_build"):
+        assert f"learnablepoolingmethods_torch.ops.{module}" in names, module
+    assert "learnablepoolingmethods_torch.models.frame_level" in names
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     for path in _sources():
