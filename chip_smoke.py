@@ -70,7 +70,29 @@ error, and prints one JSON line per phase:
 11. lf_throughput
               each of the four models' kernel route at B=512, S=30 in
               videos/s (the median of five rounds), the plain route beside
-              it; then lf_profile, torch.profiler over each kernel route.
+              it; then lf_profile, torch.profiler over each kernel route;
+12. attn_kernels
+              the masked-attention kernel against its plain version, qkv in
+              bf16 and f32, at config 5's width (H=8, hd=128, F=300) with
+              B=64 and num_frames including 0, 1, 299 and 300, and at small
+              shapes off every tile width (F 1, 7, 65, 130; hd 64 and 40),
+              with the tolerances of phase 3; times at B=256, F=300, bf16,
+              beside torch's scaled_dot_product_attention on the same q, k, v
+              and additive mask (library_ms: timed here only, the port never
+              calls it);
+13. attn_e2e  TransformerEncoderModel and AttentionNetVLADModel at full width
+              (D=1024, 8 heads, 2 layers, FFN 2048; NetVLAD K=256; weights
+              from a seed, BN statistics perturbed): the inference CLI on the
+              96 videos of phase 4 with --batch_size=40, so the third batch
+              carries 24 padding rows with num_frames 0; the attention kernel
+              must launch once per layer per batch and netvlad_fused once per
+              batch of AttentionNetVLADModel; then the kernel and plain routes
+              on the same batches, within 1e-2 in probability;
+14. attn_throughput
+              both models' kernel routes at B=256, all 300 frames, num_frames
+              random in 1-300: videos/s (the median of five rounds), the plain
+              route and peak memory beside it; then attn_profile,
+              torch.profiler over five kernel-route batches.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -106,7 +128,11 @@ from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader
 from learnablepoolingmethods_torch.losses import CrossEntropyLoss
 from learnablepoolingmethods_torch.models import create_model
 from learnablepoolingmethods_torch.ops import kernel_build
-from learnablepoolingmethods_torch.ops.fast_dispatch import FAST_LF_MODELS, get_fast_path
+from learnablepoolingmethods_torch.ops.fast_dispatch import (
+    FAST_ATTENTION_MODELS,
+    FAST_LF_MODELS,
+    get_fast_path,
+)
 from learnablepoolingmethods_torch.ops.fast_infer import (
     build_fast_netvlad_inference,
     gated_moe_tail,
@@ -120,9 +146,14 @@ from learnablepoolingmethods_torch.ops.fused_frontend import (
     netvlad_frontend_reference,
     sample_indices,
 )
+from learnablepoolingmethods_torch.ops.masked_attention import (
+    masked_attention_fused,
+    masked_attention_plain,
+)
 from learnablepoolingmethods_torch.ops.netfv_fused import netfv_fused, netfv_reference
 from learnablepoolingmethods_torch.ops.netvlad_fused import netvlad_fused, netvlad_reference
 from learnablepoolingmethods_torch.ops.softdbow_fused import softdbow_fused, softdbow_reference
+from learnablepoolingmethods_torch.ops.topk import top_k_exact
 from learnablepoolingmethods_torch.ops.netvlad_train import (
     netvlad_aggregate_backward,
     netvlad_aggregate_backward_plain,
@@ -167,6 +198,11 @@ KERNELS = {
         fn=softdbow_fused,
         source="learnablepoolingmethods_torch/csrc/softdbow_fused.cu",
         replaces="learnablepoolingmethods_tpu/ops/softdbow_pallas.py:61",
+    ),
+    "masked_attention_fused": dict(
+        fn=masked_attention_fused,
+        source="learnablepoolingmethods_torch/csrc/masked_attention.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_transformer.py:108",
     ),
 }
 TRAIN_KERNELS = ("netvlad_aggregate_forward", "netvlad_aggregate_backward")
@@ -492,12 +528,12 @@ def read_csv(out_csv: str, written: int, truth) -> dict:
     return csv
 
 
-def load_batches(data: str, dev) -> list:
-    """The CLI's batches of 32 videos of ``data`` on the card: (features,
-    num_frames, real-row mask, real video ids)."""
+def load_batches(data: str, dev, batch_size: int = 32) -> list:
+    """The CLI's batches of ``batch_size`` videos of ``data`` on the card:
+    (features, num_frames, real-row mask, real video ids)."""
     reader = YT8MFrameFeatureReader(feature_names=("rgb", "audio"))
     batches = []
-    for batch in batch_iterator(reader, data, 32):
+    for batch in batch_iterator(reader, data, batch_size):
         real = batch["weights"] > 0
         batches.append((torch.from_numpy(batch["features"]).to(dev),
                         torch.from_numpy(batch["num_frames"]).to(dev),
@@ -516,8 +552,9 @@ def run_batches(batches, fp, fn) -> torch.Tensor:
 
 
 def check_csv_rows(csv, probs, batches, route: str) -> None:
-    """Each CSV row is the top 20 of ``route``'s probabilities."""
-    vals, ids = torch.topk(probs, 20)
+    """Each CSV row is the top 20 of ``route``'s probabilities, ties lowest
+    index first as the CLI's top_k_exact orders them."""
+    vals, ids = top_k_exact(probs, 20)
     vids = [vid for *_, batch_vids in batches for vid in batch_vids]
     for vid, v_row, i_row in zip(vids, vals.cpu().numpy(), ids.cpu().numpy()):
         c_ids, c_vals = csv[vid.decode()]
@@ -962,7 +999,7 @@ def lf_config() -> ModelConfig:
     return inference.model_config_from_args(inference.build_parser().parse_args(LF_CLI_FLAGS))
 
 
-def lf_tree(name: str, mcfg: ModelConfig, fcfg: FeatureConfig) -> dict:
+def seeded_tree(name: str, mcfg: ModelConfig, fcfg: FeatureConfig) -> dict:
     """``name``'s weights from init_variables_np(seed=0) with every BN's
     statistics moved off their initial values, so that folding is exercised."""
     tree = init_variables_np(mcfg, fcfg, seed=0, model_name=name)
@@ -980,62 +1017,73 @@ def lf_tree(name: str, mcfg: ModelConfig, fcfg: FeatureConfig) -> dict:
     return tree
 
 
-def phase_lf_e2e(dev, workdir, smi):
-    """Each fast-LF model at its full default width: the inference CLI on the
-    96 videos of phase_e2e (--batch_size=32 --fast_infer --device=cuda) with
-    the launch counters zeroed just before and read just after, then its
-    kernel and plain routes on the same batches and sampled indices.
-    Returns ({model: fast params}, {kernel: launches in the CLI runs})."""
-    mcfg = lf_config()
+def drive_model(dev, name: str, mcfg: ModelConfig, cli_flags, workdir: str, data: str, truth,
+                batches, want: dict):
+    """One model at its full default width: weights from seeded_tree, the
+    inference CLI (``cli_flags``) on ``data`` with the launch counters zeroed
+    just before and read just after (they must equal ``want``, the non-zero
+    counts), a CSV row per video, then the kernel and plain routes on
+    ``batches``, within 1e-2 in probability, the CSV the kernel route's top
+    20.  Returns (fast params, launches, timings and the routes' gap)."""
     fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    start = time.perf_counter()
+    tree = seeded_tree(name, mcfg, fcfg)
+    train_dir = os.path.join(workdir, name)
+    os.makedirs(train_dir)
+    save_variables_npz(tree, train_dir)
+    setup_s = time.perf_counter() - start
+    out_csv = os.path.join(workdir, f"{name}.csv")
+    reset_counters()
+    start = time.perf_counter()
+    written = inference.main(cli_flags + [
+        f"--model={name}", f"--input_data_pattern={data}", f"--train_dir={train_dir}",
+        f"--output_file={out_csv}",
+    ])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - start
+    got = counters()
+    want = {**dict.fromkeys(KERNELS, 0), **want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    csv = read_csv(out_csv, written, truth)
+    shutil.rmtree(train_dir)
+
+    path = get_fast_path(name)
+    fp = path.prepare(convert_flax_variables(tree, mcfg, name), mcfg, device=dev)
+    del tree
+    probs = {route: run_batches(batches, fp, path.build(mcfg, use_kernels=route == "kernel",
+                                                        return_probs=True))
+             for route in ("kernel", "plain")}
+    for route, p in probs.items():
+        if p.shape != (len(truth), mcfg.vocab_size) or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{name} {route}: probabilities of shape {tuple(p.shape)} or non-finite")
+    gap = (probs["kernel"] - probs["plain"]).abs().max().item()
+    if gap > 1e-2:
+        raise AssertionError(f"{name}: kernel and plain routes differ by {gap}")
+    check_csv_rows(csv, probs["kernel"], batches, f"{name} kernel")
+    return fp, got, {"setup_s": setup_s, "cli_s": cli_s, "max_abs_prob_gap_kernel_vs_plain": gap}
+
+
+def phase_lf_e2e(dev, workdir, smi):
+    """Each fast-LF model through drive_model: the inference CLI on the 96
+    videos of phase_e2e (--batch_size=32 --fast_infer --device=cuda), its
+    kernel once per modality per batch, then its kernel and plain routes on
+    the same batches and sampled indices.  Returns ({model: fast params},
+    {kernel: launches in the CLI runs})."""
+    mcfg = lf_config()
     data = os.path.join(workdir, "videos-0.tfrecord")
     truth = write_frame_level_fixture(data, 96, seed=0)
     n_batches = -(-len(truth) // 32)
     batches = load_batches(data, dev)
     fps, launches = {}, dict.fromkeys(KERNELS, 0)
     for name in FAST_LF_MODELS:
-        start = time.perf_counter()
-        tree = lf_tree(name, mcfg, fcfg)
-        train_dir = os.path.join(workdir, name)
-        os.makedirs(train_dir)
-        save_variables_npz(tree, train_dir)
-        setup_s = time.perf_counter() - start
-        out_csv = os.path.join(workdir, f"{name}.csv")
-        reset_counters()
-        start = time.perf_counter()
-        written = inference.main(LF_CLI_FLAGS + [
-            f"--model={name}", f"--input_data_pattern={data}", f"--train_dir={train_dir}",
-            f"--output_file={out_csv}",
-        ])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - start
-        got = counters()
         kernel = LF_MODEL_KERNEL[name]
-        want = {**dict.fromkeys(KERNELS, 0), **({kernel: 2 * n_batches} if kernel else {})}
-        if got != want:
-            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        fps[name], got, info = drive_model(dev, name, mcfg, LF_CLI_FLAGS, workdir, data, truth,
+                                           batches, {kernel: 2 * n_batches} if kernel else {})
         for n, c in got.items():
             launches[n] += c
-        csv = read_csv(out_csv, written, truth)
-        shutil.rmtree(train_dir)
-
-        path = get_fast_path(name)
-        fp = path.prepare(convert_flax_variables(tree, mcfg, name), mcfg, device=dev)
-        del tree
-        probs = {route: run_batches(batches, fp, path.build(mcfg, use_kernels=route == "kernel",
-                                                            return_probs=True))
-                 for route in ("kernel", "plain")}
-        for route, p in probs.items():
-            if p.shape != (len(truth), mcfg.vocab_size) or not bool(torch.isfinite(p).all()):
-                raise AssertionError(f"{name} {route}: probabilities of shape {tuple(p.shape)} or non-finite")
-        gap = (probs["kernel"] - probs["plain"]).abs().max().item()
-        if gap > 1e-2:
-            raise AssertionError(f"{name}: kernel and plain routes differ by {gap}")
-        check_csv_rows(csv, probs["kernel"], batches, f"{name} kernel")
-        fps[name] = fp
         emit({"phase": "lf_e2e", "model": name, "videos": len(truth), "batches": n_batches,
-              "setup_s": setup_s, "cli_s": cli_s, "launches": got,
-              "max_abs_prob_gap_kernel_vs_plain": gap, "card": smi})
+              **info, "launches": got, "card": smi})
     return fps, launches
 
 
@@ -1061,6 +1109,153 @@ def phase_lf_throughput(dev, fps, smi):
               "plain_batch_ms": plain_ms, "plain_videos_per_s": b / (plain_ms / 1e3), "card": smi})
         emit({"phase": "lf_profile", "model": name, "route": "kernel", "B": b, "S": s,
               **profile_device(lambda: fn(fp, x, nf, key)), "card": smi})
+
+
+# (B, F, H, hd) of the attention checks: config 5's width, then small shapes
+# off every tile width of csrc/masked_attention.cu (64 query rows, 64 keys,
+# 128-wide heads)
+ATTN_SHAPES = ((64, F, 8, 128), (4, 1, 2, 64), (4, 7, 2, 64), (4, 65, 3, 64), (5, 130, 2, 40))
+ATTN_TIMING = (256, F, 8, 128)  # config 5's batch (BASELINE.md:45), bf16
+# the inference CLI's flags for the transformer family (each at its default
+# width); 96 videos in batches of 40 leave 24 padding rows in the third
+ATTN_CLI_FLAGS = ["--frame_features", "--feature_names=rgb,audio", "--feature_sizes=1024,128",
+                  "--batch_size=40", "--fast_infer", "--device=cuda"]
+
+
+def attn_inputs(rng: np.random.Generator, dev, b: int, f: int, h: int, hd: int, dtype, nf=None):
+    """Fused qkv [b, f, 3·h·hd] in ``dtype``, normal(0, 2) so the logits
+    spread over a few units and the running max moves, and the [b, f] f32
+    frame mask of ``nf`` (default: 0, 1, f − 1, f, then random in 0–f)."""
+    qkv = torch.from_numpy(rng.normal(scale=2.0, size=(b, f, 3 * h * hd)).astype(np.float32)).to(dev, dtype)
+    if nf is None:
+        nf = np.r_[0, 1, f - 1, f, rng.integers(0, f + 1, size=b)][:b]
+    mask = torch.from_numpy((np.arange(f)[None, :] < np.asarray(nf)[:, None]).astype(np.float32)).to(dev)
+    return qkv, mask
+
+
+def attn_bound(b: int, f: int, h: int, hd: int):
+    """Least time (ms) for one bf16 attention call: qkv and the f32 mask read
+    once and the output written once over the HBM rate, or QKᵀ and P·V
+    (2·2·B·H·F²·hd) over the bf16 tensor-core rate, whichever is larger."""
+    nbytes = b * f * 3 * h * hd * 2 + b * f * 4 + b * f * h * hd * 2
+    flops = 2 * 2 * b * h * f * f * hd
+    ops_ms = flops / PEAK_BF16 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", nbytes, flops
+
+
+def sdpa(qkv, mask, h: int):
+    """The same attention by torch's scaled_dot_product_attention on q, k, v
+    viewed as [B, H, F, hd] and the additive (1 − mask)·(−1e9) mask: the
+    library yardstick of library_ms, never called by the port."""
+    b, f, dm3 = qkv.shape
+    q, k, v = qkv.view(b, f, 3, h, dm3 // (3 * h)).permute(2, 0, 3, 1, 4).unbind(0)
+    bias = ((1.0 - mask) * -1e9).to(qkv.dtype)[:, None, None, :]
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    return out.transpose(1, 2).reshape(b, f, dm3 // 3)
+
+
+def phase_attn_kernels(dev, smi):
+    """The attention kernel against its plain version at every ATTN_SHAPES
+    shape, qkv in bf16 and f32; then its times at ATTN_TIMING beside the
+    plain version's, the bound and SDPA's."""
+    rng = np.random.default_rng(5)
+    errors = {"masked_attention_fused": 0.0}
+    for b, f, h, hd in ATTN_SHAPES:
+        before = counters()
+        checks = []
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, mask = attn_inputs(rng, dev, b, f, h, hd, dtype)
+            got = masked_attention_fused(qkv, mask, h)
+            torch.cuda.synchronize()
+            want = masked_attention_plain(qkv, mask, h)
+            err = compare(f"masked_attention_fused B={b} F={f} H={h} hd={hd} {dtype}", got, want)
+            errors["masked_attention_fused"] = max(errors["masked_attention_fused"], err)
+            checks.append({"dtype": str(dtype), "max_abs_err": err, "max_ref": want.float().abs().max().item(),
+                           "num_frames_zero_rows": int((mask.sum(1) == 0).sum().item())})
+        after = counters()
+        emit({"phase": "attn_kernels", "B": b, "F": f, "H": h, "hd": hd, "checks": checks,
+              "launch_deltas": {n: after[n] - before[n] for n in after}})
+
+    b, f, h, hd = ATTN_TIMING
+    qkv, mask = attn_inputs(rng, dev, b, f, h, hd, torch.bfloat16, nf=rng.integers(1, f + 1, size=b))
+    ms = time_ms(lambda: masked_attention_fused(qkv, mask, h))
+    plain_ms = time_ms(lambda: masked_attention_plain(qkv, mask, h), reps=5)
+    library_ms = time_ms(lambda: sdpa(qkv, mask, h))
+    plain = masked_attention_plain(qkv, mask, h).float()
+    bound_ms, by, nbytes, flops = attn_bound(b, f, h, hd)
+    emit({"phase": "kernel_times", "kernel": "masked_attention_fused", "B": b, "F": f, "H": h, "hd": hd,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by,
+          "bytes": nbytes, "flop": flops,
+          "max_abs_err_kernel_vs_plain": (masked_attention_fused(qkv, mask, h).float() - plain).abs().max().item(),
+          "max_abs_err_library_vs_plain": (sdpa(qkv, mask, h).float() - plain).abs().max().item(),
+          "card": smi})
+    return errors, {"masked_attention_fused": (ms, plain_ms, (bound_ms, by))}, library_ms
+
+
+def attn_config() -> ModelConfig:
+    """The model configuration that the inference CLI builds from ATTN_CLI_FLAGS."""
+    return inference.model_config_from_args(inference.build_parser().parse_args(ATTN_CLI_FLAGS))
+
+
+def phase_attn_e2e(dev, workdir, smi):
+    """TransformerEncoderModel and AttentionNetVLADModel through drive_model:
+    the inference CLI on the 96 videos of phase_e2e in batches of 40 (24
+    padding rows with num_frames 0 in the third), the attention kernel once
+    per layer per batch and netvlad_fused once per batch of
+    AttentionNetVLADModel, then the kernel and plain routes on the same
+    batches.  Returns ({model: fast params}, {kernel: launches in the CLI
+    runs})."""
+    mcfg = attn_config()
+    batch_size = int(next(a for a in ATTN_CLI_FLAGS if a.startswith("--batch_size=")).split("=")[1])
+    data = os.path.join(workdir, "videos-0.tfrecord")
+    truth = write_frame_level_fixture(data, 96, seed=0)
+    n_batches = -(-len(truth) // batch_size)
+    batches = load_batches(data, dev, batch_size)
+    padding = int(sum((~real).sum().item() for _, _, real, _ in batches))
+    fps, launches = {}, dict.fromkeys(KERNELS, 0)
+    for name in FAST_ATTENTION_MODELS:
+        want = {"masked_attention_fused": mcfg.transformer_layers * n_batches}
+        if name == "AttentionNetVLADModel":
+            want["netvlad_fused"] = n_batches
+        fps[name], got, info = drive_model(dev, name, mcfg, ATTN_CLI_FLAGS, workdir, data, truth, batches,
+                                           want)
+        for n, c in got.items():
+            launches[n] += c
+        emit({"phase": "attn_e2e", "model": name, "videos": len(truth), "batches": n_batches,
+              "padding_rows": padding, **info, "launches": got, "card": smi})
+    return fps, launches
+
+
+def phase_attn_throughput(dev, fps, smi):
+    """Each transformer-family model's kernel route at B=256, all 300 frames,
+    num_frames random in 1–300, uint8 in and top-20 out: videos/s (the
+    median of five rounds), the plain route and both routes' peak memory
+    beside it; then torch.profiler over five kernel-route batches
+    (attn_profile)."""
+    mcfg = attn_config()
+    b = ATTN_TIMING[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    x = torch.randint(0, 256, (b, F, DT), generator=gen, device=dev, dtype=torch.uint8)
+    nf = torch.randint(1, F + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    for name, fp in fps.items():
+        path = get_fast_path(name)
+        fn, plain = path.build(mcfg, top_k=20), path.build(mcfg, top_k=20, use_kernels=False)
+        peak = {}
+        torch.cuda.reset_peak_memory_stats()
+        rounds = [time_ms(lambda: fn(fp, x, nf, None), reps=5) for _ in range(5)]
+        peak["kernel"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = time_ms(lambda: plain(fp, x, nf, None), reps=5)
+        peak["plain"] = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(rounds)
+        emit({"phase": "attn_throughput", "model": name, "B": b, "F": F, "videos_per_s": b / (ms / 1e3),
+              "videos_per_s_rounds": [b / (r / 1e3) for r in rounds], "batch_ms": ms,
+              "plain_batch_ms": plain_ms, "plain_videos_per_s": b / (plain_ms / 1e3),
+              "peak_mem_gib": peak, "card": smi})
+        emit({"phase": "attn_profile", "model": name, "route": "kernel", "B": b, "F": F,
+              **profile_device(lambda: fn(fp, x, nf, None)), "card": smi})
 
 
 def main() -> int:
@@ -1096,11 +1291,22 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     phase_lf_throughput(dev, fps, smi)
     del fps
+    e, t, library_ms = phase_attn_kernels(dev, smi)
+    errors.update(e)
+    timing.update(t)
+    shapes.update(dict.fromkeys(t, "B={} F={} H={} hd={} bf16".format(*ATTN_TIMING)))
+    library = {"masked_attention_fused": library_ms}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_attn_") as workdir:
+        fps, attn_launches = phase_attn_e2e(dev, workdir, smi)
+    for name, n in attn_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    phase_attn_throughput(dev, fps, smi)
+    del fps
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], "max_abs_err": errors[name], "ms": timing[name][0],
          "plain_ms": timing[name][1], "bound_ms": timing[name][2][0],
-         "bound_by": timing[name][2][1], "library_ms": None, "shape": shapes[name]}
+         "bound_by": timing[name][2][1], "library_ms": library.get(name), "shape": shapes[name]}
         for name, spec in KERNELS.items()
     ]})
     print(smi, flush=True)

@@ -1,8 +1,10 @@
 """Weight bridge between the JAX package's flax variables and the port.
 
 The flax ``{params, batch_stats}`` tree of an LF model (``NetVLADModelLF``
-and the rest of the LOUPE family) crosses over as nested dicts of NumPy
-arrays, so the port needs neither JAX nor orbax.  On the JAX side:
+and the rest of the LOUPE family) or of the transformer family
+(``TransformerEncoderModel``, ``AttentionNetVLADModel``) crosses over as
+nested dicts of NumPy arrays, so the port needs neither JAX nor orbax.  On
+the JAX side:
 
     tree = jax.tree.map(np.asarray, CheckpointManager(d).restore(step))
     save_variables_npz({"params": tree["params"],
@@ -36,6 +38,7 @@ from learnablepoolingmethods_torch.models.frame_level import (
     lf_hparams,
     lf_layout,
 )
+from learnablepoolingmethods_torch.ops.fast_dispatch import FAST_ATTENTION_MODELS
 
 NPZ_NAME = "variables.npz"
 
@@ -129,31 +132,88 @@ def _pool_spec(model_name: str, mod: PoolLayout, mcfg: ModelConfig, add_bn: bool
     return spec
 
 
+def _attention_spec(model_name: str, mcfg: ModelConfig, input_size: int, add_bn: bool):
+    """The transformer family's parameters before the shared tail (ref:
+    models/attention.py): ``(path under params, shape, init)`` with init a
+    normal's std (flax's lecun-normal kernels: 1/√fan_in), ``"zeros"``,
+    ``"ones"`` or ``"bn"`` (scale and bias in params, mean and var in
+    batch_stats); then (descriptor width, hidden size, the cluster count
+    that scales the hidden FC, relu6 after it)."""
+    d, heads, ff = mcfg.attention_hidden_size, mcfg.attention_heads, mcfg.transformer_ff_size
+    if d % heads:
+        raise ValueError(f"--attention_hidden_size={d} is not a multiple of --attention_heads={heads}")
+    hd = d // heads
+    spec = [("input_proj/kernel", (input_size, d), 1 / np.sqrt(input_size)),
+            ("input_proj/bias", (d,), "zeros")]
+    for i in range(mcfg.transformer_layers):
+        layer = f"encoder/layer_{i}"
+        for name in ("query", "key", "value"):
+            spec += [(f"{layer}/mha/{name}/kernel", (d, heads, hd), 1 / np.sqrt(d)),
+                     (f"{layer}/mha/{name}/bias", (heads, hd), "zeros")]
+        spec += [(f"{layer}/mha/out/kernel", (heads, hd, d), 1 / np.sqrt(d)),
+                 (f"{layer}/mha/out/bias", (d,), "zeros")]
+        for ln in ("ln1", "ln2"):
+            spec += [(f"{layer}/{ln}/scale", (d,), "ones"), (f"{layer}/{ln}/bias", (d,), "zeros")]
+        spec += [(f"{layer}/ff1/kernel", (d, ff), 1 / np.sqrt(d)), (f"{layer}/ff1/bias", (ff,), "zeros"),
+                 (f"{layer}/ff2/kernel", (ff, d), 1 / np.sqrt(ff)), (f"{layer}/ff2/bias", (d,), "zeros")]
+    if model_name == "TransformerEncoderModel":
+        return spec, (d, mcfg.attention_hidden_size, d, False)
+    k = mcfg.netvlad_cluster_size
+    spec.append(("vlad/cluster_weights", (d, k), 1 / np.sqrt(d)))
+    spec.append(("vlad/cluster_bn", (k,), "bn") if add_bn else ("vlad/cluster_biases", (k,), 1 / np.sqrt(d)))
+    spec.append(("vlad/cluster_weights2", (1, d, k), 1 / np.sqrt(d)))
+    return spec, (d * k, mcfg.netvlad_hidden_size, k, mcfg.netvlad_relu)
+
+
+def _check_attention_layout(tree_np: Tree, mcfg: ModelConfig, model_name: str):
+    """Check a transformer-family tree against ``mcfg``; returns the hidden
+    FC's (descriptor width, hidden size)."""
+    input_size = _shape(tree_np, "params/input_proj/kernel")[0]
+    spec, (width, h, _, _) = _attention_spec(model_name, mcfg, input_size, mcfg.netvlad_add_batch_norm)
+    for path, shape, init in spec:
+        if init != "bn":
+            _expect(tree_np, f"params/{path}", shape)
+            continue
+        for collection, leaves in (("params", ("scale", "bias")), ("batch_stats", ("mean", "var"))):
+            for leaf in leaves:
+                _expect(tree_np, f"{collection}/{path}/{leaf}", shape)
+    extra = f"layer_{mcfg.transformer_layers}"
+    if extra in tree_np["params"]["encoder"]:
+        raise ValueError(f"params/encoder/{extra}: the variables have more than "
+                         f"--transformer_layers={mcfg.transformer_layers} layers")
+    return width, h
+
+
 def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "NetVLADModelLF") -> Tree:
     """Flax ``{params, batch_stats}`` tree of NumPy arrays → the same tree
-    of float32 CPU tensors, after checking the layout of the LF model
-    ``model_name`` against ``mcfg``: every pooling module's parameters and
-    BN statistics, the hidden FC and the MoE head."""
+    of float32 CPU tensors, after checking the layout of ``model_name`` (an
+    LF model or one of ``FAST_ATTENTION_MODELS``) against ``mcfg``: every pooling
+    module's (or the input projection's and every encoder layer's)
+    parameters and BN statistics, the hidden FC and the MoE head."""
     params = tree_np["params"]
-    if model_name not in LF_MODULE_PREFIX:
-        raise ValueError(f"convert_flax_variables reads the LF models {sorted(LF_MODULE_PREFIX)}, "
-                         f"not {model_name!r}")
-    prefix = LF_MODULE_PREFIX[model_name]
-    first = "expansion_weights" if model_name == "NeXtVLADModel" else "cluster_weights"
-    input_size = sum(_shape(tree_np, f"params/{prefix}_{i}/{first}")[0]
-                     for i in (0, 1) if i == 0 or f"{prefix}_{i}" in params)
-    add_bn = mcfg.netvlad_add_batch_norm
-    layout = lf_layout(model_name, mcfg, input_size)
-    for mod in layout:
-        for name, shape, std in _pool_spec(model_name, mod, mcfg, add_bn):
-            if std is not None:
-                _expect(tree_np, f"params/{mod.name}/{name}", shape)
-                continue
-            for collection, leaves in (("params", ("scale", "bias")), ("batch_stats", ("mean", "var"))):
-                for leaf in leaves:
-                    _expect(tree_np, f"{collection}/{mod.name}/{name}/{leaf}", shape)
-    _, h, _ = lf_hparams(model_name, mcfg)
-    _expect(tree_np, "params/hidden1_weights", (sum(mod.width for mod in layout), h))
+    if model_name in FAST_ATTENTION_MODELS:
+        width, h = _check_attention_layout(tree_np, mcfg, model_name)
+    elif model_name in LF_MODULE_PREFIX:
+        prefix = LF_MODULE_PREFIX[model_name]
+        first = "expansion_weights" if model_name == "NeXtVLADModel" else "cluster_weights"
+        input_size = sum(_shape(tree_np, f"params/{prefix}_{i}/{first}")[0]
+                         for i in (0, 1) if i == 0 or f"{prefix}_{i}" in params)
+        add_bn = mcfg.netvlad_add_batch_norm
+        layout = lf_layout(model_name, mcfg, input_size)
+        for mod in layout:
+            for name, shape, std in _pool_spec(model_name, mod, mcfg, add_bn):
+                if std is not None:
+                    _expect(tree_np, f"params/{mod.name}/{name}", shape)
+                    continue
+                for collection, leaves in (("params", ("scale", "bias")), ("batch_stats", ("mean", "var"))):
+                    for leaf in leaves:
+                        _expect(tree_np, f"{collection}/{mod.name}/{name}/{leaf}", shape)
+        _, h, _ = lf_hparams(model_name, mcfg)
+        width = sum(mod.width for mod in layout)
+    else:
+        raise ValueError(f"convert_flax_variables reads the LF models {sorted(LF_MODULE_PREFIX)} and "
+                         f"{list(FAST_ATTENTION_MODELS)}, not {model_name!r}")
+    _expect(tree_np, "params/hidden1_weights", (width, h))
     if "MoeModel_0" in params:
         m, v = mcfg.moe_num_mixtures, mcfg.vocab_size
         _expect(tree_np, "params/MoeModel_0/gates_kernel", (h, (m + 1) * v))
@@ -204,14 +264,17 @@ def load_flax_variables(model: torch.nn.Module, tree_np: Tree) -> torch.nn.Modul
 
 def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
                       model_name: str = "NetVLADModelLF") -> Tree:
-    """The ``{params, batch_stats}`` tree of the LF model ``model_name`` with
-    flax's key set, shapes and initial scales, drawn from ``seed`` with
-    NumPy: ``normal(1/√fan)`` for the pooling modules' matrices (NeXtVLAD's
-    C₂ ``[K, D′]`` at ``1/√D``) and the gating weights, ``normal(1/√K)`` for
-    the hidden FC with K the rgb cluster count, ``normal(0.01)`` for the
-    hidden bias, xavier-uniform MoE kernels with a zero bias
-    (models/modules.py, models/frame_level.py, models/video_level.py), and
-    BN scale 1, bias 0, mean 0, var 1."""
+    """The ``{params, batch_stats}`` tree of ``model_name`` (an LF model or
+    one of ``FAST_ATTENTION_MODELS``) with flax's key set, shapes and initial
+    scales, drawn from ``seed`` with NumPy: ``normal(1/√fan)`` for the
+    pooling modules' matrices (NeXtVLAD's C₂ ``[K, D′]`` at ``1/√D``), the
+    transformer's kernels (flax's lecun-normal, untruncated) and the gating
+    weights, zero Dense biases and LayerNorm scale 1, ``normal(1/√K)`` for
+    the hidden FC with K the rgb cluster count (the model width for
+    TransformerEncoderModel), ``normal(0.01)`` for the hidden bias,
+    xavier-uniform MoE kernels with a zero bias (models/modules.py,
+    models/frame_level.py, models/video_level.py, and the JAX package's
+    models/attention.py), and BN scale 1, bias 0, mean 0, var 1."""
     if mcfg.video_level_classifier_model != "MoeModel":
         raise ValueError("init_variables_np builds the MoeModel head only")
     if mcfg.netvlad_dimred > 0:
@@ -234,20 +297,40 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
         )
 
     add_bn = mcfg.netvlad_add_batch_norm
-    if add_bn:
-        params["input_bn"], stats["input_bn"] = bn(fcfg.total_size)
-    layout = lf_layout(model_name, mcfg, fcfg.total_size)
-    for mod in layout:
-        p = {}
-        for name, shape, std in _pool_spec(model_name, mod, mcfg, add_bn):
-            if std is None:
-                p[name], stats.setdefault(mod.name, {})[name] = bn(shape[0])
+    if model_name in FAST_ATTENTION_MODELS:
+        spec, (width, h, k, relu) = _attention_spec(model_name, mcfg, fcfg.total_size, add_bn)
+        for path, shape, init in spec:
+            *parents, leaf = path.split("/")
+            node = params
+            for name in parents:
+                node = node.setdefault(name, {})
+            if init == "bn":
+                snode = stats
+                for name in parents:
+                    snode = snode.setdefault(name, {})
+                node[leaf], snode[leaf] = bn(shape[0])
+            elif init == "zeros":
+                node[leaf] = np.zeros(shape, np.float32)
+            elif init == "ones":
+                node[leaf] = np.ones(shape, np.float32)
             else:
-                p[name] = normal(shape, std)
-        params[mod.name] = p
+                node[leaf] = normal(shape, init)
+    else:
+        if add_bn:
+            params["input_bn"], stats["input_bn"] = bn(fcfg.total_size)
+        layout = lf_layout(model_name, mcfg, fcfg.total_size)
+        for mod in layout:
+            p = {}
+            for name, shape, std in _pool_spec(model_name, mod, mcfg, add_bn):
+                if std is None:
+                    p[name], stats.setdefault(mod.name, {})[name] = bn(shape[0])
+                else:
+                    p[name] = normal(shape, std)
+            params[mod.name] = p
+        k, h, relu = lf_hparams(model_name, mcfg)
+        width = sum(mod.width for mod in layout)
 
-    k, h, relu = lf_hparams(model_name, mcfg)
-    params["hidden1_weights"] = normal((sum(mod.width for mod in layout), h), 1 / np.sqrt(k))
+    params["hidden1_weights"] = normal((width, h), 1 / np.sqrt(k))
     if add_bn and relu:
         params["hidden1_bn"], stats["hidden1_bn"] = bn(h)
     else:

@@ -2,8 +2,9 @@
 
 Streams frame-level TFRecords through the fast forward of ``--model`` (any
 LF model: ``NetVLADModelLF``, ``NetRVLADModelLF``, ``NetFVModelLF``,
-``SoftDbofModelLF``, ``NeXtVLADModel``) and on-device top-k, and writes
-the Kaggle submission CSV
+``SoftDbofModelLF``, ``NeXtVLADModel``; or the transformer family:
+``TransformerEncoderModel``, ``AttentionNetVLADModel``, which read every
+frame) and on-device top-k, and writes the Kaggle submission CSV
 ``VideoId,LabelConfidencePairs``.  The flags keep the JAX CLI's names;
 ``--device`` (default ``cuda``) is the port's own.  Weights come from
 ``<train_dir>/variables.npz`` (``core/weights.py#save_variables_npz``).
@@ -75,6 +76,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nextvlad_groups", type=int, default=8, help="NeXtVLAD attention groups.")
     p.add_argument("--nextvlad_expansion", type=int, default=2, help="NeXtVLAD expansion λ.")
     p.add_argument("--nextvlad_hidden_size", type=int, default=1024, help="NeXtVLAD hidden FC.")
+    p.add_argument("--attention_heads", type=int, default=8, help="Attention heads.")
+    p.add_argument("--attention_hidden_size", type=int, default=1024, help="Attention model width.")
+    p.add_argument("--transformer_layers", type=int, default=2, help="Transformer encoder depth.")
+    p.add_argument("--transformer_ff_size", type=int, default=2048, help="Transformer FFN width.")
+    p.add_argument("--attention_cluster_size", type=int, default=64, help="Attention pooling slots.")
+    p.add_argument("--attention_dropout", type=float, default=0.1,
+                   help="Attention dropout rate (no effect at inference).")
     p.add_argument("--device", default="cuda", help="Torch device: cuda (default), cuda:N or cpu.")
     return p
 
@@ -102,6 +110,12 @@ def model_config_from_args(args) -> ModelConfig:
         nextvlad_groups=args.nextvlad_groups,
         nextvlad_expansion=args.nextvlad_expansion,
         nextvlad_hidden_size=args.nextvlad_hidden_size,
+        attention_heads=args.attention_heads,
+        attention_hidden_size=args.attention_hidden_size,
+        transformer_layers=args.transformer_layers,
+        transformer_ff_size=args.transformer_ff_size,
+        attention_cluster_size=args.attention_cluster_size,
+        attention_dropout=args.attention_dropout,
         video_level_classifier_model=args.video_level_classifier_model,
     )
 

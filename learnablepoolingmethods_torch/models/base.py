@@ -27,7 +27,7 @@ _MODEL_REGISTRY: Dict[str, Type["BaseModel"]] = {}
 # models of the JAX zoo that the port has not built yet → ROADMAP.md queue-1 item
 _PENDING = {
     "DbofModel": 9, "LogisticModel": 9, "FrameLevelLogisticModel": 9,
-    "TransformerEncoderModel": 10, "AttentionPoolingModel": 10, "AttentionNetVLADModel": 10,
+    "TransformerEncoderModel": "10b", "AttentionPoolingModel": "10b", "AttentionNetVLADModel": "10b",
     "LstmModel": 11, "GruModel": 11,
 }
 

@@ -7,9 +7,11 @@
 - ``build(mcfg, top_k=20, use_kernels=True, return_probs=False)`` →
   ``fn(fp, features, num_frames, key, presampled=False)``.
 
-``NetVLADModelLF`` (``ops/fast_infer.py``) and the rest of the LOUPE family
-(``ops/fast_lf.py``) are ported; every other model of the JAX package
-raises an error naming the ROADMAP item that ports it.
+``NetVLADModelLF`` (``ops/fast_infer.py``), the rest of the LOUPE family
+(``ops/fast_lf.py``) and the transformer family (``ops/fast_transformer.py``)
+are ported; ``AttentionPoolingModel`` has no fast path in the JAX package
+either, and every other model raises an error naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -28,12 +30,12 @@ _PENDING = {
     "LogisticModel": 9,
     "MoeModel": 9,
     "FrameLevelLogisticModel": 9,
-    "TransformerEncoderModel": 10,
-    "AttentionPoolingModel": 10,
-    "AttentionNetVLADModel": 10,
     "LstmModel": 11,
     "GruModel": 11,
 }
+# models that the JAX package serves with the flax forward only: its CLI
+# refuses --fast_infer for them
+_NO_FAST_PATH = ("AttentionPoolingModel",)
 
 
 def _netvlad() -> FastPath:
@@ -70,13 +72,24 @@ def _lf(model_name: str) -> FastPath:
     return FastPath(prepare, build)
 
 
+def _attention(model_name: str) -> FastPath:
+    from learnablepoolingmethods_torch.ops import fast_transformer as ft
+
+    if model_name == "TransformerEncoderModel":
+        return FastPath(ft.prepare_fast_transformer_params, ft.build_fast_transformer_inference)
+    return FastPath(ft.prepare_fast_attn_netvlad_params, ft.build_fast_attn_netvlad_inference)
+
+
 # the LOUPE-family models that ops/fast_lf.py serves (the JAX package's
 # fast_dispatch.py#FAST_LF_MODELS)
 FAST_LF_MODELS = ("NetFVModelLF", "NetRVLADModelLF", "SoftDbofModelLF", "NeXtVLADModel")
+# the transformer family that ops/fast_transformer.py serves
+FAST_ATTENTION_MODELS = ("TransformerEncoderModel", "AttentionNetVLADModel")
 
 _FACTORIES: Dict[str, Callable[[], FastPath]] = {
     "NetVLADModelLF": _netvlad,
     **{name: (lambda n=name: _lf(n)) for name in FAST_LF_MODELS},
+    **{name: (lambda n=name: _attention(n)) for name in FAST_ATTENTION_MODELS},
 }
 
 
@@ -88,7 +101,8 @@ def fast_path_models() -> Tuple[str, ...]:
 def get_fast_path(model_name: str) -> FastPath:
     """The (prepare, build) pair of ``model_name``.
     Raises ``NotImplementedError`` for a model whose port is still queued
-    and ``ValueError`` for a name the package does not know."""
+    and ``ValueError`` for a model without a fast path in the JAX package
+    too, or a name the package does not know."""
     factory = _FACTORIES.get(model_name)
     if factory is not None:
         return factory()
@@ -97,4 +111,6 @@ def get_fast_path(model_name: str) -> FastPath:
             f"{model_name} has no PyTorch fast path yet: ROADMAP item "
             f"{_PENDING[model_name]} ports it (ported: {fast_path_models()})"
         )
+    if model_name in _NO_FAST_PATH:
+        raise ValueError(f"--fast_infer supports {fast_path_models()}, got {model_name!r}")
     raise ValueError(f"unknown model {model_name!r}; ported: {fast_path_models()}")

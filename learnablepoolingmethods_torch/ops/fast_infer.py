@@ -56,6 +56,14 @@ def _require_moe_head(params: Dict[str, Any], mcfg: ModelConfig):
         )
 
 
+def reject_int8_hidden(int8_hidden: bool) -> None:
+    """Every fast path refuses ``--int8_hidden`` until it is ported."""
+    if int8_hidden:
+        raise NotImplementedError(
+            "--int8_hidden (weight-only int8 hidden FC) is not ported yet: ROADMAP item 12"
+        )
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with a float32 result from inputs of either dtype, as
     ``jnp.matmul(..., preferred_element_type=float32)``: bf16 products are
@@ -98,11 +106,7 @@ def prepare_fast_params(
     ``variables`` is the ``{params, batch_stats}`` tree of float32 tensors
     that ``core/weights.py#convert_flax_variables`` returns.
     """
-    if int8_hidden:
-        raise NotImplementedError(
-            "--int8_hidden (weight-only int8 hidden FC) is not ported yet: "
-            "ROADMAP item 12"
-        )
+    reject_int8_hidden(int8_hidden)
     if not mcfg.netvlad_add_batch_norm or mcfg.netvlad_relu or not mcfg.gating:
         raise ValueError(
             "fast path supports the Willow config (BN on, relu off, gating on)"

@@ -37,6 +37,7 @@ from learnablepoolingmethods_torch.ops.fast_infer import (
     _require_moe_head,
     gated_moe_tail,
     matmul_f32,
+    reject_int8_hidden,
     staged_frames,
 )
 from learnablepoolingmethods_torch.ops.fused_frontend import gather_frames, sample_indices
@@ -65,10 +66,7 @@ def prepare_fast_lf_params(
     ``core/weights.py#convert_flax_variables`` returns."""
     if model_name not in FAST_LF_MODELS:
         raise ValueError(f"unsupported fast-LF model {model_name!r}")
-    if int8_hidden:
-        raise NotImplementedError(
-            "--int8_hidden (weight-only int8 hidden FC) is not ported yet: ROADMAP item 12"
-        )
+    reject_int8_hidden(int8_hidden)
     _, _, relu = lf_hparams(model_name, mcfg)
     if not mcfg.netvlad_add_batch_norm or relu or not mcfg.gating:
         raise ValueError(

@@ -1,0 +1,112 @@
+"""The port's masked attention (ops/masked_attention.py) ≡ the JAX package's
+on the CPU: the plain version against JAX's attention_reference and against
+its Pallas kernel masked_attention_fused in interpret mode, in f32 and with
+bf16 inputs, on rows whose num_frames is 0, 1 and F; the CPU wrapper takes
+the plain version; and the checks that guard the CUDA kernel's operands."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from learnablepoolingmethods_tpu.ops import fast_transformer as jft
+from learnablepoolingmethods_torch.ops import masked_attention as ma
+
+B, F = 4, 7
+
+
+def _inputs(seed, heads, hd, dtype, f=F):
+    """qkv [B, f, 3·H·hd] at the scale of the config's logits (a few units)
+    and a mask whose rows hold 0, 1, f and f − 2 valid frames."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(scale=2.0, size=(B, f, 3 * heads * hd)).astype(np.float32)
+    if dtype == "bfloat16":
+        qkv = np.array(jnp.asarray(qkv, jnp.bfloat16).astype(jnp.float32))
+    nf = np.array([0, 1, f, max(f - 2, 0)])
+    mask = (np.arange(f)[None, :] < nf[:, None]).astype(np.float32)
+    return qkv, mask
+
+
+def _jax(qkv, mask, heads, dtype, interpret):
+    x = jnp.asarray(qkv, jnp.dtype(dtype))
+    if interpret:
+        return np.asarray(jft.masked_attention_fused(x, jnp.asarray(mask), heads, interpret=True)
+                          .astype(jnp.float32))
+    d = qkv.shape[-1] // 3
+    return np.asarray(jft.attention_reference(x[..., :d], x[..., d:2 * d], x[..., 2 * d:],
+                                              jnp.asarray(mask), heads).astype(jnp.float32))
+
+
+def _torch(qkv, mask, heads, dtype):
+    t = torch.from_numpy(qkv).to(getattr(torch, dtype))
+    return ma.masked_attention_plain(t, torch.from_numpy(mask), heads)
+
+
+@pytest.mark.parametrize("interpret", [False, True], ids=["reference", "pallas_interpret"])
+@pytest.mark.parametrize("heads,hd", [(2, 8), (1, 16)])
+def test_plain_f32_matches_jax(interpret, heads, hd):
+    qkv, mask = _inputs(0, heads, hd, "float32")
+    want = _jax(qkv, mask, heads, "float32", interpret)
+    got = _torch(qkv, mask, heads, "float32")
+    assert got.dtype == torch.float32 and got.shape == (B, F, heads * hd)
+    # f32 throughout, sums in another order
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("interpret", [False, True], ids=["reference", "pallas_interpret"])
+def test_plain_bf16_matches_jax_at_the_bf16_gate(interpret):
+    """bf16 inputs through both, compared in f32 at the bf16 gate of
+    chip_smoke.py (1e-2·max|ref| + 2e-2·|ref|): the weights are rounded to
+    bf16 before ·V in both, the output once more."""
+    qkv, mask = _inputs(1, 2, 8, "bfloat16")
+    want = _jax(qkv, mask, 2, "bfloat16", interpret)
+    got = _torch(qkv, mask, 2, "bfloat16")
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= 1e-2 * np.abs(want).max() + 2e-2 * np.abs(want)).all(), diff.max()
+
+
+def test_all_masked_row_is_the_mean_of_v():
+    """num_frames 0: every key takes −1e9, so the weights are uniform over
+    all F rows, not NaN and not zero (flax's MHA gives the same row)."""
+    qkv, mask = _inputs(2, 2, 8, "float32")
+    got = _torch(qkv, mask, 2, "float32").numpy()
+    v = qkv[0, :, 2 * 16:]
+    np.testing.assert_allclose(got[0], np.broadcast_to(v.mean(axis=0), (F, 16)), atol=1e-6)
+    # one valid frame: every query takes that frame's v
+    np.testing.assert_allclose(got[1], np.broadcast_to(qkv[1, 0, 2 * 16:], (F, 16)), atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_wrapper_takes_the_plain_version(dtype):
+    qkv, mask = _inputs(3, 2, 8, "float32")
+    t = torch.from_numpy(qkv).to(dtype)
+    before = ma.masked_attention_fused.launches
+    got = ma.masked_attention_fused(t, torch.from_numpy(mask), 2)
+    torch.testing.assert_close(got, ma.masked_attention_plain(t, torch.from_numpy(mask), 2), rtol=0, atol=0)
+    assert ma.masked_attention_fused.launches == before
+
+
+@pytest.mark.parametrize("shape,heads,mask_shape,match", [
+    ((2, 5, 3 * 2 * 136), 2, (2, 5), "head width 136"),
+    ((2, 5, 3 * 2 * 12), 2, (2, 5), "head width 12"),
+    ((2, 5, 3 * 2 * 16 + 1), 2, (2, 5), "not 3·H·hd"),
+    ((2, 5, 3 * 2 * 16), 2, (2, 6), "mask"),
+    ((2, 5), 2, (2, 5), r"\[B, F, 3·H·hd\]"),
+])
+def test_check_attention_rejects_what_the_kernel_does_not_take(shape, heads, mask_shape, match):
+    with pytest.raises(ValueError, match=match):
+        ma.check_attention(torch.zeros(shape), torch.ones(mask_shape), heads)
+
+
+def test_check_attention_limits_and_layout():
+    assert ma.check_attention(torch.zeros(3, 4, 3 * 8 * 128, dtype=torch.bfloat16), torch.ones(3, 4), 8) \
+        == (3, 4, 8, 128)
+    with pytest.raises(ValueError, match="bf16/f32"):
+        ma.check_attention(torch.zeros(2, 5, 48, dtype=torch.float16), torch.ones(2, 5), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ma.check_attention(torch.zeros(5, 2, 48).transpose(0, 1), torch.ones(2, 5), 2)
+    with pytest.raises(ValueError, match="B <= 65535"):
+        ma.check_attention(torch.zeros(65536, 1, 24), torch.ones(65536, 1), 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ma.masked_attention_fused(torch.zeros(2, 5, 48, device="meta"), torch.ones(2, 5), 2)

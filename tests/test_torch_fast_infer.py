@@ -178,8 +178,8 @@ def test_unported_options_and_models_name_their_roadmap_item(setup):
         tfi.prepare_fast_params(tv, TCFG, int8_hidden=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         get_fast_path("DbofModel")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        get_fast_path("AttentionNetVLADModel")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        get_fast_path("LstmModel")
     with pytest.raises(ValueError, match="unknown model"):
         get_fast_path("NoSuchModel")
     assert get_fast_path("NetVLADModelLF").prepare(tv, TCFG, device="cpu")["w_rgb"].dtype == torch.bfloat16

@@ -51,7 +51,8 @@ def test_the_guard_covers_the_kernel_modules():
     that the guard imports, down to the newest ones."""
     names = _module_names()
     for module in ("fast_infer", "fast_lf", "fast_dispatch", "fused_frontend", "netvlad_fused",
-                   "netvlad_train", "netfv_fused", "softdbow_fused", "kernel_build"):
+                   "netvlad_train", "netfv_fused", "softdbow_fused", "kernel_build", "fast_transformer",
+                   "masked_attention"):
         assert f"learnablepoolingmethods_torch.ops.{module}" in names, module
     assert "learnablepoolingmethods_torch.models.frame_level" in names
 
