@@ -8,20 +8,38 @@
 // #masked_attention_fused (kernel body _attention_kernel), which holds one
 // whole video per grid step in VMEM (about 2.8 MB at F=300, D=1024, every
 // head's [F, F] f32 logits among it).  On this card one head's [300, 300] f32
-// logits alone are 360 KB, above the 227 KB a block may use, so this kernel
-// does not carry that block over: it is a flash-style loop with an online
-// softmax, and no [F, F] tensor ever reaches device memory.
+// logits alone are 360 KB, above the 227 KB a block may use, so neither
+// instantiation carries that block over: each is a flash-style loop with an
+// online softmax, and no [F, F] tensor ever reaches device memory.
 //
 // What bounds it: at B=256, F=300, D=1024, bf16, reading qkv once and writing
 // the output once is 629 MB, 0.188 ms at 3.35 TB/s; the two products are
 // 9.4e10 FLOP, 0.095 ms at 989 TFLOP/s of bf16 tensor cores.  So the bytes
-// bound it.  This simple version reads each video's K and V once per query
-// tile (5 times at F=300) and runs both products as f32 FMAs on the CUDA
-// cores, so the FMA and shared-memory instruction rates, not the bytes, limit it.
-// Tensor cores (mma.sync / wgmma), TMA loads and a pipelined K/V ring are
-// left to the redesign.
+// bound it.
 //
-// Design: one block per (query tile of 64 rows, head, video); 256 threads as
+// bf16 (every main path; masked_attention_mma_kernel below): both products
+// on tensor cores, mma.sync m16n8k16 with f32 accumulators, fed by ldmatrix;
+// K and V stream through a two-stage cp.async ring of 32-key tiles, so the
+// next tile's load overlaps this tile's products; Q, K and V stay bf16 in
+// shared memory (52 KB a block at hd=128, four blocks an SM, where the f32
+// tiles took 118 KB and one).  The grid walks a video's query tiles next to
+// each other, so its K and V, read once per query tile, come from L2 after
+// the first.  Its rounding points are those the first port's kernel had in
+// bf16 (steps 2-4 below): f32 logits (Q·Kᵀ of bf16 values summed in f32,
+// times 1/√hd, plus the f32 key bias), the unnormalised exp rounded to bf16
+// for P·V, the running sum of the unrounded exp, one division and one
+// rounding at the end.  Q·Kᵀ is taken on bf16 Q and scaled after, where the
+// f32 kernel scales Q first: the same f32 product up to its last bits; the
+// exp is exp2f(x·log2 e), a few f32 ulps from expf (1e-6 relative at the
+// largest differences, far below the bf16 rounding of P).  hd
+// is padded with zero columns to the next of 16, 32, 64 and 128 in shared
+// memory (mma's depth is 16).  Where trouble was: the running max starts at
+// −inf and masked keys take −1e9 added in f32, so a row with num_frames 0
+// still comes out as the mean of V; a partial last key tile is zero-filled.
+//
+// f32 (masked_attention_kernel, the first port's code, unchanged): f32 FMAs
+// on the CUDA cores, since TF32 tensor cores would miss the 1e-5 check.
+// One block per (query tile of 64 rows, head, video); 256 threads as
 // 16 row groups × 16 lanes, each thread owning query rows g + 16i (i < 4).
 //  1. The Q tile is read in place (row stride 3·D, no copies of q, k or v),
 //     divided by √hd in f32 as the plain version does, and kept in shared
@@ -43,6 +61,7 @@
 //     computed on zeros and not stored.
 
 #include "netvlad_core.cuh"
+#include "tensor_core.cuh"
 
 namespace lpm {
 
@@ -65,27 +84,8 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  uint2 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-  h[0] = __floats2bfloat162_rn(v[0], v[1]);
-  h[1] = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // Rows [r0, r0 + 64) of one head's hd columns (src points at column 0 of the
@@ -248,17 +248,250 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mas
   }
 }
 
-template <typename T>
-cudaError_t run_masked_attention(const T* qkv, const float* mask, T* out, int B, int F, int H,
-                                 int hd, cudaStream_t stream) {
-  if (B < 1 || B > 65535 || F < 1 || H < 1 || H > 65535 || hd < 8 || hd > kAttnMaxHd || hd % 8)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(masked_attention_kernel<T>,
+// ------------------------------------------------ bf16: tensor cores --
+//
+// One block per (query tile of 64 rows, head, video), 4 warps, warp w owning
+// query rows 16w..16w+15 of the tile.  Shared memory, bf16, rows of kHd + 8
+// (52 KB at hd=128, so four blocks an SM): the Q tile, then two ring stages
+// of (K tile, V tile) of 32 keys each.
+//  1. Q and the first two K/V tiles go out as cp.async groups; rows at or
+//     past F and columns at or past hd are zero-filled, so no stale shared
+//     memory reaches a product (0 · 0 past F, where the weight is 0 too).
+//  2. Per key tile: wait for its group, one barrier, S = Q·Kᵀ (Q's and K's
+//     fragments by ldmatrix, K as the col-major B operand), S·(1/√hd) + key
+//     bias in f32 (−inf past F, (1 − mask)·(−1e9) below it), the online
+//     softmax on the accumulator fragments (row max and sum across the 4
+//     lanes of a row by shuffles), then O += P·V with P packed to bf16 in
+//     registers as the A operand and V by ldmatrix.trans.  A 16-key step
+//     wholly past F is skipped (its P and V are 0); key tiles never are.  A
+//     barrier, then the tile two ahead is loaded into the stage just freed.
+//  3. O / l rounded to bf16 into the warp's own rows of the freed ring, then
+//     16-byte stores of the rows below F.
+// Q's fragments are read again for every key tile rather than kept in
+// registers: that holds the kernel to 128 registers a thread, and the four
+// blocks an SM it allows hide the latency of each tile's chain of products,
+// softmax and products, which is what bounds it at these sizes.
+
+constexpr int kMmaRows = 64;      // query rows per block, 16 per warp
+constexpr int kMmaKeys = 32;      // keys per ring tile
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+// e^x for the softmax: exp2f(x·log2 e), MUFU.EX2 and a multiply (the
+// difference x is formed first, so a −1e9 logit minus a −1e9 max is 0)
+__device__ __forceinline__ float softmax_exp(float x) { return exp2f(x * kLog2e); }
+
+template <int kHd>
+constexpr size_t mma_attn_smem_bytes() {  // Q, then two stages of (K, V): 53,248 at 128
+  return sizeof(__nv_bfloat16) * (kHd + 8) * (kMmaRows + 4 * kMmaKeys);
+}
+
+// rows [r0, r0 + kRows) of one head's columns [0, kHd) (src at the head's
+// column 0, rows ld apart) → dst [kRows][kHd + 8], 16 bytes per cp.async;
+// rows at or past F and columns at or past hd are zero-filled
+template <int kHd, int kRows>
+__device__ __forceinline__ void load_tile_async(const __nv_bfloat16* src, long long ld, int r0,
+                                                int F, int hd, __nv_bfloat16* dst) {
+  constexpr int kChunks = kHd / 8;
+  for (int i = threadIdx.x; i < kRows * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = r0 + r < F && c < hd;
+    cp_async_16(smem_addr(dst + r * (kHd + 8) + c), ok ? src + (long long)(r0 + r) * ld + c : src,
+                ok ? 16 : 0);
+  }
+}
+
+template <int kHd>
+__global__ void __launch_bounds__(kMmaThreads, 4)
+masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ mask,
+                            __nv_bfloat16* __restrict__ out, int F, int H, int hd,
+                            float inv_sqrt_hd) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kPitch = kHd + 8, kTile = kMmaKeys * kPitch;
+  constexpr int kChunks = kHd / 8;   // 16-byte chunks of a row; also O's 8-wide column tiles
+  constexpr int kNJ = kMmaKeys / 8;  // 8-key column tiles of S
+  extern __shared__ float4 mma_attn_smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(mma_attn_smem4);
+  bf16* kv_s = q_s + kMmaRows * kPitch;  // stage s: K at 2s·kTile, V one tile later
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int D = H * hd;
+  const long long ld = 3LL * D;
+  const bf16* video = qkv + (long long)b * F * ld + (long long)h * hd;
+  const float* mrow = mask + (long long)b * F;
+  const int ntiles = (F + kMmaKeys - 1) / kMmaKeys;
+  auto load_kv = [&](int tile) {
+    bf16* dst = kv_s + (tile & 1) * 2 * kTile;
+    load_tile_async<kHd, kMmaKeys>(video + D, ld, tile * kMmaKeys, F, hd, dst);
+    load_tile_async<kHd, kMmaKeys>(video + 2 * D, ld, tile * kMmaKeys, F, hd, dst + kTile);
+  };
+
+  load_tile_async<kHd, kMmaRows>(video, ld, q0, F, hd, q_s);
+  load_kv(0);
+  cp_async_commit();
+  if (ntiles > 1) load_kv(1);
+  cp_async_commit();  // one group per stage, empty or not, so the wait below is uniform
+
+  // ldmatrix row and column of this lane: A (Q), B from K, B from V (trans)
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
+
+  float o[kChunks][4];
+#pragma unroll
+  for (int n = 0; n < kChunks; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kMmaKeys;
+    const bf16* k_s = kv_s + (it & 1) * 2 * kTile;
+    const bf16* v_s = k_s + kTile;
+    float bias[kNJ][2];  // keys k0 + 8j + 2t + e
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e;
+        bias[j][e] = key < F ? (1.f - __ldg(mrow + key)) * -1e9f : -INFINITY;
+      }
+    cp_async_wait<1>();  // this thread's copies of tile it (and Q) have landed
+    __syncthreads();     // and everyone's
+
+    float s[kNJ][4];  // logits of rows g, g + 8 against keys k0 + 8j + 2t + (0, 1)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kHd / 16; ++ks) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, smem_addr(q_s + (warp * 16 + a_row) * kPitch + ks * 16 + a_col));
+#pragma unroll
+      for (int jp = 0; jp < kNJ / 2; ++jp) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, smem_addr(k_s + (jp * 16 + k_row) * kPitch + ks * 16 + k_col));
+        mma_bf16_16816(s[2 * jp], qa, kb[0], kb[1]);
+        mma_bf16_16816(s[2 * jp + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = s[j][2 * rh + e];
+          v = v * inv_sqrt_hd + bias[j][e];
+          mx = fmaxf(mx, v);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rh], mx);  // finite: every tile holds a key below F
+      const float alpha = softmax_exp(m[rh] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = s[j][2 * rh + e];
+          v = softmax_exp(v - m_new);
+          rs += v;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[rh] = l[rh] * alpha + rs;
+      m[rh] = m_new;
+#pragma unroll
+      for (int n = 0; n < kChunks; ++n) {
+        o[n][2 * rh] *= alpha;
+        o[n][2 * rh + 1] *= alpha;
+      }
+    }
+
+    // O += P·V over 16-key steps; P's C fragments of two 8-key tiles are
+    // the A fragment of one step
+#pragma unroll
+    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+      if (k0 + 16 * kk >= F) break;
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kHd / 16; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, smem_addr(v_s + (16 * kk + v_row) * kPitch + dp * 16 + v_col));
+        mma_bf16_16816(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16_16816(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < ntiles) load_kv(it + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // rows g, g + 8 of this warp: O / l rounded once, staged in the ring
+  // (free after the last barrier; warp w its own rows 16w..16w+15), then
+  // stored 16 bytes at a time
+  bf16* o_s = kv_s + warp * 16 * kPitch;
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+    for (int n = 0; n < kChunks; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o_s + (g + 8 * rh) * kPitch + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * rh] / l[rh], o[n][2 * rh + 1] / l[rh]);
+  __syncwarp();
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int row = q0 + warp * 16 + r;
+    if (row < F && c < hd)
+      *reinterpret_cast<uint4*>(out + ((long long)b * F + row) * D + (long long)h * hd + c) =
+          *reinterpret_cast<const uint4*>(o_s + r * kPitch + c);
+  }
+}
+
+template <int kHd>
+cudaError_t launch_masked_attention_mma(const __nv_bfloat16* qkv, const float* mask,
+                                        __nv_bfloat16* out, int B, int F, int H, int hd,
+                                        cudaStream_t stream) {
+  constexpr size_t bytes = mma_attn_smem_bytes<kHd>();
+  cudaError_t err = cudaFuncSetAttribute(masked_attention_mma_kernel<kHd>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)  // room for four blocks an SM
+    err = cudaFuncSetAttribute(masked_attention_mma_kernel<kHd>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + kMmaRows - 1) / kMmaRows, H, B);
+  masked_attention_mma_kernel<kHd><<<grid, kMmaThreads, bytes, stream>>>(
+      qkv, mask, out, F, H, hd, 1.f / sqrtf((float)hd));
+  return cudaGetLastError();
+}
+
+cudaError_t run_masked_attention(const __nv_bfloat16* qkv, const float* mask, __nv_bfloat16* out,
+                                 int B, int F, int H, int hd, cudaStream_t stream) {
+  if (hd <= 16) return launch_masked_attention_mma<16>(qkv, mask, out, B, F, H, hd, stream);
+  if (hd <= 32) return launch_masked_attention_mma<32>(qkv, mask, out, B, F, H, hd, stream);
+  if (hd <= 64) return launch_masked_attention_mma<64>(qkv, mask, out, B, F, H, hd, stream);
+  return launch_masked_attention_mma<128>(qkv, mask, out, B, F, H, hd, stream);
+}
+
+cudaError_t run_masked_attention(const float* qkv, const float* mask, float* out, int B, int F,
+                                 int H, int hd, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(masked_attention_kernel<float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kAttnSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((F + kAttnRows - 1) / kAttnRows, H, B);
-  masked_attention_kernel<T><<<grid, kAttnThreads, kAttnSmemBytes, stream>>>(
+  masked_attention_kernel<float><<<grid, kAttnThreads, kAttnSmemBytes, stream>>>(
       qkv, mask, out, F, H, hd, sqrtf((float)hd));
   return cudaGetLastError();
 }
@@ -267,16 +500,19 @@ cudaError_t run_masked_attention(const T* qkv, const float* mask, T* out, int B,
 
 extern "C" int lpm_masked_attention(const void* qkv, const void* mask, void* out, int is_bf16,
                                     int B, int F, int H, int hd, void* stream) {
+  if (B < 1 || B > 65535 || F < 1 || H < 1 || H > 65535 || hd < 8 || hd > lpm::kAttnMaxHd ||
+      hd % 8)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mask);
   if (is_bf16) {
     using bf16 = __nv_bfloat16;
-    err = lpm::run_masked_attention<bf16>(static_cast<const bf16*>(qkv), m, static_cast<bf16*>(out),
-                                          B, F, H, hd, st);
+    err = lpm::run_masked_attention(static_cast<const bf16*>(qkv), m, static_cast<bf16*>(out), B,
+                                    F, H, hd, st);
   } else {
-    err = lpm::run_masked_attention<float>(static_cast<const float*>(qkv), m,
-                                           static_cast<float*>(out), B, F, H, hd, st);
+    err = lpm::run_masked_attention(static_cast<const float*>(qkv), m, static_cast<float*>(out),
+                                    B, F, H, hd, st);
   }
   return (int)err;
 }

@@ -22,10 +22,21 @@ CLUSTER_TILE = 128  # csrc/softdbow_fused.cu kBowClusters
 
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-    + [ctypes.c_void_p] * 6
+    + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 4
     + [ctypes.c_void_p]
 )
+
+
+def workspace_shapes(b: int, f: int, k: int, dtype: torch.dtype) -> dict:
+    """Shapes of the kernel's f32 scratch tensors, in the order the C entry
+    point takes them: ``ws_max`` and ``ws_sum``, one (max, Σ exp) partial per
+    frame row and 128-cluster tile, ``[B·F, ⌈K/128⌉]``; and for bf16 frames
+    ``ws_logits``, the logits ``[B·F, K]`` that the bf16 kernel writes once
+    and reads back (the f32 kernel recomputes them and takes none)."""
+    partials = (b * f, -(-k // CLUSTER_TILE))
+    logits = (b * f, k) if dtype == torch.bfloat16 else (0,)
+    return {"ws_max": partials, "ws_sum": partials, "ws_logits": logits}
 
 
 def softdbow_fused(
@@ -49,15 +60,14 @@ def softdbow_fused(
     bias = assign_bias.to(device=dev, dtype=torch.float32).reshape(k).contiguous()
 
     bow = torch.empty((b, k), dtype=torch.float32, device=dev)
-    tiles = -(-k // CLUSTER_TILE)
-    ws_max = torch.empty((b * f, tiles), dtype=torch.float32, device=dev)
-    ws_sum = torch.empty((b * f, tiles), dtype=torch.float32, device=dev)
+    ws = [torch.empty(shape, dtype=torch.float32, device=dev)
+          for shape in workspace_shapes(b, f, k, x.dtype).values()]
     fn = kernel_build.load_function("softdbow_fused", "lpm_softdbow_fused", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
             x.data_ptr(), x.stride(1), int(x.dtype == torch.bfloat16), c.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), bow.data_ptr(), ws_max.data_ptr(),
-            ws_sum.data_ptr(), b, f, d, k, torch.cuda.current_stream(dev).cuda_stream,
+            scale.data_ptr(), bias.data_ptr(), bow.data_ptr(), *(w.data_ptr() for w in ws),
+            b, f, d, k, torch.cuda.current_stream(dev).cuda_stream,
         )
     kernel_build.check(rc, "softdbow_fused")
     softdbow_fused.launches += 1

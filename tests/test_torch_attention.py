@@ -1,8 +1,13 @@
 """The port's masked attention (ops/masked_attention.py) ≡ the JAX package's
-on the CPU: the plain version against JAX's attention_reference and against
-its Pallas kernel masked_attention_fused in interpret mode, in f32 and with
-bf16 inputs, on rows whose num_frames is 0, 1 and F; the CPU wrapper takes
-the plain version; and the checks that guard the CUDA kernel's operands."""
+on the CPU: the plain version, at the JAX rounding points and at the bf16
+kernel's (``kernel_rounding``), against JAX's attention_reference and
+against its Pallas kernel masked_attention_fused in interpret mode, in f32
+and with bf16 inputs, on rows whose num_frames is 0, 1 and F; the CPU
+wrapper takes the plain version; and the checks that guard the CUDA
+kernel's operands."""
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,9 +42,9 @@ def _jax(qkv, mask, heads, dtype, interpret):
                                               jnp.asarray(mask), heads).astype(jnp.float32))
 
 
-def _torch(qkv, mask, heads, dtype):
+def _torch(qkv, mask, heads, dtype, kernel_rounding=False):
     t = torch.from_numpy(qkv).to(getattr(torch, dtype))
-    return ma.masked_attention_plain(t, torch.from_numpy(mask), heads)
+    return ma.masked_attention_plain(t, torch.from_numpy(mask), heads, kernel_rounding)
 
 
 @pytest.mark.parametrize("interpret", [False, True], ids=["reference", "pallas_interpret"])
@@ -66,11 +71,35 @@ def test_plain_bf16_matches_jax_at_the_bf16_gate(interpret):
     assert (diff <= 1e-2 * np.abs(want).max() + 2e-2 * np.abs(want)).all(), diff.max()
 
 
-def test_all_masked_row_is_the_mean_of_v():
+@pytest.mark.parametrize("interpret", [False, True], ids=["reference", "pallas_interpret"])
+@pytest.mark.parametrize("heads,hd,f", [(2, 8, F), (1, 16, 70)])
+def test_kernel_rounding_bf16_matches_jax_at_the_bf16_gate(interpret, heads, hd, f):
+    """The bf16 kernel's rounding points (the unnormalised exp rounded to
+    bf16 for ·V, the f32 sum divided out at the end) against the JAX
+    rounding points (the normalised weights rounded), at the same gate."""
+    qkv, mask = _inputs(4, heads, hd, "bfloat16", f)
+    want = _jax(qkv, mask, heads, "bfloat16", interpret)
+    got = _torch(qkv, mask, heads, "bfloat16", kernel_rounding=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, f, heads * hd)
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= 1e-2 * np.abs(want).max() + 2e-2 * np.abs(want)).all(), diff.max()
+
+
+@pytest.mark.parametrize("heads,hd", [(2, 8), (1, 16), (3, 40)])
+def test_kernel_rounding_f32_equals_the_default(heads, hd):
+    """In f32 nothing is rounded, so dividing by the sum after ·V instead of
+    before differs by f32 rounding alone."""
+    qkv, mask = _inputs(5, heads, hd, "float32")
+    np.testing.assert_allclose(_torch(qkv, mask, heads, "float32", kernel_rounding=True).numpy(),
+                               _torch(qkv, mask, heads, "float32").numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel_rounding", [False, True], ids=["jax_rounding", "kernel_rounding"])
+def test_all_masked_row_is_the_mean_of_v(kernel_rounding):
     """num_frames 0: every key takes −1e9, so the weights are uniform over
     all F rows, not NaN and not zero (flax's MHA gives the same row)."""
     qkv, mask = _inputs(2, 2, 8, "float32")
-    got = _torch(qkv, mask, 2, "float32").numpy()
+    got = _torch(qkv, mask, 2, "float32", kernel_rounding).numpy()
     v = qkv[0, :, 2 * 16:]
     np.testing.assert_allclose(got[0], np.broadcast_to(v.mean(axis=0), (F, 16)), atol=1e-6)
     # one valid frame: every query takes that frame's v
@@ -97,6 +126,19 @@ def test_cpu_wrapper_takes_the_plain_version(dtype):
 def test_check_attention_rejects_what_the_kernel_does_not_take(shape, heads, mask_shape, match):
     with pytest.raises(ValueError, match=match):
         ma.check_attention(torch.zeros(shape), torch.ones(mask_shape), heads)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 40, 128])
+def test_check_attention_takes_every_head_width_the_kernel_pads(hd):
+    """The bf16 kernel pads hd to 16, 32, 64 or 128 in shared memory, so the
+    wrapper still takes every multiple of 8 in [8, 128]."""
+    qkv = torch.zeros(2, 5, 3 * 3 * hd, dtype=torch.bfloat16)
+    assert ma.check_attention(qkv, torch.ones(2, 5), 3) == (2, 5, 3, hd)
+
+
+def test_max_head_dim_is_the_kernels():
+    src = (Path(ma.__file__).parents[1] / "csrc" / "masked_attention.cu").read_text()
+    assert int(re.search(r"constexpr int kAttnMaxHd = (\d+);", src).group(1)) == ma.MAX_HEAD_DIM
 
 
 def test_check_attention_limits_and_layout():

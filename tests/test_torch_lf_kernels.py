@@ -4,6 +4,9 @@ CPU, at the shapes of tests/unit/test_netfv_pallas.py and
 tests/unit/test_softdbow_pallas.py.  A CPU tensor takes the plain version;
 any other device goes to the kernel's checks, never to the plain version."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ import torch
 from learnablepoolingmethods_tpu.ops import netfv_pallas as jfv
 from learnablepoolingmethods_tpu.ops import softdbow_pallas as jbow
 from learnablepoolingmethods_torch.ops.netfv_fused import netfv_fused, netfv_reference
+from learnablepoolingmethods_torch.ops import softdbow_fused as bow_mod
 from learnablepoolingmethods_torch.ops.softdbow_fused import softdbow_fused, softdbow_reference
 
 # bf16 input, bf16 output: both sides compute in f32 from the same bf16
@@ -118,3 +122,33 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(rng):
         netfv_fused(fv[0].to("meta"), *fv[1:])
     with pytest.raises(ValueError, match="unsupported device meta"):
         softdbow_fused(bow[0].to("meta"), *bow[1:])
+
+
+@pytest.mark.parametrize("s", [1, 30, 150])
+@pytest.mark.parametrize("k", [10, 150, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_softdbow_workspace_matches_the_c_entry_point(s, k, dtype):
+    """lpm_softdbow_fused's scratch: after bow come ws_max and ws_sum, one
+    (max, Σ exp) partial per frame row and 128-cluster tile (the tile width
+    of csrc/softdbow_fused.cu), then ws_logits, every logit for bf16 frames
+    and nothing for f32; the ctypes signature has one pointer for each."""
+    src = (Path(bow_mod.__file__).parents[1] / "csrc" / "softdbow_fused.cu").read_text()
+    assert int(re.search(r"constexpr int kBowClusters = (\d+);", src).group(1)) == bow_mod.CLUSTER_TILE
+    entry = re.search(r'extern "C" int lpm_softdbow_fused\(([^)]*)\)', src).group(1)
+    params = [p.split()[-1].lstrip("*") for p in entry.split(",")]
+    shapes = bow_mod.workspace_shapes(7, s, k, dtype)
+    assert params[params.index("bow") + 1:params.index("B")] == list(shapes)
+    assert len(bow_mod._ARGTYPES) == len(params)
+    tiles = -(-k // 128)
+    assert shapes["ws_max"] == shapes["ws_sum"] == (7 * s, tiles)
+    assert (tiles - 1) * 128 < k <= tiles * 128
+    assert shapes["ws_logits"] == ((7 * s, k) if dtype == torch.bfloat16 else (0,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softdbow_cpu_wrapper_takes_the_plain_version(dtype):
+    x, c, scale, bias = _torch(_softdbow_inputs(5), dtype)
+    before = softdbow_fused.launches
+    got = softdbow_fused(x, c, scale, bias)
+    torch.testing.assert_close(got, softdbow_reference(x, c, scale, bias), rtol=0, atol=0)
+    assert softdbow_fused.launches == before
