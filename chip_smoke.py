@@ -6,17 +6,29 @@ from the root of a checkout.  It imports nothing of JAX, fails on any
 error, and prints one JSON line per phase:
 
 1. env        torch and CUDA versions, the card's name and power limit;
-2. build      nvcc builds every kernel under learnablepoolingmethods_torch/csrc;
-3. kernels    both inference kernels against their plain PyTorch versions at
-              Willow shapes (D 1024/128, K 256/128), B=64, S=30, S=300 and
-              S=1 (where each descriptor shows which frame the front end
-              drew), num_frames including 1 and 300, and at one small shape off
-              every tile width; for a bf16 output |Δ| <= 1e-2·max|ref| +
-              2e-2·|ref| in f32 (one bf16 rounding of the output plus another
-              f32 summation order; the per-element magnitude at full width is
-              about 2e-3, so an absolute 2e-2 would test nothing), for an f32
-              output 1e-5·max|ref| + 1e-5·|ref| (the summation order alone);
-              times at B=512, S=30 and S=300 with CUDA events;
+2. build      nvcc builds every kernel under learnablepoolingmethods_torch/csrc,
+              one process per source, and beside them an -Xptxas -v compile of
+              the two inference kernels' sources: registers, static shared
+              memory and spills per kernel;
+3. kernels    both inference kernels against their plain PyTorch versions
+              (KERNEL_CHECKS): Willow shapes (D 1024/128, K 256/128), B=64,
+              S=30, S=300 and S=1 (where each descriptor shows which frame the
+              front end drew), S=31 and 33 (a partial stage of the bf16
+              aggregation's ring), K 500/512 (the two-pass aggregation at
+              D=1024, a two-block cluster at D=128), num_frames including 1
+              and 300, and one small shape off every tile width; bf16
+              netvlad_fused through both its one- and two-pass aggregation;
+              every bf16 result equal bit for bit to a second launch's, and
+              the built kernel's tiling equal to ops/netvlad_fused.py's; for a
+              bf16 output |Δ| <= 1e-2·max|ref| + 2e-2·|ref| in f32 (one bf16
+              rounding of the output plus another f32 summation order; the
+              per-element magnitude at full width is about 2e-3, so an
+              absolute 2e-2 would test nothing), for an f32 output
+              1e-5·max|ref| + 1e-5·|ref| (the summation order alone); then
+              netvlad_fused at AttentionNetVLAD's shape (B=256, 300 contiguous
+              bf16 rows, D=1024, K=256), checked and timed; times at B=512,
+              S=30 and S=300 with CUDA events, the two-pass aggregation's
+              beside the one-pass one's;
 4. e2e        full-width Willow GatedNetVLAD-256 weights from a seed (hidden
               FC 278528×1024, V=3862, M=2, BN stats perturbed) and 96
               synthetic videos driven down two paths, each with the launch
@@ -158,7 +170,12 @@ from learnablepoolingmethods_torch.ops.masked_attention import (
     masked_attention_plain,
 )
 from learnablepoolingmethods_torch.ops.netfv_fused import netfv_fused, netfv_reference
-from learnablepoolingmethods_torch.ops.netvlad_fused import netvlad_fused, netvlad_reference
+from learnablepoolingmethods_torch.ops.netvlad_fused import (
+    aggregation_geometry,
+    kernel_geometry,
+    netvlad_fused,
+    netvlad_reference,
+)
 from learnablepoolingmethods_torch.ops.softdbow_fused import softdbow_fused, softdbow_reference
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
 from learnablepoolingmethods_torch.ops.netvlad_train import (
@@ -179,11 +196,19 @@ MODS = ((D_RGB, K_RGB), (D_AUD, K_AUD))
 # design, and the time of the first port's FMA-only kernel at the same shape
 # (PERF.md's kernel table), beside each kernel_times line
 REDESIGNED = {
+    "netvlad_frontend": {"design": "bf16 logits+softmax GEMM on mma.sync, one-pass aggregation on mma.sync "
+                                   "(A split hi+lo) in persistent 8-block clusters; warp-per-row prep",
+                         "earlier_ms": 2.569},
+    "netvlad_fused": {"design": "bf16 as netvlad_frontend (two-pass tensor-core aggregation past a portable "
+                                "cluster); f32 FMA",
+                      "earlier_ms": 2.428},
     "softdbow_fused": {"design": "bf16 mma.sync + cp.async ring, logits kept in f32 scratch; f32 FMA",
                        "earlier_ms": 14.140},
     "masked_attention_fused": {"design": "bf16 mma.sync + cp.async ring; f32 FMA",
                                "earlier_ms": 5.409},
 }
+# the first port's times of the NetVLAD inference kernels at B=512, S=300
+EARLIER_S300_MS = {"netvlad_frontend": 18.642, "netvlad_fused": 17.664}
 KERNELS = {
     "netvlad_frontend": dict(
         fn=netvlad_frontend,
@@ -298,20 +323,21 @@ def frames(rng: np.random.Generator, b: int, dev, f: int = F, dt: int = DT):
     return x, torch.from_numpy(nf).to(dev)
 
 
-def bound(b: int, s: int, idx, frontend: bool):
-    """Least time (ms) for the work of one call (frontend) or of the two
-    staged netvlad_fused calls: bytes each read or written once over the HBM
-    rate, or the logits and the aggregation over the bf16 tensor-core rate,
-    whichever is larger.  The aggregation counts at that rate because X is
-    exact in bf16 and A splits into bf16 terms without losing f32 accuracy."""
-    dk = sum(d * k for d, k in MODS)
-    consts = sum(d * k * 2 + 2 * k * 4 + d * k * 4 for d, k in MODS)
+def bound(b: int, s: int, idx, frontend: bool, mods=MODS):
+    """Least time (ms) for the work of one call (frontend) or of the
+    netvlad_fused calls of ``mods`` (the staged pair by default): bytes each
+    read or written once over the HBM rate, or the logits and the
+    aggregation over the bf16 tensor-core rate, whichever is larger.  The
+    aggregation counts at that rate because X is exact in bf16 and A splits
+    into bf16 terms without losing f32 accuracy."""
+    dk = sum(d * k for d, k in mods)
+    consts = sum(d * k * 2 + 2 * k * 4 + d * k * 4 for d, k in mods)
     out = b * dk * 2
     if frontend:
         rows = sum(len(torch.unique(r)) for r in idx.cpu())
         nbytes = rows * DT + b * s * 4 + 2 * DT * 4 + consts + out
     else:
-        nbytes = b * s * DT * 2 + consts + out
+        nbytes = b * s * sum(d for d, _ in mods) * 2 + consts + out
     flops = 2 * b * s * dk
     ops_ms = 2 * flops / PEAK_BF16 * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -328,64 +354,117 @@ def phase_env():
     return smi
 
 
+# the sources whose kernels nvcc's -Xptxas -v reports in the build phase
+PTXAS_REPORT = ("netvlad_fused", "fused_frontend")
+
+
 def phase_build():
+    """Every library, one nvcc per source, all started together; beside them
+    (same time) a -Xptxas -v compile of PTXAS_REPORT whose registers, shared
+    memory and spills per kernel are printed."""
     start = time.perf_counter()
+    reports = {name: kernel_build.ptxas_report_start(name) for name in PTXAS_REPORT}
     per_source = kernel_build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - start, "per_source": per_source})
+    for name, proc in reports.items():
+        emit({"phase": "build", "ptxas": name, "kernels": kernel_build.ptxas_report_finish(proc)})
 
 
 def check_kernels(rng, dev, b: int, f: int, s: int, mods, errors) -> list:
     """Both kernels against their plain versions on one random batch: the
     front end on uint8 frames, and netvlad_fused in bf16 and f32 on the
-    staged route's rows (strided column slices, as fast_infer passes them)."""
+    staged route's rows (strided column slices, as fast_infer passes them);
+    bf16 netvlad_fused also through its two-pass aggregation.  Each bf16
+    result must equal a second launch's bit for bit, and the aggregation's
+    tiling that the built kernel picks must be ops/netvlad_fused.py's."""
     d_rgb = mods[0][0]
     dt = sum(d for d, _ in mods)
     consts = frontend_consts(rng, dev, mods)
     x, nf = frames(rng, b, dev, f, dt)
     key = prng.key(s)
     idx = sample_indices(key, nf, f, s)
-    shape = {"B": b, "F": f, "S": s, "D": [d for d, _ in mods], "K": [k for _, k in mods]}
+    shape = {"B": b, "F": f, "S": s, "D": [d for d, _ in mods], "K": [k for _, k in mods],
+             "one_pass": [aggregation_geometry(d, k)["one_pass"] for d, k in mods]}
+    for d, k in mods:
+        if kernel_geometry(d, k) != aggregation_geometry(d, k):
+            raise AssertionError(f"D={d} K={k}: the kernel tiles as {kernel_geometry(d, k)}, "
+                                 f"ops/netvlad_fused.py as {aggregation_geometry(d, k)}")
     checks = []
 
-    def record(kernel, label, got, want, **extra):
-        err = compare(f"{kernel} {label} {shape}", got, want)
+    def record(kernel, label, got, again, want, **extra):
+        err = compare(f"{kernel} {label} {extra} {shape}", got, want)
+        if again is not None and not torch.equal(got, again):
+            raise AssertionError(f"{kernel} {label} {extra} {shape}: two launches differ")
         errors[kernel] = max(errors[kernel], err)
         checks.append({"kernel": kernel, "modality": label, **extra, "max_abs_err": err,
-                       "max_ref": want.float().abs().max().item()})
+                       "max_ref": want.float().abs().max().item(), "same_bits": again is not None})
 
     got = netvlad_frontend(x, key, nf, s, *consts)
+    again = netvlad_frontend(x, key, nf, s, *consts)
     torch.cuda.synchronize()
     want = netvlad_frontend_reference(x, key, nf, s, *consts)
-    for mod, g, w in zip(("rgb", "aud"), got, want):
-        record("netvlad_frontend", mod, g, w)
+    for mod, g, g2, w in zip(("rgb", "aud"), got, again, want):
+        record("netvlad_frontend", mod, g, g2, w)
     for dtype in (torch.bfloat16, torch.float32):
         rows = staged_frames(gather_frames(x, idx), consts[0], consts[1], dtype)
         for mod, (c, sc, bi, c2), cols in (("rgb", consts[2:6], slice(0, d_rgb)),
                                            ("aud", consts[6:10], slice(d_rgb, dt))):
             xm, cm = rows[:, :, cols], c.to(dtype)
-            g = netvlad_fused(xm, cm, sc, bi, c2)
-            torch.cuda.synchronize()
-            record("netvlad_fused", mod, g, netvlad_reference(xm, cm, sc, bi, c2),
-                   dtype=str(dtype))
+            want = netvlad_reference(xm, cm, sc, bi, c2)
+            for two_pass in ((False, True) if dtype == torch.bfloat16 else (False,)):
+                g = netvlad_fused(xm, cm, sc, bi, c2, two_pass=two_pass)
+                g2 = netvlad_fused(xm, cm, sc, bi, c2, two_pass=two_pass) if dtype == torch.bfloat16 else None
+                torch.cuda.synchronize()
+                record("netvlad_fused", mod, g, g2, want, dtype=str(dtype), two_pass=two_pass)
     return [{**shape, **c} for c in checks]
+
+
+# (B, F, S, ((D, K) rgb, (D, K) audio)) of phase_kernels' checks: Willow
+# widths at the --iterations default and at every frame; at S=1 a video's
+# descriptors come from its one sampled frame, so a frame that the kernel
+# drew other than the plain version fails the check; S=31 and 33 end on a
+# partial 16-sample stage of the aggregation's ring; K 500 and 512 at D=1024
+# take the two-pass aggregation (16 blocks a video, past a portable cluster),
+# K 512 at D=128 a cluster of two; then small widths off every tile: D and K
+# not multiples of 8 (2-byte loads and stores), and a row of 50 bytes, which
+# takes the front end's unvectorised load
+KERNEL_CHECKS = ((64, F, 30, MODS), (64, F, 300, MODS), (64, F, 1, MODS), (16, F, 31, MODS),
+                 (16, F, 33, MODS), (8, F, 31, ((D_RGB, 500), (D_AUD, 512))),
+                 (8, F, 33, ((D_RGB, 512), (D_AUD, 500))), (3, 10, 7, ((42, 20), (8, 10))))
+# AttentionNetVLAD's call: contiguous bf16 rows of all 300 frames, B=256
+ATTN_NETVLAD_SHAPE = (256, F, D_RGB, K_RGB)
 
 
 def phase_kernels(dev, smi):
     rng = np.random.default_rng(0)
     errors = {name: 0.0 for name in KERNELS}
-    # Willow widths at the --iterations default and at every frame; then
-    # small widths off every tile: D and K not multiples of 32, S not a
-    # multiple of the 32-sample chunk, and a row of 50 bytes, which takes
-    # the front end's unvectorised load
-    # at S=1 a video's descriptors come from its one sampled frame, so a frame
-    # that the kernel drew other than the plain version fails the check
-    for b, f, s, mods in ((64, F, 30, MODS), (64, F, 300, MODS), (64, F, 1, MODS),
-                          (3, 10, 7, ((42, 20), (8, 10)))):
+    for b, f, s, mods in KERNEL_CHECKS:
         before = counters()
         checks = check_kernels(rng, dev, b, f, s, mods, errors)
         after = counters()
         emit({"phase": "kernels", "checks": checks,
               "launch_deltas": {k: after[k] - before[k] for k in after}})
+
+    # AttentionNetVLAD's shape, twice for the bits, and its time
+    b, f, d, k = ATTN_NETVLAD_SHAPE
+    xa = torch.from_numpy(rng.normal(scale=0.5, size=(b, f, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    consts = frontend_consts(rng, dev, ((d, k),))[2:6]
+    got, again = netvlad_fused(xa, *consts), netvlad_fused(xa, *consts)
+    torch.cuda.synchronize()
+    want = netvlad_reference(xa, *consts)
+    err = compare(f"netvlad_fused AttentionNetVLAD shape {ATTN_NETVLAD_SHAPE}", got, want)
+    if not torch.equal(got, again):
+        raise AssertionError("netvlad_fused at the AttentionNetVLAD shape: two launches differ")
+    errors["netvlad_fused"] = max(errors["netvlad_fused"], err)
+    bound_ms, by = bound(b, f, None, frontend=False, mods=((d, k),))
+    emit({"phase": "kernel_times", "kernel": "netvlad_fused", "B": b, "S": f, "D": d, "K": k,
+          "rows": "AttentionNetVLAD (contiguous bf16)", "max_abs_err": err,
+          "max_ref": want.float().abs().max().item(),
+          "ms": time_ms(lambda: netvlad_fused(xa, *consts)),
+          "two_pass_ms": time_ms(lambda: netvlad_fused(xa, *consts, two_pass=True)),
+          "plain_ms": time_ms(lambda: netvlad_reference(xa, *consts), reps=5),
+          "bound_ms": bound_ms, "bound_by": by, "card": smi})
+    del xa, got, again, want
 
     # times at the throughput shape, B=512, at S=30 (the main path's) and S=300
     consts = frontend_consts(rng, dev)
@@ -410,9 +489,15 @@ def phase_kernels(dev, smi):
                 bound(b, s, idx, frontend=False),
             ),
         }
+        # the one-pass design against the two-pass one on the same rows
+        two_pass_ms = time_ms(lambda: (netvlad_fused(xr, *rgb, two_pass=True),
+                                       netvlad_fused(xa, *aud, two_pass=True)))
         for name, (ms, plain_ms, (bound_ms, by)) in per_s[s].items():
             emit({"phase": "kernel_times", "kernel": name, "B": b, "S": s, "ms": ms,
-                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "card": smi})
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                  **({"two_pass_ms": two_pass_ms} if name == "netvlad_fused" else {}),
+                  **(REDESIGNED[name] if s == 30 else {"earlier_ms": EARLIER_S300_MS[name]}),
+                  "card": smi})
     return errors, per_s[30]
 
 

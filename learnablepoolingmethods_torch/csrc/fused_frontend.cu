@@ -13,12 +13,12 @@
 // (about 90 µs at 3.35 TB/s), and do 8.6 GFLOP of logits plus 8.6 GFLOP of
 // aggregation (17 µs at 989 TFLOP/s of bf16 tensor cores: X is exact in
 // bf16, and A splits into bf16 terms at f32 accuracy), so the bytes are the
-// bound.  At S=300 the operations are (about 173 µs).  This simple version
-// does its products as f32 FMAs on the CUDA cores, far above that bound
-// (see PERF.md for the numbers of each run).
+// bound.  At S=300 the operations are (about 173 µs).  The NetVLAD chain
+// runs on tensor cores with one aggregation pass (netvlad_tc.cuh); PERF.md
+// has the numbers of each run.
 //
 // Design:
-//  - Each block draws its own frame index: floor(U·min(nf, F)) clamped to
+//  - Each warp draws its own frame index: floor(U·min(nf, F)) clamped to
 //    F−1, with U = jax.random.uniform(key, (B, S))[b, s] computed by the
 //    threefry2x32 hash of counter (0, b·S + s) (jax_threefry_partitionable),
 //    bit for bit the index that utils/prng.py and the JAX package draw.  The
@@ -26,32 +26,26 @@
 //    host time the device then waited for (PERF.md).
 //  - Sampling is a direct gather: ℓ2 and BN act row by row, so normalising
 //    only the S sampled rows gives the same rows as normalising all F and
-//    then selecting.  One block per sampled row loads the 1152-byte row as
-//    16-byte vectors, reduces Σx² over all DT columns (rgb and audio stay
-//    coupled in the norm), and writes the row, normalised, BN'd and rounded
-//    to bf16 once, into a [B·S, DT] scratch tensor (35 MB at B=512, S=30).
-//  - Both NetVLADs then run the shared core (netvlad_core.cuh) on column
+//    then selecting.  One warp per sampled row (eight a block) loads the
+//    1152-byte row as 16-byte vectors, reduces Σx² over all DT columns (rgb
+//    and audio stay coupled in the norm) by shuffles, and writes the row,
+//    normalised, BN'd and rounded to bf16 once, into a [B·S, DT] scratch
+//    tensor (35 MB at B=512, S=30).  (A 128-thread block per row, as the
+//    first port had it, left 56 of its threads idle on a 72-vector row.)
+//  - Both NetVLADs then run the bf16 chain (run_netvlad<bf16>, netvlad_tc.cuh:
+//    the logits and softmax as one tensor-core GEMM over all B·S rows, then
+//    one aggregation pass per video in a thread-block cluster) on column
 //    slices of that scratch tensor: rgb on columns [0, d_rgb), audio on
 //    [d_rgb, DT), with row stride DT.  No f32 [B, D, K] tensor is stored.
 //  - Everything runs on the caller's stream; the host function returns
 //    cudaGetLastError() after the last launch.
 
-#include "netvlad_core.cuh"
+#include "netvlad_tc.cuh"
 
 namespace lpm {
 
-constexpr int kPrepThreads = 128;
-
-__device__ __forceinline__ float block_sum_prep(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < kPrepThreads / 32; ++w) t += red[w];
-  return t;
-}
+constexpr int kPrepThreads = 256;  // one warp per sampled row, 8 rows a block
+constexpr int kPrepRows = kPrepThreads / 32;
 
 __device__ __forceinline__ float deq(uint32_t q, float scale, float bias) {
   return __fadd_rn(__fmul_rn((float)q, scale), bias);
@@ -90,17 +84,18 @@ __device__ __forceinline__ int sample_frame(uint32_t k0, uint32_t k1, long long 
   return min((int)__fmul_rn(u, (float)min(nf, F)), F - 1);
 }
 
-// One block per sampled row (b, s): draw the frame, gather, dequantize,
+// One warp per sampled row (b, s): draw the frame, gather, dequantize,
 // per-frame ℓ2 over DT columns, folded input BN, one rounding to bf16.
 template <bool kVec>
 __global__ void __launch_bounds__(kPrepThreads)
 frontend_prep_kernel(const uint8_t* __restrict__ x, uint32_t k0, uint32_t k1,
                      const int32_t* __restrict__ num_frames,
                      const float* __restrict__ in_scale, const float* __restrict__ in_bias,
-                     __nv_bfloat16* __restrict__ xs, int F, int DT, int S, float deq_scale,
-                     float deq_bias) {
-  __shared__ float red[kPrepThreads / 32];
-  const long long row = blockIdx.x;  // b·S + s
+                     __nv_bfloat16* __restrict__ xs, long long rows, int F, int DT, int S,
+                     float deq_scale, float deq_bias) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kPrepRows + (threadIdx.x >> 5);  // b·S + s
+  if (row >= rows) return;
   const int b = (int)(row / S);
   const int f = sample_frame(k0, k1, row, num_frames[b], F);
   __nv_bfloat16* dst = xs + row * DT;
@@ -109,7 +104,7 @@ frontend_prep_kernel(const uint8_t* __restrict__ x, uint32_t k0, uint32_t k1,
   float ss = 0.f;
   if (kVec) {
     const uint4* src4 = reinterpret_cast<const uint4*>(src);
-    for (int v = threadIdx.x; v < DT / 16; v += kPrepThreads) {
+    for (int v = lane; v < DT / 16; v += 32) {
       const uint4 q = src4[v];
       const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
@@ -119,17 +114,17 @@ frontend_prep_kernel(const uint8_t* __restrict__ x, uint32_t k0, uint32_t k1,
       }
     }
   } else {
-    for (int c = threadIdx.x; c < DT; c += kPrepThreads) {
+    for (int c = lane; c < DT; c += 32) {
       const float t = deq(src[c], deq_scale, deq_bias);
       ss = fmaf(t, t, ss);
     }
   }
-  const float inv = rsqrtf(fmaxf(block_sum_prep(ss, red), kEps));
+  const float inv = rsqrtf(fmaxf(warp_sum(ss), kEps));
 
   if (kVec) {
     const uint4* src4 = reinterpret_cast<const uint4*>(src);
     uint4* dst4 = reinterpret_cast<uint4*>(dst);
-    for (int v = threadIdx.x; v < DT / 16; v += kPrepThreads) {
+    for (int v = lane; v < DT / 16; v += 32) {
       const uint4 q = src4[v];
       const uint32_t w[4] = {q.x, q.y, q.z, q.w};
       uint32_t packed[8];
@@ -149,7 +144,7 @@ frontend_prep_kernel(const uint8_t* __restrict__ x, uint32_t k0, uint32_t k1,
       dst4[2 * v + 1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
     }
   } else {
-    for (int c = threadIdx.x; c < DT; c += kPrepThreads) {
+    for (int c = lane; c < DT; c += 32) {
       const float t = deq(src[c], deq_scale, deq_bias);
       dst[c] = __float2bfloat16_rn(
           __fadd_rn(__fmul_rn(__fmul_rn(t, inv), in_scale[c]), in_bias[c]));
@@ -172,7 +167,8 @@ extern "C" int lpm_netvlad_frontend(
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned rows = (unsigned)((long long)B * S);
+  const long long rows = (long long)B * S;
+  const unsigned blocks = (unsigned)((rows + lpm::kPrepRows - 1) / lpm::kPrepRows);
   const bool vec = (DT % 16) == 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
                    (reinterpret_cast<uintptr_t>(ws_x) % 16) == 0;
   const uint8_t* xu = static_cast<const uint8_t*>(x);
@@ -181,11 +177,11 @@ extern "C" int lpm_netvlad_frontend(
   const float* ibi = static_cast<const float*>(in_bias);
   bf16* xs = static_cast<bf16*>(ws_x);
   if (vec)
-    lpm::frontend_prep_kernel<true><<<rows, lpm::kPrepThreads, 0, st>>>(
-        xu, k0, k1, nf, isc, ibi, xs, F, DT, S, deq_scale, deq_bias);
+    lpm::frontend_prep_kernel<true><<<blocks, lpm::kPrepThreads, 0, st>>>(
+        xu, k0, k1, nf, isc, ibi, xs, rows, F, DT, S, deq_scale, deq_bias);
   else
-    lpm::frontend_prep_kernel<false><<<rows, lpm::kPrepThreads, 0, st>>>(
-        xu, k0, k1, nf, isc, ibi, xs, F, DT, S, deq_scale, deq_bias);
+    lpm::frontend_prep_kernel<false><<<blocks, lpm::kPrepThreads, 0, st>>>(
+        xu, k0, k1, nf, isc, ibi, xs, rows, F, DT, S, deq_scale, deq_bias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = lpm::run_netvlad<bf16>(

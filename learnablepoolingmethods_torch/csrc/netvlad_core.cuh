@@ -34,8 +34,10 @@
 // (netvlad_train.cu) run the same aggregation with kRoundA, which rounds A
 // to T before the product, as ops/netvlad_train.py#_fwd_kernel does; a_sum
 // still sums the unrounded A.  Products and sums are
-// plain f32 FMAs (no tensor cores yet); the kernels move few bytes, so the
-// FMA and shared-memory issue rates bound them (see PERF.md).
+// plain f32 FMAs; the kernels move few bytes, so the FMA and shared-memory
+// issue rates bound them (see PERF.md).  The f32 inference kernels, the
+// training kernels and NetFV use this code; run_netvlad<__nv_bfloat16>, the
+// bf16 inference chain, is specialised on tensor cores in netvlad_tc.cuh.
 
 #pragma once
 
@@ -314,7 +316,8 @@ cudaError_t launch_softmax_assignment(const T* x, long long ldx, const T* c,
 }
 
 // The three launches for one modality.  ws_a holds B·S·K floats and
-// ws_colsq B·K floats; both are scratch allocated by the caller.
+// ws_colsq B·K floats; both are scratch allocated by the caller.  (The
+// bf16 specialisation in netvlad_tc.cuh needs B·⌈D/1024⌉·K for ws_colsq.)
 template <typename T>
 cudaError_t run_netvlad(const T* x, long long ldx, const T* c, const float* scale,
                         const float* bias, const float* c2, T* out, float* ws_a,

@@ -5,8 +5,9 @@ LF model: ``NetVLADModelLF``, ``NetRVLADModelLF``, ``NetFVModelLF``,
 ``SoftDbofModelLF``, ``NeXtVLADModel``; or the transformer family:
 ``TransformerEncoderModel``, ``AttentionNetVLADModel``, which read every
 frame) and on-device top-k, and writes the Kaggle submission CSV
-``VideoId,LabelConfidencePairs``.  The flags keep the JAX CLI's names;
-``--device`` (default ``cuda``) is the port's own.  Weights come from
+``VideoId,LabelConfidencePairs``.  It takes every flag of the JAX CLI
+under its name and default (``cli_flags.py``; those not ported yet raise
+when set); ``--device`` (default ``cuda``) is the port's own.  Weights come from
 ``<train_dir>/variables.npz`` (``core/weights.py#save_variables_npz``).
 
     python -m learnablepoolingmethods_torch.inference --fast_infer \\
@@ -24,104 +25,51 @@ import time
 import numpy as np
 import torch
 
+from learnablepoolingmethods_torch import cli_flags
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig
 from learnablepoolingmethods_torch.core.weights import convert_flax_variables, load_variables_npz
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path
 from learnablepoolingmethods_torch.utils import prng
-from learnablepoolingmethods_torch.utils.misc import InFlight, add_bool_flag, format_lines, resolve_device
+from learnablepoolingmethods_torch.utils.misc import InFlight, format_lines, resolve_device
 
 log = logging.getLogger(__name__)
 
 
+# the JAX inference CLI's own flags (learnablepoolingmethods_tpu/inference.py
+# #define_flags) and the port's --device: name → (default, help)
+_OWN_FLAGS = {
+    "input_data_pattern": ("", "File glob for input TFRecords."),
+    "train_dir": ("/tmp/yt8m_model/", "Directory (or file) of variables.npz."),
+    "output_file": ("", "Destination CSV path."),
+    "top_k": (20, "How many predictions to write per video."),
+    "fast_infer": (False, "Use the fused inference path (BN folding, CUDA kernels, bf16)."),
+    "reference_checkpoint": ("", "Run inference from a reference-trained TF checkpoint."),
+    "pipeline_depth": (2, "Batches kept in flight before fetching results (1 = synchronous)."),
+    "device": ("cuda", "Torch device: cuda (default), cuda:N or cpu."),
+}
+
+
 def build_parser() -> argparse.ArgumentParser:
+    """Every flag of the JAX inference CLI (cli_flags.py), its defaults, and
+    --device; the flags of cli_flags.INFERENCE_NOT_PORTED raise when set,
+    and the training schedule's have no effect here, as in the JAX CLI."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--input_data_pattern", default="", help="File glob for input TFRecords.")
-    p.add_argument("--train_dir", default="/tmp/yt8m_model/", help="Directory (or file) of variables.npz.")
-    p.add_argument("--output_file", default="", help="Destination CSV path.")
-    p.add_argument("--top_k", type=int, default=20, help="How many predictions to write per video.")
-    add_bool_flag(p, "fast_infer", False, "Use the fused inference path (BN folding, CUDA kernels, bf16).")
-    add_bool_flag(p, "int8_hidden", False, "Weight-only int8 hidden FC (not ported yet).")
-    p.add_argument("--pipeline_depth", type=int, default=2,
-                   help="Batches kept in flight before fetching results (1 = synchronous).")
-    p.add_argument("--batch_size", type=int, default=1024, help="Videos per batch.")
-    # data
-    p.add_argument("--feature_names", default="mean_rgb,mean_audio", help="Name of the feature columns.")
-    p.add_argument("--feature_sizes", default="1024,128", help="Length of the feature vectors.")
-    add_bool_flag(p, "frame_features", False, "Input is frame-level tf.SequenceExample.")
-    p.add_argument("--max_frames", type=int, default=300, help="Frame pad/truncate length.")
-    p.add_argument("--num_classes", type=int, default=3862, help="Vocabulary size.")
-    # model
-    p.add_argument("--model", default="LogisticModel", help="Which model class to use.")
-    p.add_argument("--video_level_classifier_model", default="MoeModel",
-                   help="Video-level classifier used by frame-level models.")
-    p.add_argument("--moe_num_mixtures", type=int, default=2, help="Mixtures per class for MoeModel.")
-    p.add_argument("--iterations", type=int, default=30, help="Number of frames to sample per video.")
-    add_bool_flag(p, "sample_random_frames", True, "Sample random frames (with replacement).")
-    p.add_argument("--netvlad_cluster_size", type=int, default=256, help="NetVLAD clusters (rgb).")
-    p.add_argument("--netvlad_hidden_size", type=int, default=1024, help="NetVLAD hidden size.")
-    add_bool_flag(p, "netvlad_add_batch_norm", True, "BN in NetVLAD models.")
-    add_bool_flag(p, "netvlad_relu", False, "relu6 after the hidden layer.")
-    p.add_argument("--netvlad_dimred", type=int, default=-1, help="Input dim-reduction width (-1 = off).")
-    add_bool_flag(p, "gating", True, "Context gating before the classifier.")
-    p.add_argument("--fv_cluster_size", type=int, default=64, help="NetFV clusters.")
-    p.add_argument("--fv_hidden_size", type=int, default=1024, help="NetFV hidden size.")
-    add_bool_flag(p, "fv_relu", False, "relu6 in NetFV tail.")
-    add_bool_flag(p, "fv_couple_weights", False, "Couple FV covar to clusters.")
-    p.add_argument("--fv_coupling_factor", type=float, default=0.01, help="FV coupling factor.")
-    p.add_argument("--dbow_cluster_size", type=int, default=4096, help="SoftDBoW clusters.")
-    p.add_argument("--rvlad_cluster_size", type=int, default=256, help="NetRVLAD clusters.")
-    p.add_argument("--nextvlad_cluster_size", type=int, default=128, help="NeXtVLAD clusters.")
-    p.add_argument("--nextvlad_groups", type=int, default=8, help="NeXtVLAD attention groups.")
-    p.add_argument("--nextvlad_expansion", type=int, default=2, help="NeXtVLAD expansion λ.")
-    p.add_argument("--nextvlad_hidden_size", type=int, default=1024, help="NeXtVLAD hidden FC.")
-    p.add_argument("--attention_heads", type=int, default=8, help="Attention heads.")
-    p.add_argument("--attention_hidden_size", type=int, default=1024, help="Attention model width.")
-    p.add_argument("--transformer_layers", type=int, default=2, help="Transformer encoder depth.")
-    p.add_argument("--transformer_ff_size", type=int, default=2048, help="Transformer FFN width.")
-    p.add_argument("--attention_cluster_size", type=int, default=64, help="Attention pooling slots.")
-    p.add_argument("--attention_dropout", type=float, default=0.1,
-                   help="Attention dropout rate (no effect at inference).")
-    p.add_argument("--device", default="cuda", help="Torch device: cuda (default), cuda:N or cpu.")
-    return p
+    return cli_flags.add_flags(p, _OWN_FLAGS, cli_flags.INFERENCE_NOT_PORTED)
 
 
 def model_config_from_args(args) -> ModelConfig:
-    return ModelConfig(
-        vocab_size=args.num_classes,
-        moe_num_mixtures=args.moe_num_mixtures,
-        iterations=args.iterations,
-        sample_random_frames=args.sample_random_frames,
-        netvlad_cluster_size=args.netvlad_cluster_size,
-        netvlad_hidden_size=args.netvlad_hidden_size,
-        netvlad_add_batch_norm=args.netvlad_add_batch_norm,
-        netvlad_relu=args.netvlad_relu,
-        netvlad_dimred=args.netvlad_dimred,
-        gating=args.gating,
-        fv_cluster_size=args.fv_cluster_size,
-        fv_hidden_size=args.fv_hidden_size,
-        fv_relu=args.fv_relu,
-        fv_couple_weights=args.fv_couple_weights,
-        fv_coupling_factor=args.fv_coupling_factor,
-        dbow_cluster_size=args.dbow_cluster_size,
-        rvlad_cluster_size=args.rvlad_cluster_size,
-        nextvlad_cluster_size=args.nextvlad_cluster_size,
-        nextvlad_groups=args.nextvlad_groups,
-        nextvlad_expansion=args.nextvlad_expansion,
-        nextvlad_hidden_size=args.nextvlad_hidden_size,
-        attention_heads=args.attention_heads,
-        attention_hidden_size=args.attention_hidden_size,
-        transformer_layers=args.transformer_layers,
-        transformer_ff_size=args.transformer_ff_size,
-        attention_cluster_size=args.attention_cluster_size,
-        attention_dropout=args.attention_dropout,
-        video_level_classifier_model=args.video_level_classifier_model,
-    )
+    """The ModelConfig of every model flag, as the JAX CLI builds it (its
+    fast paths compute in bf16 whatever --compute_dtype says, and so do the
+    port's)."""
+    return cli_flags.model_config_from_args(args)
 
 
 def inference(args) -> int:
     """Write the CSV for ``args``; returns the number of videos written."""
+    cli_flags.refuse_not_ported(args, cli_flags.INFERENCE_NOT_PORTED,
+                                vars(build_parser().parse_args([])), "inference CLI")
     if not args.fast_infer:
         raise NotImplementedError(
             "the model-forward route (without --fast_infer, the nn.Module model's "

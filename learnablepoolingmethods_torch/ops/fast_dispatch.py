@@ -9,9 +9,9 @@
 
 ``NetVLADModelLF`` (``ops/fast_infer.py``), the rest of the LOUPE family
 (``ops/fast_lf.py``) and the transformer family (``ops/fast_transformer.py``)
-are ported; ``AttentionPoolingModel`` has no fast path in the JAX package
-either, and every other model raises an error naming the ROADMAP item that
-ports it.
+are ported; asking for ``DbofModel``'s raises an error naming the ROADMAP
+item that ports it, and a model without a fast path in the JAX package
+(``_NO_FAST_PATH``) raises ``ValueError`` as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -24,18 +24,14 @@ class FastPath(NamedTuple):
     build: Callable[..., Callable]
 
 
-# model name → ROADMAP.md queue-1 item that ports it
-_PENDING = {
-    "DbofModel": 9,
-    "LogisticModel": 9,
-    "MoeModel": 9,
-    "FrameLevelLogisticModel": 9,
-    "LstmModel": 11,
-    "GruModel": 11,
-}
-# models that the JAX package serves with the flax forward only: its CLI
-# refuses --fast_infer for them
-_NO_FAST_PATH = ("AttentionPoolingModel",)
+# model name → ROADMAP.md queue-1 item that ports its fast path
+_PENDING = {"DbofModel": 9}
+# models that the JAX package serves with the flax forward only
+# (learnablepoolingmethods_tpu/ops/fast_dispatch.py#get_fast_path returns
+# None): its CLI refuses --fast_infer for them with a ValueError, and so
+# does the port's
+_NO_FAST_PATH = ("AttentionPoolingModel", "LogisticModel", "MoeModel", "FrameLevelLogisticModel",
+                 "LstmModel", "GruModel")
 
 
 def _netvlad() -> FastPath:

@@ -20,7 +20,11 @@ import ctypes
 import torch
 
 from learnablepoolingmethods_torch.ops import kernel_build
-from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS, netvlad_reference
+from learnablepoolingmethods_torch.ops.netvlad_fused import (
+    MAX_CLUSTERS,
+    aggregation_geometry,
+    netvlad_reference,
+)
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.utils import prng
 
@@ -117,8 +121,10 @@ def netvlad_frontend(
     ws_x = torch.empty((b * s, dt), dtype=torch.bfloat16, device=dev)
     ws_a_rgb = torch.empty((b * s, k_rgb), dtype=torch.float32, device=dev)
     ws_a_aud = torch.empty((b * s, k_aud), dtype=torch.float32, device=dev)
-    ws_cs_rgb = torch.empty((b, k_rgb), dtype=torch.float32, device=dev)
-    ws_cs_aud = torch.empty((b, k_aud), dtype=torch.float32, device=dev)
+    ws_cs_rgb, ws_cs_aud = (
+        torch.empty((b * aggregation_geometry(d_m, k_m)["dchunks"], k_m), dtype=torch.float32,
+                    device=dev)
+        for d_m, k_m in ((d_rgb, k_rgb), (d_aud, k_aud)))
     fn = kernel_build.load_function("fused_frontend", "lpm_netvlad_frontend", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -78,6 +79,49 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
+
+
+def ptxas_report_start(name: str) -> subprocess.Popen:
+    """Start compiling ``csrc/<name>.cu`` once more with ``-Xptxas -v`` into
+    a scratch file of the build directory; :func:`ptxas_report_finish` reads
+    what ptxas says of each kernel."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    scratch = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(scratch), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.scratch = scratch
+    return proc
+
+
+def ptxas_report_finish(proc: subprocess.Popen) -> list:
+    """Per kernel of a :func:`ptxas_report_start` compile: registers, static
+    shared memory (the kernels' dynamic shared memory is sized at launch)
+    and spills, the names demangled where ``c++filt`` is at hand."""
+    output, _ = proc.communicate()
+    proc.scratch.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{output}")
+    kernels, current = [], None
+    for line in output.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            current = {"kernel": entry.group(1)}
+            kernels.append(current)
+        elif current is not None and "spill stores" in line:
+            nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
+            current["spill_stores"], current["spill_loads"] = nums[1], nums[2]
+        elif current is not None and "Used" in line:
+            current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["static_smem"] = int(smem.group(1)) if smem else 0
+    demangler = shutil.which("c++filt")
+    if demangler and kernels:
+        names = subprocess.run([demangler], input="\n".join(k["kernel"] for k in kernels),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(kernels):
+            for k, n in zip(kernels, names):
+                k["kernel"] = n.split("(")[0].removeprefix("void ")
+    return kernels
 
 
 def load_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -26,9 +26,40 @@ MAX_CLUSTERS = 512  # csrc/netvlad_core.cuh kMaxClusters
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
     + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 4
+    + [ctypes.c_int] * 5
     + [ctypes.c_void_p]
 )
+GEOMETRY_KEYS = ("ds", "cs", "kc", "ktiles", "dchunks", "one_pass", "threads")
+
+
+def aggregation_geometry(d: int, k: int) -> dict:
+    """How the bf16 kernels' aggregation (``csrc/netvlad_tc.cuh#tc_geometry``,
+    which this mirrors) tiles a (D, K) shape: warps of 64 descriptor rows ×
+    32 clusters, ``ds`` row slabs × ``cs`` cluster slabs a block (at most 16
+    warps), ``kc`` clusters a block, ``ktiles`` blocks a video along K and
+    ``dchunks`` along D.  ``one_pass`` when a video's blocks fit one portable
+    thread-block cluster (at most 8) and D ≤ 1024; else the two-pass kernel,
+    whose scratch holds B·dchunks·K floats."""
+    slabs = -(-d // 64)
+    dchunks = -(-slabs // 16)
+    ds = min(slabs, 16)
+    cs = min(16 // ds, -(-k // 32))
+    kc = 32 * cs
+    ktiles = -(-k // kc)
+    return dict(ds=ds, cs=cs, kc=kc, ktiles=ktiles, dchunks=dchunks,
+                one_pass=int(dchunks == 1 and ktiles <= 8), threads=32 * ds * cs)
+
+
+def kernel_geometry(d: int, k: int) -> dict:
+    """The geometry that the built kernel itself picks for (D, K); needs
+    the library, so ``nvcc`` (chip_smoke.py holds it against
+    :func:`aggregation_geometry`)."""
+    lib_fn = kernel_build.load_function(
+        "netvlad_fused", "lpm_netvlad_geometry", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib_fn.restype = None
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    lib_fn(d, k, ctypes.cast(out, ctypes.c_void_p))
+    return dict(zip(GEOMETRY_KEYS, out))
 
 
 def check_frames(name: str, x: torch.Tensor, cluster_weights: torch.Tensor, max_k: int = None):
@@ -61,13 +92,16 @@ def netvlad_fused(
     assign_scale: torch.Tensor,      # [K] folded BN γ/σ (or ones)
     assign_bias: torch.Tensor,       # [K] folded BN β−μγ/σ (or cluster biases)
     cluster_weights2: torch.Tensor,  # [D, K] (or [1, D, K])
+    *,
+    two_pass: bool = False,
 ) -> torch.Tensor:
     """Fused NetVLAD → ``[B, D, K]`` in ``x.dtype``.
 
     A CUDA tensor launches the kernel; a CPU tensor takes
     :func:`netvlad_reference`.  ``x`` may be a column slice of a wider
     ``[B, F, DT]`` tensor: its last axis must be contiguous and its rows
-    evenly strided.
+    evenly strided.  ``two_pass`` (bf16) runs the two-pass aggregation on a
+    shape that the one-pass kernel covers, to time the two designs.
     """
     if x.device.type == "cpu":
         return netvlad_reference(
@@ -82,13 +116,14 @@ def netvlad_fused(
 
     out = torch.empty((b, d, k), dtype=x.dtype, device=dev)
     ws_a = torch.empty((b * f, k), dtype=torch.float32, device=dev)
-    ws_colsq = torch.empty((b, k), dtype=torch.float32, device=dev)
+    ws_colsq = torch.empty((b * aggregation_geometry(d, k)["dchunks"], k), dtype=torch.float32,
+                           device=dev)
     fn = kernel_build.load_function("netvlad_fused", "lpm_netvlad_fused", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
             x.data_ptr(), x.stride(1), int(x.dtype == torch.bfloat16), c.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), c2.data_ptr(), out.data_ptr(),
-            ws_a.data_ptr(), ws_colsq.data_ptr(), b, f, d, k,
+            ws_a.data_ptr(), ws_colsq.data_ptr(), b, f, d, k, int(two_pass),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernel_build.check(rc, "netvlad_fused")
@@ -99,8 +134,13 @@ def netvlad_fused(
 netvlad_fused.launches = 0
 
 
-def netvlad_reference(x, cluster_weights, assign_scale, assign_bias, cluster_weights2):
-    """Plain PyTorch twin of :func:`netvlad_fused` (the parity oracle)."""
+def netvlad_reference(x, cluster_weights, assign_scale, assign_bias, cluster_weights2,
+                      kernel_rounding: bool = False):
+    """Plain PyTorch twin of :func:`netvlad_fused` (the parity oracle).
+
+    ``kernel_rounding`` takes the bf16 kernel's rounding points for Xᵀ·A: A
+    enters as bf16(A) + bf16(A − bf16(A)), each product summed in f32 (the
+    two tensor-core products), while a_sum still sums the unrounded A."""
     b, f, d = x.shape
     k = cluster_weights.shape[-1]
     x32 = x.float()
@@ -111,7 +151,12 @@ def netvlad_reference(x, cluster_weights, assign_scale, assign_bias, cluster_wei
     )
     a = torch.softmax(logits, dim=-1)
     a_sum = torch.sum(a, dim=1, keepdim=True)  # [B,1,K]
-    vlad = torch.einsum("bfk,bfd->bdk", a, x32)
+    if kernel_rounding:
+        a_hi = a.to(torch.bfloat16).float()
+        a_lo = (a - a_hi).to(torch.bfloat16).float()
+        vlad = torch.einsum("bfk,bfd->bdk", a_hi, x32) + torch.einsum("bfk,bfd->bdk", a_lo, x32)
+    else:
+        vlad = torch.einsum("bfk,bfd->bdk", a, x32)
     vlad = vlad - a_sum * cluster_weights2.reshape(1, d, k)
     col = torch.sqrt(torch.clamp(torch.sum(vlad**2, dim=1, keepdim=True), min=1e-12))
     vlad = vlad / col

@@ -1,0 +1,141 @@
+"""The port's CLIs take the JAX CLIs' flags, and refuse --fast_infer as the
+JAX CLI does.
+
+The oracle is the JAX package itself: each JAX CLI module is imported in a
+subprocess of its own (both define their flags into absl's one global
+registry at import, so they cannot share a process) and its flags' names,
+types and defaults are read back.
+"""
+
+import functools
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from learnablepoolingmethods_torch import cli_flags, inference, train
+from learnablepoolingmethods_torch.models import list_models as torch_models
+from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path
+
+from learnablepoolingmethods_tpu.models import list_models as jax_models
+from learnablepoolingmethods_tpu.ops.fast_dispatch import get_fast_path as jax_get_fast_path
+
+CLIS = {"inference": inference, "train": train}
+# the port's one default that differs: it exports nothing yet (ROADMAP item 14)
+PORT_DEFAULTS = {"export_model_steps": 0}
+
+_DUMP = """
+import json, sys
+import learnablepoolingmethods_tpu.{cli}
+from absl import flags
+by_module = flags.FLAGS.flags_by_module_dict()
+out = {{}}
+for module in ("learnablepoolingmethods_tpu.flags", "learnablepoolingmethods_tpu.{cli}"):
+    for flag in by_module.get(module, []):
+        out[flag.name] = [flag.flag_type(), flag.default]
+json.dump(out, sys.stdout)
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def jax_flags(cli: str) -> dict:
+    """{name: (absl type, default)} of every flag the JAX ``cli`` defines
+    from flags.py and from its own module."""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", _DUMP.format(cli=cli)], capture_output=True,
+                         text=True, env=env, timeout=300, check=True).stdout
+    return {name: tuple(v) for name, v in json.loads(out).items()}
+
+
+def _argv(flags: dict) -> list:
+    """The command line that sets every flag of ``flags`` to its value."""
+    return [f"--{n}={str(v).lower() if isinstance(v, bool) else v}" for n, v in flags.items()]
+
+
+@pytest.mark.parametrize("cli", sorted(CLIS))
+def test_parser_defines_every_jax_flag_with_its_default(cli):
+    want = jax_flags(cli)
+    defaults = vars(CLIS[cli].build_parser().parse_args([]))
+    missing = sorted(set(want) - set(defaults))
+    assert not missing, f"the port's {cli} CLI lacks {missing}"
+    for name, (kind, default) in want.items():
+        expected = PORT_DEFAULTS.get(name, default)
+        assert defaults[name] == expected and type(defaults[name]) is type(expected), name
+    # and every name of flags.py, int8_hidden included, on both CLIs
+    assert set(cli_flags.FLAGS_PY) <= set(defaults)
+
+
+@pytest.mark.parametrize("cli", sorted(CLIS))
+def test_jax_command_line_at_its_defaults_parses_to_the_same_values(cli):
+    """Every JAX flag spelled out at the JAX default parses through the
+    port's parser to that value, and (the port's default kept for
+    --export_model_steps) builds the CLI's configuration without raising."""
+    want = {n: d for n, (_, d) in jax_flags(cli).items()}
+    args = CLIS[cli].build_parser().parse_args(_argv(want))
+    for name, default in want.items():
+        assert getattr(args, name) == default, name
+    args = CLIS[cli].build_parser().parse_args(_argv({**want, **PORT_DEFAULTS}))
+    if cli == "inference":
+        cli_flags.refuse_not_ported(args, cli_flags.INFERENCE_NOT_PORTED,
+                                    vars(inference.build_parser().parse_args([])), "inference CLI")
+        mcfg = inference.model_config_from_args(args)
+    else:
+        _, mcfg, _ = train.configs_from_args(args)
+    assert mcfg.vocab_size == want["num_classes"] and mcfg.compute_dtype == want["compute_dtype"]
+
+
+def _off_default(default):
+    if isinstance(default, bool):
+        return not default
+    if isinstance(default, str):
+        return default + "x" if default else "/some/path"
+    return default + 2
+
+
+@pytest.mark.parametrize("cli, name", [("inference", n) for n in cli_flags.INFERENCE_NOT_PORTED]
+                         + [("train", n) for n in cli_flags.TRAIN_NOT_PORTED])
+def test_unported_flag_off_its_default_raises_naming_its_item(tmp_path, cli, name):
+    defaults = vars(CLIS[cli].build_parser().parse_args([]))
+    argv = _argv({name: _off_default(defaults[name])})
+    table = cli_flags.INFERENCE_NOT_PORTED if cli == "inference" else cli_flags.TRAIN_NOT_PORTED
+    match = f"--{name} is not ported .* ROADMAP item {table[name]}"
+    with pytest.raises(NotImplementedError, match=match):
+        if cli == "inference":
+            inference.main(argv + ["--fast_infer", "--model=NetVLADModelLF", "--frame_features",
+                                   f"--input_data_pattern={tmp_path}/none*",
+                                   f"--output_file={tmp_path}/o.csv", "--device=cpu"])
+        else:
+            train.main(argv + ["--model=NetVLADModelLF", "--frame_features",
+                               f"--train_data_pattern={tmp_path}/none*",
+                               f"--train_dir={tmp_path}/m", "--device=cpu"])
+
+
+def test_flags_without_an_effect_here_are_accepted():
+    """--num_gpu (ignored by the JAX CLIs too) and, at inference, the
+    training schedule's flags parse and raise nothing, as in the JAX CLI."""
+    args = inference.build_parser().parse_args(
+        ["--num_gpu=4", "--base_learning_rate=0.5", "--max_steps=7", "--seed=3", "--use_remat"])
+    cli_flags.refuse_not_ported(args, cli_flags.INFERENCE_NOT_PORTED,
+                                vars(inference.build_parser().parse_args([])), "inference CLI")
+    train.configs_from_args(train.build_parser().parse_args(
+        ["--num_gpu=4", "--model=NetVLADModelLF", "--frame_features"]))
+
+
+@pytest.mark.parametrize("model_name", sorted(set(jax_models()) | set(torch_models())))
+def test_fast_infer_refuses_exactly_the_models_without_a_jax_fast_path(model_name):
+    """Where the JAX registry has no fast path, --fast_infer raises
+    ValueError in both CLIs (learnablepoolingmethods_tpu/inference.py);
+    where it has one, the port serves it or names the ROADMAP item that
+    ports it."""
+    if jax_get_fast_path(model_name) is None:
+        with pytest.raises(ValueError, match="--fast_infer supports"):
+            get_fast_path(model_name)
+    else:
+        try:
+            path = get_fast_path(model_name)
+        except NotImplementedError as e:
+            assert "ROADMAP item" in str(e)
+        else:
+            assert callable(path.prepare) and callable(path.build)
