@@ -8,8 +8,8 @@ error, and prints one JSON line per phase:
 1. env        torch and CUDA versions, the card's name and power limit;
 2. build      nvcc builds every kernel under learnablepoolingmethods_torch/csrc,
               one process per source, and beside them an -Xptxas -v compile of
-              the two inference kernels' sources: registers, static shared
-              memory and spills per kernel;
+              the NetVLAD inference and training kernels' sources: registers,
+              static shared memory and spills per kernel;
 3. kernels    both inference kernels against their plain PyTorch versions
               (KERNEL_CHECKS): Willow shapes (D 1024/128, K 256/128), B=64,
               S=30, S=300 and S=1 (where each descriptor shows which frame the
@@ -47,11 +47,16 @@ error, and prints one JSON line per phase:
               both training kernels (the NetVLAD aggregation's forward and
               backward) against their plain versions: the output, dX, dL and
               dC₂, X in bf16 and f32, at both Willow modalities, B=64, S=30
-              and S=300, and at one small shape off every tile width, with the
-              tolerances above chosen by X's dtype; dC₂ of a batch against the
-              kernel's dC₂ of each video alone, summed, and at B=1 against the
-              per-video formula; at B=256, S=30 and S=300, X in bf16, all four
-              outputs and the per-video dC₂ sum again, and the times;
+              and S=300, at S 1, 31 and 33 (across the 16-sample stages), at K
+              500 and 512 (past a portable cluster at D=1024, a cluster of two
+              at D=128), and at one small shape off every tile width, with the
+              tolerances above chosen by X's dtype; every bf16 output equal bit
+              for bit to a second launch's, and the built kernels' tiling equal
+              to ops/netvlad_train.py#train_geometry; dC₂ of a batch against
+              the kernel's dC₂ of each video alone, summed, and at B=1 against
+              the per-video formula; at B=256, S=30 and S=300, X in bf16, all
+              four outputs and the per-video dC₂ sum again, and the times
+              beside the first port's;
 7. train_e2e  the train CLI at full Willow width on 512 synthetic videos:
               five bf16 steps with --fused_train_aggregation (the main path
               of this slice; each training kernel must launch twice a step),
@@ -183,6 +188,9 @@ from learnablepoolingmethods_torch.ops.netvlad_train import (
     netvlad_aggregate_backward_plain,
     netvlad_aggregate_forward,
     netvlad_aggregate_forward_plain,
+    netvlad_dv1_plain,
+    kernel_train_geometry,
+    train_geometry,
 )
 from learnablepoolingmethods_torch.utils import prng
 
@@ -206,9 +214,19 @@ REDESIGNED = {
                        "earlier_ms": 14.140},
     "masked_attention_fused": {"design": "bf16 mma.sync + cp.async ring; f32 FMA",
                                "earlier_ms": 5.409},
+    "netvlad_aggregate_forward": {"design": "bf16 softmax, then the one-pass cluster aggregation on mma.sync "
+                                            "with A rounded once (two passes past a portable cluster); f32 FMA",
+                                  "earlier_ms": 0.946},
+    "netvlad_aggregate_backward": {"design": "bf16 XᵀA once per video on mma.sync in persistent clusters, "
+                                             "dV₁ in registers, per-video sums through distributed shared "
+                                             "memory, dC₂ in shared memory per group; dA/dL and dX in one "
+                                             "mma.sync GEMM launch from a bf16 dV₁ scratch; f32 FMA",
+                                   "earlier_ms": 2.830},
 }
-# the first port's times of the NetVLAD inference kernels at B=512, S=300
-EARLIER_S300_MS = {"netvlad_frontend": 18.642, "netvlad_fused": 17.664}
+# the first port's times of the redesigned NetVLAD kernels at S=300 (B=512
+# for inference, B=256 for training)
+EARLIER_S300_MS = {"netvlad_frontend": 18.642, "netvlad_fused": 17.664,
+                   "netvlad_aggregate_forward": 7.002, "netvlad_aggregate_backward": 19.006}
 KERNELS = {
     "netvlad_frontend": dict(
         fn=netvlad_frontend,
@@ -275,15 +293,16 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 TOLERANCE = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-5, 1e-5)}
 
 
-def compare(name: str, got, want, dtype=None, tol=None) -> float:
+def compare(name: str, got, want, dtype=None, tol=None, scale=None) -> float:
     """Max |Δ| in f32; raises unless |Δ| <= a·max|ref| + r·|ref| everywhere,
-    with (a, r) = tol or TOLERANCE[dtype or want.dtype]."""
+    with (a, r) = tol or TOLERANCE[dtype or want.dtype]; ``scale`` replaces
+    max|ref| where the reference is a cancellation of larger terms."""
     a, r = tol or TOLERANCE[dtype or want.dtype]
     got, want = got.float(), want.float()
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite values")
     diff = (got - want).abs()
-    atol = a * want.abs().max().item()
+    atol = a * (want.abs().max().item() if scale is None else scale)
     if not bool((diff <= atol + r * want.abs()).all()):
         raise AssertionError(f"{name}: max |Δ| {diff.max().item():.3e} over tolerance (atol {atol:.3e})")
     return diff.max().item()
@@ -355,7 +374,7 @@ def phase_env():
 
 
 # the sources whose kernels nvcc's -Xptxas -v reports in the build phase
-PTXAS_REPORT = ("netvlad_fused", "fused_frontend")
+PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train")
 
 
 def phase_build():
@@ -538,17 +557,36 @@ def check_train_kernels(x, logits, c2, dv3, errors, per_video_sum: bool) -> dict
     (a bf16 run rounds A and dV₁ to bf16 inside the function, so its f32
     outputs dL and dC₂ inherit that rounding too).  With ``per_video_sum``
     also dC₂ of the batch against the kernel's dC₂ of each video alone,
-    summed in f64, and the kernel's dC₂ at B=1 against the plain version's."""
+    summed in f64, and the kernel's dC₂ at B=1 against the plain version's.
+    In bf16 every output must equal a second launch's bit for bit, and the
+    built kernels' tiling must be ops/netvlad_train.py#train_geometry's."""
     (b, s, d), k, dtype = x.shape, logits.shape[2], x.dtype
+    if dtype == torch.bfloat16 and kernel_train_geometry(b, d, k) != train_geometry(b, d, k):
+        raise AssertionError(f"B={b} D={d} K={k}: the training kernels tile as "
+                             f"{kernel_train_geometry(b, d, k)}, ops/netvlad_train.py as "
+                             f"{train_geometry(b, d, k)}")
     got_f = netvlad_aggregate_forward(x, logits, c2)
     got_b = netvlad_aggregate_backward(x, logits, c2, dv3)
+    if dtype == torch.bfloat16:
+        again = (netvlad_aggregate_forward(x, logits, c2), *netvlad_aggregate_backward(x, logits, c2, dv3))
+        for name, g, g2 in zip(("out", "dx", "dl", "dc2"), (got_f, *got_b), again):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{name} B={b} S={s} D={d} K={k}: two launches differ")
     torch.cuda.synchronize()
     want_f = netvlad_aggregate_forward_plain(x, logits, c2)
     want_b = netvlad_aggregate_backward_plain(x, logits, c2, dv3)
     label = f"B={b} S={s} D={d} K={k} {dtype}"
     errs = {"out": compare(f"forward {label}", got_f, want_f, dtype)}
+    # at S=1 the output does not depend on the logits (one frame: V₂ =
+    # (x − C₂)/‖x − C₂‖ whatever A is), so dL is 0 up to rounding, the
+    # cancellation of terms A·X·dV₁: its scale is theirs, not max|dL|
+    dl_scale = None
+    if s == 1:
+        a, _, dv1 = netvlad_dv1_plain(x, logits, c2, dv3)
+        dl_scale = (a * torch.einsum("bfd,bdk->bfk", x.float().abs(), dv1.abs())).max().item()
     for name, g, w in zip(("dx", "dl", "dc2"), got_b, want_b):
-        errs[name] = compare(f"backward {name} {label}", g, w, dtype)
+        errs[name] = compare(f"backward {name} {label}", g, w, dtype,
+                             scale=dl_scale if name == "dl" else None)
     if per_video_sum:
         one = [netvlad_aggregate_backward(x[i:i + 1], logits[i:i + 1], c2, dv3[i:i + 1])
                for i in range(b)]
@@ -561,22 +599,33 @@ def check_train_kernels(x, logits, c2, dv3, errors, per_video_sum: bool) -> dict
     errors["netvlad_aggregate_backward"] = max(
         errors["netvlad_aggregate_backward"], *(v for n, v in errs.items() if n != "out"))
     return {"B": b, "S": s, "D": d, "K": k, "dtype": str(dtype), "max_abs_err": errs,
+            "same_bits": dtype == torch.bfloat16, "one_pass": train_geometry(b, d, k)["one_pass"],
             "max_ref": {"out": want_f.float().abs().max().item(),
                         "dx": want_b[0].float().abs().max().item(),
                         "dl": want_b[1].abs().max().item(),
                         "dc2": want_b[2].abs().max().item()}}
 
 
+# (B, S, ((D, K) rgb, (D, K) audio)) of phase_train_kernels' checks: Willow
+# widths at S=30 and 300; S 1, 31 and 33, a partial 16-sample stage of the
+# bf16 aggregation's ring and of the dA/dX kernel's 32 frames; K 500 and 512
+# at D=1024, past a portable cluster (the two-pass chain, and K 500 the
+# 2-byte loads), a cluster of two at D=128; then small widths off every
+# tile (D and K not multiples of 8, a 32-thread block)
+TRAIN_CHECKS = ((64, 30, MODS), (64, 300, MODS), (16, 1, MODS), (16, 31, MODS), (16, 33, MODS),
+                (8, 30, ((D_RGB, 500), (D_AUD, 512))), (8, 33, ((D_RGB, 512), (D_AUD, 500))),
+                (20, 37, ((70, 20), (8, 10))))
+
+
 def phase_train_kernels(dev, smi):
     """Both training kernels against their plain versions (check_train_kernels),
-    X in bf16 and in f32, at both Willow modalities (B=64, S=30 and S=300)
-    and at one small shape off every tile width, the per-video dC₂ sum at
-    B=64, S=30; then at B=256, S=30 and S=300, X in bf16, the shapes of the
-    main path, where the backward's video groups are four times longer: all
-    four outputs, the per-video dC₂ sum, and the times."""
+    X in bf16 and in f32, at every TRAIN_CHECKS shape, the per-video dC₂ sum
+    at B=64, S=30; then at B=256, S=30 and S=300, X in bf16, the shapes of
+    the main path: all four outputs, the per-video dC₂ sum, and the times
+    beside the first port's."""
     rng = np.random.default_rng(1)
     errors = {name: 0.0 for name in TRAIN_KERNELS}
-    for b, s, mods in ((64, 30, MODS), (64, 300, MODS), (20, 37, ((70, 20), (8, 10)))):
+    for b, s, mods in TRAIN_CHECKS:
         checks = [check_train_kernels(*train_inputs(rng, b, s, d, k, dtype, dev), errors,
                                       per_video_sum=(b, s) == (64, 30))
                   for d, k in mods for dtype in (torch.bfloat16, torch.float32)]
@@ -603,7 +652,9 @@ def phase_train_kernels(dev, smi):
         for name, (ms, plain_ms, (bound_ms, by, nbytes, flops)) in rows.items():
             emit({"phase": "kernel_times", "kernel": name, "B": b, "S": s, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-                  "bytes": nbytes, "flop": flops, "card": smi})
+                  "bytes": nbytes, "flop": flops,
+                  **(REDESIGNED[name] if s == 30 else {"earlier_ms": EARLIER_S300_MS[name]}),
+                  "card": smi})
         timing[s] = rows
     return errors, timing
 
@@ -821,7 +872,8 @@ TRAIN_ROUTES = {
 # (fused run, plain run, the most relative loss gap allowed at any step).
 # In f32 the two routes differ in summation order only (1.5e-6 measured);
 # in bf16 the fused route rounds A and dV₁ to bf16 and the plain one does
-# not (1.018e-3 measured, the same bits in every run).  PERF.md gives the
+# not (1.018e-3 measured with the first port's kernels, 9.35e-4 with the
+# tensor-core ones, the same bits in every run).  PERF.md gives the
 # readings of planted gradient faults against both limits
 # (tools/torch_loss_gate_faults.py).
 LOSS_GATES = (("fused", "plain", 2e-3), ("fused_f32", "plain_f32", 2e-5))
@@ -863,9 +915,9 @@ def phase_train_e2e(dev, workdir, smi):
     The losses must be finite and fall from step 1 to step 5.  Step 1 sees
     the forward alone: there the routes must agree within 1e-5 relative.
     Every step must agree within the limit of LOSS_GATES.  (In bf16 that is
-    twice the 1e-3 budget of the JAX training drill, which the measured
-    1.018e-3 misses: the first Adam update at the default learning rate
-    raises the loss by half and amplifies the rounding, see PERF.md.)"""
+    twice the 1e-3 budget of the JAX training drill, which the first port's
+    1.018e-3 missed: the first Adam update at the default learning rate
+    raises the loss by half and amplifies the rounding, see ROADMAP §3.)"""
     data = os.path.join(workdir, "train-0.tfrecord")
     start = time.perf_counter()
     truth = write_frame_level_fixture(data, 512, seed=0)

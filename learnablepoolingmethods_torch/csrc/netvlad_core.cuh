@@ -30,14 +30,15 @@
 //
 // Rounding follows the TPU kernel: the logits are products of the input
 // type with an f32 sum, the aggregation reads X as f32 with A in f32, and
-// the descriptor is rounded to T only at the end.  The training kernels
+// the descriptor is rounded to T only at the end.  The f32 training kernels
 // (netvlad_train.cu) run the same aggregation with kRoundA, which rounds A
 // to T before the product, as ops/netvlad_train.py#_fwd_kernel does; a_sum
 // still sums the unrounded A.  Products and sums are
 // plain f32 FMAs; the kernels move few bytes, so the FMA and shared-memory
-// issue rates bound them (see PERF.md).  The f32 inference kernels, the
-// training kernels and NetFV use this code; run_netvlad<__nv_bfloat16>, the
-// bf16 inference chain, is specialised on tensor cores in netvlad_tc.cuh.
+// issue rates bound them (see PERF.md).  The f32 inference and training
+// kernels and NetFV use this code; run_netvlad<__nv_bfloat16>, the bf16
+// inference chain, is specialised on tensor cores in netvlad_tc.cuh, which
+// the bf16 training kernels use too.
 
 #pragma once
 

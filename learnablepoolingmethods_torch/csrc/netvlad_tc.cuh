@@ -1,6 +1,9 @@
 // The bf16 NetVLAD inference chain on tensor cores, shared by both
 // inference kernels (netvlad_fused.cu and fused_frontend.cu through
-// run_netvlad<__nv_bfloat16> in netvlad_core.cuh).  It computes what
+// run_netvlad<__nv_bfloat16> in netvlad_core.cuh); the bf16 training
+// forward (netvlad_train.cu) runs its aggregation with kSplitA false, A
+// rounded to bf16 once in one mma, and its backward reuses the one-pass
+// kernel's tiling, ring and cluster exchange.  It computes what
 // netvlad_core.cuh's head comment states, for each video b of frames X_b
 // [S, D] bf16 (row stride ldx):
 //
@@ -401,7 +404,9 @@ __device__ __forceinline__ void ta_center(float (&acc)[4][4][4], const float* as
 // clusters over its D rows; pass kMode 2 recomputes the tile, forms every
 // cluster's norm and the video's total from those partials in a fixed order,
 // and writes the tile.  Grid (ktiles, B, dchunks), geo.threads threads.
-template <bool kAsync, int kMode>
+// kSplitA: A enters as A_hi + A_lo (two mma's); without it A is rounded to
+// bf16 once (one mma), as the training forward rounds it.
+template <bool kAsync, int kMode, bool kSplitA = true>
 __global__ void __launch_bounds__(32 * kTaMaxWarps, 1)
 tc_aggregate_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ a,
                     const float* __restrict__ c2, float* __restrict__ colsq,
@@ -474,7 +479,7 @@ tc_aggregate_kernel(const bf16* __restrict__ x, long long ldx, const float* __re
       asum_part += v;
       const bf16 hi = __float2bfloat16_rn(v);
       ahi[s * sm.apitch + kk] = hi;
-      alo[s * sm.apitch + kk] = __float2bfloat16_rn(v - __bfloat162float(hi));
+      if (kSplitA) alo[s * sm.apitch + kk] = __float2bfloat16_rn(v - __bfloat162float(hi));
     }
     if (chunk + 1 < nchunks) load_x(chunk + 1);
     cp_async_commit();
@@ -489,7 +494,7 @@ tc_aggregate_kernel(const bf16* __restrict__ x, long long ldx, const float* __re
         ldmatrix_x4_trans(af[mi], smem_addr(xs + (16 * ks + a_row) * sm.xpitch + dslab * 64 +
                                             16 * mi + a_col));
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < (kSplitA ? 2 : 1); ++half) {
         const bf16* as = half ? alo : ahi;
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
@@ -640,8 +645,8 @@ __device__ __forceinline__ float tree_sum16(float (&r)[16]) {
 // its clusters' Σ colsq·r² per video; after cluster.sync() every block reads
 // the partials in rank order, scales its registers, and each warp stores its
 // tile 16 rows at a time through a small shared staging tile, one 16-byte
-// row piece of 8 clusters a lane.
-template <bool kAsync>
+// row piece of 8 clusters a lane.  kSplitA as in tc_aggregate_kernel.
+template <bool kAsync, bool kSplitA = true>
 __global__ void __launch_bounds__(32 * kTaMaxWarps, 1)
 tc_aggregate_cluster_kernel(const bf16* __restrict__ x, long long ldx,
                             const float* __restrict__ a, const float* __restrict__ c2,
@@ -750,14 +755,15 @@ tc_aggregate_cluster_kernel(const bf16* __restrict__ x, long long ldx,
         const float v0 = ap[(2 * t) * sm.apitch], v1 = ap[(2 * t + 1) * sm.apitch];
         const float v2 = ap[(2 * t + 8) * sm.apitch], v3 = ap[(2 * t + 9) * sm.apitch];
         const __nv_bfloat162 h01 = __floats2bfloat162_rn(v0, v1), h23 = __floats2bfloat162_rn(v2, v3);
-        const uint32_t lo01 = pack_bf16(v0 - __low2float(h01), v1 - __high2float(h01));
-        const uint32_t lo23 = pack_bf16(v2 - __low2float(h23), v3 - __high2float(h23));
         const uint32_t hi01 = *reinterpret_cast<const uint32_t*>(&h01);
         const uint32_t hi23 = *reinterpret_cast<const uint32_t*>(&h23);
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16_16816(acc[mi][ni], af[mi], hi01, hi23);
-          mma_bf16_16816(acc[mi][ni], af[mi], lo01, lo23);
+        for (int mi = 0; mi < 4; ++mi) mma_bf16_16816(acc[mi][ni], af[mi], hi01, hi23);
+        if (kSplitA) {
+          const uint32_t lo01 = pack_bf16(v0 - __low2float(h01), v1 - __high2float(h01));
+          const uint32_t lo23 = pack_bf16(v2 - __low2float(h23), v3 - __high2float(h23));
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) mma_bf16_16816(acc[mi][ni], af[mi], lo01, lo23);
         }
       }
     }
@@ -854,28 +860,29 @@ tc_aggregate_cluster_kernel(const bf16* __restrict__ x, long long ldx,
 
 // ---------------------------------------------------------------- launch --
 
-template <bool kAsync, int kMode>
+template <bool kAsync, int kMode, bool kSplitA = true>
 cudaError_t launch_tc_aggregate(const bf16* x, long long ldx, const float* a, const float* c2,
                                 float* colsq, bf16* out, int B, int S, int D, int K,
                                 const TaGeometry& geo, cudaStream_t stream) {
   const TaSmem sm = ta_smem(geo);
-  const void* kernel = (const void*)tc_aggregate_kernel<kAsync, kMode>;
+  const void* kernel = (const void*)tc_aggregate_kernel<kAsync, kMode, kSplitA>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.total);
   if (err != cudaSuccess) return err;
-  tc_aggregate_kernel<kAsync, kMode><<<dim3(geo.ktiles, B, geo.dchunks), geo.threads, sm.total,
-                                       stream>>>(x, ldx, a, c2, colsq, out, S, D, K, geo);
+  tc_aggregate_kernel<kAsync, kMode, kSplitA>
+      <<<dim3(geo.ktiles, B, geo.dchunks), geo.threads, sm.total, stream>>>(x, ldx, a, c2, colsq,
+                                                                           out, S, D, K, geo);
   return cudaGetLastError();
 }
 
 // As many clusters as fit the card at once (cudaOccupancyMaxActiveClusters),
 // at most one per video.
-template <bool kAsync>
+template <bool kAsync, bool kSplitA = true>
 cudaError_t launch_tc_aggregate_cluster(const bf16* x, long long ldx, const float* a,
                                         const float* c2, bf16* out, int B, int S, int D, int K,
                                         const TaGeometry& geo, cudaStream_t stream) {
   const TpSmem sm = tp_smem(geo);
-  auto kernel = tc_aggregate_cluster_kernel<kAsync>;
+  auto kernel = tc_aggregate_cluster_kernel<kAsync, kSplitA>;
   cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, sm.total);
   if (err != cudaSuccess) return err;

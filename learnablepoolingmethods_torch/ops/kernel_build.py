@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -126,7 +127,11 @@ def ptxas_report_finish(proc: subprocess.Popen) -> list:
 
 def load_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C function ``symbol`` of ``csrc/<name>.cu``, building the library
-    first if needed; it returns a ``cudaError_t`` as ``int``."""
+    first if needed; it returns a ``cudaError_t`` as ``int``.  Bound once
+    and then reused, since the wrappers call it on every launch."""
+    fn = _functions.get((name, symbol))
+    if fn is not None:
+        return fn
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)
@@ -136,6 +141,7 @@ def load_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPt
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
+    _functions[(name, symbol)] = fn
     return fn
 
 

@@ -15,7 +15,9 @@ The two kernels (``csrc/netvlad_train.cu``) replace
 ``learnablepoolingmethods_tpu/ops/netvlad_train.py#_forward_impl`` and
 ``#_backward_impl``.  Beside each wrapper is its plain PyTorch version, a
 step-by-step transcription of the TPU kernel with the same rounding points;
-a CPU tensor takes it, a CUDA tensor launches the kernel.
+a CPU tensor takes it, a CUDA tensor launches the kernel.  In bf16 both run
+on tensor cores (:func:`train_geometry` mirrors their tiling); in f32 they
+keep the first port's FMA code.
 :func:`netvlad_aggregate_reference` is the autograd composition of the JAX
 module's ``netvlad_aggregate_reference``.
 """
@@ -27,11 +29,14 @@ import ctypes
 import torch
 
 from learnablepoolingmethods_torch.ops import kernel_build
-from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS
+from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS, aggregation_geometry
 
 EPS = 1e-12
-AGG_ROWS = 64        # csrc/netvlad_core.cuh kAggRows: rows per partial sum
-MAX_GROUPS = 16      # video groups whose dC₂ partials the backward sums in order
+AGG_ROWS = 64        # csrc/netvlad_core.cuh kAggRows: rows per partial sum (f32 chain)
+MAX_GROUPS = 16      # video groups whose dC₂ partials the f32 backward sums in order
+DC2_SLOT_FLOATS = 1 << 22  # csrc/netvlad_train.cu kDc2SlotFloats: the bf16 backward's dC₂ slots
+TRAIN_GEOMETRY_KEYS = ("ds", "cs", "kc", "ktiles", "dchunks", "one_pass", "threads", "groups",
+                       "gemm_nt")
 
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p
@@ -39,6 +44,37 @@ _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctype
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p
 ]
+
+
+def train_geometry(b: int, d: int, k: int) -> dict:
+    """How the bf16 kernels tile a (B, D, K) shape (mirrors
+    ``csrc/netvlad_train.cu#train_geometry``).  The forward and the
+    backward's V₁ pass take the inference aggregation's tiling
+    (:func:`~learnablepoolingmethods_torch.ops.netvlad_fused.aggregation_geometry`):
+    ``one_pass`` when a video's ``ktiles`` blocks fit one portable
+    thread-block cluster and D ≤ 1024, else two passes (a second Xᵀ·A).
+    ``groups``: the backward's dC₂ partial slots, at most 2²² floats of
+    them in all; video b goes to slot b mod G, where the one-pass kernel
+    takes G = min(groups, the clusters that fit the card at once).
+    ``gemm_nt``: n8 tiles of clusters per warp in the dA/dX kernel (8 warps
+    × 8·gemm_nt ≥ K)."""
+    geo = aggregation_geometry(d, k)
+    geo["groups"] = min(b, max(1, DC2_SLOT_FLOATS // (d * k)))
+    geo["gemm_nt"] = 1 if k <= 64 else 2 if k <= 128 else 4 if k <= 256 else 8
+    return geo
+
+
+def kernel_train_geometry(b: int, d: int, k: int) -> dict:
+    """The tiling that the built kernels pick for (B, D, K); needs the
+    library, so ``nvcc`` (chip_smoke.py holds it against
+    :func:`train_geometry`)."""
+    fn = kernel_build.load_function(
+        "netvlad_train", "lpm_netvlad_train_geometry",
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = None
+    out = (ctypes.c_int * len(TRAIN_GEOMETRY_KEYS))()
+    fn(b, d, k, ctypes.cast(out, ctypes.c_void_p))
+    return dict(zip(TRAIN_GEOMETRY_KEYS, out))
 
 
 def _check(name: str, x, logits, c2, dv3=None):
@@ -79,7 +115,9 @@ def netvlad_aggregate_forward(x: torch.Tensor, logits: torch.Tensor, c2: torch.T
     dev = x.device
     out = torch.empty((b, d, k), dtype=x.dtype, device=dev)
     ws_a = torch.empty((b * f, k), dtype=torch.float32, device=dev)
-    ws_colsq = torch.empty((b, k), dtype=torch.float32, device=dev)
+    # the two-pass bf16 aggregation keeps B·dchunks·K partial sums
+    ws_colsq = torch.empty((b * aggregation_geometry(d, k)["dchunks"], k), dtype=torch.float32,
+                           device=dev)
     fn = kernel_build.load_function("netvlad_train", "lpm_netvlad_train_forward", _FWD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
@@ -107,18 +145,31 @@ def netvlad_aggregate_backward(x, logits, c2, dv3):
         raise ValueError(f"netvlad_aggregate_backward: unsupported device {x.device}")
     b, f, d, k = _check("netvlad_aggregate_backward", x, logits, c2, dv3)
     dev = x.device
-    n_rows = -(-d // AGG_ROWS)
-    n_groups = min(b, MAX_GROUPS)
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
     dx = torch.empty_like(x)
-    dl = f32(b, f, k)
-    dc2 = f32(d, k)
     ws_dv1 = torch.empty((b, d, k), dtype=x.dtype, device=dev)
-    scratch = [f32(b * f, k), f32(b, n_rows, k), f32(b, n_rows, k), f32(b, k), f32(b, k),
-               f32(b, 2), f32(b, n_rows, k), f32(n_groups, d, k)]
+    if x.dtype == torch.bfloat16:
+        # a, colsq, p [B, dchunks, K] (two passes only), three f32-chain
+        # slots unused here, ds [B, dchunks, K], the groups' dC₂ partials
+        geo = train_geometry(b, d, k)
+        n_groups, dch = geo["groups"], geo["dchunks"]
+        two = 0 if geo["one_pass"] else 1
+        sizes = [b * f * k, two * b * dch * k, two * b * dch * k, 0, 0, 0, b * dch * k,
+                 n_groups * d * k]
+    else:
+        n_rows = -(-d // AGG_ROWS)
+        n_groups = min(b, MAX_GROUPS)
+        sizes = [b * f * k, b * n_rows * k, b * n_rows * k, b * k, b * k, b * 2, b * n_rows * k,
+                 n_groups * d * k]
+    dl = torch.empty((b, f, k), dtype=torch.float32, device=dev)
+    dc2 = torch.empty((d, k), dtype=torch.float32, device=dev)
+    # every f32 scratch from one allocation, each part 16-byte aligned (the
+    # host's time per call is part of the kernels' time)
+    padded = [-(-n // 4) * 4 for n in sizes]
+    flat = torch.empty(sum(padded), dtype=torch.float32, device=dev)
+    scratch, at = [], 0
+    for n, pn in zip(sizes, padded):
+        scratch.append(flat[at:at + n])
+        at += pn
     fn = kernel_build.load_function("netvlad_train", "lpm_netvlad_train_backward", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
@@ -153,15 +204,20 @@ def netvlad_aggregate_forward_plain(x, logits, c2):
     return (v2 * inv_g).to(x.dtype)
 
 
-def netvlad_aggregate_backward_plain(x, logits, c2, dv3):
-    """Plain PyTorch version of the backward kernel (``_bwd_kernel``): the
-    normalisation VJPs in f32, dV₁ rounded to ``x.dtype`` before X·dV₁ and
-    A·dV₁ᵀ, dC₂ summed over the batch."""
+def netvlad_dv1_plain(x, logits, c2, dv3):
+    """(A, S, dV₁) of the plain backward: the normalisation VJPs in f32."""
     a, s, _, inv_c, v2, inv_g = _recompute(x, logits, c2)
     v3 = v2 * inv_g
     dv3 = dv3.float()
     dv2 = (dv3 - v3 * torch.sum(v3 * dv3, dim=(1, 2), keepdim=True)) * inv_g
-    dv1 = (dv2 - v2 * torch.sum(v2 * dv2, dim=1, keepdim=True)) * inv_c
+    return a, s, (dv2 - v2 * torch.sum(v2 * dv2, dim=1, keepdim=True)) * inv_c
+
+
+def netvlad_aggregate_backward_plain(x, logits, c2, dv3):
+    """Plain PyTorch version of the backward kernel (``_bwd_kernel``): the
+    normalisation VJPs in f32, dV₁ rounded to ``x.dtype`` before X·dV₁ and
+    A·dV₁ᵀ, dC₂ summed over the batch."""
+    a, s, dv1 = netvlad_dv1_plain(x, logits, c2, dv3)
     dc2 = torch.sum(-dv1 * s, dim=0)
     ds = -torch.sum(dv1 * c2[None], dim=1, keepdim=True)
     dv1_c = dv1.to(x.dtype).float()
