@@ -8,8 +8,9 @@ error, and prints one JSON line per phase:
 1. env        torch and CUDA versions, the card's name and power limit;
 2. build      nvcc builds every kernel under learnablepoolingmethods_torch/csrc,
               one process per source, and beside them an -Xptxas -v compile of
-              the NetVLAD inference and training kernels' sources: registers,
-              static shared memory and spills per kernel;
+              the NetVLAD inference and training kernels' and the NetFV
+              kernel's sources: registers, static shared memory and spills
+              per kernel;
 3. kernels    both inference kernels against their plain PyTorch versions
               (KERNEL_CHECKS): Willow shapes (D 1024/128, K 256/128), B=64,
               S=30, S=300 and S=1 (where each descriptor shows which frame the
@@ -74,11 +75,19 @@ error, and prints one JSON line per phase:
               num_frames including 1 and 300, on the staged route's rows in
               bf16 and f32, and at small shapes off every tile width (for
               SoftDBoW also S=150 and S=31, a video over 128 rows and one
-              just over the 30-frame group), with the tolerances of phase 3
+              just over the 30-frame group; for NetFV also S=31 and 33 at
+              full width, K=512 past one portable cluster, and D=520 across
+              the bf16 kernel's row split), with the tolerances of phase 3
               (NetFV's plain version takes the kernels' rounding points
-              there; its gap to the reference's is reported); times at
-              B=512, S=30 and S=300, SoftDBoW's beside its design and the
-              time of its first, FMA-only kernel;
+              there, and its bf16 output the tighter NETFV_KERNEL_GATE; its
+              gap to the reference's is reported); every bf16 NetFV output
+              equal bit for bit to a second launch's, and the built NetFV
+              kernel's tiling equal to ops/netfv_fused.py#netfv_geometry at
+              every shape; times at B=512, S=30 and S=300 beside each
+              kernel's design and the time of its first, FMA-only kernel;
+              NetFV's bf16 outputs also checked on those timed inputs and at
+              a batch of four videos for each persistent cluster the card
+              holds of either modality, S=30 and 300;
 10. lf_e2e    for each of NetFVModelLF, SoftDbofModelLF, NetRVLADModelLF and
               NeXtVLADModel at its full default width (weights from a seed,
               BN statistics perturbed): the inference CLI on the 96 videos of
@@ -174,7 +183,13 @@ from learnablepoolingmethods_torch.ops.masked_attention import (
     masked_attention_fused,
     masked_attention_plain,
 )
-from learnablepoolingmethods_torch.ops.netfv_fused import netfv_fused, netfv_reference
+from learnablepoolingmethods_torch.ops.netfv_fused import (
+    kernel_geometry as netfv_kernel_geometry,
+    netfv_fused,
+    netfv_geometry,
+    netfv_reference,
+    resident_clusters as netfv_resident_clusters,
+)
 from learnablepoolingmethods_torch.ops.netvlad_fused import (
     aggregation_geometry,
     kernel_geometry,
@@ -200,7 +215,7 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 DT, D_RGB, D_AUD, K_RGB, K_AUD, F = 1152, 1024, 128, 256, 128, 300
 MODS = ((D_RGB, K_RGB), (D_AUD, K_AUD))
-# the two kernels whose bf16 instantiation was redesigned for Hopper: the
+# the kernels whose bf16 instantiation was redesigned for Hopper: the
 # design, and the time of the first port's FMA-only kernel at the same shape
 # (PERF.md's kernel table), beside each kernel_times line
 REDESIGNED = {
@@ -222,11 +237,17 @@ REDESIGNED = {
                                              "memory, dC₂ in shared memory per group; dA/dL and dX in one "
                                              "mma.sync GEMM launch from a bf16 dV₁ scratch; f32 FMA",
                                    "earlier_ms": 2.830},
+    "netfv_fused": {"design": "bf16 logits+softmax GEMM on mma.sync; fv1 and fv2 on mma.sync in one pass per "
+                              "video (X² from the X fragments, A rounded once) in persistent clusters of "
+                              "≤ 8 blocks splitting D and K, per-cluster and global sums through "
+                              "distributed shared memory; FMA passes past a portable cluster; f32 FMA",
+                    "earlier_ms": 0.991},
 }
-# the first port's times of the redesigned NetVLAD kernels at S=300 (B=512
-# for inference, B=256 for training)
+# the first port's times of the redesigned kernels at S=300 (B=512 for
+# inference, B=256 for training)
 EARLIER_S300_MS = {"netvlad_frontend": 18.642, "netvlad_fused": 17.664,
-                   "netvlad_aggregate_forward": 7.002, "netvlad_aggregate_backward": 19.006}
+                   "netvlad_aggregate_forward": 7.002, "netvlad_aggregate_backward": 19.006,
+                   "netfv_fused": 6.860, "softdbow_fused": 138.623}
 KERNELS = {
     "netvlad_frontend": dict(
         fn=netvlad_frontend,
@@ -374,7 +395,7 @@ def phase_env():
 
 
 # the sources whose kernels nvcc's -Xptxas -v reports in the build phase
-PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train")
+PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train", "netfv_fused")
 
 
 def phase_build():
@@ -1037,7 +1058,24 @@ LF_SMALL_MODS = {"netfv_fused": ((42, 20), (8, 10)), "softdbow_fused": ((42, 150
 LF_SMALL_CHECKS = ((3, 10, 7, LF_SMALL_MODS),
                    (3, 200, 150, {"softdbow_fused": LF_SMALL_MODS["softdbow_fused"]}),
                    (5, 40, 31, {"softdbow_fused": LF_SMALL_MODS["softdbow_fused"]}))
+# NetFV's edge shapes for its bf16 kernel: S=31 and 33 end on a partial
+# 16-sample stage of the ring at full width; K=512 at D=1024 needs 32 blocks
+# a video (past a portable cluster: the FMA passes), at D=128 four; D=520
+# puts 8 rows in the second block of a two-block cluster
+NETFV_EDGE_CHECKS = ((16, F, 31, {"netfv_fused": LF_KERNEL_MODS["netfv_fused"]}),
+                     (16, F, 33, {"netfv_fused": LF_KERNEL_MODS["netfv_fused"]}),
+                     (8, F, 31, {"netfv_fused": ((D_RGB, 512), (D_AUD, 512))}),
+                     (5, 40, 33, {"netfv_fused": ((520, 20), (8, 10))}))
 LF_PLAIN = {"netfv_fused": netfv_reference, "softdbow_fused": softdbow_reference}
+# (atol as a share of max|ref|, rtol) of a bf16 NetFV output against the
+# plain version at the kernels' rounding points: both round the same f32
+# values once, differing in the f32 summation order, which can move an
+# output's rounding by one bf16 step (up to 2⁻⁷·|ref|) and, through a logit
+# that rounds A the other way, a small value by a few 1e-4 of max|ref|
+# (the widest gap on an H100 was 4.88e-4, one step at values in [1/16, 1/8));
+# as ATTN_KERNEL_GATE, against TOLERANCE's 1e-2 and 2e-2
+NETFV_KERNEL_GATE = (2e-3, 2 ** -7)
+SMEM_PER_BLOCK = 232448  # an H100 block's dynamic shared memory at most (227 KB)
 # the inference CLI's flags for the LF models (each at its default width)
 LF_CLI_FLAGS = ["--frame_features", "--feature_names=rgb,audio", "--feature_sizes=1024,128",
                 "--batch_size=32", "--fast_infer", "--device=cuda"]
@@ -1077,17 +1115,35 @@ def check_lf_kernel(kernel: str, x, consts, errors) -> dict:
     """One kernel against its plain version on one modality's rows.  NetFV's
     plain version takes the kernels' rounding points here (A and X² rounded
     to X's dtype, as on the TPU); its gap to the reference's rounding (A in
-    f32) is reported beside it."""
-    got = KERNELS[kernel]["fn"](x, *consts)
+    f32) is reported beside it, a bf16 NetFV output must equal a second
+    launch's bit for bit and lie within NETFV_KERNEL_GATE, and the tiling
+    that the built kernel picks must be ops/netfv_fused.py#netfv_geometry's,
+    in shared memory that a block can have."""
+    fn = KERNELS[kernel]["fn"]
+    got = fn(x, *consts)
+    bf16 = x.dtype == torch.bfloat16
+    again = fn(x, *consts) if kernel == "netfv_fused" and bf16 else None
     torch.cuda.synchronize()
     label = f"{kernel} B={x.shape[0]} S={x.shape[1]} D={x.shape[2]} K={consts[0].shape[1]} {x.dtype}"
     if kernel == "netfv_fused":
+        d, k = consts[0].shape
+        built, mirror = netfv_kernel_geometry(d, k), netfv_geometry(d, k)
+        if {n: built[n] for n in mirror} != mirror or (mirror["one_pass"] and built["smem"] > SMEM_PER_BLOCK):
+            raise AssertionError(f"D={d} K={k}: the NetFV kernel tiles as {built}, ops/netfv_fused.py as {mirror}")
+        if again is not None and not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+            raise AssertionError(f"{label}: two launches differ")
         want = netfv_reference(x, *consts, kernel_rounding=True)
-        err = max(compare(f"{label} fv{i}", g, w) for i, (g, w) in enumerate(zip(got, want), 1))
+        tol = NETFV_KERNEL_GATE if bf16 else None
+        err = max(compare(f"{label} fv{i}", g, w, tol=tol) for i, (g, w) in enumerate(zip(got, want), 1))
         ref = netfv_reference(x, *consts)
         out = {"max_abs_err": err, "max_ref": max(w.float().abs().max().item() for w in want),
                "max_abs_gap_to_f32_a": max((g.float() - r.float()).abs().max().item()
-                                           for g, r in zip(got, ref))}
+                                           for g, r in zip(got, ref)),
+               "same_bits": again is not None, "one_pass": mirror["one_pass"]}
+        if bf16:
+            out["atol_share_needed_at_rtol"] = max(
+                ((g.float() - w.float()).abs() - NETFV_KERNEL_GATE[1] * w.float().abs()).max().item()
+                / w.float().abs().max().item() for g, w in zip(got, want))
     else:
         want = softdbow_reference(x, *consts)
         out = {"max_abs_err": compare(label, got, want), "max_ref": want.abs().max().item()}
@@ -1117,12 +1173,14 @@ def lf_bound(kernel: str, b: int, s: int, mods):
 def phase_lf_kernels(dev, smi):
     """The NetFV and SoftDBoW kernels against their plain versions
     (check_lf_kernel), X in bf16 and f32, both modalities at full width,
-    B=64, S=30, 300 and 1, and at one small shape off every tile width;
-    then the times of the rgb and audio calls at B=512, S=30 and S=300."""
+    B=64, S=30, 300 and 1, at one small shape off every tile width and at
+    NETFV_EDGE_CHECKS; then the times of the rgb and audio calls at B=512,
+    S=30 and S=300, and NetFV's bf16 outputs checked where its persistent
+    clusters each walk several videos (check_netfv_walk)."""
     rng = np.random.default_rng(3)
     errors = dict.fromkeys(LF_KERNEL_MODS, 0.0)
     for b, f, s, table in ((64, F, 30, LF_KERNEL_MODS), (64, F, 300, LF_KERNEL_MODS),
-                           (64, F, 1, LF_KERNEL_MODS), *LF_SMALL_CHECKS):
+                           (64, F, 1, LF_KERNEL_MODS), *LF_SMALL_CHECKS, *NETFV_EDGE_CHECKS):
         for kernel, mods in table.items():
             before = counters()
             checks = []
@@ -1147,9 +1205,38 @@ def phase_lf_kernels(dev, smi):
             bound_ms, by, nbytes, flops = lf_bound(kernel, b, s, mods)
             emit({"phase": "kernel_times", "kernel": kernel, "B": b, "S": s, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
-                  "flop": flops, **(REDESIGNED.get(kernel, {}) if s == 30 else {}), "card": smi})
+                  "flop": flops, **(REDESIGNED.get(kernel, {}) if s == 30 else
+                                    {"earlier_ms": EARLIER_S300_MS.get(kernel)}), "card": smi})
             timing.setdefault(s, {})[kernel] = (ms, plain_ms, (bound_ms, by))
+            if kernel == "netfv_fused":
+                check_netfv_walk(xs, consts, mods, errors)
+
+    # a batch that gives every modality's clusters four videos each (at
+    # B=512 the audio module's one-block clusters may get one)
+    mods = LF_KERNEL_MODS["netfv_fused"]
+    b = 4 * max(netfv_resident_clusters(d, k) for d, k in mods)
+    for s in (30, 300):
+        xs = lf_rows(rng, dev, b, F, s, mods, torch.bfloat16)
+        check_netfv_walk(xs, [lf_consts(rng, dev, "netfv_fused", d, k, torch.bfloat16) for d, k in mods],
+                         mods, errors)
+        del xs
     return errors, timing[30]
+
+
+def check_netfv_walk(xs, consts, mods, errors) -> None:
+    """NetFV's bf16 rgb and audio outputs (check_lf_kernel) at a batch where
+    the kernel's persistent clusters walk videos y, y + n, y + 2n, ... (n
+    the clusters the card holds): the ring runs from one video into the
+    next and the published partials' two slots are reused from the third
+    video on.  Emits the videos a cluster beside each check."""
+    b, s = xs[0].shape[:2]
+    checks = []
+    for label, x, c, (d, k) in zip(("rgb", "aud"), xs, consts, mods):
+        n = netfv_resident_clusters(d, k)
+        checks.append({"modality": label, "dtype": str(x.dtype), "D": d, "K": k, "clusters": n,
+                       "videos_a_cluster": -(-b // min(n, b)), **check_lf_kernel("netfv_fused", x, c, errors)})
+    emit({"phase": "lf_kernels", "kernel": "netfv_fused", "B": b, "F": F, "S": s, "walk": True,
+          "checks": checks})
 
 
 def lf_config() -> ModelConfig:

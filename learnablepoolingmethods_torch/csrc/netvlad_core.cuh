@@ -36,9 +36,11 @@
 // still sums the unrounded A.  Products and sums are
 // plain f32 FMAs; the kernels move few bytes, so the FMA and shared-memory
 // issue rates bound them (see PERF.md).  The f32 inference and training
-// kernels and NetFV use this code; run_netvlad<__nv_bfloat16>, the bf16
-// inference chain, is specialised on tensor cores in netvlad_tc.cuh, which
-// the bf16 training kernels use too.
+// kernels use this code, and NetFV (netfv_fused.cu) its logits in f32 and
+// its two-pass shape of the aggregation in both types;
+// run_netvlad<__nv_bfloat16>, the bf16 inference chain, is specialised on
+// tensor cores in netvlad_tc.cuh, which the bf16 training kernels and
+// NetFV's bf16 logits use too.
 
 #pragma once
 

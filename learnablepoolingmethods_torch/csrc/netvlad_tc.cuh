@@ -15,8 +15,9 @@
 // What bounds it on an H100: at Willow rgb shapes (B=512, S=30, D=1024,
 // K=256) the 268 MB bf16 output is most of the bytes (80 µs at 3.35 TB/s);
 // the logits and the aggregation are 8 GFLOP each (16 µs at 989 TFLOP/s).
-// The first port's FMA code (netvlad_core.cuh, kept for f32 and for the
-// training and NetFV kernels) was 28× that bound; its aggregation ran twice.
+// The first port's FMA code (netvlad_core.cuh, kept for f32) was 28× that
+// bound; its aggregation ran twice.  netfv_fused.cu's bf16 chain takes the
+// logits launch below and the cluster kernel's helpers.
 //
 // Two launches (three for the two-pass shapes):
 //

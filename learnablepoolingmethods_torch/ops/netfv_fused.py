@@ -12,7 +12,8 @@ flax module forms it.  Both outputs are ``[B, D, K]``; their d-major
 flattens, concatenated, are the module's ``[B, 2·D·K]`` descriptor.  The
 kernel (``csrc/netfv_fused.cu``) replaces
 ``learnablepoolingmethods_tpu/ops/netfv_pallas.py#netfv_fused``;
-:func:`netfv_reference` transcribes that module's ``netfv_reference``.
+:func:`netfv_reference` transcribes that module's ``netfv_reference``, and
+:func:`netfv_geometry` mirrors how the bf16 kernel tiles a shape.
 """
 
 from __future__ import annotations
@@ -30,6 +31,53 @@ _ARGTYPES = (
     + [ctypes.c_int] * 4
     + [ctypes.c_void_p]
 )
+# the built kernel's report (lpm_netfv_geometry): the tiling, which
+# netfv_geometry mirrors, then the one-pass kernel's dynamic shared memory
+GEOMETRY_KEYS = ("ds", "cs", "kc", "dtiles", "ktiles", "blocks", "one_pass", "threads", "smem")
+MAX_WARPS = 8  # a block's warps: 128 f32 accumulators a thread fit 256 threads
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+ACCUMULATORS = 2 * 64 * 32 // 32  # f32 a thread: a warp's 64 × 32 tile of fv1 and of fv2
+
+
+def netfv_geometry(d: int, k: int) -> dict:
+    """How the bf16 kernel's aggregation (``csrc/netfv_fused.cu#fv_geometry``,
+    which this mirrors) tiles a (D, K) shape: warps of 64 descriptor rows ×
+    32 clusters, each holding that tile of fv1 and of fv2; ``ds`` row slabs ×
+    ``cs`` cluster slabs a block (at most 8 warps), ``kc`` clusters a block,
+    ``dtiles`` × ``ktiles`` blocks a video.  ``one_pass`` when a video's
+    blocks fit one portable thread-block cluster: the one-pass tensor-core
+    kernel; else the first port's two FMA passes (after the tensor-core
+    logits).  The keys are GEOMETRY_KEYS but the last."""
+    slabs, kslabs = -(-d // 64), -(-k // 32)
+    ds = min(slabs, MAX_WARPS)
+    cs = min(MAX_WARPS // ds, kslabs)
+    dtiles, ktiles = -(-slabs // ds), -(-kslabs // cs)
+    return dict(ds=ds, cs=cs, kc=32 * cs, dtiles=dtiles, ktiles=ktiles, blocks=dtiles * ktiles,
+                one_pass=int(dtiles * ktiles <= MAX_CLUSTER), threads=32 * ds * cs)
+
+
+def kernel_geometry(d: int, k: int) -> dict:
+    """The geometry that the built kernel itself picks for (D, K), with its
+    dynamic shared memory (``smem``, bytes); needs the library, so ``nvcc``
+    (chip_smoke.py holds it against :func:`netfv_geometry`)."""
+    lib_fn = kernel_build.load_function(
+        "netfv_fused", "lpm_netfv_geometry", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib_fn.restype = None
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    lib_fn(d, k, ctypes.cast(out, ctypes.c_void_p))
+    return dict(zip(GEOMETRY_KEYS, out))
+
+
+def resident_clusters(d: int, k: int) -> int:
+    """How many thread-block clusters the one-pass bf16 kernel runs at (D,
+    K) on the current card, 16-byte-aligned rows (each walks videos y, y +
+    that many, ...; a launch takes at most one per video); 0 where the shape
+    takes the FMA passes.  Needs the library and a card."""
+    lib_fn = kernel_build.load_function(
+        "netfv_fused", "lpm_netfv_clusters", [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = ctypes.c_int(0)
+    kernel_build.check(lib_fn(d, k, 1, ctypes.byref(out)), "netfv_fused")
+    return out.value
 
 
 def netfv_fused(
