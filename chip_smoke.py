@@ -125,7 +125,24 @@ error, and prints one JSON line per phase:
               both models' kernel routes at B=256, all 300 frames, num_frames
               random in 1-300: videos/s (the median of five rounds), the plain
               route and peak memory beside it; then attn_profile,
-              torch.profiler over five kernel-route batches.
+              torch.profiler over five kernel-route batches;
+15. eval_e2e  the full-shape GAP drill's learnable set (200 videos, V=3862,
+              rgb 1024 + audio 128, up to 300 frames): NetVLADModelLF at full
+              width trained in-process (B=64, lr 0.001, bf16, fused, until the
+              inference-mode GAP over the set, read every 50 steps, reaches
+              0.5, or 1000 steps; each training kernel twice a step); the
+              eval CLI on the model-forward route
+              (f32) and on --fast_forward (bf16, the front-end kernel once a
+              batch), each with the default accumulator and --fast_eval, which
+              must agree within 1e-5 on GAP, Hit@1, PERR and loss; the f32
+              plain fast route on the frames --fast_forward draws, whose GAP
+              must be >= 0.3 and within 1e-3 of --fast_forward's (the north
+              star's budget); the inference CLI without --fast_infer, with
+              --fused_train_aggregation (the training forward kernel twice a
+              batch), its CSV the module's top 20 and the module within the
+              f32 gate of its plain aggregation; DbofModel at full width:
+              eval --fast_forward and inference --fast_infer against the f32
+              plain DBoF route within 1e-2 in probability.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -133,6 +150,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -145,22 +163,30 @@ import time
 import numpy as np
 import torch
 
+from learnablepoolingmethods_torch import eval as eval_cli
 from learnablepoolingmethods_torch import inference, train
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig, TrainingConfig
+from learnablepoolingmethods_torch.core import step as step_lib
 from learnablepoolingmethods_torch.core.step import TrainStep
 from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.core.weights import (
     convert_flax_variables,
     init_variables_np,
     load_flax_variables,
+    load_variables_npz,
     save_variables_npz,
+    state_dict_to_flax,
 )
-from learnablepoolingmethods_torch.data.fixtures import write_frame_level_fixture
+from learnablepoolingmethods_torch.data.fixtures import (
+    make_learnable_synthetic_frame_level,
+    write_frame_level_fixture,
+)
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader
 from learnablepoolingmethods_torch.losses import CrossEntropyLoss
+from learnablepoolingmethods_torch.metrics import eval_util
 from learnablepoolingmethods_torch.models import create_model
-from learnablepoolingmethods_torch.ops import kernel_build
+from learnablepoolingmethods_torch.ops import fast_dbof, kernel_build
 from learnablepoolingmethods_torch.ops.fast_dispatch import (
     FAST_ATTENTION_MODELS,
     FAST_LF_MODELS,
@@ -701,9 +727,10 @@ def read_csv(out_csv: str, written: int, truth) -> dict:
     return csv
 
 
-def load_batches(data: str, dev, batch_size: int = 32) -> list:
+def load_labeled_batches(data: str, dev, batch_size: int = 32) -> list:
     """The CLI's batches of ``batch_size`` videos of ``data`` on the card:
-    (features, num_frames, real-row mask, real video ids)."""
+    (features, num_frames, real-row mask, real video ids, the real rows'
+    labels on the host)."""
     reader = YT8MFrameFeatureReader(feature_names=("rgb", "audio"))
     batches = []
     for batch in batch_iterator(reader, data, batch_size):
@@ -711,8 +738,14 @@ def load_batches(data: str, dev, batch_size: int = 32) -> list:
         batches.append((torch.from_numpy(batch["features"]).to(dev),
                         torch.from_numpy(batch["num_frames"]).to(dev),
                         torch.from_numpy(real).to(dev),
-                        [v for v, keep in zip(batch["video_id"], real) if keep]))
+                        [v for v, keep in zip(batch["video_id"], real) if keep],
+                        batch["labels"][real]))
     return batches
+
+
+def load_batches(data: str, dev, batch_size: int = 32) -> list:
+    """load_labeled_batches without the labels."""
+    return [b[:4] for b in load_labeled_batches(data, dev, batch_size)]
 
 
 def run_batches(batches, fp, fn) -> torch.Tensor:
@@ -1524,6 +1557,258 @@ def phase_attn_throughput(dev, fps, smi):
               **profile_device(lambda: fn(fp, x, nf, None)), "card": smi})
 
 
+# the learnable set of the JAX package's full-shape GAP drill
+# (tests/integration/gap_drill_common.py:141-150): 200 videos of up to 300
+# frames, rgb 1024 + audio 128, V=3862, a few labels a video
+EVAL_FIXTURE = dict(num_videos=200, num_classes=3862, rgb_size=D_RGB, audio_size=D_AUD, max_frames=F,
+                    seed=7, label_threshold=100.0, min_labels=3)
+# training for the eval drill: B=64, lr 0.001 (the drill's), until the
+# train GAP, read every EVAL_GAP_EVERY steps, reaches the drill's gap_target
+# or EVAL_MAX_STEPS
+EVAL_BATCH, EVAL_LR, EVAL_MAX_STEPS, EVAL_GAP_TARGET, EVAL_GAP_EVERY = 64, 0.001, 1000, 0.5, 50
+# the north star's end-to-end budget, |ΔGAP@20| between the bf16 kernel
+# route and the f32 plain route; below EVAL_GAP_FLOOR the gate would
+# compare noise
+GAP_BUDGET, EVAL_GAP_FLOOR = 1e-3, 0.3
+# the JAX package's own bound between --fast_eval and the default
+# accumulator (tests/integration/test_eval_api.py:91-106)
+FAST_EVAL_BOUND = 1e-5
+EVAL_CLI_FLAGS = ["--frame_features", "--feature_names=rgb,audio", "--feature_sizes=1024,128",
+                  f"--batch_size={EVAL_BATCH}", "--device=cuda"]
+EVAL_METRICS = ("gap", "avg_hit_at_one", "avg_perr", "avg_loss")
+
+
+def eval_config(**overrides) -> ModelConfig:
+    """The model configuration that the CLIs build from EVAL_CLI_FLAGS
+    (every model width at its default), with ``overrides``."""
+    args = inference.build_parser().parse_args(EVAL_CLI_FLAGS)
+    return dataclasses.replace(inference.model_config_from_args(args), **overrides)
+
+
+def route_metrics(batches, probs_fn) -> dict:
+    """The default accumulator's metrics of a route over ``batches``:
+    ``probs_fn(features, num_frames, key)`` → probabilities, each batch drawn
+    from the CLIs' per-batch key fold_in(key(0), batch)."""
+    em = eval_util.EvaluationMetrics(3862, 20)
+    loss_obj = CrossEntropyLoss()
+    for batch_idx, (feats, nf, real, _, labels) in enumerate(batches):
+        probs = probs_fn(feats, nf, prng.fold_in(prng.key(0), batch_idx))[real].float()
+        loss = loss_obj.calculate_per_example_loss(probs, torch.from_numpy(labels).to(probs.device)).mean()
+        em.accumulate(probs.cpu().numpy(), labels, float(loss))
+    info = em.get()
+    return {k: float(info[k]) for k in EVAL_METRICS}
+
+
+def train_eval_model(dev, data: str, workdir: str, smi) -> tuple:
+    """NetVLADModelLF at full width, trained in-process by the port's
+    TrainStep (bf16, --fused_train_aggregation) on device-resident batches
+    of EVAL_BATCH videos of the set in ``data`` drawn with replacement, as
+    the JAX drill's trainer (tools/drill_train_fullshape_tpu.py) draws them;
+    every EVAL_GAP_EVERY steps the train GAP, that of the inference-mode
+    forward (running BN statistics) over the whole set, until it reaches
+    EVAL_GAP_TARGET or EVAL_MAX_STEPS; then its variables.npz.  Returns
+    (train_dir, info, launches)."""
+    mcfg = eval_config(compute_dtype="bfloat16", fused_train_aggregation=True, presampled=True)
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    tcfg = TrainingConfig(batch_size=EVAL_BATCH, base_learning_rate=EVAL_LR)
+    model = create_model("NetVLADModelLF", mcfg, DT)
+    load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=0)).to(dev)
+    state = TrainState.create(model, tcfg)
+    step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, True)
+    forward = step_lib.inference_forward(model, mcfg, True)
+    records = list(YT8MFrameFeatureReader(feature_names=("rgb", "audio")).read_file(data))
+    feats = torch.from_numpy(np.stack([r["features"] for r in records])).to(dev)
+    nf = torch.from_numpy(np.array([r["num_frames"] for r in records], np.int32)).to(dev)
+    labels_np = np.stack([r["labels"] for r in records])
+    labels = torch.from_numpy(labels_np).to(dev)
+    rng, key = np.random.default_rng(0), prng.key(0)
+    gap_batches = [torch.arange(i, min(i + EVAL_BATCH, len(records)), device=dev)
+                   for i in range(0, len(records), EVAL_BATCH)]
+
+    def train_gap() -> float:
+        probs = torch.cat([forward(feats[idx], nf[idx], prng.fold_in(prng.key(0), i)).float()
+                           for i, idx in enumerate(gap_batches)])
+        return float(eval_util.calculate_gap(probs.cpu().numpy(), labels_np))
+
+    gaps = []
+    reset_counters()
+    start = time.perf_counter()
+    while state.step < EVAL_MAX_STEPS:
+        for _ in range(EVAL_GAP_EVERY):
+            idx = torch.from_numpy(rng.integers(0, len(records), EVAL_BATCH)).to(dev)
+            step(state, {"features": feats[idx], "num_frames": nf[idx], "labels": labels[idx]}, key)
+        gaps.append((state.step, train_gap()))
+        if gaps[-1][1] >= EVAL_GAP_TARGET:
+            break
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = counters()
+    want = {**dict.fromkeys(KERNELS, 0), "netvlad_aggregate_backward": 2 * state.step,
+            "netvlad_aggregate_forward": 2 * state.step + 2 * len(gap_batches) * len(gaps)}
+    if launches != want:
+        raise AssertionError(f"eval_e2e training launches {launches}, expected {want}")
+    train_dir = os.path.join(workdir, "NetVLADModelLF")
+    os.makedirs(train_dir)
+    save_variables_npz(state_dict_to_flax(state.model), train_dir)
+    info = {"steps": state.step, "train_gap": gaps[-1][1], "train_gap_at_step": gaps, "seconds": seconds,
+            "route": "bf16 fused", "B": EVAL_BATCH, "lr": EVAL_LR, "card": smi}
+    del state, model, feats
+    return train_dir, info, launches
+
+
+def eval_cli_routes(name: str, data: str, train_dir: str, routes) -> tuple:
+    """The eval CLI (--run_once) on each of ``routes`` (name → flags), each
+    with the default accumulator and with --fast_eval, the launch counters
+    zeroed before each run and read after; raises unless --fast_eval agrees
+    with the default accumulator within FAST_EVAL_BOUND on every metric.
+    Returns ({run: metrics}, {run: launches})."""
+    infos, paths = {}, {}
+    for route, flags in routes.items():
+        for acc in ("default", "fast_eval"):
+            run = f"{route}/{acc}"
+            reset_counters()
+            info = eval_cli.main(EVAL_CLI_FLAGS + flags + (["--fast_eval"] if acc == "fast_eval" else []) + [
+                f"--model={name}", f"--eval_data_pattern={data}", f"--train_dir={train_dir}", "--run_once"])
+            torch.cuda.synchronize()
+            paths[run] = counters()
+            infos[run] = {k: float(info[k]) for k in EVAL_METRICS}
+        gaps = {k: abs(infos[f"{route}/fast_eval"][k] - infos[f"{route}/default"][k]) for k in EVAL_METRICS}
+        if max(gaps.values()) > FAST_EVAL_BOUND:
+            raise AssertionError(f"{name} {route}: --fast_eval and the default accumulator differ by {gaps}")
+    return infos, paths
+
+
+def phase_eval_e2e(dev, workdir, smi):
+    """The eval CLI and the model-forward inference route end to end at full
+    Willow width, on the full-shape GAP drill's learnable set (EVAL_FIXTURE):
+
+    1. NetVLADModelLF trained by train_eval_model;
+    2. the eval CLI on the model-forward route (f32) and on --fast_forward
+       (bf16, the front-end kernel), each with the default accumulator and
+       --fast_eval (within FAST_EVAL_BOUND); the f32 plain fast route's
+       metrics in-process on the frames --fast_forward draws.  Gates:
+       |ΔGAP| of --fast_forward against the f32 plain route <= GAP_BUDGET on
+       a model whose f32 GAP is >= EVAL_GAP_FLOOR.  The model-forward
+       route's GAP is printed, not gated: it draws other frames;
+    3. the inference CLI without --fast_infer, --fused_train_aggregation
+       (the training forward kernel, twice a batch): its CSV is the
+       module's top 20, and the module's probabilities equal the plain
+       aggregation's within TOLERANCE's f32 gate;
+    4. DbofModel at full width (weights from a seed): eval --fast_forward
+       and inference --fast_infer, no custom kernel, against the f32 plain
+       DBoF fast route within 1e-2 in probability.
+    Returns {kernel: launches in the phase's runs}."""
+    data = os.path.join(workdir, "learnable-0.tfrecord")
+    start = time.perf_counter()
+    make_learnable_synthetic_frame_level(data, **EVAL_FIXTURE)
+    setup_s = time.perf_counter() - start
+    batches = load_labeled_batches(data, dev, EVAL_BATCH)
+    n_batches = len(batches)
+    none = dict.fromkeys(KERNELS, 0)
+    launches = dict(none)
+
+    train_dir, train_info, got = train_eval_model(dev, data, workdir, smi)
+    for n, c in got.items():
+        launches[n] += c
+    emit({"phase": "eval_e2e", "part": "train", "videos": EVAL_FIXTURE["num_videos"], "setup_s": setup_s,
+          **train_info})
+
+    infos, paths = eval_cli_routes("NetVLADModelLF", data, train_dir,
+                                   {"model_forward_f32": [], "fast_forward_bf16": ["--fast_forward"]})
+    want = {run: {**none, "netvlad_frontend": n_batches} if run.startswith("fast_forward") else none
+            for run in paths}
+    if paths != want:
+        raise AssertionError(f"eval launches {paths}, expected {want}")
+    mcfg = eval_config()
+    tree = load_variables_npz(train_dir)
+    fp32 = prepare_fast_params(convert_flax_variables(tree, mcfg), mcfg, compute_dtype=torch.float32,
+                               device=dev)
+    plain32 = build_fast_netvlad_inference(mcfg, use_kernels=False, compute_dtype=torch.float32,
+                                           return_probs=True)
+    infos["fast_plain_f32"] = route_metrics(batches, lambda x, n, k: plain32(fp32, x, n, k))
+    del fp32
+    gap_f32 = infos["fast_plain_f32"]["gap"]
+    delta = abs(infos["fast_forward_bf16/default"]["gap"] - gap_f32)
+    if gap_f32 < EVAL_GAP_FLOOR:
+        raise AssertionError(f"the trained model's f32 GAP {gap_f32} is below {EVAL_GAP_FLOOR}: "
+                             "the |ΔGAP| gate would compare noise")
+    if delta > GAP_BUDGET:
+        raise AssertionError(f"|ΔGAP| of --fast_forward bf16 against the f32 plain route {delta} > {GAP_BUDGET}")
+    for n in launches:
+        launches[n] += sum(p[n] for p in paths.values())
+    emit({"phase": "eval_e2e", "part": "eval", "model": "NetVLADModelLF", "batches": n_batches,
+          "metrics": infos, "abs_gap_delta_bf16_vs_f32": delta, "budget": GAP_BUDGET,
+          "tpu_bf16_delta_for_context": 6.5e-4, "launches_per_run": paths, "card": smi})
+
+    # the model-forward inference CLI with the training forward kernel
+    out_csv = os.path.join(workdir, "model_forward.csv")
+    reset_counters()
+    start = time.perf_counter()
+    written = inference.main(EVAL_CLI_FLAGS + [
+        "--model=NetVLADModelLF", "--fused_train_aggregation", f"--input_data_pattern={data}",
+        f"--train_dir={train_dir}", f"--output_file={out_csv}"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - start
+    got = counters()
+    if got != {**none, "netvlad_aggregate_forward": 2 * n_batches}:
+        raise AssertionError(f"model-forward inference launches {got}")
+    for n, c in got.items():
+        launches[n] += c
+    probs = {}
+    for route, fused in (("kernel", True), ("plain", False)):
+        cfg = eval_config(fused_train_aggregation=fused, presampled=True)
+        model = load_flax_variables(create_model("NetVLADModelLF", cfg, DT), tree).to(dev).eval()
+        fwd = step_lib.inference_forward(model, cfg, True)
+        probs[route] = torch.cat([fwd(x, n, prng.fold_in(prng.key(0), i))[real].float()
+                                  for i, (x, n, real, *_) in enumerate(batches)])
+        del model
+    err = compare("model-forward NetVLADModelLF, fused vs plain aggregation", probs["kernel"], probs["plain"],
+                  torch.float32)
+    csv = read_csv(out_csv, written, [{"video_id": v} for *_, vids, _ in batches for v in vids])
+    check_csv_rows(csv, probs["kernel"], [b[:4] for b in batches], "model-forward kernel")
+    emit({"phase": "eval_e2e", "part": "inference_model_forward", "model": "NetVLADModelLF",
+          "route": "f32 --fused_train_aggregation", "csv_rows": written, "cli_s": cli_s,
+          "max_abs_prob_err_kernel_vs_plain": err, "launches": got, "card": smi})
+    del tree
+
+    # DbofModel: eval --fast_forward and inference --fast_infer
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    dbof_dir = os.path.join(workdir, "DbofModel")
+    os.makedirs(dbof_dir)
+    tree = seeded_tree("DbofModel", mcfg, fcfg)
+    save_variables_npz(tree, dbof_dir)
+    reset_counters()
+    info = eval_cli.main(EVAL_CLI_FLAGS + ["--model=DbofModel", "--fast_forward", "--run_once",
+                                           f"--eval_data_pattern={data}", f"--train_dir={dbof_dir}"])
+    dbof_csv = os.path.join(workdir, "dbof.csv")
+    written = inference.main(EVAL_CLI_FLAGS + ["--model=DbofModel", "--fast_infer",
+                                               f"--input_data_pattern={data}", f"--train_dir={dbof_dir}",
+                                               f"--output_file={dbof_csv}"])
+    torch.cuda.synchronize()
+    if counters() != none:
+        raise AssertionError(f"DbofModel launches {counters()}, expected none")
+    path = get_fast_path("DbofModel")
+    variables = convert_flax_variables(tree, mcfg, "DbofModel")
+    fp = {"bf16": path.prepare(variables, mcfg, device=dev),
+          "f32": fast_dbof.prepare_fast_dbof_params(variables, mcfg, compute_dtype=torch.float32, device=dev)}
+    fns = {"bf16": path.build(mcfg, return_probs=True),
+           "f32": fast_dbof.build_fast_dbof_inference(mcfg, compute_dtype=torch.float32, return_probs=True)}
+    dbof_probs = {r: run_batches([b[:4] for b in batches], fp[r], fns[r]) for r in fp}
+    gap = (dbof_probs["bf16"] - dbof_probs["f32"]).abs().max().item()
+    csv = read_csv(dbof_csv, written, [{"video_id": v} for *_, vids, _ in batches for v in vids])
+    vids = [v.decode() for *_, vs, _ in batches for v in vs]
+    csv_err = max(float(np.abs(csv[v][1] - dbof_probs["f32"][i, csv[v][0]].cpu().numpy()).max())
+                  for i, v in enumerate(vids))
+    if gap > 1e-2 or csv_err > 1e-2:
+        raise AssertionError(f"DbofModel: bf16 route {gap}, CSV {csv_err} from the f32 plain route")
+    f32_metrics = route_metrics(batches, lambda x, n, k: fns["f32"](fp["f32"], x, n, k))
+    emit({"phase": "eval_e2e", "part": "dbof", "model": "DbofModel",
+          "eval_fast_forward": {k: float(info[k]) for k in EVAL_METRICS}, "fast_plain_f32": f32_metrics,
+          "max_abs_prob_gap_bf16_vs_f32": gap, "csv_max_abs_err_vs_f32": csv_err, "csv_rows": written,
+          "card": smi})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -1568,6 +1853,9 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     phase_attn_throughput(dev, fps, smi)
     del fps
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as workdir:
+        for name, n in phase_eval_e2e(dev, workdir, smi).items():
+            launches[name] = launches.get(name, 0) + n
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], "max_abs_err": errors[name], "ms": timing[name][0],

@@ -1,8 +1,8 @@
 """The flag names of the JAX package's CLIs (``learnablepoolingmethods_tpu/
 flags.py``), with its defaults and help, for the port's argparse CLIs.
 
-A JAX command line parses in the port's inference and train CLIs: each
-defines every name below plus its JAX CLI's own flags.  A flag that a CLI
+A JAX command line parses in the port's inference, eval and train CLIs:
+each defines every name below plus its JAX CLI's own flags.  A flag that a CLI
 does not port yet raises, naming its ROADMAP.md queue-1 item, when it is
 set off its default (:func:`refuse_not_ported`); one that the JAX CLI reads
 nowhere on that path (the training schedule at inference, ``--num_gpu``
@@ -105,23 +105,23 @@ FLAGS_PY: Dict[str, tuple] = {
 }
 
 # flags of the model families whose port is queued → ROADMAP.md queue-1 item
-_MODEL_FAMILY_ITEMS = {
-    **dict.fromkeys(("dbof_cluster_size", "dbof_hidden_size", "dbof_pooling_method",
-                     "dbof_add_batch_norm"), 9),
-    **dict.fromkeys(("lstm_cells", "lstm_layers", "gru_cells", "gru_layers"), 11),
-}
+_RNN_ITEMS = dict.fromkeys(("lstm_cells", "lstm_layers", "gru_cells", "gru_layers"), 11)
+# DbofModel serves (inference and eval); its training is queued
+_DBOF_TRAIN_ITEMS = dict.fromkeys(("dbof_cluster_size", "dbof_hidden_size", "dbof_pooling_method",
+                                   "dbof_add_batch_norm"), "8b")
 _INGEST_ITEMS = dict.fromkeys(("num_readers", "use_grain", "grain_worker_count", "packed_cache_dir"), 7)
 _MESH_ITEMS = dict.fromkeys(("model_parallelism", "dcn_parallelism"), 15)
 
 # what each CLI does not port yet → ROADMAP.md queue-1 item
 INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = {
-    **_MODEL_FAMILY_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
+    **_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
     "reference_checkpoint": 13,
     # the JAX CLI builds its model in bf16 with either
     "bf16_params": 12, "fused_adam": 12,
 }
+EVAL_NOT_PORTED: Dict[str, Union[int, str]] = {**INFERENCE_NOT_PORTED, "int8_hidden": 12}
 TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = {
-    **_MODEL_FAMILY_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
+    **_RNN_ITEMS, **_DBOF_TRAIN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
     "use_native_reader": 7, "profile_dir": 7,
     "int8_hidden": 12, "use_remat": 12, "adam_bf16_momentum": 12, "bf16_params": 12,
     "fused_adam": 12, "grad_accum_steps": 12,

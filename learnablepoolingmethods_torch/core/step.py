@@ -1,4 +1,5 @@
-"""The train step (ref: core/step.py#make_train_step, single pass).
+"""The train, eval and predict steps (ref: core/step.py#make_train_step,
+single pass, #make_eval_step and #make_predict_step).
 
 uint8 frames → presampled frames (gathered in uint8) → dequantize →
 ℓ2-normalize → model forward in training mode (BN statistics updated in
@@ -15,6 +16,12 @@ without it the flax model draws inside its forward from
 (``utils/prng.py#flax_make_rng``).  The port always gathers the uint8 rows
 first and builds the model ``presampled``, which is exact either way:
 dequantize and ℓ2 are per frame and the BN runs after sampling.
+
+The eval and predict steps run the model with ``training=False``.  The JAX
+CLIs give the flax model ``rngs={"sampling": fold_in(key(0), batch)}``,
+so a sampling model (``samples_frames``) draws from
+``flax_make_rng(fold_in(key(0), batch))``; the port's steps gather those
+frames in uint8 too, from a model built ``presampled``.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.losses import BaseLoss
 from learnablepoolingmethods_torch.models.base import compute_dtype
 from learnablepoolingmethods_torch.models.model_utils import sample_frame_features
+from learnablepoolingmethods_torch.ops.metrics_ops import batch_topk_partials
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
+from learnablepoolingmethods_torch.ops.topk import top_k_exact
 from learnablepoolingmethods_torch.utils import prng
 from learnablepoolingmethods_torch.utils.quantization import dequantize
 
@@ -120,3 +129,67 @@ class TrainStep:
         state.apply_gradients(grads)
         return {"loss": total.detach(), "label_loss": label_loss.detach(),
                 "reg_loss": reg.detach(), "predictions": predictions.detach()}
+
+
+def inference_forward(model, mcfg: ModelConfig, frame_features: bool):
+    """``fn(features, num_frames=None, key=None) -> predictions``: the
+    model's forward with ``training=False`` as ``model.apply(...,
+    rngs={"sampling": key})`` runs the flax model (without ``key`` flax
+    draws from ``key(0)`` itself)."""
+    dtype = compute_dtype(mcfg)
+    samples = frame_features and mcfg.presampled
+
+    def forward(features, num_frames=None, key=None):
+        if not frame_features:
+            num_frames = None
+        if samples:
+            if not mcfg.sample_random_frames:
+                raise NotImplementedError(
+                    "--nosample_random_frames (random contiguous windows) is not ported yet")
+            sampling_key = prng.key(0) if key is None else prng.flax_make_rng(key)
+            features = sample_frame_features(features, num_frames, mcfg.iterations, sampling_key)
+        with torch.no_grad():
+            return model(preprocess_input(features, dtype), num_frames, training=False)["predictions"]
+
+    return forward
+
+
+def eval_outputs(predictions: torch.Tensor, batch: Dict[str, torch.Tensor], loss_obj: BaseLoss,
+                 top_k: int) -> Dict[str, object]:
+    """A batch's predictions, weighted loss and ``batch_topk_partials``."""
+    labels = batch["labels"].float()
+    weights = batch.get("weights")
+    if weights is None:
+        weights = torch.ones(predictions.shape[0], device=predictions.device)
+    per_ex = loss_obj.calculate_per_example_loss(predictions, labels)
+    return {"predictions": predictions, "loss": weighted_mean(per_ex, weights),
+            "partials": batch_topk_partials(predictions, labels, weights, top_k=top_k)}
+
+
+def make_eval_step(model, loss_obj: BaseLoss, mcfg: ModelConfig, frame_features: bool,
+                   top_k: int = 20):
+    """``eval_step(batch, key=None)`` → {predictions, loss, partials}: the
+    predictions for the reference-parity host accumulator and the device
+    partials of ``--fast_eval`` from one forward (ref:
+    core/step.py#make_eval_step).  ``batch`` holds tensors on the model's
+    device; ``key`` is the batch's sampling key."""
+    forward = inference_forward(model, mcfg, frame_features)
+
+    def eval_step(batch, key=None):
+        predictions = forward(batch["features"], batch.get("num_frames"), key)
+        return eval_outputs(predictions, batch, loss_obj, top_k)
+
+    return eval_step
+
+
+def make_predict_step(model, mcfg: ModelConfig, frame_features: bool, top_k: int = 20):
+    """``predict_step(features, num_frames=None, key=None)`` → (values
+    [B, k], class indices [B, k]): the forward, f32 probabilities and exact
+    top-k (ref: core/step.py#make_predict_step)."""
+    forward = inference_forward(model, mcfg, frame_features)
+
+    def predict_step(features, num_frames=None, key=None):
+        predictions = forward(features, num_frames, key).float()
+        return top_k_exact(predictions, min(top_k, predictions.shape[-1]))
+
+    return predict_step

@@ -1,8 +1,10 @@
 """Weight bridge between the JAX package's flax variables and the port.
 
 The flax ``{params, batch_stats}`` tree of an LF model (``NetVLADModelLF``
-and the rest of the LOUPE family) or of the transformer family
-(``TransformerEncoderModel``, ``AttentionNetVLADModel``) crosses over as
+and the rest of the LOUPE family), of the transformer family
+(``TransformerEncoderModel``, ``AttentionNetVLADModel``), of ``DbofModel``
+or of a single-layer model (``LogisticModel``, ``MoeModel``,
+``FrameLevelLogisticModel``) crosses over as
 nested dicts of NumPy arrays, so the port needs neither JAX nor orbax.  On
 the JAX side:
 
@@ -184,14 +186,61 @@ def _check_attention_layout(tree_np: Tree, mcfg: ModelConfig, model_name: str):
     return width, h
 
 
+# the models of one dense layer over their input
+SINGLE_LAYER_MODELS = ("LogisticModel", "FrameLevelLogisticModel", "MoeModel")
+
+
+def _single_layer_spec(model_name: str, mcfg: ModelConfig, input_size: int):
+    """A single-layer model's parameters: ``(path under params, shape)``,
+    its input-width kernel first."""
+    v, m = mcfg.vocab_size, mcfg.moe_num_mixtures
+    if model_name == "MoeModel":
+        return [("gates_kernel", (input_size, (m + 1) * v)), ("experts_kernel", (input_size, m * v)),
+                ("experts_bias", (m * v,))]
+    return [("fc/kernel", (input_size, v)), ("fc/bias", (v,))]
+
+
+def _dbof_spec(mcfg: ModelConfig, input_size: int):
+    """DbofModel's parameters before its head: ``(name, shape, std)``, std
+    None for a BatchNorm; then the hidden width."""
+    c, h = mcfg.dbof_cluster_size, mcfg.dbof_hidden_size
+    add_bn = mcfg.dbof_add_batch_norm
+    std = 1 / np.sqrt(input_size)
+    spec = [("input_bn", (input_size,), None)] if add_bn else []
+    spec.append(("cluster_weights", (input_size, c), std))
+    spec.append(("cluster_bn", (c,), None) if add_bn else ("cluster_biases", (c,), std))
+    spec.append(("hidden1_weights", (c, h), 1 / np.sqrt(c)))
+    spec.append(("hidden1_bn", (h,), None) if add_bn else ("hidden1_biases", (h,), 0.01))
+    return spec, h
+
+
+def _expect_spec(tree_np: Tree, spec, prefix: str = "") -> None:
+    for name, shape, std in spec:
+        if std is not None:
+            _expect(tree_np, f"params/{prefix}{name}", shape)
+            continue
+        for collection, leaves in (("params", ("scale", "bias")), ("batch_stats", ("mean", "var"))):
+            for leaf in leaves:
+                _expect(tree_np, f"{collection}/{prefix}{name}/{leaf}", shape)
+
+
 def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "NetVLADModelLF") -> Tree:
     """Flax ``{params, batch_stats}`` tree of NumPy arrays → the same tree
     of float32 CPU tensors, after checking the layout of ``model_name`` (an
-    LF model or one of ``FAST_ATTENTION_MODELS``) against ``mcfg``: every pooling
-    module's (or the input projection's and every encoder layer's)
+    LF model, one of ``FAST_ATTENTION_MODELS``, ``DbofModel`` or a
+    single-layer model) against ``mcfg``: every pooling module's (or the
+    input projection's and every encoder layer's, or DBoF's projections')
     parameters and BN statistics, the hidden FC and the MoE head."""
     params = tree_np["params"]
-    if model_name in FAST_ATTENTION_MODELS:
+    width = h = None
+    if model_name in SINGLE_LAYER_MODELS:
+        first = _single_layer_spec(model_name, mcfg, 0)[0][0]
+        for path, shape in _single_layer_spec(model_name, mcfg, _shape(tree_np, f"params/{first}")[0]):
+            _expect(tree_np, f"params/{path}", shape)
+    elif model_name == "DbofModel":
+        spec, h = _dbof_spec(mcfg, _shape(tree_np, "params/cluster_weights")[0])
+        _expect_spec(tree_np, spec)
+    elif model_name in FAST_ATTENTION_MODELS:
         width, h = _check_attention_layout(tree_np, mcfg, model_name)
     elif model_name in LF_MODULE_PREFIX:
         prefix = LF_MODULE_PREFIX[model_name]
@@ -201,20 +250,16 @@ def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "
         add_bn = mcfg.netvlad_add_batch_norm
         layout = lf_layout(model_name, mcfg, input_size)
         for mod in layout:
-            for name, shape, std in _pool_spec(model_name, mod, mcfg, add_bn):
-                if std is not None:
-                    _expect(tree_np, f"params/{mod.name}/{name}", shape)
-                    continue
-                for collection, leaves in (("params", ("scale", "bias")), ("batch_stats", ("mean", "var"))):
-                    for leaf in leaves:
-                        _expect(tree_np, f"{collection}/{mod.name}/{name}/{leaf}", shape)
+            _expect_spec(tree_np, _pool_spec(model_name, mod, mcfg, add_bn), f"{mod.name}/")
         _, h, _ = lf_hparams(model_name, mcfg)
         width = sum(mod.width for mod in layout)
     else:
-        raise ValueError(f"convert_flax_variables reads the LF models {sorted(LF_MODULE_PREFIX)} and "
-                         f"{list(FAST_ATTENTION_MODELS)}, not {model_name!r}")
-    _expect(tree_np, "params/hidden1_weights", (width, h))
-    if "MoeModel_0" in params:
+        raise ValueError(f"convert_flax_variables reads the LF models {sorted(LF_MODULE_PREFIX)}, "
+                         f"{list(FAST_ATTENTION_MODELS)}, DbofModel and {list(SINGLE_LAYER_MODELS)}, "
+                         f"not {model_name!r}")
+    if width is not None:
+        _expect(tree_np, "params/hidden1_weights", (width, h))
+    if h is not None and "MoeModel_0" in params:
         m, v = mcfg.moe_num_mixtures, mcfg.vocab_size
         _expect(tree_np, "params/MoeModel_0/gates_kernel", (h, (m + 1) * v))
         _expect(tree_np, "params/MoeModel_0/experts_kernel", (h, m * v))
@@ -264,10 +309,12 @@ def load_flax_variables(model: torch.nn.Module, tree_np: Tree) -> torch.nn.Modul
 
 def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
                       model_name: str = "NetVLADModelLF") -> Tree:
-    """The ``{params, batch_stats}`` tree of ``model_name`` (an LF model or
-    one of ``FAST_ATTENTION_MODELS``) with flax's key set, shapes and initial
+    """The ``{params, batch_stats}`` tree of ``model_name`` (an LF model,
+    one of ``FAST_ATTENTION_MODELS``, ``DbofModel`` or a single-layer model)
+    with flax's key set, shapes and initial
     scales, drawn from ``seed`` with NumPy: ``normal(1/√fan)`` for the
-    pooling modules' matrices (NeXtVLAD's C₂ ``[K, D′]`` at ``1/√D``), the
+    pooling modules' and DBoF's projections (NeXtVLAD's C₂ ``[K, D′]`` at
+    ``1/√D``), xavier-uniform ``fc`` kernels with a zero bias, the
     transformer's kernels (flax's lecun-normal, untruncated) and the gating
     weights, zero Dense biases and LayerNorm scale 1, ``normal(1/√K)`` for
     the hidden FC with K the rgb cluster count (the model width for
@@ -275,7 +322,7 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
     xavier-uniform MoE kernels with a zero bias (models/modules.py,
     models/frame_level.py, models/video_level.py, and the JAX package's
     models/attention.py), and BN scale 1, bias 0, mean 0, var 1."""
-    if mcfg.video_level_classifier_model != "MoeModel":
+    if mcfg.video_level_classifier_model != "MoeModel" and model_name not in SINGLE_LAYER_MODELS:
         raise ValueError("init_variables_np builds the MoeModel head only")
     if mcfg.netvlad_dimred > 0:
         raise NotImplementedError("--netvlad_dimred is not ported yet")
@@ -295,6 +342,28 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
             {"scale": np.ones(width, np.float32), "bias": np.zeros(width, np.float32)},
             {"mean": np.zeros(width, np.float32), "var": np.ones(width, np.float32)},
         )
+
+    def moe(width):
+        m, v = mcfg.moe_num_mixtures, mcfg.vocab_size
+        return {"gates_kernel": xavier((width, (m + 1) * v)),
+                "experts_kernel": xavier((width, m * v)),
+                "experts_bias": np.zeros(m * v, np.float32)}
+
+    if model_name == "MoeModel":
+        return {"params": moe(fcfg.total_size), "batch_stats": {}}
+    if model_name in SINGLE_LAYER_MODELS:
+        fc = {"kernel": xavier((fcfg.total_size, mcfg.vocab_size)),
+              "bias": np.zeros(mcfg.vocab_size, np.float32)}
+        return {"params": {"fc": fc}, "batch_stats": {}}
+    if model_name == "DbofModel":
+        spec, h = _dbof_spec(mcfg, fcfg.total_size)
+        for name, shape, std in spec:
+            if std is None:
+                params[name], stats[name] = bn(shape[0])
+            else:
+                params[name] = normal(shape, std)
+        params["MoeModel_0"] = moe(h)
+        return {"params": params, "batch_stats": stats}
 
     add_bn = mcfg.netvlad_add_batch_norm
     if model_name in FAST_ATTENTION_MODELS:
@@ -344,10 +413,5 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
             gating["gating_biases"] = normal((h,), 1 / np.sqrt(h))
         params["gating"] = gating
 
-    m, v = mcfg.moe_num_mixtures, mcfg.vocab_size
-    params["MoeModel_0"] = {
-        "gates_kernel": xavier((h, (m + 1) * v)),
-        "experts_kernel": xavier((h, m * v)),
-        "experts_bias": np.zeros(m * v, np.float32),
-    }
+    params["MoeModel_0"] = moe(h)
     return {"params": params, "batch_stats": stats}

@@ -1,6 +1,8 @@
-"""YT-8M frame-level record reader (ref: readers.py).
+"""YT-8M record readers (ref: readers.py).
 
-Host-side decode producing NumPy: per-frame uint8 features are **kept
+Host-side decode producing NumPy.  Video-level records carry one float
+vector per named feature (``mean_rgb`` 1024 + ``mean_audio`` 128);
+frame-level records carry per-frame uint8 features, which are **kept
 quantized** on the host and padded/truncated to ``max_frames`` with
 :func:`resize_axis` (ref: readers.py#YT8MFrameFeatureReader.
 prepare_serialized_examples); dequantization runs on the device.  Uses the
@@ -58,6 +60,48 @@ class BaseReader:
             raise IOError(f"Unable to find input files. data_pattern='{pattern}'")
         for path in files:
             yield from self.read_file(path)
+
+
+class YT8MAggregatedFeatureReader(BaseReader):
+    """Video-level reader: one float vector per named feature, concatenated
+    (ref: readers.py#YT8MAggregatedFeatureReader); a missing feature reads
+    as zeros."""
+
+    def __init__(
+        self,
+        num_classes: int = 3862,
+        feature_sizes: Sequence[int] = (1024, 128),
+        feature_names: Sequence[str] = ("mean_rgb", "mean_audio"),
+    ):
+        if len(feature_names) != len(feature_sizes):
+            raise ValueError(
+                f"length of feature_names (={len(feature_names)}) != "
+                f"length of feature_sizes (={len(feature_sizes)})"
+            )
+        self.num_classes = num_classes
+        self.feature_sizes = list(feature_sizes)
+        self.feature_names = list(feature_names)
+
+    def read_file(self, path: str) -> Iterator[dict]:
+        for record in tfrecord_io.read_tfrecords(path):
+            features = tfrecord_io.parse_example(record)
+            parts = []
+            for name, size in zip(self.feature_names, self.feature_sizes):
+                feat = features.get(name)
+                vec = (
+                    feat.float_list
+                    if feat is not None and feat.float_list is not None
+                    else np.zeros(size, np.float32)
+                )
+                if vec.shape[0] != size:
+                    raise ValueError(f"feature {name!r} has size {vec.shape[0]}, expected {size}")
+                parts.append(vec.astype(np.float32))
+            labels = features.get("labels")
+            yield {
+                "video_id": _get_id(features),
+                "features": np.concatenate(parts),  # [total_size] float32
+                "labels": _multi_hot(labels.int64_list if labels else (), self.num_classes),
+            }
 
 
 class YT8MFrameFeatureReader(BaseReader):
@@ -127,3 +171,20 @@ class YT8MFrameFeatureReader(BaseReader):
                     labels.int64_list if labels else (), self.num_classes
                 ),
             }
+
+
+def make_reader(fcfg, num_classes: int) -> BaseReader:
+    """The reader of a ``config.FeatureConfig``: frame-level or video-level
+    (ref: flags.py#make_reader)."""
+    if fcfg.frame_features:
+        return YT8MFrameFeatureReader(
+            num_classes=num_classes,
+            feature_sizes=fcfg.feature_sizes,
+            feature_names=fcfg.feature_names,
+            max_frames=fcfg.max_frames,
+        )
+    return YT8MAggregatedFeatureReader(
+        num_classes=num_classes,
+        feature_sizes=fcfg.feature_sizes,
+        feature_names=fcfg.feature_names,
+    )

@@ -1,0 +1,224 @@
+"""Eval entry point (ref: eval.py#main / #evaluation_loop).
+
+Reads ``<train_dir>/variables.npz``, streams the eval TFRecords once and
+reports the epoch's GAP, Hit@1, PERR and loss (and per-class APs on the
+default accumulator):
+
+- default: the reference-parity accumulator (host
+  ``metrics/eval_util.py#EvaluationMetrics``: exact heap and tie-break
+  semantics, per-class APs);
+- ``--fast_eval``: the partials of ``ops/metrics_ops.py`` on the device
+  and one host sort per epoch (``StreamingGAP``).
+
+The forward is the registered ``nn.Module`` of ``--model`` (frame-level or
+video-level input), or with ``--fast_forward`` its BN-folded fast path
+(``ops/fast_dispatch.py``, the CUDA kernels on the card).  Each batch draws
+its frames from ``fold_in(key(0), batch)``, as the JAX CLI does.
+``--run_once`` evaluates once; otherwise the CLI polls ``--train_dir``
+every ``--poll_interval_secs`` and evaluates the file again whenever it
+changes.  It takes every flag of the JAX eval CLI under its name and
+default (``cli_flags.py``; those of ``cli_flags.EVAL_NOT_PORTED`` raise
+when set); ``--device`` (default ``cuda``) is the port's own.
+
+    python -m learnablepoolingmethods_torch.eval --run_once \\
+        --model=NetVLADModelLF --frame_features --feature_names=rgb,audio \\
+        --feature_sizes=1024,128 --eval_data_pattern='/data/validate*.tfrecord' \\
+        --train_dir=/ckpt
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from learnablepoolingmethods_torch import cli_flags
+from learnablepoolingmethods_torch.config import FeatureConfig
+from learnablepoolingmethods_torch.core import step as step_lib
+from learnablepoolingmethods_torch.core.observability import MetricWriter
+from learnablepoolingmethods_torch.core.weights import NPZ_NAME, convert_flax_variables, load_variables_npz
+from learnablepoolingmethods_torch.data.pipeline import batch_iterator
+from learnablepoolingmethods_torch.data.readers import make_reader
+from learnablepoolingmethods_torch.inference import load_model
+from learnablepoolingmethods_torch.losses import get_loss_by_name
+from learnablepoolingmethods_torch.metrics import eval_util
+from learnablepoolingmethods_torch.ops.fast_dispatch import fast_path_models, get_fast_path
+from learnablepoolingmethods_torch.utils import prng
+from learnablepoolingmethods_torch.utils.misc import InFlight, resolve_device
+
+log = logging.getLogger(__name__)
+
+
+# the JAX eval CLI's own flags (learnablepoolingmethods_tpu/eval.py
+# #define_flags) and the port's --device: name → (default, help)
+_OWN_FLAGS = {
+    "eval_data_pattern": ("", "File glob for eval TFRecords."),
+    "train_dir": ("/tmp/yt8m_model/", "Directory (or file) of variables.npz."),
+    "run_once": (False, "Evaluate once instead of polling."),
+    "top_k": (20, "How many predictions to keep per video."),
+    "fast_eval": (False, "Use on-device metric partials (no per-class APs)."),
+    "fast_forward": (False, "Run the BN-folded fast forward (CUDA kernels on the card) instead of "
+                            "the nn.Module model."),
+    "poll_interval_secs": (30, "Seconds between checkpoint polls."),
+    "reference_checkpoint": ("", "Evaluate a reference-trained TF checkpoint."),
+    "pipeline_depth": (2, "Batches kept in flight before fetching results (1 = synchronous)."),
+    "device": ("cuda", "Torch device: cuda (default), cuda:N or cpu."),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """Every flag of the JAX eval CLI (cli_flags.py), its defaults, and
+    --device; the flags of cli_flags.EVAL_NOT_PORTED raise when set."""
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    return cli_flags.add_flags(p, _OWN_FLAGS, cli_flags.EVAL_NOT_PORTED)
+
+
+def _npz_file(train_dir: str) -> str:
+    return train_dir if os.path.isfile(train_dir) else os.path.join(train_dir, NPZ_NAME)
+
+
+def _fast_eval_step(args, fcfg: FeatureConfig, mcfg, loss_obj, tree, device):
+    """``eval_step(batch, key)`` of ``--fast_forward``: the fast path's
+    probabilities, then the loss and partials of core/step.py#eval_outputs."""
+    if args.model not in fast_path_models():
+        raise ValueError(f"--fast_forward supports {fast_path_models()}, got {args.model!r}")
+    if not fcfg.frame_features:
+        raise ValueError(f"--fast_forward with {args.model} needs --frame_features")
+    path = get_fast_path(args.model)
+    fp = path.prepare(convert_flax_variables(tree, mcfg, args.model), mcfg, device=device)
+    fast = path.build(mcfg, return_probs=True)
+
+    def eval_step(batch, key):
+        predictions = fast(fp, batch["features"], batch["num_frames"], key).float()
+        return step_lib.eval_outputs(predictions, batch, loss_obj, args.top_k)
+
+    return eval_step
+
+
+def evaluate_checkpoint(args, step_num: int, fcfg: FeatureConfig, loss_obj, device) -> dict:
+    """One pass over ``--eval_data_pattern`` with the weights of
+    ``--train_dir`` → {avg_hit_at_one, avg_perr, avg_loss, gap, aps}."""
+    if args.fast_forward:
+        mcfg = cli_flags.model_config_from_args(args)
+        eval_step = _fast_eval_step(args, fcfg, mcfg, loss_obj,
+                                    load_variables_npz(_npz_file(args.train_dir)), device)
+    else:
+        model, mcfg = load_model(args, fcfg, device)
+        eval_step = step_lib.make_eval_step(model, loss_obj, mcfg, fcfg.frame_features,
+                                            top_k=args.top_k)
+
+    use_fast = args.fast_eval
+    if use_fast:
+        sgap = eval_util.StreamingGAP()
+        hit_sum = perr_sum = loss_sum = w_sum = 0.0
+    else:
+        em = eval_util.EvaluationMetrics(mcfg.vocab_size, args.top_k)
+
+    examples = 0
+    t0 = time.time()
+    pipe = InFlight(args.pipeline_depth)
+
+    def accumulate_one(item):
+        nonlocal examples, hit_sum, perr_sum, loss_sum, w_sum
+        w, labels_host, out = item
+        real = int(w.sum())
+        examples += real
+        if use_fast:
+            p = out["partials"]
+            sgap.accumulate(p.topk_scores.cpu().numpy()[w > 0], p.topk_labels.cpu().numpy()[w > 0],
+                            float(p.num_positives))
+            hit_sum += float(p.hit_at_one_sum)
+            perr_sum += float(p.perr_sum)
+            loss_sum += float(out["loss"]) * real
+            w_sum += real
+        else:
+            preds = out["predictions"].float().cpu().numpy()[w > 0]
+            em.accumulate(preds, labels_host[w > 0], float(out["loss"]))
+
+    reader = make_reader(fcfg, args.num_classes)
+    for batch_idx, batch in enumerate(batch_iterator(reader, args.eval_data_pattern, args.batch_size,
+                                                     num_epochs=1)):
+        device_batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "video_id"}
+        # a fresh sampling key per batch; the results are read only once
+        # `pipeline_depth` batches are in flight
+        out = eval_step(device_batch, prng.fold_in(prng.key(0), batch_idx))
+        done = pipe.add((np.asarray(batch["weights"]), batch["labels"], out))
+        if done is not None:
+            accumulate_one(done)
+    for done in pipe.drain():
+        accumulate_one(done)
+
+    dt = time.time() - t0
+    if use_fast:
+        info = {
+            "avg_hit_at_one": hit_sum / max(w_sum, 1),
+            "avg_perr": perr_sum / max(w_sum, 1),
+            "avg_loss": loss_sum / max(w_sum, 1),
+            "gap": sgap.get(),
+            "aps": None,
+        }
+    else:
+        info = em.get()
+    log.info(
+        "epoch/eval number %d | Avg_Hit@1: %.5f | Avg_PERR: %.5f | MAP: %s | "
+        "GAP: %.5f | Avg_Loss: %.5f | %d examples in %.1fs (%.1f ex/s)",
+        step_num, info["avg_hit_at_one"], info["avg_perr"],
+        "%.5f" % float(np.mean(info["aps"])) if info["aps"] else "n/a",
+        info["gap"], info["avg_loss"], examples, dt, examples / max(dt, 1e-9),
+    )
+    return info
+
+
+def _version(path: str):
+    """What tells one write of ``path`` from the next, or None while it is missing."""
+    try:
+        st = os.stat(path)
+    except FileNotFoundError:
+        return None
+    return st.st_mtime_ns, st.st_size
+
+
+def evaluation_loop(args):
+    """Evaluate ``--train_dir``'s weights once (``--run_once``) or each time
+    they change; returns the info of a ``--run_once`` evaluation (None if
+    there was nothing to evaluate).  Summaries go to ``<train_dir>/eval``
+    at the evaluation's number (variables.npz carries no step)."""
+    cli_flags.refuse_not_ported(args, cli_flags.EVAL_NOT_PORTED,
+                                vars(build_parser().parse_args([])), "eval CLI")
+    device = resolve_device(args.device)
+    fcfg = FeatureConfig.from_flag_strings(args.feature_names, args.feature_sizes,
+                                           args.frame_features, args.max_frames)
+    loss_obj = get_loss_by_name(args.label_loss)
+    npz = _npz_file(args.train_dir)
+    writer = MetricWriter(os.path.join(os.path.dirname(npz), "eval"))
+    last, evaluated = None, 0
+    try:
+        while True:
+            version = _version(npz)
+            if version is None:
+                log.info("No checkpoint yet in %s", args.train_dir)
+            elif version != last:
+                info = evaluate_checkpoint(args, evaluated, fcfg, loss_obj, device)
+                writer.epoch_summary(evaluated, info)
+                writer.flush()
+                last, evaluated = version, evaluated + 1
+                if args.run_once:
+                    return info
+            if args.run_once:
+                return None
+            time.sleep(args.poll_interval_secs)
+    finally:
+        writer.close()
+
+
+def main(argv=None):
+    return evaluation_loop(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    main()

@@ -1,13 +1,19 @@
 """Inference entry point (ref: inference.py#main / #inference / #format_lines).
 
-Streams frame-level TFRecords through the fast forward of ``--model`` (any
-LF model: ``NetVLADModelLF``, ``NetRVLADModelLF``, ``NetFVModelLF``,
-``SoftDbofModelLF``, ``NeXtVLADModel``; or the transformer family:
-``TransformerEncoderModel``, ``AttentionNetVLADModel``, which read every
-frame) and on-device top-k, and writes the Kaggle submission CSV
-``VideoId,LabelConfidencePairs``.  It takes every flag of the JAX CLI
-under its name and default (``cli_flags.py``; those not ported yet raise
-when set); ``--device`` (default ``cuda``) is the port's own.  Weights come from
+Streams TFRecords through a model and on-device top-k, and writes the
+Kaggle submission CSV ``VideoId,LabelConfidencePairs``.  Two routes:
+
+- default, the model-forward route: the registered ``nn.Module`` of
+  ``--model`` (``models/``) with ``training=False`` and f32 probabilities
+  (``core/step.py#make_predict_step``), on frame-level or video-level
+  input (``--frame_features``);
+- ``--fast_infer``: the BN-folded fast forward of ``--model``
+  (``ops/fast_dispatch.py``: ``NetVLADModelLF``, ``DbofModel``, the LF
+  models, the transformer family), frame-level input only.
+
+It takes every flag of the JAX CLI under its name and default
+(``cli_flags.py``; those not ported yet raise when set); ``--device``
+(default ``cuda``) is the port's own.  Weights come from
 ``<train_dir>/variables.npz`` (``core/weights.py#save_variables_npz``).
 
     python -m learnablepoolingmethods_torch.inference --fast_infer \\
@@ -27,9 +33,15 @@ import torch
 
 from learnablepoolingmethods_torch import cli_flags
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig
-from learnablepoolingmethods_torch.core.weights import convert_flax_variables, load_variables_npz
+from learnablepoolingmethods_torch.core.step import make_predict_step
+from learnablepoolingmethods_torch.core.weights import (
+    convert_flax_variables,
+    load_flax_variables,
+    load_variables_npz,
+)
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
-from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader
+from learnablepoolingmethods_torch.data.readers import make_reader
+from learnablepoolingmethods_torch.models import create_model, find_class_by_name
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path
 from learnablepoolingmethods_torch.utils import prng
 from learnablepoolingmethods_torch.utils.misc import InFlight, format_lines, resolve_device
@@ -66,37 +78,46 @@ def model_config_from_args(args) -> ModelConfig:
     return cli_flags.model_config_from_args(args)
 
 
+def load_model(args, fcfg: FeatureConfig, device: torch.device):
+    """The registered ``nn.Module`` of ``--model`` with the weights of
+    ``--train_dir`` on ``device``, in eval mode, and its ModelConfig.  A
+    model that samples frames is built ``presampled``: the predict and eval
+    steps gather its frames in uint8 (``core/step.py``)."""
+    presampled = fcfg.frame_features and find_class_by_name(args.model).samples_frames
+    mcfg = cli_flags.model_config_from_args(args, presampled=presampled)
+    model = create_model(args.model, mcfg, fcfg.total_size)
+    load_flax_variables(model, load_variables_npz(args.train_dir))
+    return model.to(device).eval(), mcfg
+
+
 def inference(args) -> int:
     """Write the CSV for ``args``; returns the number of videos written."""
     cli_flags.refuse_not_ported(args, cli_flags.INFERENCE_NOT_PORTED,
                                 vars(build_parser().parse_args([])), "inference CLI")
-    if not args.fast_infer:
-        raise NotImplementedError(
-            "the model-forward route (without --fast_infer, the nn.Module model's "
-            "forward) is not ported to the inference CLI yet: ROADMAP item 6; "
-            "pass --fast_infer"
-        )
     device = resolve_device(args.device)
     fcfg = FeatureConfig.from_flag_strings(
         args.feature_names, args.feature_sizes, args.frame_features, args.max_frames
     )
-    if not fcfg.frame_features:
-        raise ValueError(f"--fast_infer with {args.model} needs --frame_features")
-    mcfg = model_config_from_args(args)
-    path = get_fast_path(args.model)
+    if args.fast_infer:
+        if not fcfg.frame_features:
+            raise ValueError(f"--fast_infer with {args.model} needs --frame_features")
+        mcfg = model_config_from_args(args)
+        path = get_fast_path(args.model)
+        variables = convert_flax_variables(load_variables_npz(args.train_dir), mcfg, args.model)
+        fp = path.prepare(variables, mcfg, int8_hidden=args.int8_hidden, device=device)
+        del variables
+        fast = path.build(mcfg, top_k=args.top_k)
 
-    variables = convert_flax_variables(load_variables_npz(args.train_dir), mcfg, args.model)
-    fp = path.prepare(variables, mcfg, int8_hidden=args.int8_hidden, device=device)
-    del variables
-    fast = path.build(mcfg, top_k=args.top_k)
+        def predict(feats, nf, key):
+            return fast(fp, feats, nf, key)
+    else:
+        if args.int8_hidden:
+            raise ValueError("--int8_hidden requires --fast_infer")
+        model, mcfg = load_model(args, fcfg, device)
+        predict = make_predict_step(model, mcfg, fcfg.frame_features, top_k=args.top_k)
     log.info("loaded %s from %s onto %s", args.model, args.train_dir, device)
 
-    reader = YT8MFrameFeatureReader(
-        num_classes=args.num_classes,
-        feature_sizes=fcfg.feature_sizes,
-        feature_names=fcfg.feature_names,
-        max_frames=fcfg.max_frames,
-    )
+    reader = make_reader(fcfg, args.num_classes)
     pipe = InFlight(args.pipeline_depth)
     num_examples = 0
     start = time.time()
@@ -122,8 +143,8 @@ def inference(args) -> int:
             # fold_in(key(0), batch_idx): the same frames, bit for bit
             key = prng.fold_in(prng.key(0), batch_idx)
             feats = torch.from_numpy(batch["features"]).to(device)
-            nf = torch.from_numpy(batch["num_frames"]).to(device)
-            values, indices = fast(fp, feats, nf, key)
+            nf = torch.from_numpy(batch["num_frames"]).to(device) if "num_frames" in batch else None
+            values, indices = predict(feats, nf, key)
             real = np.asarray(batch["weights"]) > 0
             vids = [v for v, keep in zip(batch["video_id"], real) if keep]
             done = pipe.add((vids, real, values, indices))

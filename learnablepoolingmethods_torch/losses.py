@@ -43,5 +43,6 @@ def get_loss_by_name(name: str) -> BaseLoss:
     if name in _LOSSES:
         return _LOSSES[name]()
     if name in ("HingeLoss", "SoftmaxLoss"):
-        raise NotImplementedError(f"--label_loss={name} is not ported yet (ported: {sorted(_LOSSES)})")
+        raise NotImplementedError(
+            f"--label_loss={name} is not ported yet: ROADMAP item 12 (ported: {sorted(_LOSSES)})")
     raise ValueError(f"unknown loss {name!r}; ported: {sorted(_LOSSES)}")

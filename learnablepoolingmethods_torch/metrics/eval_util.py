@@ -4,9 +4,9 @@ A NumPy copy of the JAX package's ``metrics/eval_util.py`` (ref:
 eval_util.py — #calculate_hit_at_one, #calculate_precision_at_equal_recall_rate,
 #calculate_gap, #top_k_by_class, #top_k_triplets, #flatten,
 #EvaluationMetrics), so that the port imports nothing of that package.  The
-train CLI logs GAP, Hit@1 and PERR through it.  The device-side top-k
-partials that :class:`StreamingGAP` pools (``ops/metrics_ops.py``) are not
-ported yet (ROADMAP item 6, eval).
+train CLI logs GAP, Hit@1 and PERR through it, and the eval CLI accumulates
+its epoch with :class:`EvaluationMetrics`, or under ``--fast_eval`` with
+:class:`StreamingGAP` over the device partials of ``ops/metrics_ops.py``.
 """
 
 from __future__ import annotations

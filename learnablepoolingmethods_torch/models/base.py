@@ -26,7 +26,6 @@ _MODEL_REGISTRY: Dict[str, Type["BaseModel"]] = {}
 
 # models of the JAX zoo that the port has not built yet → ROADMAP.md queue-1 item
 _PENDING = {
-    "DbofModel": 9, "LogisticModel": 9, "FrameLevelLogisticModel": 9,
     "TransformerEncoderModel": "10b", "AttentionPoolingModel": "10b", "AttentionNetVLADModel": "10b",
     "LstmModel": 11, "GruModel": 11,
 }
@@ -90,6 +89,10 @@ class BaseModel(nn.Module):
         self.cfg = cfg
         self.input_size = input_size
         self.dtype = compute_dtype(cfg)
+
+    # whether the model pools cfg.iterations sampled frames; the predict and
+    # eval steps then gather them in uint8 and build the model presampled
+    samples_frames = False
 
     def forward(self, model_input, num_frames=None, training: bool = False):
         raise NotImplementedError()

@@ -1,6 +1,7 @@
 """Frame-level models (ref: models/frame_level.py): the LOUPE "LF" family,
 ``NetVLADModelLF``, ``NetRVLADModelLF``, ``NetFVModelLF``,
-``SoftDbofModelLF`` and ``NeXtVLADModel``.
+``SoftDbofModelLF`` and ``NeXtVLADModel``; ``DbofModel`` and
+``FrameLevelLogisticModel``.
 
 A model takes ``model_input`` ``[B, F, D]``, the dequantized and
 ℓ2-normalized frames in the compute dtype (``core/step.py#preprocess_input``),
@@ -22,6 +23,7 @@ from torch import nn
 from learnablepoolingmethods_torch.config import ModelConfig
 from learnablepoolingmethods_torch.models import model_utils
 from learnablepoolingmethods_torch.models.base import BaseModel, create_model, register_model
+from learnablepoolingmethods_torch.models.video_level import Dense
 from learnablepoolingmethods_torch.models.modules import (
     BatchNorm,
     ContextGating,
@@ -115,6 +117,19 @@ def lf_layout(model_name: str, cfg: ModelConfig, input_size: int) -> List[PoolLa
     return out
 
 
+def sample_model_frames(cfg: ModelConfig, model_input, num_frames, sampling_key=None):
+    """The ``cfg.iterations`` frames a sampling model pools: ``model_input``
+    itself when ``cfg.presampled``, else iid frames drawn from
+    ``sampling_key``, or from ``prng.key(0)`` without one, as the flax
+    model draws them without a "sampling" RNG."""
+    if cfg.presampled:
+        return model_input
+    if not cfg.sample_random_frames:
+        raise NotImplementedError("--nosample_random_frames (random contiguous windows) is not ported yet")
+    key = prng.key(0) if sampling_key is None else sampling_key
+    return model_utils.sample_frame_features(model_input, num_frames, cfg.iterations, key)
+
+
 class _LoupeLFBase(BaseModel):
     """The template of the LF models (ref: frame_level.py#_LoupeLFBase,
     ``_lf_forward`` and ``_lf_tail``): sample → input BN → a pooling module
@@ -122,6 +137,8 @@ class _LoupeLFBase(BaseModel):
     concat → hidden FC (+bias, or BN and relu6 with relu on) → context
     gating → the video-level classifier.  Submodule and parameter names are
     the flax ones (``NetVLAD_0``, ``hidden1_weights``, ``MoeModel_0`` ...)."""
+
+    samples_frames = True
 
     def _pool_module(self, layout: PoolLayout) -> nn.Module:
         raise NotImplementedError
@@ -152,14 +169,7 @@ class _LoupeLFBase(BaseModel):
 
     def forward(self, model_input, num_frames=None, training: bool = False, sampling_key=None):
         cfg, dtype = self.cfg, self.dtype
-        frames = model_input
-        if not cfg.presampled:
-            if not cfg.sample_random_frames:
-                raise NotImplementedError(
-                    "--nosample_random_frames (random contiguous windows) is not ported yet"
-                )
-            key = prng.key(0) if sampling_key is None else sampling_key
-            frames = model_utils.sample_frame_features(model_input, num_frames, cfg.iterations, key)
+        frames = sample_model_frames(cfg, model_input, num_frames, sampling_key)
         if cfg.netvlad_add_batch_norm:
             frames = self.input_bn(frames, training)
         pools = [getattr(self, mod.name) for mod in self.layout]
@@ -240,3 +250,73 @@ class NeXtVLADModel(_LoupeLFBase):
         return NeXtVLAD(layout.feature_size, layout.cluster_size, groups=layout.groups,
                         expansion=cfg.nextvlad_expansion,
                         add_batch_norm=cfg.netvlad_add_batch_norm, dtype=self.dtype)
+
+
+@register_model
+class FrameLevelLogisticModel(BaseModel):
+    """The mean over a video's valid frames → ``fc`` → sigmoid (ref:
+    frame_level.py#FrameLevelLogisticModel).  Padded rows are masked out:
+    the pipeline pads in uint8, and a zero row is nonzero after dequantize
+    and ℓ2, where the reference padded after dequantize."""
+
+    def __init__(self, cfg: ModelConfig, input_size: int):
+        super().__init__(cfg, input_size)
+        self.fc = Dense(input_size, cfg.vocab_size, self.dtype)
+
+    def forward(self, model_input, num_frames=None, training: bool = False):
+        nf = torch.clamp(num_frames.float(), min=1.0).reshape(-1, 1)
+        mask = model_utils.frame_mask(num_frames, model_input.shape[1])
+        avg_pooled = torch.sum(model_input.float() * mask[:, :, None], dim=1) / nf
+        return {"predictions": torch.sigmoid(self.fc(avg_pooled).float())}
+
+
+@register_model
+class DbofModel(BaseModel):
+    """Deep bag of frames (ref: frame_level.py#DbofModel): sample
+    ``--iterations`` frames → input BN → cluster projection [D →
+    dbof_cluster_size] → BN (or bias) → relu6 → max or average pooling over
+    the frames → hidden FC → BN (or bias) → relu6 → the video-level
+    classifier.  Without ``--dbof_add_batch_norm`` there is no input BN and
+    biases take the other BNs' place, as in flax."""
+
+    samples_frames = True
+
+    def __init__(self, cfg: ModelConfig, input_size: int):
+        super().__init__(cfg, input_size)
+        c, h = cfg.dbof_cluster_size, cfg.dbof_hidden_size
+        add_bn = cfg.dbof_add_batch_norm
+        if add_bn:
+            self.input_bn = BatchNorm(input_size)
+        self.cluster_weights = nn.Parameter(torch.zeros(input_size, c))
+        if add_bn:
+            self.cluster_bn = BatchNorm(c)
+        else:
+            self.cluster_biases = nn.Parameter(torch.zeros(c))
+        self.hidden1_weights = nn.Parameter(torch.zeros(c, h))
+        if add_bn:
+            self.hidden1_bn = BatchNorm(h)
+        else:
+            self.hidden1_biases = nn.Parameter(torch.zeros(h))
+        self.head_name = f"{cfg.video_level_classifier_model}_0"
+        setattr(self, self.head_name, create_model(cfg.video_level_classifier_model, cfg, h))
+
+    def forward(self, model_input, num_frames=None, training: bool = False, sampling_key=None):
+        cfg, dtype = self.cfg, self.dtype
+        frames = sample_model_frames(cfg, model_input, num_frames, sampling_key)
+        if cfg.dbof_add_batch_norm:
+            frames = self.input_bn(frames, training)
+        activation = matmul_f32(frames.to(dtype), self.cluster_weights.to(dtype))   # [B, S, C]
+        if cfg.dbof_add_batch_norm:
+            activation = self.cluster_bn(activation, training)
+        else:
+            activation = activation + self.cluster_biases
+        activation = torch.clamp(activation, 0.0, 6.0)
+        pooled = model_utils.frame_pooling(activation, cfg.dbof_pooling_method)
+
+        activation = matmul_f32(pooled.to(dtype), self.hidden1_weights.to(dtype))
+        if cfg.dbof_add_batch_norm:
+            activation = self.hidden1_bn(activation, training)
+        else:
+            activation = activation + self.hidden1_biases
+        activation = torch.clamp(activation, 0.0, 6.0)
+        return getattr(self, self.head_name)(activation.to(dtype), training=training)

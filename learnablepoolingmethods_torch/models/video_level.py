@@ -1,4 +1,9 @@
-"""Video-level classifier heads (ref: models/video_level.py)."""
+"""Video-level classifier heads (ref: models/video_level.py).
+
+They take one vector per video, either the video-level features
+``[B, 1152]`` or a frame-level model's pooled activation, and return
+``{"predictions": [B, V]}`` probabilities.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +13,35 @@ from torch import nn
 from learnablepoolingmethods_torch.config import ModelConfig
 from learnablepoolingmethods_torch.models.base import BaseModel, register_model
 from learnablepoolingmethods_torch.models.modules import matmul_f32
+
+
+class Dense(nn.Module):
+    """``flax.linen.Dense``: ``kernel`` ``[D, N]`` and ``bias`` ``[N]``; the
+    product takes operands in ``dtype`` and its result and the bias add are
+    in ``dtype``, as flax computes them with ``dtype`` set."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.zeros(in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = matmul_f32(x.to(self.dtype), self.kernel.to(self.dtype)).to(self.dtype)
+        return y + self.bias.to(self.dtype)
+
+
+@register_model
+class LogisticModel(BaseModel):
+    """One sigmoid FC over the input (ref: video_level.py#LogisticModel):
+    ``fc`` (kernel and bias), the sigmoid in f32."""
+
+    def __init__(self, cfg: ModelConfig, input_size: int):
+        super().__init__(cfg, input_size)
+        self.fc = Dense(input_size, cfg.vocab_size, self.dtype)
+
+    def forward(self, model_input, num_frames=None, training: bool = False):
+        return {"predictions": torch.sigmoid(self.fc(model_input).float())}
 
 
 @register_model

@@ -7,11 +7,11 @@
 - ``build(mcfg, top_k=20, use_kernels=True, return_probs=False)`` →
   ``fn(fp, features, num_frames, key, presampled=False)``.
 
-``NetVLADModelLF`` (``ops/fast_infer.py``), the rest of the LOUPE family
-(``ops/fast_lf.py``) and the transformer family (``ops/fast_transformer.py``)
-are ported; asking for ``DbofModel``'s raises an error naming the ROADMAP
-item that ports it, and a model without a fast path in the JAX package
-(``_NO_FAST_PATH``) raises ``ValueError`` as the JAX CLI does.
+Every fast path of the JAX package is ported: ``NetVLADModelLF``
+(``ops/fast_infer.py``), ``DbofModel`` (``ops/fast_dbof.py``), the rest of
+the LOUPE family (``ops/fast_lf.py``) and the transformer family
+(``ops/fast_transformer.py``).  A model without a fast path in the JAX
+package (``_NO_FAST_PATH``) raises ``ValueError`` as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -24,8 +24,6 @@ class FastPath(NamedTuple):
     build: Callable[..., Callable]
 
 
-# model name → ROADMAP.md queue-1 item that ports its fast path
-_PENDING = {"DbofModel": 9}
 # models that the JAX package serves with the flax forward only
 # (learnablepoolingmethods_tpu/ops/fast_dispatch.py#get_fast_path returns
 # None): its CLI refuses --fast_infer for them with a ValueError, and so
@@ -47,6 +45,24 @@ def _netvlad() -> FastPath:
         return build_fast_netvlad_inference(
             mcfg, top_k=top_k, use_kernels=use_kernels, return_probs=return_probs
         )
+
+    return FastPath(prepare, build)
+
+
+def _dbof() -> FastPath:
+    from learnablepoolingmethods_torch.ops.fast_dbof import (
+        build_fast_dbof_inference,
+        prepare_fast_dbof_params,
+    )
+    from learnablepoolingmethods_torch.ops.fast_infer import reject_int8_hidden
+
+    def prepare(variables, mcfg, int8_hidden=False, device="cuda"):
+        reject_int8_hidden(int8_hidden)
+        return prepare_fast_dbof_params(variables, mcfg, device=device)
+
+    def build(mcfg, top_k=20, use_kernels=True, return_probs=False):
+        # no kernel to select: the JAX path has no Pallas kernel either
+        return build_fast_dbof_inference(mcfg, top_k=top_k, return_probs=return_probs)
 
     return FastPath(prepare, build)
 
@@ -84,6 +100,7 @@ FAST_ATTENTION_MODELS = ("TransformerEncoderModel", "AttentionNetVLADModel")
 
 _FACTORIES: Dict[str, Callable[[], FastPath]] = {
     "NetVLADModelLF": _netvlad,
+    "DbofModel": _dbof,
     **{name: (lambda n=name: _lf(n)) for name in FAST_LF_MODELS},
     **{name: (lambda n=name: _attention(n)) for name in FAST_ATTENTION_MODELS},
 }
@@ -95,18 +112,12 @@ def fast_path_models() -> Tuple[str, ...]:
 
 
 def get_fast_path(model_name: str) -> FastPath:
-    """The (prepare, build) pair of ``model_name``.
-    Raises ``NotImplementedError`` for a model whose port is still queued
-    and ``ValueError`` for a model without a fast path in the JAX package
-    too, or a name the package does not know."""
+    """The (prepare, build) pair of ``model_name``.  Raises ``ValueError``
+    for a model without a fast path in the JAX package too, or a name the
+    package does not know."""
     factory = _FACTORIES.get(model_name)
     if factory is not None:
         return factory()
-    if model_name in _PENDING:
-        raise NotImplementedError(
-            f"{model_name} has no PyTorch fast path yet: ROADMAP item "
-            f"{_PENDING[model_name]} ports it (ported: {fast_path_models()})"
-        )
     if model_name in _NO_FAST_PATH:
         raise ValueError(f"--fast_infer supports {fast_path_models()}, got {model_name!r}")
     raise ValueError(f"unknown model {model_name!r}; ported: {fast_path_models()}")

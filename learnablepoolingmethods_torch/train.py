@@ -21,7 +21,9 @@ checkpoint (an existing ``variables.npz`` without ``--start_new_model``), and
 the flags of ``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export,
 checkpoint retention, a device mesh, grain, the native reader, the packed
 cache, profiling, remat, gradient accumulation, bf16 parameters, the DBoF
-and RNN widths); the other optimizers and losses raise where they are built.
+and RNN widths), video-level input and the models whose training is queued
+(``_NOT_TRAINED``); the other optimizers and losses raise where they are
+built.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ TASK = "/job:master/task:0"
 
 # registered models whose training is not ported yet → ROADMAP.md queue-1 item
 _NOT_TRAINED = dict.fromkeys(
-    ("NetRVLADModelLF", "NetFVModelLF", "SoftDbofModelLF", "NeXtVLADModel"), "8b")
+    ("NetRVLADModelLF", "NetFVModelLF", "SoftDbofModelLF", "NeXtVLADModel", "DbofModel",
+     "LogisticModel", "MoeModel", "FrameLevelLogisticModel"), "8b")
 
 
 # the JAX train CLI's own flags (learnablepoolingmethods_tpu/train.py
@@ -87,11 +90,6 @@ def build_parser() -> argparse.ArgumentParser:
 def configs_from_args(args):
     cli_flags.refuse_not_ported(args, cli_flags.TRAIN_NOT_PORTED,
                                 vars(build_parser().parse_args([])), "trainer")
-    if args.model in _NOT_TRAINED:
-        raise NotImplementedError(
-            f"training {args.model} is not ported yet: ROADMAP item {_NOT_TRAINED[args.model]} "
-            "(its fast inference is)"
-        )
     if not args.sample_random_frames:
         # the step always draws iid frames; JAX's contiguous windows are not ported
         raise NotImplementedError("--nosample_random_frames is not ported to the PyTorch trainer yet")
@@ -124,8 +122,14 @@ class Trainer:
     def run(self) -> TrainState:
         args = self.args
         fcfg, mcfg, tcfg = configs_from_args(args)
+        if args.model in _NOT_TRAINED:
+            raise NotImplementedError(
+                f"training {args.model} is not ported yet: ROADMAP item {_NOT_TRAINED[args.model]} "
+                "(its inference and eval are)"
+            )
         if not fcfg.frame_features:
-            raise NotImplementedError("video-level input is not ported yet: pass --frame_features")
+            raise NotImplementedError(
+                "training on video-level input is not ported yet: ROADMAP item 8b; pass --frame_features")
         device = resolve_device(args.device)
         loss_obj = get_loss_by_name(tcfg.label_loss)
         lr_schedule = optimizers.learning_rate_schedule(tcfg)

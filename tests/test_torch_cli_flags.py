@@ -1,5 +1,5 @@
-"""The port's CLIs take the JAX CLIs' flags, and refuse --fast_infer as the
-JAX CLI does.
+"""The port's CLIs (inference, eval, train) take the JAX CLIs' flags, and
+refuse --fast_infer as the JAX CLI does.
 
 The oracle is the JAX package itself: each JAX CLI module is imported in a
 subprocess of its own (both define their flags into absl's one global
@@ -16,13 +16,16 @@ import sys
 import pytest
 
 from learnablepoolingmethods_torch import cli_flags, inference, train
+from learnablepoolingmethods_torch import eval as eval_cli
 from learnablepoolingmethods_torch.models import list_models as torch_models
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path
 
 from learnablepoolingmethods_tpu.models import list_models as jax_models
 from learnablepoolingmethods_tpu.ops.fast_dispatch import get_fast_path as jax_get_fast_path
 
-CLIS = {"inference": inference, "train": train}
+CLIS = {"inference": inference, "eval": eval_cli, "train": train}
+NOT_PORTED = {"inference": cli_flags.INFERENCE_NOT_PORTED, "eval": cli_flags.EVAL_NOT_PORTED,
+              "train": cli_flags.TRAIN_NOT_PORTED}
 # the port's one default that differs: it exports nothing yet (ROADMAP item 14)
 PORT_DEFAULTS = {"export_model_steps": 0}
 
@@ -77,10 +80,10 @@ def test_jax_command_line_at_its_defaults_parses_to_the_same_values(cli):
     for name, default in want.items():
         assert getattr(args, name) == default, name
     args = CLIS[cli].build_parser().parse_args(_argv({**want, **PORT_DEFAULTS}))
-    if cli == "inference":
-        cli_flags.refuse_not_ported(args, cli_flags.INFERENCE_NOT_PORTED,
-                                    vars(inference.build_parser().parse_args([])), "inference CLI")
-        mcfg = inference.model_config_from_args(args)
+    if cli in ("inference", "eval"):
+        cli_flags.refuse_not_ported(args, NOT_PORTED[cli],
+                                    vars(CLIS[cli].build_parser().parse_args([])), f"{cli} CLI")
+        mcfg = cli_flags.model_config_from_args(args)
     else:
         _, mcfg, _ = train.configs_from_args(args)
     assert mcfg.vocab_size == want["num_classes"] and mcfg.compute_dtype == want["compute_dtype"]
@@ -94,18 +97,20 @@ def _off_default(default):
     return default + 2
 
 
-@pytest.mark.parametrize("cli, name", [("inference", n) for n in cli_flags.INFERENCE_NOT_PORTED]
-                         + [("train", n) for n in cli_flags.TRAIN_NOT_PORTED])
+@pytest.mark.parametrize("cli, name", [(cli, n) for cli in sorted(NOT_PORTED) for n in NOT_PORTED[cli]])
 def test_unported_flag_off_its_default_raises_naming_its_item(tmp_path, cli, name):
     defaults = vars(CLIS[cli].build_parser().parse_args([]))
     argv = _argv({name: _off_default(defaults[name])})
-    table = cli_flags.INFERENCE_NOT_PORTED if cli == "inference" else cli_flags.TRAIN_NOT_PORTED
-    match = f"--{name} is not ported .* ROADMAP item {table[name]}"
+    match = f"--{name} is not ported .* ROADMAP item {NOT_PORTED[cli][name]}"
     with pytest.raises(NotImplementedError, match=match):
         if cli == "inference":
             inference.main(argv + ["--fast_infer", "--model=NetVLADModelLF", "--frame_features",
                                    f"--input_data_pattern={tmp_path}/none*",
                                    f"--output_file={tmp_path}/o.csv", "--device=cpu"])
+        elif cli == "eval":
+            eval_cli.main(argv + ["--model=NetVLADModelLF", "--frame_features", "--run_once",
+                                  f"--eval_data_pattern={tmp_path}/none*", f"--train_dir={tmp_path}/m",
+                                  "--device=cpu"])
         else:
             train.main(argv + ["--model=NetVLADModelLF", "--frame_features",
                                f"--train_data_pattern={tmp_path}/none*",
@@ -127,15 +132,11 @@ def test_flags_without_an_effect_here_are_accepted():
 def test_fast_infer_refuses_exactly_the_models_without_a_jax_fast_path(model_name):
     """Where the JAX registry has no fast path, --fast_infer raises
     ValueError in both CLIs (learnablepoolingmethods_tpu/inference.py);
-    where it has one, the port serves it or names the ROADMAP item that
-    ports it."""
+    where it has one, the port serves it (DbofModel's included, the last
+    one ported)."""
     if jax_get_fast_path(model_name) is None:
         with pytest.raises(ValueError, match="--fast_infer supports"):
             get_fast_path(model_name)
     else:
-        try:
-            path = get_fast_path(model_name)
-        except NotImplementedError as e:
-            assert "ROADMAP item" in str(e)
-        else:
-            assert callable(path.prepare) and callable(path.build)
+        path = get_fast_path(model_name)
+        assert callable(path.prepare) and callable(path.build)

@@ -176,8 +176,10 @@ def test_unported_options_and_models_name_their_roadmap_item(setup):
     tv = convert_flax_variables(_np_tree(variables), TCFG)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         tfi.prepare_fast_params(tv, TCFG, int8_hidden=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        get_fast_path("DbofModel")
+    # DbofModel's fast path is ported too (ops/fast_dbof.py) and refuses
+    # --int8_hidden as every fast path of the port does
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        get_fast_path("DbofModel").prepare({}, TCFG, int8_hidden=True, device="cpu")
     # no fast path in the JAX package either: its CLI's ValueError
     with pytest.raises(ValueError, match="--fast_infer supports"):
         get_fast_path("LstmModel")

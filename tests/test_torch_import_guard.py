@@ -52,9 +52,11 @@ def test_the_guard_covers_the_kernel_modules():
     names = _module_names()
     for module in ("fast_infer", "fast_lf", "fast_dispatch", "fused_frontend", "netvlad_fused",
                    "netvlad_train", "netfv_fused", "softdbow_fused", "kernel_build", "fast_transformer",
-                   "masked_attention"):
+                   "masked_attention", "fast_dbof", "metrics_ops"):
         assert f"learnablepoolingmethods_torch.ops.{module}" in names, module
-    assert "learnablepoolingmethods_torch.models.frame_level" in names
+    for module in ("models.frame_level", "models.video_level", "eval", "inference",
+                   "core.observability", "core.step", "data.readers", "data.fixtures"):
+        assert f"learnablepoolingmethods_torch.{module}" in names, module
 
 
 def test_port_sources_import_no_jax():

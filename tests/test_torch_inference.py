@@ -145,5 +145,6 @@ def test_entry_point_defaults_to_cuda_and_refuses_the_cpu(tmp_path, monkeypatch)
             "--fast_infer", "--model=NetVLADModelLF", "--frame_features",
             f"--input_data_pattern={tmp_path}/none*", f"--output_file={tmp_path}/o.csv",
         ])
-    with pytest.raises(NotImplementedError, match="without --fast_infer.*ROADMAP item 6"):
+    # the model-forward route (without --fast_infer) defaults to the card too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         inference.main([f"--input_data_pattern={tmp_path}/x", f"--output_file={tmp_path}/o.csv"])

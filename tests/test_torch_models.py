@@ -144,8 +144,8 @@ def test_state_dict_round_trip_keeps_the_flax_layout(rng):
 
 def test_registry_names_what_is_not_ported():
     cfg = ModelConfig(**KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        create_model("DbofModel", cfg, 1152)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        create_model("LstmModel", cfg, 1152)
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("NoSuchModel", cfg, 1152)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
