@@ -50,7 +50,8 @@ error, and prints one JSON line per phase:
               dC₂, X in bf16 and f32, at both Willow modalities, B=64, S=30
               and S=300, at S 1, 31 and 33 (across the 16-sample stages), at K
               500 and 512 (past a portable cluster at D=1024, a cluster of two
-              at D=128), and at one small shape off every tile width, with the
+              at D=128), at one small shape off every tile width and at the
+              one module of NetVLAD with --netvlad_dimred=256 (D=K=256), with the
               tolerances above chosen by X's dtype; every bf16 output equal bit
               for bit to a second launch's, and the built kernels' tiling equal
               to ops/netvlad_train.py#train_geometry; dC₂ of a batch against
@@ -65,10 +66,26 @@ error, and prints one JSON line per phase:
               losses must be finite and fall, and agree between the routes
               (see phase_train_e2e); then the inference CLI reads the trained
               variables.npz and writes a CSV row per video;
+   train_zoo_e2e
+              the train CLI for every other trained model at its default
+              width, B=256, five bf16 steps (ZOO_RUNS): NetRVLAD-256 on the
+              four routes of train_e2e (rows 3 and 4 once per module a step,
+              zero C₂; fused against plain: the f32 pair within LOSS_GATES,
+              each route's step-1 gradient per tensor within ZOO_GRAD_GATES
+              of the plain f32 route's), NetFV-64, SoftDBoW-4096, NeXtVLAD-128,
+              DbofModel-8192 (also random windows), FrameLevelLogisticModel,
+              LogisticModel and MoeModel on video-level records, NetVLAD
+              with --netvlad_dimred=256 (fused); losses finite and falling,
+              each model's f32 step-1 loss on the card within 1e-5 of the
+              CPU's, no other launch, the eval CLI reading each
+              variables.npz back with a finite GAP;
 8. train_throughput
               the train step at B=256, S=30, bf16, fused: videos/s (the median
               of five rounds), forward, backward and optimizer ms, peak
               memory; then train_profile, torch.profiler over five steps;
+   train_zoo_throughput
+              the same for every ZOO_RUNS model in bf16 (NetRVLAD fused and
+              plain), and a profile of NetRVLAD's fused step;
 9. lf_kernels the NetFV and SoftDBoW kernels against their plain versions at
               the full widths of NetFVModelLF-64 (D 1024/128, K 64/32) and
               SoftDbofModelLF-4096 (K 4096/2048), B=64, S=30, S=300 and S=1,
@@ -142,7 +159,12 @@ error, and prints one JSON line per phase:
               batch), its CSV the module's top 20 and the module within the
               f32 gate of its plain aggregation; DbofModel at full width:
               eval --fast_forward and inference --fast_infer against the f32
-              plain DBoF route within 1e-2 in probability.
+              plain DBoF route within 1e-2 in probability; then three more
+              arms of the drill trained the same way (EVAL_ARMS:
+              NetRVLAD-256 fused, DbofModel-8192, NetFV-256), each through
+              eval --fast_forward (rows 2 and 5 twice a batch for the LF
+              two) against the f32 plain route: GAP >= 0.3, |ΔGAP| <= 1e-3,
+              --fast_eval within 1e-5.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -180,13 +202,15 @@ from learnablepoolingmethods_torch.core.weights import (
 from learnablepoolingmethods_torch.data.fixtures import (
     make_learnable_synthetic_frame_level,
     write_frame_level_fixture,
+    write_video_level_fixture,
 )
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
-from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader
+from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader, make_reader
 from learnablepoolingmethods_torch.losses import CrossEntropyLoss
 from learnablepoolingmethods_torch.metrics import eval_util
 from learnablepoolingmethods_torch.models import create_model
-from learnablepoolingmethods_torch.ops import fast_dbof, kernel_build
+from learnablepoolingmethods_torch.models.frame_level import lf_layout
+from learnablepoolingmethods_torch.ops import fast_dbof, fast_lf, kernel_build
 from learnablepoolingmethods_torch.ops.fast_dispatch import (
     FAST_ATTENTION_MODELS,
     FAST_LF_MODELS,
@@ -658,10 +682,11 @@ def check_train_kernels(x, logits, c2, dv3, errors, per_video_sum: bool) -> dict
 # bf16 aggregation's ring and of the dA/dX kernel's 32 frames; K 500 and 512
 # at D=1024, past a portable cluster (the two-pass chain, and K 500 the
 # 2-byte loads), a cluster of two at D=128; then small widths off every
-# tile (D and K not multiples of 8, a 32-thread block)
+# tile (D and K not multiples of 8, a 32-thread block); last the one module
+# of NetVLADModelLF with --netvlad_dimred=256 (D=256, K=256)
 TRAIN_CHECKS = ((64, 30, MODS), (64, 300, MODS), (16, 1, MODS), (16, 31, MODS), (16, 33, MODS),
                 (8, 30, ((D_RGB, 500), (D_AUD, 512))), (8, 33, ((D_RGB, 512), (D_AUD, 500))),
-                (20, 37, ((70, 20), (8, 10))))
+                (20, 37, ((70, 20), (8, 10))), (64, 30, ((256, K_RGB),)))
 
 
 def phase_train_kernels(dev, smi):
@@ -1020,33 +1045,38 @@ def phase_train_e2e(dev, workdir, smi):
     return {name: paths["fused"][name] for name in TRAIN_KERNELS}
 
 
-def phase_train_throughput(dev, smi):
-    """The train step at full Willow width, B=256, S=30, bf16, fused route:
-    videos/s (the median of five rounds of five steps), forward, backward and
-    optimizer ms (medians over five steps, CUDA events), peak memory; then
-    torch.profiler over five steps."""
-    b = 256
-    mcfg = ModelConfig(compute_dtype="bfloat16", fused_train_aggregation=True, presampled=True)
-    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
-    tcfg = TrainingConfig(batch_size=b, presample_frames=True)
-    model = create_model("NetVLADModelLF", mcfg, DT)
-    load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=0)).to(dev)
-    state = TrainState.create(model, tcfg)
-    step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, True)
-    rng = np.random.default_rng(2)
-    batch = {
-        "features": torch.from_numpy(rng.integers(0, 256, (b, F, DT), dtype=np.uint8)).to(dev),
-        "num_frames": torch.from_numpy(rng.integers(1, F + 1, b).astype(np.int32)).to(dev),
-        "labels": torch.from_numpy((rng.random((b, mcfg.vocab_size)) < 0.002).astype(np.float32)).to(dev),
-        "weights": torch.ones(b, device=dev),
-    }
-    key = prng.key(0)
-    params = list(model.parameters())
+def random_train_batch(rng: np.random.Generator, b: int, dev, frame_features: bool = True) -> dict:
+    """A train batch of ``b`` videos on the card: uint8 frames [B, 300,
+    1152] with 1-300 valid, or video-level features [B, 1152]; 0.2 %
+    positive labels."""
+    if frame_features:
+        batch = {"features": torch.from_numpy(rng.integers(0, 256, (b, F, DT), dtype=np.uint8)).to(dev),
+                 "num_frames": torch.from_numpy(rng.integers(1, F + 1, b).astype(np.int32)).to(dev)}
+    else:
+        batch = {"features": torch.from_numpy(rng.normal(size=(b, DT)).astype(np.float32)).to(dev)}
+    batch["labels"] = torch.from_numpy((rng.random((b, 3862)) < 0.002).astype(np.float32)).to(dev)
+    batch["weights"] = torch.ones(b, device=dev)
+    return batch
+
+
+def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, batch: dict,
+                    frame_features: bool = True) -> tuple:
+    """``name``'s train step at ``mcfg`` (weights from init_variables_np)
+    on ``batch``: the median of five rounds of five steps by CUDA events,
+    forward, backward and optimizer ms (medians over five steps), peak
+    memory.  Returns (line, step) where ``step()`` runs one more step."""
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), frame_features, F)
+    b = batch["features"].shape[0]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    model = create_model(name, mcfg, DT)
+    load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=0, model_name=name)).to(dev)
+    state = TrainState.create(model, tcfg)
+    step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, frame_features)
+    key = prng.key(0)
     for _ in range(2):
         step(state, batch, key)
     torch.cuda.synchronize()
-
     rounds = []
     for _ in range(5):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1062,21 +1092,281 @@ def phase_train_throughput(dev, smi):
         ev[0].record()
         total = step.loss(state, batch, key)[0]
         ev[1].record()
-        grads = torch.autograd.grad(total, params)
+        grads = step_lib.gradients(total, state.model)
         ev[2].record()
         state.apply_gradients(grads)
         ev[3].record()
         ev[3].synchronize()
-        for name, (a, c) in zip(stages, ((0, 1), (1, 2), (2, 3))):
-            stages[name].append(ev[a].elapsed_time(ev[c]))
+        for stage, (a, c) in zip(stages, ((0, 1), (1, 2), (2, 3))):
+            stages[stage].append(ev[a].elapsed_time(ev[c]))
     step_ms = statistics.median(rounds)
-    emit({"phase": "train_throughput", "B": b, "S": mcfg.iterations, "route": "fused bf16",
-          "videos_per_s": b / (step_ms / 1e3), "step_ms": step_ms,
-          "videos_per_s_rounds": [b / (ms / 1e3) for ms in rounds],
-          **{name: statistics.median(v) for name, v in stages.items()},
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
-    emit({"phase": "train_profile", "route": "fused bf16", "B": b, "S": mcfg.iterations,
-          **profile_device(lambda: step(state, batch, key)), "card": smi})
+    line = {"B": b, "S": mcfg.iterations if frame_features and model.samples_frames else None,
+            "videos_per_s": b / (step_ms / 1e3), "step_ms": step_ms,
+            "videos_per_s_rounds": [b / (ms / 1e3) for ms in rounds],
+            **{stage: statistics.median(v) for stage, v in stages.items()},
+            "parameters": sum(p.numel() for p in model.parameters()),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return line, lambda: step(state, batch, key)
+
+
+def phase_train_throughput(dev, smi):
+    """The train step at full Willow width, B=256, S=30, bf16, fused route:
+    videos/s (the median of five rounds of five steps), forward, backward and
+    optimizer ms (medians over five steps, CUDA events), peak memory; then
+    torch.profiler over five steps."""
+    mcfg = ModelConfig(compute_dtype="bfloat16", fused_train_aggregation=True, presampled=True)
+    tcfg = TrainingConfig(batch_size=256, presample_frames=True)
+    batch = random_train_batch(np.random.default_rng(2), 256, dev)
+    line, step = time_train_step(dev, "NetVLADModelLF", mcfg, tcfg, batch)
+    emit({"phase": "train_throughput", **line, "route": "fused bf16", "card": smi})
+    emit({"phase": "train_profile", "route": "fused bf16", "B": 256, "S": mcfg.iterations,
+          **profile_device(step), "card": smi})
+
+
+# the train CLI's runs of phase_train_zoo_e2e: run → (model, flags), flags
+# None for video-level input; each at the model's default width, B=256,
+# five bf16 steps at the CLI's default learning rate.  NetRVLADModelLF takes
+# the four routes of TRAIN_ROUTES
+ZOO_RUNS = {
+    **{f"NetRVLADModelLF/{route}": ("NetRVLADModelLF", flags) for route, flags in TRAIN_ROUTES.items()},
+    "NetFVModelLF": ("NetFVModelLF", []),
+    "SoftDbofModelLF": ("SoftDbofModelLF", []),
+    "NeXtVLADModel": ("NeXtVLADModel", []),
+    "DbofModel": ("DbofModel", []),
+    "FrameLevelLogisticModel": ("FrameLevelLogisticModel", []),
+    "LogisticModel": ("LogisticModel", None),
+    "MoeModel": ("MoeModel", None),
+    "NetVLADModelLF/dimred256": ("NetVLADModelLF", ["--netvlad_dimred=256", "--fused_train_aggregation"]),
+    "DbofModel/windows": ("DbofModel", ["--nosample_random_frames"]),
+}
+ZOO_STEP_FLAGS = ["--batch_size=256", "--max_steps=5", "--compute_dtype=bfloat16", "--device=cuda",
+                  "--log_every_n_steps=1", "--start_new_model"]
+FRAME_FLAGS = ["--frame_features", "--feature_names=rgb,audio", "--feature_sizes=1024,128"]
+VIDEO_FLAGS = ["--feature_names=mean_rgb,mean_audio", "--feature_sizes=1024,128"]
+# the step-1 loss of a model's f32 train step on the card against the same
+# step on the CPU (same first batch and weights): the summation order alone
+ZOO_CPU_GATE = 1e-5
+# NetRVLADModelLF's loss gates: at the CLI's lr of 0.01 the first Adam
+# update moves nearly every weight by ±0.01, whatever the size of its
+# gradient, and the two bf16 routes then drift from f32 each by its own
+# rounding: 7.8e-3 apart at step 5, the plain route 7.1e-3 from f32 and the
+# fused one 8.4e-4 (PERF.md).  So the bf16 pair is held at step 1 (the
+# forward, 1e-5) and by its step-1 gradients (ZOO_GRAD_GATES); the f32 pair
+# on every step as LOSS_GATES holds it
+ZOO_LOSS_GATES = tuple(g for g in LOSS_GATES if g[0] == "fused_f32")
+# per route of NetRVLADModelLF, the most relative distance ‖g − g₀‖ / ‖g₀‖
+# allowed between a parameter tensor's step-1 gradient and the plain f32
+# route's g₀, on the CLI's first batch and weights.  Set between the
+# readings of tools/torch_loss_gate_faults.py (PERF.md): sound, the fused
+# bf16 route reads 2.55e-2 (the rgb cluster_bn.bias, where the column sum of
+# dL cancels and the kernel's two bf16 roundings show: ROADMAP §3 item 12),
+# the plain bf16 one 1.10e-2, fused f32 5.5e-6; the smallest planted
+# backward fault that can show at zero C₂ (cluster 0's dL zeroed) 8.3e-2
+ZOO_GRAD_GATES = {"fused": 5e-2, "plain": 5e-2, "fused_f32": 1e-4}
+
+
+def zoo_model_flags(run: str) -> list:
+    """The model and input flags of a ZOO_RUNS run."""
+    name, flags = ZOO_RUNS[run]
+    return [f"--model={name}", *(VIDEO_FLAGS if flags is None else FRAME_FLAGS + flags)]
+
+
+def zoo_modules(run: str) -> int:
+    """The pooling modules of a fused ZOO_RUNS run, each one launch of a
+    training kernel a step; 0 for a run without --fused_train_aggregation."""
+    args = train.build_parser().parse_args(zoo_model_flags(run))
+    if not args.fused_train_aggregation:
+        return 0
+    _, mcfg, _ = train.configs_from_args(args)
+    return len(lf_layout(args.model, mcfg, DT))
+
+
+def zoo_args(run: str, *extra: str) -> tuple:
+    """(args, (fcfg, mcfg, tcfg)) of ``run``'s train CLI, ``extra`` last."""
+    args = train.build_parser().parse_args(ZOO_STEP_FLAGS + zoo_model_flags(run) + list(extra))
+    return args, train.configs_from_args(args)
+
+
+def zoo_first_batch(args, configs, data: str) -> dict:
+    """The batch that the train CLI of ``args`` reads first from ``data``
+    (its reader, shuffle and seed): the same for every model of one kind of
+    input."""
+    fcfg, mcfg, tcfg = configs
+    batch = next(batch_iterator(make_reader(fcfg, mcfg.vocab_size), data, tcfg.batch_size,
+                                num_epochs=tcfg.num_epochs, shuffle=True, shuffle_buffer=args.shuffle_buffer,
+                                seed=args.seed))
+    return {k: torch.from_numpy(v) for k, v in batch.items() if k != "video_id"}
+
+
+def zoo_init(args, configs) -> dict:
+    """The train CLI's initial variables for ``args``."""
+    fcfg, mcfg, _ = configs
+    return init_variables_np(mcfg, fcfg, seed=args.seed, model_name=args.model)
+
+
+def step1_loss(where, args, configs, batch, tree, grad: bool = False):
+    """The loss of the first train step on ``where``, and with ``grad`` the
+    gradient of each parameter tensor ({name: f32 tensor})."""
+    fcfg, mcfg, tcfg = configs
+    model = load_flax_variables(create_model(args.model, mcfg, fcfg.total_size), tree).to(where)
+    step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, fcfg.frame_features)
+    with torch.set_grad_enabled(grad):
+        total = step.loss(TrainState.create(model, tcfg), {k: v.to(where) for k, v in batch.items()},
+                          prng.key(args.seed))[0]
+        if not grad:
+            return float(total), None
+        grads = step_lib.gradients(total, model)
+    return float(total.detach()), {n: g.float() for (n, _), g in zip(model.named_parameters(), grads)}
+
+
+def cpu_step1_gap(dev, run: str, batch: dict, tree=None) -> dict:
+    """``run``'s f32 train step, the loss of the CLI's first ``batch``: on
+    the card and on the CPU, from ``tree`` or the CLI's initial weights."""
+    args, configs = zoo_args(run, "--compute_dtype=float32")
+    tree = tree or zoo_init(args, configs)
+    loss = [step1_loss(where, args, configs, batch, tree)[0] for where in (dev, torch.device("cpu"))]
+    return {"card": loss[0], "cpu": loss[1], "rel": abs(loss[0] - loss[1]) / abs(loss[1])}
+
+
+def step1_gradient_gaps(dev, model: str, batch: dict, tree) -> dict:
+    """``model``'s four routes of TRAIN_ROUTES on the card, each from the
+    CLI's first ``batch`` and initial variables ``tree``: per route other
+    than plain_f32, {parameter: ‖g − g₀‖ / ‖g₀‖} of its step-1 gradient g
+    against the plain f32 route's g₀."""
+    grads = {}
+    for route in TRAIN_ROUTES:
+        args, configs = zoo_args(f"{model}/{route}")
+        grads[route] = step1_loss(dev, args, configs, batch, tree, grad=True)[1]
+    ref = grads.pop("plain_f32")
+    return {route: {n: float((g[n] - ref[n]).norm() / ref[n].norm().clamp(min=1e-30)) for n in ref}
+            for route, g in grads.items()}
+
+
+def phase_train_zoo_e2e(dev, workdir, smi):
+    """The train CLI for every model the port trains, at its full default
+    width (config.py), five bf16 steps of B=256 each (ZOO_RUNS): on the
+    512-video frame-level fixture of phase_train_e2e in ``workdir``, or on
+    512 video-level records for LogisticModel and MoeModel.  Gates:
+
+    - five finite losses a run, the last below the first;
+    - NetRVLADModelLF's fused routes against its plain ones: within 1e-5
+      relative at step 1, the f32 pair within ZOO_LOSS_GATES at every step;
+      the step-1 gradient of each parameter tensor on every route within
+      ZOO_GRAD_GATES of the plain f32 route's (the bf16 pair's losses at
+      steps 2-5 are printed);
+    - each model's f32 train step on the card against the same step on the
+      CPU, on the CLI's first batch and weights: within ZOO_CPU_GATE in loss;
+      NetRVLAD's f32 CLI runs' step-1 losses within it of the CPU's too;
+    - launches: each training kernel once per pooling module a step in the
+      fused runs (NetRVLAD 2, NetVLAD with --netvlad_dimred=256 1), no
+      kernel anywhere else;
+    - the eval CLI (--run_once, the model-forward route) reads each trained
+      variables.npz back with a finite GAP, on 64 videos of the same kind.
+    Returns {kernel: launches in the fused runs}."""
+    frame = os.path.join(workdir, "train-0.tfrecord")
+    video = os.path.join(workdir, "video-0.tfrecord")
+    small = {"frame": os.path.join(workdir, "small-frame.tfrecord"),
+             "video": os.path.join(workdir, "small-video.tfrecord")}
+    start = time.perf_counter()
+    write_video_level_fixture(video, 512, seed=0)
+    write_frame_level_fixture(small["frame"], 64, seed=1)
+    write_video_level_fixture(small["video"], 64, seed=1)
+    setup_s = time.perf_counter() - start
+    none = dict.fromkeys(KERNELS, 0)
+    runs, launches, total = {}, {}, dict(none)
+    for run, (name, flags) in ZOO_RUNS.items():
+        data = video if flags is None else frame
+        train_dir = os.path.join(workdir, "zoo", run)
+        reset_counters()
+        start = time.perf_counter()
+        trainer = train.main(ZOO_STEP_FLAGS + zoo_model_flags(run) + [
+            f"--train_data_pattern={data}", f"--train_dir={train_dir}"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - start
+        launches[run] = counters()
+        want = {**none, **dict.fromkeys(TRAIN_KERNELS, zoo_modules(run) * 5)}
+        if launches[run] != want:
+            raise AssertionError(f"{run}: launches {launches[run]}, expected {want}")
+        for kernel, n in launches[run].items():
+            total[kernel] += n
+        losses = [h["loss"] for h in trainer.history]
+        if len(losses) != 5 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{run}: losses {losses}, want five finite values, the last below the first")
+        eval_flags = [f for f in zoo_model_flags(run) if f != "--fused_train_aggregation"]
+        start = time.perf_counter()
+        reset_counters()
+        info = eval_cli.main(eval_flags + ["--compute_dtype=bfloat16", "--device=cuda", "--batch_size=64",
+                                           "--run_once", f"--train_dir={train_dir}",
+                                           f"--eval_data_pattern={small['video' if flags is None else 'frame']}"])
+        torch.cuda.synchronize()
+        if counters() != none or not np.isfinite(float(info["gap"])):
+            raise AssertionError(f"{run}: eval GAP {info['gap']}, launches {counters()}")
+        runs[run] = {"cli_s": cli_s, "eval_s": time.perf_counter() - start, "losses": losses,
+                     "gap": [float(h["gap"]) for h in trainer.history], "eval_gap": float(info["gap"])}
+        shutil.rmtree(train_dir)
+    rel = {fused: [abs(a - b) / abs(b) for a, b in zip(runs[f"NetRVLADModelLF/{fused}"]["losses"],
+                                                        runs[f"NetRVLADModelLF/{plain}"]["losses"])]
+           for fused, plain, _ in LOSS_GATES}
+    emit({"phase": "train_zoo_e2e", "part": "runs", "videos": 512, "setup_s": setup_s, "runs": runs,
+          "netrvlad_loss_rel_diff_fused_vs_plain": rel, "launches_per_run": launches, "card": smi})
+    limits = {fused: limit for fused, _, limit in ZOO_LOSS_GATES}
+    for fused, plain, _ in LOSS_GATES:
+        if rel[fused][0] > 1e-5 or max(rel[fused]) > limits.get(fused, np.inf):
+            raise AssertionError(f"NetRVLADModelLF {fused} and {plain} losses differ by {rel[fused]} "
+                                 f"(limit {limits.get(fused)}, step 1 1e-5)")
+    start = time.perf_counter()
+    first = {kind: zoo_first_batch(*zoo_args(run), data)
+             for kind, run, data in ((True, "NetRVLADModelLF/plain_f32", frame), (False, "LogisticModel", video))}
+    rvlad = zoo_init(*zoo_args("NetRVLADModelLF/plain_f32"))
+    grads = step1_gradient_gaps(dev, "NetRVLADModelLF", first[True], rvlad)
+    worst = {route: max(g.items(), key=lambda kv: kv[1]) for route, g in grads.items()}
+    emit({"phase": "train_zoo_e2e", "part": "step1_gradient_vs_plain_f32", "model": "NetRVLADModelLF",
+          "rel_distance": grads, "worst": worst, "limits": ZOO_GRAD_GATES,
+          "seconds": time.perf_counter() - start, "card": smi})
+    for route, (param, gap) in worst.items():
+        if gap > ZOO_GRAD_GATES[route]:
+            raise AssertionError(f"NetRVLADModelLF {route}: the step-1 gradient of {param} is {gap} from "
+                                 f"the plain f32 route's (limit {ZOO_GRAD_GATES[route]})")
+    start = time.perf_counter()
+    cpu = {}
+    for run, (name, flags) in ZOO_RUNS.items():
+        if run.endswith("plain") or run.endswith("_f32") or run in cpu:
+            continue
+        cpu[run] = cpu_step1_gap(dev, run, first[flags is not None], rvlad if name == "NetRVLADModelLF" else None)
+    for route in ("fused_f32", "plain_f32"):
+        first = runs[f"NetRVLADModelLF/{route}"]["losses"][0]
+        want = cpu["NetRVLADModelLF/fused"]["cpu"]
+        cpu[f"NetRVLADModelLF/{route} CLI"] = {"card": first, "cpu": want, "rel": abs(first - want) / abs(want)}
+    emit({"phase": "train_zoo_e2e", "part": "f32_step1_card_vs_cpu", "losses": cpu,
+          "seconds": time.perf_counter() - start, "card": smi})
+    worst = max(v["rel"] for v in cpu.values())
+    if worst > ZOO_CPU_GATE:
+        raise AssertionError(f"f32 step-1 losses, card against CPU: {cpu} (limit {ZOO_CPU_GATE})")
+    return {name: total[name] for name in TRAIN_KERNELS}
+
+
+def phase_train_zoo_throughput(dev, smi):
+    """Each trained model's bf16 train step at its full default width, B=256
+    (S=30 for the sampling models, all 300 frames for
+    FrameLevelLogisticModel, video-level features for LogisticModel and
+    MoeModel), as time_train_step reports it; NetRVLADModelLF on its fused
+    and plain routes; then torch.profiler over NetRVLAD's fused step.
+    Informational: no limit yet."""
+    rng = np.random.default_rng(3)
+    batches = {True: random_train_batch(rng, 256, dev), False: random_train_batch(rng, 256, dev, False)}
+    for run, (name, flags) in ZOO_RUNS.items():
+        if run.endswith("_f32"):
+            continue
+        args = train.build_parser().parse_args(zoo_model_flags(run) + ["--compute_dtype=bfloat16"])
+        fcfg, mcfg, _ = train.configs_from_args(args)
+        tcfg = TrainingConfig(batch_size=256)
+        line, step = time_train_step(dev, name, mcfg, tcfg, batches[fcfg.frame_features], fcfg.frame_features)
+        emit({"phase": "train_zoo_throughput", "run": run, "model": name, **line, "card": smi})
+        if run == "NetRVLADModelLF/fused":
+            emit({"phase": "train_zoo_profile", "run": run, "B": 256, "S": mcfg.iterations,
+                  **profile_device(step), "card": smi})
+        del step
+        torch.cuda.empty_cache()
 
 
 # (D, K) of the rgb and audio modules at the full default widths of
@@ -1570,6 +1860,10 @@ EVAL_BATCH, EVAL_LR, EVAL_MAX_STEPS, EVAL_GAP_TARGET, EVAL_GAP_EVERY = 64, 0.001
 # route and the f32 plain route; below EVAL_GAP_FLOOR the gate would
 # compare noise
 GAP_BUDGET, EVAL_GAP_FLOOR = 1e-3, 0.3
+# the JAX drill's bf16 |ΔGAP| on the TPU (BASELINE.md:201-204), printed as
+# context beside the port's: not a target
+EVAL_TPU_DELTA = {"NetVLADModelLF": 6.5e-4, "NetRVLADModelLF": 1.1e-6, "DbofModel": 1.7e-4,
+                  "NetFVModelLF": 8.9e-4}
 # the JAX package's own bound between --fast_eval and the default
 # accumulator (tests/integration/test_eval_api.py:91-106)
 FAST_EVAL_BOUND = 1e-5
@@ -1599,20 +1893,24 @@ def route_metrics(batches, probs_fn) -> dict:
     return {k: float(info[k]) for k in EVAL_METRICS}
 
 
-def train_eval_model(dev, data: str, workdir: str, smi) -> tuple:
-    """NetVLADModelLF at full width, trained in-process by the port's
-    TrainStep (bf16, --fused_train_aggregation) on device-resident batches
-    of EVAL_BATCH videos of the set in ``data`` drawn with replacement, as
-    the JAX drill's trainer (tools/drill_train_fullshape_tpu.py) draws them;
-    every EVAL_GAP_EVERY steps the train GAP, that of the inference-mode
-    forward (running BN statistics) over the whole set, until it reaches
-    EVAL_GAP_TARGET or EVAL_MAX_STEPS; then its variables.npz.  Returns
+def train_eval_model(dev, data: str, workdir: str, smi, name: str = "NetVLADModelLF", overrides=None) -> tuple:
+    """``name`` at full width (eval_config with ``overrides``; NetVLADModelLF
+    bf16 with --fused_train_aggregation), trained in-process by the port's
+    TrainStep in bf16 on device-resident batches of EVAL_BATCH videos of the
+    set in ``data`` drawn with replacement, as the JAX drill's trainer
+    (tools/drill_train_fullshape_tpu.py) draws them; every EVAL_GAP_EVERY
+    steps the train GAP, that of the inference-mode forward (running BN
+    statistics) over the whole set, until it reaches EVAL_GAP_TARGET or
+    EVAL_MAX_STEPS; then its variables.npz.  With --fused_train_aggregation
+    each training kernel launches once per pooling module a step, the
+    forward also once per module in each batch of the GAP reads.  Returns
     (train_dir, info, launches)."""
-    mcfg = eval_config(compute_dtype="bfloat16", fused_train_aggregation=True, presampled=True)
+    overrides = {"fused_train_aggregation": True} if overrides is None else overrides
+    mcfg = eval_config(compute_dtype="bfloat16", presampled=True, **overrides)
     fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
     tcfg = TrainingConfig(batch_size=EVAL_BATCH, base_learning_rate=EVAL_LR)
-    model = create_model("NetVLADModelLF", mcfg, DT)
-    load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=0)).to(dev)
+    model = create_model(name, mcfg, DT)
+    load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=0, model_name=name)).to(dev)
     state = TrainState.create(model, tcfg)
     step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, True)
     forward = step_lib.inference_forward(model, mcfg, True)
@@ -1631,6 +1929,7 @@ def train_eval_model(dev, data: str, workdir: str, smi) -> tuple:
         return float(eval_util.calculate_gap(probs.cpu().numpy(), labels_np))
 
     gaps = []
+    torch.cuda.reset_peak_memory_stats()
     reset_counters()
     start = time.perf_counter()
     while state.step < EVAL_MAX_STEPS:
@@ -1643,16 +1942,21 @@ def train_eval_model(dev, data: str, workdir: str, smi) -> tuple:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = counters()
-    want = {**dict.fromkeys(KERNELS, 0), "netvlad_aggregate_backward": 2 * state.step,
-            "netvlad_aggregate_forward": 2 * state.step + 2 * len(gap_batches) * len(gaps)}
+    mods = len(lf_layout(name, mcfg, DT)) if mcfg.fused_train_aggregation else 0
+    want = {**dict.fromkeys(KERNELS, 0), "netvlad_aggregate_backward": mods * state.step,
+            "netvlad_aggregate_forward": mods * (state.step + len(gap_batches) * len(gaps))}
     if launches != want:
-        raise AssertionError(f"eval_e2e training launches {launches}, expected {want}")
-    train_dir = os.path.join(workdir, "NetVLADModelLF")
+        raise AssertionError(f"eval_e2e training of {name}: launches {launches}, expected {want}")
+    train_dir = os.path.join(workdir, name)
     os.makedirs(train_dir)
     save_variables_npz(state_dict_to_flax(state.model), train_dir)
-    info = {"steps": state.step, "train_gap": gaps[-1][1], "train_gap_at_step": gaps, "seconds": seconds,
-            "route": "bf16 fused", "B": EVAL_BATCH, "lr": EVAL_LR, "card": smi}
+    info = {"model": name, "steps": state.step, "train_gap": gaps[-1][1], "train_gap_at_step": gaps,
+            "seconds": seconds, "ms_per_step": seconds / state.step * 1e3,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "route": "bf16 fused" if mcfg.fused_train_aggregation else "bf16", "B": EVAL_BATCH,
+            "lr": EVAL_LR, "card": smi}
     del state, model, feats
+    torch.cuda.empty_cache()
     return train_dir, info, launches
 
 
@@ -1738,7 +2042,8 @@ def phase_eval_e2e(dev, workdir, smi):
         launches[n] += sum(p[n] for p in paths.values())
     emit({"phase": "eval_e2e", "part": "eval", "model": "NetVLADModelLF", "batches": n_batches,
           "metrics": infos, "abs_gap_delta_bf16_vs_f32": delta, "budget": GAP_BUDGET,
-          "tpu_bf16_delta_for_context": 6.5e-4, "launches_per_run": paths, "card": smi})
+          "tpu_bf16_delta_for_context": EVAL_TPU_DELTA["NetVLADModelLF"], "launches_per_run": paths,
+          "card": smi})
 
     # the model-forward inference CLI with the training forward kernel
     out_csv = os.path.join(workdir, "model_forward.csv")
@@ -1806,6 +2111,70 @@ def phase_eval_e2e(dev, workdir, smi):
           "eval_fast_forward": {k: float(info[k]) for k in EVAL_METRICS}, "fast_plain_f32": f32_metrics,
           "max_abs_prob_gap_bf16_vs_f32": gap, "csv_max_abs_err_vs_f32": csv_err, "csv_rows": written,
           "card": smi})
+    del tree, variables, fp
+    shutil.rmtree(dbof_dir)
+
+    for name, (overrides, flags, kernel) in EVAL_ARMS.items():
+        for n, c in eval_arm(dev, data, workdir, smi, batches, name, overrides, flags, kernel).items():
+            launches[n] += c
+    return launches
+
+
+# the JAX drill's other trained arms (tests/integration/gap_drill_common.py:77-104)
+# at their widths: model → (ModelConfig overrides, CLI flags, the kernel of
+# its --fast_forward route)
+EVAL_ARMS = {
+    "NetRVLADModelLF": ({"fused_train_aggregation": True}, [], "netvlad_fused"),
+    "DbofModel": ({}, [], None),
+    "NetFVModelLF": ({"fv_cluster_size": 256}, ["--fv_cluster_size=256"], "netfv_fused"),
+}
+
+
+def f32_plain_route(name: str, tree, mcfg: ModelConfig, dev):
+    """(fast params, fn) of ``name``'s f32 fast route without kernels."""
+    variables = convert_flax_variables(tree, mcfg, name)
+    f32 = torch.float32
+    if name == "DbofModel":
+        return (fast_dbof.prepare_fast_dbof_params(variables, mcfg, compute_dtype=f32, device=dev),
+                fast_dbof.build_fast_dbof_inference(mcfg, compute_dtype=f32, return_probs=True))
+    return (fast_lf.prepare_fast_lf_params(variables, mcfg, name, compute_dtype=f32, device=dev),
+            fast_lf.build_fast_lf_inference(mcfg, name, use_kernels=False, compute_dtype=f32, return_probs=True))
+
+
+def eval_arm(dev, data: str, workdir: str, smi, batches, name: str, overrides, flags, kernel) -> dict:
+    """One more trained arm of phase_eval_e2e: ``name`` trained by
+    train_eval_model, then the eval CLI with --fast_forward (bf16;
+    ``kernel`` twice a batch, one launch per modality), with the default
+    accumulator and --fast_eval, against the f32 plain fast route in-process
+    on the same frames: GAP >= EVAL_GAP_FLOOR and |ΔGAP| <= GAP_BUDGET.
+    Returns {kernel: launches}."""
+    train_dir, info, launches = train_eval_model(dev, data, workdir, smi, name, overrides)
+    emit({"phase": "eval_e2e", "part": "train", **info})
+    mcfg = eval_config(**{k: v for k, v in overrides.items() if k != "fused_train_aggregation"})
+    infos, paths = eval_cli_routes(name, data, train_dir, {"fast_forward_bf16": ["--fast_forward", *flags]})
+    none = dict.fromkeys(KERNELS, 0)
+    want = {run: {**none, **({kernel: 2 * len(batches)} if kernel else {})} for run in paths}
+    if paths != want:
+        raise AssertionError(f"{name} eval launches {paths}, expected {want}")
+    tree = load_variables_npz(train_dir)
+    fp, fn = f32_plain_route(name, tree, mcfg, dev)
+    infos["fast_plain_f32"] = route_metrics(batches, lambda x, n, k: fn(fp, x, n, k))
+    del fp, tree
+    shutil.rmtree(train_dir)
+    torch.cuda.empty_cache()
+    gap_f32 = infos["fast_plain_f32"]["gap"]
+    delta = abs(infos["fast_forward_bf16/default"]["gap"] - gap_f32)
+    if gap_f32 < EVAL_GAP_FLOOR:
+        raise AssertionError(f"{name}: the trained model's f32 GAP {gap_f32} is below {EVAL_GAP_FLOOR}")
+    if delta > GAP_BUDGET:
+        raise AssertionError(f"{name}: |ΔGAP| of --fast_forward bf16 against the f32 plain route {delta} "
+                             f"> {GAP_BUDGET}")
+    for run in paths.values():
+        for n, c in run.items():
+            launches[n] += c
+    emit({"phase": "eval_e2e", "part": "eval", "model": name, "batches": len(batches), "metrics": infos,
+          "abs_gap_delta_bf16_vs_f32": delta, "budget": GAP_BUDGET,
+          "tpu_bf16_delta_for_context": EVAL_TPU_DELTA.get(name), "launches_per_run": paths, "card": smi})
     return launches
 
 
@@ -1817,21 +2186,38 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    clock = [time.perf_counter()]
+    seconds = {}
+
+    def done(phase: str):
+        clock.append(time.perf_counter())
+        seconds[phase] = clock[-1] - clock[-2]
+
     smi = phase_env()
     phase_build()
+    done("build")
     errors, timing = phase_kernels(dev, smi)
     shapes = dict.fromkeys(timing, "B=512 S=30")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         fp, launches = phase_e2e(dev, workdir)
     phase_throughput(dev, fp, smi)
     del fp
+    done("kernels, e2e, throughput")
     e, t = phase_train_kernels(dev, smi)
     errors.update(e)
     timing.update(t[30])
     shapes.update(dict.fromkeys(t[30], "B=256 S=30, rgb and audio calls"))
+    done("train_kernels")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         launches.update(phase_train_e2e(dev, workdir, smi))
+        done("train_e2e")
+        for name, n in phase_train_zoo_e2e(dev, workdir, smi).items():
+            launches[name] += n
+        done("train_zoo_e2e")
     phase_train_throughput(dev, smi)
+    done("train_throughput")
+    phase_train_zoo_throughput(dev, smi)
+    done("train_zoo_throughput")
     e, t = phase_lf_kernels(dev, smi)
     errors.update(e)
     timing.update(t)
@@ -1842,6 +2228,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     phase_lf_throughput(dev, fps, smi)
     del fps
+    done("lf")
     e, t, library_ms = phase_attn_kernels(dev, smi)
     errors.update(e)
     timing.update(t)
@@ -1853,9 +2240,12 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     phase_attn_throughput(dev, fps, smi)
     del fps
+    done("attn")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as workdir:
         for name, n in phase_eval_e2e(dev, workdir, smi).items():
             launches[name] = launches.get(name, 0) + n
+    done("eval_e2e")
+    emit({"phase": "seconds", **seconds, "total": clock[-1] - clock[0]})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], "max_abs_err": errors[name], "ms": timing[name][0],

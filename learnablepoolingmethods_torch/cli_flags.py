@@ -106,9 +106,6 @@ FLAGS_PY: Dict[str, tuple] = {
 
 # flags of the model families whose port is queued → ROADMAP.md queue-1 item
 _RNN_ITEMS = dict.fromkeys(("lstm_cells", "lstm_layers", "gru_cells", "gru_layers"), 11)
-# DbofModel serves (inference and eval); its training is queued
-_DBOF_TRAIN_ITEMS = dict.fromkeys(("dbof_cluster_size", "dbof_hidden_size", "dbof_pooling_method",
-                                   "dbof_add_batch_norm"), "8b")
 _INGEST_ITEMS = dict.fromkeys(("num_readers", "use_grain", "grain_worker_count", "packed_cache_dir"), 7)
 _MESH_ITEMS = dict.fromkeys(("model_parallelism", "dcn_parallelism"), 15)
 
@@ -121,7 +118,7 @@ INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = {
 }
 EVAL_NOT_PORTED: Dict[str, Union[int, str]] = {**INFERENCE_NOT_PORTED, "int8_hidden": 12}
 TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = {
-    **_RNN_ITEMS, **_DBOF_TRAIN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
+    **_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
     "use_native_reader": 7, "profile_dir": 7,
     "int8_hidden": 12, "use_remat": 12, "adam_bf16_momentum": 12, "bf16_params": 12,
     "fused_adam": 12, "grad_accum_steps": 12,

@@ -1,32 +1,42 @@
 """The train, eval and predict steps (ref: core/step.py#make_train_step,
 single pass, #make_eval_step and #make_predict_step).
 
-uint8 frames → presampled frames (gathered in uint8) → dequantize →
+uint8 frames → sampled frames (gathered in uint8) → dequantize →
 ℓ2-normalize → model forward in training mode (BN statistics updated in
 place) → weighted label loss + penalty · L2 over the head kernels →
 gradients → per-tensor clip → Adam.
 
 Frames are sampled as the JAX step samples them, so both packages pick the
 same frames from the same seed: ``fold_in(key, step)`` → ``split`` → the
-first key, ``sampling_key``, draws floor(U·nf) per video
-(``models/model_utils.py#sample_frame_features``).  Under
-``--presample_frames`` the JAX step draws from ``sampling_key`` itself;
-without it the flax model draws inside its forward from
-``make_rng("sampling")``, the key flax derives from ``sampling_key``
-(``utils/prng.py#flax_make_rng``).  The port always gathers the uint8 rows
-first and builds the model ``presampled``, which is exact either way:
-dequantize and ℓ2 are per frame and the BN runs after sampling.
+first key, ``sampling_key``.
+
+- Under ``--presample_frames`` (frame-level input) the JAX step draws iid
+  frames, floor(U·nf) per sample (``models/model_utils.py#sample_frame_features``),
+  from ``sampling_key`` for every model: FrameLevelLogisticModel then
+  averages those ``--iterations`` rows over its original ``num_frames``,
+  and the draw is iid even under ``--nosample_random_frames``.  The port
+  does the same.
+- Without it only a sampling model (``samples_frames``) draws, inside its
+  forward, from ``make_rng("sampling")``, the key flax derives from
+  ``sampling_key`` (``utils/prng.py#flax_make_rng``): iid frames, or one
+  random window a video with ``--nosample_random_frames``
+  (``models/model_utils.py#sample_random_sequence``).  Other models see
+  every frame.
+
+The port gathers a sampling model's uint8 rows in the step and builds the
+model ``presampled``, which is exact: dequantize and ℓ2 are per frame and
+the BN runs after sampling.  Video-level input is never sampled.
 
 The eval and predict steps run the model with ``training=False``.  The JAX
 CLIs give the flax model ``rngs={"sampling": fold_in(key(0), batch)}``,
-so a sampling model (``samples_frames``) draws from
-``flax_make_rng(fold_in(key(0), batch))``; the port's steps gather those
-frames in uint8 too, from a model built ``presampled``.
+so a sampling model draws from ``flax_make_rng(fold_in(key(0), batch))``;
+the port's steps gather those frames in uint8 too, from a model built
+``presampled``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -34,7 +44,7 @@ from learnablepoolingmethods_torch.config import ModelConfig, TrainingConfig
 from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.losses import BaseLoss
 from learnablepoolingmethods_torch.models.base import compute_dtype
-from learnablepoolingmethods_torch.models.model_utils import sample_frame_features
+from learnablepoolingmethods_torch.models.model_utils import sample_frame_features, sample_model_input
 from learnablepoolingmethods_torch.ops.metrics_ops import batch_topk_partials
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
@@ -78,14 +88,25 @@ def weighted_mean(per_example: torch.Tensor, weights: torch.Tensor) -> torch.Ten
     return torch.sum(per_example.float() * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
+def gradients(total: torch.Tensor, model: torch.nn.Module) -> List[torch.Tensor]:
+    """d total / d each parameter, in ``model.parameters()`` order; zeros
+    for a parameter the forward does not read (NetFV's ``covar_weights``
+    under ``--fv_couple_weights``), as ``jax.grad`` gives."""
+    params = list(model.parameters())
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
 class TrainStep:
     """``step(state, batch, key) -> metrics``: one single-pass train step
     (ref: core/step.py#make_train_step with ``grad_accum_steps == 1``).
 
     ``batch`` holds tensors on the model's device: ``features`` (uint8
-    ``[B, F, D]`` frames), ``num_frames``, ``labels`` and optionally
-    ``weights``.  ``loss`` (the forward) and ``state.apply_gradients`` (the
-    update) are separate methods so that each stage can be timed."""
+    ``[B, F, D]`` frames, or ``[B, D]`` video-level features),
+    ``num_frames`` (frame-level), ``labels`` and optionally ``weights``.
+    ``loss`` (the forward) and ``state.apply_gradients`` (the update) are
+    separate methods so that each stage can be timed.  A sampling model
+    must be built ``presampled``: the step gathers its frames."""
 
     def __init__(self, loss_obj: BaseLoss, tcfg: TrainingConfig, mcfg: ModelConfig,
                  frame_features: bool):
@@ -93,22 +114,29 @@ class TrainStep:
             raise NotImplementedError("--grad_accum_steps > 1 is not ported yet: ROADMAP item 12")
         if tcfg.use_remat:
             raise NotImplementedError("--use_remat is not ported yet")
-        if frame_features and not mcfg.presampled:
-            raise ValueError("the train step samples frames itself: build the model with presampled=True")
         self.loss_obj, self.tcfg, self.mcfg = loss_obj, tcfg, mcfg
         self.frame_features = frame_features
         self.dtype = compute_dtype(mcfg)
 
+    def frames(self, model, features, num_frames, sampling_key):
+        """The rows the model sees this step (module docstring)."""
+        mcfg = self.mcfg
+        if not self.frame_features:
+            return features
+        if model.samples_frames and not mcfg.presampled:
+            raise ValueError("the train step samples frames itself: build the model with presampled=True")
+        if self.tcfg.presample_frames:
+            return sample_frame_features(features, num_frames, mcfg.iterations, sampling_key)
+        if model.samples_frames:
+            return sample_model_input(features, num_frames, mcfg.iterations,
+                                      prng.flax_make_rng(sampling_key), mcfg.sample_random_frames)
+        return features
+
     def loss(self, state: TrainState, batch: Dict[str, torch.Tensor], key: torch.Tensor):
         """Forward in training mode → (total loss, label loss, reg loss, predictions)."""
         sampling_key, _ = prng.split(prng.fold_in(key, state.step))
-        if not self.tcfg.presample_frames:
-            # the key of the flax model's own make_rng("sampling") call
-            sampling_key = prng.flax_make_rng(sampling_key)
-        features = batch["features"]
         num_frames = batch.get("num_frames") if self.frame_features else None
-        if self.frame_features:
-            features = sample_frame_features(features, num_frames, self.mcfg.iterations, sampling_key)
+        features = self.frames(state.model, batch["features"], num_frames, sampling_key)
         weights = batch.get("weights")
         if weights is None:
             weights = torch.ones(features.shape[0], device=features.device)
@@ -125,8 +153,7 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch, key) -> Dict[str, torch.Tensor]:
         total, label_loss, reg, predictions = self.loss(state, batch, key)
-        grads = torch.autograd.grad(total, list(state.model.parameters()))
-        state.apply_gradients(grads)
+        state.apply_gradients(gradients(total, state.model))
         return {"loss": total.detach(), "label_loss": label_loss.detach(),
                 "reg_loss": reg.detach(), "predictions": predictions.detach()}
 
@@ -143,11 +170,9 @@ def inference_forward(model, mcfg: ModelConfig, frame_features: bool):
         if not frame_features:
             num_frames = None
         if samples:
-            if not mcfg.sample_random_frames:
-                raise NotImplementedError(
-                    "--nosample_random_frames (random contiguous windows) is not ported yet")
             sampling_key = prng.key(0) if key is None else prng.flax_make_rng(key)
-            features = sample_frame_features(features, num_frames, mcfg.iterations, sampling_key)
+            features = sample_model_input(features, num_frames, mcfg.iterations, sampling_key,
+                                          mcfg.sample_random_frames)
         with torch.no_grad():
             return model(preprocess_input(features, dtype), num_frames, training=False)["predictions"]
 

@@ -245,8 +245,12 @@ def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "
     elif model_name in LF_MODULE_PREFIX:
         prefix = LF_MODULE_PREFIX[model_name]
         first = "expansion_weights" if model_name == "NeXtVLADModel" else "cluster_weights"
-        input_size = sum(_shape(tree_np, f"params/{prefix}_{i}/{first}")[0]
-                         for i in (0, 1) if i == 0 or f"{prefix}_{i}" in params)
+        if mcfg.netvlad_dimred > 0:
+            input_size = _shape(tree_np, "params/dimred")[0]
+            _expect(tree_np, "params/dimred", (input_size, mcfg.netvlad_dimred))
+        else:
+            input_size = sum(_shape(tree_np, f"params/{prefix}_{i}/{first}")[0]
+                             for i in (0, 1) if i == 0 or f"{prefix}_{i}" in params)
         add_bn = mcfg.netvlad_add_batch_norm
         layout = lf_layout(model_name, mcfg, input_size)
         for mod in layout:
@@ -259,10 +263,10 @@ def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "
                          f"not {model_name!r}")
     if width is not None:
         _expect(tree_np, "params/hidden1_weights", (width, h))
-    if h is not None and "MoeModel_0" in params:
-        m, v = mcfg.moe_num_mixtures, mcfg.vocab_size
-        _expect(tree_np, "params/MoeModel_0/gates_kernel", (h, (m + 1) * v))
-        _expect(tree_np, "params/MoeModel_0/experts_kernel", (h, m * v))
+    if h is not None:
+        head = mcfg.video_level_classifier_model
+        for path, shape in _single_layer_spec(head, mcfg, h):
+            _expect(tree_np, f"params/{head}_0/{path}", shape)
 
     def convert(node):
         if isinstance(node, Mapping):
@@ -313,7 +317,8 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
     one of ``FAST_ATTENTION_MODELS``, ``DbofModel`` or a single-layer model)
     with flax's key set, shapes and initial
     scales, drawn from ``seed`` with NumPy: ``normal(1/√fan)`` for the
-    pooling modules' and DBoF's projections (NeXtVLAD's C₂ ``[K, D′]`` at
+    pooling modules' and DBoF's projections and the LF models'
+    ``--netvlad_dimred`` ``dimred`` [D, r] (NeXtVLAD's C₂ ``[K, D′]`` at
     ``1/√D``), xavier-uniform ``fc`` kernels with a zero bias, the
     transformer's kernels (flax's lecun-normal, untruncated) and the gating
     weights, zero Dense biases and LayerNorm scale 1, ``normal(1/√K)`` for
@@ -321,11 +326,12 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
     TransformerEncoderModel), ``normal(0.01)`` for the hidden bias,
     xavier-uniform MoE kernels with a zero bias (models/modules.py,
     models/frame_level.py, models/video_level.py, and the JAX package's
-    models/attention.py), and BN scale 1, bias 0, mean 0, var 1."""
-    if mcfg.video_level_classifier_model != "MoeModel" and model_name not in SINGLE_LAYER_MODELS:
-        raise ValueError("init_variables_np builds the MoeModel head only")
-    if mcfg.netvlad_dimred > 0:
-        raise NotImplementedError("--netvlad_dimred is not ported yet")
+    models/attention.py), and BN scale 1, bias 0, mean 0, var 1.  The
+    classifier head of a pooling model is ``--video_level_classifier_model``'s,
+    ``MoeModel_0`` or ``LogisticModel_0``."""
+    head = mcfg.video_level_classifier_model
+    if head not in ("MoeModel", "LogisticModel") and model_name not in SINGLE_LAYER_MODELS:
+        raise ValueError(f"init_variables_np builds a MoeModel or LogisticModel head, not {head!r}")
     rng = np.random.default_rng(seed)
     params: Tree = {}
     stats: Tree = {}
@@ -349,12 +355,17 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
                 "experts_kernel": xavier((width, m * v)),
                 "experts_bias": np.zeros(m * v, np.float32)}
 
+    def logistic(width):
+        return {"fc": {"kernel": xavier((width, mcfg.vocab_size)),
+                       "bias": np.zeros(mcfg.vocab_size, np.float32)}}
+
+    def classifier(width):
+        return {f"{head}_0": moe(width) if head == "MoeModel" else logistic(width)}
+
     if model_name == "MoeModel":
         return {"params": moe(fcfg.total_size), "batch_stats": {}}
     if model_name in SINGLE_LAYER_MODELS:
-        fc = {"kernel": xavier((fcfg.total_size, mcfg.vocab_size)),
-              "bias": np.zeros(mcfg.vocab_size, np.float32)}
-        return {"params": {"fc": fc}, "batch_stats": {}}
+        return {"params": logistic(fcfg.total_size), "batch_stats": {}}
     if model_name == "DbofModel":
         spec, h = _dbof_spec(mcfg, fcfg.total_size)
         for name, shape, std in spec:
@@ -362,7 +373,7 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
                 params[name], stats[name] = bn(shape[0])
             else:
                 params[name] = normal(shape, std)
-        params["MoeModel_0"] = moe(h)
+        params.update(classifier(h))
         return {"params": params, "batch_stats": stats}
 
     add_bn = mcfg.netvlad_add_batch_norm
@@ -387,6 +398,8 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
     else:
         if add_bn:
             params["input_bn"], stats["input_bn"] = bn(fcfg.total_size)
+        if mcfg.netvlad_dimred > 0:
+            params["dimred"] = normal((fcfg.total_size, mcfg.netvlad_dimred), 1 / np.sqrt(fcfg.total_size))
         layout = lf_layout(model_name, mcfg, fcfg.total_size)
         for mod in layout:
             p = {}
@@ -413,5 +426,5 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
             gating["gating_biases"] = normal((h,), 1 / np.sqrt(h))
         params["gating"] = gating
 
-    params["MoeModel_0"] = moe(h)
+    params.update(classifier(h))
     return {"params": params, "batch_stats": stats}

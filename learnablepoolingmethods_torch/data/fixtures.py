@@ -14,28 +14,16 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from learnablepoolingmethods_torch.data.tfrecord_io import write_tfrecord
+from learnablepoolingmethods_torch.data.tfrecord_io import encode_varint, write_tfrecord
 from learnablepoolingmethods_torch.utils.quantization import quantize_np
 
 
-def _varint(n: int) -> bytes:
-    out = bytearray()
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        if n:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
 def _tag(field: int, wire: int) -> bytes:
-    return _varint((field << 3) | wire)
+    return encode_varint((field << 3) | wire)
 
 
 def _len_delim(field: int, payload: bytes) -> bytes:
-    return _tag(field, 2) + _varint(len(payload)) + payload
+    return _tag(field, 2) + encode_varint(len(payload)) + payload
 
 
 def _feature_bytes(values: Sequence[bytes]) -> bytes:
@@ -50,7 +38,7 @@ def _feature_floats(values: np.ndarray) -> bytes:
 
 
 def _feature_ints(values: Sequence[int]) -> bytes:
-    packed = b"".join(_varint(int(v)) for v in values)
+    packed = b"".join(encode_varint(int(v)) for v in values)
     inner = _len_delim(1, packed)  # Int64List.value packed
     return _len_delim(3, inner)  # Feature.int64_list = 3
 

@@ -127,19 +127,14 @@ class YT8MFrameFeatureReader(BaseReader):
     def read_file(self, path: str) -> Iterator[dict]:
         total_size = sum(self.feature_sizes)
         for record in tfrecord_io.read_tfrecords(path):
-            context, feature_lists = tfrecord_io.parse_sequence_example(record)
+            context, feature_lists = tfrecord_io.parse_sequence_example_lists(record)
 
             per_name: List[np.ndarray] = []
             num_frames = None
             for name, size in zip(self.feature_names, self.feature_sizes):
-                feats = feature_lists.get(name, [])
-                if feats:
-                    mat = np.stack(
-                        [
-                            np.frombuffer(f.bytes_list[0], dtype=np.uint8)
-                            for f in feats
-                        ]
-                    )
+                feats = feature_lists.get(name, b"")
+                if len(feats):
+                    mat = tfrecord_io.feature_list_frames(feats)
                     if mat.shape[1] != size:
                         raise ValueError(
                             f"feature_list {name!r} frame size {mat.shape[1]}, "

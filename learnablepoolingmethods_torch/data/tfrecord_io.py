@@ -204,26 +204,70 @@ def parse_example(record: bytes) -> Dict[str, Feature]:
     return {}
 
 
-def parse_sequence_example(
+def parse_sequence_example_lists(
     record: bytes,
-) -> Tuple[Dict[str, Feature], Dict[str, List[Feature]]]:
-    """Decode a tf.train.SequenceExample → (context map, feature_lists map)."""
+) -> Tuple[Dict[str, Feature], Dict[str, memoryview]]:
+    """Decode a tf.train.SequenceExample's context, and find its feature
+    lists → (context map, {name: the FeatureList message, undecoded})."""
     context: Dict[str, Feature] = {}
-    feature_lists: Dict[str, List[Feature]] = {}
-    for field, _, val, _ in _iter_fields(record):
+    feature_lists: Dict[str, memoryview] = {}
+    for field, _, val, _ in _iter_fields(memoryview(record)):
         if field == 1:  # context: Features
             context = _parse_features_map(val)
         elif field == 2:  # feature_lists: FeatureLists
             for f2, _, v2, _ in _iter_fields(val):
                 if f2 == 1:  # map entry
-                    key, feats = None, []
+                    key, parts = None, []
                     for f3, _, v3, _ in _iter_fields(v2):
                         if f3 == 1:
                             key = bytes(v3).decode("utf-8")
-                        elif f3 == 2:  # FeatureList
-                            for f4, _, v4, _ in _iter_fields(v3):
-                                if f4 == 1:
-                                    feats.append(_parse_feature(v4))
+                        elif f3 == 2:  # FeatureList; repeats merge
+                            parts.append(v3)
                     if key is not None:
-                        feature_lists[key] = feats
+                        feature_lists[key] = parts[0] if len(parts) == 1 else memoryview(
+                            b"".join(bytes(p) for p in parts))
     return context, feature_lists
+
+
+def parse_feature_list(buf) -> List[Feature]:
+    """Decode a FeatureList message → its Features."""
+    return [_parse_feature(v) for f, _, v, _ in _iter_fields(buf) if f == 1]
+
+
+def encode_varint(n: int) -> bytes:
+    """A non-negative int as a protobuf varint."""
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def frame_header(size: int) -> bytes:
+    """The bytes ahead of each frame in a FeatureList whose every Feature is
+    a BytesList of one ``size``-byte value, as a frame-level record stores
+    its frames: the entry's tag and length, the Feature's, the value's."""
+    value = b"\x0a" + encode_varint(size)
+    feature = b"\x0a" + encode_varint(len(value) + size) + value
+    return b"\x0a" + encode_varint(len(feature) + size) + feature
+
+
+def feature_list_frames(buf) -> np.ndarray:
+    """A non-empty FeatureList's frames as a ``[frames, size]`` uint8 matrix:
+    the first bytes value of each Feature.  Where every entry is a
+    frame_header and its frame, the frames are one strided view of ``buf``;
+    otherwise each Feature is decoded."""
+    field, wire, first, end = next(_iter_fields(buf))
+    if field == 1 and wire == 2:
+        values = _parse_feature(first).bytes_list
+        header = frame_header(len(values[0])) if len(values) == 1 else b""
+        stride = len(header) + len(values[0]) if header else 0
+        if stride == end and len(buf) % stride == 0:
+            rows = np.frombuffer(buf, np.uint8).reshape(len(buf) // stride, stride)
+            if (rows[:, :len(header)] == np.frombuffer(header, np.uint8)).all():
+                return rows[:, len(header):]
+    return np.stack([np.frombuffer(f.bytes_list[0], dtype=np.uint8) for f in parse_feature_list(buf)])

@@ -121,7 +121,10 @@ class AveragePrecisionCalculator:
             return 0.0
         if n is not None:
             numpos = min(numpos, n)
-        delta_recall = 1.0 / numpos
+        # a Python float: 1.0 over a NumPy float32 count is float32 under
+        # NumPy 2's promotion, and the sum over a pool of thousands then
+        # drifts by ~1e-5 from the float64 of ap_vectorized
+        delta_recall = 1.0 / float(numpos)
 
         poscount = 0.0
         r = len(sortidx)

@@ -9,7 +9,11 @@ and ``num_frames`` ``[B]``.  With ``cfg.presampled`` the frames were sampled
 already (the train step gathers them in uint8); otherwise the model draws
 ``cfg.iterations`` frames itself from ``sampling_key``, or from
 ``prng.key(0)`` when none is given, as the flax model does without a
-"sampling" RNG.
+"sampling" RNG: iid frames, or one random window with
+``--nosample_random_frames``.
+
+relu6 is ``min(max(x, 0), 6)``, as ``jnp.clip`` computes it, so that its
+gradient at exactly 0 or 6 is ½ in both packages (``torch.clamp`` gives 1).
 """
 
 from __future__ import annotations
@@ -87,13 +91,21 @@ def nextvlad_groups(cfg: ModelConfig, feature_size: int) -> int:
     return groups
 
 
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(max(x, 0), 6): ``jnp.clip``'s value and its ½ gradient at either bound."""
+    return torch.minimum(torch.maximum(x, torch.zeros_like(x)), torch.full_like(x, 6.0))
+
+
 def lf_layout(model_name: str, cfg: ModelConfig, input_size: int) -> List[PoolLayout]:
-    """The pooling modules of an LF model on ``input_size`` columns: above
-    128 columns one module on the first min(1024, D) (rgb, K clusters) and
-    one on the rest (audio, K/2), else one module on all (ref:
+    """The pooling modules of an LF model on ``input_size`` columns, or on
+    the ``--netvlad_dimred`` columns of the learned reduction when it is on:
+    above 128 columns one module on the first min(1024, D) (rgb, K clusters)
+    and one on the rest (audio, K/2), else one module on all (ref:
     frame_level.py#_LoupeLFBase._lf_forward)."""
     prefix = LF_MODULE_PREFIX[model_name]
     k, _, _ = lf_hparams(model_name, cfg)
+    if cfg.netvlad_dimred > 0:
+        input_size = cfg.netvlad_dimred
     if input_size > 128:
         rgb_dim = min(1024, input_size)
         widths = [(rgb_dim, k)]
@@ -119,15 +131,15 @@ def lf_layout(model_name: str, cfg: ModelConfig, input_size: int) -> List[PoolLa
 
 def sample_model_frames(cfg: ModelConfig, model_input, num_frames, sampling_key=None):
     """The ``cfg.iterations`` frames a sampling model pools: ``model_input``
-    itself when ``cfg.presampled``, else iid frames drawn from
-    ``sampling_key``, or from ``prng.key(0)`` without one, as the flax
-    model draws them without a "sampling" RNG."""
+    itself when ``cfg.presampled``, else iid frames or one random window
+    (``--nosample_random_frames``) drawn from ``sampling_key``, or from
+    ``prng.key(0)`` without one, as the flax model draws them without a
+    "sampling" RNG."""
     if cfg.presampled:
         return model_input
-    if not cfg.sample_random_frames:
-        raise NotImplementedError("--nosample_random_frames (random contiguous windows) is not ported yet")
     key = prng.key(0) if sampling_key is None else sampling_key
-    return model_utils.sample_frame_features(model_input, num_frames, cfg.iterations, key)
+    return model_utils.sample_model_input(model_input, num_frames, cfg.iterations, key,
+                                          cfg.sample_random_frames)
 
 
 class _LoupeLFBase(BaseModel):
@@ -136,7 +148,11 @@ class _LoupeLFBase(BaseModel):
     on the rgb columns (K clusters) and one on the audio columns (K/2) →
     concat → hidden FC (+bias, or BN and relu6 with relu on) → context
     gating → the video-level classifier.  Submodule and parameter names are
-    the flax ones (``NetVLAD_0``, ``hidden1_weights``, ``MoeModel_0`` ...)."""
+    the flax ones (``NetVLAD_0``, ``hidden1_weights``, ``MoeModel_0`` ...).
+
+    ``--netvlad_dimred`` r > 0 puts a learned ``dimred`` [D, r] after the
+    input BN, summed in f32, and the pooling modules then split r columns
+    as :func:`lf_layout` says (ref: frame_level.py:324-340)."""
 
     samples_frames = True
 
@@ -145,13 +161,13 @@ class _LoupeLFBase(BaseModel):
 
     def __init__(self, cfg: ModelConfig, input_size: int):
         super().__init__(cfg, input_size)
-        if cfg.netvlad_dimred > 0:
-            raise NotImplementedError("--netvlad_dimred is not ported yet")
         name = type(self).__name__
         add_bn = cfg.netvlad_add_batch_norm
         _, hidden, self.relu = lf_hparams(name, cfg)
         if add_bn:
             self.input_bn = BatchNorm(input_size)
+        if cfg.netvlad_dimred > 0:
+            self.dimred = nn.Parameter(torch.zeros(input_size, cfg.netvlad_dimred))
         self.layout = lf_layout(name, cfg, input_size)
         self.split = self.layout[0].feature_size if len(self.layout) > 1 else None
         for mod in self.layout:
@@ -172,6 +188,8 @@ class _LoupeLFBase(BaseModel):
         frames = sample_model_frames(cfg, model_input, num_frames, sampling_key)
         if cfg.netvlad_add_batch_norm:
             frames = self.input_bn(frames, training)
+        if cfg.netvlad_dimred > 0:
+            frames = matmul_f32(frames.to(dtype), self.dimred.to(dtype))
         pools = [getattr(self, mod.name) for mod in self.layout]
         if self.split is None:
             pooled = pools[0](frames.to(dtype), training)
@@ -187,7 +205,7 @@ class _LoupeLFBase(BaseModel):
         else:
             activation = activation + self.hidden1_biases
         if self.relu:
-            activation = torch.clamp(activation, 0.0, 6.0)
+            activation = relu6(activation)
         if cfg.gating:
             activation = self.gating(activation, training)
         return getattr(self, self.head_name)(activation.to(dtype), training=training)
@@ -310,7 +328,7 @@ class DbofModel(BaseModel):
             activation = self.cluster_bn(activation, training)
         else:
             activation = activation + self.cluster_biases
-        activation = torch.clamp(activation, 0.0, 6.0)
+        activation = relu6(activation)
         pooled = model_utils.frame_pooling(activation, cfg.dbof_pooling_method)
 
         activation = matmul_f32(pooled.to(dtype), self.hidden1_weights.to(dtype))
@@ -318,5 +336,5 @@ class DbofModel(BaseModel):
             activation = self.hidden1_bn(activation, training)
         else:
             activation = activation + self.hidden1_biases
-        activation = torch.clamp(activation, 0.0, 6.0)
+        activation = relu6(activation)
         return getattr(self, self.head_name)(activation.to(dtype), training=training)

@@ -1,7 +1,10 @@
 """Frame sampling and pooling (ref: models/model_utils.py).
 
-Indices are floor(U·min(num_frames, F)) clamped to F−1, with U drawn by
-``utils/prng.py`` exactly as ``jax.random.uniform`` draws it, so the port
+iid frames (``--sample_random_frames``, the default) are floor(U·min(
+num_frames, F)) clamped to F−1, one U per sample; a random window
+(``--nosample_random_frames``) starts at floor(U·(max(nf − S, 0) + 1)), one
+U per video, and runs S frames, clamped to the last valid frame.  U is drawn
+by ``utils/prng.py`` exactly as ``jax.random.uniform`` draws it, so the port
 picks the frames the JAX package picks from the same key.  Rows are
 gathered by index (``ops/fused_frontend.py#gather_frames``), where the JAX
 package multiplies by a one-hot matrix on the TPU (``gather_frames_u8`` for
@@ -13,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from learnablepoolingmethods_torch.ops.fused_frontend import gather_frames, sample_indices
+from learnablepoolingmethods_torch.utils import prng
 
 
 def sample_frame_features(features, num_frames, num_samples: int, key) -> torch.Tensor:
@@ -22,6 +26,35 @@ def sample_frame_features(features, num_frames, num_samples: int, key) -> torch.
     ``model_utils.py#sample_frame_features`` and ``#sample_random_frames``
     under the same key."""
     return gather_frames(features, sample_indices(key, num_frames, features.shape[1], num_samples))
+
+
+def sequence_indices(key, num_frames: torch.Tensor, max_frames: int, num_samples: int) -> torch.Tensor:
+    """The frames of one random window a video: ``[B, num_samples]`` int32,
+    start floor(U·(max(nf − S, 0) + 1)) with U ``[B, 1]`` from ``key``, index
+    min(start + s, nf − 1) clipped to [0, F − 1], nf = min(num_frames, F)
+    (ref: model_utils.py#sample_random_sequence)."""
+    b = num_frames.shape[0]
+    nf = torch.clamp(num_frames.to(torch.int32), max=max_frames).reshape(b, 1)
+    u = prng.uniform(key, (b, 1), device=num_frames.device)
+    max_start = torch.clamp(nf - num_samples, min=0)
+    start = (u * (max_start.float() + 1.0)).to(torch.int32)
+    offset = torch.arange(num_samples, dtype=torch.int32, device=num_frames.device)[None, :]
+    return torch.clamp(torch.minimum(start + offset, nf - 1), 0, max_frames - 1)
+
+
+def sample_random_sequence(features, num_frames, num_samples: int, key) -> torch.Tensor:
+    """A random window of ``num_samples`` frames a video from ``[B, F, D]``
+    features of any dtype, bit for bit that of
+    ``model_utils.py#sample_random_sequence`` under the same key."""
+    return gather_frames(features, sequence_indices(key, num_frames, features.shape[1], num_samples))
+
+
+def sample_model_input(features, num_frames, num_samples: int, key, random_frames: bool = True):
+    """A sampling model's frames: iid (:func:`sample_frame_features`) with
+    ``random_frames`` (``--sample_random_frames``), else one random window
+    (:func:`sample_random_sequence`)."""
+    sample = sample_frame_features if random_frames else sample_random_sequence
+    return sample(features, num_frames, num_samples, key)
 
 
 def frame_pooling(frames: torch.Tensor, method: str) -> torch.Tensor:

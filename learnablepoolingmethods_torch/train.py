@@ -1,29 +1,34 @@
 """Train entry point (ref: train.py#Trainer.run).
 
-Trains a frame-level model on YouTube-8M TFRecords and writes its weights
-as ``<train_dir>/variables.npz`` in the flax ``{params, batch_stats}``
-layout, which the inference CLI reads:
+Trains a model on YouTube-8M TFRecords, frame-level or video-level, and
+writes its weights as ``<train_dir>/variables.npz`` in the flax ``{params,
+batch_stats}`` layout, which the inference and eval CLIs read:
 
-    python -m learnablepoolingmethods_torch.train --model=NetVLADModelLF \\
+    python -m learnablepoolingmethods_torch.train --model=NetRVLADModelLF \\
         --frame_features --feature_names=rgb,audio --feature_sizes=1024,128 \\
         --train_data_pattern='/data/train*.tfrecord' --train_dir=/ckpt \\
         --batch_size=256 --max_steps=1000 --compute_dtype=bfloat16 \\
         --fused_train_aggregation --start_new_model
 
-It takes every flag of the JAX CLI under its name and default
-(``cli_flags.py``); ``--device`` (default ``cuda``) is the port's own.  With ``--fused_train_aggregation`` each NetVLAD's aggregation
-runs the CUDA forward and backward kernels of ``ops/netvlad_train.py``.
-Frames are the ones the JAX step draws from the same ``--seed``, with or
-without ``--presample_frames``; the port gathers them in uint8 either way.
-The weights start from ``core/weights.py#init_variables_np(seed)``.  What
-the port does not take yet raises, naming its ROADMAP item: restoring a
-checkpoint (an existing ``variables.npz`` without ``--start_new_model``), and
-the flags of ``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export,
-checkpoint retention, a device mesh, grain, the native reader, the packed
-cache, profiling, remat, gradient accumulation, bf16 parameters, the DBoF
-and RNN widths), video-level input and the models whose training is queued
-(``_NOT_TRAINED``); the other optimizers and losses raise where they are
-built.
+It trains every registered model: the LF family (NetVLADModelLF,
+NetRVLADModelLF, NetFVModelLF, SoftDbofModelLF, NeXtVLADModel, with
+``--netvlad_dimred``), DbofModel, FrameLevelLogisticModel, and LogisticModel
+and MoeModel on video-level input (without ``--frame_features``).  It takes every
+flag of the JAX CLI under its name and default (``cli_flags.py``);
+``--device`` (default ``cuda``) is the port's own.  With
+``--fused_train_aggregation`` the NetVLAD and NetRVLAD aggregations run the
+CUDA forward and backward kernels of ``ops/netvlad_train.py`` (NetRVLAD at
+zero C₂).  Frames are the ones the JAX step draws from the same ``--seed``,
+with or without ``--presample_frames`` and ``--sample_random_frames``
+(``core/step.py``); the port gathers them in uint8.  The weights start from
+``core/weights.py#init_variables_np(seed)``.  What the port does not take
+yet raises, naming its ROADMAP item: the attention family and the RNNs
+(``_NOT_TRAINED``), restoring a checkpoint (an existing ``variables.npz``
+without ``--start_new_model``), and the flags of
+``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export, checkpoint
+retention, a device mesh, grain, the native reader, the packed cache,
+profiling, remat, gradient accumulation, bf16 parameters, the RNN widths);
+the other optimizers and losses raise where they are built.
 """
 
 from __future__ import annotations
@@ -50,20 +55,21 @@ from learnablepoolingmethods_torch.core.weights import (
     state_dict_to_flax,
 )
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
-from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader
+from learnablepoolingmethods_torch.data.readers import make_reader
 from learnablepoolingmethods_torch.losses import get_loss_by_name
 from learnablepoolingmethods_torch.metrics import eval_util
-from learnablepoolingmethods_torch.models import create_model
+from learnablepoolingmethods_torch.models import create_model, find_class_by_name
 from learnablepoolingmethods_torch.utils import prng
 from learnablepoolingmethods_torch.utils.misc import resolve_device
 
 log = logging.getLogger(__name__)
 TASK = "/job:master/task:0"
 
-# registered models whose training is not ported yet → ROADMAP.md queue-1 item
-_NOT_TRAINED = dict.fromkeys(
-    ("NetRVLADModelLF", "NetFVModelLF", "SoftDbofModelLF", "NeXtVLADModel", "DbofModel",
-     "LogisticModel", "MoeModel", "FrameLevelLogisticModel"), "8b")
+# models of the JAX zoo whose training is not ported yet → ROADMAP.md queue-1 item
+_NOT_TRAINED = {
+    **dict.fromkeys(("TransformerEncoderModel", "AttentionNetVLADModel", "AttentionPoolingModel"), "10b"),
+    **dict.fromkeys(("LstmModel", "GruModel"), 11),
+}
 
 
 # the JAX train CLI's own flags (learnablepoolingmethods_tpu/train.py
@@ -90,13 +96,17 @@ def build_parser() -> argparse.ArgumentParser:
 def configs_from_args(args):
     cli_flags.refuse_not_ported(args, cli_flags.TRAIN_NOT_PORTED,
                                 vars(build_parser().parse_args([])), "trainer")
-    if not args.sample_random_frames:
-        # the step always draws iid frames; JAX's contiguous windows are not ported
-        raise NotImplementedError("--nosample_random_frames is not ported to the PyTorch trainer yet")
+    if args.model in _NOT_TRAINED:
+        raise NotImplementedError(
+            f"training {args.model} is not ported yet: ROADMAP item {_NOT_TRAINED[args.model]}")
     fcfg = FeatureConfig.from_flag_strings(args.feature_names, args.feature_sizes,
                                            args.frame_features, args.max_frames)
-    # presampled: the train step gathers the sampled frames itself
-    mcfg = cli_flags.model_config_from_args(args, presampled=True)
+    # The JAX CLI builds the model presampled under --presample_frames, and
+    # its step then gathers the frames; the port's step gathers a sampling
+    # model's frames with or without it (core/step.py), so such a model is
+    # always built presampled
+    presampled = fcfg.frame_features and find_class_by_name(args.model).samples_frames
+    mcfg = cli_flags.model_config_from_args(args, presampled=presampled)
     tcfg = TrainingConfig(
         batch_size=args.batch_size, base_learning_rate=args.base_learning_rate,
         learning_rate_decay=args.learning_rate_decay,
@@ -122,14 +132,6 @@ class Trainer:
     def run(self) -> TrainState:
         args = self.args
         fcfg, mcfg, tcfg = configs_from_args(args)
-        if args.model in _NOT_TRAINED:
-            raise NotImplementedError(
-                f"training {args.model} is not ported yet: ROADMAP item {_NOT_TRAINED[args.model]} "
-                "(its inference and eval are)"
-            )
-        if not fcfg.frame_features:
-            raise NotImplementedError(
-                "training on video-level input is not ported yet: ROADMAP item 8b; pass --frame_features")
         device = resolve_device(args.device)
         loss_obj = get_loss_by_name(tcfg.label_loss)
         lr_schedule = optimizers.learning_rate_schedule(tcfg)
@@ -145,7 +147,7 @@ class Trainer:
         os.makedirs(self.train_dir, exist_ok=True)
 
         model = create_model(args.model, mcfg, fcfg.total_size)
-        load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=args.seed))
+        load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=args.seed, model_name=args.model))
         model.to(device)
         state = TrainState.create(model, tcfg)
         train_step = TrainStep(loss_obj, tcfg, mcfg, fcfg.frame_features)
@@ -153,10 +155,7 @@ class Trainer:
         log.info("%s: %s on %s, %d parameters", TASK, args.model, device,
                  sum(p.numel() for p in model.parameters()))
 
-        reader = YT8MFrameFeatureReader(
-            num_classes=mcfg.vocab_size, feature_sizes=fcfg.feature_sizes,
-            feature_names=fcfg.feature_names, max_frames=fcfg.max_frames,
-        )
+        reader = make_reader(fcfg, mcfg.vocab_size)
         batches = batch_iterator(
             reader, args.train_data_pattern, tcfg.batch_size,
             num_epochs=tcfg.num_epochs if tcfg.num_epochs > 0 else None,

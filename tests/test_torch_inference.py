@@ -47,6 +47,40 @@ def test_fixture_writer_and_reader_match_jax(tmp_path):
             np.testing.assert_array_equal(np.asarray(g[key]), np.asarray(w[key]))
 
 
+def _frame_list(frames, change=None):
+    """A FeatureList of one BytesList Feature a frame, the ``change`` frame
+    index holding a second value and an unknown field after it."""
+    out = b""
+    for i, row in enumerate(frames):
+        feature = tfix._feature_bytes([row.tobytes()] + ([b"x"] if i == change else []))
+        out += tfix._len_delim(1, feature + (b"\x20\x07" if i == change else b""))
+    return out
+
+
+@pytest.mark.parametrize("change", [None, 0, 4])
+def test_frame_reader_matches_jax_on_other_encodings(tmp_path, change):
+    """Frames stored one BytesList value a Feature are read as one strided
+    view; a FeatureList with a frame in another encoding (``change``: a
+    second value and an unknown field) is decoded Feature by Feature.  The
+    records match the JAX reader's either way."""
+    rng = np.random.default_rng(5)
+    path = str(tmp_path / "f.tfrecord")
+    with open(path, "wb") as f:
+        for v, n in enumerate((7, 1, 12)):
+            rgb, audio = (rng.integers(0, 256, (n, d), dtype=np.uint8) for d in (1024, 128))
+            lists = b"".join(tfix._len_delim(1, tfix._len_delim(1, name.encode()) + tfix._len_delim(2, body))
+                             for name, body in (("rgb", _frame_list(rgb, change)), ("audio", _frame_list(audio))))
+            context = tfix._features_map({"id": tfix._feature_bytes([f"v{v}".encode()]),
+                                          "labels": tfix._feature_ints([v, 3 * v + 1])})
+            tfix.write_tfrecord(f, tfix._len_delim(1, context) + tfix._len_delim(2, lists))
+    got = list(YT8MFrameFeatureReader(50, max_frames=10).read_file(path))
+    want = list(JReader(50, max_frames=10).read_file(path))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for key in w:
+            np.testing.assert_array_equal(np.asarray(g[key]), np.asarray(w[key]), err_msg=key)
+
+
 def test_shuffled_epochs_match_jax(tmp_path):
     """File-order shuffle, the bounded shuffle buffer and epochs draw from
     one ``random.Random(seed)`` in both packages: same batches, same order."""

@@ -1,7 +1,8 @@
 """ops/metrics_ops.py#batch_topk_partials ≡ the JAX package's, exact in
 f32, on random batches with padding rows, tied scores, rows without labels
-and k past the vocabulary; and core/observability.py#MetricWriter writes
-the reference's scalar names, or only logs."""
+and k past the vocabulary; without ties the default accumulator's GAP equals
+--fast_eval's; and core/observability.py#MetricWriter writes the
+reference's scalar names, or only logs."""
 
 import glob
 
@@ -12,6 +13,7 @@ import torch
 
 from learnablepoolingmethods_tpu.ops import metrics_ops as jmetrics
 from learnablepoolingmethods_torch.core.observability import MetricWriter
+from learnablepoolingmethods_torch.metrics import eval_util
 from learnablepoolingmethods_torch.ops import metrics_ops
 
 # (batch, vocabulary, top_k, padding rows, rows without labels, tied scores)
@@ -59,6 +61,31 @@ def test_partials_without_weights_count_every_row():
     assert float(got.weight_sum) == 5.0
     for field in jmetrics.BatchMetricPartials._fields:
         np.testing.assert_array_equal(np.asarray(getattr(got, field)), np.asarray(getattr(want, field)))
+
+
+@pytest.mark.parametrize("videos", [50, 200, 800])
+def test_default_accumulator_agrees_with_fast_eval_without_ties(videos):
+    """Three batches, V=3862, distinct f32 scores (no ties), a few labels a
+    video, most ranked first: the default accumulator's GAP, summed in float64,
+    equals StreamingGAP's over the device partials within 1e-12.  Summed in
+    float32 (1.0 over a float32 count under NumPy 2) it parted from it by
+    1e-8 to 5e-7 here, more as the pool grows."""
+    rng = np.random.default_rng(videos)
+    labels = (rng.random((videos, 3862)) < 1e-3).astype(np.float32)
+    labels[np.arange(videos), rng.integers(0, 3862, videos)] = 1.0
+    # distinct ranks: the positives take p of the 2p highest at random
+    pos, n = labels.ravel() > 0, labels.size
+    ranks = np.empty(n)
+    ranks[pos] = n - 1 - rng.choice(2 * pos.sum(), pos.sum(), replace=False)
+    ranks[~pos] = rng.permutation(np.setdiff1d(np.arange(n), ranks[pos]))
+    probs = ((ranks.reshape(labels.shape) + 0.5) / n).astype(np.float32)
+    em, fast = eval_util.EvaluationMetrics(3862, 20), eval_util.StreamingGAP()
+    for rows in np.array_split(np.arange(videos), 3):
+        em.accumulate(probs[rows], labels[rows], 0.0)
+        p = metrics_ops.batch_topk_partials(torch.from_numpy(probs[rows]), torch.from_numpy(labels[rows]))
+        fast.accumulate(p.topk_scores.numpy(), p.topk_labels.numpy(), float(p.num_positives))
+    assert np.unique(probs).size == probs.size
+    assert abs(float(em.get()["gap"]) - fast.get()) <= 1e-12
 
 
 def test_metric_writer_writes_the_reference_names(tmp_path):

@@ -150,8 +150,11 @@ def test_registry_names_what_is_not_ported():
         create_model("NoSuchModel", cfg, 1152)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         create_model("NetVLADModelLF", ModelConfig(**KW, param_dtype="bfloat16"), 1152)
-    with pytest.raises(NotImplementedError, match="dimred"):
-        create_model("NetVLADModelLF", ModelConfig(**KW, netvlad_dimred=64), 1152)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+        create_model("AttentionPoolingModel", cfg, 1152)
+    # --netvlad_dimred is ported: a learned [D, r] reduction before one module
+    model = create_model("NetVLADModelLF", ModelConfig(**KW, netvlad_dimred=64), 1152)
+    assert model.dimred.shape == (1152, 64) and model.NetVLAD_0.cluster_weights.shape[0] == 64
 
 
 def test_model_samples_the_frames_jax_samples_without_a_sampling_rng(rng):

@@ -203,8 +203,10 @@ def test_train_cli_writes_variables_the_inference_cli_reads(tmp_path):
     ("--bf16_params", NotImplementedError),
     ("--optimizer=MomentumOptimizer", NotImplementedError),
     ("--label_loss=HingeLoss", NotImplementedError),
-    ("--noframe_features", NotImplementedError),
-    ("--nosample_random_frames", NotImplementedError),
+    ("--model=LstmModel", NotImplementedError),
+    ("--model=TransformerEncoderModel", NotImplementedError),
+    ("--keep_checkpoint_max=3", NotImplementedError),
+    ("--export_model_steps=10", NotImplementedError),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, error):
     data = str(tmp_path / "train-0.tfrecord")
