@@ -65,7 +65,17 @@ error, and prints one JSON line per phase:
               the same five steps without it, and both again in f32; the
               losses must be finite and fall, and agree between the routes
               (see phase_train_e2e); then the inference CLI reads the trained
-              variables.npz and writes a CSV row per video;
+              checkpoint and writes a CSV row per video;
+   train_resume
+              checkpoints and resume at full Willow width (B=256, S=30, bf16,
+              fused): the train CLI for two steps saving every two and
+              keeping one, a half-written temporary step planted, the CLI
+              again to step 4; gates: the restore at step 2, every leaf of
+              the step-2 checkpoint equal bit for bit to the first run's
+              state and to a restore of it, the resumed step-3 loss within
+              RESUME_LOSS_GATE of an in-process step from the checkpoint,
+              only step 4 left, the eval CLI (--fast_forward) summarising
+              step 4; the checkpoint's bytes, save and restore seconds;
    train_zoo_e2e
               the train CLI for every other trained model at its default
               width, B=256, five bf16 steps (ZOO_RUNS): NetRVLAD-256 on the
@@ -78,7 +88,7 @@ error, and prints one JSON line per phase:
               with --netvlad_dimred=256 (fused); losses finite and falling,
               each model's f32 step-1 loss on the card within 1e-5 of the
               CPU's, no other launch, the eval CLI reading each
-              variables.npz back with a finite GAP;
+              checkpoint back with a finite GAP;
 8. train_throughput
               the train step at B=256, S=30, bf16, fused: videos/s (the median
               of five rounds), forward, backward and optimizer ms, peak
@@ -86,6 +96,15 @@ error, and prints one JSON line per phase:
    train_zoo_throughput
               the same for every ZOO_RUNS model in bf16 (NetRVLAD fused and
               plain), and a profile of NetRVLAD's fused step;
+   optimizers every --optimizer of the JAX package and
+              --adam_bf16_momentum on Willow fused bf16 at B=256: the first
+              update on the card against the same update on the CPU from the
+              same parameters and gradients (OPTIMIZER_GATE), five finite
+              losses, the step's forward, backward and optimizer ms;
+   tf_import  the inference CLI with --reference_checkpoint on the
+              committed TF1 bundle (tests/data/tf_bundle_netvlad, read
+              without tensorflow) on the card and on the CPU: the same labels,
+              scores within 1e-5;
 9. lf_kernels the NetFV and SoftDBoW kernels against their plain versions at
               the full widths of NetFVModelLF-64 (D 1024/128, K 64/32) and
               SoftDbofModelLF-4096 (K 4096/2048), B=64, S=30, S=300 and S=1,
@@ -122,9 +141,11 @@ error, and prints one JSON line per phase:
               bf16 and f32, at config 5's width (H=8, hd=128, F=300) with
               B=64 and num_frames including 0, 1, 299 and 300, and at small
               shapes off every tile width (F 1, 7, 65, 129, 130, 200; hd 64,
-              40 and 16), with the tolerances of phase 3, and in bf16 also
-              against the plain version at the kernel's rounding points at
-              the tighter ATTN_KERNEL_GATE; times at B=256, F=300, bf16,
+              40 and 16), with the tolerances of phase 3, and in bf16, where
+              both round at the TPU kernel's points, also at the tighter
+              ATTN_KERNEL_GATE, within ATTN_BF16_STEPS bf16 steps at
+              max|ref| of the plain version everywhere and equal on
+              ATTN_EQUAL_SHARE of the entries; times at B=256, F=300, bf16,
               num_frames including 0 as in the CLI's last batch, beside
               torch's scaled_dot_product_attention on the same q, k, v and
               additive mask (library_ms: timed here only, the port never
@@ -173,7 +194,9 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -188,7 +211,9 @@ import torch
 from learnablepoolingmethods_torch import eval as eval_cli
 from learnablepoolingmethods_torch import inference, train
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig, TrainingConfig
+from learnablepoolingmethods_torch.core import checkpoints, optimizers
 from learnablepoolingmethods_torch.core import step as step_lib
+from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager
 from learnablepoolingmethods_torch.core.step import TrainStep
 from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.core.weights import (
@@ -277,7 +302,9 @@ REDESIGNED = {
                       "earlier_ms": 2.428},
     "softdbow_fused": {"design": "bf16 mma.sync + cp.async ring, logits kept in f32 scratch; f32 FMA",
                        "earlier_ms": 14.140},
-    "masked_attention_fused": {"design": "bf16 mma.sync + cp.async ring; f32 FMA",
+    "masked_attention_fused": {"design": "bf16 mma.sync + cp.async ring, two passes over the key tiles "
+                                         "(row max and sum, then the normalised weights · V, the TPU "
+                                         "kernel's rounding points); f32 FMA",
                                "earlier_ms": 5.409},
     "netvlad_aggregate_forward": {"design": "bf16 softmax, then the one-pass cluster aggregation on mma.sync "
                                             "with A rounded once (two passes past a portable cluster); f32 FMA",
@@ -974,6 +1001,8 @@ def train_runs(data: str, workdir: str, routes) -> tuple:
         runs[route] = {"cli_s": time.perf_counter() - start,
                        "losses": [h["loss"] for h in trainer.history],
                        "gap": [float(h["gap"]) for h in trainer.history]}
+        if route != "fused":
+            shutil.rmtree(os.path.join(workdir, route))
     return runs, paths
 
 
@@ -989,7 +1018,8 @@ def phase_train_e2e(dev, workdir, smi):
     300 frames: five bf16 steps with --fused_train_aggregation, the main
     path (each training kernel twice a step), then the same five steps from
     the same weights and batches without it, and both again in f32; then
-    the inference CLI reads the fused run's variables.npz.
+    the inference CLI reads the fused run's checkpoint (the other runs'
+    are removed as soon as they end: 3.7 GB each).
 
     The losses must be finite and fall from step 1 to step 5.  Step 1 sees
     the forward alone: there the routes must agree within 1e-5 relative.
@@ -1060,9 +1090,9 @@ def random_train_batch(rng: np.random.Generator, b: int, dev, frame_features: bo
 
 
 def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, batch: dict,
-                    frame_features: bool = True) -> tuple:
-    """``name``'s train step at ``mcfg`` (weights from init_variables_np)
-    on ``batch``: the median of five rounds of five steps by CUDA events,
+                    frame_features: bool = True, tree=None) -> tuple:
+    """``name``'s train step at ``mcfg`` (weights ``tree``, by default from
+    init_variables_np) on ``batch``: the median of five rounds of five steps by CUDA events,
     forward, backward and optimizer ms (medians over five steps), peak
     memory.  Returns (line, step) where ``step()`` runs one more step."""
     fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), frame_features, F)
@@ -1070,7 +1100,7 @@ def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, bat
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = create_model(name, mcfg, DT)
-    load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=0, model_name=name)).to(dev)
+    load_flax_variables(model, tree or init_variables_np(mcfg, fcfg, seed=0, model_name=name)).to(dev)
     state = TrainState.create(model, tcfg)
     step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, frame_features)
     key = prng.key(0)
@@ -1261,7 +1291,7 @@ def phase_train_zoo_e2e(dev, workdir, smi):
       fused runs (NetRVLAD 2, NetVLAD with --netvlad_dimred=256 1), no
       kernel anywhere else;
     - the eval CLI (--run_once, the model-forward route) reads each trained
-      variables.npz back with a finite GAP, on 64 videos of the same kind.
+      checkpoint back with a finite GAP, on 64 videos of the same kind.
     Returns {kernel: launches in the fused runs}."""
     frame = os.path.join(workdir, "train-0.tfrecord")
     video = os.path.join(workdir, "video-0.tfrecord")
@@ -1343,6 +1373,260 @@ def phase_train_zoo_e2e(dev, workdir, smi):
     if worst > ZOO_CPU_GATE:
         raise AssertionError(f"f32 step-1 losses, card against CPU: {cpu} (limit {ZOO_CPU_GATE})")
     return {name: total[name] for name in TRAIN_KERNELS}
+
+
+# the train CLI's runs of phase_train_resume: Willow fused bf16, saving
+# every second step and keeping the newest checkpoint
+RESUME_FLAGS = [f for f in TRAIN_FLAGS if not f.startswith(("--max_steps", "--start_new_model"))] + [
+    "--fused_train_aggregation", "--save_checkpoint_every_n_steps=2", "--keep_checkpoint_max=1"]
+# the resumed CLI's step-3 loss against an in-process step from the step-2
+# checkpoint: the same state, batch and key through the same kernels
+RESUME_LOSS_GATE = 1e-6
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages of a logger while it is attached."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def leaf_mismatches(tree, arrays) -> list:
+    """The leaves of ``tree`` (name → tensor) that differ from ``arrays``
+    (a checkpoint's name → (stored array, dtype)) in name, dtype or bits."""
+    bad = sorted(set(tree) ^ set(arrays))
+    for name, t in tree.items():
+        if name in arrays:
+            arr, dtype = arrays[name]
+            if dtype != checkpoints.dtype_name(t) or not np.array_equal(checkpoints.to_numpy(t), arr):
+                bad.append(name)
+    return bad
+
+
+def phase_train_resume(dev, workdir, smi):
+    """Checkpoints and resume through the train CLI at full Willow width
+    (RESUME_FLAGS: B=256, S=30, bf16, fused; each training kernel twice a
+    step) on train_e2e's 512 videos: two steps, a checkpoint at step 2; a
+    planted ``3.tmp-…`` directory as a save killed midway leaves it; the CLI
+    again to step 4.  Gates, none caught: the second run restores step 2
+    and logs it; the step-2 checkpoint equals the first run's live state
+    and an in-process restore of it bit for bit, every leaf (parameters, BN
+    statistics, μ, ν, counts, step); the resumed step-3 loss is within
+    RESUME_LOSS_GATE of that restored state's loss on the CLI's first batch
+    at step 2's key; only step 4 is left; the eval CLI (--run_once
+    --fast_forward, the front-end kernel once a batch) writes its summary at
+    step 4.  Returns {kernel: launches} of the three CLI runs."""
+    data = os.path.join(workdir, "train-0.tfrecord")
+    train_dir = os.path.join(workdir, "resume")
+
+    def argv(steps):
+        return RESUME_FLAGS + [f"--max_steps={steps}", f"--train_data_pattern={data}", f"--train_dir={train_dir}"]
+
+    none = dict.fromkeys(KERNELS, 0)
+    launches, seconds = {}, {}
+    reset_counters()
+    start = time.perf_counter()
+    first = train.main(argv(2))
+    torch.cuda.synchronize()
+    seconds["first_cli"] = time.perf_counter() - start
+    launches["first"] = counters()
+    mngr = CheckpointManager(train_dir)
+    if mngr.all_steps() != [2]:
+        raise AssertionError(f"checkpoints after two steps: {mngr.all_steps()}, expected [2]")
+    step_dir = os.path.join(mngr.directory, "2")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    start = time.perf_counter()
+    saved = mngr.load_arrays(2)
+    seconds["read_npy"] = time.perf_counter() - start
+    bad = leaf_mismatches(first.state.state_tree(), saved)
+    if bad:
+        raise AssertionError(f"the step-2 checkpoint differs from the trained state at {bad[:8]}")
+    n_leaves = len(saved)
+    save_s = {f"step {k}": v for k, v in first.save_seconds.items()}
+    del first, saved
+    torch.cuda.empty_cache()
+
+    args = train.build_parser().parse_args(argv(4))
+    fcfg, mcfg, tcfg = configs = train.configs_from_args(args)
+    restored = TrainState.create(create_model(args.model, mcfg, fcfg.total_size).to(dev), tcfg)
+    start = time.perf_counter()
+    restored.load_state_tree(mngr.restore(2, like=restored.state_tree()))
+    torch.cuda.synchronize()
+    seconds["restore_in_process"] = time.perf_counter() - start
+    bad = leaf_mismatches(restored.state_tree(), mngr.load_arrays(2))
+    if bad or restored.step != 2:
+        raise AssertionError(f"the restored state differs from the checkpoint at {bad[:8]} (step {restored.step})")
+    batch = {k: v.to(dev) for k, v in zoo_first_batch(args, configs, data).items()}
+    with torch.no_grad():
+        want = float(TrainStep(CrossEntropyLoss(), tcfg, mcfg, True).loss(restored, batch, prng.key(args.seed))[0])
+    del restored, batch
+    torch.cuda.empty_cache()
+
+    planted = os.path.join(mngr.directory, "3.tmp-planted")
+    os.makedirs(planted)
+    with open(os.path.join(planted, "00000.npy"), "wb") as f:
+        f.write(b"\x93NUMPY half-written")
+    if mngr.latest_step() != 2:
+        raise AssertionError(f"the planted directory moved the latest step to {mngr.latest_step()}")
+    log_lines = LogLines()
+    logging.getLogger(train.__name__).addHandler(log_lines)
+    logging.getLogger(train.__name__).setLevel(logging.INFO)
+    reset_counters()
+    start = time.perf_counter()
+    try:
+        second = train.main(argv(4))
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger(train.__name__).removeHandler(log_lines)
+    seconds["second_cli"] = time.perf_counter() - start
+    launches["second"] = counters()
+    restore_line = [m for m in log_lines.lines if "restored checkpoint at step" in m]
+    if second.restored_step != 2 or not restore_line or not restore_line[0].endswith("restored checkpoint at step 2"):
+        raise AssertionError(f"the second run restored {second.restored_step}, logged {restore_line}")
+    steps = [h["step"] for h in second.history]
+    got = second.history[0]["loss"]
+    rel = abs(got - want) / abs(want)
+    if steps != [3, 4] or not all(np.isfinite(h["loss"]) for h in second.history) or rel > RESUME_LOSS_GATE:
+        raise AssertionError(f"resumed steps {steps}, step-3 loss {got} against {want} in process "
+                             f"(relative {rel}, limit {RESUME_LOSS_GATE})")
+    if mngr.all_steps() != [4] or sorted(os.listdir(mngr.directory)) != ["4"]:
+        raise AssertionError(f"after the resume: {sorted(os.listdir(mngr.directory))}, expected ['4']")
+
+    summaries = []
+
+    class Writer(eval_cli.MetricWriter):
+        def epoch_summary(self, step, info):
+            summaries.append(step)
+            super().epoch_summary(step, info)
+
+    real_writer, eval_cli.MetricWriter = eval_cli.MetricWriter, Writer
+    reset_counters()
+    try:
+        info = eval_cli.main(["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+                              "--feature_sizes=1024,128", "--fast_forward", "--run_once", "--batch_size=256",
+                              "--device=cuda", f"--train_dir={train_dir}", f"--eval_data_pattern={data}"])
+        torch.cuda.synchronize()
+    finally:
+        eval_cli.MetricWriter = real_writer
+    launches["eval"] = counters()
+    want_launches = {"first": {**none, **dict.fromkeys(TRAIN_KERNELS, 2 * 2)},
+                     "second": {**none, **dict.fromkeys(TRAIN_KERNELS, 2 * 2)},
+                     "eval": {**none, "netvlad_frontend": 2}}
+    if summaries != [4] or not np.isfinite(info["gap"]) or launches != want_launches:
+        raise AssertionError(f"eval summaries at {summaries}, GAP {info['gap']}, launches {launches}")
+    no_save = [h for h in second.history if h["step"] == 3][0]
+    emit({"phase": "train_resume", "checkpoint_bytes": nbytes, "leaves": n_leaves,
+          "save_s": {**save_s, **{f"step {k}": v for k, v in second.save_seconds.items()}},
+          "restore_s_cli": second.restore_seconds, "seconds": seconds,
+          "step3_loss": {"cli": got, "in_process": want, "rel": rel, "limit": RESUME_LOSS_GATE},
+          "step_ms_without_save": 256 / no_save["examples_per_sec"] * 1e3,
+          "eval_summary_steps": summaries, "eval_gap": info["gap"], "launches": launches, "card": smi})
+    return {name: sum(run[name] for run in launches.values()) for name in KERNELS}
+
+
+# every --optimizer of the JAX package, and Adam with --adam_bf16_momentum
+OPTIMIZER_RUNS = {"AdamOptimizer": {}, "AdamOptimizer-bf16": {"adam_bf16_momentum": True},
+                  "AdagradOptimizer": {}, "RMSPropOptimizer": {}, "SgdOptimizer": {},
+                  "MomentumOptimizer": {}, "AdafactorOptimizer": {}}
+# each parameter's first update on the card against the CPU's from the same
+# parameters and gradients, max |Δ| over max |CPU update|: the two differ in
+# the f32 order of the clip's norm and of Adafactor's means
+OPTIMIZER_GATE = 1e-6
+
+
+def phase_optimizers(dev, smi):
+    """Every optimizer on Willow fused bf16 at B=256 (S=30): the first
+    update on the card within OPTIMIZER_GATE of the CPU's, per parameter;
+    five finite losses; the step's forward, backward and optimizer ms
+    (time_train_step)."""
+    mcfg = ModelConfig(compute_dtype="bfloat16", fused_train_aggregation=True, presampled=True)
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    tree = init_variables_np(mcfg, fcfg, seed=0, model_name="NetVLADModelLF")
+    batch = random_train_batch(np.random.default_rng(3), 256, dev)
+    key = prng.key(0)
+    worst = {}
+    for run, extra in OPTIMIZER_RUNS.items():
+        start = time.perf_counter()
+        tcfg = TrainingConfig(batch_size=256, presample_frames=True, optimizer=run.split("-")[0], **extra)
+        model = load_flax_variables(create_model("NetVLADModelLF", mcfg, DT), tree).to(dev)
+        state = TrainState.create(model, tcfg)
+        step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, True)
+        total = step.loss(state, batch, key)[0]
+        grads = step_lib.gradients(total, model)
+        cpu_tx = optimizers.create_optimizer(
+            [(name, p.detach().cpu()) for name, p in model.named_parameters()], tcfg)
+        want = cpu_tx.updates([g.cpu() for g in grads])
+        got = state.tx.updates(grads)
+        gaps = {}
+        for (name, p), u, w in zip(model.named_parameters(), got, want):
+            gaps[name] = ((u.cpu() - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+            with torch.no_grad():
+                p.add_(u)
+        state.step += 1
+        del cpu_tx, want, got, grads
+        losses = [total.item()] + [float(step(state, batch, key)["loss"]) for _ in range(4)]
+        worst[run] = max(gaps.items(), key=lambda kv: kv[1])
+        check_s = time.perf_counter() - start
+        del state, model, step, total
+        torch.cuda.empty_cache()
+        line, _ = time_train_step(dev, "NetVLADModelLF", mcfg, tcfg, batch, tree=tree)
+        emit({"phase": "optimizers", "optimizer": run, "first_update_rel_gap_card_vs_cpu": worst[run],
+              "limit": OPTIMIZER_GATE, "losses": losses, "check_s": check_s, **line, "card": smi})
+        if worst[run][1] > OPTIMIZER_GATE or not all(np.isfinite(losses)):
+            raise AssertionError(f"{run}: first update {worst[run]} from the CPU's (limit {OPTIMIZER_GATE}), "
+                                 f"losses {losses}")
+        torch.cuda.empty_cache()
+
+
+def fixture_tool():
+    """tools/torch_make_tf_bundle_fixture.py, for its fixture's path and flags
+    (it imports tensorflow only when it writes)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "torch_make_tf_bundle_fixture.py")
+    spec = importlib.util.spec_from_file_location("torch_make_tf_bundle_fixture", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def csv_scores(path: str) -> dict:
+    """{video: {label: score}} of an inference CSV."""
+    out = {}
+    with open(path) as f:
+        for line in f.read().splitlines()[1:]:
+            vid, pairs = line.split(",")
+            nums = pairs.split()
+            out[vid] = {int(i): float(v) for i, v in zip(nums[::2], nums[1::2])}
+    return out
+
+
+def phase_tf_import(dev, workdir, smi):
+    """The inference CLI with --reference_checkpoint on the committed TF1
+    bundle, read by the port's own bundle reader, on the card and on the
+    CPU: the same videos and labels, scores within 1e-5."""
+    fixture = fixture_tool()
+    data = os.path.join(workdir, "tf-frames-0.tfrecord")
+    write_frame_level_fixture(data, 10, num_classes=12, rgb_size=16, audio_size=8, max_frames=20, seed=2)
+    scores = {}
+    start = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        out = os.path.join(workdir, f"tf-{device}.csv")
+        inference.main(fixture.FIXTURE_FLAGS + [
+            f"--reference_checkpoint={fixture.FIXTURE_DIR}", f"--input_data_pattern={data}",
+            f"--output_file={out}", "--batch_size=4", "--top_k=12", f"--device={device}",
+            f"--train_dir={os.path.join(workdir, 'no-checkpoints')}"])
+        scores[device] = csv_scores(out)
+    card, cpu = scores["cuda"], scores["cpu"]
+    if sorted(card) != sorted(cpu) or len(card) != 10 or any(sorted(card[v]) != sorted(cpu[v]) for v in cpu):
+        raise AssertionError(f"the card's CSV holds other videos or labels than the CPU's: {card} {cpu}")
+    gap = max(abs(card[v][k] - cpu[v][k]) for v in cpu for k in cpu[v])
+    emit({"phase": "tf_import", "videos": len(card), "max_abs_score_gap_card_vs_cpu": gap, "limit": 1e-5,
+          "seconds": time.perf_counter() - start, "card": smi})
+    if gap > 1e-5:
+        raise AssertionError(f"--reference_checkpoint scores differ by {gap} between the card and the CPU")
 
 
 def phase_train_zoo_throughput(dev, smi):
@@ -1686,14 +1970,21 @@ def phase_lf_throughput(dev, fps, smi):
 # bf16, 64 keys and 128 columns in f32)
 ATTN_SHAPES = ((64, F, 8, 128), (4, 1, 2, 64), (4, 7, 2, 64), (4, 65, 3, 64), (5, 130, 2, 40),
                (4, 129, 2, 128), (4, 200, 2, 128), (4, 50, 2, 16))
-# (atol as a share of max|ref|, rtol) of the bf16 kernel against the plain
-# version at its own rounding points: the two differ in the f32 summation
-# order and in the scale at which P is rounded (the running max against the
-# row's max), which can move the output's last rounding by one bf16 step
-# (up to 2⁻⁷·|ref|) and P·V by a few 1e-4 of max|ref| (6.5e-4 at config 5's
-# width on an H100, the check's atol_share_needed_at_rtol); the JAX-rounded
-# gate of TOLERANCE is 1e-2 and 2e-2
+# (atol as a share of max|ref|, rtol) of the bf16 kernel against its plain
+# version, both at the TPU kernel's rounding points (the normalised weights
+# rounded to bf16 before ·V, the output once): the two differ in the f32
+# summation order, in the online sum l, in the exp's last bits and in
+# w = e·(1/l) against e / l, which can move a rounding of a weight or of the
+# output by one bf16 step; beside it
+# the kernel must be within ATTN_BF16_STEPS bf16 steps at max|ref| (the
+# scale of ROADMAP §3 item 4's gap of the earlier rounding: 0.0625 at
+# max|ref| 9.5) everywhere and equal on ATTN_EQUAL_SHARE of the entries.
+# At an entry's own magnitude a cancellation (an output near 0 of terms
+# near max|ref|) reads many steps where one weight's rounding moved; that
+# count and its share are reported
 ATTN_KERNEL_GATE = (2e-3, 2 ** -7)
+ATTN_BF16_STEPS = 1.0
+ATTN_EQUAL_SHARE = 0.99
 ATTN_TIMING = (256, F, 8, 128)  # config 5's batch (BASELINE.md:45), bf16
 # the inference CLI's flags for the transformer family (each at its default
 # width); 96 videos in batches of 40 leave 24 padding rows in the third
@@ -1710,6 +2001,12 @@ def attn_inputs(rng: np.random.Generator, dev, b: int, f: int, h: int, hd: int, 
         nf = np.r_[0, 1, f - 1, f, rng.integers(0, f + 1, size=b)][:b]
     mask = torch.from_numpy((np.arange(f)[None, :] < np.asarray(nf)[:, None]).astype(np.float32)).to(dev)
     return qkv, mask
+
+
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (f32): 2^(⌊log₂|x|⌋ − 7)."""
+    x = x.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
 
 
 def attn_bound(b: int, f: int, h: int, hd: int):
@@ -1752,12 +2049,19 @@ def phase_attn_kernels(dev, smi):
             err = compare(label, got, want)
             check = {"dtype": str(dtype), "max_abs_err": err, "max_ref": want.float().abs().max().item(),
                      "num_frames_zero_rows": int((mask.sum(1) == 0).sum().item())}
-            if dtype == torch.bfloat16:  # held to its own rounding points at the tighter gate
-                want_k = masked_attention_plain(qkv, mask, h, kernel_rounding=True)
-                err = compare(f"{label} kernel rounding", got, want_k, tol=ATTN_KERNEL_GATE)
-                d, ref = (got.float() - want_k.float()).abs(), want_k.float().abs()
-                check = {**check, "max_abs_err": err, "max_abs_gap_to_jax_rounding": check["max_abs_err"],
+            if dtype == torch.bfloat16:  # the same rounding points: the tighter gates
+                compare(f"{label} rounding points", got, want, tol=ATTN_KERNEL_GATE)
+                d, ref = (got.float() - want.float()).abs(), want.float().abs()
+                steps = (d / bf16_step(ref.max())).max().item()
+                own = d / bf16_step(torch.maximum(got.float().abs(), ref))
+                equal = (d == 0).float().mean().item()
+                check = {**check, "max_bf16_steps_at_max_ref": steps, "equal_share": equal,
+                         "max_bf16_steps_at_own_magnitude": own.max().item(),
+                         "share_over_one_step_at_own_magnitude": (own > 1).float().mean().item(),
                          "atol_share_needed_at_rtol": ((d - ATTN_KERNEL_GATE[1] * ref) / ref.max()).max().item()}
+                if steps > ATTN_BF16_STEPS or equal < ATTN_EQUAL_SHARE:
+                    raise AssertionError(f"{label}: {steps} bf16 steps at max|ref|, {equal} of the entries equal "
+                                         f"(limits {ATTN_BF16_STEPS}, {ATTN_EQUAL_SHARE})")
             errors["masked_attention_fused"] = max(errors["masked_attention_fused"], err)
             checks.append(check)
         after = counters()
@@ -2211,6 +2515,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         launches.update(phase_train_e2e(dev, workdir, smi))
         done("train_e2e")
+        for name, n in phase_train_resume(dev, workdir, smi).items():
+            launches[name] = launches.get(name, 0) + n
+        done("train_resume")
         for name, n in phase_train_zoo_e2e(dev, workdir, smi).items():
             launches[name] += n
         done("train_zoo_e2e")
@@ -2218,6 +2525,11 @@ def main() -> int:
     done("train_throughput")
     phase_train_zoo_throughput(dev, smi)
     done("train_zoo_throughput")
+    phase_optimizers(dev, smi)
+    done("optimizers")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tf_") as workdir:
+        phase_tf_import(dev, workdir, smi)
+    done("tf_import")
     e, t = phase_lf_kernels(dev, smi)
     errors.update(e)
     timing.update(t)

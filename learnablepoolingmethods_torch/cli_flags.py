@@ -112,17 +112,16 @@ _MESH_ITEMS = dict.fromkeys(("model_parallelism", "dcn_parallelism"), 15)
 # what each CLI does not port yet → ROADMAP.md queue-1 item
 INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = {
     **_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
-    "reference_checkpoint": 13,
     # the JAX CLI builds its model in bf16 with either
-    "bf16_params": 12, "fused_adam": 12,
+    "bf16_params": "12b", "fused_adam": "12b",
 }
-EVAL_NOT_PORTED: Dict[str, Union[int, str]] = {**INFERENCE_NOT_PORTED, "int8_hidden": 12}
+EVAL_NOT_PORTED: Dict[str, Union[int, str]] = {**INFERENCE_NOT_PORTED, "int8_hidden": "12b"}
 TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = {
     **_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
     "use_native_reader": 7, "profile_dir": 7,
-    "int8_hidden": 12, "use_remat": 12, "adam_bf16_momentum": 12, "bf16_params": 12,
-    "fused_adam": 12, "grad_accum_steps": 12,
-    "keep_checkpoint_max": 13, "export_model_steps": 14,
+    "int8_hidden": "12b", "use_remat": "12b", "bf16_params": "12b", "fused_adam": "12b",
+    "grad_accum_steps": "12b",
+    "export_model_steps": 14,
 }
 
 

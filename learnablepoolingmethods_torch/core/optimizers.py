@@ -1,4 +1,4 @@
-"""Optimizer and learning-rate schedule (ref: core/optimizers.py).
+"""Optimizers and the learning-rate schedule (ref: core/optimizers.py).
 
 - :func:`clip_gradient_norms` clips each gradient tensor's norm on its own
   (``tf.clip_by_norm`` per tensor), not the global norm that
@@ -6,17 +6,41 @@
 - :func:`learning_rate_schedule` is ``optax.exponential_decay`` in steps:
   base · decay^(count / ⌊decay_examples / batch_size⌋), the first update at
   count 0.
-- :class:`Adam` is ``optax.chain(clip, optax.adam(schedule))`` at optax's
-  defaults (b1 0.9, b2 0.999, ε 1e-8 outside the square root), in f32.
+- Each ``--optimizer`` is ``optax.chain(clip, <optax optimizer>(schedule))``
+  as the JAX package builds it, with optax's arithmetic at its defaults, in
+  f32 (the card's machine has no optax, so this is a copy):
 
-The JAX package's other optimizers, ``--adam_bf16_momentum``,
-``--bf16_params`` (fp32 master) and ``--fused_adam`` are not ported yet
-(ROADMAP item 12) and raise.
+  ==========================================  =================================================
+  ``AdamOptimizer``                            ``optax.adam``: b1 0.9, b2 0.999, ε 1e-8 outside
+                                               the root; ``--adam_bf16_momentum``: μ stored in
+                                               bf16 (``mu_dtype=bfloat16``)
+  ``AdagradOptimizer``                         ``optax.adagrad``: accumulator from 0.1, ε 1e-7
+  ``RMSPropOptimizer``                         ``optax.rmsprop``: decay 0.9, ε 1e-8 inside the
+                                               root, ν from 0, not centred
+  ``GradientDescentOptimizer``, ``SgdOptimizer``  ``optax.sgd``
+  ``MomentumOptimizer``                        ``optax.sgd(momentum=0.9)``: a trace, not Nesterov
+  ``AdafactorOptimizer``                       ``optax.adafactor(min_dim_size_to_factor=128)``:
+                                               decay 0.8, factored second moments where the two
+                                               largest dims are ≥ 128, update clipped to RMS 1,
+                                               times the parameter's RMS (at least 1e-3)
+  ==========================================  =================================================
+
+Every optimizer keeps its state as tensors named by their path in the JAX
+package's ``opt_state`` (:meth:`Optimizer.state_tree`), so that a checkpoint
+of the port and JAX's ``state_to_tree`` can be compared leaf by leaf: the
+clip's ``EmptyState`` at chain position 0 when ``--clip_gradient_norm`` > 0,
+then the optimizer's own chain, e.g. Adam's ``1/0/count``, ``1/0/mu/<param>``,
+``1/0/nu/<param>`` (``ScaleByAdamState``) and ``1/1/count``
+(``ScaleByScheduleState``).  ``<param>`` is the flax path of a parameter
+(``NetVLAD_0/cluster_weights``).
+
+``--bf16_params`` (the f32 master) and ``--fused_adam`` are not ported yet
+(ROADMAP item 12b) and raise.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Sequence
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,45 +73,264 @@ def learning_rate_schedule(cfg: TrainingConfig) -> Callable[[int], float]:
     return schedule
 
 
-class Adam:
-    """optax-default Adam after per-tensor clipping, on a list of parameters.
+class Optimizer:
+    """The clip and one optax optimizer on a list of named parameters.
 
-    State: ``count`` and the f32 moments ``mu``, ``nu`` (one per parameter,
-    updated in place).  ``step(params, grads)`` applies one update:
-    mu ← (1−b1)·g + b1·mu; nu ← (1−b2)·g² + b2·nu; p ← p − lr(count)·m̂/(√v̂ + ε),
-    with m̂ = mu/(1−b1^(count+1)) and v̂ likewise."""
+    ``step(grads)`` applies one update to every parameter in place;
+    ``updates(grads)`` returns the updates that ``tx.update`` would return
+    without applying them (the state advances all the same).  Subclasses
+    define ``_slots`` (per-parameter state: chain position/field → initial
+    tensor of a parameter), ``_counts`` (the chain positions holding the
+    update count) and ``_update``."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    _counts: Tuple[str, ...] = ("1",)
 
-    def __init__(self, params: Iterable[torch.Tensor], cfg: TrainingConfig):
-        self.params = list(params)
+    def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]], cfg: TrainingConfig):
+        # bare tensors are named by their position
+        named_params = [item if isinstance(item, tuple) else (str(i), item)
+                        for i, item in enumerate(named_params)]
+        self.names = [name.replace(".", "/") for name, _ in named_params]
+        self.params = [p for _, p in named_params]
         self.clip_norm = cfg.clip_gradient_norm
         self.schedule = learning_rate_schedule(cfg)
         self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.slots: Dict[str, List[torch.Tensor]] = {
+            slot: [init(p) for p in self.params] for slot, init in self._slots().items()}
 
-    @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
+    def _slots(self) -> Dict[str, Callable[[torch.Tensor], torch.Tensor]]:
+        return {}
+
+    def _update(self, i: int, p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _each_update(self, grads):
         if self.clip_norm > 0:
             grads = clip_gradient_norms(grads, self.clip_norm)
         lr = self.schedule(self.count)
-        count = np.float32(self.count + 1)
-        c1 = float(np.float32(1) - np.float32(self.b1) ** count)
-        c2 = float(np.float32(1) - np.float32(self.b2) ** count)
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g = g.float()
-            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
-            update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            p.add_(update * -lr)
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            yield p, self._update(i, p, g.float(), lr)
         self.count += 1
 
+    @torch.no_grad()
+    def updates(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [u for _, u in self._each_update(grads)]
 
-def create_optimizer(params: Iterable[torch.Tensor], cfg: TrainingConfig) -> Adam:
-    if cfg.optimizer != "AdamOptimizer":
-        raise NotImplementedError(f"--optimizer={cfg.optimizer} is not ported yet: ROADMAP item 12")
-    for flag in ("adam_bf16_momentum", "fp32_master", "fused_adam"):
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        for p, u in self._each_update(grads):
+            p.add_(u)
+
+    def _prefix(self) -> str:
+        return "1/" if self.clip_norm > 0 else "0/"
+
+    def state_tree(self) -> Dict[str, torch.Tensor]:
+        """Every state leaf under its path in the JAX ``opt_state`` (module
+        docstring): the counts as int32 scalars, then the slots."""
+        prefix = self._prefix()
+        tree = {f"{prefix}{pos}/count": torch.tensor(self.count, dtype=torch.int32)
+                for pos in self._counts}
+        for slot, tensors in self.slots.items():
+            for name, t in zip(self.names, tensors):
+                tree[f"{prefix}{slot}/{name}"] = t
+        return tree
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict[str, torch.Tensor]) -> None:
+        """Take the state of :meth:`state_tree`'s names from ``tree`` (the
+        slots copied in place)."""
+        prefix = self._prefix()
+        counts = {int(tree[f"{prefix}{pos}/count"]) for pos in self._counts}
+        if len(counts) != 1:
+            raise ValueError(f"the optimizer's counts disagree: {sorted(counts)}")
+        self.count = counts.pop()
+        for slot, tensors in self.slots.items():
+            for name, t in zip(self.names, tensors):
+                t.copy_(tree[f"{prefix}{slot}/{name}"])
+
+
+class Adam(Optimizer):
+    """``optax.adam``: μ ← (1−b1)·g + b1·μ; ν ← (1−b2)·g² + b2·ν;
+    u = −lr(count) · μ̂ / (√ν̂ + ε), μ̂ = μ / (1 − b1^(count+1)), ν̂ likewise.
+    With ``mu_dtype`` bf16 (``--adam_bf16_momentum``) μ is stored in bf16:
+    the new μ is formed in f32 as the JAX package's jitted step forms it,
+    used in f32, then stored rounded."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    _counts = ("0", "1")
+
+    def __init__(self, named_params, cfg: TrainingConfig, mu_dtype: torch.dtype = torch.float32):
+        self.mu_dtype = mu_dtype
+        super().__init__(named_params, cfg)
+
+    def _slots(self):
+        return {"0/mu": lambda p: torch.zeros_like(p, dtype=self.mu_dtype),
+                "0/nu": torch.zeros_like}
+
+    def _each_update(self, grads):
+        count = np.float32(self.count + 1)
+        self._c1 = float(np.float32(1) - np.float32(self.b1) ** count)
+        self._c2 = float(np.float32(1) - np.float32(self.b2) ** count)
+        return super()._each_update(grads)
+
+    def _update(self, i, p, g, lr):
+        mu, nu = self.slots["0/mu"][i], self.slots["0/nu"][i]
+        if mu.dtype == torch.float32:
+            mu_f = mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
+        else:
+            # XLA's jitted update: b1 as a bf16 constant times the widened μ
+            # (exact in f32), then one fused multiply-add with (1 − b1)·g,
+            # here in f64 and rounded once
+            b1 = float(torch.tensor(self.b1, dtype=mu.dtype))
+            mu_f = (g.double() * float(np.float32(1 - self.b1)) + (mu.float() * b1).double()).float()
+            mu.copy_(mu_f)
+        nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
+        update = (mu_f / self._c1) / (torch.sqrt(nu / self._c2) + self.eps)
+        return update * -lr
+
+
+class Adagrad(Optimizer):
+    """``optax.adagrad``: s ← g² + s (s from 0.1); u = −lr · g / √(s + ε)
+    where s > 0, else 0."""
+
+    initial_accumulator_value, eps = 0.1, 1e-7
+
+    def _slots(self):
+        return {"0/sum_of_squares": lambda p: torch.full_like(p, self.initial_accumulator_value)}
+
+    def _update(self, i, p, g, lr):
+        s = self.slots["0/sum_of_squares"][i]
+        s.add_(g * g)
+        inv = torch.where(s > 0, torch.rsqrt(s + self.eps), torch.zeros_like(s))
+        return inv * g * -lr
+
+
+class RMSProp(Optimizer):
+    """``optax.rmsprop``: ν ← (1−decay)·g² + decay·ν (ν from 0);
+    u = −lr · g / √(ν + ε)."""
+
+    decay, eps = 0.9, 1e-8
+
+    def _slots(self):
+        return {"0/nu": torch.zeros_like}
+
+    def _update(self, i, p, g, lr):
+        nu = self.slots["0/nu"][i]
+        nu.mul_(self.decay).add_(g * g, alpha=1 - self.decay)
+        return torch.rsqrt(nu + self.eps) * g * -lr
+
+
+class SGD(Optimizer):
+    """``optax.sgd``: u = −lr · g."""
+
+    def _update(self, i, p, g, lr):
+        return g * -lr
+
+
+class Momentum(Optimizer):
+    """``optax.sgd(momentum=0.9)``: t ← g + 0.9·t; u = −lr · t."""
+
+    momentum = 0.9
+
+    def _slots(self):
+        return {"0/trace": torch.zeros_like}
+
+    def _update(self, i, p, g, lr):
+        t = self.slots["0/trace"][i]
+        t.mul_(self.momentum).add_(g)
+        return t * -lr
+
+
+def factored_dims(shape, min_dim_size_to_factor: int = 128):
+    """optax's ``_factored_dims``: (second-largest dim, largest dim) of a
+    tensor of two or more dims whose second-largest is at least
+    ``min_dim_size_to_factor``, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(Optimizer):
+    """``optax.adafactor(lr, min_dim_size_to_factor=128)``, optax's defaults
+    otherwise.  With ρ = 1 − (count+1)^−0.8 and G = g² + 1e-30: a factored
+    leaf keeps row and column means, v_r ← ρ·v_r + (1−ρ)·mean(G, d0) and
+    v_c ← ρ·v_c + (1−ρ)·mean(G, d1), and scales g by (v_r / mean(v_r))^−½
+    and v_c^−½; any other keeps v ← ρ·v + (1−ρ)·G and scales g by v^−½.
+    Then u ← u / max(1, RMS(u)); u ← lr·u; u ← u · max(RMS(p), 1e-3);
+    u ← −u.  Unused slots hold zeros of shape (1,), as optax's do."""
+
+    decay_rate, eps, min_dim_size_to_factor = 0.8, 1e-30, 128
+    clipping_threshold, min_scale = 1.0, 1e-3
+    _counts = ("0", "2")
+
+    def _slots(self):
+        def shape_of(slot):
+            def init(p):
+                dims = factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+                if dims is None:
+                    shape = tuple(p.shape) if slot == "v" else (1,)
+                elif slot == "v":
+                    shape = (1,)
+                else:  # v_row drops the largest dim, v_col the second largest
+                    drop = dims[1] if slot == "v_row" else dims[0]
+                    shape = tuple(n for d, n in enumerate(p.shape) if d != drop)
+                return torch.zeros(shape, dtype=p.dtype, device=p.device)
+            return init
+
+        return {f"0/{slot}": shape_of(slot) for slot in ("v_row", "v_col", "v")}
+
+    def _update(self, i, p, g, lr):
+        t = np.float32(self.count + 1)
+        rho = np.float32(1.0) - t ** np.float32(-self.decay_rate)
+        one_minus = float(np.float32(1.0) - rho)
+        rho = float(rho)
+        grad_sqr = g * g + self.eps
+        dims = factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+        if dims is not None:
+            d1, d0 = dims
+            v_row, v_col = self.slots["0/v_row"][i], self.slots["0/v_col"][i]
+            v_row.copy_(rho * v_row + one_minus * grad_sqr.mean(dim=d0))
+            v_col.copy_(rho * v_col + one_minus * grad_sqr.mean(dim=d1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            col_factor = v_col ** -0.5
+            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+        else:
+            v = self.slots["0/v"][i]
+            v.copy_(rho * v + one_minus * grad_sqr)
+            u = g * v ** -0.5
+        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.clipping_threshold, min=1.0)
+        u = lr * u
+        rms = torch.sqrt(torch.mean(torch.square(p.float())))
+        u = u * torch.where(rms <= self.min_scale, torch.full_like(rms, self.min_scale), rms)
+        return -1 * u
+
+
+OPTIMIZERS = {
+    "AdamOptimizer": Adam,
+    "AdagradOptimizer": Adagrad,
+    "RMSPropOptimizer": RMSProp,
+    "GradientDescentOptimizer": SGD,
+    "SgdOptimizer": SGD,
+    "MomentumOptimizer": Momentum,
+    "AdafactorOptimizer": Adafactor,
+}
+
+
+def create_optimizer(named_params: Sequence[Tuple[str, torch.Tensor]], cfg: TrainingConfig) -> Optimizer:
+    """The optimizer of ``cfg.optimizer`` on ``named_params``: ``(name,
+    parameter)`` pairs, e.g. ``model.named_parameters()``, or bare tensors."""
+    if cfg.fused_adam and cfg.optimizer != "AdamOptimizer":
+        raise ValueError("--fused_adam requires --optimizer=AdamOptimizer")
+    for flag in ("fp32_master", "fused_adam"):
         if getattr(cfg, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet: ROADMAP item 12")
-    return Adam(params, cfg)
+            raise NotImplementedError(f"--{flag} is not ported yet: ROADMAP item 12b")
+    try:
+        cls = OPTIMIZERS[cfg.optimizer]
+    except KeyError:
+        raise ValueError(f"Unknown optimizer {cfg.optimizer!r}. Known: {sorted(OPTIMIZERS)}") from None
+    if cls is Adam and cfg.adam_bf16_momentum:
+        return Adam(named_params, cfg, mu_dtype=torch.bfloat16)
+    return cls(named_params, cfg)

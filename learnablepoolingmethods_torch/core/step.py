@@ -4,7 +4,7 @@ single pass, #make_eval_step and #make_predict_step).
 uint8 frames → sampled frames (gathered in uint8) → dequantize →
 ℓ2-normalize → model forward in training mode (BN statistics updated in
 place) → weighted label loss + penalty · L2 over the head kernels →
-gradients → per-tensor clip → Adam.
+gradients → per-tensor clip → the optimizer (``core/optimizers.py``).
 
 Frames are sampled as the JAX step samples them, so both packages pick the
 same frames from the same seed: ``fold_in(key, step)`` → ``split`` → the
@@ -111,9 +111,9 @@ class TrainStep:
     def __init__(self, loss_obj: BaseLoss, tcfg: TrainingConfig, mcfg: ModelConfig,
                  frame_features: bool):
         if tcfg.grad_accum_steps != 1:
-            raise NotImplementedError("--grad_accum_steps > 1 is not ported yet: ROADMAP item 12")
+            raise NotImplementedError("--grad_accum_steps > 1 is not ported yet: ROADMAP item 12b")
         if tcfg.use_remat:
-            raise NotImplementedError("--use_remat is not ported yet")
+            raise NotImplementedError("--use_remat is not ported yet: ROADMAP item 12b")
         self.loss_obj, self.tcfg, self.mcfg = loss_obj, tcfg, mcfg
         self.frame_features = frame_features
         self.dtype = compute_dtype(mcfg)

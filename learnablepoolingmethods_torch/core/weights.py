@@ -14,11 +14,17 @@ the JAX side:
 
 and the port reads it back with :func:`load_variables_npz` and
 :func:`convert_flax_variables` (the fast path) or :func:`load_flax_variables`
-(the ``nn.Module`` model).  :func:`state_dict_to_flax` goes the other way,
-so the train CLI writes a ``variables.npz`` that both CLIs of either package
-layout read.  Keys keep the flax layout: ``[D, K]``
+(the ``nn.Module`` model).  :func:`state_dict_to_flax` goes the other way
+(a weights-only ``variables.npz`` that the eval and inference CLIs read at
+step 0).  Keys keep the flax layout: ``[D, K]``
 cluster weights, ``[1, D, K]`` C₂, the d-major ``[D·K + D_a·K_a, H]``
 hidden FC and the vocab-major MoE kernels (column m·V + v).
+
+The whole train state crosses too: :func:`train_state_from_jax_tree` takes
+the JAX package's ``state_to_tree(state)`` (step, params, batch_stats and
+the optax ``opt_state``, as numpy arrays) into the port's TrainState, and
+:func:`train_state_to_jax_tree` gives it back, both by the leaf paths of
+:func:`tree_paths`, which name a checkpoint's leaves (``core/checkpoints.py``).
 
 :func:`init_variables_np` makes a tree of the same keys, shapes and
 initial scales as ``model.init`` from a seed, for machines without JAX.
@@ -67,6 +73,71 @@ def _unflatten(flat: Dict[str, Any]) -> Tree:
             node = node.setdefault(name, {})
         node[leaf] = value
     return tree
+
+
+def unflatten_tree(flat: Dict[str, Any]) -> Tree:
+    """``{"a/b/c": x}`` → ``{"a": {"b": {"c": x}}}``."""
+    return _unflatten(flat)
+
+
+def tree_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """The leaves of a nested tree by path: dict keys and NamedTuple fields
+    by name, tuple and list positions by index, joined by ``/`` (the names
+    of a checkpoint's leaves, ``core/checkpoints.py``).  An empty node (an
+    optax ``EmptyState``, a model's empty ``batch_stats``) has no leaves."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (tuple, list)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, value in items:
+        out.update(tree_paths(value, f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
+def tree_like(template, flat: Dict[str, Any], prefix: str = ""):
+    """The inverse of :func:`tree_paths` on ``template``'s structure (dicts,
+    NamedTuples, tuples, lists): each leaf taken from ``flat`` by its path
+    and cast to the template leaf's dtype."""
+    def path(key):
+        return f"{prefix}/{key}" if prefix else str(key)
+
+    if isinstance(template, Mapping):
+        return {k: tree_like(v, flat, path(k)) for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(tree_like(v, flat, path(k)) for k, v in zip(template._fields, template)))
+    if isinstance(template, (tuple, list)):
+        return type(template)(tree_like(v, flat, path(i)) for i, v in enumerate(template))
+    return np.asarray(flat[prefix]).astype(np.asarray(template).dtype)
+
+
+def train_state_from_jax_tree(tree_np, model: torch.nn.Module, tcfg):
+    """The port's TrainState from the JAX package's ``state_to_tree(state)``
+    (nested dicts and optax NamedTuples of arrays; bf16 leaves as ml_dtypes
+    arrays): ``model``'s parameters and BN statistics, the optimizer of
+    ``tcfg`` and the step, each checked against the live state by name,
+    shape and dtype."""
+    from learnablepoolingmethods_torch.core.checkpoints import dtype_name, to_tensor
+    from learnablepoolingmethods_torch.core.train_state import TrainState
+
+    state = TrainState.create(model, tcfg)
+    state.load_state_tree({name: to_tensor(np.asarray(value), dtype_name(np.asarray(value)))
+                           for name, value in tree_paths(tree_np).items()})
+    return state
+
+
+def train_state_to_jax_tree(state, like=None):
+    """The inverse of :func:`train_state_from_jax_tree`: the state's leaves
+    as numpy arrays (bf16 widened to f32, exactly), by their
+    ``state_to_tree`` paths; with ``like`` (a JAX state tree) rebuilt in its
+    structure and dtypes, else as nested dicts."""
+    flat = {name: t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+            for name, t in state.state_tree().items()}
+    return tree_like(like, flat) if like is not None else _unflatten(flat)
 
 
 def _npz_path(path: str) -> str:

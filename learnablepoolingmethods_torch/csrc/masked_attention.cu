@@ -19,26 +19,42 @@
 //
 // bf16 (every main path; masked_attention_mma_kernel below): both products
 // on tensor cores, mma.sync m16n8k16 with f32 accumulators, fed by ldmatrix;
-// K and V stream through a two-stage cp.async ring of 32-key tiles, so the
+// key tiles stream through a two-stage cp.async ring of 32-key tiles, so the
 // next tile's load overlaps this tile's products; Q, K and V stay bf16 in
 // shared memory (52 KB a block at hd=128, four blocks an SM, where the f32
 // tiles took 118 KB and one).  The grid walks a video's query tiles next to
-// each other, so its K and V, read once per query tile, come from L2 after
-// the first.  Its rounding points are those the first port's kernel had in
-// bf16 (steps 2-4 below): f32 logits (Q·Kᵀ of bf16 values summed in f32,
-// times 1/√hd, plus the f32 key bias), the unnormalised exp rounded to bf16
-// for P·V, the running sum of the unrounded exp, one division and one
-// rounding at the end.  Q·Kᵀ is taken on bf16 Q and scaled after, where the
+// each other, so its K and V, read once or twice per query tile, come from
+// L2 after the first.
+//
+// Its rounding points are the TPU kernel's (_attention_kernel): f32 logits
+// (Q·Kᵀ of bf16 values summed in f32, times 1/√hd, plus the f32 key bias),
+// the f32 row max m and the f32 sum l = Σ e of e = exp(logit − m), the
+// weights w = e / l formed in f32 and rounded to bf16 where they enter P·V,
+// f32 accumulation, and one rounding of the output.  Rounding the
+// normalised w needs each row's m and l before the first P·V, so the key
+// tiles are walked twice: a first pass forms only Q·Kᵀ and keeps the
+// running max and sum (the sum rescaled by exp(m_old − m_new) as the max
+// grows), and the second forms Q·Kᵀ again, then w and P·V.  The other
+// design, the whole 64 × F f32 score tile kept in shared memory so that
+// Q·Kᵀ is formed once, was not taken: it holds only while F ≤ 320 (80 KB,
+// with Q, K and V beside it one or two blocks an SM instead of four), and
+// every F past it would need this loop anyway; the second Q·Kᵀ costs a
+// third more products and an L2 read of K, not device-memory bytes, which
+// bound the kernel.  Q·Kᵀ is taken on bf16 Q and scaled after, where the
 // f32 kernel scales Q first: the same f32 product up to its last bits; the
-// exp is exp2f(x·log2 e), a few f32 ulps from expf (1e-6 relative at the
-// largest differences, far below the bf16 rounding of P).  hd
-// is padded with zero columns to the next of 16, 32, 64 and 128 in shared
+// exp is exp2f(x·log2 e), a few f32 ulps from expf, and w is e times the
+// row's 1/l (one division a row, not one a weight), within an ulp of e / l:
+// either moves a weight's bf16 rounding only where w lies within a few f32
+// ulps of a rounding boundary.  hd is
+// padded with zero columns to the next of 16, 32, 64 and 128 in shared
 // memory (mma's depth is 16).  Where trouble was: the running max starts at
 // −inf and masked keys take −1e9 added in f32, so a row with num_frames 0
 // still comes out as the mean of V; a partial last key tile is zero-filled.
 //
 // f32 (masked_attention_kernel, the first port's code, unchanged): f32 FMAs
-// on the CUDA cores, since TF32 tensor cores would miss the 1e-5 check.
+// on the CUDA cores, since TF32 tensor cores would miss the 1e-5 check;
+// nothing is rounded, so dividing by the sum at the end differs from the
+// reference's order by f32 rounding alone.
 // One block per (query tile of 64 rows, head, video); 256 threads as
 // 16 row groups × 16 lanes, each thread owning query rows g + 16i (i < 4).
 //  1. The Q tile is read in place (row stride 3·D, no copies of q, k or v),
@@ -54,11 +70,9 @@
 //     takes the unrounded exp; the accumulator [4 rows × 8 columns] is
 //     rescaled by exp(m_old − m_new).  Key tiles are never skipped by
 //     num_frames (that would change the all-masked answer).
-//  4. P·V: the exp values are rounded to T where they enter the product (the
-//     TPU kernel rounds the normalised weights instead: one bf16 rounding
-//     either way; none for f32), summed in f32; at the end each row is
-//     divided by its sum and rounded to T once.  Query rows past F are
-//     computed on zeros and not stored.
+//  4. P·V: the exp values are summed in f32 (f32 only: nothing is rounded
+//     where they enter the product); at the end each row is divided by its
+//     sum.  Query rows past F are computed on zeros and not stored.
 
 #include "netvlad_core.cuh"
 #include "tensor_core.cuh"
@@ -253,19 +267,22 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mas
 // One block per (query tile of 64 rows, head, video), 4 warps, warp w owning
 // query rows 16w..16w+15 of the tile.  Shared memory, bf16, rows of kHd + 8
 // (52 KB at hd=128, so four blocks an SM): the Q tile, then two ring stages
-// of (K tile, V tile) of 32 keys each.
-//  1. Q and the first two K/V tiles go out as cp.async groups; rows at or
+// of (K tile, V tile) of 32 keys each.  The ring walks 2·ntiles steps: step
+// i < ntiles brings key tile i's K alone (pass 1), step ntiles + i brings
+// its K and V (pass 2), each into stage i mod 2.
+//  1. Q and the first two steps' tiles go out as cp.async groups; rows at or
 //     past F and columns at or past hd are zero-filled, so no stale shared
 //     memory reaches a product (0 · 0 past F, where the weight is 0 too).
-//  2. Per key tile: wait for its group, one barrier, S = Q·Kᵀ (Q's and K's
+//  2. Per step: wait for its group, one barrier, S = Q·Kᵀ (Q's and K's
 //     fragments by ldmatrix, K as the col-major B operand), S·(1/√hd) + key
-//     bias in f32 (−inf past F, (1 − mask)·(−1e9) below it), the online
-//     softmax on the accumulator fragments (row max and sum across the 4
-//     lanes of a row by shuffles), then O += P·V with P packed to bf16 in
-//     registers as the A operand and V by ldmatrix.trans.  A 16-key step
-//     wholly past F is skipped (its P and V are 0); key tiles never are.  A
-//     barrier, then the tile two ahead is loaded into the stage just freed.
-//  3. O / l rounded to bf16 into the warp's own rows of the freed ring, then
+//     bias in f32 (−inf past F, (1 − mask)·(−1e9) below it).  Pass 1: the
+//     running row max m and sum l on the accumulator fragments (across the
+//     4 lanes of a row by shuffles).  Pass 2: w = exp(S − m) · (1/l) in f32,
+//     then O += W·V with W packed to bf16 in registers as the A operand and
+//     V by ldmatrix.trans; a 16-key step wholly past F is skipped (its W and
+//     V are 0); key tiles never are.  A barrier, then the step two ahead is
+//     loaded into the stage just freed.
+//  3. O rounded to bf16 into the warp's own rows of the freed ring, then
 //     16-byte stores of the rows below F.
 // Q's fragments are read again for every key tile rather than kept in
 // registers: that holds the kernel to 128 registers a thread, and the four
@@ -280,7 +297,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 // e^x for the softmax: exp2f(x·log2 e), MUFU.EX2 and a multiply (the
 // difference x is formed first, so a −1e9 logit minus a −1e9 max is 0)
 __device__ __forceinline__ float softmax_exp(float x) { return exp2f(x * kLog2e); }
-
 template <int kHd>
 constexpr size_t mma_attn_smem_bytes() {  // Q, then two stages of (K, V): 53,248 at 128
   return sizeof(__nv_bfloat16) * (kHd + 8) * (kMmaRows + 4 * kMmaKeys);
@@ -321,17 +337,19 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const float* 
   const bf16* video = qkv + (long long)b * F * ld + (long long)h * hd;
   const float* mrow = mask + (long long)b * F;
   const int ntiles = (F + kMmaKeys - 1) / kMmaKeys;
-  auto load_kv = [&](int tile) {
-    bf16* dst = kv_s + (tile & 1) * 2 * kTile;
-    load_tile_async<kHd, kMmaKeys>(video + D, ld, tile * kMmaKeys, F, hd, dst);
-    load_tile_async<kHd, kMmaKeys>(video + 2 * D, ld, tile * kMmaKeys, F, hd, dst + kTile);
+  const int nsteps = 2 * ntiles;  // pass 1: K of every tile; pass 2: K and V
+  auto load_step = [&](int i) {
+    bf16* dst = kv_s + (i & 1) * 2 * kTile;
+    const int k0 = (i < ntiles ? i : i - ntiles) * kMmaKeys;
+    load_tile_async<kHd, kMmaKeys>(video + D, ld, k0, F, hd, dst);
+    if (i >= ntiles) load_tile_async<kHd, kMmaKeys>(video + 2 * D, ld, k0, F, hd, dst + kTile);
   };
 
   load_tile_async<kHd, kMmaRows>(video, ld, q0, F, hd, q_s);
-  load_kv(0);
+  load_step(0);
   cp_async_commit();
-  if (ntiles > 1) load_kv(1);
-  cp_async_commit();  // one group per stage, empty or not, so the wait below is uniform
+  load_step(1);  // nsteps >= 2
+  cp_async_commit();  // one group per stage, so the wait below is uniform
 
   // ldmatrix row and column of this lane: A (Q), B from K, B from V (trans)
   const int a_row = lane & 15, a_col = (lane >> 4) * 8;
@@ -345,8 +363,9 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const float* 
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * kMmaKeys;
+  for (int it = 0; it < nsteps; ++it) {
+    const bool second = it >= ntiles;
+    const int k0 = (second ? it - ntiles : it) * kMmaKeys;
     const bf16* k_s = kv_s + (it & 1) * 2 * kTile;
     const bf16* v_s = k_s + kTile;
     float bias[kNJ][2];  // keys k0 + 8j + 2t + e
@@ -357,7 +376,7 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const float* 
         const int key = k0 + 8 * j + 2 * t + e;
         bias[j][e] = key < F ? (1.f - __ldg(mrow + key)) * -1e9f : -INFINITY;
       }
-    cp_async_wait<1>();  // this thread's copies of tile it (and Q) have landed
+    cp_async_wait<1>();  // this thread's copies of step it (and Q) have landed
     __syncthreads();     // and everyone's
 
     float s[kNJ][4];  // logits of rows g, g + 8 against keys k0 + 8j + 2t + (0, 1)
@@ -377,68 +396,61 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const float* 
         mma_bf16_16816(s[2 * jp + 1], qa, kb[2], kb[3]);
       }
     }
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] * inv_sqrt_hd + bias[j][e & 1];
 
-    // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    if (!second) {
+      // pass 1: running max and sum of rows g (e = 0, 1) and g + 8 (e = 2, 3)
 #pragma unroll
-    for (int rh = 0; rh < 2; ++rh) {
-      float mx = -INFINITY;
+      for (int rh = 0; rh < 2; ++rh) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kNJ; ++j)
+        for (int j = 0; j < kNJ; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * rh], s[j][2 * rh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[rh], mx);  // finite: every tile holds a key below F
+        float rs = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& v = s[j][2 * rh + e];
-          v = v * inv_sqrt_hd + bias[j][e];
-          mx = fmaxf(mx, v);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[rh], mx);  // finite: every tile holds a key below F
-      const float alpha = softmax_exp(m[rh] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& v = s[j][2 * rh + e];
-          v = softmax_exp(v - m_new);
-          rs += v;
-        }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[rh] = l[rh] * alpha + rs;
-      m[rh] = m_new;
-#pragma unroll
-      for (int n = 0; n < kChunks; ++n) {
-        o[n][2 * rh] *= alpha;
-        o[n][2 * rh + 1] *= alpha;
+        for (int j = 0; j < kNJ; ++j)
+          rs += softmax_exp(s[j][2 * rh] - m_new) + softmax_exp(s[j][2 * rh + 1] - m_new);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l[rh] = l[rh] * softmax_exp(m[rh] - m_new) + rs;
+        m[rh] = m_new;
       }
-    }
-
-    // O += P·V over 16-key steps; P's C fragments of two 8-key tiles are
-    // the A fragment of one step
+    } else {
+      // pass 2: w = e · (1/l) in f32, rounded to bf16 as the A operand of W·V
+      const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      if (k0 + 16 * kk >= F) break;
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int j = 0; j < kNJ; ++j)
 #pragma unroll
-      for (int dp = 0; dp < kHd / 16; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, smem_addr(v_s + (16 * kk + v_row) * kPitch + dp * 16 + v_col));
-        mma_bf16_16816(o[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16_16816(o[2 * dp + 1], pa, vb[2], vb[3]);
+        for (int e = 0; e < 4; ++e) s[j][e] = softmax_exp(s[j][e] - m[e >> 1]) * inv_l[e >> 1];
+#pragma unroll
+      for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+        if (k0 + 16 * kk >= F) break;
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < kHd / 16; ++dp) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, smem_addr(v_s + (16 * kk + v_row) * kPitch + dp * 16 + v_col));
+          mma_bf16_16816(o[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16_16816(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
       }
     }
 
     __syncthreads();  // every warp is done with this stage
-    if (it + 2 < ntiles) load_kv(it + 2);
+    if (it + 2 < nsteps) load_step(it + 2);
     cp_async_commit();
   }
   cp_async_wait<0>();
 
-  // rows g, g + 8 of this warp: O / l rounded once, staged in the ring
+  // rows g, g + 8 of this warp: O rounded once, staged in the ring
   // (free after the last barrier; warp w its own rows 16w..16w+15), then
   // stored 16 bytes at a time
   bf16* o_s = kv_s + warp * 16 * kPitch;
@@ -447,7 +459,7 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const float* 
 #pragma unroll
     for (int n = 0; n < kChunks; ++n)
       *reinterpret_cast<__nv_bfloat162*>(o_s + (g + 8 * rh) * kPitch + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * rh] / l[rh], o[n][2 * rh + 1] / l[rh]);
+          __floats2bfloat162_rn(o[n][2 * rh], o[n][2 * rh + 1]);
   __syncwarp();
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = (i % kChunks) * 8;

@@ -1,8 +1,9 @@
 """Eval entry point (ref: eval.py#main / #evaluation_loop).
 
-Reads ``<train_dir>/variables.npz``, streams the eval TFRecords once and
-reports the epoch's GAP, Hit@1, PERR and loss (and per-class APs on the
-default accumulator):
+Reads the latest checkpoint in ``<train_dir>/checkpoints``
+(``core/checkpoints.py``), streams the eval TFRecords once and reports the
+epoch's GAP, Hit@1, PERR and loss (and per-class APs on the default
+accumulator):
 
 - default: the reference-parity accumulator (host
   ``metrics/eval_util.py#EvaluationMetrics``: exact heap and tie-break
@@ -14,9 +15,14 @@ The forward is the registered ``nn.Module`` of ``--model`` (frame-level or
 video-level input), or with ``--fast_forward`` its BN-folded fast path
 (``ops/fast_dispatch.py``, the CUDA kernels on the card).  Each batch draws
 its frames from ``fold_in(key(0), batch)``, as the JAX CLI does.
-``--run_once`` evaluates once; otherwise the CLI polls ``--train_dir``
-every ``--poll_interval_secs`` and evaluates the file again whenever it
-changes.  It takes every flag of the JAX eval CLI under its name and
+As the JAX eval does, it polls the latest step every
+``--poll_interval_secs``, evaluates each new step once and writes its
+``epoch_summary`` to ``<train_dir>/eval`` at that step; ``--run_once``
+evaluates the latest step once.  A weights-only ``variables.npz``
+(``--train_dir`` names the file, or a directory without ``checkpoints/``)
+is step 0, and so is ``--reference_checkpoint``, a reference-trained TF
+checkpoint (``core/checkpoint_import.py``), evaluated once without a
+summary.  It takes every flag of the JAX eval CLI under its name and
 default (``cli_flags.py``; those of ``cli_flags.EVAL_NOT_PORTED`` raise
 when set); ``--device`` (default ``cuda``) is the port's own.
 
@@ -40,10 +46,11 @@ from learnablepoolingmethods_torch import cli_flags
 from learnablepoolingmethods_torch.config import FeatureConfig
 from learnablepoolingmethods_torch.core import step as step_lib
 from learnablepoolingmethods_torch.core.observability import MetricWriter
-from learnablepoolingmethods_torch.core.weights import NPZ_NAME, convert_flax_variables, load_variables_npz
+from learnablepoolingmethods_torch.core.checkpoints import latest_weights_step, load_weights
+from learnablepoolingmethods_torch.core.weights import convert_flax_variables
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import make_reader
-from learnablepoolingmethods_torch.inference import load_model
+from learnablepoolingmethods_torch.inference import load_model, load_tree
 from learnablepoolingmethods_torch.losses import get_loss_by_name
 from learnablepoolingmethods_torch.metrics import eval_util
 from learnablepoolingmethods_torch.ops.fast_dispatch import fast_path_models, get_fast_path
@@ -57,7 +64,7 @@ log = logging.getLogger(__name__)
 # #define_flags) and the port's --device: name → (default, help)
 _OWN_FLAGS = {
     "eval_data_pattern": ("", "File glob for eval TFRecords."),
-    "train_dir": ("/tmp/yt8m_model/", "Directory (or file) of variables.npz."),
+    "train_dir": ("/tmp/yt8m_model/", "Directory of checkpoints (or of a variables.npz, or the file)."),
     "run_once": (False, "Evaluate once instead of polling."),
     "top_k": (20, "How many predictions to keep per video."),
     "fast_eval": (False, "Use on-device metric partials (no per-class APs)."),
@@ -75,10 +82,6 @@ def build_parser() -> argparse.ArgumentParser:
     --device; the flags of cli_flags.EVAL_NOT_PORTED raise when set."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     return cli_flags.add_flags(p, _OWN_FLAGS, cli_flags.EVAL_NOT_PORTED)
-
-
-def _npz_file(train_dir: str) -> str:
-    return train_dir if os.path.isfile(train_dir) else os.path.join(train_dir, NPZ_NAME)
 
 
 def _fast_eval_step(args, fcfg: FeatureConfig, mcfg, loss_obj, tree, device):
@@ -99,15 +102,15 @@ def _fast_eval_step(args, fcfg: FeatureConfig, mcfg, loss_obj, tree, device):
     return eval_step
 
 
-def evaluate_checkpoint(args, step_num: int, fcfg: FeatureConfig, loss_obj, device) -> dict:
-    """One pass over ``--eval_data_pattern`` with the weights of
-    ``--train_dir`` → {avg_hit_at_one, avg_perr, avg_loss, gap, aps}."""
+def evaluate_checkpoint(args, step_num: int, tree: dict, fcfg: FeatureConfig, loss_obj, device) -> dict:
+    """One pass over ``--eval_data_pattern`` with the weights of ``tree``
+    (flax ``{params, batch_stats}``) → {avg_hit_at_one, avg_perr, avg_loss,
+    gap, aps}."""
     if args.fast_forward:
         mcfg = cli_flags.model_config_from_args(args)
-        eval_step = _fast_eval_step(args, fcfg, mcfg, loss_obj,
-                                    load_variables_npz(_npz_file(args.train_dir)), device)
+        eval_step = _fast_eval_step(args, fcfg, mcfg, loss_obj, tree, device)
     else:
-        model, mcfg = load_model(args, fcfg, device)
+        model, mcfg = load_model(args, fcfg, device, tree)
         eval_step = step_lib.make_eval_step(model, loss_obj, mcfg, fcfg.frame_features,
                                             top_k=args.top_k)
 
@@ -173,39 +176,33 @@ def evaluate_checkpoint(args, step_num: int, fcfg: FeatureConfig, loss_obj, devi
     return info
 
 
-def _version(path: str):
-    """What tells one write of ``path`` from the next, or None while it is missing."""
-    try:
-        st = os.stat(path)
-    except FileNotFoundError:
-        return None
-    return st.st_mtime_ns, st.st_size
-
-
 def evaluation_loop(args):
-    """Evaluate ``--train_dir``'s weights once (``--run_once``) or each time
-    they change; returns the info of a ``--run_once`` evaluation (None if
-    there was nothing to evaluate).  Summaries go to ``<train_dir>/eval``
-    at the evaluation's number (variables.npz carries no step)."""
+    """Evaluate the latest step of ``--train_dir`` once (``--run_once``) or
+    each new step as it appears; returns the info of a ``--run_once``
+    evaluation (None if there was nothing to evaluate).  Summaries go to
+    ``<train_dir>/eval`` at the step evaluated."""
     cli_flags.refuse_not_ported(args, cli_flags.EVAL_NOT_PORTED,
                                 vars(build_parser().parse_args([])), "eval CLI")
     device = resolve_device(args.device)
     fcfg = FeatureConfig.from_flag_strings(args.feature_names, args.feature_sizes,
                                            args.frame_features, args.max_frames)
     loss_obj = get_loss_by_name(args.label_loss)
-    npz = _npz_file(args.train_dir)
-    writer = MetricWriter(os.path.join(os.path.dirname(npz), "eval"))
-    last, evaluated = None, 0
+    if args.reference_checkpoint:
+        return evaluate_checkpoint(args, 0, load_tree(args, fcfg), fcfg, loss_obj, device)
+    root = os.path.dirname(args.train_dir) if os.path.isfile(args.train_dir) else args.train_dir
+    writer = MetricWriter(os.path.join(root, "eval"))
+    last = None
     try:
         while True:
-            version = _version(npz)
-            if version is None:
+            step = latest_weights_step(args.train_dir)
+            if step is None:
                 log.info("No checkpoint yet in %s", args.train_dir)
-            elif version != last:
-                info = evaluate_checkpoint(args, evaluated, fcfg, loss_obj, device)
-                writer.epoch_summary(evaluated, info)
+            elif step != last:
+                info = evaluate_checkpoint(args, step, load_weights(args.train_dir, step), fcfg,
+                                           loss_obj, device)
+                writer.epoch_summary(step, info)
                 writer.flush()
-                last, evaluated = version, evaluated + 1
+                last = step
                 if args.run_once:
                     return info
             if args.run_once:

@@ -13,8 +13,13 @@ Kaggle submission CSV ``VideoId,LabelConfidencePairs``.  Two routes:
 
 It takes every flag of the JAX CLI under its name and default
 (``cli_flags.py``; those not ported yet raise when set); ``--device``
-(default ``cuda``) is the port's own.  Weights come from
-``<train_dir>/variables.npz`` (``core/weights.py#save_variables_npz``).
+(default ``cuda``) is the port's own.  Weights come from the latest
+checkpoint in ``<train_dir>/checkpoints`` (``core/checkpoints.py``; IOError
+when there is none), from a weights-only ``variables.npz``
+(``core/weights.py#save_variables_npz``) when ``--train_dir`` names such a
+file or a directory without ``checkpoints/``, or with
+``--reference_checkpoint`` from a reference-trained TF checkpoint
+(``core/checkpoint_import.py``, no tensorflow needed).
 
     python -m learnablepoolingmethods_torch.inference --fast_infer \\
         --model=NetVLADModelLF --frame_features --feature_names=rgb,audio \\
@@ -33,12 +38,10 @@ import torch
 
 from learnablepoolingmethods_torch import cli_flags
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig
+from learnablepoolingmethods_torch.core.checkpoint_import import tree_from_reference_checkpoint
+from learnablepoolingmethods_torch.core.checkpoints import latest_weights_step, load_weights
 from learnablepoolingmethods_torch.core.step import make_predict_step
-from learnablepoolingmethods_torch.core.weights import (
-    convert_flax_variables,
-    load_flax_variables,
-    load_variables_npz,
-)
+from learnablepoolingmethods_torch.core.weights import convert_flax_variables, load_flax_variables
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import make_reader
 from learnablepoolingmethods_torch.models import create_model, find_class_by_name
@@ -53,7 +56,7 @@ log = logging.getLogger(__name__)
 # #define_flags) and the port's --device: name → (default, help)
 _OWN_FLAGS = {
     "input_data_pattern": ("", "File glob for input TFRecords."),
-    "train_dir": ("/tmp/yt8m_model/", "Directory (or file) of variables.npz."),
+    "train_dir": ("/tmp/yt8m_model/", "Directory of checkpoints (or of a variables.npz, or the file)."),
     "output_file": ("", "Destination CSV path."),
     "top_k": (20, "How many predictions to write per video."),
     "fast_infer": (False, "Use the fused inference path (BN folding, CUDA kernels, bf16)."),
@@ -78,16 +81,32 @@ def model_config_from_args(args) -> ModelConfig:
     return cli_flags.model_config_from_args(args)
 
 
-def load_model(args, fcfg: FeatureConfig, device: torch.device):
+def load_model(args, fcfg: FeatureConfig, device: torch.device, tree: dict):
     """The registered ``nn.Module`` of ``--model`` with the weights of
-    ``--train_dir`` on ``device``, in eval mode, and its ModelConfig.  A
-    model that samples frames is built ``presampled``: the predict and eval
-    steps gather its frames in uint8 (``core/step.py``)."""
+    ``tree`` (flax ``{params, batch_stats}``) on ``device``, in eval mode,
+    and its ModelConfig.  A model that samples frames is built
+    ``presampled``: the predict and eval steps gather its frames in uint8
+    (``core/step.py``)."""
     presampled = fcfg.frame_features and find_class_by_name(args.model).samples_frames
     mcfg = cli_flags.model_config_from_args(args, presampled=presampled)
     model = create_model(args.model, mcfg, fcfg.total_size)
-    load_flax_variables(model, load_variables_npz(args.train_dir))
+    load_flax_variables(model, tree)
     return model.to(device).eval(), mcfg
+
+
+def load_tree(args, fcfg: FeatureConfig) -> dict:
+    """The weights the CLI serves (module docstring), as the JAX CLI finds
+    them: the reference checkpoint, else the latest of ``--train_dir``."""
+    if args.reference_checkpoint:
+        tree = tree_from_reference_checkpoint(args.reference_checkpoint, args.model,
+                                              cli_flags.model_config_from_args(args), fcfg)
+        log.info("imported reference checkpoint %s", args.reference_checkpoint)
+        return tree
+    step = latest_weights_step(args.train_dir)
+    if step is None:
+        raise IOError(f"no checkpoint found in {args.train_dir}")
+    log.info("restored checkpoint at step %d", step)
+    return load_weights(args.train_dir, step)
 
 
 def inference(args) -> int:
@@ -98,12 +117,15 @@ def inference(args) -> int:
     fcfg = FeatureConfig.from_flag_strings(
         args.feature_names, args.feature_sizes, args.frame_features, args.max_frames
     )
+    if args.fast_infer and not fcfg.frame_features:
+        raise ValueError(f"--fast_infer with {args.model} needs --frame_features")
+    if not args.fast_infer and args.int8_hidden:
+        raise ValueError("--int8_hidden requires --fast_infer")
+    path = get_fast_path(args.model) if args.fast_infer else None
+    tree = load_tree(args, fcfg)
     if args.fast_infer:
-        if not fcfg.frame_features:
-            raise ValueError(f"--fast_infer with {args.model} needs --frame_features")
         mcfg = model_config_from_args(args)
-        path = get_fast_path(args.model)
-        variables = convert_flax_variables(load_variables_npz(args.train_dir), mcfg, args.model)
+        variables = convert_flax_variables(tree, mcfg, args.model)
         fp = path.prepare(variables, mcfg, int8_hidden=args.int8_hidden, device=device)
         del variables
         fast = path.build(mcfg, top_k=args.top_k)
@@ -111,11 +133,10 @@ def inference(args) -> int:
         def predict(feats, nf, key):
             return fast(fp, feats, nf, key)
     else:
-        if args.int8_hidden:
-            raise ValueError("--int8_hidden requires --fast_infer")
-        model, mcfg = load_model(args, fcfg, device)
+        model, mcfg = load_model(args, fcfg, device, tree)
         predict = make_predict_step(model, mcfg, fcfg.frame_features, top_k=args.top_k)
-    log.info("loaded %s from %s onto %s", args.model, args.train_dir, device)
+    del tree
+    log.info("loaded %s onto %s", args.model, device)
 
     reader = make_reader(fcfg, args.num_classes)
     pipe = InFlight(args.pipeline_depth)

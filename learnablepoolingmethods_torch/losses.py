@@ -34,15 +34,37 @@ class CrossEntropyLoss(BaseLoss):
         return torch.sum(-cross_entropy_loss, dim=1)
 
 
-_LOSSES = {"CrossEntropyLoss": CrossEntropyLoss}
+class HingeLoss(BaseLoss):
+    """Per-class hinge loss on ±1 labels with margin ``b`` (ref:
+    losses.py#HingeLoss — max(0, b − (2·label − 1)·prediction), summed over
+    classes)."""
+
+    def calculate_per_example_loss(self, predictions, labels, b=1.0, **unused_params):
+        float_labels = labels.to(predictions.dtype)
+        sign_labels = 2.0 * float_labels - 1.0
+        return torch.sum(torch.clamp(b - sign_labels * predictions, min=0.0), dim=1)
+
+
+class SoftmaxLoss(BaseLoss):
+    """Softmax cross entropy against the row-normalised labels (ref:
+    losses.py#SoftmaxLoss — the label row sum floored at 10e-8, a stable
+    log-softmax of the predictions)."""
+
+    def calculate_per_example_loss(self, predictions, labels, **unused_params):
+        epsilon = 10e-8
+        float_labels = labels.to(predictions.dtype)
+        label_rowsum = torch.clamp(torch.sum(float_labels, dim=1, keepdim=True), min=epsilon)
+        norm_float_labels = float_labels / label_rowsum
+        log_softmax = predictions - torch.amax(predictions, dim=1, keepdim=True)
+        log_softmax = log_softmax - torch.log(torch.sum(torch.exp(log_softmax), dim=1, keepdim=True))
+        return -torch.sum(norm_float_labels * log_softmax, dim=1)
+
+
+_LOSSES = {"CrossEntropyLoss": CrossEntropyLoss, "HingeLoss": HingeLoss, "SoftmaxLoss": SoftmaxLoss}
 
 
 def get_loss_by_name(name: str) -> BaseLoss:
-    """``--label_loss`` lookup.  HingeLoss and SoftmaxLoss of the JAX package
-    are not ported yet and raise."""
+    """``--label_loss`` lookup."""
     if name in _LOSSES:
         return _LOSSES[name]()
-    if name in ("HingeLoss", "SoftmaxLoss"):
-        raise NotImplementedError(
-            f"--label_loss={name} is not ported yet: ROADMAP item 12 (ported: {sorted(_LOSSES)})")
     raise ValueError(f"unknown loss {name!r}; ported: {sorted(_LOSSES)}")

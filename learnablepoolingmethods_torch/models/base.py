@@ -84,7 +84,7 @@ class BaseModel(nn.Module):
         super().__init__()
         if cfg.param_dtype != "float32":
             raise NotImplementedError(
-                "--bf16_params / param_dtype other than float32 is not ported yet: ROADMAP item 12"
+                "--bf16_params / param_dtype other than float32 is not ported yet: ROADMAP item 12b"
             )
         self.cfg = cfg
         self.input_size = input_size

@@ -60,7 +60,7 @@ def reject_int8_hidden(int8_hidden: bool) -> None:
     """Every fast path refuses ``--int8_hidden`` until it is ported."""
     if int8_hidden:
         raise NotImplementedError(
-            "--int8_hidden (weight-only int8 hidden FC) is not ported yet: ROADMAP item 12"
+            "--int8_hidden (weight-only int8 hidden FC) is not ported yet: ROADMAP item 12b"
         )
 
 

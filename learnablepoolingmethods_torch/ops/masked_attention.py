@@ -80,16 +80,13 @@ def masked_attention_fused(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int
 masked_attention_fused.launches = 0
 
 
-def attention_reference(q, k, v, mask, num_heads: int, kernel_rounding: bool = False) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel on separate q, k, v ``[B, F, H·hd]``:
-    q scaled by 1/√hd in f32, f32 logits plus the −1e9 key mask, an f32
-    softmax, the weights rounded to v's dtype, then weights·V summed in f32
-    and cast to q's dtype.
-
-    With ``kernel_rounding`` it takes the bf16 kernel's rounding points
-    instead: the unnormalised exp(logit − row max) rounded to v's dtype for
-    ·V, and the f32 sum of the unrounded exp divided out at the end (in f32
-    the two differ by rounding alone)."""
+def attention_reference(q, k, v, mask, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel on separate q, k, v ``[B, F, H·hd]``,
+    at the TPU kernel's rounding points: q scaled by 1/√hd in f32, f32
+    logits plus the −1e9 key mask, an f32 softmax, the normalised weights
+    rounded to v's dtype, then weights·V summed in f32 and cast to q's
+    dtype.  The bf16 kernel rounds at the same points (in f32 nothing is
+    rounded)."""
     b, f, dm = q.shape
     hd = dm // num_heads
     qh = q.reshape(b, f, num_heads, hd).float() / (hd ** 0.5)
@@ -97,19 +94,12 @@ def attention_reference(q, k, v, mask, num_heads: int, kernel_rounding: bool = F
     vh = v.reshape(b, f, num_heads, hd)
     logits = torch.einsum("bqhk,bshk->bhqs", qh, kh)
     logits = logits + (1.0 - mask.float())[:, None, None, :] * -1e9
-    if kernel_rounding:
-        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        out = torch.einsum("bhqs,bshk->bqhk", e.to(v.dtype).float(), vh.float())
-        out = out / e.sum(dim=-1).transpose(1, 2)[..., None]
-    else:
-        w = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqs,bshk->bqhk", w.to(v.dtype).float(), vh.float())
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqs,bshk->bqhk", w.to(v.dtype).float(), vh.float())
     return out.reshape(b, f, dm).to(q.dtype)
 
 
-def masked_attention_plain(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
-                           kernel_rounding: bool = False) -> torch.Tensor:
+def masked_attention_plain(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
     """:func:`attention_reference` on the column slices of the fused qkv."""
     d = qkv.shape[-1] // 3
-    return attention_reference(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], mask, num_heads,
-                               kernel_rounding)
+    return attention_reference(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], mask, num_heads)

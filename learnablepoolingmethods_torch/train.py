@@ -1,34 +1,42 @@
 """Train entry point (ref: train.py#Trainer.run).
 
 Trains a model on YouTube-8M TFRecords, frame-level or video-level, and
-writes its weights as ``<train_dir>/variables.npz`` in the flax ``{params,
-batch_stats}`` layout, which the inference and eval CLIs read:
+checkpoints the whole train state (step, parameters, BN statistics, the
+optimizer's state) into ``<train_dir>/checkpoints/<step>/``
+(``core/checkpoints.py``), which the eval and inference CLIs read:
 
     python -m learnablepoolingmethods_torch.train --model=NetRVLADModelLF \\
         --frame_features --feature_names=rgb,audio --feature_sizes=1024,128 \\
         --train_data_pattern='/data/train*.tfrecord' --train_dir=/ckpt \\
         --batch_size=256 --max_steps=1000 --compute_dtype=bfloat16 \\
-        --fused_train_aggregation --start_new_model
+        --fused_train_aggregation
+
+As the JAX trainer does, it resumes from the latest checkpoint in
+``--train_dir`` when there is one (``--start_new_model`` wipes the directory
+first): the batch iterator starts again from the beginning with the same
+``--seed`` and its first batch trains the restored step, whose frames come
+from ``fold_in(key(seed), step)``.  It saves at every step that is a multiple
+of ``--save_checkpoint_every_n_steps`` and at the end, keeping the newest
+``--keep_checkpoint_max`` (0: all).
 
 It trains every registered model: the LF family (NetVLADModelLF,
 NetRVLADModelLF, NetFVModelLF, SoftDbofModelLF, NeXtVLADModel, with
 ``--netvlad_dimred``), DbofModel, FrameLevelLogisticModel, and LogisticModel
-and MoeModel on video-level input (without ``--frame_features``).  It takes every
-flag of the JAX CLI under its name and default (``cli_flags.py``);
-``--device`` (default ``cuda``) is the port's own.  With
-``--fused_train_aggregation`` the NetVLAD and NetRVLAD aggregations run the
-CUDA forward and backward kernels of ``ops/netvlad_train.py`` (NetRVLAD at
-zero C₂).  Frames are the ones the JAX step draws from the same ``--seed``,
-with or without ``--presample_frames`` and ``--sample_random_frames``
-(``core/step.py``); the port gathers them in uint8.  The weights start from
-``core/weights.py#init_variables_np(seed)``.  What the port does not take
-yet raises, naming its ROADMAP item: the attention family and the RNNs
-(``_NOT_TRAINED``), restoring a checkpoint (an existing ``variables.npz``
-without ``--start_new_model``), and the flags of
-``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export, checkpoint
-retention, a device mesh, grain, the native reader, the packed cache,
-profiling, remat, gradient accumulation, bf16 parameters, the RNN widths);
-the other optimizers and losses raise where they are built.
+and MoeModel on video-level input (without ``--frame_features``), with every
+``--optimizer`` and ``--label_loss`` of the JAX package and
+``--adam_bf16_momentum``.  It takes every flag of the JAX CLI under its name
+and default (``cli_flags.py``); ``--device`` (default ``cuda``) is the port's
+own.  With ``--fused_train_aggregation`` the NetVLAD and NetRVLAD
+aggregations run the CUDA forward and backward kernels of
+``ops/netvlad_train.py`` (NetRVLAD at zero C₂).  Frames are the ones the JAX
+step draws from the same ``--seed``, with or without ``--presample_frames``
+and ``--sample_random_frames`` (``core/step.py``); the port gathers them in
+uint8.  The weights start from ``core/weights.py#init_variables_np(seed)``.
+What the port does not take yet raises, naming its ROADMAP item: the
+attention family and the RNNs (``_NOT_TRAINED``), and the flags of
+``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export, a device mesh,
+grain, the native reader, the packed cache, profiling, remat, gradient
+accumulation, bf16 parameters, the fused Adam, the RNN widths).
 """
 
 from __future__ import annotations
@@ -45,15 +53,10 @@ import torch
 from learnablepoolingmethods_torch import cli_flags
 from learnablepoolingmethods_torch.config import FeatureConfig, TrainingConfig
 from learnablepoolingmethods_torch.core import optimizers
+from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager
 from learnablepoolingmethods_torch.core.step import TrainStep
 from learnablepoolingmethods_torch.core.train_state import TrainState
-from learnablepoolingmethods_torch.core.weights import (
-    NPZ_NAME,
-    init_variables_np,
-    load_flax_variables,
-    save_variables_npz,
-    state_dict_to_flax,
-)
+from learnablepoolingmethods_torch.core.weights import init_variables_np, load_flax_variables
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import make_reader
 from learnablepoolingmethods_torch.losses import get_loss_by_name
@@ -76,7 +79,7 @@ _NOT_TRAINED = {
 # #define_flags) and the port's --device: name → (default, help)
 _OWN_FLAGS = {
     "train_data_pattern": ("", "File glob for the training TFRecords."),
-    "train_dir": ("/tmp/yt8m_model/", "Directory for variables.npz."),
+    "train_dir": ("/tmp/yt8m_model/", "Directory for checkpoints."),
     "start_new_model": (False, "Wipe train_dir and train from scratch."),
     "shuffle_buffer": (1024, "Shuffle buffer size."),
     "profile_dir": ("", "Capture a profiler trace here."),
@@ -115,6 +118,7 @@ def configs_from_args(args):
         regularization_penalty=args.regularization_penalty, label_loss=args.label_loss,
         num_epochs=args.num_epochs, max_steps=args.max_steps,
         save_checkpoint_every_n_steps=args.save_checkpoint_every_n_steps,
+        keep_checkpoint_max=args.keep_checkpoint_max, adam_bf16_momentum=args.adam_bf16_momentum,
         presample_frames=args.presample_frames,
     )
     return fcfg, mcfg, tcfg
@@ -122,12 +126,19 @@ def configs_from_args(args):
 
 class Trainer:
     """Single-device trainer (ref: train.py#Trainer).  ``history`` keeps the
-    metrics of every logged step."""
+    metrics of every logged step, ``state`` the live TrainState,
+    ``restored_step`` the step it resumed from (None: a fresh start),
+    ``restore_seconds`` and ``save_seconds`` (step → seconds) the
+    checkpoints' times."""
 
     def __init__(self, args):
         self.args = args
         self.train_dir = args.train_dir
         self.history: List[Dict[str, float]] = []
+        self.state = None
+        self.restored_step = None
+        self.restore_seconds = None
+        self.save_seconds: Dict[int, float] = {}
 
     def run(self) -> TrainState:
         args = self.args
@@ -139,17 +150,19 @@ class Trainer:
         if args.start_new_model and os.path.exists(self.train_dir):
             log.info("%s: removing existing train dir", TASK)
             shutil.rmtree(self.train_dir)
-        if os.path.exists(os.path.join(self.train_dir, NPZ_NAME)):
-            raise NotImplementedError(
-                f"{self.train_dir} holds {NPZ_NAME}: restoring a checkpoint is not ported yet "
-                "(ROADMAP item 13); pass --start_new_model to train from scratch"
-            )
         os.makedirs(self.train_dir, exist_ok=True)
 
         model = create_model(args.model, mcfg, fcfg.total_size)
         load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=args.seed, model_name=args.model))
         model.to(device)
-        state = TrainState.create(model, tcfg)
+        state = self.state = TrainState.create(model, tcfg)
+        mngr = CheckpointManager(self.train_dir, keep=tcfg.keep_checkpoint_max or None)
+        latest = mngr.latest_step()
+        if latest is not None:
+            t0 = time.perf_counter()
+            state.load_state_tree(mngr.restore(latest, like=state.state_tree()))
+            self.restored_step, self.restore_seconds = state.step, time.perf_counter() - t0
+            log.info("%s: restored checkpoint at step %d", TASK, state.step)
         train_step = TrainStep(loss_obj, tcfg, mcfg, fcfg.frame_features)
         key = prng.key(args.seed)
         log.info("%s: %s on %s, %d parameters", TASK, args.model, device,
@@ -173,9 +186,9 @@ class Trainer:
                 self._log(state.step, metrics, batch["labels"], lr_schedule, last_log_time, last_log_step)
                 last_log_time, last_log_step = time.time(), state.step
             if state.step % tcfg.save_checkpoint_every_n_steps == 0:
-                self._save(state)
-        self._save(state)
-        log.info("%s: done; final variables at step %d", TASK, state.step)
+                self._save(mngr, state)
+        self._save(mngr, state)
+        log.info("%s: done; final checkpoint at step %d", TASK, state.step)
         return state
 
     def _log(self, step, metrics, labels, lr_schedule, since, since_step):
@@ -193,9 +206,11 @@ class Trainer:
         self.history.append({"step": step, "loss": loss, "hit1": hit1, "perr": perr, "gap": gap,
                              "examples_per_sec": eps})
 
-    def _save(self, state):
-        path = save_variables_npz(state_dict_to_flax(state.model), self.train_dir)
-        log.info("%s: wrote %s at step %d", TASK, path, state.step)
+    def _save(self, mngr: CheckpointManager, state: TrainState):
+        t0 = time.perf_counter()
+        if mngr.save(state.step, state.state_tree()):
+            self.save_seconds[state.step] = time.perf_counter() - t0
+            log.info("%s: saved checkpoint at step %d", TASK, state.step)
 
 
 def main(argv=None) -> Trainer:

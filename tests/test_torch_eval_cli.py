@@ -1,7 +1,9 @@
 """The port's eval CLI and the model-forward route of its inference CLI ≡
 the JAX package's CLIs, on the CPU, on the same synthetic TFRecords and
-the same weights (a ``variables.npz`` for the port, a ``CheckpointManager``
-checkpoint for JAX, as tests/integration/test_eval_api.py writes one).
+the same weights (a weights-only ``variables.npz`` for the port, a
+``CheckpointManager`` checkpoint for JAX, as tests/integration/test_eval_api.py
+writes one, each in a train_dir of its own: the two packages' checkpoints
+share the directory name ``checkpoints/``).
 
 The JAX CLIs run in a subprocess each: tests/integration/test_eval_api.py
 owns the absl flag namespace of this process under xdist.  Each subprocess
@@ -33,7 +35,8 @@ from learnablepoolingmethods_tpu.core import step as jstep
 from learnablepoolingmethods_tpu.models import create_model as jcreate
 from learnablepoolingmethods_torch import eval as teval
 from learnablepoolingmethods_torch import inference
-from learnablepoolingmethods_torch.core.weights import save_variables_npz
+from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager
+from learnablepoolingmethods_torch.core.weights import load_variables_npz, save_variables_npz
 from learnablepoolingmethods_torch.data import fixtures
 
 V, D_RGB, D_AUDIO, MAXF, N_RECORDS = 16, 1024, 2, 8, 20
@@ -54,6 +57,8 @@ EVAL_CASES = {
     "DbofModel-fast_eval": ("DbofModel", ["--fast_eval"]),
     "NetVLADModelLF-fast_forward-fast_eval": ("NetVLADModelLF", ["--fast_forward", "--fast_eval"]),
     "LogisticModel": ("LogisticModel", []),
+    "LogisticModel-HingeLoss": ("LogisticModel", ["--label_loss=HingeLoss"]),
+    "NetVLADModelLF-SoftmaxLoss": ("NetVLADModelLF", ["--label_loss=SoftmaxLoss"]),
 }
 
 _JAX_EVAL = """
@@ -90,7 +95,8 @@ def _run_jax(code: str, payload) -> str:
 
 def _save(root, model_name, frame, x, nf=None):
     """Weights of ``model_name`` as a JAX checkpoint and as the port's
-    variables.npz, in one train_dir.  BN statistics move off their initial
+    variables.npz, in train_dirs ``jax/<model>`` and ``port/<model>``.
+    BN statistics move off their initial
     values, and DbofModel's MoE bias off zero: with a zero bias every class
     of a video whose hidden layer relu6 zeroes has the same probability,
     and the reference's PERR is defined only up to the order of ties (its
@@ -106,12 +112,13 @@ def _save(root, model_name, frame, x, nf=None):
         params = jax.tree.map(lambda p: p, params)
         bias = params["MoeModel_0"]["experts_bias"]
         params["MoeModel_0"]["experts_bias"] = bias + rng.normal(scale=0.5, size=bias.shape).astype(np.float32)
-    train_dir = os.path.join(root, model_name)
-    mngr = ckpt_lib.CheckpointManager(train_dir)
+    mngr = ckpt_lib.CheckpointManager(os.path.join(root, "jax", model_name))
     mngr.save(7, {"params": params, "batch_stats": stats})
     mngr.close()
-    save_variables_npz(jax.tree.map(np.asarray, {"params": params, "batch_stats": stats}), train_dir)
-    return train_dir
+    port_dir = os.path.join(root, "port", model_name)
+    os.makedirs(port_dir)
+    save_variables_npz(jax.tree.map(np.asarray, {"params": params, "batch_stats": stats}), port_dir)
+    return model_name
 
 
 @pytest.fixture(scope="module")
@@ -132,16 +139,21 @@ def setup(tmp_path_factory):
     return {"root": root, "frames": frames, "videos": videos, "dirs": dirs}
 
 
-def _eval_argv(setup, model_name, extra):
+def _train_dir(setup, model_name, package="port"):
+    return os.path.join(setup["root"], package, model_name)
+
+
+def _eval_argv(setup, model_name, extra, package="port"):
     data = setup["videos"] if model_name == "LogisticModel" else setup["frames"]
     feats = VIDEO_FLAGS if model_name == "LogisticModel" else FRAME_FLAGS
     return (MODEL_FLAGS + feats + extra + [f"--model={model_name}", f"--eval_data_pattern={data}",
-                                            f"--train_dir={setup['dirs'][model_name]}", "--run_once"])
+                                            f"--train_dir={_train_dir(setup, model_name, package)}",
+                                            "--run_once"])
 
 
 @pytest.fixture(scope="module")
 def jax_eval(setup):
-    payload = {case: _eval_argv(setup, *spec) for case, spec in EVAL_CASES.items()}
+    payload = {case: _eval_argv(setup, *spec, package="jax") for case, spec in EVAL_CASES.items()}
     line = next(ln for ln in _run_jax(_JAX_EVAL, payload).splitlines() if ln.startswith("RESULT "))
     return json.loads(line[len("RESULT "):])
 
@@ -181,41 +193,46 @@ def test_fast_eval_agrees_with_the_default_accumulator(setup, model_name, route)
 
 
 def test_eval_cli_refuses_what_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        _port_eval(setup, "NetVLADModelLF", ["--label_loss=HingeLoss"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        _port_eval(setup, "NetVLADModelLF", ["--reference_checkpoint=/some/ckpt"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
+        _port_eval(setup, "NetVLADModelLF", ["--int8_hidden"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
+        _port_eval(setup, "NetVLADModelLF", ["--bf16_params"])
     with pytest.raises(ValueError, match="needs --frame_features"):
         teval.main(MODEL_FLAGS + VIDEO_FLAGS + ["--model=DbofModel", "--fast_forward", "--run_once",
                                                 f"--eval_data_pattern={setup['videos']}",
-                                                f"--train_dir={setup['dirs']['DbofModel']}",
+                                                f"--train_dir={_train_dir(setup, 'DbofModel')}",
                                                 "--device=cpu"])
 
 
 def test_eval_polls_and_evaluates_again_when_the_weights_change(setup, tmp_path, monkeypatch):
-    """Without --run_once the CLI waits for variables.npz, evaluates it,
-    skips a poll where it is unchanged and evaluates it again after it is
-    rewritten; summaries go to <train_dir>/eval."""
-    src = os.path.join(setup["dirs"]["LogisticModel"], "variables.npz")
-    weights = dict(np.load(src))
+    """Without --run_once the CLI waits for a checkpoint, evaluates its
+    latest step, skips a poll where no new step appeared, evaluates the
+    next step once it is saved, and writes each summary to <train_dir>/eval
+    at the step it evaluated."""
+    weights = load_variables_npz(_train_dir(setup, "LogisticModel"))
     train_dir = str(tmp_path / "td")
-    os.makedirs(train_dir)
-    target = os.path.join(train_dir, "variables.npz")
-    infos = []
+    mngr = CheckpointManager(train_dir)
+    infos, summaries = [], []
     real_evaluate = teval.evaluate_checkpoint
 
     def evaluate(*args, **kw):
         infos.append(real_evaluate(*args, **kw))
         return infos[-1]
 
+    class Writer(teval.MetricWriter):
+        def epoch_summary(self, step, info):
+            summaries.append(step)
+            super().epoch_summary(step, info)
+
     class Stop(Exception):
         pass
 
-    def write(scale):
-        np.savez(target, **{k: v * scale if k.endswith("kernel") else v for k, v in weights.items()})
-        os.utime(target, ns=(len(infos) + 10**18, len(infos) + 10**18))
+    def save(step, scale):
+        tree = {"params": {"fc": {k: v * scale if k == "kernel" else v
+                                  for k, v in weights["params"]["fc"].items()}}}
+        mngr.save(step, {f"params/fc/{k}": v for k, v in tree["params"]["fc"].items()})
 
-    sleeps = iter([lambda: write(1.0), lambda: None, lambda: write(3.0)])
+    sleeps = iter([lambda: save(5, 1.0), lambda: None, lambda: save(9, 3.0)])
 
     def sleep(_secs):
         step = next(sleeps, None)
@@ -224,12 +241,14 @@ def test_eval_polls_and_evaluates_again_when_the_weights_change(setup, tmp_path,
         step()
 
     monkeypatch.setattr(teval, "evaluate_checkpoint", evaluate)
+    monkeypatch.setattr(teval, "MetricWriter", Writer)
     monkeypatch.setattr(teval.time, "sleep", sleep)
     argv = _eval_argv(setup, "LogisticModel", [])
     argv = [a for a in argv if a not in ("--run_once",) and not a.startswith("--train_dir")]
     with pytest.raises(Stop):
         teval.main(argv + [f"--train_dir={train_dir}", "--device=cpu", "--poll_interval_secs=1"])
     assert len(infos) == 2 and infos[0]["avg_loss"] != infos[1]["avg_loss"]
+    assert summaries == [5, 9]
     assert os.listdir(os.path.join(train_dir, "eval"))
 
 
@@ -245,7 +264,7 @@ def jax_csvs(setup):
     for case, (model_name, feats, data) in INFERENCE_CASES.items():
         out[case] = os.path.join(setup["root"], f"jax-{case}.csv")
         argvs.append(MODEL_FLAGS + feats + [f"--model={model_name}", f"--input_data_pattern={setup[data]}",
-                                            f"--train_dir={setup['dirs'][model_name]}",
+                                            f"--train_dir={_train_dir(setup, model_name, 'jax')}",
                                             f"--output_file={out[case]}"])
     _run_jax(_JAX_INFERENCE, argvs)
     return out
@@ -269,7 +288,7 @@ def test_model_forward_inference_cli_writes_the_jax_csv(setup, jax_csvs, tmp_pat
     out = str(tmp_path / "port.csv")
     written = inference.main(MODEL_FLAGS + feats + [
         f"--model={model_name}", f"--input_data_pattern={setup[data]}",
-        f"--train_dir={setup['dirs'][model_name]}", f"--output_file={out}", "--device=cpu"])
+        f"--train_dir={_train_dir(setup, model_name)}", f"--output_file={out}", "--device=cpu"])
     got, want = _rows(out), _rows(jax_csvs[case])
     assert written == N_RECORDS and sorted(got) == sorted(want)
     for vid, (ids, vals) in want.items():

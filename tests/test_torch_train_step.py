@@ -2,7 +2,7 @@
 CPU: three steps of make_train_step (presample_frames) from the same
 variables, batches and seed; per-tensor clipping, the learning-rate
 schedule and Adam against their optax counterparts; the train CLI writing a
-variables.npz that the inference CLI reads."""
+checkpoint that the inference CLI reads."""
 
 import dataclasses
 
@@ -23,6 +23,7 @@ from learnablepoolingmethods_tpu.models import create_model as jcreate
 from learnablepoolingmethods_torch import inference, losses, train
 from learnablepoolingmethods_torch.config import ModelConfig, TrainingConfig
 from learnablepoolingmethods_torch.core import optimizers, weights
+from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager
 from learnablepoolingmethods_torch.core import step as tstep
 from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.data import fixtures
@@ -184,7 +185,9 @@ def test_train_cli_writes_variables_the_inference_cli_reads(tmp_path):
     ])
     assert [h["step"] for h in trainer.history] == [1, 2, 3]
     assert all(np.isfinite(h["loss"]) for h in trainer.history)
-    tree = weights.load_variables_npz(train_dir)
+    mngr = CheckpointManager(train_dir)
+    assert mngr.all_steps() == [2, 3]
+    tree = mngr.variables(3)
     assert set(tree) == {"params", "batch_stats"} and "NetVLAD_1" in tree["params"]
     out = str(tmp_path / "predictions.csv")
     n = inference.main(CLI_FLAGS + [
@@ -201,11 +204,11 @@ def test_train_cli_writes_variables_the_inference_cli_reads(tmp_path):
 @pytest.mark.parametrize("flag, error", [
     ("--grad_accum_steps=2", NotImplementedError),
     ("--bf16_params", NotImplementedError),
-    ("--optimizer=MomentumOptimizer", NotImplementedError),
-    ("--label_loss=HingeLoss", NotImplementedError),
+    ("--use_remat", NotImplementedError),
+    ("--fused_adam", NotImplementedError),
     ("--model=LstmModel", NotImplementedError),
     ("--model=TransformerEncoderModel", NotImplementedError),
-    ("--keep_checkpoint_max=3", NotImplementedError),
+    ("--int8_hidden", NotImplementedError),
     ("--export_model_steps=10", NotImplementedError),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, error):
@@ -217,11 +220,16 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, error):
 
 
 def test_train_cli_refuses_to_overwrite_a_checkpoint(tmp_path):
+    """A second run on the same directory resumes from its checkpoint
+    instead of overwriting it; --start_new_model starts again from step 0."""
     data = str(tmp_path / "train-0.tfrecord")
     fixtures.write_frame_level_fixture(data, 2, num_classes=20, max_frames=10, seed=1)
     args = CLI_FLAGS + [f"--train_data_pattern={data}", f"--train_dir={tmp_path}/m",
-                        "--batch_size=2", "--max_steps=1"]
-    train.main(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        train.main(args)
-    train.main(args + ["--start_new_model"])
+                        "--batch_size=2", "--num_epochs=0"]
+    first = train.main(args + ["--max_steps=1"])
+    assert first.restored_step is None
+    second = train.main(args + ["--max_steps=2"])
+    assert second.restored_step == 1
+    assert CheckpointManager(f"{tmp_path}/m").all_steps() == [1, 2]
+    fresh = train.main(args + ["--max_steps=1", "--start_new_model"])
+    assert fresh.restored_step is None and CheckpointManager(f"{tmp_path}/m").all_steps() == [1]

@@ -7,7 +7,7 @@ interpret mode), NetFVModelLF (also --fv_couple_weights), SoftDbofModelLF,
 NeXtVLADModel, DbofModel (BN on and off, max and average pooling),
 FrameLevelLogisticModel, and LogisticModel and MoeModel on video-level
 input; --netvlad_dimred; then the train CLI end to end for each model,
-its variables.npz read back by the port's eval CLI."""
+its checkpoint read back by the port's eval CLI."""
 
 from unittest import mock
 
@@ -31,6 +31,7 @@ from learnablepoolingmethods_torch import inference, losses, train
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig, TrainingConfig
 from learnablepoolingmethods_torch.core import step as tstep
 from learnablepoolingmethods_torch.core import weights
+from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager
 from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.data import fixtures
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
@@ -453,7 +454,7 @@ def cli_data(tmp_path_factory):
 @pytest.mark.parametrize("run", sorted(CLI_RUNS))
 def test_train_cli_trains_and_the_eval_cli_reads_the_weights(cli_data, tmp_path, run):
     """Two steps of the train CLI on the CPU, then the port's eval CLI
-    (--run_once) on the variables.npz it wrote."""
+    (--run_once) on the checkpoint it wrote."""
     model_name, extra = CLI_RUNS[run]
     flags = [f"--model={model_name}", *CLI_SMALL, *(VIDEO_FLAGS if extra is None else FRAME_FLAGS + extra)]
     data = cli_data["video" if extra is None else "frame"]
@@ -462,7 +463,7 @@ def test_train_cli_trains_and_the_eval_cli_reads_the_weights(cli_data, tmp_path,
                                   "--max_steps=2", "--log_every_n_steps=1"])
     assert [h["step"] for h in trainer.history] == [1, 2]
     assert all(np.isfinite(h["loss"]) for h in trainer.history)
-    tree = weights.load_variables_npz(train_dir)
+    tree = CheckpointManager(train_dir).variables(2)
     head = "LogisticModel_0" if "logistic-head" in run else "MoeModel_0"
     assert model_name in VIDEO_LEVEL + ("FrameLevelLogisticModel",) or head in tree["params"]
     info = eval_cli.main(flags + [f"--eval_data_pattern={data}", f"--train_dir={train_dir}", "--run_once"])
@@ -479,7 +480,7 @@ def test_train_cli_starts_from_the_models_own_weights(cli_data, tmp_path):
     args = train.build_parser().parse_args(flags)
     fcfg, mcfg, _ = train.configs_from_args(args)
     want = weights.init_variables_np(mcfg, fcfg, seed=3, model_name="DbofModel")["params"]
-    got = weights.load_variables_npz(f"{tmp_path}/m")["params"]
+    got = CheckpointManager(f"{tmp_path}/m").variables(1)["params"]
     assert _leaves(got).keys() == _leaves(want).keys()
     for path, w in _leaves(want).items():
         np.testing.assert_array_equal(_leaves(got)[path], w, err_msg=path)
