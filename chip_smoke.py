@@ -30,6 +30,20 @@ error, and prints one JSON line per phase:
               bf16 rows, D=1024, K=256), checked and timed; times at B=512,
               S=30 and S=300 with CUDA events, the two-pass aggregation's
               beside the one-pass one's;
+   fused_adam FusedAdam (csrc/fused_adam.cu) against its plain version on
+              the same Philox bits: the whole Willow tree (306.6M bf16
+              parameters, clip 1) and edge leaves (1, 7, 1,023 entries, one
+              off the vector width and off the 16-byte grid, an f32 leaf,
+              non-finite and near-max entries), with and without the clip;
+              m bit for bit, p and ν on a bf16 neighbour of the plain f32
+              value, a second launch bit for bit, SR-ν within 1 % of the
+              f32 EMA over 300 steps; its time beside the bound, the plain
+              version, the eager f32 Adam and torch's fused Adam (context);
+   int8_matmul
+              the W8A16 kernel (csrc/int8_matmul.cu) against its plain
+              version at the --int8_hidden FC shapes, B 1, 32, 256, 512, the
+              bias fused, K=4,112 with a zero column (INT8_GATE); times at the
+              Willow rgb FC beside the bound and cuBLAS bf16;
 4. e2e        full-width Willow GatedNetVLAD-256 weights from a seed (hidden
               FC 278528×1024, V=3862, M=2, BN stats perturbed) and 96
               synthetic videos driven down two paths, each with the launch
@@ -40,6 +54,10 @@ error, and prints one JSON line per phase:
               netvlad_fused twice per batch.  The fused and plain routes then
               run on the same batches and sampled indices; the three routes'
               probabilities must agree within 1e-2;
+   int8_e2e   the inference CLI with --fast_infer --int8_hidden on the same
+              weights and videos (the W8A16 kernel twice a batch), within
+              5e-2 of the bf16 route's probabilities; videos/s at B=256 and
+              512, int8 beside bf16;
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -89,6 +107,13 @@ error, and prints one JSON line per phase:
               each model's f32 step-1 loss on the card within 1e-5 of the
               CPU's, no other launch, the eval CLI reading each
               checkpoint back with a finite GAP;
+   train_12b  the train CLI at Willow training's settings with
+              --bf16_params, --fused_adam, --bf16_params --grad_accum_steps=2
+              and --use_remat (TRAIN_12B_RUNS), launch counts per mode; the
+              first update against the CPU's (first_update_gap), each mode's
+              checkpoint restored bit for bit, remat's losses and BN
+              statistics within REMAT_GATE of no remat, eval --fast_forward
+              on the bf16 checkpoint; step ms and peak memory per mode;
 8. train_throughput
               the train step at B=256, S=30, bf16, fused: videos/s (the median
               of five rounds), forward, backward and optimizer ms, peak
@@ -185,7 +210,9 @@ error, and prints one JSON line per phase:
               NetRVLAD-256 fused, DbofModel-8192, NetFV-256), each through
               eval --fast_forward (rows 2 and 5 twice a batch for the LF
               two) against the f32 plain route: GAP >= 0.3, |ΔGAP| <= 1e-3,
-              --fast_eval within 1e-5.
+              --fast_eval within 1e-5; and eval --fast_forward --int8_hidden
+              on NetVLADModelLF, NetRVLAD-256 and NetFV-256 within GAP_BUDGET
+              of their bf16 route (the W8A16 kernel 2 or 4 times a batch).
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -248,11 +275,28 @@ from learnablepoolingmethods_torch.ops.fast_infer import (
     prepare_fast_params,
     staged_frames,
 )
+from learnablepoolingmethods_torch.ops.fused_adam import (
+    AdamConsts,
+    adam_leaf_f32,
+    clip_scale,
+    fused_adam_kernel,
+    fused_adam_plain,
+    leaf_sumsq,
+    random_bits,
+    stochastic_round_bf16,
+)
 from learnablepoolingmethods_torch.ops.fused_frontend import (
     gather_frames,
     netvlad_frontend,
     netvlad_frontend_reference,
     sample_indices,
+)
+from learnablepoolingmethods_torch.ops.int8_matmul import (
+    device_weight,
+    int8_geometry,
+    matmul_wi8,
+    matmul_wi8_plain,
+    quantize_weight_int8,
 )
 from learnablepoolingmethods_torch.ops.masked_attention import (
     masked_attention_fused,
@@ -360,6 +404,17 @@ KERNELS = {
         fn=masked_attention_fused,
         source="learnablepoolingmethods_torch/csrc/masked_attention.cu",
         replaces="learnablepoolingmethods_tpu/ops/fast_transformer.py:108",
+    ),
+    "fused_adam": dict(
+        fn=fused_adam_kernel,
+        source="learnablepoolingmethods_torch/csrc/fused_adam.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fused_adam.py:111 FusedAdam.fused_apply "
+                 "(XLA fusion, no pallas_call)",
+    ),
+    "int8_matmul": dict(
+        fn=matmul_wi8,
+        source="learnablepoolingmethods_torch/csrc/int8_matmul.cu",
+        replaces="learnablepoolingmethods_tpu/ops/int8_matmul.py:62 matmul_wi8 (XLA fusion, no pallas_call)",
     ),
 }
 TRAIN_KERNELS = ("netvlad_aggregate_forward", "netvlad_aggregate_backward")
@@ -472,7 +527,7 @@ def phase_env():
 
 
 # the sources whose kernels nvcc's -Xptxas -v reports in the build phase
-PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train", "netfv_fused")
+PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train", "netfv_fused", "fused_adam", "int8_matmul")
 
 
 def phase_build():
@@ -1117,7 +1172,7 @@ def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, bat
         end.synchronize()
         rounds.append(start.elapsed_time(end) / 5)
     stages = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
-    for _ in range(5):
+    for _ in range(5 if step.accum == 1 else 0):  # an accumulated step has no single forward
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         total = step.loss(state, batch, key)[0]
@@ -1133,7 +1188,7 @@ def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, bat
     line = {"B": b, "S": mcfg.iterations if frame_features and model.samples_frames else None,
             "videos_per_s": b / (step_ms / 1e3), "step_ms": step_ms,
             "videos_per_s_rounds": [b / (ms / 1e3) for ms in rounds],
-            **{stage: statistics.median(v) for stage, v in stages.items()},
+            **{stage: statistics.median(v) if v else None for stage, v in stages.items()},
             "parameters": sum(p.numel() for p in model.parameters()),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     return line, lambda: step(state, batch, key)
@@ -2348,6 +2403,9 @@ def phase_eval_e2e(dev, workdir, smi):
           "metrics": infos, "abs_gap_delta_bf16_vs_f32": delta, "budget": GAP_BUDGET,
           "tpu_bf16_delta_for_context": EVAL_TPU_DELTA["NetVLADModelLF"], "launches_per_run": paths,
           "card": smi})
+    for n, c in int8_eval("NetVLADModelLF", data, train_dir, [], infos["fast_forward_bf16/default"]["gap"],
+                          n_batches, "netvlad_frontend", 2, smi).items():
+        launches[n] += c
 
     # the model-forward inference CLI with the training forward kernel
     out_csv = os.path.join(workdir, "model_forward.csv")
@@ -2434,6 +2492,11 @@ EVAL_ARMS = {
 }
 
 
+# the arms whose eval also runs --int8_hidden: model → W8A16 launches a batch
+# (NetRVLAD one slice per modality, NetFV two: fv1 and fv2)
+INT8_ARMS = {"NetRVLADModelLF": 2, "NetFVModelLF": 4}
+
+
 def f32_plain_route(name: str, tree, mcfg: ModelConfig, dev):
     """(fast params, fn) of ``name``'s f32 fast route without kernels."""
     variables = convert_flax_variables(tree, mcfg, name)
@@ -2460,6 +2523,10 @@ def eval_arm(dev, data: str, workdir: str, smi, batches, name: str, overrides, f
     want = {run: {**none, **({kernel: 2 * len(batches)} if kernel else {})} for run in paths}
     if paths != want:
         raise AssertionError(f"{name} eval launches {paths}, expected {want}")
+    if name in INT8_ARMS:
+        for n, c in int8_eval(name, data, train_dir, flags, infos["fast_forward_bf16/default"]["gap"],
+                              len(batches), kernel, INT8_ARMS[name], smi).items():
+            launches[n] += c
     tree = load_variables_npz(train_dir)
     fp, fn = f32_plain_route(name, tree, mcfg, dev)
     infos["fast_plain_f32"] = route_metrics(batches, lambda x, n, k: fn(fp, x, n, k))
@@ -2482,6 +2549,542 @@ def eval_arm(dev, data: str, workdir: str, smi, batches, name: str, overrides, f
     return launches
 
 
+
+# ---- item 12b: FusedAdam and the W8A16 hidden FC ---------------------------
+
+# SR-ν over FUSED_ADAM_EMA_STEPS constant-gradient steps within this share
+# of the exact f32 EMA (the JAX package's test_sr_nu_tracks_ema_where_
+# deterministic_bf16_stalls)
+FUSED_ADAM_EMA_STEPS, FUSED_ADAM_EMA_GATE = 300, 0.01
+
+
+def willow_leaves(dev, dtype=torch.bfloat16, seed: int = 5):
+    """Every parameter of full-width Willow NetVLADModelLF (306.6M) as a
+    random (g, p, m, ν) leaf on the card at the scales of training: p at
+    its initialiser's scale, g ~ 1e-3·N(0, 1) (so the per-leaf clip engages
+    on the large leaves), m ~ 1e-4·N(0, 1), ν ~ (1e-4·N(0, 1))²;
+    ``cluster_weights2``'s gradient in f32, as the fused aggregation
+    returns it."""
+    with torch.device("meta"):
+        shapes = [(n, tuple(p.shape)) for n, p in
+                  create_model("NetVLADModelLF", ModelConfig(), DT).named_parameters()]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    leaves = []
+    for name, shape in shapes:
+        fan = shape[0] if len(shape) > 1 else 1
+
+        def rnd(scale, dt=dtype):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+        g_dt = torch.float32 if name.endswith("cluster_weights2") else dtype
+        leaves.append((name, [rnd(1e-3, g_dt), rnd(fan ** -0.5), rnd(1e-4), rnd(1e-4).square()]))
+    return leaves
+
+
+def adam_edge_leaves(dev):
+    """Small leaves at the kernel's edges: 1, 7, 1,023 elements, one off the
+    vector width (8,193 elements at an odd offset, so the scalar path runs),
+    an f32 leaf, and a bf16 leaf whose p and ν hold ±inf, NaN, bf16 max and
+    the f32 values just below and above it."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for n in (1, 7, 1023, 8193):
+        base = torch.randn(n + 1, generator=gen, device=dev)
+        leaf = [(base[1:] if n == 8193 else base[:n]) * s for s in (1e-2, 0.05, 1e-3, 1e-3)]
+        leaf[3] = leaf[3].square()
+        out.append((f"n{n}", [t.to(torch.bfloat16) for t in leaf]))
+        if n == 8193:  # a view one element in: its pointer is off the 16-byte grid
+            storage = [torch.empty(n + 1, dtype=torch.bfloat16, device=dev) for _ in range(4)]
+            for s, t in zip(storage, out[-1][1]):
+                s[1:] = t
+            out[-1] = (f"n{n}-unaligned", [s[1:] for s in storage])
+    out.append(("f32", [torch.randn(4099, generator=gen, device=dev) * s for s in (1e-2, 0.05, 1e-3, 1e-6)]))
+    special = torch.tensor([float("inf"), float("-inf"), float("nan"), 3.3895313892515355e38,
+                            -3.3895313892515355e38, 3.4e38, 3.3895e38, 1.0], device=dev)
+    edge = [torch.full((8,), 1e-3, device=dev), special, torch.full((8,), 1e-3, device=dev), special.abs()]
+    out.append(("nonfinite", [t.to(torch.bfloat16) for t in edge]))
+    return out
+
+
+def bf16_neighbour(got: torch.Tensor, f32: torch.Tensor) -> torch.Tensor:
+    """Whether each bf16 entry of ``got`` is one of the two bf16 values
+    around ``f32`` (or equals its cast, where the guard takes over)."""
+    u = f32.float().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    lo = (u & 0xFFFF0000) >> 16
+    g = got.view(torch.int16).to(torch.int64) & 0xFFFF
+    return (g == lo) | (g == ((lo + 1) & 0xFFFF)) | (got.float() == f32.float().to(torch.bfloat16).float()) \
+        | (torch.isnan(got.float()) & torch.isnan(f32.float()))
+
+
+def run_fused_adam(route, leaves, consts, clip, count=3):
+    """A copy of ``leaves`` ((name, [g, p, m, ν]) pairs) after one step of
+    ``route`` (fused_adam_kernel or fused_adam_plain)."""
+    copies = [[t.clone() for t in leaf] for _, leaf in leaves]
+    route([c[0] for c in copies], [c[1] for c in copies], [c[2] for c in copies], [c[3] for c in copies],
+          consts, clip, True, 0, count)
+    return copies
+
+
+def check_fused_adam(name: str, leaves, clip, errors) -> dict:
+    """The kernel against its plain version on ``leaves`` from the same
+    bits: m equal bit for bit; p and ν on a bf16 neighbour of the plain
+    version's f32 value (p32, v32 formed op by op), with the share that
+    differs from the plain version's pick; a second launch equal bit for bit
+    to the first."""
+    consts = AdamConsts(1e-3, 3)
+    got = run_fused_adam(fused_adam_kernel, leaves, consts, clip)
+    again = run_fused_adam(fused_adam_kernel, leaves, consts, clip)
+    want = run_fused_adam(fused_adam_plain, leaves, consts, clip)
+    torch.cuda.synchronize()
+    differ = total = 0
+    for (leaf_name, (g, p, m, v)), gk, gk2, wp in zip(leaves, got, again, want):
+        for a, b in zip(gk, gk2):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"fused_adam {name}/{leaf_name}: a second launch differs")
+        if not torch.equal(gk[2].view(torch.uint8), wp[2].view(torch.uint8)):
+            raise AssertionError(f"fused_adam {name}/{leaf_name}: m differs from the plain version")
+        g32 = g.float()
+        if clip is not None:
+            g32 = g32 * clip_scale(leaf_sumsq(g32), clip)
+        p32, _, v32 = adam_leaf_f32(g32, p, m, v, consts.tensors(p.device))
+        for slot, ref in ((1, p32), (3, v32)):
+            if p.dtype == torch.float32:
+                same = (gk[slot] == ref) | (torch.isnan(gk[slot]) & torch.isnan(ref))
+                if not bool(same.all()):
+                    raise AssertionError(f"fused_adam {name}/{leaf_name}: f32 slot {slot} differs")
+                continue
+            if not bool(bf16_neighbour(gk[slot], ref).all()):
+                raise AssertionError(f"fused_adam {name}/{leaf_name}: slot {slot} off the bf16 neighbours")
+            differ += int((gk[slot].view(torch.int16) != wp[slot].view(torch.int16)).sum())
+            total += gk[slot].numel()
+        errors["fused_adam"] = max(errors.get("fused_adam", 0.0),
+                                   (gk[1].float() - wp[1].float()).abs().nan_to_num(0.0).max().item())
+    return {"share_p_nu_differ_from_plain": differ / max(total, 1), "entries": total}
+
+
+def sr_nu_ema(dev) -> dict:
+    """FUSED_ADAM_EMA_STEPS kernel steps at a constant gradient of 0.01 on a
+    [1024, 128] bf16 leaf at lr 0: the mean SR ν against the exact EMA
+    (1 − b2^n)·g², and deterministic ν (stochastic=False) beside it."""
+    g32 = float(torch.tensor(0.01, dtype=torch.bfloat16))
+    expect = (1 - 0.999 ** FUSED_ADAM_EMA_STEPS) * g32 * g32
+    out = {}
+    for stochastic in (True, False):
+        g = torch.full((1024, 128), 0.01, dtype=torch.bfloat16, device=dev)
+        p, m, v = (torch.zeros_like(g) for _ in range(3))
+        for count in range(FUSED_ADAM_EMA_STEPS):
+            fused_adam_kernel([g], [p], [m], [v], AdamConsts(0.0, count), None, stochastic, 0, count)
+        out["sr" if stochastic else "deterministic"] = abs(v.double().mean().item() - expect) / expect
+    return out
+
+
+def phase_fused_adam(dev, smi) -> tuple:
+    """FusedAdam (``csrc/fused_adam.cu``) against its plain version: on the
+    whole Willow tree (bf16, clip 1), on the edge leaves with and without the
+    clip, SR-ν's 300-step EMA; its time beside the bound (16 B a bf16
+    parameter), the plain version, the port's eager Adam on the f32 tree
+    (the default optimizer, with its clip) and torch.optim.Adam(fused=True)
+    on the same bf16 tensors (a different function: no per-leaf clip, no
+    stochastic rounding; context only)."""
+    errors = {}
+    leaves = willow_leaves(dev)
+    n_params = sum(leaf[1].numel() for _, leaf in leaves)
+    willow = check_fused_adam("willow", leaves, 1.0, errors)
+    edges = {clip: check_fused_adam(f"edges clip={clip}", adam_edge_leaves(dev), clip, errors)
+             for clip in (1.0, None)}
+    ema = sr_nu_ema(dev)
+    emit({"phase": "fused_adam", "parameters": n_params, "willow": willow,
+          "edges": {str(k): v for k, v in edges.items()}, "sr_nu_ema_rel_err": ema,
+          "ema_gate": FUSED_ADAM_EMA_GATE, "max_abs_err_p": errors["fused_adam"], "card": smi})
+    if ema["sr"] > FUSED_ADAM_EMA_GATE:
+        raise AssertionError(f"fused_adam: SR ν {ema['sr']:.4f} off the EMA (gate {FUSED_ADAM_EMA_GATE})")
+    names = [name for name, _ in leaves]
+    g, p, m, v = ([leaf[i] for _, leaf in leaves] for i in range(4))
+    del leaves
+    consts = AdamConsts(1e-3, 3)
+    ms = time_ms(lambda: fused_adam_kernel(g, p, m, v, consts, 1.0, True, 0, 3), reps=10)
+    plain_ms = time_ms(lambda: fused_adam_plain(g, p, m, v, consts, 1.0, True, 0, 3), reps=2, warmup=1)
+    bound = (fused_adam_hbm_bytes(p, g) / PEAK_BYTES * 1e3, "bytes")
+    lib = torch.optim.Adam(p, lr=1e-3, fused=True)
+    for t, gt in zip(p, g):
+        t.grad = gt.to(t.dtype)
+    library_ms = time_ms(lib.step, reps=10)
+    for t in p:
+        t.grad = None
+    del lib, g, m, v
+    torch.cuda.empty_cache()
+    f32 = [(name, t.float()) for name, t in zip(names, p)]
+    del p
+    eager = optimizers.create_optimizer(f32, TrainingConfig())
+    grads = [torch.randn_like(t) * 1e-3 for _, t in f32]
+    eager_ms = time_ms(lambda: eager.step(grads), reps=5, warmup=1)
+    del eager, grads, f32
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_adam_time", "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+          "eager_f32_adam_ms": eager_ms, "torch_fused_adam_bf16_ms_different_function": library_ms,
+          "parameters": n_params, "card": smi})
+    # no PyTorch call computes this function (the per-leaf clip, stochastic
+    # rounding): library_ms is null; torch's fused Adam above is context only
+    return errors, {"fused_adam": (ms, plain_ms, bound)}, {"fused_adam": None}
+
+
+def fused_adam_hbm_bytes(params, grads) -> int:
+    """Bytes of one step: g read twice (norm, update), p, m, ν read and
+    written once each."""
+    return sum(2 * g.numel() * g.element_size() + 6 * p.numel() * p.element_size()
+               for p, g in zip(params, grads))
+
+
+# the hidden FC products of the --int8_hidden routes: name → (K, N)
+INT8_SHAPES = {"willow_rgb": (D_RGB * K_RGB, 1024), "willow_audio": (D_AUD * K_AUD, 1024),
+               "netfv64_rgb": (2 * D_RGB * 64, 1024), "netfv64_audio": (2 * D_AUD * 32, 1024)}
+INT8_BATCHES = (1, 32, 256, 512)
+# |Δ| <= INT8_GATE · (|x|·|q|)·s per entry: the two f32 sums over K differ in
+# order only (the kernel: K/splits-long runs of 16-wide tensor-core steps,
+# then the splits in order; cuBLAS: its own blocking), and f32 summation of
+# K terms in any blocked order errs by at most about (log₂K + K/run)·2⁻²⁴ of
+# Σ|x·q| — 4.6e-6 at K = 262,144 over 9 splits; a dropped split moves an
+# entry by that split's whole share
+INT8_GATE = 1e-5
+
+
+def int8_inputs(gen, m: int, k: int, n: int, dev, zero_column: bool = False):
+    """x [m, k] bf16 at a pooled descriptor's scale (unit rows), a weight
+    quantized from N(0, 1/√(k/16)) with column 0 zero when asked, its scales
+    and a bias."""
+    x = (torch.randn(m, k, generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=gen, device=dev) * (k / 16) ** -0.5
+    if zero_column:
+        w[:, 0] = 0
+    q, s = quantize_weight_int8(w.cpu())
+    return x, device_weight(q, dev), torch.from_numpy(s).to(dev), torch.randn(n, generator=gen, device=dev)
+
+
+def check_int8(name, x, q, s, b, errors) -> float:
+    """The kernel against its plain version (INT8_GATE), with a second
+    launch equal bit for bit; returns the largest |Δ| over its allowance."""
+    want = matmul_wi8_plain(x, q, s, b)
+    got = matmul_wi8(x, q, s, b)
+    again = matmul_wi8(x, q, s, b)
+    # plus two f32 roundings of the result (the scale, the bias)
+    allow = INT8_GATE * (x.float().abs() @ q.float().abs()) * s.abs() + 2.0 ** -22 * want.abs()
+    diff = (got - want).abs()
+    if not torch.equal(got, again):
+        raise AssertionError(f"int8_matmul {name}: a second launch differs")
+    if not bool(torch.isfinite(got).all()) or not bool((diff <= allow + 1e-30).all()):
+        raise AssertionError(f"int8_matmul {name}: max |Δ|/allowance {(diff / (allow + 1e-30)).max().item():.3g}")
+    errors["int8_matmul"] = max(errors.get("int8_matmul", 0.0), diff.max().item())
+    return (diff / (allow + 1e-30)).max().item()
+
+
+def phase_int8_matmul(dev, smi) -> tuple:
+    """The W8A16 kernel (``csrc/int8_matmul.cu``) against its plain version
+    at the --int8_hidden shapes (INT8_SHAPES; AttentionNetVLAD's is Willow
+    rgb's, checked with the bias fused) for B in INT8_BATCHES, and at
+    K = 4,112 (not a multiple of the 64-deep tile), N = 200, with a zero
+    column; times at the Willow rgb FC for each B beside the bound and
+    cuBLAS bf16 on the weight dequantized once (library_ms)."""
+    errors, worst, times = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for name, (k, n) in {**INT8_SHAPES, "edge_k4112_n200": (4112, 200)}.items():
+        edge = name.startswith("edge")
+        x, q, s, b = int8_inputs(gen, 512, k, n, dev, zero_column=edge)
+        for m in (1, 37) if edge else INT8_BATCHES:
+            xm = x[:m].contiguous()
+            worst[f"{name} B={m}"] = check_int8(f"{name} B={m}", xm, q, s, None, errors)
+            if name == "willow_rgb":
+                worst[f"{name}+bias B={m}"] = check_int8(f"{name}+bias B={m}", xm, q, s, b, errors)
+        if name == "willow_rgb":
+            w_bf16 = q.float().to(torch.bfloat16)  # the library's operand: dequantized once, unscaled
+            for m in INT8_BATCHES:
+                xm = x[:m].contiguous()
+                ms = time_ms(lambda: matmul_wi8(xm, q, s))
+                plain_ms = time_ms(lambda: matmul_wi8_plain(xm, q, s), reps=5)
+                library_ms = time_ms(lambda: torch.matmul(xm, w_bf16))
+                flops, nbytes = 2 * m * k * n, k * n + m * k * 2 + m * n * 4 + n * 4
+                bound = max((flops / PEAK_BF16 * 1e3, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
+                times[m] = (ms, plain_ms, bound, library_ms)
+            del w_bf16
+        del x, q
+        torch.cuda.empty_cache()
+    k, n = INT8_SHAPES["willow_rgb"]
+    emit({"phase": "int8_matmul", "gate": INT8_GATE, "worst_diff_over_allowance": worst,
+          "times_willow_rgb": {f"B={m}": {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
+                                          "bound_by": t[2][1], "cublas_bf16_ms": t[3]}
+                               for m, t in times.items()},
+          "geometry": {f"B={m}": int8_geometry(m, n, k) for m in INT8_BATCHES}, "card": smi})
+    t = times[512]
+    return errors, {"int8_matmul": (t[0], t[1], t[2])}, {"int8_matmul": t[3]}
+
+
+
+# the train CLI's item-12b modes at Willow training's settings (B=256,
+# S=30, bf16 compute, --fused_train_aggregation), TRAIN_12B_STEPS steps each
+TRAIN_12B_RUNS = {"bf16_params": ["--bf16_params"], "fused_adam": ["--fused_adam"],
+                  "bf16_params_accum2": ["--bf16_params", "--grad_accum_steps=2"], "use_remat": ["--use_remat"]}
+TRAIN_12B_STEPS = 3
+TRAIN_12B_FLAGS = [f for f in TRAIN_FLAGS if not f.startswith("--max_steps")] + [
+    "--fused_train_aggregation", f"--max_steps={TRAIN_12B_STEPS}"]
+# --use_remat against the same steps without it: losses and BN statistics
+REMAT_GATE = 1e-6
+# FusedAdam's first update against the CPU on this many entries of each leaf
+FUSED_ADAM_CPU_SLICE = 1 << 22
+
+
+def first_update_gap(dev, args, configs, batch, tree) -> dict:
+    """The first update of ``args``' optimizer on the card against the same
+    update on the CPU from the same parameters and gradients (the card's, of
+    the CLI's first batch): for the f32 master each entry's |Δ| within
+    OPTIMIZER_GATE of the parameter's max |CPU delta| plus one f32 ulp of
+    its master (the clip norm's order moves u by ~1e-7 of itself, and
+    master + u may then round to the next f32); for FusedAdam the kernel against
+    the plain version — m bit for bit, p and ν on a bf16 neighbour of the
+    CPU's f32 value, and the share of p and ν entries whose pick differs
+    from the CPU's (on FUSED_ADAM_CPU_SLICE entries of each leaf)."""
+    fcfg, mcfg, tcfg = configs
+    model = load_flax_variables(create_model(args.model, mcfg, fcfg.total_size), tree).to(dev)
+    state = TrainState.create(model, tcfg)
+    step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, True)
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    if step.accum == 1:
+        grads = step_lib.gradients(step.loss(state, dbatch, prng.key(args.seed))[0], model)
+    else:
+        grads = step.accumulated(state, dbatch, prng.key(args.seed))[0]
+    names = [n for n, _ in model.named_parameters()]
+    p0 = [p.detach().cpu().clone() for p in model.parameters()]
+    cpu_grads = [g.cpu() for g in grads]
+    if tcfg.fused_adam:
+        tx = state.tx
+        m0 = [t.cpu().clone() for t in tx.m]
+        v0 = [t.cpu().clone() for t in tx.nu]
+        tx.step(grads)
+        k = AdamConsts(tx.schedule(0), 0).tensors("cpu")
+        differ = total = 0
+        for i, (p, name) in enumerate(zip(model.parameters(), names)):
+            # the first FUSED_ADAM_CPU_SLICE entries of each leaf (the clip
+            # from the whole leaf's norm): the CPU's plain arithmetic on 306M
+            # entries would take a minute
+            n = min(p.numel(), FUSED_ADAM_CPU_SLICE)
+            g32 = cpu_grads[i].float().reshape(-1)
+            if tx.clip_norm is not None:
+                g32 = g32 * clip_scale(leaf_sumsq(g32), tx.clip_norm)
+            p32, m32, v32 = adam_leaf_f32(g32[:n], p0[i].reshape(-1)[:n], m0[i].reshape(-1)[:n],
+                                          v0[i].reshape(-1)[:n], k)
+            got = [t.detach().reshape(-1)[:n].cpu() for t in (p, tx.m[i], tx.nu[i])]
+            if p.dtype != torch.bfloat16:
+                if not all(torch.equal(a, b) for a, b in zip(got, (p32, m32, v32))):
+                    raise AssertionError(f"fused_adam first update: the f32 leaf {name} differs from the CPU's")
+                continue
+            bits = random_bits(n, tx.seed, 0, i)
+            if not torch.equal(got[1].view(torch.int16), m32.to(torch.bfloat16).view(torch.int16)):
+                raise AssertionError(f"fused_adam first update: m of {name} differs from the CPU's")
+            for value, ref, pick in ((got[0], p32, stochastic_round_bf16(p32, bits)),
+                                     (got[2], v32, stochastic_round_bf16(v32, bits >> 16))):
+                if not bool(bf16_neighbour(value, ref).all()):
+                    raise AssertionError(f"fused_adam first update: {name} off the bf16 neighbours of the CPU's")
+                differ += int((value.view(torch.int16) != pick.view(torch.int16)).sum())
+                total += n
+        return {"share_p_nu_differ_from_cpu": differ / total, "entries": total}
+    got = state.tx.updates(grads)
+    cpu_tx = optimizers.create_optimizer(list(zip(names, p0)), tcfg)
+    want = cpu_tx.updates(cpu_grads)
+    # the delta is master + u − f32(p): the master's f32 add rounds at the
+    # master's own magnitude, so one ulp of it is allowed beside the gate
+    masters = cpu_tx.master if tcfg.fp32_master else [None] * len(want)
+    gaps, over = {}, {}
+    for n, u, w, m in zip(names, got, want, masters):
+        diff = (u.cpu() - w).abs()
+        gaps[n] = (diff.max() / w.abs().max().clamp(min=1e-30)).item()
+        ulp = 0.0 if m is None else torch.nextafter(m.abs(), torch.tensor(float("inf"))) - m.abs()
+        over[n] = (diff / (OPTIMIZER_GATE * w.abs().max().clamp(min=1e-30) + ulp)).max().item()
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    worst_over = max(over.items(), key=lambda kv: kv[1])
+    if worst_over[1] > 1.0:
+        raise AssertionError(f"{args.train_dir}: first update {worst_over} over its allowance "
+                             f"({OPTIMIZER_GATE} of max |Δ| plus one ulp of the master)")
+    return {"worst_rel_gap_card_vs_cpu": worst, "worst_over_allowance": worst_over, "limit": OPTIMIZER_GATE}
+
+
+def remat_gaps(dev, tree) -> dict:
+    """TRAIN_12B_STEPS in-process steps of Willow bf16 fused at B=256 from
+    ``tree`` with and without --use_remat on the same batches: the largest
+    |Δ| of the losses and of the BN statistics (REMAT_GATE: a second BN
+    update in the recompute moves every statistic by (1 − 0.999)·(batch −
+    running) again)."""
+    mcfg = ModelConfig(compute_dtype="bfloat16", fused_train_aggregation=True, presampled=True)
+    batches = [random_train_batch(np.random.default_rng(20 + i), 256, dev) for i in range(TRAIN_12B_STEPS)]
+    out = {}
+    for remat in (False, True):
+        tcfg = TrainingConfig(batch_size=256, use_remat=remat)
+        model = load_flax_variables(create_model("NetVLADModelLF", mcfg, DT), tree).to(dev)
+        state = TrainState.create(model, tcfg)
+        step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, True)
+        losses = [float(step(state, b, prng.key(0))["loss"]) for b in batches]
+        out[remat] = (losses, {n: b.clone() for n, b in model.named_buffers()})
+        del model, state
+        torch.cuda.empty_cache()
+    loss_gap = max(abs(a - b) for a, b in zip(out[False][0], out[True][0]))
+    stats_gap = max((out[False][1][n] - out[True][1][n]).abs().max().item() for n in out[False][1])
+    return {"loss_gap": loss_gap, "batch_stats_gap": stats_gap, "remat_losses": out[True][0]}
+
+
+def phase_train_12b(dev, workdir, smi) -> dict:
+    """Item 12b through the train CLI at Willow training's settings on
+    train_e2e's 512 videos, TRAIN_12B_STEPS steps of each TRAIN_12B_RUNS mode,
+    launch counters zeroed before each run and read after: the training
+    kernels twice a step per microbatch (the forward again in the
+    recompute under --use_remat), FusedAdam once a step.  Gates: finite
+    losses; the first update on the card against the CPU's
+    (first_update_gap); the final checkpoint restored into a fresh state
+    equal bit for bit to the run's live state; --use_remat's losses and BN
+    statistics within REMAT_GATE of the run without it (remat_gaps); the
+    eval CLI --fast_forward --bf16_params on the bf16 checkpoint, a finite
+    GAP.  Each mode's step ms (forward / backward / optimizer) and peak GiB
+    (train_throughput has the f32-Adam step's).  Returns {kernel: launches}."""
+    data = os.path.join(workdir, "train-0.tfrecord")
+    none = dict.fromkeys(KERNELS, 0)
+    launches = dict(none)
+    tree = None  # the CLI's initial weights: one seed and model for every run
+    for run, flags in TRAIN_12B_RUNS.items():
+        train_dir = os.path.join(workdir, f"12b-{run}")
+        argv = TRAIN_12B_FLAGS + flags + [f"--train_data_pattern={data}", f"--train_dir={train_dir}"]
+        reset_counters()
+        start = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - start
+        got = counters()
+        args = train.build_parser().parse_args(argv)
+        fcfg, mcfg, tcfg = configs = train.configs_from_args(args)
+        micro = TRAIN_12B_STEPS * 2 * tcfg.grad_accum_steps
+        want = {**none, "netvlad_aggregate_forward": micro * (2 if tcfg.use_remat else 1),
+                "netvlad_aggregate_backward": micro, "fused_adam": TRAIN_12B_STEPS if tcfg.fused_adam else 0}
+        if got != want:
+            raise AssertionError(f"train_12b {run}: launches {got}, expected {want}")
+        for n, c in got.items():
+            launches[n] += c
+        losses = [h["loss"] for h in trainer.history]
+        if len(losses) != TRAIN_12B_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"train_12b {run}: losses {losses}")
+        mngr = CheckpointManager(train_dir)
+        arrays = mngr.load_arrays(TRAIN_12B_STEPS)
+        bad = leaf_mismatches(trainer.state.state_tree(), arrays)
+        fresh = TrainState.create(create_model(args.model, mcfg, fcfg.total_size).to(dev), tcfg)
+        fresh.load_state_tree(mngr.restore(TRAIN_12B_STEPS, like=fresh.state_tree()))
+        bad += leaf_mismatches(fresh.state_tree(), arrays)
+        dtypes = sorted({d for _, d in arrays.values()})
+        if bad or fresh.step != TRAIN_12B_STEPS:
+            raise AssertionError(f"train_12b {run}: the checkpoint and its restore differ at {bad[:8]}")
+        del trainer, fresh, arrays
+        torch.cuda.empty_cache()
+        tree = zoo_init(args, configs) if tree is None else tree
+        start = time.perf_counter()
+        gate = first_update_gap(dev, args, configs, zoo_first_batch(args, configs, data), tree)
+        gate_s = time.perf_counter() - start
+        torch.cuda.empty_cache()
+        line, _ = time_train_step(dev, "NetVLADModelLF", dataclasses.replace(mcfg, presampled=True),
+                                  dataclasses.replace(tcfg, presample_frames=True),
+                                  random_train_batch(np.random.default_rng(2), 256, dev), tree=tree)
+        extra = {}
+        if run == "use_remat":
+            extra = remat_gaps(dev, tree)
+            if not (extra["loss_gap"] <= REMAT_GATE and extra["batch_stats_gap"] <= REMAT_GATE):
+                raise AssertionError(f"train_12b use_remat against no remat: {extra} (gate {REMAT_GATE})")
+        if run == "bf16_params":
+            reset_counters()
+            info = eval_cli.main(["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+                                  "--feature_sizes=1024,128", "--batch_size=64", "--device=cuda", "--bf16_params",
+                                  "--fast_forward", "--run_once", f"--eval_data_pattern={data}",
+                                  f"--train_dir={train_dir}"])
+            torch.cuda.synchronize()
+            ev = counters()
+            if not np.isfinite(info["gap"]) or ev != {**none, "netvlad_frontend": 8}:
+                raise AssertionError(f"train_12b: eval --fast_forward on the bf16 checkpoint: {info['gap']}, {ev}")
+            launches["netvlad_frontend"] += ev["netvlad_frontend"]
+            extra["eval_fast_forward_bf16_checkpoint"] = {k: float(info[k]) for k in EVAL_METRICS}
+        shutil.rmtree(train_dir)
+        emit({"phase": "train_12b", "run": run, "flags": flags, "cli_s": cli_s, "gate_s": gate_s, "losses": losses,
+              "launches": got, "checkpoint_dtypes": dtypes, "first_update": gate, **extra, **line,
+              "card": smi})
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_int8_e2e(dev, workdir, fp, smi) -> dict:
+    """--int8_hidden on Willow: the inference CLI with --fast_infer on
+    phase_e2e's weights and 96 videos (the front-end kernel once a batch,
+    the W8A16 kernel twice: rgb and audio), its probabilities against the
+    bf16 fused route's on the same frames (report, and within 5e-2); then
+    the fused route's videos/s at B=256 and 512 with the int8 hidden FC
+    beside the bf16 one (``fp``).  Returns {kernel: launches}."""
+    mcfg = ModelConfig()
+    data = os.path.join(workdir, "videos-0.tfrecord")
+    train_dir = os.path.join(workdir, "train")
+    out_csv = os.path.join(workdir, "predictions-int8.csv")
+    reset_counters()
+    start = time.perf_counter()
+    written = inference.main([
+        "--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+        "--feature_sizes=1024,128", f"--input_data_pattern={data}", f"--train_dir={train_dir}",
+        f"--output_file={out_csv}", "--batch_size=32", "--fast_infer", "--int8_hidden", "--device=cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - start
+    got = counters()
+    n_batches = -(-written // 32)
+    want = {**dict.fromkeys(KERNELS, 0), "netvlad_frontend": n_batches, "int8_matmul": 2 * n_batches}
+    if got != want:
+        raise AssertionError(f"int8_e2e: inference CLI launches {got}, expected {want}")
+    fp8 = prepare_fast_params(convert_flax_variables(load_variables_npz(train_dir), mcfg), mcfg,
+                              int8_hidden=True, device=dev)
+    batches = load_batches(data, dev)
+    fn = build_fast_netvlad_inference(mcfg, return_probs=True)
+    gap = (run_batches(batches, fp8, fn) - run_batches(batches, fp, fn)).abs().max().item()
+    if gap > 5e-2:
+        raise AssertionError(f"int8_e2e: int8 against bf16 probabilities {gap}")
+    csv = read_csv(out_csv, written, [{"video_id": v} for *_, vids in batches for v in vids])
+    check_csv_rows(csv, run_batches(batches, fp8, fn), batches, "fused int8")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rates = {}
+    for b in (256, 512):
+        x = torch.randint(0, 256, (b, F, DT), generator=gen, device=dev, dtype=torch.uint8)
+        nf = torch.randint(1, F + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        top = build_fast_netvlad_inference(mcfg, top_k=20)
+        for name, params in (("bf16", fp), ("int8", fp8)):
+            rounds = [time_ms(lambda: top(params, x, nf, prng.key(1)), reps=10) for _ in range(3)]
+            rates[f"B={b} {name}"] = b / (statistics.median(rounds) / 1e3)
+        del x
+    del fp8
+    torch.cuda.empty_cache()
+    emit({"phase": "int8_e2e", "part": "willow_inference", "videos": written, "cli_s": cli_s, "launches": got,
+          "max_abs_prob_gap_int8_vs_bf16": gap, "videos_per_s": rates, "card": smi})
+    return {"int8_matmul": got["int8_matmul"], "netvlad_frontend": got["netvlad_frontend"]}
+
+
+def int8_eval(name: str, data: str, train_dir: str, flags, bf16_gap: float, n_batches: int,
+              kernel, per_batch: int, smi) -> dict:
+    """The eval CLI --fast_forward --int8_hidden on a trained arm of
+    phase_eval_e2e: ``kernel`` (the route's pooling kernel) twice a batch and
+    the W8A16 kernel ``per_batch`` times; |ΔGAP| against the arm's bf16
+    --fast_forward GAP <= GAP_BUDGET.  Returns {kernel: launches}."""
+    reset_counters()
+    info = eval_cli.main(EVAL_CLI_FLAGS + flags + ["--fast_forward", "--int8_hidden", f"--model={name}",
+                                                   f"--eval_data_pattern={data}", f"--train_dir={train_dir}",
+                                                   "--run_once"])
+    torch.cuda.synchronize()
+    got = counters()
+    want = {**dict.fromkeys(KERNELS, 0), kernel: (n_batches if kernel == "netvlad_frontend" else 2 * n_batches),
+            "int8_matmul": per_batch * n_batches}
+    if got != want:
+        raise AssertionError(f"{name} eval --int8_hidden launches {got}, expected {want}")
+    delta = abs(float(info["gap"]) - bf16_gap)
+    emit({"phase": "int8_e2e", "part": "eval", "model": name, "gap_int8": float(info["gap"]),
+          "gap_bf16": bf16_gap, "abs_gap_delta_int8_vs_bf16": delta, "budget": GAP_BUDGET,
+          "metrics": {k: float(info[k]) for k in EVAL_METRICS}, "launches": got, "card": smi})
+    if delta > GAP_BUDGET:
+        raise AssertionError(f"{name}: |ΔGAP| of --int8_hidden against bf16 {delta} > {GAP_BUDGET}")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -2502,8 +3105,21 @@ def main() -> int:
     done("build")
     errors, timing = phase_kernels(dev, smi)
     shapes = dict.fromkeys(timing, "B=512 S=30")
+    e, t, library = phase_fused_adam(dev, smi)
+    errors.update(e)
+    timing.update(t)
+    shapes["fused_adam"] = "Willow NetVLADModelLF, 306.6M bf16 parameters, clip 1"
+    e, t, lib = phase_int8_matmul(dev, smi)
+    errors.update(e)
+    timing.update(t)
+    library.update(lib)
+    shapes["int8_matmul"] = "B=512, [512, 262144] x [262144, 1024] (Willow rgb hidden FC)"
+    done("fused_adam, int8_matmul")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         fp, launches = phase_e2e(dev, workdir)
+        launches.update(dict.fromkeys(("fused_adam", "int8_matmul"), 0))
+        for name, n in phase_int8_e2e(dev, workdir, fp, smi).items():
+            launches[name] = launches.get(name, 0) + n
     phase_throughput(dev, fp, smi)
     del fp
     done("kernels, e2e, throughput")
@@ -2521,6 +3137,9 @@ def main() -> int:
         for name, n in phase_train_zoo_e2e(dev, workdir, smi).items():
             launches[name] += n
         done("train_zoo_e2e")
+        for name, n in phase_train_12b(dev, workdir, smi).items():
+            launches[name] += n
+        done("train_12b")
     phase_train_throughput(dev, smi)
     done("train_throughput")
     phase_train_zoo_throughput(dev, smi)
@@ -2545,7 +3164,7 @@ def main() -> int:
     errors.update(e)
     timing.update(t)
     shapes.update(dict.fromkeys(t, "B={} F={} H={} hd={} bf16".format(*ATTN_TIMING)))
-    library = {"masked_attention_fused": library_ms}
+    library["masked_attention_fused"] = library_ms
     with tempfile.TemporaryDirectory(prefix="chip_smoke_attn_") as workdir:
         fps, attn_launches = phase_attn_e2e(dev, workdir, smi)
     for name, n in attn_launches.items():

@@ -110,17 +110,11 @@ _INGEST_ITEMS = dict.fromkeys(("num_readers", "use_grain", "grain_worker_count",
 _MESH_ITEMS = dict.fromkeys(("model_parallelism", "dcn_parallelism"), 15)
 
 # what each CLI does not port yet → ROADMAP.md queue-1 item
-INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = {
-    **_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
-    # the JAX CLI builds its model in bf16 with either
-    "bf16_params": "12b", "fused_adam": "12b",
-}
-EVAL_NOT_PORTED: Dict[str, Union[int, str]] = {**INFERENCE_NOT_PORTED, "int8_hidden": "12b"}
+INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = {**_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS}
+EVAL_NOT_PORTED: Dict[str, Union[int, str]] = dict(INFERENCE_NOT_PORTED)
 TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = {
     **_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
     "use_native_reader": 7, "profile_dir": 7,
-    "int8_hidden": "12b", "use_remat": "12b", "bf16_params": "12b", "fused_adam": "12b",
-    "grad_accum_steps": "12b",
     "export_model_steps": 14,
 }
 
@@ -156,10 +150,13 @@ def refuse_not_ported(args: argparse.Namespace, not_ported: Mapping[str, Union[i
 
 def model_config_from_args(args: argparse.Namespace, **overrides) -> ModelConfig:
     """ModelConfig from every flag that names one of its fields, the
-    vocabulary from ``--num_classes`` (as flags.py#model_config_from_flags
-    builds it), then ``overrides``."""
+    vocabulary from ``--num_classes`` and ``param_dtype`` bfloat16 under
+    ``--bf16_params`` or ``--fused_adam`` (as flags.py#model_config_from_flags
+    builds them), then ``overrides``."""
     kw = {f.name: getattr(args, f.name) for f in dataclasses.fields(ModelConfig)
           if hasattr(args, f.name)}
     kw["vocab_size"] = args.num_classes
+    # the JAX CLIs build the model in bf16 under either flag
+    kw["param_dtype"] = "bfloat16" if (args.bf16_params or args.fused_adam) else "float32"
     kw.update(overrides)
     return ModelConfig(**kw)

@@ -18,6 +18,9 @@ leaf is stored as its uint16 bits with ``"bfloat16"`` in the manifest
   previous checkpoint the latest.  The next save removes such leftovers.
 - ``keep`` follows ``--keep_checkpoint_max``: None or 0 keeps every step,
   N the newest N.
+- A checkpoint of ``--bf16_params`` holds bf16 parameters and the f32
+  master, one of ``--fused_adam`` bf16 parameters, m and ν; the eval and
+  inference CLIs read their parameters widened to f32 (exact).
 - :meth:`restore` puts every tensor on the caller's device and, given the
   live state, checks the leaf names, shapes and dtypes against it; a
   mismatch raises and names the leaf.
@@ -41,7 +44,12 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from learnablepoolingmethods_torch.core.weights import NPZ_NAME, load_variables_npz, unflatten_tree
+from learnablepoolingmethods_torch.core.weights import (
+    NPZ_NAME,
+    bf16_bits_to_f32,
+    load_variables_npz,
+    unflatten_tree,
+)
 
 log = logging.getLogger(__name__)
 
@@ -176,11 +184,11 @@ class CheckpointManager:
 
     def variables(self, step: int) -> dict:
         """The flax ``{params, batch_stats}`` tree of step ``step`` as nested
-        dicts of numpy arrays (what the eval and inference CLIs read)."""
+        dicts of numpy arrays (what the eval and inference CLIs read); bf16
+        leaves widened to f32, which is exact."""
         arrays = self.load_arrays(step, ("params/", "batch_stats/"))
-        if any(dtype == "bfloat16" for _, dtype in arrays.values()):
-            raise NotImplementedError("bf16 parameters are not ported yet: ROADMAP item 12b")
-        tree = unflatten_tree({name: arr for name, (arr, _) in arrays.items()})
+        tree = unflatten_tree({name: bf16_bits_to_f32(arr) if dtype == "bfloat16" else arr
+                               for name, (arr, dtype) in arrays.items()})
         return {"params": tree.get("params", {}), "batch_stats": tree.get("batch_stats", {})}
 
 

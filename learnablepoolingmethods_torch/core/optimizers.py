@@ -34,8 +34,11 @@ then the optimizer's own chain, e.g. Adam's ``1/0/count``, ``1/0/mu/<param>``,
 (``ScaleByScheduleState``).  ``<param>`` is the flax path of a parameter
 (``NetVLAD_0/cluster_weights``).
 
-``--bf16_params`` (the f32 master) and ``--fused_adam`` are not ported yet
-(ROADMAP item 12b) and raise.
+``--bf16_params`` wraps the whole chain in :class:`Fp32Master` (the JAX
+package's ``with_fp32_master``): the chain runs in f32 on an f32 master
+copy, whose leaves are ``master/<param>`` and the chain's ``inner/…``.
+``--fused_adam`` is ``ops/fused_adam.py#FusedAdam`` (Adam only): ``count``,
+``m/<param>`` and ``nu/<param>``.
 """
 
 from __future__ import annotations
@@ -308,6 +311,58 @@ class Adafactor(Optimizer):
         return -1 * u
 
 
+class Fp32Master:
+    """``with_fp32_master(chain)``: bf16 parameters, an f32 master copy.
+    Each step widens the gradients to f32, runs ``inner`` (the clip and the
+    optimizer, built on the master tensors) on the master, adds its update
+    to the master in f32, and stores bf16(f32(p) + (master − f32(p))) in each
+    parameter: what optax's ``apply_updates`` does with the delta that
+    ``with_fp32_master`` returns (not bf16(master): the two differ by the f32
+    rounding of the subtraction and can land on different bf16 neighbours)."""
+
+    def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]], cfg: TrainingConfig,
+                 inner: Callable[[Sequence[Tuple[str, torch.Tensor]]], Optimizer]):
+        named_params = [item if isinstance(item, tuple) else (str(i), item)
+                        for i, item in enumerate(named_params)]
+        self.names = [name.replace(".", "/") for name, _ in named_params]
+        self.params = [p for _, p in named_params]
+        self.master = [p.detach().float().clone() for p in self.params]
+        self.inner = inner(list(zip(self.names, self.master)))
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    def _apply(self) -> None:
+        for p, m in zip(self.params, self.master):
+            p32 = p.detach().float()
+            p.data.copy_((p32 + (m - p32)).to(p.dtype))
+
+    @torch.no_grad()
+    def updates(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The deltas ``with_fp32_master`` returns (master + u − f32(p)), the
+        master advanced; the parameters are left as they are."""
+        self.inner.step([g.float() for g in grads])
+        return [m - p.detach().float() for p, m in zip(self.params, self.master)]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        self.inner.step([g.float() for g in grads])
+        self._apply()
+
+    def state_tree(self) -> Dict[str, torch.Tensor]:
+        tree = {f"master/{name}": m for name, m in zip(self.names, self.master)}
+        tree.update({f"inner/{name}": t for name, t in self.inner.state_tree().items()})
+        return tree
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict[str, torch.Tensor]) -> None:
+        for name, m in zip(self.names, self.master):
+            m.copy_(tree[f"master/{name}"])
+        self.inner.load_state_tree({name[len("inner/"):]: t for name, t in tree.items()
+                                    if name.startswith("inner/")})
+
+
 OPTIMIZERS = {
     "AdamOptimizer": Adam,
     "AdagradOptimizer": Adagrad,
@@ -319,18 +374,27 @@ OPTIMIZERS = {
 }
 
 
-def create_optimizer(named_params: Sequence[Tuple[str, torch.Tensor]], cfg: TrainingConfig) -> Optimizer:
+def create_optimizer(named_params: Sequence[Tuple[str, torch.Tensor]], cfg: TrainingConfig):
     """The optimizer of ``cfg.optimizer`` on ``named_params``: ``(name,
-    parameter)`` pairs, e.g. ``model.named_parameters()``, or bare tensors."""
-    if cfg.fused_adam and cfg.optimizer != "AdamOptimizer":
-        raise ValueError("--fused_adam requires --optimizer=AdamOptimizer")
-    for flag in ("fp32_master", "fused_adam"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet: ROADMAP item 12b")
+    parameter)`` pairs, e.g. ``model.named_parameters()``, or bare tensors;
+    a FusedAdam under ``cfg.fused_adam`` (which needs Adam), else the chain,
+    wrapped in :class:`Fp32Master` under ``cfg.fp32_master``."""
     try:
         cls = OPTIMIZERS[cfg.optimizer]
     except KeyError:
         raise ValueError(f"Unknown optimizer {cfg.optimizer!r}. Known: {sorted(OPTIMIZERS)}") from None
-    if cls is Adam and cfg.adam_bf16_momentum:
-        return Adam(named_params, cfg, mu_dtype=torch.bfloat16)
-    return cls(named_params, cfg)
+    if cfg.fused_adam:
+        if cfg.optimizer != "AdamOptimizer":
+            raise ValueError("--fused_adam requires --optimizer=AdamOptimizer")
+        from learnablepoolingmethods_torch.ops.fused_adam import FusedAdam
+
+        return FusedAdam(named_params, cfg)
+
+    def chain(named):
+        if cls is Adam and cfg.adam_bf16_momentum:
+            return Adam(named, cfg, mu_dtype=torch.bfloat16)
+        return cls(named, cfg)
+
+    if cfg.fp32_master:
+        return Fp32Master(named_params, cfg, chain)
+    return chain(named_params)

@@ -1,10 +1,22 @@
 """The train, eval and predict steps (ref: core/step.py#make_train_step,
-single pass, #make_eval_step and #make_predict_step).
+#make_eval_step and #make_predict_step).
 
 uint8 frames → sampled frames (gathered in uint8) → dequantize →
 ℓ2-normalize → model forward in training mode (BN statistics updated in
 place) → weighted label loss + penalty · L2 over the head kernels →
 gradients → per-tensor clip → the optimizer (``core/optimizers.py``).
+
+``--grad_accum_steps`` N > 1 splits the batch into N microbatches, run one
+after the other as the JAX step unrolls them: microbatch i samples from
+``fold_in(sampling_key, i)`` (under ``--presample_frames`` inside the
+loop), its BN statistics follow the previous microbatch's, its loss is
+Σ(w·ℓ)/W_total, and its gradient, taken by ``torch.autograd.grad`` before
+the next forward starts (so no graph outlives its backward), is summed in
+f32; the params-only L2 is differentiated once, after the loop; the sum is
+cast back to the dtype a single pass gives each gradient.
+``--use_remat`` recomputes the whole forward, BN included, in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint``); the recompute leaves
+the BN statistics alone, so they move once a step.
 
 Frames are sampled as the JAX step samples them, so both packages pick the
 same frames from the same seed: ``fold_in(key, step)`` → ``split`` → the
@@ -36,9 +48,11 @@ the port's steps gather those frames in uint8 too, from a model built
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from learnablepoolingmethods_torch.config import ModelConfig, TrainingConfig
 from learnablepoolingmethods_torch.core.train_state import TrainState
@@ -88,35 +102,65 @@ def weighted_mean(per_example: torch.Tensor, weights: torch.Tensor) -> torch.Ten
     return torch.sum(per_example.float() * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
+def gradient_taps(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The f32 tensors that the last training forward registered in place
+    of a bf16 parameter whose gradient JAX keeps in f32 (``cluster_weights2``
+    through the fused NetVLAD aggregation), by parameter name; cleared."""
+    taps = {}
+    for prefix, module in model.named_modules():
+        for name, tap in getattr(module, "f32_gradient_taps", {}).items():
+            taps[f"{prefix}.{name}" if prefix else name] = tap
+        if hasattr(module, "f32_gradient_taps"):
+            module.f32_gradient_taps = {}
+    return taps
+
+
 def gradients(total: torch.Tensor, model: torch.nn.Module) -> List[torch.Tensor]:
-    """d total / d each parameter, in ``model.parameters()`` order; zeros
-    for a parameter the forward does not read (NetFV's ``covar_weights``
-    under ``--fv_couple_weights``), as ``jax.grad`` gives."""
-    params = list(model.parameters())
-    grads = torch.autograd.grad(total, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    """d total / d each parameter, in ``model.parameters()`` order, each in
+    its parameter's dtype except where :func:`gradient_taps` gives f32;
+    zeros for a parameter the forward does not read (NetFV's
+    ``covar_weights`` under ``--fv_couple_weights``), as ``jax.grad``
+    gives."""
+    named = list(model.named_parameters())
+    taps = gradient_taps(model)
+    inputs = [taps.get(name, p) for name, p in named]
+    grads = torch.autograd.grad(total, inputs, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g.reshape(p.shape) for (_, p), g in zip(named, grads)]
+
+
+@contextlib.contextmanager
+def batch_stats_frozen(model: torch.nn.Module, frozen: bool = True):
+    """The model's BatchNorm layers leave their running statistics alone
+    inside (the forward is unchanged otherwise)."""
+    bns = [m for m in model.modules() if hasattr(m, "update_stats")]
+    for m in bns:
+        m.update_stats = not frozen
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class TrainStep:
-    """``step(state, batch, key) -> metrics``: one single-pass train step
-    (ref: core/step.py#make_train_step with ``grad_accum_steps == 1``).
+    """``step(state, batch, key) -> metrics``: one train step (ref:
+    core/step.py#make_train_step), single pass or over
+    ``tcfg.grad_accum_steps`` microbatches (module docstring).
 
     ``batch`` holds tensors on the model's device: ``features`` (uint8
     ``[B, F, D]`` frames, or ``[B, D]`` video-level features),
     ``num_frames`` (frame-level), ``labels`` and optionally ``weights``.
-    ``loss`` (the forward) and ``state.apply_gradients`` (the update) are
-    separate methods so that each stage can be timed.  A sampling model
-    must be built ``presampled``: the step gathers its frames."""
+    For a single pass, ``loss`` (the forward) and ``state.apply_gradients``
+    (the update) are separate methods so that each stage can be timed.  A
+    sampling model must be built ``presampled``: the step gathers its
+    frames."""
 
     def __init__(self, loss_obj: BaseLoss, tcfg: TrainingConfig, mcfg: ModelConfig,
                  frame_features: bool):
-        if tcfg.grad_accum_steps != 1:
-            raise NotImplementedError("--grad_accum_steps > 1 is not ported yet: ROADMAP item 12b")
-        if tcfg.use_remat:
-            raise NotImplementedError("--use_remat is not ported yet: ROADMAP item 12b")
         self.loss_obj, self.tcfg, self.mcfg = loss_obj, tcfg, mcfg
         self.frame_features = frame_features
         self.dtype = compute_dtype(mcfg)
+        self.accum = max(1, int(tcfg.grad_accum_steps))
 
     def frames(self, model, features, num_frames, sampling_key):
         """The rows the model sees this step (module docstring)."""
@@ -132,28 +176,94 @@ class TrainStep:
                                       prng.flax_make_rng(sampling_key), mcfg.sample_random_frames)
         return features
 
+    def forward(self, model, features, num_frames) -> Dict[str, torch.Tensor]:
+        """The model in training mode on the step's rows; under
+        ``--use_remat`` inside a checkpoint whose recompute leaves the BN
+        statistics alone."""
+        x = preprocess_input(features, self.dtype)
+        if not self.tcfg.use_remat:
+            return model(x, num_frames, training=True)
+        calls = []
+
+        def run(x):
+            with batch_stats_frozen(model, frozen=bool(calls)):
+                calls.append(None)
+                return model(x, num_frames, training=True)
+
+        return checkpoint(run, x, use_reentrant=False)
+
+    def _weights(self, batch, b: int, device) -> torch.Tensor:
+        weights = batch.get("weights")
+        return torch.ones(b, device=device) if weights is None else weights
+
+    def _reg(self, model) -> torch.Tensor:
+        return regularization_loss(model.named_parameters(), self.mcfg.l2_penalty,
+                                   all_kernels=self.mcfg.l2_reg_all_kernels, moe_l2=self.mcfg.moe_l2)
+
     def loss(self, state: TrainState, batch: Dict[str, torch.Tensor], key: torch.Tensor):
-        """Forward in training mode → (total loss, label loss, reg loss, predictions)."""
+        """Single pass: forward in training mode → (total loss, label loss,
+        reg loss, predictions)."""
+        if self.accum != 1:
+            raise ValueError("TrainStep.loss is the single-pass forward; with --grad_accum_steps > 1 "
+                             "call the step")
         sampling_key, _ = prng.split(prng.fold_in(key, state.step))
         num_frames = batch.get("num_frames") if self.frame_features else None
         features = self.frames(state.model, batch["features"], num_frames, sampling_key)
-        weights = batch.get("weights")
-        if weights is None:
-            weights = torch.ones(features.shape[0], device=features.device)
-        out = state.model(preprocess_input(features, self.dtype), num_frames, training=True)
-        predictions = out["predictions"]
+        weights = self._weights(batch, features.shape[0], features.device)
+        predictions = self.forward(state.model, features, num_frames)["predictions"]
         per_ex = self.loss_obj.calculate_per_example_loss(predictions, batch["labels"].float())
         label_loss = weighted_mean(per_ex, weights)
-        reg = regularization_loss(
-            state.model.named_parameters(), self.mcfg.l2_penalty,
-            all_kernels=self.mcfg.l2_reg_all_kernels, moe_l2=self.mcfg.moe_l2,
-        ).to(label_loss.device)
+        reg = self._reg(state.model).to(label_loss.device)
         total = label_loss + self.tcfg.regularization_penalty * reg
         return total, label_loss, reg, predictions
 
+    def accumulated(self, state: TrainState, batch: Dict[str, torch.Tensor], key: torch.Tensor):
+        """(gradients, total, label loss, reg loss, predictions) over
+        ``self.accum`` microbatches (module docstring)."""
+        model, accum, penalty = state.model, self.accum, self.tcfg.regularization_penalty
+        features = batch["features"]
+        b = features.shape[0]
+        if b % accum:
+            raise ValueError(f"batch_size={b} not divisible by grad_accum_steps={accum}")
+        mb = b // accum
+        sampling_key, _ = prng.split(prng.fold_in(key, state.step))
+        num_frames = batch.get("num_frames") if self.frame_features else None
+        weights = self._weights(batch, b, features.device).float()
+        labels = batch["labels"].float()
+        w_total = torch.clamp(torch.sum(weights), min=1.0)
+        grads32, dtypes, preds = None, None, []
+        label_loss = torch.zeros((), dtype=torch.float32, device=features.device)
+        for i in range(accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            nfs = None if num_frames is None else num_frames[sl]
+            rows = self.frames(model, features[sl], nfs, prng.fold_in(sampling_key, i))
+            predictions = self.forward(model, rows, nfs)["predictions"]
+            per_ex = self.loss_obj.calculate_per_example_loss(predictions, labels[sl])
+            label_i = torch.sum(per_ex.float() * weights[sl]) / w_total
+            g = gradients(label_i, model)
+            if grads32 is None:
+                dtypes = [t.dtype for t in g]
+                grads32 = [t.float() for t in g]
+            else:
+                for acc, t in zip(grads32, g):
+                    acc.add_(t.float())
+            label_loss = label_loss + label_i.detach()
+            preds.append(predictions.detach())
+        reg = self._reg(model).to(label_loss.device)
+        if reg.requires_grad:
+            for acc, t in zip(grads32, gradients(reg, model)):
+                acc.add_(penalty * t.float())
+        reg = reg.detach()
+        grads = [t.to(dt) for t, dt in zip(grads32, dtypes)]
+        return grads, label_loss + penalty * reg, label_loss, reg, torch.cat(preds, dim=0)
+
     def __call__(self, state: TrainState, batch, key) -> Dict[str, torch.Tensor]:
-        total, label_loss, reg, predictions = self.loss(state, batch, key)
-        state.apply_gradients(gradients(total, state.model))
+        if self.accum == 1:
+            total, label_loss, reg, predictions = self.loss(state, batch, key)
+            grads = gradients(total, state.model)
+        else:
+            grads, total, label_loss, reg, predictions = self.accumulated(state, batch, key)
+        state.apply_gradients(grads)
         return {"loss": total.detach(), "label_loss": label_loss.detach(),
                 "reg_loss": reg.detach(), "predictions": predictions.detach()}
 

@@ -75,6 +75,24 @@ def _unflatten(flat: Dict[str, Any]) -> Tree:
     return tree
 
 
+def bf16_bits_to_f32(arr) -> np.ndarray:
+    """A bf16 array (ml_dtypes' bfloat16, or its uint16 bit patterns, which
+    is how the port stores and reads bf16 without ml_dtypes) widened to f32,
+    exactly."""
+    bits = np.ascontiguousarray(arr).view(np.uint16).astype(np.uint32) << 16
+    return bits.view(np.float32)
+
+
+def as_f32(value) -> np.ndarray:
+    """A leaf of a flax tree as f32 numpy: bf16 (ml_dtypes, named
+    ``bfloat16``) and uint16 (bf16 bit patterns) widened exactly, any other
+    dtype cast."""
+    arr = np.asarray(value)
+    if arr.dtype == np.uint16 or arr.dtype.name == "bfloat16":
+        return bf16_bits_to_f32(arr)
+    return np.ascontiguousarray(arr.astype(np.float32, copy=False))
+
+
 def unflatten_tree(flat: Dict[str, Any]) -> Tree:
     """``{"a/b/c": x}`` → ``{"a": {"b": {"c": x}}}``."""
     return _unflatten(flat)
@@ -118,15 +136,24 @@ def tree_like(template, flat: Dict[str, Any], prefix: str = ""):
 def train_state_from_jax_tree(tree_np, model: torch.nn.Module, tcfg):
     """The port's TrainState from the JAX package's ``state_to_tree(state)``
     (nested dicts and optax NamedTuples of arrays; bf16 leaves as ml_dtypes
-    arrays): ``model``'s parameters and BN statistics, the optimizer of
+    arrays or as their uint16 bits, read without ml_dtypes): ``model``'s
+    parameters and BN statistics, the optimizer of
     ``tcfg`` and the step, each checked against the live state by name,
     shape and dtype."""
     from learnablepoolingmethods_torch.core.checkpoints import dtype_name, to_tensor
     from learnablepoolingmethods_torch.core.train_state import TrainState
 
     state = TrainState.create(model, tcfg)
-    state.load_state_tree({name: to_tensor(np.asarray(value), dtype_name(np.asarray(value)))
-                           for name, value in tree_paths(tree_np).items()})
+    live = state.state_tree()
+
+    def leaf(name, value):
+        arr = np.asarray(value)
+        if name in live and live[name].dtype == torch.bfloat16 and (
+                arr.dtype == np.uint16 or arr.dtype.name == "bfloat16"):
+            return to_tensor(arr.view(np.uint16), "bfloat16")
+        return to_tensor(arr, dtype_name(arr))
+
+    state.load_state_tree({name: leaf(name, value) for name, value in tree_paths(tree_np).items()})
     return state
 
 
@@ -342,8 +369,8 @@ def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "
     def convert(node):
         if isinstance(node, Mapping):
             return {key: convert(value) for key, value in node.items()}
-        # bf16 params arrive as ml_dtypes arrays, which torch cannot wrap
-        arr = np.ascontiguousarray(np.asarray(node).astype(np.float32, copy=False))
+        # bf16 params arrive as ml_dtypes arrays or their uint16 bits
+        arr = as_f32(node)
         return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
     return {"params": convert(tree_np["params"]), "batch_stats": convert(tree_np["batch_stats"])}
@@ -353,11 +380,13 @@ def flax_to_state_dict(tree_np: Tree) -> Dict[str, torch.Tensor]:
     """Flax ``{params, batch_stats}`` tree → the port model's ``state_dict``:
     the path ``params/NetVLAD_0/cluster_bn/scale`` becomes the key
     ``NetVLAD_0.cluster_bn.scale`` and ``batch_stats/input_bn/mean`` the
-    buffer ``input_bn.mean``; values become float32 tensors."""
+    buffer ``input_bn.mean``; values become float32 tensors (bf16 leaves,
+    as ml_dtypes arrays or uint16 bits, widened exactly; loading them into
+    a bf16-parameter model rounds nothing)."""
     out = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(tree_np.get(collection, {})).items():
-            arr = np.ascontiguousarray(np.asarray(value).astype(np.float32, copy=False))
+            arr = as_f32(value)
             out[path.replace("/", ".")] = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
     return out
 

@@ -53,7 +53,7 @@ from learnablepoolingmethods_torch.data.readers import make_reader
 from learnablepoolingmethods_torch.inference import load_model, load_tree
 from learnablepoolingmethods_torch.losses import get_loss_by_name
 from learnablepoolingmethods_torch.metrics import eval_util
-from learnablepoolingmethods_torch.ops.fast_dispatch import fast_path_models, get_fast_path
+from learnablepoolingmethods_torch.ops.fast_dispatch import fast_path_models, get_fast_path, int8_capable_models
 from learnablepoolingmethods_torch.utils import prng
 from learnablepoolingmethods_torch.utils.misc import InFlight, resolve_device
 
@@ -92,7 +92,8 @@ def _fast_eval_step(args, fcfg: FeatureConfig, mcfg, loss_obj, tree, device):
     if not fcfg.frame_features:
         raise ValueError(f"--fast_forward with {args.model} needs --frame_features")
     path = get_fast_path(args.model)
-    fp = path.prepare(convert_flax_variables(tree, mcfg, args.model), mcfg, device=device)
+    fp = path.prepare(convert_flax_variables(tree, mcfg, args.model), mcfg, int8_hidden=args.int8_hidden,
+                      device=device)
     fast = path.build(mcfg, return_probs=True)
 
     def eval_step(batch, key):
@@ -183,6 +184,8 @@ def evaluation_loop(args):
     ``<train_dir>/eval`` at the step evaluated."""
     cli_flags.refuse_not_ported(args, cli_flags.EVAL_NOT_PORTED,
                                 vars(build_parser().parse_args([])), "eval CLI")
+    if args.int8_hidden and (not args.fast_forward or args.model not in int8_capable_models()):
+        raise ValueError(f"--int8_hidden requires --fast_forward with one of {int8_capable_models()}")
     device = resolve_device(args.device)
     fcfg = FeatureConfig.from_flag_strings(args.feature_names, args.feature_sizes,
                                            args.frame_features, args.max_frames)

@@ -45,7 +45,7 @@ from learnablepoolingmethods_torch.core.weights import convert_flax_variables, l
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import make_reader
 from learnablepoolingmethods_torch.models import create_model, find_class_by_name
-from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path
+from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path, int8_capable_models
 from learnablepoolingmethods_torch.utils import prng
 from learnablepoolingmethods_torch.utils.misc import InFlight, format_lines, resolve_device
 
@@ -119,8 +119,8 @@ def inference(args) -> int:
     )
     if args.fast_infer and not fcfg.frame_features:
         raise ValueError(f"--fast_infer with {args.model} needs --frame_features")
-    if not args.fast_infer and args.int8_hidden:
-        raise ValueError("--int8_hidden requires --fast_infer")
+    if args.int8_hidden and (not args.fast_infer or args.model not in int8_capable_models()):
+        raise ValueError(f"--int8_hidden requires --fast_infer with one of {int8_capable_models()}")
     path = get_fast_path(args.model) if args.fast_infer else None
     tree = load_tree(args, fcfg)
     if args.fast_infer:

@@ -11,6 +11,15 @@ PyTorch needs the input width when the parameters are made, so
 ``create_model`` takes it.  ``training`` is passed to every call, as in the
 JAX package; in training mode the BatchNorm layers use and update batch
 statistics.
+
+``cfg.param_dtype`` (``--bf16_params`` or ``--fused_adam`` set it to
+bfloat16) is the dtype of every parameter, as the flax modules pass
+``param_dtype`` to every ``self.param`` and ``nn.BatchNorm``: the
+BatchNorm scales and biases included, the BatchNorm statistics not (flax
+keeps ``batch_stats`` in f32).  The arithmetic is unchanged: each
+parameter is cast to the compute dtype, or promoted to f32, where it is
+used, and its gradient comes back rounded to its own dtype, as a
+cotangent takes its primal's dtype in JAX.
 """
 
 from __future__ import annotations
@@ -62,8 +71,21 @@ def list_models():
 
 
 def create_model(name: str, cfg: ModelConfig, input_size: int) -> "BaseModel":
-    """Instantiate a registered model for inputs of width ``input_size``."""
-    return find_class_by_name(name)(cfg, input_size)
+    """Instantiate a registered model for inputs of width ``input_size``,
+    its parameters in ``cfg.param_dtype`` (its buffers stay f32)."""
+    model = find_class_by_name(name)(cfg, input_size)
+    pdtype = param_dtype(cfg)
+    for p in model.parameters():
+        p.data = p.data.to(pdtype)
+    return model
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The parameters' dtype: float32, or bfloat16 under ``--bf16_params``
+    or ``--fused_adam`` (flags.py#model_config_from_flags)."""
+    if cfg.param_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"param_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {cfg.param_dtype!r}")
+    return COMPUTE_DTYPES[cfg.param_dtype]
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -82,10 +104,7 @@ class BaseModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, input_size: int):
         super().__init__()
-        if cfg.param_dtype != "float32":
-            raise NotImplementedError(
-                "--bf16_params / param_dtype other than float32 is not ported yet: ROADMAP item 12b"
-            )
+        param_dtype(cfg)  # parameters are made f32 here and cast by create_model
         self.cfg = cfg
         self.input_size = input_size
         self.dtype = compute_dtype(cfg)

@@ -66,7 +66,9 @@ class BatchNorm(nn.Module):
     - statistics over every axis but the last (the B·F rows of ``[B, F, K]``);
     - the fast variance ``max(0, E[x²] − E[x]²)``, which is biased;
     - running averages ``m·avg + (1 − m)·batch`` with flax's momentum
-      (0.999 here is torch's momentum 0.001), updated in place in training;
+      (0.999 here is torch's momentum 0.001), updated in place in training
+      unless ``update_stats`` is off (``core/step.py#batch_stats_frozen``,
+      the recompute of ``--use_remat``);
     - ``y = (x − μ)·(rsqrt(σ² + ε)·scale) + bias`` with ε = 1e-3.
     """
 
@@ -78,6 +80,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
         x = x.float()
@@ -85,9 +88,10 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = torch.mean(x, dim=axes)
             var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
-                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                    self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
@@ -138,7 +142,13 @@ class NetVLAD(_AssignmentBase):
         x = frames.to(self.dtype)
         activation = self._logits(x, training)                          # [B, F, K]
         if self.fused_aggregation:
-            vlad = netvlad_aggregate(x, activation, self.cluster_weights2.reshape(d, k))
+            c2 = self.cluster_weights2.reshape(d, k)
+            if c2.dtype != torch.float32 and torch.is_grad_enabled():
+                # JAX's custom VJP hands back dC₂ in f32 against a bf16 C₂,
+                # and jax.grad keeps it f32; the step reads the gradient here
+                c2 = c2.float()
+                self.f32_gradient_taps = {"cluster_weights2": c2}
+            vlad = netvlad_aggregate(x, activation, c2)
             return vlad.reshape(-1, d * k).to(self.dtype)
         a = torch.softmax(activation, dim=-1)
         a_sum = torch.sum(a, dim=1, keepdim=True)                        # [B, 1, K]

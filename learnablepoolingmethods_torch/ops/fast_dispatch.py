@@ -6,6 +6,9 @@
   ``ValueError`` on configs the fast path does not cover.
 - ``build(mcfg, top_k=20, use_kernels=True, return_probs=False)`` →
   ``fn(fp, features, num_frames, key, presampled=False)``.
+- ``supports_int8``: whether ``prepare`` takes ``int8_hidden`` (the models
+  of :func:`int8_capable_models`); the others raise with the JAX wording
+  (:func:`reject_int8`).
 
 Every fast path of the JAX package is ported: ``NetVLADModelLF``
 (``ops/fast_infer.py``), ``DbofModel`` (``ops/fast_dbof.py``), the rest of
@@ -22,6 +25,30 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 class FastPath(NamedTuple):
     prepare: Callable[..., Dict[str, Any]]
     build: Callable[..., Callable]
+    supports_int8: bool
+
+
+# the LF models whose fast path takes --int8_hidden (the JAX package's _LF_INT8)
+_LF_INT8 = ("NetFVModelLF", "NetRVLADModelLF")
+
+
+def int8_capable_models() -> Tuple[str, ...]:
+    """The models whose fast path takes ``--int8_hidden``, the ones with the
+    giant D·K hidden FC (the JAX package's ``int8_capable_models``).  Static,
+    so that the CLIs can check a flag without importing a kernel module;
+    tests/test_torch_int8_matmul.py holds it to every FastPath's
+    ``supports_int8``."""
+    return ("NetVLADModelLF", "AttentionNetVLADModel") + _LF_INT8
+
+
+def reject_int8(model_name: str, int8_hidden: bool) -> None:
+    """ValueError with the JAX package's wording for ``--int8_hidden`` on a
+    model without the giant hidden FC."""
+    if int8_hidden:
+        raise ValueError(
+            "int8_hidden is only supported on the models with the giant "
+            f"D*K hidden FC ({int8_capable_models()}), not {model_name}"
+        )
 
 
 # models that the JAX package serves with the flax forward only
@@ -46,7 +73,7 @@ def _netvlad() -> FastPath:
             mcfg, top_k=top_k, use_kernels=use_kernels, return_probs=return_probs
         )
 
-    return FastPath(prepare, build)
+    return FastPath(prepare, build, supports_int8=True)
 
 
 def _dbof() -> FastPath:
@@ -54,17 +81,15 @@ def _dbof() -> FastPath:
         build_fast_dbof_inference,
         prepare_fast_dbof_params,
     )
-    from learnablepoolingmethods_torch.ops.fast_infer import reject_int8_hidden
-
     def prepare(variables, mcfg, int8_hidden=False, device="cuda"):
-        reject_int8_hidden(int8_hidden)
+        reject_int8("DbofModel", int8_hidden)
         return prepare_fast_dbof_params(variables, mcfg, device=device)
 
     def build(mcfg, top_k=20, use_kernels=True, return_probs=False):
         # no kernel to select: the JAX path has no Pallas kernel either
         return build_fast_dbof_inference(mcfg, top_k=top_k, return_probs=return_probs)
 
-    return FastPath(prepare, build)
+    return FastPath(prepare, build, supports_int8=False)
 
 
 def _lf(model_name: str) -> FastPath:
@@ -74,6 +99,8 @@ def _lf(model_name: str) -> FastPath:
     )
 
     def prepare(variables, mcfg, int8_hidden=False, device="cuda"):
+        if model_name not in _LF_INT8:
+            reject_int8(model_name, int8_hidden)
         return prepare_fast_lf_params(variables, mcfg, model_name, int8_hidden=int8_hidden,
                                       device=device)
 
@@ -81,15 +108,17 @@ def _lf(model_name: str) -> FastPath:
         return build_fast_lf_inference(mcfg, model_name, top_k=top_k, use_kernels=use_kernels,
                                        return_probs=return_probs)
 
-    return FastPath(prepare, build)
+    return FastPath(prepare, build, supports_int8=model_name in _LF_INT8)
 
 
 def _attention(model_name: str) -> FastPath:
     from learnablepoolingmethods_torch.ops import fast_transformer as ft
 
     if model_name == "TransformerEncoderModel":
-        return FastPath(ft.prepare_fast_transformer_params, ft.build_fast_transformer_inference)
-    return FastPath(ft.prepare_fast_attn_netvlad_params, ft.build_fast_attn_netvlad_inference)
+        return FastPath(ft.prepare_fast_transformer_params, ft.build_fast_transformer_inference,
+                        supports_int8=False)
+    return FastPath(ft.prepare_fast_attn_netvlad_params, ft.build_fast_attn_netvlad_inference,
+                    supports_int8=True)
 
 
 # the LOUPE-family models that ops/fast_lf.py serves (the JAX package's

@@ -10,7 +10,9 @@ inference-time simplification applied:
 - the front end (dequantize, ℓ2, input BN, sampling, both NetVLADs) as one
   CUDA kernel (``ops/fused_frontend.py``), or, on the staged route, the
   NetVLAD kernel (``ops/netvlad_fused.py``) once per modality;
-- the 278528×1024 hidden FC split into per-modality products (no concat);
+- the 278528×1024 hidden FC split into per-modality products (no concat),
+  each in bf16 or, with ``int8_hidden``, weight-only int8 through the W8A16
+  kernel (``ops/int8_matmul.py``);
 - context gating and the MoE head in the vocab-major layout;
 - exact top-k on the device.
 
@@ -34,6 +36,7 @@ from learnablepoolingmethods_torch.ops.fused_frontend import (
     netvlad_frontend,
     sample_indices,
 )
+from learnablepoolingmethods_torch.ops.int8_matmul import device_weight, matmul_wi8, quantize_weight_int8
 from learnablepoolingmethods_torch.ops.netvlad_fused import (
     fold_assignment_bn,
     netvlad_fused,
@@ -56,12 +59,21 @@ def _require_moe_head(params: Dict[str, Any], mcfg: ModelConfig):
         )
 
 
-def reject_int8_hidden(int8_hidden: bool) -> None:
-    """Every fast path refuses ``--int8_hidden`` until it is ported."""
-    if int8_hidden:
-        raise NotImplementedError(
-            "--int8_hidden (weight-only int8 hidden FC) is not ported yet: ROADMAP item 12b"
-        )
+def int8_weight(w, device) -> Dict[str, torch.Tensor]:
+    """``--int8_hidden``: a hidden-FC slice ``[K, N]`` quantized per column
+    (``ops/int8_matmul.py#quantize_weight_int8``) → {"q": the int8 weight as
+    the kernel reads it, "s": its f32 scales}, on ``device``."""
+    q, scales = quantize_weight_int8(w)
+    return {"q": device_weight(q, device), "s": torch.from_numpy(scales).to(device)}
+
+
+def hidden_fc(x: torch.Tensor, w, bias=None) -> torch.Tensor:
+    """x · w in f32: ``w`` a bf16 tensor (summed in f32), or an
+    :func:`int8_weight` (``matmul_wi8``, the bias fused into its epilogue)."""
+    if isinstance(w, dict):
+        return matmul_wi8(x, w["q"], w["s"], bias)
+    y = matmul_f32(x, w)
+    return y if bias is None else y + bias
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -105,8 +117,9 @@ def prepare_fast_params(
 
     ``variables`` is the ``{params, batch_stats}`` tree of float32 tensors
     that ``core/weights.py#convert_flax_variables`` returns.
+    ``int8_hidden`` stores the hidden FC's rgb and audio slices int8 with
+    per-column scales (:func:`int8_weight`), as the JAX package's path does.
     """
-    reject_int8_hidden(int8_hidden)
     if not mcfg.netvlad_add_batch_norm or mcfg.netvlad_relu or not mcfg.gating:
         raise ValueError(
             "fast path supports the Willow config (BN on, relu off, gating on)"
@@ -157,8 +170,8 @@ def prepare_fast_params(
         "in_bias": put(in_bias),
         "rgb": rgb,
         "aud": aud,
-        "w_rgb": put(hidden_w[: d_rgb * k_rgb], ct),
-        "w_aud": put(hidden_w[d_rgb * k_rgb :], ct),
+        "w_rgb": int8_weight(hidden_w[: d_rgb * k_rgb], dev) if int8_hidden else put(hidden_w[: d_rgb * k_rgb], ct),
+        "w_aud": int8_weight(hidden_w[d_rgb * k_rgb :], dev) if int8_hidden else put(hidden_w[d_rgb * k_rgb :], ct),
         "hidden_b": put(p["hidden1_biases"]),
         "gate_w": put(p["gating"]["gating_weights"], ct),
         "g_scale": put(g_scale),
@@ -239,11 +252,7 @@ def build_fast_netvlad_inference(
         return _tail(fp, vlad_rgb, vlad_aud)
 
     def _tail(fp, vlad_rgb, vlad_aud):
-        h = (
-            matmul_f32(vlad_rgb, fp["w_rgb"])
-            + matmul_f32(vlad_aud, fp["w_aud"])
-            + fp["hidden_b"]
-        )
+        h = hidden_fc(vlad_rgb, fp["w_rgb"]) + hidden_fc(vlad_aud, fp["w_aud"]) + fp["hidden_b"]
         return gated_moe_tail(fp, h, m, v, ct, top_k, return_probs)
 
     return forward

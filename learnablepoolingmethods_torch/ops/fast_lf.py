@@ -37,7 +37,8 @@ from learnablepoolingmethods_torch.ops.fast_infer import (
     _require_moe_head,
     gated_moe_tail,
     matmul_f32,
-    reject_int8_hidden,
+    hidden_fc,
+    int8_weight,
     staged_frames,
 )
 from learnablepoolingmethods_torch.ops.fused_frontend import gather_frames, sample_indices
@@ -66,7 +67,11 @@ def prepare_fast_lf_params(
     ``core/weights.py#convert_flax_variables`` returns."""
     if model_name not in FAST_LF_MODELS:
         raise ValueError(f"unsupported fast-LF model {model_name!r}")
-    reject_int8_hidden(int8_hidden)
+    if int8_hidden and model_name not in ("NetFVModelLF", "NetRVLADModelLF"):
+        raise ValueError(
+            f"int8_hidden is not supported on {model_name} (its hidden FC "
+            "is not the HBM-bound giant-weight shape where int8 pays)"
+        )
     _, _, relu = lf_hparams(model_name, mcfg)
     if not mcfg.netvlad_add_batch_norm or relu or not mcfg.gating:
         raise ValueError(
@@ -88,6 +93,11 @@ def prepare_fast_lf_params(
 
     def put(t, dtype=torch.float32):
         return torch.as_tensor(t).to(device=dev, dtype=dtype).contiguous()
+
+    def fc(rows):
+        """A hidden-FC slice: int8 with per-column scales (NetFV, NetRVLAD
+        with ``int8_hidden``), else bf16."""
+        return int8_weight(rows, dev) if int8_hidden else put(rows, ct)
 
     def folded(name, bn):
         scale, bias = fold_assignment_bn(**p[name][bn], **s[name][bn])
@@ -126,13 +136,13 @@ def prepare_fast_lf_params(
             entry["c2"] = put(mp["cluster_weights2"].reshape(d, k))
             entry["covar"] = put(torch.square(covar).float() + 1e-6)
             # fv1 rows, then fv2 rows (the module's concat order)
-            entry["w1"] = put(hidden_w[offset:offset + d * k], ct)
-            entry["w2"] = put(hidden_w[offset + d * k:offset + 2 * d * k], ct)
+            entry["w1"] = fc(hidden_w[offset:offset + d * k])
+            entry["w2"] = fc(hidden_w[offset + d * k:offset + 2 * d * k])
             w = 2 * d * k
         elif model_name == "NetRVLADModelLF":
             entry["c2"] = torch.zeros((d, k), dtype=torch.float32, device=dev)  # no centres
             w = d * k
-            entry["w1"] = put(hidden_w[offset:offset + w], ct)
+            entry["w1"] = fc(hidden_w[offset:offset + w])
         else:  # SoftDbofModelLF
             w = k
             entry["w1"] = put(hidden_w[offset:offset + w], ct)
@@ -201,10 +211,10 @@ def build_fast_lf_inference(
         if model_name == "NetFVModelLF":
             fn = netfv_fused if use_kernels else netfv_reference
             fv1, fv2 = fn(*consts, entry["c2"], entry["covar"])
-            return matmul_f32(fv1.reshape(b, -1), entry["w1"]) + matmul_f32(fv2.reshape(b, -1), entry["w2"])
+            return hidden_fc(fv1.reshape(b, -1), entry["w1"]) + hidden_fc(fv2.reshape(b, -1), entry["w2"])
         if model_name == "NetRVLADModelLF":
             fn = netvlad_fused if use_kernels else netvlad_reference
-            return matmul_f32(fn(*consts, entry["c2"]).reshape(b, -1), entry["w1"])
+            return hidden_fc(fn(*consts, entry["c2"]).reshape(b, -1), entry["w1"])
         fn = softdbow_fused if use_kernels else softdbow_reference
         bow = l2_normalize(fn(*consts), dim=1).to(ct)
         return matmul_f32(bow, entry["w1"])

@@ -33,7 +33,8 @@ from learnablepoolingmethods_torch.ops.fast_infer import (
     _require_moe_head,
     gated_moe_tail,
     matmul_f32,
-    reject_int8_hidden,
+    hidden_fc,
+    int8_weight,
 )
 from learnablepoolingmethods_torch.ops.masked_attention import masked_attention_fused, masked_attention_plain
 from learnablepoolingmethods_torch.ops.netvlad_fused import (
@@ -139,8 +140,12 @@ def prepare_fast_transformer_params(
     """TransformerEncoderModel: cast and fuse weights once → a flat dict of
     tensors on ``device``.  ``variables`` is the ``{params, batch_stats}``
     tree of float32 tensors that ``core/weights.py#convert_flax_variables``
-    returns."""
-    reject_int8_hidden(int8_hidden)
+    returns.  Its hidden FC stays bf16: ``int8_hidden`` raises, as the JAX
+    package's dispatch refuses it for this model."""
+    if int8_hidden:
+        from learnablepoolingmethods_torch.ops.fast_dispatch import reject_int8
+
+        reject_int8("TransformerEncoderModel", int8_hidden)
     if not mcfg.gating:
         raise ValueError("fast transformer path supports the gated tail only")
     if not mcfg.netvlad_add_batch_norm:
@@ -158,8 +163,8 @@ def prepare_fast_attn_netvlad_params(
     device="cuda",
 ) -> Dict[str, Any]:
     """AttentionNetVLADModel: the encoder as for the transformer path plus
-    the vlad module's folded assignment BN and the ``[D·K, H]`` hidden FC."""
-    reject_int8_hidden(int8_hidden)
+    the vlad module's folded assignment BN and the ``[D·K, H]`` hidden FC
+    (int8 with per-column scales under ``int8_hidden``)."""
     if not mcfg.gating:
         raise ValueError("fast path supports the gated tail only")
     if not mcfg.netvlad_add_batch_norm or mcfg.netvlad_relu:
@@ -172,7 +177,8 @@ def prepare_fast_attn_netvlad_params(
         "c_scale": put(scale),
         "c_bias": put(bias),
         "c2": put(vp["cluster_weights2"].reshape(vp["cluster_weights"].shape)),
-        "hidden_w": put(p["hidden1_weights"], compute_dtype),  # [D·K, H]
+        "hidden_w": (int8_weight(p["hidden1_weights"], fp["hidden_b"].device) if int8_hidden
+                     else put(p["hidden1_weights"], compute_dtype)),  # [D·K, H]
     })
     return fp
 
@@ -231,7 +237,7 @@ def build_fast_attn_netvlad_inference(
         h = h * mask[:, :, None].to(h.dtype)
         vlad_fn = netvlad_fused if use_kernels else netvlad_reference
         vlad = vlad_fn(h, fp["cluster"], fp["c_scale"], fp["c_bias"], fp["c2"]).reshape(h.shape[0], -1)
-        h2 = matmul_f32(vlad.to(ct), fp["hidden_w"]) + fp["hidden_b"]
+        h2 = hidden_fc(vlad.to(ct), fp["hidden_w"], fp["hidden_b"])
         return gated_moe_tail(fp, h2, m, v, ct, top_k, return_probs)
 
     return forward

@@ -1,0 +1,116 @@
+"""Weight-only int8 hidden FC (``--int8_hidden``): the quantizer, the W8A16
+CUDA kernel's wrapper and its plain version.
+
+Port of ``learnablepoolingmethods_tpu/ops/int8_matmul.py``.  Per output
+column, symmetric:
+
+    s[n]  = max_k |w[k, n]| / 127          (1 where the column is zero)
+    q     = clip(rint(w / s), −127, 127)   int8
+    y     = (bf16(x) · bf16(q)) ⊙ s        f32 sums
+
+int8 → bf16 is exact, so the only error beside a bf16 weight's is the
+quantization of w.  :func:`quantize_weight_int8` is the host-side numpy
+quantizer, equal to the JAX package's bit for bit.  :func:`matmul_wi8` runs
+``csrc/int8_matmul.cu`` on a CUDA tensor (the int8 tiles go through shared
+memory into the tensor cores; no bf16 copy of the weight is written) and
+:func:`matmul_wi8_plain` on a CPU tensor.  The kernel reads the weight
+n-major: :func:`device_weight` stores ``q`` as ``[N, K]`` and hands back its
+``[K, N]`` transposed view, which both versions take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from learnablepoolingmethods_torch.ops import kernel_build
+
+# csrc/int8_matmul.cu's output tile (kBM, kBN) and k-step (kBK)
+TILE_M, TILE_N, TILE_K = 64, 128, 64
+H100_SMS = 132
+# split K until the grid holds about this many blocks: a three-stage ring
+# of 57 KB lets three blocks share an SM, so four per SM fill the card
+TARGET_BLOCKS = 4 * H100_SMS
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def quantize_weight_int8(w):
+    """w ``[K, N]`` (numpy or torch, any float dtype) → (q ``[K, N]`` int8,
+    scales ``[N]`` f32), as the JAX package's quantizer computes them: in
+    numpy f32, ``rint`` (half to even), the clip to ±127, scale 1 for a zero
+    column."""
+    if isinstance(w, torch.Tensor):
+        w = w.detach().float().cpu().numpy()
+    w = np.asarray(w, np.float32)
+    amax = np.max(np.abs(w), axis=0)
+    scales = (amax / 127.0).astype(np.float32)
+    safe = np.where(scales == 0.0, 1.0, scales)
+    q = np.clip(np.rint(w / safe[None, :]), -127, 127).astype(np.int8)
+    return q, scales
+
+
+def device_weight(q: np.ndarray, device) -> torch.Tensor:
+    """The int8 ``[K, N]`` weight on ``device`` as the kernel reads it: a
+    ``[K, N]`` view of an n-major ``[N, K]`` tensor."""
+    return torch.from_numpy(np.ascontiguousarray(q.T)).to(device).t()
+
+
+def int8_geometry(m: int, n: int, k: int) -> dict:
+    """The kernel's grid: output tiles, K steps of ``TILE_K``, and the split
+    of K — ``splits`` ranges of ``kb_per_split`` steps, the last maybe
+    shorter — chosen so that tiles × splits reaches about TARGET_BLOCKS."""
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    kb = max(1, -(-k // TILE_K))
+    want = max(1, min(kb, -(-TARGET_BLOCKS // tiles)))
+    per = -(-kb // want)
+    return {"tiles": tiles, "k_steps": kb, "splits": -(-kb // per), "kb_per_split": per}
+
+
+def matmul_wi8(x: torch.Tensor, w_i8: torch.Tensor, scales: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y ``[M, N]`` f32 = (bf16(x) · bf16(w_i8)) ⊙ scales (+ bias).
+
+    x ``[M, K]``; w_i8 ``[K, N]`` int8 (on the card the view of
+    :func:`device_weight`); scales and bias ``[N]``.  A CPU tensor takes
+    :func:`matmul_wi8_plain`; a CUDA tensor launches the kernel."""
+    if x.device.type == "cpu":
+        return matmul_wi8_plain(x, w_i8, scales, bias)
+    if x.dim() != 2 or w_i8.dim() != 2 or x.shape[1] != w_i8.shape[0]:
+        raise ValueError(f"matmul_wi8: x {tuple(x.shape)} and w_i8 {tuple(w_i8.shape)} do not chain")
+    if w_i8.dtype != torch.int8 or w_i8.stride() != (1, w_i8.shape[0]) or w_i8.device != x.device:
+        raise ValueError("matmul_wi8: the weight must be int8 on x's device, n-major (device_weight)")
+    m, k = x.shape
+    n = w_i8.shape[1]
+    if k % 16 or n % 8:
+        raise ValueError(f"matmul_wi8: K={k} must be a multiple of 16 and N={n} of 8")
+    dev = x.device
+    xb = x.to(torch.bfloat16).contiguous()
+    s = scales.to(device=dev, dtype=torch.float32).reshape(n).contiguous()
+    b = None if bias is None else bias.to(device=dev, dtype=torch.float32).reshape(n).contiguous()
+    geo = int8_geometry(m, n, k)
+    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    part = torch.empty((geo["splits"] * m * n if geo["splits"] > 1 else 1,), dtype=torch.float32, device=dev)
+    fn = kernel_build.load_function("int8_matmul", "lpm_int8_matmul", _ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = fn(xb.data_ptr(), w_i8.data_ptr(), s.data_ptr(), 0 if b is None else b.data_ptr(),
+                y.data_ptr(), part.data_ptr(), m, n, k, geo["splits"], geo["kb_per_split"],
+                torch.cuda.current_stream(dev).cuda_stream)
+    kernel_build.check(rc, "matmul_wi8")
+    matmul_wi8.launches += 1
+    return y
+
+
+matmul_wi8.launches = 0
+
+
+def matmul_wi8_plain(x, w_i8, scales, bias=None):
+    """Plain PyTorch version of :func:`matmul_wi8` (the JAX package's
+    ``matmul_wi8``): x rounded to bf16, the int8 weight widened exactly, the
+    product summed in f32, times the scales, plus the bias."""
+    y = x.to(torch.bfloat16).float() @ w_i8.float()
+    y = y * scales.float()
+    return y if bias is None else y + bias.float()

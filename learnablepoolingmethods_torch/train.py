@@ -24,7 +24,10 @@ NetRVLADModelLF, NetFVModelLF, SoftDbofModelLF, NeXtVLADModel, with
 ``--netvlad_dimred``), DbofModel, FrameLevelLogisticModel, and LogisticModel
 and MoeModel on video-level input (without ``--frame_features``), with every
 ``--optimizer`` and ``--label_loss`` of the JAX package and
-``--adam_bf16_momentum``.  It takes every flag of the JAX CLI under its name
+``--adam_bf16_momentum``; ``--bf16_params`` (bf16 parameters, an f32 master
+in the optimizer), ``--fused_adam`` (bf16 parameters and state, the FusedAdam
+kernel on the card), ``--grad_accum_steps`` and ``--use_remat``
+(``core/step.py``).  It takes every flag of the JAX CLI under its name
 and default (``cli_flags.py``); ``--device`` (default ``cuda``) is the port's
 own.  With ``--fused_train_aggregation`` the NetVLAD and NetRVLAD
 aggregations run the CUDA forward and backward kernels of
@@ -35,8 +38,8 @@ uint8.  The weights start from ``core/weights.py#init_variables_np(seed)``.
 What the port does not take yet raises, naming its ROADMAP item: the
 attention family and the RNNs (``_NOT_TRAINED``), and the flags of
 ``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export, a device mesh,
-grain, the native reader, the packed cache, profiling, remat, gradient
-accumulation, bf16 parameters, the fused Adam, the RNN widths).
+grain, the native reader, the packed cache, profiling, the RNN widths).
+``--int8_hidden`` raises ValueError: the JAX trainer defines no such flag.
 """
 
 from __future__ import annotations
@@ -97,6 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def configs_from_args(args):
+    if args.int8_hidden:
+        raise ValueError("--int8_hidden is a flag of the eval, inference and serving CLIs: "
+                         "the JAX trainer defines no such flag")
     cli_flags.refuse_not_ported(args, cli_flags.TRAIN_NOT_PORTED,
                                 vars(build_parser().parse_args([])), "trainer")
     if args.model in _NOT_TRAINED:
@@ -119,7 +125,10 @@ def configs_from_args(args):
         num_epochs=args.num_epochs, max_steps=args.max_steps,
         save_checkpoint_every_n_steps=args.save_checkpoint_every_n_steps,
         keep_checkpoint_max=args.keep_checkpoint_max, adam_bf16_momentum=args.adam_bf16_momentum,
-        presample_frames=args.presample_frames,
+        presample_frames=args.presample_frames, use_remat=args.use_remat,
+        # --fused_adam keeps no f32 master (stochastic rounding replaces it)
+        fp32_master=args.bf16_params and not args.fused_adam, fused_adam=args.fused_adam,
+        grad_accum_steps=args.grad_accum_steps,
     )
     return fcfg, mcfg, tcfg
 

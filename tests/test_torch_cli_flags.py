@@ -117,6 +117,41 @@ def test_unported_flag_off_its_default_raises_naming_its_item(tmp_path, cli, nam
                                f"--train_dir={tmp_path}/m", "--device=cpu"])
 
 
+# item 12b's flags, which the CLIs refused before they were ported (one
+# case for each (CLI, flag) that NOT_PORTED held): what each does now, as
+# the JAX CLI
+ITEM_12B = [("inference", "bf16_params"), ("inference", "fused_adam"), ("eval", "bf16_params"),
+            ("eval", "fused_adam"), ("eval", "int8_hidden"), ("train", "int8_hidden"), ("train", "use_remat"),
+            ("train", "bf16_params"), ("train", "fused_adam"), ("train", "grad_accum_steps")]
+
+
+@pytest.mark.parametrize("cli, name", ITEM_12B)
+def test_item_12b_flags_are_taken_as_the_jax_cli_takes_them(tmp_path, cli, name):
+    defaults = vars(CLIS[cli].build_parser().parse_args([]))
+    args = CLIS[cli].build_parser().parse_args(
+        _argv({name: _off_default(defaults[name])}) + ["--model=NetVLADModelLF", "--frame_features"])
+    assert name not in NOT_PORTED[cli]
+    if name == "int8_hidden" and cli == "train":
+        # the JAX trainer defines no --int8_hidden
+        with pytest.raises(ValueError, match="the JAX trainer defines no such flag"):
+            train.configs_from_args(args)
+    elif name == "int8_hidden":
+        # the JAX eval CLI's check: --int8_hidden needs --fast_forward
+        with pytest.raises(ValueError, match="--int8_hidden requires --fast_forward"):
+            eval_cli.main(_argv({name: True}) + ["--model=NetVLADModelLF", "--frame_features", "--run_once",
+                                                  f"--eval_data_pattern={tmp_path}/none*",
+                                                  f"--train_dir={tmp_path}/m", "--device=cpu"])
+    elif cli == "train":
+        _, mcfg, tcfg = train.configs_from_args(args)
+        # flags.py#training_config_from_flags and #model_config_from_flags
+        assert tcfg.use_remat == args.use_remat and tcfg.grad_accum_steps == args.grad_accum_steps
+        assert tcfg.fp32_master == (args.bf16_params and not args.fused_adam)
+        assert tcfg.fused_adam == args.fused_adam
+        assert mcfg.param_dtype == ("bfloat16" if name in ("bf16_params", "fused_adam") else "float32")
+    else:
+        assert cli_flags.model_config_from_args(args).param_dtype == "bfloat16"
+
+
 def test_flags_without_an_effect_here_are_accepted():
     """--num_gpu (ignored by the JAX CLIs too) and, at inference, the
     training schedule's flags parse and raise nothing, as in the JAX CLI."""

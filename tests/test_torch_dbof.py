@@ -117,7 +117,8 @@ def test_fast_dbof_refuses_what_the_jax_path_refuses():
         prepare(tv, dataclasses.replace(cfg, dbof_add_batch_norm=False), device="cpu")
     with pytest.raises(ValueError, match="nosample_random_frames"):
         prepare(tv, dataclasses.replace(cfg, sample_random_frames=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    # the JAX dispatch's wording: DBoF has no giant D·K hidden FC
+    with pytest.raises(ValueError, match="int8_hidden is only supported on the models with the giant"):
         prepare(tv, cfg, int8_hidden=True, device="cpu")
 
 

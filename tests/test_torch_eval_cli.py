@@ -193,10 +193,12 @@ def test_fast_eval_agrees_with_the_default_accumulator(setup, model_name, route)
 
 
 def test_eval_cli_refuses_what_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
+    # --int8_hidden needs --fast_forward (the JAX eval CLI's ValueError);
+    # --bf16_params is ported (test_torch_bf16_params.py)
+    with pytest.raises(ValueError, match="--int8_hidden requires --fast_forward"):
         _port_eval(setup, "NetVLADModelLF", ["--int8_hidden"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        _port_eval(setup, "NetVLADModelLF", ["--bf16_params"])
+    with pytest.raises(ValueError, match="--int8_hidden requires --fast_forward"):
+        _port_eval(setup, "DbofModel", ["--int8_hidden", "--fast_forward"])
     with pytest.raises(ValueError, match="needs --frame_features"):
         teval.main(MODEL_FLAGS + VIDEO_FLAGS + ["--model=DbofModel", "--fast_forward", "--run_once",
                                                 f"--eval_data_pattern={setup['videos']}",

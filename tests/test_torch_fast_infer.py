@@ -174,11 +174,11 @@ def test_rejects_single_modality_layout(rng):
 def test_unported_options_and_models_name_their_roadmap_item(setup):
     _, variables, _, _ = setup
     tv = convert_flax_variables(_np_tree(variables), TCFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tfi.prepare_fast_params(tv, TCFG, int8_hidden=True, device="cpu")
-    # DbofModel's fast path is ported too (ops/fast_dbof.py) and refuses
-    # --int8_hidden as every fast path of the port does
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    # --int8_hidden is ported: the hidden FC's two slices int8, per column
+    fp8 = tfi.prepare_fast_params(tv, TCFG, int8_hidden=True, device="cpu")
+    assert fp8["w_rgb"]["q"].dtype == torch.int8 and fp8["w_aud"]["s"].dtype == torch.float32
+    # DbofModel's fast path refuses it with the JAX dispatch's ValueError
+    with pytest.raises(ValueError, match="int8_hidden is only supported on the models with the giant"):
         get_fast_path("DbofModel").prepare({}, TCFG, int8_hidden=True, device="cpu")
     # no fast path in the JAX package either: its CLI's ValueError
     with pytest.raises(ValueError, match="--fast_infer supports"):

@@ -1,6 +1,6 @@
 """The port, chip_smoke.py and the port's tools import nothing of JAX, of
-the JAX package or of tensorflow: the machine with the card has none of
-them.  The one tool that writes a TF checkpoint fixture imports tensorflow
+the JAX package, of ml_dtypes or of tensorflow: the machine with the card
+has none of them (the port reads bf16 as uint16 bits).  The one tool that writes a TF checkpoint fixture imports tensorflow
 inside its writer; it runs where tensorflow is installed."""
 
 import ast
@@ -11,7 +11,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "learnablepoolingmethods_torch"
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "learnablepoolingmethods_tpu", "tensorflow")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "learnablepoolingmethods_tpu", "tensorflow",
+          "ml_dtypes")
 # scripts that may import tensorflow (inside a function, never at import)
 TF_WRITERS = ("torch_make_tf_bundle_fixture.py",)
 SCRIPTS = [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
@@ -56,7 +57,7 @@ def test_the_guard_covers_the_kernel_modules():
     names = _module_names()
     for module in ("fast_infer", "fast_lf", "fast_dispatch", "fused_frontend", "netvlad_fused",
                    "netvlad_train", "netfv_fused", "softdbow_fused", "kernel_build", "fast_transformer",
-                   "masked_attention", "fast_dbof", "metrics_ops"):
+                   "masked_attention", "fast_dbof", "metrics_ops", "fused_adam", "int8_matmul"):
         assert f"learnablepoolingmethods_torch.ops.{module}" in names, module
     for module in ("models.frame_level", "models.video_level", "eval", "inference", "train", "losses",
                    "core.observability", "core.step", "core.optimizers", "core.checkpoints",

@@ -163,8 +163,9 @@ def test_dispatch_and_what_is_not_ported(flax_models):
     tv = weights.convert_flax_variables(tree, cfg, "SoftDbofModelLF")
     fp = get_fast_path("SoftDbofModelLF").prepare(tv, cfg, device="cpu")
     assert fp["mods"][0]["w1"].dtype == torch.bfloat16 and len(fp["mods"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        get_fast_path("NetFVModelLF").prepare(tv, cfg, int8_hidden=True, device="cpu")
+    # --int8_hidden: the JAX dispatch's wording on the LF models without it
+    with pytest.raises(ValueError, match="int8_hidden is only supported on the models with the giant"):
+        get_fast_path("SoftDbofModelLF").prepare(tv, cfg, int8_hidden=True, device="cpu")
     with pytest.raises(ValueError, match="gating on"):
         fast_lf.prepare_fast_lf_params(tv, dataclasses.replace(cfg, gating=False), "SoftDbofModelLF",
                                        device="cpu")

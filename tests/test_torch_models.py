@@ -148,8 +148,13 @@ def test_registry_names_what_is_not_ported():
         create_model("LstmModel", cfg, 1152)
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("NoSuchModel", cfg, 1152)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        create_model("NetVLADModelLF", ModelConfig(**KW, param_dtype="bfloat16"), 1152)
+    # bf16 parameters are ported (item 12b): every parameter bf16, the BN
+    # statistics f32 (test_torch_bf16_params.py holds the dtypes to flax's)
+    bf16 = create_model("NetVLADModelLF", ModelConfig(**KW, param_dtype="bfloat16"), 1152)
+    assert {p.dtype for p in bf16.parameters()} == {torch.bfloat16}
+    assert {b.dtype for b in bf16.buffers()} == {torch.float32}
+    with pytest.raises(ValueError, match="param_dtype"):
+        create_model("NetVLADModelLF", ModelConfig(**KW, param_dtype="float16"), 1152)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
         create_model("AttentionPoolingModel", cfg, 1152)
     # --netvlad_dimred is ported: a learned [D, r] reduction before one module

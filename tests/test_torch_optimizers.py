@@ -138,10 +138,14 @@ def test_adam_bf16_momentum_matches_optax_mu_dtype_bfloat16(clip):
 
 
 def test_unported_options_raise_naming_12b():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        optimizers.create_optimizer([torch.zeros(2)], TrainingConfig(fused_adam=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        optimizers.create_optimizer([torch.zeros(2)], TrainingConfig(fp32_master=True))
+    """Item 12b's options are ported: --fused_adam builds the FusedAdam,
+    --bf16_params the f32 master around the chain; the JAX package's two
+    ValueErrors stay."""
+    from learnablepoolingmethods_torch.ops.fused_adam import FusedAdam
+
+    assert isinstance(optimizers.create_optimizer([torch.zeros(2)], TrainingConfig(fused_adam=True)), FusedAdam)
+    tx = optimizers.create_optimizer([torch.zeros(2, dtype=torch.bfloat16)], TrainingConfig(fp32_master=True))
+    assert isinstance(tx, optimizers.Fp32Master) and isinstance(tx.inner, optimizers.Adam)
     with pytest.raises(ValueError, match="requires --optimizer=AdamOptimizer"):
         optimizers.create_optimizer([torch.zeros(2)], TrainingConfig(optimizer="SgdOptimizer", fused_adam=True))
     with pytest.raises(ValueError, match="Unknown optimizer"):

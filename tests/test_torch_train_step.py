@@ -202,13 +202,10 @@ def test_train_cli_writes_variables_the_inference_cli_reads(tmp_path):
 
 
 @pytest.mark.parametrize("flag, error", [
-    ("--grad_accum_steps=2", NotImplementedError),
-    ("--bf16_params", NotImplementedError),
-    ("--use_remat", NotImplementedError),
-    ("--fused_adam", NotImplementedError),
     ("--model=LstmModel", NotImplementedError),
     ("--model=TransformerEncoderModel", NotImplementedError),
-    ("--int8_hidden", NotImplementedError),
+    # the JAX trainer defines no --int8_hidden (only eval, inference, serving)
+    ("--int8_hidden", ValueError),
     ("--export_model_steps=10", NotImplementedError),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, error):
@@ -217,6 +214,23 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, error):
     with pytest.raises(error):
         train.main(CLI_FLAGS + [f"--train_data_pattern={data}", f"--train_dir={tmp_path}/m",
                                 "--batch_size=2", "--max_steps=1", flag])
+
+
+@pytest.mark.parametrize("flags", [["--grad_accum_steps=2"], ["--bf16_params"], ["--use_remat"],
+                                   ["--fused_adam"]], ids=lambda f: f[0])
+def test_train_cli_takes_the_12b_flags(tmp_path, flags):
+    """Item 12b's flags, which the trainer refused until they were ported:
+    a step that writes a checkpoint of the mode's leaves."""
+    data = str(tmp_path / "train-0.tfrecord")
+    fixtures.write_frame_level_fixture(data, 2, num_classes=20, max_frames=10, seed=1)
+    trainer = train.main(CLI_FLAGS + [f"--train_data_pattern={data}", f"--train_dir={tmp_path}/m",
+                                      "--batch_size=2", "--max_steps=1", "--log_every_n_steps=1", *flags])
+    tree = trainer.state.state_tree()
+    assert trainer.state.step == 1 and np.isfinite(trainer.history[-1]["loss"])
+    bf16 = flags[0] in ("--bf16_params", "--fused_adam")
+    assert (tree["params/hidden1_weights"].dtype == torch.bfloat16) == bf16
+    assert ("opt_state/master/hidden1_weights" in tree) == (flags[0] == "--bf16_params")
+    assert ("opt_state/nu/hidden1_weights" in tree) == (flags[0] == "--fused_adam")
 
 
 def test_train_cli_refuses_to_overwrite_a_checkpoint(tmp_path):
