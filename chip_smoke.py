@@ -44,6 +44,14 @@ error, and prints one JSON line per phase:
               version at the --int8_hidden FC shapes, B 1, 32, 256, 512, the
               bias fused, K=4,112 with a zero column (INT8_GATE); times at the
               Willow rgb FC beside the bound and cuBLAS bf16;
+   dropout    the dropout kernel (csrc/dropout.cu, flax's nn.Dropout and
+              attention-weight dropout): its keep mask equal bit for bit to
+              utils/prng.py's at [1, 1, 300, 300], [76,800, 1024] and sizes
+              1, 7, 1,023 and 2²⁴ + 3; both rules forward and backward in bf16
+              and f32 equal bit for bit to the plain arithmetic on the
+              host's mask, a second launch too; its time at config 5's FFN
+              output (B=256) beside the bound, the plain version (host draw
+              included) and F.dropout (context), the attention call's too;
 4. e2e        full-width Willow GatedNetVLAD-256 weights from a seed (hidden
               FC 278528×1024, V=3862, M=2, BN stats perturbed) and 96
               synthetic videos driven down two paths, each with the launch
@@ -114,6 +122,21 @@ error, and prints one JSON line per phase:
               checkpoint restored bit for bit, remat's losses and BN
               statistics within REMAT_GATE of no remat, eval --fast_forward
               on the bf16 checkpoint; step ms and peak memory per mode;
+   train_attn_rnn_e2e
+              the train CLI for TransformerEncoderModel, AttentionNetVLADModel,
+              AttentionPoolingModel, LstmModel and GruModel at their JAX
+              default widths, B=256, five bf16 steps, and the transformer
+              under --bf16_params (ATTN_RNN_RUNS): losses finite and falling,
+              the dropout kernel 8 times a step for the two encoder models,
+              no other launch; each model's f32 step-1 loss on the card
+              within 1e-5 of the CPU's on 16 videos of the first batch,
+              dropout included, and the transformer's --use_remat and
+              --grad_accum_steps=2 steps the same (remat's gradients equal to
+              the step's without it within REMAT_GATE); the bf16_params
+              checkpoint's leaves in flax's dtypes; the eval CLI reading each
+              checkpoint back (model-forward route); eval --fast_forward on
+              the two encoder models (rows 7 and 2) within 1e-2 in probability
+              of the model-forward route;
 8. train_throughput
               the train step at B=256, S=30, bf16, fused: videos/s (the median
               of five rounds), forward, backward and optimizer ms, peak
@@ -121,6 +144,11 @@ error, and prints one JSON line per phase:
    train_zoo_throughput
               the same for every ZOO_RUNS model in bf16 (NetRVLAD fused and
               plain), and a profile of NetRVLAD's fused step;
+   train_attn_rnn_throughput
+              the same for the five models of train_attn_rnn_e2e (two
+              rounds of two steps), a profile of the transformer's step,
+              and the model-forward inference route of AttentionPoolingModel,
+              LstmModel and GruModel at B=256;
    optimizers every --optimizer of the JAX package and
               --adam_bf16_momentum on Willow fused bf16 at B=256: the first
               update on the card against the same update on the CPU from the
@@ -205,11 +233,13 @@ error, and prints one JSON line per phase:
               batch), its CSV the module's top 20 and the module within the
               f32 gate of its plain aggregation; DbofModel at full width:
               eval --fast_forward and inference --fast_infer against the f32
-              plain DBoF route within 1e-2 in probability; then three more
-              arms of the drill trained the same way (EVAL_ARMS:
-              NetRVLAD-256 fused, DbofModel-8192, NetFV-256), each through
+              plain DBoF route within 1e-2 in probability; then four more
+              arms trained the same way (EVAL_ARMS: the drill's NetRVLAD-256
+              fused, DbofModel-8192, NetFV-256, and config 5's
+              TransformerEncoderModel with its dropout), each through
               eval --fast_forward (rows 2 and 5 twice a batch for the LF
-              two) against the f32 plain route: GAP >= 0.3, |ΔGAP| <= 1e-3,
+              two, row 7 once per layer a batch for the transformer) against
+              the f32 plain route: GAP >= 0.3, |ΔGAP| <= 1e-3,
               --fast_eval within 1e-5; and eval --fast_forward --int8_hidden
               on NetVLADModelLF, NetRVLAD-256 and NetFV-256 within GAP_BUDGET
               of their bf16 route (the W8A16 kernel 2 or 4 times a batch).
@@ -240,7 +270,7 @@ from learnablepoolingmethods_torch import inference, train
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig, TrainingConfig
 from learnablepoolingmethods_torch.core import checkpoints, optimizers
 from learnablepoolingmethods_torch.core import step as step_lib
-from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager
+from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager, load_weights
 from learnablepoolingmethods_torch.core.step import TrainStep
 from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.core.weights import (
@@ -260,9 +290,11 @@ from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader, make_reader
 from learnablepoolingmethods_torch.losses import CrossEntropyLoss
 from learnablepoolingmethods_torch.metrics import eval_util
-from learnablepoolingmethods_torch.models import create_model
+from learnablepoolingmethods_torch.models import create_model, find_class_by_name
 from learnablepoolingmethods_torch.models.frame_level import lf_layout
-from learnablepoolingmethods_torch.ops import fast_dbof, fast_lf, kernel_build
+from learnablepoolingmethods_torch.ops import dropout as dropout_ops
+from learnablepoolingmethods_torch.ops import fast_dbof, fast_lf, fast_transformer, kernel_build
+from learnablepoolingmethods_torch.ops.dropout import apply_mask, dropout_kernel, dropout_plain
 from learnablepoolingmethods_torch.ops.fast_dispatch import (
     FAST_ATTENTION_MODELS,
     FAST_LF_MODELS,
@@ -332,6 +364,9 @@ from learnablepoolingmethods_torch.utils import prng
 # FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+# float32 outside the tensor cores: the CUDA cores' rate, at which the
+# dropout kernel's hash (integer operations) is counted
+PEAK_CUDA_CORES = 67e12
 DT, D_RGB, D_AUD, K_RGB, K_AUD, F = 1152, 1024, 128, 256, 128, 300
 MODS = ((D_RGB, K_RGB), (D_AUD, K_AUD))
 # the kernels whose bf16 instantiation was redesigned for Hopper: the
@@ -415,6 +450,12 @@ KERNELS = {
         fn=matmul_wi8,
         source="learnablepoolingmethods_torch/csrc/int8_matmul.cu",
         replaces="learnablepoolingmethods_tpu/ops/int8_matmul.py:62 matmul_wi8 (XLA fusion, no pallas_call)",
+    ),
+    "dropout": dict(
+        fn=dropout_kernel,
+        source="learnablepoolingmethods_torch/csrc/dropout.cu",
+        replaces="learnablepoolingmethods_tpu/models/attention.py:49 nn.Dropout and :40 the attention-weight "
+                 "dropout (flax; XLA fusion of jax.random.bernoulli, no pallas_call)",
     ),
 }
 TRAIN_KERNELS = ("netvlad_aggregate_forward", "netvlad_aggregate_backward")
@@ -1145,11 +1186,12 @@ def random_train_batch(rng: np.random.Generator, b: int, dev, frame_features: bo
 
 
 def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, batch: dict,
-                    frame_features: bool = True, tree=None) -> tuple:
+                    frame_features: bool = True, tree=None, rounds: int = 5) -> tuple:
     """``name``'s train step at ``mcfg`` (weights ``tree``, by default from
-    init_variables_np) on ``batch``: the median of five rounds of five steps by CUDA events,
-    forward, backward and optimizer ms (medians over five steps), peak
-    memory.  Returns (line, step) where ``step()`` runs one more step."""
+    init_variables_np) on ``batch``: the median of ``rounds`` rounds of
+    ``rounds`` steps by CUDA events, forward, backward and optimizer ms
+    (medians over ``rounds`` steps), peak memory.  Returns (line, step)
+    where ``step()`` runs one more step."""
     fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), frame_features, F)
     b = batch["features"].shape[0]
     torch.cuda.empty_cache()
@@ -1162,17 +1204,17 @@ def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, bat
     for _ in range(2):
         step(state, batch, key)
     torch.cuda.synchronize()
-    rounds = []
-    for _ in range(5):
+    times = []
+    for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(5):
+        for _ in range(rounds):
             step(state, batch, key)
         end.record()
         end.synchronize()
-        rounds.append(start.elapsed_time(end) / 5)
+        times.append(start.elapsed_time(end) / rounds)
     stages = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
-    for _ in range(5 if step.accum == 1 else 0):  # an accumulated step has no single forward
+    for _ in range(rounds if step.accum == 1 else 0):  # an accumulated step has no single forward
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         total = step.loss(state, batch, key)[0]
@@ -1184,10 +1226,10 @@ def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, bat
         ev[3].synchronize()
         for stage, (a, c) in zip(stages, ((0, 1), (1, 2), (2, 3))):
             stages[stage].append(ev[a].elapsed_time(ev[c]))
-    step_ms = statistics.median(rounds)
+    step_ms = statistics.median(times)
     line = {"B": b, "S": mcfg.iterations if frame_features and model.samples_frames else None,
             "videos_per_s": b / (step_ms / 1e3), "step_ms": step_ms,
-            "videos_per_s_rounds": [b / (ms / 1e3) for ms in rounds],
+            "videos_per_s_rounds": [b / (ms / 1e3) for ms in times],
             **{stage: statistics.median(v) if v else None for stage, v in stages.items()},
             "parameters": sum(p.numel() for p in model.parameters()),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -2303,7 +2345,8 @@ def train_eval_model(dev, data: str, workdir: str, smi, name: str = "NetVLADMode
     launches = counters()
     mods = len(lf_layout(name, mcfg, DT)) if mcfg.fused_train_aggregation else 0
     want = {**dict.fromkeys(KERNELS, 0), "netvlad_aggregate_backward": mods * state.step,
-            "netvlad_aggregate_forward": mods * (state.step + len(gap_batches) * len(gaps))}
+            "netvlad_aggregate_forward": mods * (state.step + len(gap_batches) * len(gaps)),
+            "dropout": dropout_launches_per_step(name, mcfg) * state.step}
     if launches != want:
         raise AssertionError(f"eval_e2e training of {name}: launches {launches}, expected {want}")
     train_dir = os.path.join(workdir, name)
@@ -2476,19 +2519,22 @@ def phase_eval_e2e(dev, workdir, smi):
     del tree, variables, fp
     shutil.rmtree(dbof_dir)
 
-    for name, (overrides, flags, kernel) in EVAL_ARMS.items():
-        for n, c in eval_arm(dev, data, workdir, smi, batches, name, overrides, flags, kernel).items():
+    for name, (overrides, flags, kernel, per_batch) in EVAL_ARMS.items():
+        for n, c in eval_arm(dev, data, workdir, smi, batches, name, overrides, flags, kernel, per_batch).items():
             launches[n] += c
     return launches
 
 
 # the JAX drill's other trained arms (tests/integration/gap_drill_common.py:77-104)
-# at their widths: model → (ModelConfig overrides, CLI flags, the kernel of
-# its --fast_forward route)
+# at their widths, and config 5's transformer (the drill has no transformer
+# arm): model → (ModelConfig overrides, CLI flags, the kernel of its
+# --fast_forward route, its launches a batch: one per modality, or one per
+# encoder layer)
 EVAL_ARMS = {
-    "NetRVLADModelLF": ({"fused_train_aggregation": True}, [], "netvlad_fused"),
-    "DbofModel": ({}, [], None),
-    "NetFVModelLF": ({"fv_cluster_size": 256}, ["--fv_cluster_size=256"], "netfv_fused"),
+    "NetRVLADModelLF": ({"fused_train_aggregation": True}, [], "netvlad_fused", 2),
+    "DbofModel": ({}, [], None, 0),
+    "NetFVModelLF": ({"fv_cluster_size": 256}, ["--fv_cluster_size=256"], "netfv_fused", 2),
+    "TransformerEncoderModel": ({}, [], "masked_attention_fused", 2),
 }
 
 
@@ -2501,6 +2547,10 @@ def f32_plain_route(name: str, tree, mcfg: ModelConfig, dev):
     """(fast params, fn) of ``name``'s f32 fast route without kernels."""
     variables = convert_flax_variables(tree, mcfg, name)
     f32 = torch.float32
+    if name == "TransformerEncoderModel":
+        return (fast_transformer.prepare_fast_transformer_params(variables, mcfg, compute_dtype=f32, device=dev),
+                fast_transformer.build_fast_transformer_inference(mcfg, use_kernels=False, compute_dtype=f32,
+                                                                  return_probs=True))
     if name == "DbofModel":
         return (fast_dbof.prepare_fast_dbof_params(variables, mcfg, compute_dtype=f32, device=dev),
                 fast_dbof.build_fast_dbof_inference(mcfg, compute_dtype=f32, return_probs=True))
@@ -2508,10 +2558,11 @@ def f32_plain_route(name: str, tree, mcfg: ModelConfig, dev):
             fast_lf.build_fast_lf_inference(mcfg, name, use_kernels=False, compute_dtype=f32, return_probs=True))
 
 
-def eval_arm(dev, data: str, workdir: str, smi, batches, name: str, overrides, flags, kernel) -> dict:
+def eval_arm(dev, data: str, workdir: str, smi, batches, name: str, overrides, flags, kernel,
+             per_batch: int) -> dict:
     """One more trained arm of phase_eval_e2e: ``name`` trained by
     train_eval_model, then the eval CLI with --fast_forward (bf16;
-    ``kernel`` twice a batch, one launch per modality), with the default
+    ``kernel`` ``per_batch`` times a batch), with the default
     accumulator and --fast_eval, against the f32 plain fast route in-process
     on the same frames: GAP >= EVAL_GAP_FLOOR and |ΔGAP| <= GAP_BUDGET.
     Returns {kernel: launches}."""
@@ -2520,7 +2571,7 @@ def eval_arm(dev, data: str, workdir: str, smi, batches, name: str, overrides, f
     mcfg = eval_config(**{k: v for k, v in overrides.items() if k != "fused_train_aggregation"})
     infos, paths = eval_cli_routes(name, data, train_dir, {"fast_forward_bf16": ["--fast_forward", *flags]})
     none = dict.fromkeys(KERNELS, 0)
-    want = {run: {**none, **({kernel: 2 * len(batches)} if kernel else {})} for run in paths}
+    want = {run: {**none, **({kernel: per_batch * len(batches)} if kernel else {})} for run in paths}
     if paths != want:
         raise AssertionError(f"{name} eval launches {paths}, expected {want}")
     if name in INT8_ARMS:
@@ -3085,6 +3136,377 @@ def int8_eval(name: str, data: str, train_dir: str, flags, bf16_gap: float, n_ba
     return got
 
 
+# ---- items 10b and 11: the dropout kernel, the attention family and the RNNs
+
+# flax's rate of the transformer family (--attention_dropout)
+DROPOUT_RATE = 0.1
+# the shapes at which the kernel's keep mask is held to utils/prng.py's
+# bits: the attention weights' [1, 1, F, F], config 5's FFN output at B=256
+# ([B·F, D]), and sizes 1, 7, 1,023 and one above 2²⁴
+DROPOUT_MASK_SHAPES = ((1, 1, F, F), (256 * F, 1024), (1,), (7,), (1023,), ((1 << 24) + 3,))
+# the main path's two calls: nn.Dropout on the FFN output [B·F, D] (the
+# timed row) and the attention-weight dropout on [B, H, F, F] under one
+# [1, 1, F, F] mask
+DROPOUT_FFN_SHAPE, DROPOUT_ATTN_SHAPE = (256 * F, 1024), (256, 8, F, F)
+# the attention rule's bit-for-bit checks, in bf16 and f32
+DROPOUT_ATTN_CHECK_SHAPE = (64, 8, F, F)
+# operations counted for the bound: per mask element the hash (20 rounds of
+# add, rotate and xor, five key injections of three adds, the two first
+# adds) and the draw (xor, shift, or, subtract, compare): 82; per element
+# the select or product: 1
+DROPOUT_HASH_OPS, DROPOUT_APPLY_OPS = 82, 1
+
+
+def dropout_bound(n: int, period: int, elt: int):
+    """Least time (ms) of one dropout call over ``n`` elements of ``elt``
+    bytes under a mask of ``period`` elements: x read and y written once over
+    the HBM rate, or the mask's hashes and the per-element select over the
+    CUDA cores' rate, whichever is larger."""
+    bytes_ms = 2 * n * elt / PEAK_BYTES * 1e3
+    ops_ms = (period * DROPOUT_HASH_OPS + n * DROPOUT_APPLY_OPS) / PEAK_CUDA_CORES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bit patterns (so −0 differs from +0)."""
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def phase_dropout(dev, smi) -> tuple:
+    """The dropout kernel (``csrc/dropout.cu``) against utils/prng.py and its
+    plain version, on a key that flax's make_rng hands the first encoder
+    layer's FFN dropout:
+
+    - its keep mask (from a launch on ones) equal bit for bit to
+      ``prng.bernoulli``'s, which is built from ``prng.random_bits``, at every
+      DROPOUT_MASK_SHAPES shape;
+    - both rules (nn.Dropout's select and the attention's product under a
+      [1, 1, F, F] mask over [B, H, F, F]), forward and backward through the
+      autograd function, x in bf16 and f32: equal bit for bit to the plain
+      arithmetic on the host's mask, and a second launch to the first;
+    - times at the FFN output of config 5 at B=256 in bf16 beside the bound,
+      the plain version (the host draw included) and torch's F.dropout
+      (Philox bits, another function: context only); the attention call's
+      time beside its bound.
+    Returns (errors, timing, library)."""
+    key = prng.flax_make_rng(prng.key(17), 1, ("encoder", "layer_0", "Dropout_0"))
+    kp = 1.0 - DROPOUT_RATE
+    masks = []
+    for shape in DROPOUT_MASK_SHAPES:
+        start = time.perf_counter()
+        want = torch.from_numpy(prng.bernoulli(key, kp, shape))
+        host_s = time.perf_counter() - start
+        got = (dropout_kernel(torch.ones(shape, device=dev), key, kp, shape) != 0).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"dropout mask {shape}: {(got != want).sum().item()} entries differ from prng's")
+        masks.append({"shape": list(shape), "kept_share": want.float().mean().item(), "host_draw_s": host_s})
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errors, checks = {"dropout": 0.0}, []
+    for mode, shape, mask_shape in (("div", DROPOUT_FFN_SHAPE, DROPOUT_FFN_SHAPE),
+                                    ("mul", DROPOUT_ATTN_CHECK_SHAPE, (1, 1, *DROPOUT_ATTN_CHECK_SHAPE[2:]))):
+        keep = torch.from_numpy(prng.bernoulli(key, kp, mask_shape)).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            xr = x.clone().requires_grad_(True)
+            y = dropout_ops.dropout(xr, key, DROPOUT_RATE, mask_shape, mode)
+            y.backward(g)
+            again = dropout_kernel(x, key, kp, mask_shape, mode)
+            torch.cuda.synchronize()
+            want_y, want_g = apply_mask(x, keep, kp, mode), apply_mask(g, keep, kp, mode)
+            ok = {"forward": bits_equal(y.detach(), want_y), "backward": bits_equal(xr.grad, want_g),
+                  "second_launch": bits_equal(again, y.detach())}
+            if not all(ok.values()):
+                raise AssertionError(f"dropout {mode} {shape} {dtype}: bit for bit {ok}")
+            checks.append({"mode": mode, "shape": list(shape), "dtype": str(dtype), **ok})
+            del x, g, xr, y, again, want_y, want_g
+        torch.cuda.empty_cache()
+    x = torch.randn(DROPOUT_FFN_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    ms = time_ms(lambda: dropout_kernel(x, key, kp, DROPOUT_FFN_SHAPE))
+    plain_ms = time_ms(lambda: dropout_plain(x, key, kp, DROPOUT_FFN_SHAPE), reps=1, warmup=0)
+    library_ms = time_ms(lambda: torch.nn.functional.dropout(x, DROPOUT_RATE, training=True))
+    bound = dropout_bound(x.numel(), x.numel(), 2)
+    w = torch.rand(DROPOUT_ATTN_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    attn_mask = (1, 1, *DROPOUT_ATTN_SHAPE[2:])
+    attn_ms = time_ms(lambda: dropout_kernel(w, key, kp, attn_mask, "mul"))
+    attn_bound = dropout_bound(w.numel(), int(np.prod(attn_mask)), 2)
+    emit({"phase": "dropout", "masks": masks, "checks": checks, "card": smi})
+    emit({"phase": "kernel_times", "kernel": "dropout", "shape": list(DROPOUT_FFN_SHAPE), "dtype": "bfloat16",
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound[0], "bound_by": bound[1],
+          "attention_call": {"shape": list(DROPOUT_ATTN_SHAPE), "ms": attn_ms, "bound_ms": attn_bound[0],
+                             "bound_by": attn_bound[1]},
+          "library": "torch.nn.functional.dropout (Philox bits: another function)", "card": smi})
+    del x, w
+    torch.cuda.empty_cache()
+    return errors, {"dropout": (ms, plain_ms, bound)}, {"dropout": library_ms}
+
+
+def dropout_launches_per_step(name: str, mcfg: ModelConfig) -> int:
+    """The dropout kernel's launches in one training step of ``name``: per
+    encoder layer the attention's and the FFN's, each forward and backward."""
+    if name not in FAST_ATTENTION_MODELS or mcfg.attention_dropout == 0.0:
+        return 0
+    return 2 * 2 * mcfg.transformer_layers
+
+
+# the train CLI's runs of phase_train_attn_rnn_e2e: run → (model, extra
+# flags), each at the JAX package's default width (config 5: D 1024, 8
+# heads, two layers, FFN 2048, dropout 0.1; AttentionNetVLAD K=256, hidden
+# 1024; attention pooling Q=64; LSTM and GRU two layers of 1024), B=256,
+# five bf16 steps (ZOO_STEP_FLAGS)
+ATTN_RNN_RUNS = {
+    "TransformerEncoderModel": ("TransformerEncoderModel", []),
+    "AttentionNetVLADModel": ("AttentionNetVLADModel", []),
+    "AttentionPoolingModel": ("AttentionPoolingModel", []),
+    "LstmModel": ("LstmModel", []),
+    "GruModel": ("GruModel", []),
+    "TransformerEncoderModel/bf16_params": ("TransformerEncoderModel", ["--bf16_params"]),
+}
+# the f32 step-1 check against the CPU runs on the first videos of the CLI's
+# first batch: the masks depend on the shape, and a full-width f32 step of
+# B=256 on the host's CPU would take minutes a model
+ATTN_RNN_CPU_VIDEOS = 16
+# the one-step checks on TransformerEncoderModel against the CPU
+ATTN_RNN_STEP_MODES = {"use_remat": ["--use_remat"], "grad_accum_steps=2": ["--grad_accum_steps=2"]}
+# the fast routes (rows 7 and 2) against the model-forward route, in
+# probability
+ATTN_FAST_GATE = 1e-2
+
+
+def attn_rnn_args(name: str, *extra: str) -> tuple:
+    """(args, (fcfg, mcfg, tcfg)) of the train CLI for ``name``."""
+    args = train.build_parser().parse_args(ZOO_STEP_FLAGS + FRAME_FLAGS + [f"--model={name}", *extra])
+    return args, train.configs_from_args(args)
+
+
+def step1_with_grads(where, args, configs, batch, tree, grad: bool) -> tuple:
+    """The first train step's loss on ``where`` and with ``grad`` its
+    gradients ({name: f32 tensor}, through the recompute under
+    ``--use_remat``); the accumulated step where ``--grad_accum_steps`` > 1,
+    which takes its gradients microbatch by microbatch whatever ``grad``."""
+    fcfg, mcfg, tcfg = configs
+    model = load_flax_variables(create_model(args.model, mcfg, fcfg.total_size), tree).to(where)
+    step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, True)
+    state = TrainState.create(model, tcfg)
+    batch = {k: v.to(where) for k, v in batch.items()}
+    if step.accum != 1:
+        return float(step.accumulated(state, batch, prng.key(args.seed))[1]), None
+    with torch.set_grad_enabled(grad):
+        total = step.loss(state, batch, prng.key(args.seed))[0]
+        if not grad:
+            return float(total), None
+        grads = step_lib.gradients(total, model)
+    return float(total.detach()), {n: g.float() for (n, _), g in zip(model.named_parameters(), grads)}
+
+
+def flax_param_dtype(name: str, leaf: str) -> str:
+    """The dtype of a parameter leaf of ``name`` in flax's tree under
+    --bf16_params: f32 where flax builds the module without param_dtype (the
+    input projection, the encoder, the attention pooling, the RNN cells),
+    bf16 elsewhere (tests/test_torch_attention_rnn.py holds the port to flax
+    leaf for leaf)."""
+    f32 = find_class_by_name(name).f32_param_prefixes
+    return "float32" if leaf.replace("/", ".").startswith(f32) else "bfloat16"
+
+
+def phase_train_attn_rnn_e2e(dev, workdir, smi) -> dict:
+    """The train CLI for the attention family and the RNNs (ATTN_RNN_RUNS)
+    on train_e2e's 512 videos, launch counters zeroed before each run and
+    read after.  Gates:
+
+    - five finite losses a run, the last below the first;
+    - the dropout kernel launches dropout_launches_per_step a step (8 for
+      the two encoder models, none for the others), no other kernel;
+    - each model's f32 step-1 loss on the card within ZOO_CPU_GATE of the
+      CPU's, on the first ATTN_RNN_CPU_VIDEOS videos of the CLI's first
+      batch, same weights and key, dropout included; on
+      TransformerEncoderModel also --use_remat and --grad_accum_steps=2
+      (ATTN_RNN_STEP_MODES), and remat's step-1 gradients on the card
+      within REMAT_GATE of max|g| of the step without it (the recompute
+      draws the same masks);
+    - under --bf16_params the checkpoint's leaves take flax's dtypes;
+    - the eval CLI (--run_once, the model-forward route) reads each
+      checkpoint back with a finite GAP, no kernel launched;
+    - TransformerEncoderModel and AttentionNetVLADModel: eval --fast_forward
+      on the trained checkpoint launches rows 7 (once per layer a batch) and
+      2 (once a batch), and the fast route's probabilities lie within
+      ATTN_FAST_GATE of the model-forward route's on the same batches
+      (attn_fast_vs_model_forward).
+    Returns {kernel: launches in the CLI runs}."""
+    data = os.path.join(workdir, "train-0.tfrecord")
+    small = os.path.join(workdir, "attn-small-0.tfrecord")
+    write_frame_level_fixture(small, 64, seed=1)
+    batches = load_batches(small, dev, 64)
+    none = dict.fromkeys(KERNELS, 0)
+    total = dict(none)
+    first = None
+    for run, (name, extra) in ATTN_RNN_RUNS.items():
+        args, configs = attn_rnn_args(name, *extra)
+        fcfg, mcfg, tcfg = configs
+        train_dir = os.path.join(workdir, "attn_rnn", run.replace("/", "-"))
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        trainer = train.main(ZOO_STEP_FLAGS + FRAME_FLAGS + [f"--model={name}", *extra,
+                                                             f"--train_data_pattern={data}",
+                                                             f"--train_dir={train_dir}"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = counters()
+        want = {**none, "dropout": dropout_launches_per_step(name, mcfg) * tcfg.max_steps}
+        if got != want:
+            raise AssertionError(f"{run}: launches {got}, expected {want}")
+        total["dropout"] += got["dropout"]
+        losses = [h["loss"] for h in trainer.history]
+        if len(losses) != 5 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{run}: losses {losses}, want five finite values, the last below the first")
+        step = trainer.state.step
+        del trainer
+        torch.cuda.empty_cache()
+        extra_info = {}
+        if "--bf16_params" in extra:
+            dtypes = {leaf["name"]: leaf["dtype"] for leaf in CheckpointManager(train_dir).manifest(step)["leaves"]}
+            bad = [n for n, d in dtypes.items() if n.startswith("params/")
+                   and d != flax_param_dtype(name, n[len("params/"):])]
+            bad += [n for n, d in dtypes.items() if n.startswith(("batch_stats/", "opt_state/master/"))
+                    and d != "float32"]
+            if bad:
+                raise AssertionError(f"{run}: checkpoint leaves in other dtypes than flax's: {bad[:8]}")
+            extra_info["checkpoint_dtypes"] = sorted(set(dtypes.values()))
+        eval_flags = FRAME_FLAGS + [f"--model={name}", *extra, "--compute_dtype=bfloat16", "--device=cuda",
+                                    "--batch_size=64", "--run_once", f"--train_dir={train_dir}",
+                                    f"--eval_data_pattern={small}"]
+        reset_counters()
+        start = time.perf_counter()
+        info = eval_cli.main(eval_flags)
+        torch.cuda.synchronize()
+        if counters() != none or not np.isfinite(float(info["gap"])):
+            raise AssertionError(f"{run}: eval GAP {info['gap']}, launches {counters()}")
+        extra_info["eval_s"], extra_info["eval_gap"] = time.perf_counter() - start, float(info["gap"])
+        if name in FAST_ATTENTION_MODELS and not extra:
+            extra_info["fast_forward"] = attn_fast_vs_model_forward(dev, name, mcfg, train_dir, step, eval_flags,
+                                                                    batches)
+            for n, c in extra_info["fast_forward"]["launches"].items():
+                total[n] += c
+        shutil.rmtree(train_dir)
+        emit({"phase": "train_attn_rnn_e2e", "run": run, "cli_s": cli_s, "losses": losses, "launches": got, "peak_mem_gib": peak, **extra_info, "card": smi})
+        if first is None:
+            first = zoo_first_batch(args, configs, data)
+
+    # f32 step 1 on the card against the CPU, dropout included
+    start = time.perf_counter()
+    batch = {k: v[:ATTN_RNN_CPU_VIDEOS] for k, v in first.items()}
+    cpu = {}
+    for run, (name, extra) in [(n, ATTN_RNN_RUNS[n]) for n in ATTN_RNN_RUNS if "/" not in n] + [
+            (f"TransformerEncoderModel/{m}", ("TransformerEncoderModel", f)) for m, f in ATTN_RNN_STEP_MODES.items()]:
+        args, configs = attn_rnn_args(name, *extra, "--compute_dtype=float32")
+        tree = zoo_init(args, configs)
+        reset_counters()
+        grad = run in ("TransformerEncoderModel", "TransformerEncoderModel/use_remat")
+        card, card_grads = step1_with_grads(dev, args, configs, batch, tree, grad)
+        torch.cuda.synchronize()
+        launched = counters()["dropout"]
+        host, _ = step1_with_grads(torch.device("cpu"), args, configs, batch, tree, False)
+        cpu[run] = {"card": card, "cpu": host, "rel": abs(card - host) / abs(host), "dropout_launches": launched}
+        if run == "TransformerEncoderModel":
+            plain_grads = card_grads
+        if run.endswith("use_remat"):
+            gap = max(float((card_grads[n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                      for n, g in plain_grads.items())
+            cpu[run]["remat_grad_gap_vs_no_remat"] = gap
+            if gap > REMAT_GATE:
+                raise AssertionError(f"--use_remat's step-1 gradients {gap} of max|g| from the step without it "
+                                     f"(limit {REMAT_GATE}): the recompute drew other masks")
+        del card_grads, tree
+        torch.cuda.empty_cache()
+    emit({"phase": "train_attn_rnn_e2e", "part": "f32_step1_card_vs_cpu", "videos": ATTN_RNN_CPU_VIDEOS,
+          "losses": cpu, "seconds": time.perf_counter() - start, "card": smi})
+    worst = max(v["rel"] for v in cpu.values())
+    if worst > ZOO_CPU_GATE:
+        raise AssertionError(f"f32 step-1 losses, card against CPU: {cpu} (limit {ZOO_CPU_GATE})")
+    return total
+
+
+def attn_fast_vs_model_forward(dev, name: str, mcfg: ModelConfig, train_dir: str, step: int, eval_flags,
+                               batches) -> dict:
+    """eval --fast_forward on the trained ``train_dir`` (launch counts: the
+    attention kernel once per layer and, for AttentionNetVLADModel,
+    netvlad_fused once a batch), then the fast route's and the model-forward
+    route's probabilities on ``batches`` in-process (both bf16): the largest
+    gap, gated by ATTN_FAST_GATE.  The comparison takes seeded_tree's
+    weights, not the checkpoint's: five steps at the CLI's lr 0.01 drive
+    every probability to about 0 (the five models' later losses agree to
+    1e-7), where any two routes agree; the spread of the reference's
+    probabilities is printed and must exceed 1e-2."""
+    none = dict.fromkeys(KERNELS, 0)
+    reset_counters()
+    info = eval_cli.main(eval_flags + ["--fast_forward"])
+    torch.cuda.synchronize()
+    got = counters()
+    n = len(batches)
+    want = {**none, "masked_attention_fused": mcfg.transformer_layers * n,
+            **({"netvlad_fused": n} if name == "AttentionNetVLADModel" else {})}
+    if got != want or not np.isfinite(float(info["gap"])):
+        raise AssertionError(f"{name} eval --fast_forward: launches {got}, expected {want}; GAP {info['gap']}")
+    tree = seeded_tree(name, mcfg, FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F))
+    path = get_fast_path(name)
+    fp = path.prepare(convert_flax_variables(tree, mcfg, name), mcfg, device=dev)
+    fast = path.build(mcfg, return_probs=True)
+    model = load_flax_variables(create_model(name, mcfg, DT), tree).to(dev).eval()
+    forward = step_lib.inference_forward(model, mcfg, True)
+    gap, spread = 0.0, 0.0
+    for i, (feats, nf, real, _) in enumerate(batches):
+        key = prng.fold_in(prng.key(0), i)
+        a, b = fast(fp, feats, nf, key).float()[real], forward(feats, nf, key).float()[real]
+        gap, spread = max(gap, (a - b).abs().max().item()), max(spread, (b.max() - b.min()).item())
+    if gap > ATTN_FAST_GATE or spread <= 1e-2:
+        raise AssertionError(f"{name}: --fast_forward {gap} from the model-forward route (limit {ATTN_FAST_GATE}), "
+                             f"the reference's probabilities spread over {spread}")
+    del fp, model, tree
+    torch.cuda.empty_cache()
+    return {"launches": got, "eval_gap_trained": float(info["gap"]), "weights": "seeded_tree",
+            "max_abs_prob_gap_vs_model_forward": gap, "model_forward_prob_spread": spread}
+
+
+def phase_train_attn_rnn_throughput(dev, smi):
+    """The five models' train step at their default widths, B=256, F=300,
+    bf16 compute (ATTN_RNN_RUNS without --bf16_params): videos/s (the median
+    of two rounds of two steps: an RNN step takes about a second), forward,
+    backward and optimizer ms,
+    peak memory; torch.profiler over the transformer's step (the top
+    kernels, the idle share); then the model-forward inference route
+    (make_predict_step, training off) of AttentionPoolingModel, LstmModel
+    and GruModel at B=256: videos/s, the median of three rounds."""
+    batch = random_train_batch(np.random.default_rng(4), 256, dev)
+    tcfg = TrainingConfig(batch_size=256)
+    for run, (name, extra) in ATTN_RNN_RUNS.items():
+        if extra:
+            continue
+        mcfg = ModelConfig(compute_dtype="bfloat16")
+        line, step = time_train_step(dev, name, mcfg, tcfg, batch, rounds=2)
+        emit({"phase": "train_attn_rnn_throughput", "model": name, **line,
+              "dropout_launches_per_step": dropout_launches_per_step(name, mcfg), "card": smi})
+        if name == "TransformerEncoderModel":
+            emit({"phase": "train_attn_rnn_profile", "model": name, "B": 256, "F": F, **profile_device(step, reps=3),
+                  "card": smi})
+        del step
+        torch.cuda.empty_cache()
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    for name in ("AttentionPoolingModel", "LstmModel", "GruModel"):
+        mcfg = ModelConfig(compute_dtype="bfloat16")
+        model = load_flax_variables(create_model(name, mcfg, DT), init_variables_np(mcfg, fcfg, model_name=name))
+        predict = step_lib.make_predict_step(model.to(dev).eval(), mcfg, True)
+        rounds = [time_ms(lambda: predict(batch["features"], batch["num_frames"]), reps=3) for _ in range(3)]
+        ms = statistics.median(rounds)
+        emit({"phase": "attn_rnn_inference_throughput", "model": name, "route": "model-forward bf16", "B": 256,
+              "F": F, "videos_per_s": 256 / (ms / 1e3), "batch_ms": ms,
+              "videos_per_s_rounds": [256 / (r / 1e3) for r in rounds], "card": smi})
+        del model, predict
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -3114,10 +3536,15 @@ def main() -> int:
     timing.update(t)
     library.update(lib)
     shapes["int8_matmul"] = "B=512, [512, 262144] x [262144, 1024] (Willow rgb hidden FC)"
-    done("fused_adam, int8_matmul")
+    e, t, lib = phase_dropout(dev, smi)
+    errors.update(e)
+    timing.update(t)
+    library.update(lib)
+    shapes["dropout"] = "[76800, 1024] bf16, nn.Dropout 0.1 (config 5's FFN output at B=256, F=300)"
+    done("fused_adam, int8_matmul, dropout")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         fp, launches = phase_e2e(dev, workdir)
-        launches.update(dict.fromkeys(("fused_adam", "int8_matmul"), 0))
+        launches.update(dict.fromkeys(("fused_adam", "int8_matmul", "dropout"), 0))
         for name, n in phase_int8_e2e(dev, workdir, fp, smi).items():
             launches[name] = launches.get(name, 0) + n
     phase_throughput(dev, fp, smi)
@@ -3140,10 +3567,15 @@ def main() -> int:
         for name, n in phase_train_12b(dev, workdir, smi).items():
             launches[name] += n
         done("train_12b")
+        for name, n in phase_train_attn_rnn_e2e(dev, workdir, smi).items():
+            launches[name] = launches.get(name, 0) + n
+        done("train_attn_rnn_e2e")
     phase_train_throughput(dev, smi)
     done("train_throughput")
     phase_train_zoo_throughput(dev, smi)
     done("train_zoo_throughput")
+    phase_train_attn_rnn_throughput(dev, smi)
+    done("train_attn_rnn_throughput")
     phase_optimizers(dev, smi)
     done("optimizers")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tf_") as workdir:

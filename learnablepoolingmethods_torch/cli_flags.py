@@ -104,16 +104,15 @@ FLAGS_PY: Dict[str, tuple] = {
     "fused_adam": (False, "bf16 params updated with stochastic rounding, no fp32 master."),
 }
 
-# flags of the model families whose port is queued → ROADMAP.md queue-1 item
-_RNN_ITEMS = dict.fromkeys(("lstm_cells", "lstm_layers", "gru_cells", "gru_layers"), 11)
+# flags of the parts whose port is queued → ROADMAP.md queue-1 item
 _INGEST_ITEMS = dict.fromkeys(("num_readers", "use_grain", "grain_worker_count", "packed_cache_dir"), 7)
 _MESH_ITEMS = dict.fromkeys(("model_parallelism", "dcn_parallelism"), 15)
 
 # what each CLI does not port yet → ROADMAP.md queue-1 item
-INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = {**_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS}
+INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = {**_INGEST_ITEMS, **_MESH_ITEMS}
 EVAL_NOT_PORTED: Dict[str, Union[int, str]] = dict(INFERENCE_NOT_PORTED)
 TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = {
-    **_RNN_ITEMS, **_INGEST_ITEMS, **_MESH_ITEMS,
+    **_INGEST_ITEMS, **_MESH_ITEMS,
     "use_native_reader": 7, "profile_dir": 7,
     "export_model_steps": 14,
 }

@@ -17,11 +17,17 @@ reference-name candidates and its layout transform.
 - the per-modality pooling modules: ``NetVLAD_0`` ↔ ``video_VLAD``,
   ``NetVLAD_1`` ↔ ``audio_VLAD`` (and their NetRVLAD, NetFV and SoftDBoW
   twins);
+- the LSTM: TF's ``BasicLSTMCell`` fuses the four gates into one
+  ``[D+H, 4H]`` kernel and ``[4H]`` bias, columns in (i, j=g, f, o) order,
+  under ``rnn/multi_rnn_cell/cell_<l>/basic_lstm_cell``; flax's
+  ``OptimizedLSTMCell_<l>`` keeps a kernel per gate and side (``ii`` … on
+  the D input rows, ``hi`` … on the H hidden rows, the bias on the h side),
+  and TF's ``forget_bias`` of 1.0, which TF adds at run time, is folded
+  into ``hf/bias``;
 - names lose TF's ``tower/``, ``tower_0/`` and ``model/`` prefixes and TF2's
   ``/.ATTRIBUTES/VARIABLE_VALUE`` suffix.
 
-The LSTM's fused-gate transform waits for the RNNs (ROADMAP item 11) and
-raises.  The target tree is ``core/weights.py#init_variables_np``'s, which
+The target tree is ``core/weights.py#init_variables_np``'s, which
 has flax's key set and shapes.
 """
 
@@ -67,6 +73,33 @@ _LEAF_NAMES: Dict[str, List[str]] = {
 _BN_PARAM = {"scale": "gamma", "bias": "beta"}
 _BN_STATS = {"mean": "moving_mean", "var": "moving_variance"}
 _LSTM_GATE_COL_KEYS = ("ii", "if", "ig", "io", "hi", "hf", "hg", "ho")
+# the column block of each flax gate in TF's fused kernel, and the constant
+# TF adds to the forget gate's pre-activation
+_LSTM_GATE_COL = {"i": 0, "g": 1, "f": 2, "o": 3}
+_LSTM_FORGET_BIAS = 1.0
+
+
+def _lstm_scope_candidates(layer: int) -> List[str]:
+    """The reference's variable scopes of stacked-cell layer ``layer``
+    (MultiRNNCell under dynamic_rnn's ``rnn`` scope)."""
+    cell = f"multi_rnn_cell/cell_{layer}/basic_lstm_cell"
+    return [f"RNN/rnn/{cell}", f"rnn/{cell}", f"RNN/{cell}", cell]
+
+
+def _lstm_transform(gate: str, leaf: str) -> Callable[[np.ndarray], np.ndarray]:
+    """TF's fused kernel or bias → flax's ``gate`` (``ii`` … ``ho``) slice."""
+    side, g = gate[0], gate[1]
+    col = _LSTM_GATE_COL[g]
+
+    def fn(ref: np.ndarray) -> np.ndarray:
+        h = ref.shape[-1] // 4
+        block = ref[..., col * h:(col + 1) * h]
+        if leaf == "bias":
+            return np.array(block) + (_LSTM_FORGET_BIAS if g == "f" else 0.0)
+        d = ref.shape[0] - h
+        return np.array(block[:d] if side == "i" else block[d:])
+
+    return fn
 
 
 def _moe_from_ref(ref: np.ndarray, vocab: int) -> np.ndarray:
@@ -99,8 +132,10 @@ def _candidates_for_leaf(keys: List[str], is_stats: bool, vocab: int
     ident = lambda a: a  # noqa: E731
 
     if len(scope_keys) >= 2 and scope_keys[-2].startswith("OptimizedLSTMCell_") \
-            and scope_keys[-1] in _LSTM_GATE_COL_KEYS:
-        raise NotImplementedError("the LSTM's fused-gate import is not ported yet: ROADMAP item 11")
+            and scope_keys[-1] in _LSTM_GATE_COL_KEYS and leaf in ("kernel", "bias"):
+        layer = int(scope_keys[-2].rsplit("_", 1)[1])
+        names = [f"{scope}/{leaf}" for scope in _lstm_scope_candidates(layer)]
+        return names, _lstm_transform(scope_keys[-1], leaf), False
 
     # batch-norm leaves live under a "*_bn" scope; a plain Dense "bias" must not
     is_bn = (leaf in _BN_PARAM or leaf in _BN_STATS) and bool(scope_keys) and scope_keys[-1].endswith("_bn")
@@ -204,11 +239,17 @@ def tree_from_reference_checkpoint(checkpoint, model_name: str, mcfg, fcfg, stri
 def export_reference_layout(params, batch_stats, vocab: int) -> Dict[str, np.ndarray]:
     """The inverse mapping: the flax trees → {reference name: array}, to
     write a TF checkpoint with the reference's names (the first candidate of
-    each leaf)."""
+    each leaf); an LSTM's per-gate leaves are fused back into TF's kernel
+    and bias, the forget bias taken out."""
     out: Dict[str, np.ndarray] = {}
+    lstm_cells: Dict[int, Dict[str, np.ndarray]] = {}
     for tree, is_stats in ((params, False), (batch_stats, True)):
         for path, leaf in tree_paths(tree).items():
             keys = path.split("/")
+            if len(keys) >= 3 and keys[-3].startswith("OptimizedLSTMCell_") and keys[-2] in _LSTM_GATE_COL_KEYS:
+                layer = int(keys[-3].rsplit("_", 1)[1])
+                lstm_cells.setdefault(layer, {})[f"{keys[-2]}/{keys[-1]}"] = np.asarray(leaf, np.float32)
+                continue
             names, _, _ = _candidates_for_leaf(keys, is_stats, vocab)
             val = np.asarray(leaf, np.float32)
             if keys[-1] in ("gates_kernel", "experts_kernel"):
@@ -217,4 +258,11 @@ def export_reference_layout(params, batch_stats, vocab: int) -> Dict[str, np.nda
             elif keys[-1] == "experts_bias":
                 val = val.reshape(val.shape[0] // vocab, vocab).transpose(1, 0).reshape(-1)
             out[names[0]] = val
+    for layer, leaves in lstm_cells.items():
+        gates = sorted(_LSTM_GATE_COL, key=_LSTM_GATE_COL.get)   # i, g, f, o
+        scope = _lstm_scope_candidates(layer)[0]
+        out[f"{scope}/kernel"] = np.concatenate(
+            [np.concatenate([leaves[f"i{g}/kernel"], leaves[f"h{g}/kernel"]], axis=0) for g in gates], axis=1)
+        out[f"{scope}/bias"] = np.concatenate(
+            [leaves[f"h{g}/bias"] - (_LSTM_FORGET_BIAS if g == "f" else 0.0) for g in gates])
     return out

@@ -9,18 +9,23 @@ gradients → per-tensor clip → the optimizer (``core/optimizers.py``).
 ``--grad_accum_steps`` N > 1 splits the batch into N microbatches, run one
 after the other as the JAX step unrolls them: microbatch i samples from
 ``fold_in(sampling_key, i)`` (under ``--presample_frames`` inside the
-loop), its BN statistics follow the previous microbatch's, its loss is
-Σ(w·ℓ)/W_total, and its gradient, taken by ``torch.autograd.grad`` before
-the next forward starts (so no graph outlives its backward), is summed in
-f32; the params-only L2 is differentiated once, after the loop; the sum is
-cast back to the dtype a single pass gives each gradient.
+loop) and drops from ``fold_in(dropout_key, i)``, its BN statistics follow
+the previous microbatch's, its loss is Σ(w·ℓ)/W_total, and its gradient,
+taken by ``torch.autograd.grad`` before the next forward starts (so no
+graph outlives its backward), is summed in f32; the params-only L2 is
+differentiated once, after the loop; the sum is cast back to the dtype a
+single pass gives each gradient.
 ``--use_remat`` recomputes the whole forward, BN included, in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint``); the recompute leaves
-the BN statistics alone, so they move once a step.
+the BN statistics alone, so they move once a step, and draws the same
+dropout masks from the same key.
 
 Frames are sampled as the JAX step samples them, so both packages pick the
 same frames from the same seed: ``fold_in(key, step)`` → ``split`` → the
-first key, ``sampling_key``.
+first key, ``sampling_key``.  The second, ``dropout_key``, is the flax
+model's ``rngs={"dropout": ...}``: a model with ``takes_dropout_key`` (the
+transformer family) gets it in training and draws flax's masks from it
+(``models/attention.py``).
 
 - Under ``--presample_frames`` (frame-level input) the JAX step draws iid
   frames, floor(U·nf) per sample (``models/model_utils.py#sample_frame_features``),
@@ -39,9 +44,10 @@ The port gathers a sampling model's uint8 rows in the step and builds the
 model ``presampled``, which is exact: dequantize and ℓ2 are per frame and
 the BN runs after sampling.  Video-level input is never sampled.
 
-The eval and predict steps run the model with ``training=False``.  The JAX
-CLIs give the flax model ``rngs={"sampling": fold_in(key(0), batch)}``,
-so a sampling model draws from ``flax_make_rng(fold_in(key(0), batch))``;
+The eval and predict steps run the model with ``training=False`` (no
+dropout).  The JAX CLIs give the flax model ``rngs={"sampling":
+fold_in(key(0), batch)}``, so a sampling model draws from
+``flax_make_rng(fold_in(key(0), batch))``;
 the port's steps gather those frames in uint8 too, from a model built
 ``presampled``.
 """
@@ -176,19 +182,20 @@ class TrainStep:
                                       prng.flax_make_rng(sampling_key), mcfg.sample_random_frames)
         return features
 
-    def forward(self, model, features, num_frames) -> Dict[str, torch.Tensor]:
-        """The model in training mode on the step's rows; under
-        ``--use_remat`` inside a checkpoint whose recompute leaves the BN
-        statistics alone."""
+    def forward(self, model, features, num_frames, dropout_key=None) -> Dict[str, torch.Tensor]:
+        """The model in training mode on the step's rows, given
+        ``dropout_key`` if it takes one; under ``--use_remat`` inside a
+        checkpoint whose recompute leaves the BN statistics alone."""
         x = preprocess_input(features, self.dtype)
+        kwargs = {"dropout_key": dropout_key} if model.takes_dropout_key else {}
         if not self.tcfg.use_remat:
-            return model(x, num_frames, training=True)
+            return model(x, num_frames, training=True, **kwargs)
         calls = []
 
         def run(x):
             with batch_stats_frozen(model, frozen=bool(calls)):
                 calls.append(None)
-                return model(x, num_frames, training=True)
+                return model(x, num_frames, training=True, **kwargs)
 
         return checkpoint(run, x, use_reentrant=False)
 
@@ -206,11 +213,11 @@ class TrainStep:
         if self.accum != 1:
             raise ValueError("TrainStep.loss is the single-pass forward; with --grad_accum_steps > 1 "
                              "call the step")
-        sampling_key, _ = prng.split(prng.fold_in(key, state.step))
+        sampling_key, dropout_key = prng.split(prng.fold_in(key, state.step))
         num_frames = batch.get("num_frames") if self.frame_features else None
         features = self.frames(state.model, batch["features"], num_frames, sampling_key)
         weights = self._weights(batch, features.shape[0], features.device)
-        predictions = self.forward(state.model, features, num_frames)["predictions"]
+        predictions = self.forward(state.model, features, num_frames, dropout_key)["predictions"]
         per_ex = self.loss_obj.calculate_per_example_loss(predictions, batch["labels"].float())
         label_loss = weighted_mean(per_ex, weights)
         reg = self._reg(state.model).to(label_loss.device)
@@ -226,7 +233,7 @@ class TrainStep:
         if b % accum:
             raise ValueError(f"batch_size={b} not divisible by grad_accum_steps={accum}")
         mb = b // accum
-        sampling_key, _ = prng.split(prng.fold_in(key, state.step))
+        sampling_key, dropout_key = prng.split(prng.fold_in(key, state.step))
         num_frames = batch.get("num_frames") if self.frame_features else None
         weights = self._weights(batch, b, features.device).float()
         labels = batch["labels"].float()
@@ -237,7 +244,7 @@ class TrainStep:
             sl = slice(i * mb, (i + 1) * mb)
             nfs = None if num_frames is None else num_frames[sl]
             rows = self.frames(model, features[sl], nfs, prng.fold_in(sampling_key, i))
-            predictions = self.forward(model, rows, nfs)["predictions"]
+            predictions = self.forward(model, rows, nfs, prng.fold_in(dropout_key, i))["predictions"]
             per_ex = self.loss_obj.calculate_per_example_loss(predictions, labels[sl])
             label_i = torch.sum(per_ex.float() * weights[sl]) / w_total
             g = gradients(label_i, model)

@@ -1,9 +1,10 @@
 """Weight bridge between the JAX package's flax variables and the port.
 
 The flax ``{params, batch_stats}`` tree of an LF model (``NetVLADModelLF``
-and the rest of the LOUPE family), of the transformer family
-(``TransformerEncoderModel``, ``AttentionNetVLADModel``), of ``DbofModel``
-or of a single-layer model (``LogisticModel``, ``MoeModel``,
+and the rest of the LOUPE family), of the attention family
+(``TransformerEncoderModel``, ``AttentionPoolingModel``,
+``AttentionNetVLADModel``), of ``LstmModel`` or ``GruModel``, of
+``DbofModel`` or of a single-layer model (``LogisticModel``, ``MoeModel``,
 ``FrameLevelLogisticModel``) crosses over as
 nested dicts of NumPy arrays, so the port needs neither JAX nor orbax.  On
 the JAX side:
@@ -232,8 +233,24 @@ def _pool_spec(model_name: str, mod: PoolLayout, mcfg: ModelConfig, add_bn: bool
     return spec
 
 
+# the attention family and the RNNs (models/attention.py, models/frame_level.py)
+ATTENTION_MODELS = FAST_ATTENTION_MODELS + ("AttentionPoolingModel",)
+RNN_MODELS = {"LstmModel": "OptimizedLSTMCell", "GruModel": "GRUCell"}
+
+
+def _mha_spec(prefix: str, d: int, heads: int):
+    """A flax MultiHeadDotProductAttention of width ``d`` at ``prefix``."""
+    hd = d // heads
+    spec = []
+    for name in ("query", "key", "value"):
+        spec += [(f"{prefix}/{name}/kernel", (d, heads, hd), 1 / np.sqrt(d)),
+                 (f"{prefix}/{name}/bias", (heads, hd), "zeros")]
+    return spec + [(f"{prefix}/out/kernel", (heads, hd, d), 1 / np.sqrt(d)),
+                   (f"{prefix}/out/bias", (d,), "zeros")]
+
+
 def _attention_spec(model_name: str, mcfg: ModelConfig, input_size: int, add_bn: bool):
-    """The transformer family's parameters before the shared tail (ref:
+    """The attention family's parameters before the shared tail (ref:
     models/attention.py): ``(path under params, shape, init)`` with init a
     normal's std (flax's lecun-normal kernels: 1/√fan_in), ``"zeros"``,
     ``"ones"`` or ``"bn"`` (scale and bias in params, mean and var in
@@ -242,16 +259,16 @@ def _attention_spec(model_name: str, mcfg: ModelConfig, input_size: int, add_bn:
     d, heads, ff = mcfg.attention_hidden_size, mcfg.attention_heads, mcfg.transformer_ff_size
     if d % heads:
         raise ValueError(f"--attention_hidden_size={d} is not a multiple of --attention_heads={heads}")
-    hd = d // heads
     spec = [("input_proj/kernel", (input_size, d), 1 / np.sqrt(input_size)),
             ("input_proj/bias", (d,), "zeros")]
+    if model_name == "AttentionPoolingModel":
+        q = mcfg.attention_cluster_size
+        spec.append(("attn_pool/queries", (q, d), 1 / np.sqrt(d)))
+        spec += _mha_spec("attn_pool/pool_mha", d, heads)
+        return spec, (q * d, mcfg.attention_hidden_size, q, False)
     for i in range(mcfg.transformer_layers):
         layer = f"encoder/layer_{i}"
-        for name in ("query", "key", "value"):
-            spec += [(f"{layer}/mha/{name}/kernel", (d, heads, hd), 1 / np.sqrt(d)),
-                     (f"{layer}/mha/{name}/bias", (heads, hd), "zeros")]
-        spec += [(f"{layer}/mha/out/kernel", (heads, hd, d), 1 / np.sqrt(d)),
-                 (f"{layer}/mha/out/bias", (d,), "zeros")]
+        spec += _mha_spec(f"{layer}/mha", d, heads)
         for ln in ("ln1", "ln2"):
             spec += [(f"{layer}/{ln}/scale", (d,), "ones"), (f"{layer}/{ln}/bias", (d,), "zeros")]
         spec += [(f"{layer}/ff1/kernel", (d, ff), 1 / np.sqrt(d)), (f"{layer}/ff1/bias", (ff,), "zeros"),
@@ -265,11 +282,30 @@ def _attention_spec(model_name: str, mcfg: ModelConfig, input_size: int, add_bn:
     return spec, (d * k, mcfg.netvlad_hidden_size, k, mcfg.netvlad_relu)
 
 
-def _check_attention_layout(tree_np: Tree, mcfg: ModelConfig, model_name: str):
-    """Check a transformer-family tree against ``mcfg``; returns the hidden
-    FC's (descriptor width, hidden size)."""
-    input_size = _shape(tree_np, "params/input_proj/kernel")[0]
-    spec, (width, h, _, _) = _attention_spec(model_name, mcfg, input_size, mcfg.netvlad_add_batch_norm)
+def _rnn_spec(model_name: str, mcfg: ModelConfig, input_size: int):
+    """The RNN cells' parameters (ref: frame_level.py#LstmModel, #GruModel;
+    flax's OptimizedLSTMCell and GRUCell): ``(path, shape, init)`` with the
+    input kernels lecun-normal (std 1/√fan_in), the recurrent kernels
+    ``"orthogonal"``, the biases ``"zeros"``; then the hidden width."""
+    if model_name == "LstmModel":
+        layers, h = mcfg.lstm_layers, mcfg.lstm_cells
+        gates, biased = ("i", "f", "g", "o"), ("hi", "hf", "hg", "ho")
+    else:
+        layers, h = mcfg.gru_layers, mcfg.gru_cells
+        gates, biased = ("r", "z", "n"), ("ir", "iz", "in", "hn")
+    spec = []
+    for layer in range(layers):
+        cell = f"{RNN_MODELS[model_name]}_{layer}"
+        d = input_size if layer == 0 else h
+        for g in gates:
+            for side, (width, init) in (("i", (d, 1 / np.sqrt(d))), ("h", (h, "orthogonal"))):
+                spec.append((f"{cell}/{side}{g}/kernel", (width, h), init))
+                if side + g in biased:
+                    spec.append((f"{cell}/{side}{g}/bias", (h,), "zeros"))
+    return spec, h
+
+
+def _check_spec_paths(tree_np: Tree, spec) -> None:
     for path, shape, init in spec:
         if init != "bn":
             _expect(tree_np, f"params/{path}", shape)
@@ -277,11 +313,31 @@ def _check_attention_layout(tree_np: Tree, mcfg: ModelConfig, model_name: str):
         for collection, leaves in (("params", ("scale", "bias")), ("batch_stats", ("mean", "var"))):
             for leaf in leaves:
                 _expect(tree_np, f"{collection}/{path}/{leaf}", shape)
+
+
+def _check_attention_layout(tree_np: Tree, mcfg: ModelConfig, model_name: str):
+    """Check an attention-family tree against ``mcfg``; returns the hidden
+    FC's (descriptor width, hidden size)."""
+    input_size = _shape(tree_np, "params/input_proj/kernel")[0]
+    spec, (width, h, _, _) = _attention_spec(model_name, mcfg, input_size, mcfg.netvlad_add_batch_norm)
+    _check_spec_paths(tree_np, spec)
     extra = f"layer_{mcfg.transformer_layers}"
-    if extra in tree_np["params"]["encoder"]:
+    if extra in tree_np["params"].get("encoder", {}):
         raise ValueError(f"params/encoder/{extra}: the variables have more than "
                          f"--transformer_layers={mcfg.transformer_layers} layers")
     return width, h
+
+
+def _check_rnn_layout(tree_np: Tree, mcfg: ModelConfig, model_name: str) -> int:
+    """Check an RNN tree against ``mcfg``; returns the hidden width."""
+    cell = RNN_MODELS[model_name]
+    first = "ii" if model_name == "LstmModel" else "ir"
+    spec, h = _rnn_spec(model_name, mcfg, _shape(tree_np, f"params/{cell}_0/{first}/kernel")[0])
+    _check_spec_paths(tree_np, spec)
+    layers = mcfg.lstm_layers if model_name == "LstmModel" else mcfg.gru_layers
+    if f"{cell}_{layers}" in tree_np["params"]:
+        raise ValueError(f"params/{cell}_{layers}: the variables have more than {layers} layers")
+    return h
 
 
 # the models of one dense layer over their input
@@ -325,10 +381,11 @@ def _expect_spec(tree_np: Tree, spec, prefix: str = "") -> None:
 def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "NetVLADModelLF") -> Tree:
     """Flax ``{params, batch_stats}`` tree of NumPy arrays → the same tree
     of float32 CPU tensors, after checking the layout of ``model_name`` (an
-    LF model, one of ``FAST_ATTENTION_MODELS``, ``DbofModel`` or a
-    single-layer model) against ``mcfg``: every pooling module's (or the
-    input projection's and every encoder layer's, or DBoF's projections')
-    parameters and BN statistics, the hidden FC and the MoE head."""
+    LF model, one of ``ATTENTION_MODELS`` or ``RNN_MODELS``, ``DbofModel``
+    or a single-layer model) against ``mcfg``: every pooling module's (or
+    the input projection's and every encoder layer's or the attention
+    pooling's, every RNN cell's, or DBoF's projections') parameters and BN
+    statistics, the hidden FC and the MoE head."""
     params = tree_np["params"]
     width = h = None
     if model_name in SINGLE_LAYER_MODELS:
@@ -338,8 +395,10 @@ def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "
     elif model_name == "DbofModel":
         spec, h = _dbof_spec(mcfg, _shape(tree_np, "params/cluster_weights")[0])
         _expect_spec(tree_np, spec)
-    elif model_name in FAST_ATTENTION_MODELS:
+    elif model_name in ATTENTION_MODELS:
         width, h = _check_attention_layout(tree_np, mcfg, model_name)
+    elif model_name in RNN_MODELS:
+        h = _check_rnn_layout(tree_np, mcfg, model_name)
     elif model_name in LF_MODULE_PREFIX:
         prefix = LF_MODULE_PREFIX[model_name]
         first = "expansion_weights" if model_name == "NeXtVLADModel" else "cluster_weights"
@@ -357,8 +416,8 @@ def convert_flax_variables(tree_np: Tree, mcfg: ModelConfig, model_name: str = "
         width = sum(mod.width for mod in layout)
     else:
         raise ValueError(f"convert_flax_variables reads the LF models {sorted(LF_MODULE_PREFIX)}, "
-                         f"{list(FAST_ATTENTION_MODELS)}, DbofModel and {list(SINGLE_LAYER_MODELS)}, "
-                         f"not {model_name!r}")
+                         f"{list(ATTENTION_MODELS)}, {list(RNN_MODELS)}, DbofModel and "
+                         f"{list(SINGLE_LAYER_MODELS)}, not {model_name!r}")
     if width is not None:
         _expect(tree_np, "params/hidden1_weights", (width, h))
     if h is not None:
@@ -414,16 +473,20 @@ def load_flax_variables(model: torch.nn.Module, tree_np: Tree) -> torch.nn.Modul
 def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
                       model_name: str = "NetVLADModelLF") -> Tree:
     """The ``{params, batch_stats}`` tree of ``model_name`` (an LF model,
-    one of ``FAST_ATTENTION_MODELS``, ``DbofModel`` or a single-layer model)
-    with flax's key set, shapes and initial
+    one of ``ATTENTION_MODELS`` or ``RNN_MODELS``, ``DbofModel`` or a
+    single-layer model) with flax's key set, shapes and initial
     scales, drawn from ``seed`` with NumPy: ``normal(1/√fan)`` for the
     pooling modules' and DBoF's projections and the LF models'
     ``--netvlad_dimred`` ``dimred`` [D, r] (NeXtVLAD's C₂ ``[K, D′]`` at
     ``1/√D``), xavier-uniform ``fc`` kernels with a zero bias, the
-    transformer's kernels (flax's lecun-normal, untruncated) and the gating
-    weights, zero Dense biases and LayerNorm scale 1, ``normal(1/√K)`` for
-    the hidden FC with K the rgb cluster count (the model width for
-    TransformerEncoderModel), ``normal(0.01)`` for the hidden bias,
+    attention family's kernels and the RNN cells' input kernels (flax's
+    lecun-normal, untruncated), the attention-pooling queries at
+    ``normal(1/√D)``, the RNN cells' recurrent kernels orthogonal (flax's
+    ``orthogonal()``: Q of a normal matrix's QR, the signs of R's diagonal
+    folded in), the gating weights, zero Dense and RNN biases and LayerNorm
+    scale 1, ``normal(1/√K)`` for the hidden FC with K the rgb cluster count
+    (the model width for TransformerEncoderModel, the query count for
+    AttentionPoolingModel), ``normal(0.01)`` for the hidden bias,
     xavier-uniform MoE kernels with a zero bias (models/modules.py,
     models/frame_level.py, models/video_level.py, and the JAX package's
     models/attention.py), and BN scale 1, bias 0, mean 0, var 1.  The
@@ -476,9 +539,11 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
         params.update(classifier(h))
         return {"params": params, "batch_stats": stats}
 
-    add_bn = mcfg.netvlad_add_batch_norm
-    if model_name in FAST_ATTENTION_MODELS:
-        spec, (width, h, k, relu) = _attention_spec(model_name, mcfg, fcfg.total_size, add_bn)
+    def orthogonal(shape):
+        q, r = np.linalg.qr(rng.standard_normal(shape))
+        return (q * np.sign(np.diag(r))).astype(np.float32)
+
+    def fill(spec):
         for path, shape, init in spec:
             *parents, leaf = path.split("/")
             node = params
@@ -493,8 +558,21 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
                 node[leaf] = np.zeros(shape, np.float32)
             elif init == "ones":
                 node[leaf] = np.ones(shape, np.float32)
+            elif init == "orthogonal":
+                node[leaf] = orthogonal(shape)
             else:
                 node[leaf] = normal(shape, init)
+
+    if model_name in RNN_MODELS:
+        spec, h = _rnn_spec(model_name, mcfg, fcfg.total_size)
+        fill(spec)
+        params.update(classifier(h))
+        return {"params": params, "batch_stats": stats}
+
+    add_bn = mcfg.netvlad_add_batch_norm
+    if model_name in ATTENTION_MODELS:
+        spec, (width, h, k, relu) = _attention_spec(model_name, mcfg, fcfg.total_size, add_bn)
+        fill(spec)
     else:
         if add_bn:
             params["input_bn"], stats["input_bn"] = bn(fcfg.total_size)

@@ -20,10 +20,10 @@
 // Design:
 //  - Each warp draws its own frame index: floor(U·min(nf, F)) clamped to
 //    F−1, with U = jax.random.uniform(key, (B, S))[b, s] computed by the
-//    threefry2x32 hash of counter (0, b·S + s) (jax_threefry_partitionable),
-//    bit for bit the index that utils/prng.py and the JAX package draw.  The
-//    host passes only the key's two words; drawing U there cost each batch
-//    host time the device then waited for (PERF.md).
+//    threefry2x32 hash of counter (0, b·S + s) (jax_threefry_partitionable;
+//    threefry.cuh), bit for bit the index that utils/prng.py and the JAX
+//    package draw.  The host passes only the key's two words; drawing U
+//    there cost each batch host time the device then waited for (PERF.md).
 //  - Sampling is a direct gather: ℓ2 and BN act row by row, so normalising
 //    only the S sampled rows gives the same rows as normalising all F and
 //    then selecting.  One warp per sampled row (eight a block) loads the
@@ -41,6 +41,7 @@
 //    cudaGetLastError() after the last launch.
 
 #include "netvlad_tc.cuh"
+#include "threefry.cuh"
 
 namespace lpm {
 
@@ -51,36 +52,11 @@ __device__ __forceinline__ float deq(uint32_t q, float scale, float bias) {
   return __fadd_rn(__fmul_rn((float)q, scale), bias);
 }
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds (jax._src.prng._threefry2x32_lowering).
-__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t x0,
-                                              uint32_t x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i & 1][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
-  }
-  return make_uint2(x0, x1);
-}
-
 // The frame sampled for row b·S + s: floor(U·min(nf, F)) clamped to F−1,
 // U the row's jax.random.uniform draw (top 23 bits as a mantissa in [1, 2)).
 __device__ __forceinline__ int sample_frame(uint32_t k0, uint32_t k1, long long row, int nf,
                                             int F) {
-  const uint2 h = threefry2x32(k0, k1, (uint32_t)(row >> 32), (uint32_t)row);
-  const float u = __uint_as_float(((h.x ^ h.y) >> 9) | 0x3F800000u) - 1.0f;
+  const float u = threefry_uniform(k0, k1, row);
   return min((int)__fmul_rn(u, (float)min(nf, F)), F - 1);
 }
 

@@ -4,12 +4,16 @@ Streams TFRecords through a model and on-device top-k, and writes the
 Kaggle submission CSV ``VideoId,LabelConfidencePairs``.  Two routes:
 
 - default, the model-forward route: the registered ``nn.Module`` of
-  ``--model`` (``models/``) with ``training=False`` and f32 probabilities
+  ``--model`` (``models/``, every model of the JAX zoo) with
+  ``training=False`` and f32 probabilities
   (``core/step.py#make_predict_step``), on frame-level or video-level
   input (``--frame_features``);
 - ``--fast_infer``: the BN-folded fast forward of ``--model``
   (``ops/fast_dispatch.py``: ``NetVLADModelLF``, ``DbofModel``, the LF
-  models, the transformer family), frame-level input only.
+  models, ``TransformerEncoderModel`` and ``AttentionNetVLADModel``),
+  frame-level input only; the models without a fast path in the JAX
+  package (``AttentionPoolingModel``, the RNNs, the logistic and MoE
+  models) raise ValueError, as the JAX CLI does.
 
 It takes every flag of the JAX CLI under its name and default
 (``cli_flags.py``; those not ported yet raise when set); ``--device``

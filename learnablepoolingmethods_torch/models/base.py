@@ -13,10 +13,14 @@ JAX package; in training mode the BatchNorm layers use and update batch
 statistics.
 
 ``cfg.param_dtype`` (``--bf16_params`` or ``--fused_adam`` set it to
-bfloat16) is the dtype of every parameter, as the flax modules pass
-``param_dtype`` to every ``self.param`` and ``nn.BatchNorm``: the
-BatchNorm scales and biases included, the BatchNorm statistics not (flax
-keeps ``batch_stats`` in f32).  The arithmetic is unchanged: each
+bfloat16) is the dtype of every parameter that flax makes with
+``param_dtype``: every ``self.param`` and ``nn.BatchNorm`` of the pooling
+modules, tails and heads, the BatchNorm scales and biases included, the
+BatchNorm statistics not (flax keeps ``batch_stats`` in f32).  The modules
+that flax builds without it stay f32, leaf for leaf as in the flax tree: a
+model names them by ``f32_param_prefixes`` (the attention models' input
+projection, encoder and attention pooling, the RNNs' cells).  The
+arithmetic is unchanged: each
 parameter is cast to the compute dtype, or promoted to f32, where it is
 used, and its gradient comes back rounded to its own dtype, as a
 cotangent takes its primal's dtype in JAX.
@@ -32,12 +36,6 @@ from torch import nn
 from learnablepoolingmethods_torch.config import ModelConfig
 
 _MODEL_REGISTRY: Dict[str, Type["BaseModel"]] = {}
-
-# models of the JAX zoo that the port has not built yet → ROADMAP.md queue-1 item
-_PENDING = {
-    "TransformerEncoderModel": "10b", "AttentionPoolingModel": "10b", "AttentionNetVLADModel": "10b",
-    "LstmModel": 11, "GruModel": 11,
-}
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -58,11 +56,6 @@ def find_class_by_name(name: str) -> Type["BaseModel"]:
     """Flag-string model lookup (ref: train.py#find_class_by_name)."""
     if name in _MODEL_REGISTRY:
         return _MODEL_REGISTRY[name]
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP item {_PENDING[name]} "
-            f"(ported: {list_models()})"
-        )
     raise ValueError(f"Unknown model {name!r}. Registered models: {list_models()}")
 
 
@@ -72,11 +65,13 @@ def list_models():
 
 def create_model(name: str, cfg: ModelConfig, input_size: int) -> "BaseModel":
     """Instantiate a registered model for inputs of width ``input_size``,
-    its parameters in ``cfg.param_dtype`` (its buffers stay f32)."""
+    its parameters in ``cfg.param_dtype`` but those under the model's
+    ``f32_param_prefixes`` (its buffers stay f32)."""
     model = find_class_by_name(name)(cfg, input_size)
     pdtype = param_dtype(cfg)
-    for p in model.parameters():
-        p.data = p.data.to(pdtype)
+    for pname, p in model.named_parameters():
+        if not pname.startswith(model.f32_param_prefixes):
+            p.data = p.data.to(pdtype)
     return model
 
 
@@ -112,6 +107,12 @@ class BaseModel(nn.Module):
     # whether the model pools cfg.iterations sampled frames; the predict and
     # eval steps then gather them in uint8 and build the model presampled
     samples_frames = False
+    # the parameter-name prefixes of the modules that flax builds without
+    # param_dtype: they stay f32 under --bf16_params (create_model)
+    f32_param_prefixes: tuple = ()
+    # whether forward takes ``dropout_key``, the train step's
+    # rngs={"dropout": key} (core/step.py)
+    takes_dropout_key = False
 
     def forward(self, model_input, num_frames=None, training: bool = False):
         raise NotImplementedError()

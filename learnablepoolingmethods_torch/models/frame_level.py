@@ -1,7 +1,7 @@
 """Frame-level models (ref: models/frame_level.py): the LOUPE "LF" family,
 ``NetVLADModelLF``, ``NetRVLADModelLF``, ``NetFVModelLF``,
-``SoftDbofModelLF`` and ``NeXtVLADModel``; ``DbofModel`` and
-``FrameLevelLogisticModel``.
+``SoftDbofModelLF`` and ``NeXtVLADModel``; ``DbofModel``,
+``FrameLevelLogisticModel``, ``LstmModel`` and ``GruModel``.
 
 A model takes ``model_input`` ``[B, F, D]``, the dequantized and
 ℓ2-normalized frames in the compute dtype (``core/step.py#preprocess_input``),
@@ -142,13 +142,51 @@ def sample_model_frames(cfg: ModelConfig, model_input, num_frames, sampling_key=
                                           cfg.sample_random_frames)
 
 
-class _LoupeLFBase(BaseModel):
+class LFTailModel(BaseModel):
+    """A model that ends in the shared LF tail (ref: frame_level.py
+    #_FrameModelBase._lf_tail): hidden FC ``hidden1_weights`` [W, H] summed
+    in f32 → ``hidden1_bn`` with relu6 on and BN on, else
+    ``hidden1_biases`` → relu6 (``relu``) → context gating (``gating``,
+    ``--gating``) → the video-level classifier ``<head>_0``.  The LF family
+    and the attention models build it with :meth:`_init_tail` after their
+    pooling, so its parameters keep flax's names at the model's top level."""
+
+    def _init_tail(self, width: int, hidden: int, relu: bool) -> None:
+        cfg = self.cfg
+        add_bn = cfg.netvlad_add_batch_norm
+        self.relu = relu
+        self.hidden1_weights = nn.Parameter(torch.zeros(width, hidden))
+        if add_bn and relu:
+            self.hidden1_bn = BatchNorm(hidden)
+        else:
+            self.hidden1_biases = nn.Parameter(torch.zeros(hidden))
+        if cfg.gating:
+            self.gating = ContextGating(hidden, add_batch_norm=add_bn,
+                                        remove_diag=cfg.gating_remove_diag, dtype=self.dtype)
+        self.head_name = f"{cfg.video_level_classifier_model}_0"
+        setattr(self, self.head_name, create_model(cfg.video_level_classifier_model, cfg, hidden))
+
+    def _lf_tail(self, pooled: torch.Tensor, training: bool):
+        dtype = self.dtype
+        activation = matmul_f32(pooled.to(dtype), self.hidden1_weights.to(dtype))
+        if hasattr(self, "hidden1_bn"):
+            activation = self.hidden1_bn(activation, training)
+        else:
+            activation = activation + self.hidden1_biases
+        if self.relu:
+            activation = relu6(activation)
+        if self.cfg.gating:
+            activation = self.gating(activation, training)
+        return getattr(self, self.head_name)(activation.to(dtype), training=training)
+
+
+class _LoupeLFBase(LFTailModel):
     """The template of the LF models (ref: frame_level.py#_LoupeLFBase,
     ``_lf_forward`` and ``_lf_tail``): sample → input BN → a pooling module
     on the rgb columns (K clusters) and one on the audio columns (K/2) →
     concat → hidden FC (+bias, or BN and relu6 with relu on) → context
-    gating → the video-level classifier.  Submodule and parameter names are
-    the flax ones (``NetVLAD_0``, ``hidden1_weights``, ``MoeModel_0`` ...).
+    gating → the video-level classifier (:class:`LFTailModel`).  Submodule
+    and parameter names are the flax ones (``NetVLAD_0``, ``hidden1_weights``, ``MoeModel_0`` ...).
 
     ``--netvlad_dimred`` r > 0 puts a learned ``dimred`` [D, r] after the
     input BN, summed in f32, and the pooling modules then split r columns
@@ -163,7 +201,7 @@ class _LoupeLFBase(BaseModel):
         super().__init__(cfg, input_size)
         name = type(self).__name__
         add_bn = cfg.netvlad_add_batch_norm
-        _, hidden, self.relu = lf_hparams(name, cfg)
+        _, hidden, relu = lf_hparams(name, cfg)
         if add_bn:
             self.input_bn = BatchNorm(input_size)
         if cfg.netvlad_dimred > 0:
@@ -172,16 +210,7 @@ class _LoupeLFBase(BaseModel):
         self.split = self.layout[0].feature_size if len(self.layout) > 1 else None
         for mod in self.layout:
             setattr(self, mod.name, self._pool_module(mod))
-        self.hidden1_weights = nn.Parameter(torch.zeros(sum(m.width for m in self.layout), hidden))
-        if add_bn and self.relu:
-            self.hidden1_bn = BatchNorm(hidden)
-        else:
-            self.hidden1_biases = nn.Parameter(torch.zeros(hidden))
-        if cfg.gating:
-            self.gating = ContextGating(hidden, add_batch_norm=add_bn,
-                                        remove_diag=cfg.gating_remove_diag, dtype=self.dtype)
-        self.head_name = f"{cfg.video_level_classifier_model}_0"
-        setattr(self, self.head_name, create_model(cfg.video_level_classifier_model, cfg, hidden))
+        self._init_tail(sum(m.width for m in self.layout), hidden, relu)
 
     def forward(self, model_input, num_frames=None, training: bool = False, sampling_key=None):
         cfg, dtype = self.cfg, self.dtype
@@ -198,17 +227,7 @@ class _LoupeLFBase(BaseModel):
                 pools[0](frames[:, :, :self.split].to(dtype), training),
                 pools[1](frames[:, :, self.split:].to(dtype), training),
             ], dim=1)
-
-        activation = matmul_f32(pooled.to(dtype), self.hidden1_weights.to(dtype))
-        if hasattr(self, "hidden1_bn"):
-            activation = self.hidden1_bn(activation, training)
-        else:
-            activation = activation + self.hidden1_biases
-        if self.relu:
-            activation = relu6(activation)
-        if cfg.gating:
-            activation = self.gating(activation, training)
-        return getattr(self, self.head_name)(activation.to(dtype), training=training)
+        return self._lf_tail(pooled, training)
 
 
 @register_model
@@ -338,3 +357,152 @@ class DbofModel(BaseModel):
             activation = activation + self.hidden1_biases
         activation = relu6(activation)
         return getattr(self, self.head_name)(activation.to(dtype), training=training)
+
+
+class DenseParams(nn.Module):
+    """One of flax's per-gate Dense modules of an RNN cell: ``kernel``
+    [in, out] and, with ``use_bias``, ``bias`` [out]."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features))
+
+
+class _RecurrentCell(nn.Module):
+    """A flax RNN cell's gates as named ``DenseParams``: ``i<g>`` on the
+    input and ``h<g>`` on the hidden state for each gate g, with a bias
+    where flax gives one (``bias_on``: the names that have one).  The
+    gates' kernels and biases of one side are used side by side
+    (:meth:`_kernels`, :meth:`_biases`)."""
+
+    GATES: Tuple[str, ...] = ()
+
+    def __init__(self, in_features: int, features: int, bias_on: Tuple[str, ...]):
+        super().__init__()
+        self.features = features
+        for g in self.GATES:
+            for side, width in (("i", in_features), ("h", features)):
+                setattr(self, side + g, DenseParams(width, features, side + g in bias_on))
+
+    def _kernels(self, side: str) -> torch.Tensor:
+        return torch.cat([getattr(self, side + g).kernel for g in self.GATES], dim=1)
+
+    def _biases(self, side: str) -> torch.Tensor:
+        return torch.cat([getattr(self, side + g).bias for g in self.GATES])
+
+
+class OptimizedLSTMCell(_RecurrentCell):
+    """``flax.linen.OptimizedLSTMCell``: ``ii``, ``if``, ``ig``, ``io``
+    without bias, ``hi``, ``hf``, ``hg``, ``ho`` with; i, f, o = σ(h·W_h +
+    b_h + x·W_i), g = tanh(…), c′ = f·c + i·g, h′ = o·tanh(c′)."""
+
+    GATES = ("i", "f", "g", "o")
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__(in_features, features, ("hi", "hf", "hg", "ho"))
+
+    def run(self, x: torch.Tensor) -> torch.Tensor:
+        """The cell over every frame of ``x`` [B, F, D] from a zero carry →
+        the hidden state after each frame [B, F, H]."""
+        w_i, w_h, b_h = self._kernels("i"), self._kernels("h"), self._biases("h")
+        pre = torch.matmul(x, w_i)                                    # [B, F, 4H]
+        h = c = x.new_zeros(x.shape[0], self.features)
+        outs = []
+        for t in range(x.shape[1]):
+            i, f, g, o = torch.chunk((torch.matmul(h, w_h) + b_h) + pre[:, t], 4, dim=1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outs.append(h)
+        return torch.stack(outs, dim=1)
+
+
+class GRUCell(_RecurrentCell):
+    """``flax.linen.GRUCell``, the reset-after variant: ``ir``, ``iz``,
+    ``in`` with bias, ``hr``, ``hz`` without, ``hn`` with; r, z = σ(x·W_i
+    + b_i + h·W_h), n = tanh(x·W_in + b_in + r·(h·W_hn + b_hn)), h′ =
+    (1 − z)·n + z·h."""
+
+    GATES = ("r", "z", "n")
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__(in_features, features, ("ir", "iz", "in", "hn"))
+
+    def run(self, x: torch.Tensor) -> torch.Tensor:
+        """As :meth:`OptimizedLSTMCell.run`."""
+        w_i, b_i, w_h, b_hn = self._kernels("i"), self._biases("i"), self._kernels("h"), self.hn.bias
+        pre = torch.matmul(x, w_i) + b_i                              # [B, F, 3H]
+        h = x.new_zeros(x.shape[0], self.features)
+        outs = []
+        for t in range(x.shape[1]):
+            x_r, x_z, x_n = torch.chunk(pre[:, t], 3, dim=1)
+            h_r, h_z, h_n = torch.chunk(torch.matmul(h, w_h), 3, dim=1)
+            r = torch.sigmoid(x_r + h_r)
+            z = torch.sigmoid(x_z + h_z)
+            n = torch.tanh(x_n + r * (h_n + b_hn))
+            h = (1.0 - z) * n + z * h
+            outs.append(h)
+        return torch.stack(outs, dim=1)
+
+
+class _RecurrentModel(BaseModel):
+    """Stacked RNN cells over every frame in f32 (ref: frame_level.py
+    #LstmModel, #GruModel: ``nn.RNN(cell, return_carry=True)`` with
+    ``seq_lengths``), then the video-level classifier on the top layer's
+    hidden state at each video's last valid frame.
+
+    As flax's ``nn.RNN`` does, each layer runs over all F frames, padding
+    included (an upper layer reads the lower one's outputs there too), and
+    the carry is read at index min(num_frames, F) − 1: for a video of no
+    frames that is −1, the carry after the last frame
+    (flax/linen/recurrent.py ``_select_last_carry``).  The recurrence is a
+    loop over frames of plain products (the JAX package scans it in XLA,
+    with no Pallas kernel); the cells' parameters stay f32 under
+    ``--bf16_params``, as flax makes them."""
+
+    CELL = None
+    PREFIX = ""
+
+    def __init__(self, cfg: ModelConfig, input_size: int, layers: int, cells: int):
+        super().__init__(cfg, input_size)
+        self.num_layers = layers
+        for layer in range(layers):
+            setattr(self, f"{self.PREFIX}{layer}", self.CELL(input_size if layer == 0 else cells, cells))
+        self.head_name = f"{cfg.video_level_classifier_model}_0"
+        setattr(self, self.head_name, create_model(cfg.video_level_classifier_model, cfg, cells))
+
+    def forward(self, model_input, num_frames=None, training: bool = False):
+        x = model_input.float()
+        b, f = x.shape[:2]
+        for layer in range(self.num_layers):
+            x = getattr(self, f"{self.PREFIX}{layer}").run(x)
+        last = torch.remainder(torch.clamp(num_frames.long(), max=f) - 1, f)
+        final = x[torch.arange(b, device=x.device), last]
+        return getattr(self, self.head_name)(final, training=training)
+
+
+@register_model
+class LstmModel(_RecurrentModel):
+    """Stacked LSTM (ref: frame_level.py#LstmModel): ``--lstm_layers``
+    cells ``OptimizedLSTMCell_<l>`` of ``--lstm_cells``; the top layer's h."""
+
+    CELL = OptimizedLSTMCell
+    PREFIX = "OptimizedLSTMCell_"
+    f32_param_prefixes = (PREFIX,)
+
+    def __init__(self, cfg: ModelConfig, input_size: int):
+        super().__init__(cfg, input_size, cfg.lstm_layers, cfg.lstm_cells)
+
+
+@register_model
+class GruModel(_RecurrentModel):
+    """Stacked GRU (ref: frame_level.py#GruModel): ``--gru_layers`` cells
+    ``GRUCell_<l>`` of ``--gru_cells``; the top layer's carry."""
+
+    CELL = GRUCell
+    PREFIX = "GRUCell_"
+    f32_param_prefixes = (PREFIX,)
+
+    def __init__(self, cfg: ModelConfig, input_size: int):
+        super().__init__(cfg, input_size, cfg.gru_layers, cfg.gru_cells)

@@ -77,11 +77,15 @@ def _prepare_encoder_layers(enc, n_layers: int, put, ct) -> list:
     return layers
 
 
-def _layernorm(x32: torch.Tensor, scale, bias) -> torch.Tensor:
+def layer_norm(x32: torch.Tensor, scale, bias, clamp_var: bool = False) -> torch.Tensor:
     """LayerNorm over the last axis in f32 with var = E[x²] − mean², as
-    flax's LayerNorm and the JAX fast path compute it."""
+    flax's LayerNorm (``use_fast_variance``) and the JAX fast path compute
+    it; ``clamp_var`` takes max(0, var) first, as flax does (the fast path
+    does not)."""
     mean = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True) - mean * mean
+    if clamp_var:
+        var = torch.clamp(var, min=0.0)
     return (x32 - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
 
 
@@ -95,10 +99,10 @@ def _encoder_apply(layers, h: torch.Tensor, mask: torch.Tensor, heads: int, use_
         qkv = (matmul_f32(x, lp["wqkv"]) + lp["bqkv"]).to(ct)
         attn = attention(qkv.reshape(b, f, 3 * d), mask, heads).reshape(b * f, d)
         attn = (matmul_f32(attn, lp["wo"]) + lp["bo"]).to(ct)
-        x = _layernorm(x.float() + attn.float(), lp["ln1_s"], lp["ln1_b"]).to(ct)
+        x = layer_norm(x.float() + attn.float(), lp["ln1_s"], lp["ln1_b"]).to(ct)
         ff = torch.relu(matmul_f32(x, lp["w1"]) + lp["b1"]).to(ct)
         ff = (matmul_f32(ff, lp["w2"]) + lp["b2"]).to(ct)
-        x = _layernorm(x.float() + ff.float(), lp["ln2_s"], lp["ln2_b"]).to(ct)
+        x = layer_norm(x.float() + ff.float(), lp["ln2_s"], lp["ln2_b"]).to(ct)
     return x.reshape(b, f, d)
 
 

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Sequence
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("fused_frontend", "netvlad_fused", "netvlad_train", "netfv_fused", "softdbow_fused",
-                  "masked_attention", "fused_adam", "int8_matmul")
+                  "masked_attention", "fused_adam", "int8_matmul", "dropout")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

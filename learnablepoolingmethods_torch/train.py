@@ -21,7 +21,10 @@ of ``--save_checkpoint_every_n_steps`` and at the end, keeping the newest
 
 It trains every registered model: the LF family (NetVLADModelLF,
 NetRVLADModelLF, NetFVModelLF, SoftDbofModelLF, NeXtVLADModel, with
-``--netvlad_dimred``), DbofModel, FrameLevelLogisticModel, and LogisticModel
+``--netvlad_dimred``), DbofModel, FrameLevelLogisticModel, the attention
+family (TransformerEncoderModel, AttentionPoolingModel,
+AttentionNetVLADModel; flax's dropout, ``--attention_dropout``, drawn on
+the card by ``ops/dropout.py``), LstmModel and GruModel, and LogisticModel
 and MoeModel on video-level input (without ``--frame_features``), with every
 ``--optimizer`` and ``--label_loss`` of the JAX package and
 ``--adam_bf16_momentum``; ``--bf16_params`` (bf16 parameters, an f32 master
@@ -36,9 +39,8 @@ step draws from the same ``--seed``, with or without ``--presample_frames``
 and ``--sample_random_frames`` (``core/step.py``); the port gathers them in
 uint8.  The weights start from ``core/weights.py#init_variables_np(seed)``.
 What the port does not take yet raises, naming its ROADMAP item: the
-attention family and the RNNs (``_NOT_TRAINED``), and the flags of
-``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export, a device mesh,
-grain, the native reader, the packed cache, profiling, the RNN widths).
+flags of ``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export, a
+device mesh, grain, the native reader, the packed cache, profiling).
 ``--int8_hidden`` raises ValueError: the JAX trainer defines no such flag.
 """
 
@@ -71,13 +73,6 @@ from learnablepoolingmethods_torch.utils.misc import resolve_device
 log = logging.getLogger(__name__)
 TASK = "/job:master/task:0"
 
-# models of the JAX zoo whose training is not ported yet → ROADMAP.md queue-1 item
-_NOT_TRAINED = {
-    **dict.fromkeys(("TransformerEncoderModel", "AttentionNetVLADModel", "AttentionPoolingModel"), "10b"),
-    **dict.fromkeys(("LstmModel", "GruModel"), 11),
-}
-
-
 # the JAX train CLI's own flags (learnablepoolingmethods_tpu/train.py
 # #define_flags) and the port's --device: name → (default, help)
 _OWN_FLAGS = {
@@ -105,9 +100,6 @@ def configs_from_args(args):
                          "the JAX trainer defines no such flag")
     cli_flags.refuse_not_ported(args, cli_flags.TRAIN_NOT_PORTED,
                                 vars(build_parser().parse_args([])), "trainer")
-    if args.model in _NOT_TRAINED:
-        raise NotImplementedError(
-            f"training {args.model} is not ported yet: ROADMAP item {_NOT_TRAINED[args.model]}")
     fcfg = FeatureConfig.from_flag_strings(args.feature_names, args.feature_sizes,
                                            args.frame_features, args.max_frames)
     # The JAX CLI builds the model presampled under --presample_frames, and

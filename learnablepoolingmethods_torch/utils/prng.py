@@ -26,6 +26,8 @@ A key is a ``[2]`` int64 tensor of two 32-bit words.
 from __future__ import annotations
 
 import hashlib
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -80,15 +82,22 @@ def fold_in(key_: torch.Tensor, data: int) -> torch.Tensor:
     return _key_of(x0, x1)[0]
 
 
-def flax_make_rng(key_: torch.Tensor, counter: int = 1) -> torch.Tensor:
+def flax_make_rng(key_: torch.Tensor, counter: int = 1, scope: Sequence[str] = ()) -> torch.Tensor:
     """The key that flax's ``make_rng(name)`` hands out on its ``counter``-th
-    call in the module where ``key_`` was passed as ``rngs={name: key_}``
-    (flax/core/scope.py ``LazyRng.as_jax_rng``): ``fold_in`` of the first 4
-    bytes of SHA-1 of the counter's big-endian bytes, read as a big-endian
-    uint32.  This pins flax's default ``flax_fix_rng_separator=False``,
-    under which no separator byte enters the hash."""
-    data = counter.to_bytes((counter.bit_length() + 7) // 8, "big")
-    return fold_in(key_, int.from_bytes(hashlib.sha1(data).digest()[:4], "big"))
+    call in the module at ``scope`` (the names from the root down, e.g.
+    ``("encoder", "layer_0", "mha")``) when ``key_`` was passed as
+    ``rngs={name: key_}``: a child scope appends its name to the key's
+    suffix (flax/core/scope.py ``Scope.push``), ``make_rng`` appends the
+    scope's counter (``Scope.make_rng``), and ``LazyRng.as_jax_rng`` folds
+    in the first 4 bytes of the SHA-1 of the parts concatenated (strings as
+    UTF-8, integers as big-endian bytes), read as a big-endian uint32.  This
+    pins flax's default ``flax_fix_rng_separator=False``, under which no
+    separator byte enters the hash."""
+    digest = hashlib.sha1()
+    for part in (*scope, counter):
+        digest.update(part.encode("utf-8") if isinstance(part, str)
+                      else part.to_bytes((part.bit_length() + 7) // 8, "big"))
+    return fold_in(key_, int.from_bytes(digest.digest()[:4], "big"))
 
 
 def split(key_: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -98,21 +107,54 @@ def split(key_: torch.Tensor, num: int = 2) -> torch.Tensor:
     return _key_of(x0, x1)
 
 
+# counters a thread hashes at once in a large draw
+_CHUNK = 1 << 20
+
+
 def random_bits(key_: torch.Tensor, shape: Sequence[int]) -> np.ndarray:
-    """``jax.random.bits(key, shape, uint32)`` as a NumPy uint32 array."""
+    """``jax.random.bits(key, shape, uint32)`` as a NumPy uint32 array.  A
+    draw of more than one chunk is hashed chunk by chunk on a pool of
+    threads (NumPy's uint32 ufuncs release the GIL)."""
     n = int(np.prod(shape, dtype=np.int64))
     if n >= 2**32:
         raise ValueError("a draw of 2**32 values or more needs the high counter word")
-    x0, x1 = threefry2x32(*key_words(key_), np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
-    return (x0 ^ x1).reshape(tuple(shape))
+    k0, k1 = key_words(key_)
+    out = np.empty(n, np.uint32)
+
+    def chunk(start: int) -> None:
+        stop = min(start + _CHUNK, n)
+        x0, x1 = threefry2x32(k0, k1, np.zeros(stop - start, np.uint32),
+                              np.arange(start, stop, dtype=np.uint32))
+        np.bitwise_xor(x0, x1, out=out[start:stop])
+
+    starts = range(0, n, _CHUNK)
+    if len(starts) > 1:
+        with ThreadPoolExecutor(max_workers=min(len(starts), os.cpu_count() or 1)) as pool:
+            list(pool.map(chunk, starts))
+    else:
+        for start in starts:
+            chunk(start)
+    return out.reshape(tuple(shape))
+
+
+def _uniform_np(key_: torch.Tensor, shape: Sequence[int]) -> np.ndarray:
+    """The top 23 bits of each draw as the mantissa of a float in [1, 2),
+    minus 1."""
+    bits = random_bits(key_, shape)
+    return ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
 
 
 def uniform(key_: torch.Tensor, shape: Sequence[int], device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` in [0, 1) on ``device``:
-    the top 23 bits as the mantissa of a float in [1, 2), minus 1."""
-    bits = random_bits(key_, shape)
-    u = torch.from_numpy(((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0))
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1) on ``device``."""
+    u = torch.from_numpy(_uniform_np(key_, shape))
     device = torch.device("cpu") if device is None else torch.device(device)
     if device.type == "cuda":
         return u.pin_memory().to(device, non_blocking=True)
     return u.to(device)
+
+
+def bernoulli(key_: torch.Tensor, p: float, shape: Sequence[int]) -> np.ndarray:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p`` as
+    a NumPy bool array: ``uniform(key, shape, float32) < float32(p)``
+    (``jax._src.random._bernoulli``, mode "low")."""
+    return _uniform_np(key_, shape) < np.float32(p)

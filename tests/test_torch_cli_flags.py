@@ -152,6 +152,29 @@ def test_item_12b_flags_are_taken_as_the_jax_cli_takes_them(tmp_path, cli, name)
         assert cli_flags.model_config_from_args(args).param_dtype == "bfloat16"
 
 
+# item 11's flags, the RNNs' widths, which the CLIs refused before the
+# RNNs were ported (one case for each (CLI, flag) that NOT_PORTED held):
+# each builds the model's configuration at its value, as the JAX CLI does
+ITEM_11 = [(cli, name) for cli in ("inference", "eval", "train")
+           for name in ("lstm_cells", "lstm_layers", "gru_cells", "gru_layers")]
+
+
+@pytest.mark.parametrize("cli, name", ITEM_11)
+def test_item_11_flags_are_taken_as_the_jax_cli_takes_them(cli, name):
+    defaults = vars(CLIS[cli].build_parser().parse_args([]))
+    value = _off_default(defaults[name])
+    model = "LstmModel" if name.startswith("lstm") else "GruModel"
+    args = CLIS[cli].build_parser().parse_args(_argv({name: value}) + [f"--model={model}", "--frame_features"])
+    assert name not in NOT_PORTED[cli]
+    if cli == "train":
+        _, mcfg, _ = train.configs_from_args(args)
+    else:
+        cli_flags.refuse_not_ported(args, NOT_PORTED[cli], defaults, f"{cli} CLI")
+        mcfg = cli_flags.model_config_from_args(args)
+    # flags.py#model_config_from_flags: the field of the flag's name
+    assert getattr(mcfg, name) == value
+
+
 def test_flags_without_an_effect_here_are_accepted():
     """--num_gpu (ignored by the JAX CLIs too) and, at inference, the
     training schedule's flags parse and raise nothing, as in the JAX CLI."""

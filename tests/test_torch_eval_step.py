@@ -27,7 +27,8 @@ from learnablepoolingmethods_torch.utils import prng
 KW = dict(vocab_size=29, iterations=6, netvlad_cluster_size=4, netvlad_hidden_size=16,
           fv_cluster_size=4, fv_hidden_size=16, rvlad_cluster_size=4, dbow_cluster_size=8,
           nextvlad_cluster_size=4, nextvlad_hidden_size=16, dbof_cluster_size=16,
-          dbof_hidden_size=16)
+          dbof_hidden_size=16, attention_hidden_size=16, attention_heads=2, transformer_ff_size=24,
+          attention_cluster_size=3, lstm_cells=8, gru_cells=8)
 VIDEO_LEVEL = ("LogisticModel", "MoeModel")
 B, PAD, F, D, TOP_K = 6, 2, 10, 72, 5
 BATCH_IDX = 3

@@ -180,10 +180,10 @@ def test_dispatch_and_what_is_not_ported(flax_models):
     # the JAX package has no fast path for AttentionPoolingModel either
     with pytest.raises(ValueError, match="--fast_infer supports .*AttentionPoolingModel"):
         get_fast_path("AttentionPoolingModel")
-    # the family's nn.Modules (the model-forward route and training) are queued
+    # the family's nn.Modules (the model-forward route and training) are
+    # ported (item 10b; tests/test_torch_attention_rnn.py)
     for name in MODELS + ("AttentionPoolingModel",):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-            create_model(name, cfg, DT)
+        assert create_model(name, cfg, DT).input_proj.kernel.shape == (DT, cfg.attention_hidden_size)
 
 
 @pytest.mark.parametrize("model_name", MODELS)

@@ -57,9 +57,9 @@ def test_the_guard_covers_the_kernel_modules():
     names = _module_names()
     for module in ("fast_infer", "fast_lf", "fast_dispatch", "fused_frontend", "netvlad_fused",
                    "netvlad_train", "netfv_fused", "softdbow_fused", "kernel_build", "fast_transformer",
-                   "masked_attention", "fast_dbof", "metrics_ops", "fused_adam", "int8_matmul"):
+                   "masked_attention", "fast_dbof", "metrics_ops", "fused_adam", "int8_matmul", "dropout"):
         assert f"learnablepoolingmethods_torch.ops.{module}" in names, module
-    for module in ("models.frame_level", "models.video_level", "eval", "inference", "train", "losses",
+    for module in ("models.frame_level", "models.video_level", "models.attention", "eval", "inference", "train", "losses",
                    "core.observability", "core.step", "core.optimizers", "core.checkpoints",
                    "core.checkpoint_import", "core.train_state", "utils.tf_bundle", "data.readers",
                    "data.fixtures"):

@@ -108,14 +108,16 @@ def test_nextvlad_adjusts_its_groups_and_says_so(caplog):
 
 
 def test_registry_and_train_cli_name_what_is_not_ported(tmp_path):
-    """The LF models train (tests/test_torch_train_zoo.py); the train CLI
-    still refuses the attention family (item 10b) and the RNNs (item 11)."""
+    """The LF models train (tests/test_torch_train_zoo.py), and since items
+    10b and 11 the train CLI takes the attention family and the RNNs too
+    (tests/test_torch_train_attention_rnn.py): each builds its
+    configuration, the model seeing every frame (not presampled)."""
     assert set(LF + ["NetVLADModelLF", "MoeModel"]) <= set(list_models())
-    for name, item in (("TransformerEncoderModel", "10b"), ("AttentionNetVLADModel", "10b"),
-                       ("AttentionPoolingModel", "10b"), ("LstmModel", "11"), ("GruModel", "11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            train.main([f"--model={name}", "--frame_features", f"--train_data_pattern={tmp_path}/x",
-                        f"--train_dir={tmp_path}/m", "--device=cpu"])
+    for name in ("TransformerEncoderModel", "AttentionNetVLADModel", "AttentionPoolingModel", "LstmModel",
+                 "GruModel"):
+        args = train.build_parser().parse_args([f"--model={name}", "--frame_features"])
+        _, mcfg, _ = train.configs_from_args(args)
+        assert name in list_models() and not mcfg.presampled
     for name in LF:
         args = train.build_parser().parse_args([f"--model={name}", "--frame_features"])
         _, mcfg, _ = train.configs_from_args(args)

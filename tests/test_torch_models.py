@@ -144,8 +144,11 @@ def test_state_dict_round_trip_keeps_the_flax_layout(rng):
 
 def test_registry_names_what_is_not_ported():
     cfg = ModelConfig(**KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        create_model("LstmModel", cfg, 1152)
+    # the RNNs are ported (item 11): flax's cell names, f32 cells under bf16
+    lstm = create_model("LstmModel", cfg, 1152)
+    assert lstm.OptimizedLSTMCell_0.ii.kernel.shape == (1152, cfg.lstm_cells)
+    assert {p.dtype for n, p in create_model("GruModel", ModelConfig(**KW, param_dtype="bfloat16"), 1152)
+            .named_parameters() if n.startswith("GRUCell_")} == {torch.float32}
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("NoSuchModel", cfg, 1152)
     # bf16 parameters are ported (item 12b): every parameter bf16, the BN
@@ -155,8 +158,9 @@ def test_registry_names_what_is_not_ported():
     assert {b.dtype for b in bf16.buffers()} == {torch.float32}
     with pytest.raises(ValueError, match="param_dtype"):
         create_model("NetVLADModelLF", ModelConfig(**KW, param_dtype="float16"), 1152)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-        create_model("AttentionPoolingModel", cfg, 1152)
+    # the attention family is ported (item 10b)
+    pool = create_model("AttentionPoolingModel", cfg, 1152)
+    assert pool.attn_pool.queries.shape == (cfg.attention_cluster_size, cfg.attention_hidden_size)
     # --netvlad_dimred is ported: a learned [D, r] reduction before one module
     model = create_model("NetVLADModelLF", ModelConfig(**KW, netvlad_dimred=64), 1152)
     assert model.dimred.shape == (1152, 64) and model.NetVLAD_0.cluster_weights.shape[0] == 64

@@ -202,8 +202,6 @@ def test_train_cli_writes_variables_the_inference_cli_reads(tmp_path):
 
 
 @pytest.mark.parametrize("flag, error", [
-    ("--model=LstmModel", NotImplementedError),
-    ("--model=TransformerEncoderModel", NotImplementedError),
     # the JAX trainer defines no --int8_hidden (only eval, inference, serving)
     ("--int8_hidden", ValueError),
     ("--export_model_steps=10", NotImplementedError),
@@ -214,6 +212,26 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, error):
     with pytest.raises(error):
         train.main(CLI_FLAGS + [f"--train_data_pattern={data}", f"--train_dir={tmp_path}/m",
                                 "--batch_size=2", "--max_steps=1", flag])
+
+
+# the models of items 10b and 11, which the trainer refused until they were
+# ported, at small widths (tests/test_torch_train_attention_rnn.py holds
+# their steps to JAX's)
+ATTN_RNN_FLAGS = ["--attention_hidden_size=16", "--attention_heads=2", "--transformer_ff_size=24",
+                  "--attention_cluster_size=3", "--lstm_cells=8", "--gru_cells=8"]
+
+
+@pytest.mark.parametrize("model", ["TransformerEncoderModel", "AttentionPoolingModel", "AttentionNetVLADModel",
+                                   "LstmModel", "GruModel"])
+def test_train_cli_takes_the_attention_family_and_the_rnns(tmp_path, model):
+    """One step of the train CLI, which writes a checkpoint."""
+    data = str(tmp_path / "train-0.tfrecord")
+    fixtures.write_frame_level_fixture(data, 2, num_classes=20, max_frames=10, seed=1)
+    trainer = train.main(CLI_FLAGS + ATTN_RNN_FLAGS + [
+        f"--model={model}", f"--train_data_pattern={data}", f"--train_dir={tmp_path}/m", "--batch_size=2",
+        "--max_steps=1", "--log_every_n_steps=1"])
+    assert trainer.state.step == 1 and np.isfinite(trainer.history[-1]["loss"])
+    assert CheckpointManager(f"{tmp_path}/m").all_steps() == [1]
 
 
 @pytest.mark.parametrize("flags", [["--grad_accum_steps=2"], ["--bf16_params"], ["--use_remat"],
