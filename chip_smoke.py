@@ -66,6 +66,20 @@ error, and prints one JSON line per phase:
               weights and videos (the W8A16 kernel twice a batch), within
               5e-2 of the bf16 route's probabilities; videos/s at B=256 and
               512, int8 beside bf16;
+   serve      item 14 on the same weights: phase 4 exports its tree with
+              export_model.py (the JAX package's artifact; params.msgpack
+              holds the hidden FC in flax's chunked form), the export
+              reloaded bit for bit, then ModelServer over it: --fast_serve
+              (the front-end kernel once per batch, warmup included) and
+              --fast_serve --int8_hidden (also the W8A16 kernel twice a
+              batch) on the 96 videos, each within 1e-2 of its plain route
+              on the same padded batches drawn from prng.key(0), the
+              model-forward route within 1e-5 of make_predict_step;
+              predict_pairs' videos/s at serving batch 32 and 256 with the
+              host's parse ms and the device ms per batch; HTTP on
+              127.0.0.1 with the BatchingQueue on the main thread, 8 clients
+              × 16 requests × 4 videos, linger 2 ms: requests/s, videos/s,
+              p50/p99 latency, the coalesced share;
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -251,6 +265,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import importlib.util
 import json
 import logging
@@ -260,12 +275,14 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
 from learnablepoolingmethods_torch import eval as eval_cli
+from learnablepoolingmethods_torch import export_model as export_lib
 from learnablepoolingmethods_torch import inference, train
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig, TrainingConfig
 from learnablepoolingmethods_torch.core import checkpoints, optimizers
@@ -280,7 +297,9 @@ from learnablepoolingmethods_torch.core.weights import (
     load_variables_npz,
     save_variables_npz,
     state_dict_to_flax,
+    tree_paths,
 )
+from learnablepoolingmethods_torch.data import tfrecord_io
 from learnablepoolingmethods_torch.data.fixtures import (
     make_learnable_synthetic_frame_level,
     write_frame_level_fixture,
@@ -293,7 +312,7 @@ from learnablepoolingmethods_torch.metrics import eval_util
 from learnablepoolingmethods_torch.models import create_model, find_class_by_name
 from learnablepoolingmethods_torch.models.frame_level import lf_layout
 from learnablepoolingmethods_torch.ops import dropout as dropout_ops
-from learnablepoolingmethods_torch.ops import fast_dbof, fast_lf, fast_transformer, kernel_build
+from learnablepoolingmethods_torch.ops import fast_dbof, fast_infer, fast_lf, fast_transformer, kernel_build
 from learnablepoolingmethods_torch.ops.dropout import apply_mask, dropout_kernel, dropout_plain
 from learnablepoolingmethods_torch.ops.fast_dispatch import (
     FAST_ATTENTION_MODELS,
@@ -349,6 +368,13 @@ from learnablepoolingmethods_torch.ops.netvlad_fused import (
 )
 from learnablepoolingmethods_torch.ops.softdbow_fused import softdbow_fused, softdbow_reference
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
+from learnablepoolingmethods_torch.serving import (
+    BatchingQueue,
+    ModelServer,
+    ThreadingHTTPServer,
+    frame_records,
+    make_handler,
+)
 from learnablepoolingmethods_torch.ops.netvlad_train import (
     netvlad_aggregate_backward,
     netvlad_aggregate_backward_plain,
@@ -934,6 +960,7 @@ def phase_e2e(dev, workdir):
     data = os.path.join(workdir, "videos-0.tfrecord")
     truth = write_frame_level_fixture(data, 96, seed=0)
     setup_s = time.perf_counter() - start
+    export = export_willow(tree, mcfg, fcfg, workdir)
 
     # path 1: the inference CLI, which takes the fused route
     out_csv = os.path.join(workdir, "predictions.csv")
@@ -984,7 +1011,8 @@ def phase_e2e(dev, workdir):
     check_csv_rows(csv, probs["fused"], batches, "fused")
     emit({"phase": "e2e", "videos": len(truth), "batches": n_batches, "setup_s": setup_s,
           "cli_s": cli_s, "launches_per_path": paths, "max_abs_prob_gap": gaps})
-    return fp, {name: sum(p[name] for p in paths.values()) for name in ("netvlad_frontend", "netvlad_fused")}
+    launches = {name: sum(p[name] for p in paths.values()) for name in ("netvlad_frontend", "netvlad_fused")}
+    return fp, launches, export
 
 
 def phase_throughput(dev, fp, smi):
@@ -3136,6 +3164,268 @@ def int8_eval(name: str, data: str, train_dir: str, flags, bf16_gap: float, n_ba
     return got
 
 
+# ---- item 14: export and serving
+
+# served top-20 scores against the plain route's on the same padded batches
+# (PERF.md §2's kernel-against-plain gate); the model-forward route against
+# make_predict_step on the same batch
+SERVE_GATE, SERVE_F32_GATE = 1e-2, 1e-5
+SERVE_BATCHES = (32, 256)
+SERVE_ROUNDS = 3
+# the HTTP load: clients × requests each × full-width records a request
+HTTP_CLIENTS, HTTP_REQUESTS, HTTP_RECORDS, HTTP_LINGER_MS = 8, 16, 4, 2.0
+
+
+def export_willow(tree, mcfg: ModelConfig, fcfg: FeatureConfig, workdir: str) -> dict:
+    """phase_e2e's Willow tree through export_model.py: the directory, the
+    seconds and the bytes of params.msgpack."""
+    export_dir = os.path.join(workdir, "export")
+    start = time.perf_counter()
+    export_lib.export_model(export_dir, "NetVLADModelLF", mcfg, fcfg, tree["params"], tree["batch_stats"])
+    return {"dir": export_dir, "export_s": time.perf_counter() - start,
+            "params_bytes": os.path.getsize(os.path.join(export_dir, export_lib.PARAMS_FILE))}
+
+
+def plain_served_values(fp, records, fcfg: FeatureConfig, mcfg: ModelConfig, batch: int, dev) -> np.ndarray:
+    """The top-20 scores of the plain fast route (no kernel) on the batches
+    the server serves: chunks of ``batch`` padded with their last record,
+    each drawn from prng.key(0) as the server draws them."""
+    fn = build_fast_netvlad_inference(mcfg, top_k=20, use_kernels=False)
+    out = []
+    for start in range(0, len(records), batch):
+        chunk = records[start:start + batch]
+        feats, nfs = export_lib.parse_serialized_records(fcfg, chunk + [chunk[-1]] * (batch - len(chunk)))
+        values, _ = fn(fp, torch.from_numpy(feats).to(dev), torch.from_numpy(nfs).to(dev), prng.key(0))
+        out.append(values[:len(chunk)].float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def served_gap(route: str, pairs, want: np.ndarray, gate: float) -> float:
+    got = np.asarray([scores for _, scores in pairs], np.float32)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"serve {route}: scores of shape {got.shape} or non-finite")
+    gap = float(np.abs(got - want).max())
+    if gap > gate:
+        raise AssertionError(f"serve {route}: served scores {gap} from the reference's, over {gate}")
+    return gap
+
+
+def serve_launches(route: str, server: ModelServer, records, want: dict):
+    """Warm ``server`` up and serve ``records`` with the counters zeroed
+    just before and read just after; they must equal ``want``."""
+    reset_counters()
+    server.warmup()
+    pairs = server.predict_pairs(records)
+    torch.cuda.synchronize()
+    got = counters()
+    want = {**dict.fromkeys(KERNELS, 0), **want}
+    if got != want:
+        raise AssertionError(f"serve {route}: launches {got}, expected {want}")
+    return pairs
+
+
+def serve_throughput(server: ModelServer, records) -> dict:
+    """predict_pairs over ``records`` at each SERVE_BATCHES size: videos/s
+    (the median of SERVE_ROUNDS rounds), and per batch the host's parse ms
+    and the device ms (CUDA events from the parse's end to the results'
+    arrival)."""
+    parse_ms, device_ms, start = [], [], {}
+    parse, serve = export_lib.parse_serialized_records, server._serve
+
+    def timed_parse(fcfg, recs):
+        t0 = time.perf_counter()
+        out = parse(fcfg, recs)
+        parse_ms.append((time.perf_counter() - t0) * 1e3)
+        start["event"] = torch.cuda.Event(enable_timing=True)
+        start["event"].record()
+        return out
+
+    def timed_serve(recs):
+        out = serve(recs)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        device_ms.append(start["event"].elapsed_time(end))
+        return out
+
+    export_lib.parse_serialized_records, server._serve = timed_parse, timed_serve
+    out = {}
+    try:
+        for b in SERVE_BATCHES:
+            server.batch_size = b
+            server.predict_pairs(records[:b])
+            rounds = []
+            parse_ms.clear()
+            device_ms.clear()
+            for _ in range(SERVE_ROUNDS):
+                t0 = time.perf_counter()
+                server.predict_pairs(records)
+                rounds.append(time.perf_counter() - t0)
+            wall = statistics.median(rounds)
+            out[f"B={b}"] = {"videos_per_s": len(records) / wall, "videos_per_s_rounds": [len(records) / r for r in rounds],
+                             "batch_ms": wall * 1e3 * b / len(records),
+                             "parse_ms_per_batch": statistics.median(parse_ms),
+                             "device_ms_per_batch": statistics.median(device_ms),
+                             "host_parse_share": sum(parse_ms) / (sum(rounds) * 1e3)}
+    finally:
+        export_lib.parse_serialized_records = parse
+        server._serve = serve
+        server.batch_size = 32
+    return out
+
+
+def serve_http(server: ModelServer, records) -> dict:
+    """HTTP on 127.0.0.1: HTTP_CLIENTS threads each post HTTP_REQUESTS
+    requests of HTTP_RECORDS records while BatchingQueue dispatches on this
+    (the main) thread; requests/s, videos/s, latency, /statz's coalesced
+    share, and the launches (the front end once per executed batch)."""
+    batcher = BatchingQueue(server, max_delay_ms=HTTP_LINGER_MS)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server, batcher))
+    accept = threading.Thread(target=httpd.serve_forever, daemon=True)
+    accept.start()
+    port = httpd.server_address[1]
+    latencies, failures = [], []
+
+    def client(c: int):
+        for r in range(HTTP_REQUESTS):
+            first = (c * HTTP_REQUESTS + r) * HTTP_RECORDS
+            body = frame_records([records[(first + j) % len(records)] for j in range(HTTP_RECORDS)])
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                conn.request("POST", "/predict", body=body)
+                resp = conn.getresponse()
+                payload = resp.read()
+            finally:
+                conn.close()
+            latencies.append(time.perf_counter() - t0)
+            if resp.status != 200 or len(json.loads(payload)["predictions"]) != HTTP_RECORDS:
+                failures.append((resp.status, payload[:200]))
+
+    def drive():
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+        finally:
+            batcher.shutdown()
+
+    reset_counters()
+    load = threading.Thread(target=drive)
+    t0 = time.perf_counter()
+    load.start()
+    try:
+        batcher.run_forever()
+        wall = time.perf_counter() - t0
+    finally:
+        load.join(timeout=600)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/statz")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+        httpd.shutdown()
+        httpd.server_close()
+    torch.cuda.synchronize()
+    got = counters()
+    n = HTTP_CLIENTS * HTTP_REQUESTS
+    want = {**dict.fromkeys(KERNELS, 0), "netvlad_frontend": stats["executes"]}
+    if failures or load.is_alive() or len(latencies) != n or stats["requests"] != n or got != want:
+        raise AssertionError(f"serve http: failures {failures[:3]}, {len(latencies)} of {n} answered, "
+                             f"statz {stats}, launches {got}, expected {want}")
+    lat = sorted(ms * 1e3 for ms in latencies)
+    return {"clients": HTTP_CLIENTS, "requests": n, "videos": stats["rows"], "linger_ms": HTTP_LINGER_MS,
+            "wall_s": wall, "requests_per_s": n / wall, "videos_per_s": stats["rows"] / wall,
+            "latency_ms_p50": lat[len(lat) // 2], "latency_ms_p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "statz": stats, "coalesced_share": stats["coalesced"] / stats["requests"], "launches": got}
+
+
+def phase_serve(dev, workdir, fp, export: dict, smi) -> dict:
+    """Item 14 on Willow: phase_e2e's export reloaded bit for bit (the
+    hidden FC chunked), then ModelServer over it: the fused route
+    (--fast_serve; the front end once per batch, warmup included), the same
+    with --int8_hidden (and the W8A16 kernel twice a batch), each within
+    SERVE_GATE of its plain route on the same padded batches; the
+    model-forward route within SERVE_F32_GATE of make_predict_step; then
+    predict_pairs' videos/s at SERVE_BATCHES and the HTTP load.  Returns
+    {kernel: launches}."""
+    mcfg = ModelConfig()
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    records = list(tfrecord_io.read_tfrecords(os.path.join(workdir, "videos-0.tfrecord")))
+    n_batches = -(-len(records) // 32)
+    with open(os.path.join(export["dir"], export_lib.PARAMS_FILE), "rb") as f:
+        chunked = f.read().count(b"__msgpack_chunked_array__")
+    if chunked != 1:  # the hidden FC, 278528 × 1024 f32, is over flax's 2**30-byte chunk
+        raise AssertionError(f"serve: {chunked} chunked arrays in params.msgpack, expected the hidden FC")
+    tree = load_variables_npz(os.path.join(workdir, "train"))
+
+    start = time.perf_counter()
+    server = ModelServer(export["dir"], 32, fast_serve=True, device=dev)
+    reload_s = time.perf_counter() - start
+    got, want = tree_paths({"params": server.params, "batch_stats": server.batch_stats}), tree_paths(tree)
+    bad = sorted(set(got) ^ set(want)) + [p for p in want if p in got and (
+        got[p].dtype != want[p].dtype or got[p].shape != want[p].shape
+        or not np.array_equal(got[p].view(np.uint32), want[p].view(np.uint32)))]
+    if bad:
+        raise AssertionError(f"serve: reloaded leaves differ from the exported tree: {bad[:5]}")
+    emit({"phase": "serve", "part": "export", "export_s": export["export_s"], "reload_s": reload_s,
+          "params_bytes": export["params_bytes"], "chunked_arrays": chunked, "leaves_bit_equal": len(want),
+          "card": smi})
+
+    gaps, launches = {}, {}
+    pairs = serve_launches("fused", server, records, {"netvlad_frontend": n_batches + 1})
+    gaps["fused_vs_plain"] = served_gap("fused", pairs, plain_served_values(fp, records, fcfg, mcfg, 32, dev),
+                                        SERVE_GATE)
+    launches["netvlad_frontend"] = n_batches + 1
+
+    server8 = ModelServer(export["dir"], 32, fast_serve=True, int8_hidden=True, device=dev)
+    pairs = serve_launches("int8_hidden", server8, records,
+                           {"netvlad_frontend": n_batches + 1, "int8_matmul": 2 * (n_batches + 1)})
+    del server8
+    fp8 = prepare_fast_params(convert_flax_variables(tree, mcfg), mcfg, int8_hidden=True, device=dev)
+    fast_infer.matmul_wi8 = matmul_wi8_plain  # the plain int8 route: no kernel at all
+    try:
+        want8 = plain_served_values(fp8, records, fcfg, mcfg, 32, dev)
+    finally:
+        fast_infer.matmul_wi8 = matmul_wi8
+    gaps["int8_vs_plain_int8"] = served_gap("int8_hidden", pairs, want8, SERVE_GATE)
+    launches["netvlad_frontend"] += n_batches + 1
+    launches["int8_matmul"] = 2 * (n_batches + 1)
+    del fp8
+    torch.cuda.empty_cache()
+
+    server_mf = ModelServer(export["dir"], 32, fast_serve=False, device=dev)
+    reset_counters()
+    pairs = server_mf.predict_pairs(records[:32])
+    torch.cuda.synchronize()
+    if any(counters().values()):
+        raise AssertionError(f"serve model-forward: launches {counters()}, expected none")
+    del server_mf
+    model = create_model("NetVLADModelLF", mcfg, DT)
+    load_flax_variables(model, tree)
+    predict = step_lib.make_predict_step(model.to(dev).eval(), mcfg, True, top_k=20)
+    feats, nfs = export_lib.parse_serialized_records(fcfg, records[:32])
+    values, indices = predict(torch.from_numpy(feats).to(dev), torch.from_numpy(nfs).to(dev))
+    if [c for c, _ in pairs] != indices.cpu().tolist():
+        raise AssertionError("serve model-forward: classes differ from make_predict_step's")
+    gaps["model_forward_vs_predict_step"] = served_gap("model-forward", pairs, values.float().cpu().numpy(),
+                                                       SERVE_F32_GATE)
+    del model, predict, tree
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "part": "routes", "videos": len(records), "batch": 32, "max_abs_score_gap": gaps,
+          "gates": {"fast": SERVE_GATE, "model_forward": SERVE_F32_GATE}, "launches": launches, "card": smi})
+
+    rates = serve_throughput(server, [records[i % len(records)] for i in range(max(SERVE_BATCHES))])
+    emit({"phase": "serve", "part": "throughput", "route": "fused", **rates, "card": smi})
+    web = serve_http(server, records)
+    launches["netvlad_frontend"] += web["launches"]["netvlad_frontend"]
+    emit({"phase": "serve", "part": "http", **web, "card": smi})
+    del server
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---- items 10b and 11: the dropout kernel, the attention family and the RNNs
 
 # flax's rate of the transformer family (--attention_dropout)
@@ -3543,13 +3833,17 @@ def main() -> int:
     shapes["dropout"] = "[76800, 1024] bf16, nn.Dropout 0.1 (config 5's FFN output at B=256, F=300)"
     done("fused_adam, int8_matmul, dropout")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        fp, launches = phase_e2e(dev, workdir)
+        fp, launches, export = phase_e2e(dev, workdir)
         launches.update(dict.fromkeys(("fused_adam", "int8_matmul", "dropout"), 0))
         for name, n in phase_int8_e2e(dev, workdir, fp, smi).items():
             launches[name] = launches.get(name, 0) + n
+        done("kernels, e2e, int8_e2e")
+        for name, n in phase_serve(dev, workdir, fp, export, smi).items():
+            launches[name] += n
+        done("serve")
     phase_throughput(dev, fp, smi)
     del fp
-    done("kernels, e2e, throughput")
+    done("throughput")
     e, t = phase_train_kernels(dev, smi)
     errors.update(e)
     timing.update(t[30])

@@ -7,9 +7,8 @@ does not port yet raises, naming its ROADMAP.md queue-1 item, when it is
 set off its default (:func:`refuse_not_ported`); one that the JAX CLI reads
 nowhere on that path (the training schedule at inference, ``--num_gpu``
 everywhere) is accepted and has no effect there either.  The defaults are
-the JAX package's, except ``--export_model_steps`` (JAX 1000): the port
-exports nothing yet (item 14), so its default is 0.  This is a copy: the
-port imports nothing of the JAX package.
+the JAX package's.  This is a copy: the port imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -89,7 +88,7 @@ FLAGS_PY: Dict[str, tuple] = {
     "learning_rate_decay_examples": (4000000.0, "Examples between learning-rate decays."),
     "num_epochs": (5, "Training epochs over the data."),
     "max_steps": (0, "Stop after this many steps (0 = none)."),
-    "export_model_steps": (0, "Export the model every N steps (the JAX CLI's default is 1000)."),
+    "export_model_steps": (1000, "Export the model every N steps."),
     "optimizer": ("AdamOptimizer", "Optimizer class name."),
     "clip_gradient_norm": (1.0, "Per-gradient norm clip."),
     "save_checkpoint_every_n_steps": (1000, "Checkpoint cadence in steps."),
@@ -114,11 +113,11 @@ EVAL_NOT_PORTED: Dict[str, Union[int, str]] = dict(INFERENCE_NOT_PORTED)
 TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = {
     **_INGEST_ITEMS, **_MESH_ITEMS,
     "use_native_reader": 7, "profile_dir": 7,
-    "export_model_steps": 14,
 }
 
 
-def _add(parser: argparse.ArgumentParser, name: str, default, help: str) -> None:
+def add_flag(parser: argparse.ArgumentParser, name: str, default, help: str) -> None:
+    """``--name`` of ``default``'s type; a bool an absl-style boolean."""
     if isinstance(default, bool):
         add_bool_flag(parser, name, default, help)
     else:
@@ -133,7 +132,7 @@ def add_flags(parser: argparse.ArgumentParser, own: Mapping[str, tuple],
     for name, (default, help) in {**own, **FLAGS_PY}.items():
         if name in not_ported:
             help = f"{help} Not ported yet (ROADMAP item {not_ported[name]}): raises if set."
-        _add(parser, name, default, help)
+        add_flag(parser, name, default, help)
     return parser
 
 

@@ -48,6 +48,7 @@ from learnablepoolingmethods_torch.models.frame_level import (
     lf_layout,
 )
 from learnablepoolingmethods_torch.ops.fast_dispatch import FAST_ATTENTION_MODELS
+from learnablepoolingmethods_torch.utils.flax_msgpack import BFloat16Bits
 
 NPZ_NAME = "variables.npz"
 
@@ -450,15 +451,21 @@ def flax_to_state_dict(tree_np: Tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def state_dict_to_flax(model: torch.nn.Module) -> Tree:
+def state_dict_to_flax(model: torch.nn.Module, keep_bf16: bool = False) -> Tree:
     """The inverse of :func:`flax_to_state_dict`: a model's parameters under
     ``params`` and its buffers (BN statistics) under ``batch_stats``, as
-    nested dicts of float32 NumPy arrays in the flax layout."""
+    nested dicts of float32 NumPy arrays in the flax layout; with
+    ``keep_bf16`` a bf16 tensor stays bf16, as its bits in a
+    ``flax_msgpack.BFloat16Bits`` (what an export writes)."""
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if keep_bf16 and t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16).view(BFloat16Bits)
+        return t.float().numpy()
 
     def tree(named):
-        return _unflatten({
-            name.replace(".", "/"): t.detach().float().cpu().numpy() for name, t in named
-        })
+        return _unflatten({name.replace(".", "/"): leaf(t) for name, t in named})
 
     return {"params": tree(model.named_parameters()), "batch_stats": tree(model.named_buffers())}
 

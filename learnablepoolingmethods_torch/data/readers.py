@@ -3,35 +3,21 @@
 Host-side decode producing NumPy.  Video-level records carry one float
 vector per named feature (``mean_rgb`` 1024 + ``mean_audio`` 128);
 frame-level records carry per-frame uint8 features, which are **kept
-quantized** on the host and padded/truncated to ``max_frames`` with
-:func:`resize_axis` (ref: readers.py#YT8MFrameFeatureReader.
-prepare_serialized_examples); dequantization runs on the device.  Uses the
+quantized** on the host and padded/truncated to ``max_frames`` by
+:func:`fill_frame_record` (ref: readers.py#resize_axis,
+#YT8MFrameFeatureReader.prepare_serialized_examples); dequantization runs
+on the device.  Uses the
 TF-free wire decoder in ``data/tfrecord_io.py``.
 """
 
 from __future__ import annotations
 
 import glob as _glob
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
 from learnablepoolingmethods_torch.data import tfrecord_io
-
-
-def resize_axis(arr: np.ndarray, axis: int, new_size: int) -> np.ndarray:
-    """Truncate or zero-pad ``arr`` along ``axis`` to exactly ``new_size``
-    (ref: readers.py#resize_axis)."""
-    shape = list(arr.shape)
-    if shape[axis] == new_size:
-        return arr
-    if shape[axis] > new_size:
-        slicer = [slice(None)] * arr.ndim
-        slicer[axis] = slice(0, new_size)
-        return arr[tuple(slicer)]
-    pad_shape = shape.copy()
-    pad_shape[axis] = new_size - shape[axis]
-    return np.concatenate([arr, np.zeros(pad_shape, dtype=arr.dtype)], axis=axis)
 
 
 def _multi_hot(labels: Sequence[int], num_classes: int) -> np.ndarray:
@@ -125,38 +111,9 @@ class YT8MFrameFeatureReader(BaseReader):
         self.max_frames = max_frames
 
     def read_file(self, path: str) -> Iterator[dict]:
-        total_size = sum(self.feature_sizes)
         for record in tfrecord_io.read_tfrecords(path):
-            context, feature_lists = tfrecord_io.parse_sequence_example_lists(record)
-
-            per_name: List[np.ndarray] = []
-            num_frames = None
-            for name, size in zip(self.feature_names, self.feature_sizes):
-                feats = feature_lists.get(name, b"")
-                if len(feats):
-                    mat = tfrecord_io.feature_list_frames(feats)
-                    if mat.shape[1] != size:
-                        raise ValueError(
-                            f"feature_list {name!r} frame size {mat.shape[1]}, "
-                            f"expected {size}"
-                        )
-                else:
-                    mat = np.zeros((0, size), np.uint8)
-                if num_frames is None:
-                    num_frames = mat.shape[0]
-                else:
-                    # reference asserts equal lengths across modalities
-                    num_frames = min(num_frames, mat.shape[0])
-                per_name.append(mat)
-
-            num_frames = int(min(num_frames or 0, self.max_frames))
-            frames = np.zeros((self.max_frames, total_size), np.uint8)
-            col = 0
-            for mat, size in zip(per_name, self.feature_sizes):
-                mat = resize_axis(mat, 0, self.max_frames)
-                frames[:, col : col + size] = mat
-                col += size
-
+            frames = np.zeros((self.max_frames, sum(self.feature_sizes)), np.uint8)
+            context, num_frames = fill_frame_record(frames, record, self.feature_names, self.feature_sizes)
             labels = context.get("labels")
             yield {
                 "video_id": _get_id(context),
@@ -166,6 +123,32 @@ class YT8MFrameFeatureReader(BaseReader):
                     labels.int64_list if labels else (), self.num_classes
                 ),
             }
+
+
+def fill_frame_record(frames: np.ndarray, record: bytes, feature_names: Sequence[str],
+                      feature_sizes: Sequence[int]):
+    """Write one serialized frame-level record's frames into ``frames``
+    (uint8 [max_frames, ΣD], zeros on entry), each feature list cut to
+    ``max_frames`` (a missing one reads as no frames); returns (context,
+    num_frames), ``num_frames`` the least frame count of the features,
+    capped at ``max_frames`` (ref: readers.py
+    #YT8MFrameFeatureReader.prepare_serialized_examples).  The caller
+    allocates ``frames``: a batch's parser writes its records into one
+    array."""
+    max_frames = frames.shape[0]
+    context, feature_lists = tfrecord_io.parse_sequence_example_lists(record)
+    num_frames, col = None, 0
+    for name, size in zip(feature_names, feature_sizes):
+        feats = feature_lists.get(name, b"")
+        mat = tfrecord_io.feature_list_frames(feats) if len(feats) else np.zeros((0, size), np.uint8)
+        if mat.shape[1] != size:
+            raise ValueError(f"feature_list {name!r} frame size {mat.shape[1]}, expected {size}")
+        # the reference asserts equal lengths across modalities
+        num_frames = mat.shape[0] if num_frames is None else min(num_frames, mat.shape[0])
+        rows = min(mat.shape[0], max_frames)
+        frames[:rows, col:col + size] = mat[:rows]
+        col += size
+    return context, int(min(num_frames or 0, max_frames))
 
 
 def make_reader(fcfg, num_classes: int) -> BaseReader:

@@ -17,7 +17,10 @@ first): the batch iterator starts again from the beginning with the same
 ``--seed`` and its first batch trains the restored step, whose frames come
 from ``fold_in(key(seed), step)``.  It saves at every step that is a multiple
 of ``--save_checkpoint_every_n_steps`` and at the end, keeping the newest
-``--keep_checkpoint_max`` (0: all).
+``--keep_checkpoint_max`` (0: all).  After the save, at every step that is
+a multiple of ``--export_model_steps`` (0: never), it exports the model to
+``<train_dir>/export/step_<n>`` (``export_model.py``, the JAX package's
+artifact; bf16 parameters stay bf16).
 
 It trains every registered model: the LF family (NetVLADModelLF,
 NetRVLADModelLF, NetFVModelLF, SoftDbofModelLF, NeXtVLADModel, with
@@ -39,14 +42,15 @@ step draws from the same ``--seed``, with or without ``--presample_frames``
 and ``--sample_random_frames`` (``core/step.py``); the port gathers them in
 uint8.  The weights start from ``core/weights.py#init_variables_np(seed)``.
 What the port does not take yet raises, naming its ROADMAP item: the
-flags of ``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (export, a
-device mesh, grain, the native reader, the packed cache, profiling).
+flags of ``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (a device
+mesh, grain, the native reader, the packed cache, profiling).
 ``--int8_hidden`` raises ValueError: the JAX trainer defines no such flag.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import shutil
@@ -61,9 +65,10 @@ from learnablepoolingmethods_torch.core import optimizers
 from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager
 from learnablepoolingmethods_torch.core.step import TrainStep
 from learnablepoolingmethods_torch.core.train_state import TrainState
-from learnablepoolingmethods_torch.core.weights import init_variables_np, load_flax_variables
+from learnablepoolingmethods_torch.core.weights import init_variables_np, load_flax_variables, state_dict_to_flax
 from learnablepoolingmethods_torch.data.pipeline import batch_iterator
 from learnablepoolingmethods_torch.data.readers import make_reader
+from learnablepoolingmethods_torch.export_model import export_model
 from learnablepoolingmethods_torch.losses import get_loss_by_name
 from learnablepoolingmethods_torch.metrics import eval_util
 from learnablepoolingmethods_torch.models import create_model, find_class_by_name
@@ -87,9 +92,8 @@ _OWN_FLAGS = {
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """Every flag of the JAX train CLI (cli_flags.py), its defaults (but
-    --export_model_steps 0), and --device; the flags of
-    cli_flags.TRAIN_NOT_PORTED raise when set."""
+    """Every flag of the JAX train CLI (cli_flags.py), its defaults, and
+    --device; the flags of cli_flags.TRAIN_NOT_PORTED raise when set."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     return cli_flags.add_flags(p, _OWN_FLAGS, cli_flags.TRAIN_NOT_PORTED)
 
@@ -115,6 +119,7 @@ def configs_from_args(args):
         optimizer=args.optimizer, clip_gradient_norm=args.clip_gradient_norm,
         regularization_penalty=args.regularization_penalty, label_loss=args.label_loss,
         num_epochs=args.num_epochs, max_steps=args.max_steps,
+        export_model_steps=args.export_model_steps,
         save_checkpoint_every_n_steps=args.save_checkpoint_every_n_steps,
         keep_checkpoint_max=args.keep_checkpoint_max, adam_bf16_momentum=args.adam_bf16_momentum,
         presample_frames=args.presample_frames, use_remat=args.use_remat,
@@ -188,6 +193,10 @@ class Trainer:
                 last_log_time, last_log_step = time.time(), state.step
             if state.step % tcfg.save_checkpoint_every_n_steps == 0:
                 self._save(mngr, state)
+            if tcfg.export_model_steps and state.step % tcfg.export_model_steps == 0:
+                # the JAX trainer exports the config it builds, presampled
+                # only under --presample_frames
+                self._export(state, dataclasses.replace(mcfg, presampled=tcfg.presample_frames), fcfg)
         self._save(mngr, state)
         log.info("%s: done; final checkpoint at step %d", TASK, state.step)
         return state
@@ -206,6 +215,12 @@ class Trainer:
         )
         self.history.append({"step": step, "loss": loss, "hit1": hit1, "perr": perr, "gap": gap,
                              "examples_per_sec": eps})
+
+    def _export(self, state: TrainState, mcfg, fcfg):
+        export_dir = os.path.join(self.train_dir, "export", f"step_{state.step}")
+        tree = state_dict_to_flax(state.model, keep_bf16=True)
+        export_model(export_dir, self.args.model, mcfg, fcfg, tree["params"], tree["batch_stats"])
+        log.info("%s: exported model to %s", TASK, export_dir)
 
     def _save(self, mngr: CheckpointManager, state: TrainState):
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""The port's CLIs (inference, eval, train) take the JAX CLIs' flags, and
-refuse --fast_infer as the JAX CLI does.
+"""The port's CLIs (inference, eval, train, serving) take the JAX CLIs'
+flags, and refuse --fast_infer as the JAX CLI does.
 
 The oracle is the JAX package itself: each JAX CLI module is imported in a
 subprocess of its own (both define their flags into absl's one global
@@ -15,7 +15,7 @@ import sys
 
 import pytest
 
-from learnablepoolingmethods_torch import cli_flags, inference, train
+from learnablepoolingmethods_torch import cli_flags, inference, serving, train
 from learnablepoolingmethods_torch import eval as eval_cli
 from learnablepoolingmethods_torch.models import list_models as torch_models
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path
@@ -26,8 +26,6 @@ from learnablepoolingmethods_tpu.ops.fast_dispatch import get_fast_path as jax_g
 CLIS = {"inference": inference, "eval": eval_cli, "train": train}
 NOT_PORTED = {"inference": cli_flags.INFERENCE_NOT_PORTED, "eval": cli_flags.EVAL_NOT_PORTED,
               "train": cli_flags.TRAIN_NOT_PORTED}
-# the port's one default that differs: it exports nothing yet (ROADMAP item 14)
-PORT_DEFAULTS = {"export_model_steps": 0}
 
 _DUMP = """
 import json, sys
@@ -64,8 +62,7 @@ def test_parser_defines_every_jax_flag_with_its_default(cli):
     missing = sorted(set(want) - set(defaults))
     assert not missing, f"the port's {cli} CLI lacks {missing}"
     for name, (kind, default) in want.items():
-        expected = PORT_DEFAULTS.get(name, default)
-        assert defaults[name] == expected and type(defaults[name]) is type(expected), name
+        assert defaults[name] == default and type(defaults[name]) is type(default), name
     # and every name of flags.py, int8_hidden included, on both CLIs
     assert set(cli_flags.FLAGS_PY) <= set(defaults)
 
@@ -73,13 +70,12 @@ def test_parser_defines_every_jax_flag_with_its_default(cli):
 @pytest.mark.parametrize("cli", sorted(CLIS))
 def test_jax_command_line_at_its_defaults_parses_to_the_same_values(cli):
     """Every JAX flag spelled out at the JAX default parses through the
-    port's parser to that value, and (the port's default kept for
-    --export_model_steps) builds the CLI's configuration without raising."""
+    port's parser to that value, and builds the CLI's configuration without
+    raising."""
     want = {n: d for n, (_, d) in jax_flags(cli).items()}
     args = CLIS[cli].build_parser().parse_args(_argv(want))
     for name, default in want.items():
         assert getattr(args, name) == default, name
-    args = CLIS[cli].build_parser().parse_args(_argv({**want, **PORT_DEFAULTS}))
     if cli in ("inference", "eval"):
         cli_flags.refuse_not_ported(args, NOT_PORTED[cli],
                                     vars(CLIS[cli].build_parser().parse_args([])), f"{cli} CLI")
@@ -173,6 +169,30 @@ def test_item_11_flags_are_taken_as_the_jax_cli_takes_them(cli, name):
         mcfg = cli_flags.model_config_from_args(args)
     # flags.py#model_config_from_flags: the field of the flag's name
     assert getattr(mcfg, name) == value
+
+
+def test_item_14_flag_is_taken_as_the_jax_cli_takes_it():
+    """--export_model_steps, which the trainer refused before export was
+    ported: the cadence of flags.py#training_config_from_flags."""
+    assert "export_model_steps" not in cli_flags.TRAIN_NOT_PORTED
+    args = train.build_parser().parse_args(["--export_model_steps=7", "--model=NetVLADModelLF",
+                                            "--frame_features"])
+    assert train.configs_from_args(args)[2].export_model_steps == 7
+
+
+def test_serving_cli_takes_every_jax_serving_flag_under_its_default():
+    """The serving CLI (argparse) defines every flag of the JAX serving
+    module's define_flags, int8_hidden included, with its default and
+    type, and --device; the JAX spelling of each parses to its value."""
+    want = jax_flags("serving")
+    defaults = vars(serving.build_parser().parse_args([]))
+    assert set(defaults) == set(want) | {"device"} and defaults["device"] == "cuda"
+    for name, (kind, default) in want.items():
+        assert defaults[name] == default and type(defaults[name]) is type(default), name
+    args = serving.build_parser().parse_args(_argv({n: d for n, (_, d) in want.items()}))
+    assert vars(args) == defaults
+    off = serving.build_parser().parse_args(["--fast_serve", "--noint8_hidden", "--batch_linger_ms=0.5"])
+    assert off.fast_serve and not off.int8_hidden and off.batch_linger_ms == 0.5
 
 
 def test_flags_without_an_effect_here_are_accepted():

@@ -1,6 +1,7 @@
 """The port, chip_smoke.py and the port's tools import nothing of JAX, of
-the JAX package, of ml_dtypes or of tensorflow: the machine with the card
-has none of them (the port reads bf16 as uint16 bits).  The one tool that writes a TF checkpoint fixture imports tensorflow
+the JAX package, of ml_dtypes, msgpack or tensorflow: the machine with the
+card has none of them (the port reads bf16 as uint16 bits, and flax's
+msgpack through its own codec).  The one tool that writes a TF checkpoint fixture imports tensorflow
 inside its writer; it runs where tensorflow is installed."""
 
 import ast
@@ -12,7 +13,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "learnablepoolingmethods_torch"
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "learnablepoolingmethods_tpu", "tensorflow",
-          "ml_dtypes")
+          "ml_dtypes", "msgpack")
 # scripts that may import tensorflow (inside a function, never at import)
 TF_WRITERS = ("torch_make_tf_bundle_fixture.py",)
 SCRIPTS = [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
@@ -62,7 +63,7 @@ def test_the_guard_covers_the_kernel_modules():
     for module in ("models.frame_level", "models.video_level", "models.attention", "eval", "inference", "train", "losses",
                    "core.observability", "core.step", "core.optimizers", "core.checkpoints",
                    "core.checkpoint_import", "core.train_state", "utils.tf_bundle", "data.readers",
-                   "data.fixtures"):
+                   "data.fixtures", "export_model", "serving", "utils.flax_msgpack"):
         assert f"learnablepoolingmethods_torch.{module}" in names, module
 
 

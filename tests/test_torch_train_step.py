@@ -204,7 +204,9 @@ def test_train_cli_writes_variables_the_inference_cli_reads(tmp_path):
 @pytest.mark.parametrize("flag, error", [
     # the JAX trainer defines no --int8_hidden (only eval, inference, serving)
     ("--int8_hidden", ValueError),
-    ("--export_model_steps=10", NotImplementedError),
+    # the ingest's profiler (ROADMAP item 7); --export_model_steps, which
+    # stood here until export was ported, exports (tests/test_torch_export.py)
+    ("--profile_dir=/nonexistent/trace", NotImplementedError),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, error):
     data = str(tmp_path / "train-0.tfrecord")
