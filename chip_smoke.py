@@ -10,7 +10,9 @@ error, and prints one JSON line per phase:
               one process per source, and beside them an -Xptxas -v compile of
               the NetVLAD inference and training kernels' and the NetFV
               kernel's sources: registers, static shared memory and spills
-              per kernel;
+              per kernel; g++ builds the C++ TFRecord reader and CSV
+              formatter (learnablepoolingmethods_torch/native) at the same
+              time;
 3. kernels    both inference kernels against their plain PyTorch versions
               (KERNEL_CHECKS): Willow shapes (D 1024/128, K 256/128), B=64,
               S=30, S=300 and S=1 (where each descriptor shows which frame the
@@ -155,6 +157,23 @@ error, and prints one JSON line per phase:
               the train step at B=256, S=30, bf16, fused: videos/s (the median
               of five rounds), forward, backward and optimizer ms, peak
               memory; then train_profile, torch.profiler over five steps;
+   ingest     item 7 on INGEST_FIXTURE (1,024 videos at Willow's widths, 1-300
+              frames, 8 shards), ingest_rates: videos/s and MB/s of the Python
+              reader, the C++ reader on 1 and 8 threads, the packed cache's
+              build (seconds, peak RSS of its process) and two passes of it,
+              the grain-order DataLoader on 0 and 4 workers, each over two
+              passes and as a share of this run's device rates (phase 5's
+              fused inference, phase 8's train step), and the train CLI's
+              loop without its logging through each of its three other
+              sources; ingest_cli: the train CLI (3 bf16 fused steps, B=256)
+              through --use_native_reader --num_readers=8, --packed_cache_dir
+              and --use_grain --grain_worker_count=4, finite losses, rows 3-4
+              twice a step each, the first under --profile_dir, whose Chrome
+              trace must name rows 3-4's kernels (its five largest device ops
+              and idle share printed); the inference CLI (--fast_infer, row 1
+              once a batch) through the default source and --packed_cache_dir,
+              the two CSVs equal byte for byte; the eval CLI (--fast_forward)
+              through --use_grain with the GAP of the default source;
    train_zoo_throughput
               the same for every ZOO_RUNS model in bf16 (NetRVLAD fused and
               plain), and a profile of NetRVLAD's fused step;
@@ -299,13 +318,15 @@ from learnablepoolingmethods_torch.core.weights import (
     state_dict_to_flax,
     tree_paths,
 )
-from learnablepoolingmethods_torch.data import tfrecord_io
+from learnablepoolingmethods_torch.data import native_loader, packed_cache, tfrecord_io
 from learnablepoolingmethods_torch.data.fixtures import (
     make_learnable_synthetic_frame_level,
     write_frame_level_fixture,
+    write_frame_level_shards,
     write_video_level_fixture,
 )
-from learnablepoolingmethods_torch.data.pipeline import batch_iterator
+from learnablepoolingmethods_torch.data.grain_pipeline import grain_batch_iterator
+from learnablepoolingmethods_torch.data.pipeline import batch_iterator, native_batch_iterator
 from learnablepoolingmethods_torch.data.readers import YT8MFrameFeatureReader, make_reader
 from learnablepoolingmethods_torch.losses import CrossEntropyLoss
 from learnablepoolingmethods_torch.metrics import eval_util
@@ -603,8 +624,17 @@ def phase_build():
     memory and spills per kernel are printed."""
     start = time.perf_counter()
     reports = {name: kernel_build.ptxas_report_start(name) for name in PTXAS_REPORT}
+    host = {}
+    # the C++ TFRecord reader and CSV formatter (g++) build beside nvcc
+    host_build = threading.Thread(target=lambda: host.update(path=str(native_loader.build()),
+                                                             seconds=time.perf_counter() - start))
+    host_build.start()
     per_source = kernel_build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - start, "per_source": per_source})
+    host_build.join()
+    if "path" not in host:
+        native_loader.build()  # raises with g++'s output
+    emit({"phase": "build", "seconds": time.perf_counter() - start, "per_source": per_source,
+          "host_library": host})
     for name, proc in reports.items():
         emit({"phase": "build", "ptxas": name, "kernels": kernel_build.ptxas_report_finish(proc)})
 
@@ -1051,13 +1081,15 @@ def phase_throughput(dev, fp, smi):
         "tail_ms": time_ms(lambda: gated_moe_tail(fp, h, mcfg.moe_num_mixtures, mcfg.vocab_size,
                                                   torch.bfloat16, 20, False), reps=10),
     }
-    emit({"phase": "throughput", "B": b, "S": s, "videos_per_s": b / (per_route["fused"] / 1e3),
+    videos_per_s = b / (per_route["fused"] / 1e3)
+    emit({"phase": "throughput", "B": b, "S": s, "videos_per_s": videos_per_s,
           "videos_per_s_rounds": [b / (ms / 1e3) for ms in fused_rounds],
           "batch_ms": per_route, **stages,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     fused = build_fast_netvlad_inference(mcfg, top_k=20)
     emit({"phase": "profile", "route": "fused", "B": b, "S": s,
           **profile_device(lambda: fused(fp, x, nf, key)), "card": smi})
+    return videos_per_s
 
 
 def profile_device(fn, reps: int = 5) -> dict:
@@ -1276,6 +1308,7 @@ def phase_train_throughput(dev, smi):
     emit({"phase": "train_throughput", **line, "route": "fused bf16", "card": smi})
     emit({"phase": "train_profile", "route": "fused bf16", "B": 256, "S": mcfg.iterations,
           **profile_device(step), "card": smi})
+    return line["videos_per_s"]
 
 
 # the train CLI's runs of phase_train_zoo_e2e: run → (model, flags), flags
@@ -3797,6 +3830,262 @@ def phase_train_attn_rnn_throughput(dev, smi):
         torch.cuda.empty_cache()
 
 
+# the ingest phase's set: Willow's widths in 8 shards (the readers' unit of
+# parallelism), 1-300 frames a video
+INGEST_FIXTURE = dict(num_videos=1024, num_shards=8, num_classes=3862, rgb_size=D_RGB, audio_size=D_AUD,
+                      max_frames=F, min_frames=1, seed=0)
+INGEST_BATCH = 256
+INGEST_EPOCHS = 2  # each source's rate over two passes of the set (startup amortised)
+INGEST_TRAIN_FLAGS = ["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+                      "--feature_sizes=1024,128", f"--batch_size={INGEST_BATCH}", "--max_steps=3",
+                      "--compute_dtype=bfloat16", "--fused_train_aggregation", "--device=cuda",
+                      "--log_every_n_steps=1", "--start_new_model"]
+# the train CLI's three other sources; {cache} is the packed cache's directory
+INGEST_TRAIN_SOURCES = {"native": ["--use_native_reader", "--num_readers=8"],
+                        "packed": ["--packed_cache_dir={cache}"],
+                        "grain": ["--use_grain", "--grain_worker_count=4"]}
+INGEST_PROFILED = "native"
+# the names of rows 3 and 4's CUDA kernels in a trace (csrc/netvlad_train.cu;
+# the bf16 forward aggregates with csrc/netvlad_tc.cuh's kernels)
+TRAIN_KERNEL_NAMES = {"netvlad_aggregate_forward": ("tc_aggregate",),
+                      "netvlad_aggregate_backward": ("tc_bwd_kernel", "tc_bwd_gemm_kernel")}
+
+
+def drain(batches) -> tuple:
+    """Iterate ``batches`` to the end: (seconds, real videos, bytes of the
+    batches' arrays)."""
+    start = time.perf_counter()
+    videos = nbytes = 0
+    for batch in batches:
+        videos += int((batch["weights"] > 0).sum())
+        nbytes += sum(v.nbytes for k, v in batch.items() if k != "video_id")
+    return time.perf_counter() - start, videos, nbytes
+
+
+# the packed cache's builder CLI, and its peak resident memory two ways: the
+# most of /proc/self/statm's resident pages sampled every 10 ms, and
+# ru_maxrss, clean because the child is a shell's child and not this big
+# process's (a fork or exec carries the parent's high-water mark over)
+_PACKED_BUILD = """
+import os, resource, sys, threading
+peak = [0]
+def sample():
+    while True:
+        with open("/proc/self/statm") as f:
+            peak[0] = max(peak[0], int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE"))
+        threading.Event().wait(0.01)
+threading.Thread(target=sample, daemon=True).start()
+from learnablepoolingmethods_torch.data import packed_cache
+packed_cache.main(sys.argv[1:])
+print(peak[0] / 2**20, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024)
+"""
+
+
+def build_packed_cache_child(pattern: str, cache_dir: str) -> dict:
+    """The packed cache's builder CLI in a grandchild process (under a
+    shell): its seconds and peak resident memory."""
+    start = time.perf_counter()
+    out = subprocess.run(["sh", "-c", 'exe=$1; code=$2; shift 2; "$exe" -c "$code" "$@"; exit $?', "sh",
+                          sys.executable, _PACKED_BUILD, f"--input_pattern={pattern}", f"--output_dir={cache_dir}", "--frame_features",
+                          "--num_workers=8"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"the packed cache's builder failed:\n{out.stderr[-4000:]}")
+    sampled, maxrss = (float(x) for x in out.stdout.strip().splitlines()[-1].split())
+    return {"seconds": time.perf_counter() - start, "peak_rss_mb_sampled": sampled, "ru_maxrss_mb": maxrss}
+
+
+def source_train_loops(dev, pattern: str, cache_dir: str, steps: int) -> dict:
+    """The train CLI's loop without its per-step logging (each batch to the
+    card, TrainStep) for ``steps`` steps through each INGEST_TRAIN_SOURCES
+    source, the batches from the CLI's own Trainer._batches, the first
+    read included: videos/s per source, one model for all."""
+    def cli_args(flags):
+        return train.build_parser().parse_args(INGEST_TRAIN_FLAGS + [f.format(cache=cache_dir) for f in flags] + [
+            f"--train_data_pattern={pattern}", "--train_dir=unused"])
+
+    args = cli_args([])
+    fcfg, mcfg, tcfg = train.configs_from_args(args)
+    model = create_model(args.model, mcfg, fcfg.total_size)
+    load_flax_variables(model, init_variables_np(mcfg, fcfg, seed=0, model_name=args.model)).to(dev)
+    state = TrainState.create(model, tcfg)
+    step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, fcfg.frame_features)
+    key = prng.key(0)
+
+    def to_card(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if k != "video_id"}
+
+    step(state, to_card(next(train.Trainer(args)._batches(fcfg, mcfg, tcfg))), key)  # warm up
+    torch.cuda.synchronize()
+    loops = {}
+    for source, flags in INGEST_TRAIN_SOURCES.items():
+        start = time.perf_counter()
+        for i, batch in enumerate(train.Trainer(cli_args(flags))._batches(fcfg, mcfg, tcfg)):
+            if i == steps:
+                break
+            step(state, to_card(batch), key)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        loops[source] = {"steps": steps, "seconds": seconds, "videos_per_s": steps * INGEST_BATCH / seconds}
+    del model, state
+    torch.cuda.empty_cache()
+    return loops
+
+
+def trace_device_ops(path: str) -> dict:
+    """A Chrome trace's kernels: {name: total ms}, and the device's idle share
+    between the first kernel's start and the last one's end."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel" and "dur" in e]
+    if not events:
+        raise AssertionError(f"the trace {path} holds no kernel")
+    by_name = {}
+    busy, spans = 0.0, sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    reach = spans[0][0]
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return {"kernels_ms": by_name, "idle_share": 1.0 - busy / (reach - spans[0][0]),
+            "window_ms": (reach - spans[0][0]) / 1e3}
+
+
+def phase_ingest(dev, workdir, smi, device_rates: dict) -> dict:
+    """Item 7 on the card's host: each ingest source's videos/s and MB/s on
+    INGEST_FIXTURE beside the device's rates of this run, the train CLI's
+    loop without its logging through each of its sources, then the train CLI
+    (3 bf16 fused steps, rows 3-4) through each of its three other sources
+    (one of them under --profile_dir, whose trace must name rows 3-4's
+    kernels), the inference CLI (--fast_infer, row 1) through the default
+    source and --packed_cache_dir (the CSVs equal byte for byte), and the
+    eval CLI through --use_grain (GAP equal to the default source's).
+    Returns the launches of its CLI runs."""
+    shards = os.path.join(workdir, "shards")
+    start = time.perf_counter()
+    paths = write_frame_level_shards(shards, **INGEST_FIXTURE)
+    fixture = {"seconds": time.perf_counter() - start, "videos": INGEST_FIXTURE["num_videos"],
+               "files": len(paths), "record_mb": sum(os.path.getsize(p) for p in paths) / 1e6}
+    pattern = os.path.join(shards, "*.tfrecord")
+    n = INGEST_FIXTURE["num_videos"]
+    cache_dir = os.path.join(workdir, "packed")
+    reader = YT8MFrameFeatureReader(feature_names=("rgb", "audio"))
+    e = INGEST_EPOCHS
+    runs = {
+        "python_reader": lambda: batch_iterator(reader, pattern, INGEST_BATCH, num_epochs=e),
+        "native_num_readers_1": lambda: native_batch_iterator(pattern, INGEST_BATCH, True, num_epochs=e,
+                                                              num_workers=1),
+        "native_num_readers_8": lambda: native_batch_iterator(pattern, INGEST_BATCH, True, num_epochs=e,
+                                                              num_workers=8),
+        "packed_build": None,
+        "packed_epochs": lambda: packed_cache.packed_batch_iterator(cache_dir, INGEST_BATCH, num_epochs=e),
+        "grain_workers_0": lambda: grain_batch_iterator(pattern, INGEST_BATCH, True, num_epochs=e,
+                                                        worker_count=0),
+        "grain_workers_4": lambda: grain_batch_iterator(pattern, INGEST_BATCH, True, num_epochs=e,
+                                                        worker_count=4),
+    }
+    sources = {}
+    for name, make in runs.items():
+        if make is None:
+            line = build_packed_cache_child(pattern, cache_dir)
+            seconds, videos, epochs = line["seconds"], len(packed_cache.PackedCache(cache_dir)), 1
+        else:
+            seconds, videos, nbytes = drain(make())
+            line = {"seconds": seconds, "batch_mb_per_s": nbytes / 1e6 / seconds}
+            epochs = e
+        if videos != epochs * n:
+            raise AssertionError(f"{name} delivered {videos} videos of {epochs * n}")
+        rate = videos / seconds
+        line.update(videos_per_s=rate, record_mb_per_s=epochs * fixture["record_mb"] / seconds,
+                    **{f"share_of_{k}": rate / v for k, v in device_rates.items()})
+        sources[name] = line
+    loops = source_train_loops(dev, pattern, cache_dir, steps=e * n // INGEST_BATCH)
+    for line in loops.values():
+        line["share_of_train_step_b256"] = line["videos_per_s"] / device_rates["train_step_b256"]
+    emit({"phase": "ingest_rates", "host_cpus": os.cpu_count(), "fixture": fixture, "batch": INGEST_BATCH,
+          "epochs": e, "device_videos_per_s": device_rates, "sources": sources, "train_loops": loops,
+          "card": smi})
+
+    none = dict.fromkeys(KERNELS, 0)
+    launches = dict(none)
+    trains = {}
+    for source, flags in INGEST_TRAIN_SOURCES.items():
+        train_dir = os.path.join(workdir, f"train_{source}")
+        argv = INGEST_TRAIN_FLAGS + [f.format(cache=cache_dir) for f in flags] + [
+            f"--train_data_pattern={pattern}", f"--train_dir={train_dir}"]
+        if source == INGEST_PROFILED:
+            argv.append(f"--profile_dir={os.path.join(workdir, 'trace')}")
+        reset_counters()
+        start = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        got = counters()
+        losses = [h["loss"] for h in trainer.history]
+        want = {**none, **{name: 2 * 3 for name in TRAIN_KERNELS}}
+        if got != want or len(losses) != 3 or not all(np.isfinite(losses)):
+            raise AssertionError(f"train CLI via {source}: launches {got} (want {want}), losses {losses}")
+        trains[source] = {"cli_s": time.perf_counter() - start, "losses": losses,
+                          "videos_per_s_steps_2_3": [h["examples_per_sec"] for h in trainer.history[1:]]}
+        for name in TRAIN_KERNELS:
+            launches[name] += got[name]
+        if source == INGEST_PROFILED:
+            ops = trace_device_ops(trainer.trace_path)
+            missing = {row: names for row, names in TRAIN_KERNEL_NAMES.items()
+                       if not all(any(name in op for op in ops["kernels_ms"]) for name in names)}
+            if missing:
+                raise AssertionError(f"the --profile_dir trace names no kernel of {missing}")
+            top = dict(sorted(ops["kernels_ms"].items(), key=lambda kv: -kv[1])[:5])
+            trains[source]["trace"] = {"file": os.path.basename(trainer.trace_path),
+                                       "top5_device_ms": top, "idle_share": ops["idle_share"],
+                                       "window_ms": ops["window_ms"]}
+        if source != "native":
+            shutil.rmtree(train_dir)
+
+    # the native run's checkpoint through the inference and eval CLIs
+    train_dir = os.path.join(workdir, "train_native")
+    csvs, infers = {}, {}
+    for source, flags in (("default", []), ("packed", [f"--packed_cache_dir={cache_dir}"])):
+        out_csv = os.path.join(workdir, f"predictions_{source}.csv")
+        reset_counters()
+        start = time.perf_counter()
+        written = inference.main(["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+                                  "--feature_sizes=1024,128", f"--input_data_pattern={pattern}",
+                                  f"--train_dir={train_dir}", f"--output_file={out_csv}",
+                                  f"--batch_size={INGEST_BATCH}", "--fast_infer", "--device=cuda", *flags])
+        torch.cuda.synchronize()
+        got = counters()
+        want = {**none, "netvlad_frontend": -(-n // INGEST_BATCH)}
+        if got != want or written != n:
+            raise AssertionError(f"inference via {source}: {written} rows, launches {got} (want {want})")
+        launches["netvlad_frontend"] += got["netvlad_frontend"]
+        with open(out_csv, "rb") as f:
+            csvs[source] = f.read()
+        infers[source] = {"cli_s": time.perf_counter() - start, "csv_bytes": len(csvs[source])}
+    if csvs["default"] != csvs["packed"] or csvs["default"].count(b"\n") != n + 1:
+        raise AssertionError("the inference CLI's CSVs through the default source and the packed cache differ")
+    evals = {}
+    for source, flags in (("default", []), ("grain", ["--use_grain"])):
+        reset_counters()
+        start = time.perf_counter()
+        info = eval_cli.main(["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+                              "--feature_sizes=1024,128", f"--eval_data_pattern={pattern}",
+                              f"--train_dir={train_dir}", f"--batch_size={INGEST_BATCH}", "--fast_forward",
+                              "--run_once", "--device=cuda", *flags])
+        torch.cuda.synchronize()
+        got = counters()
+        if got != {**none, "netvlad_frontend": -(-n // INGEST_BATCH)} or not np.isfinite(info["gap"]):
+            raise AssertionError(f"eval via {source}: launches {got}, GAP {info['gap']}")
+        launches["netvlad_frontend"] += got["netvlad_frontend"]
+        evals[source] = {"cli_s": time.perf_counter() - start, "gap": info["gap"], "avg_loss": info["avg_loss"]}
+    if evals["default"]["gap"] != evals["grain"]["gap"]:
+        raise AssertionError(f"eval GAP through --use_grain {evals['grain']['gap']!r} differs from the "
+                             f"default source's {evals['default']['gap']!r}")
+    emit({"phase": "ingest_cli", "train": trains, "inference": infers, "csv_equal": True, "eval": evals,
+          "launches": launches, "card": smi})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -3841,7 +4130,7 @@ def main() -> int:
         for name, n in phase_serve(dev, workdir, fp, export, smi).items():
             launches[name] += n
         done("serve")
-    phase_throughput(dev, fp, smi)
+    device_rates = {"fused_inference_b512": phase_throughput(dev, fp, smi)}
     del fp
     done("throughput")
     e, t = phase_train_kernels(dev, smi)
@@ -3864,8 +4153,12 @@ def main() -> int:
         for name, n in phase_train_attn_rnn_e2e(dev, workdir, smi).items():
             launches[name] = launches.get(name, 0) + n
         done("train_attn_rnn_e2e")
-    phase_train_throughput(dev, smi)
+    device_rates["train_step_b256"] = phase_train_throughput(dev, smi)
     done("train_throughput")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as workdir:
+        for name, n in phase_ingest(dev, workdir, smi, device_rates).items():
+            launches[name] = launches.get(name, 0) + n
+    done("ingest")
     phase_train_zoo_throughput(dev, smi)
     done("train_zoo_throughput")
     phase_train_attn_rnn_throughput(dev, smi)

@@ -1,14 +1,15 @@
 """The flag names of the JAX package's CLIs (``learnablepoolingmethods_tpu/
-flags.py``), with its defaults and help, for the port's argparse CLIs.
+flags.py``), with its defaults and help, for the port's argparse CLIs, and
+the input source they select (:func:`input_iterator`).
 
 A JAX command line parses in the port's inference, eval and train CLIs:
 each defines every name below plus its JAX CLI's own flags.  A flag that a CLI
-does not port yet raises, naming its ROADMAP.md queue-1 item, when it is
-set off its default (:func:`refuse_not_ported`); one that the JAX CLI reads
-nowhere on that path (the training schedule at inference, ``--num_gpu``
-everywhere) is accepted and has no effect there either.  The defaults are
-the JAX package's.  This is a copy: the port imports nothing of the JAX
-package.
+does not port yet (the mesh's) raises, naming its ROADMAP.md queue-1 item,
+when it is set off its default (:func:`refuse_not_ported`); one that the JAX
+CLI reads nowhere on that path (the training schedule at inference,
+``--num_gpu`` everywhere) is accepted and has no effect there either.  The
+defaults are the JAX package's.  This is a copy: the port imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import argparse
 import dataclasses
 from typing import Dict, Mapping, Union
 
-from learnablepoolingmethods_torch.config import ModelConfig
+from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig
+from learnablepoolingmethods_torch.data import grain_pipeline, packed_cache, pipeline
+from learnablepoolingmethods_torch.data.readers import make_reader
 from learnablepoolingmethods_torch.utils.misc import add_bool_flag
 
 # name → (default, help), in flags.py's order; a bool default makes an
@@ -104,16 +107,12 @@ FLAGS_PY: Dict[str, tuple] = {
 }
 
 # flags of the parts whose port is queued → ROADMAP.md queue-1 item
-_INGEST_ITEMS = dict.fromkeys(("num_readers", "use_grain", "grain_worker_count", "packed_cache_dir"), 7)
 _MESH_ITEMS = dict.fromkeys(("model_parallelism", "dcn_parallelism"), 15)
 
 # what each CLI does not port yet → ROADMAP.md queue-1 item
-INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = {**_INGEST_ITEMS, **_MESH_ITEMS}
-EVAL_NOT_PORTED: Dict[str, Union[int, str]] = dict(INFERENCE_NOT_PORTED)
-TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = {
-    **_INGEST_ITEMS, **_MESH_ITEMS,
-    "use_native_reader": 7, "profile_dir": 7,
-}
+INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = dict(_MESH_ITEMS)
+EVAL_NOT_PORTED: Dict[str, Union[int, str]] = dict(_MESH_ITEMS)
+TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = dict(_MESH_ITEMS)
 
 
 def add_flag(parser: argparse.ArgumentParser, name: str, default, help: str) -> None:
@@ -158,3 +157,37 @@ def model_config_from_args(args: argparse.Namespace, **overrides) -> ModelConfig
     kw["param_dtype"] = "bfloat16" if (args.bf16_params or args.fused_adam) else "float32"
     kw.update(overrides)
     return ModelConfig(**kw)
+
+
+def input_iterator(args: argparse.Namespace, fcfg: FeatureConfig, data_pattern: str, batch_size: int,
+                   num_epochs, shuffle: bool = False, seed: int = 0, shard_index: int = 0,
+                   num_shards: int = 1):
+    """The batch iterator that the flags select (ref: flags.py#input_iterator):
+    ``--packed_cache_dir`` (built there at first use by shard 0; the other
+    shards wait for it), else ``--use_grain`` (``--grain_worker_count``
+    worker processes; the last batch zero-padded to ``batch_size`` with
+    weight 0 rows), else the streaming Python reader.  One process reads
+    shard 0 of 1; ``shard_index``/``num_shards`` give a process its share."""
+    if args.packed_cache_dir and args.use_grain:
+        raise ValueError("--packed_cache_dir and --use_grain are exclusive")
+    if args.packed_cache_dir:
+        if shard_index != 0:
+            # two builders writing one directory corrupt the arrays
+            cache_dir = packed_cache.wait_for_cache(args.packed_cache_dir, data_pattern)
+        else:
+            cache_dir = packed_cache.build_cache(
+                data_pattern, args.packed_cache_dir, frame_level=fcfg.frame_features,
+                feature_sizes=fcfg.feature_sizes, feature_names=fcfg.feature_names,
+                num_classes=args.num_classes, max_frames=fcfg.max_frames, num_workers=args.num_readers)
+        return packed_cache.packed_batch_iterator(cache_dir, batch_size, num_epochs=num_epochs, shuffle=shuffle,
+                                                  seed=seed, shard_index=shard_index, num_shards=num_shards)
+    if args.use_grain:
+        batches = grain_pipeline.grain_batch_iterator(
+            data_pattern, batch_size, fcfg.frame_features, num_epochs=num_epochs, shuffle=shuffle, seed=seed,
+            worker_count=args.grain_worker_count, shard_index=shard_index, num_shards=num_shards,
+            feature_sizes=fcfg.feature_sizes, feature_names=fcfg.feature_names,
+            num_classes=args.num_classes, max_frames=fcfg.max_frames)
+        return (pipeline.pad_batch_to_multiple(b, batch_size) for b in batches)
+    return pipeline.batch_iterator(make_reader(fcfg, args.num_classes), data_pattern, batch_size,
+                                   num_epochs=num_epochs, shuffle=shuffle, seed=seed,
+                                   shard_index=shard_index, num_shards=num_shards)

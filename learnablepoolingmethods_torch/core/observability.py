@@ -1,14 +1,19 @@
-"""Metric writing (ref: core/observability.py#MetricWriter).
+"""Metric writing and trace capture (ref: core/observability.py).
 
-TensorBoard scalars under the reference's names (``model/Eval_GAP``, ...)
-through ``torch.utils.tensorboard`` when it imports, logging only
-otherwise, as the JAX writer degrades when ``clu`` cannot write.  The
-import happens when a writer is made, never when this module is imported.
+``MetricWriter``: TensorBoard scalars under the reference's names
+(``model/Eval_GAP``, ...) through ``torch.utils.tensorboard`` when it
+imports, logging only otherwise, as the JAX writer degrades when ``clu``
+cannot write.  The import happens when a writer is made, never when this
+module is imported.  ``profile_session``: the train CLI's
+``--profile_dir``, a ``torch.profiler`` trace of the enclosed work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -63,3 +68,28 @@ class MetricWriter:
     def close(self):
         if self._writer is not None:
             self._writer.close()
+
+
+@contextlib.contextmanager
+def profile_session(profile_dir: Optional[str]):
+    """Trace the enclosed work with ``torch.profiler`` (host and, where a
+    card is present, CUDA activity: every kernel the process launches,
+    those of the ctypes-loaded libraries included) and write it to
+    ``<profile_dir>/<host>_<pid>_<ms>.pt.trace.json`` (Chrome trace).  Yields
+    the trace's path; a no-op yielding None when ``profile_dir`` is empty."""
+    if not profile_dir:
+        yield None
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"{os.uname().nodename}_{os.getpid()}_{int(time.time() * 1e3)}.pt.trace.json")
+    with torch.profiler.profile(activities=activities) as prof:
+        yield path
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)

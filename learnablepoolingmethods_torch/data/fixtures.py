@@ -10,6 +10,7 @@ a linear function of the features, so that a model can fit them.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -242,3 +243,61 @@ def make_learnable_synthetic_frame_level(
             write_tfrecord(f, encode_frame_sequence_example(vid, labels, rgb, audio))
             truth.append({"video_id": vid, "labels": labels, "z": z})
     return truth
+
+
+def write_frame_level_shards(
+    out_dir: str,
+    num_videos: int,
+    num_shards: int = 16,
+    num_classes: int = 3862,
+    rgb_size: int = 1024,
+    audio_size: int = 128,
+    max_frames: int = 300,
+    min_frames: int = 10,
+    seed: int = 0,
+) -> List[str]:
+    """A frame-level set in ``num_shards`` files of ``out_dir``, written
+    fast enough for ingest measurements at hundreds of MB; returns the
+    paths.  The wire format is the YT-8M layout's (framing, CRCs, the
+    SequenceExample fields the readers read); each video's frames are a
+    slice of one shared random pool (parse cost does not depend on the
+    values)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    d = rgb_size + audio_size
+    # shared entropy pool: enough rows for the largest video + stride wiggle
+    pool = rng.integers(0, 256, size=(max_frames + 1024, d), dtype=np.uint8)
+    pool_rows = pool.shape[0]
+    n_frames_all = rng.integers(min_frames, max_frames + 1, size=num_videos)
+    n_labels_all = rng.integers(1, 6, size=num_videos)
+    per_shard = (num_videos + num_shards - 1) // num_shards
+    paths = []
+    vid_idx = 0
+    for s in range(num_shards):
+        path = os.path.join(
+            out_dir, f"train-{s:05d}-of-{num_shards:05d}.tfrecord"
+        )
+        paths.append(path)
+        with open(path, "wb") as f:
+            for _ in range(min(per_shard, num_videos - vid_idx)):
+                nf = int(n_frames_all[vid_idx])
+                start = (vid_idx * 131) % (pool_rows - nf)
+                frames = pool[start : start + nf]
+                labels = sorted(
+                    rng.choice(
+                        num_classes, size=int(n_labels_all[vid_idx]),
+                        replace=False,
+                    ).tolist()
+                )
+                write_tfrecord(
+                    f,
+                    encode_frame_sequence_example(
+                        f"scale{vid_idx:07d}".encode(),
+                        labels,
+                        frames[:, :rgb_size],
+                        frames[:, rgb_size:],
+                    ),
+                )
+                vid_idx += 1
+    assert vid_idx == num_videos
+    return paths

@@ -5,7 +5,8 @@ A deterministic generator replaces the reference's queue runners
 bounded shuffle buffer and fixed-size batching.  The final partial batch is
 zero-padded and carries a per-example ``weights`` mask (1 real, 0 padding).
 Frame features stay uint8 through this stage; dequantization happens on the
-device.
+device.  ``native_batch_iterator`` slices the same batches out of the C++
+reader's packed arrays (``data/native_loader.py``).
 """
 
 from __future__ import annotations
@@ -51,15 +52,16 @@ def batch_iterator(
     shuffle_buffer: int = 1024,
     seed: int = 0,
     pad_final_batch: bool = True,
+    shard_index: int = 0,
+    num_shards: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield batches: {video_id, features, labels, (num_frames), weights}.
 
     ``weights`` is 1.0 for real examples, 0.0 for end-of-data padding rows.
-    ``num_epochs=None`` streams forever.
+    ``num_epochs=None`` streams forever.  ``shard_index``/``num_shards``
+    read one file-level shard of ``num_shards`` (one per process).
     """
-    files = sorted(_glob.glob(data_pattern))
-    if not files:
-        raise IOError(f"Unable to find input files. data_pattern='{data_pattern}'")
+    files = shard_files(data_pattern, shard_index, num_shards)
     rng = random.Random(seed)
 
     epoch = 0
@@ -77,6 +79,106 @@ def batch_iterator(
 
     if pending:
         yield _collate(pending, pad_to=batch_size if pad_final_batch else None)
+
+
+def shard_files(data_pattern: str, shard_index: int = 0, num_shards: int = 1) -> list:
+    """The sorted files of ``data_pattern``, every ``num_shards``-th from
+    ``shard_index``; IOError when there are none."""
+    files = sorted(_glob.glob(data_pattern))
+    if not files:
+        raise IOError(f"Unable to find input files. data_pattern='{data_pattern}'")
+    if num_shards > 1:
+        files = files[shard_index::num_shards]
+        if not files:
+            raise IOError(f"shard {shard_index}/{num_shards} got no files "
+                          "(pattern matched fewer files than shards)")
+    return files
+
+
+def native_batch_iterator(
+    data_pattern: str,
+    batch_size: int,
+    frame_level: bool,
+    feature_sizes=(1024, 128),
+    feature_names=None,
+    num_classes: int = 3862,
+    max_frames: int = 300,
+    num_epochs: Optional[int] = 1,
+    shuffle: bool = False,
+    seed: int = 0,
+    num_workers: int = 8,
+    pad_final_batch: bool = True,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    chunk_records: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Batches sliced out of the C++ reader's packed arrays
+    (``data/native_loader.py``; ref: data/pipeline.py#native_batch_iterator).
+
+    Files are parsed on ``num_workers`` threads (``--num_readers``); with
+    ``shuffle`` the file order is permuted each epoch and the records of
+    each parse are permuted, both from ``np.random.default_rng(seed)`` in
+    the reference's order, so a seed gives the reference's batches.
+    ``chunk_records > 0`` parses each file in chunks of that many records,
+    bounding peak memory whatever a file's size (the packed cache's build);
+    a parse's permutation then covers a chunk.  Raises when the library
+    does not build: unlike the reference, it never falls back to the
+    Python reader.
+    """
+    from learnablepoolingmethods_torch.data import native_loader
+
+    if feature_names is None:
+        feature_names = ("rgb", "audio") if frame_level else ("mean_rgb", "mean_audio")
+    files = shard_files(data_pattern, shard_index, num_shards)
+    kwargs = dict(feature_sizes=tuple(feature_sizes), feature_names=tuple(feature_names),
+                  num_classes=num_classes)
+    if frame_level:
+        kwargs["max_frames"] = max_frames
+    rng = np.random.default_rng(seed)
+
+    epoch = 0
+    pending: list = []
+    while num_epochs is None or epoch < num_epochs:
+        epoch_files = list(files)
+        if shuffle:
+            rng.shuffle(epoch_files)
+        for out in native_loader.parse_files_parallel(
+            epoch_files, frame_level=frame_level, num_workers=num_workers,
+            chunk_records=chunk_records, **kwargs
+        ):
+            n = out["features"].shape[0]
+            order = rng.permutation(n) if shuffle else np.arange(n)
+            for i in order:
+                rec = {"video_id": out["video_id"][i], "features": out["features"][i],
+                       "labels": out["labels"][i]}
+                if frame_level:
+                    rec["num_frames"] = out["num_frames"][i]
+                pending.append(rec)
+                if len(pending) == batch_size:
+                    yield _collate(pending, pad_to=None)
+                    pending = []
+        epoch += 1
+    if pending:
+        yield _collate(pending, pad_to=batch_size if pad_final_batch else None)
+
+
+def pad_batch_to_multiple(batch: dict, multiple: int) -> dict:
+    """Zero-pad the batch axis to a multiple of ``multiple``, the padded
+    rows' ``weights`` 0 and ``video_id`` b"" (ref:
+    parallel/mesh.py#pad_batch_to_multiple)."""
+    n = batch["features"].shape[0]
+    pad = -n % multiple
+    if pad == 0:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if k == "video_id":
+            out[k] = list(v) + [b""] * pad
+        elif hasattr(v, "shape") and v.ndim >= 1 and v.shape[0] == n:
+            out[k] = np.concatenate([v, np.zeros((pad,) + v.shape[1:], dtype=v.dtype)])
+        else:
+            out[k] = v
+    return out
 
 
 def _collate(records, pad_to: Optional[int]) -> Dict[str, np.ndarray]:

@@ -24,7 +24,9 @@ is step 0, and so is ``--reference_checkpoint``, a reference-trained TF
 checkpoint (``core/checkpoint_import.py``), evaluated once without a
 summary.  It takes every flag of the JAX eval CLI under its name and
 default (``cli_flags.py``; those of ``cli_flags.EVAL_NOT_PORTED`` raise
-when set); ``--device`` (default ``cuda``) is the port's own.
+when set); ``--device`` (default ``cuda``) is the port's own.  Batches come
+from the source the flags select (``cli_flags.input_iterator``:
+``--packed_cache_dir``, ``--use_grain`` or the streaming reader).
 
     python -m learnablepoolingmethods_torch.eval --run_once \\
         --model=NetVLADModelLF --frame_features --feature_names=rgb,audio \\
@@ -48,8 +50,6 @@ from learnablepoolingmethods_torch.core import step as step_lib
 from learnablepoolingmethods_torch.core.observability import MetricWriter
 from learnablepoolingmethods_torch.core.checkpoints import latest_weights_step, load_weights
 from learnablepoolingmethods_torch.core.weights import convert_flax_variables
-from learnablepoolingmethods_torch.data.pipeline import batch_iterator
-from learnablepoolingmethods_torch.data.readers import make_reader
 from learnablepoolingmethods_torch.inference import load_model, load_tree
 from learnablepoolingmethods_torch.losses import get_loss_by_name
 from learnablepoolingmethods_torch.metrics import eval_util
@@ -143,9 +143,8 @@ def evaluate_checkpoint(args, step_num: int, tree: dict, fcfg: FeatureConfig, lo
             preds = out["predictions"].float().cpu().numpy()[w > 0]
             em.accumulate(preds, labels_host[w > 0], float(out["loss"]))
 
-    reader = make_reader(fcfg, args.num_classes)
-    for batch_idx, batch in enumerate(batch_iterator(reader, args.eval_data_pattern, args.batch_size,
-                                                     num_epochs=1)):
+    for batch_idx, batch in enumerate(cli_flags.input_iterator(args, fcfg, args.eval_data_pattern, args.batch_size,
+                                                               num_epochs=1)):
         device_batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "video_id"}
         # a fresh sampling key per batch; the results are read only once
         # `pipeline_depth` batches are in flight

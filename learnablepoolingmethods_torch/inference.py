@@ -17,7 +17,11 @@ Kaggle submission CSV ``VideoId,LabelConfidencePairs``.  Two routes:
 
 It takes every flag of the JAX CLI under its name and default
 (``cli_flags.py``; those not ported yet raise when set); ``--device``
-(default ``cuda``) is the port's own.  Weights come from the latest
+(default ``cuda``) is the port's own.  Batches come from the source the
+flags select (``cli_flags.input_iterator``: ``--packed_cache_dir``,
+``--use_grain`` or the streaming reader), and the CSV is written by the C++
+formatter (``data/native_loader.py#format_csv``, ``format_lines``' bytes),
+which raises if it does not build.  Weights come from the latest
 checkpoint in ``<train_dir>/checkpoints`` (``core/checkpoints.py``; IOError
 when there is none), from a weights-only ``variables.npz``
 (``core/weights.py#save_variables_npz``) when ``--train_dir`` names such a
@@ -46,12 +50,11 @@ from learnablepoolingmethods_torch.core.checkpoint_import import tree_from_refer
 from learnablepoolingmethods_torch.core.checkpoints import latest_weights_step, load_weights
 from learnablepoolingmethods_torch.core.step import make_predict_step
 from learnablepoolingmethods_torch.core.weights import convert_flax_variables, load_flax_variables
-from learnablepoolingmethods_torch.data.pipeline import batch_iterator
-from learnablepoolingmethods_torch.data.readers import make_reader
+from learnablepoolingmethods_torch.data import native_loader
 from learnablepoolingmethods_torch.models import create_model, find_class_by_name
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path, int8_capable_models
 from learnablepoolingmethods_torch.utils import prng
-from learnablepoolingmethods_torch.utils.misc import InFlight, format_lines, resolve_device
+from learnablepoolingmethods_torch.utils.misc import InFlight, resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -142,7 +145,7 @@ def inference(args) -> int:
     del tree
     log.info("loaded %s onto %s", args.model, device)
 
-    reader = make_reader(fcfg, args.num_classes)
+    native_loader.load()  # the CSV's formatter: build it before the first batch
     pipe = InFlight(args.pipeline_depth)
     num_examples = 0
     start = time.time()
@@ -153,7 +156,7 @@ def inference(args) -> int:
         vals_np = values.cpu().numpy()[real]  # waits for the device
         idx_np = indices.cpu().numpy()[real]
         num_examples += int(real.sum())
-        out_file.writelines(line.encode() for line in format_lines(vids, vals_np, idx_np))
+        out_file.write(native_loader.format_csv(vids, vals_np, idx_np))
         elapsed = time.time() - start
         log.info(
             "num examples processed: %d | elapsed seconds: %.2f (%.1f ex/s)",
@@ -162,7 +165,7 @@ def inference(args) -> int:
 
     with open(args.output_file, "wb") as out_file:
         out_file.write(b"VideoId,LabelConfidencePairs\n")
-        batches = batch_iterator(reader, args.input_data_pattern, args.batch_size, num_epochs=1)
+        batches = cli_flags.input_iterator(args, fcfg, args.input_data_pattern, args.batch_size, num_epochs=1)
         for batch_idx, batch in enumerate(batches):
             # a fresh sampling key per batch, as the JAX CLI's
             # fold_in(key(0), batch_idx): the same frames, bit for bit

@@ -41,9 +41,17 @@ aggregations run the CUDA forward and backward kernels of
 step draws from the same ``--seed``, with or without ``--presample_frames``
 and ``--sample_random_frames`` (``core/step.py``); the port gathers them in
 uint8.  The weights start from ``core/weights.py#init_variables_np(seed)``.
-What the port does not take yet raises, naming its ROADMAP item: the
-flags of ``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (a device
-mesh, grain, the native reader, the packed cache, profiling).
+Batches come, shuffled from ``--seed``, from the streaming Python reader,
+or from one of the JAX trainer's three other sources: ``--use_native_reader``
+(the C++ reader on ``--num_readers`` threads, ``data/native_loader.py``),
+``--packed_cache_dir`` (``data/packed_cache.py``, built at first use) or
+``--use_grain`` (grain's order on a torch DataLoader with
+``--grain_worker_count`` workers, ``data/grain_pipeline.py``); two of them
+at once raise ValueError, as in the JAX CLI.  ``--profile_dir`` traces the
+training loop with ``torch.profiler`` into a Chrome trace there
+(``core/observability.py#profile_session``).  What the port does not take
+yet raises, naming its ROADMAP item: the flags of
+``cli_flags.TRAIN_NOT_PORTED`` set off their defaults (a device mesh).
 ``--int8_hidden`` raises ValueError: the JAX trainer defines no such flag.
 """
 
@@ -66,7 +74,8 @@ from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager
 from learnablepoolingmethods_torch.core.step import TrainStep
 from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.core.weights import init_variables_np, load_flax_variables, state_dict_to_flax
-from learnablepoolingmethods_torch.data.pipeline import batch_iterator
+from learnablepoolingmethods_torch.core.observability import profile_session
+from learnablepoolingmethods_torch.data.pipeline import batch_iterator, native_batch_iterator
 from learnablepoolingmethods_torch.data.readers import make_reader
 from learnablepoolingmethods_torch.export_model import export_model
 from learnablepoolingmethods_torch.losses import get_loss_by_name
@@ -104,6 +113,9 @@ def configs_from_args(args):
                          "the JAX trainer defines no such flag")
     cli_flags.refuse_not_ported(args, cli_flags.TRAIN_NOT_PORTED,
                                 vars(build_parser().parse_args([])), "trainer")
+    if sum(bool(x) for x in (args.use_grain, args.use_native_reader, args.packed_cache_dir)) > 1:
+        raise ValueError("--use_grain, --use_native_reader and --packed_cache_dir are "
+                         "mutually exclusive input sources")
     fcfg = FeatureConfig.from_flag_strings(args.feature_names, args.feature_sizes,
                                            args.frame_features, args.max_frames)
     # The JAX CLI builds the model presampled under --presample_frames, and
@@ -135,7 +147,7 @@ class Trainer:
     metrics of every logged step, ``state`` the live TrainState,
     ``restored_step`` the step it resumed from (None: a fresh start),
     ``restore_seconds`` and ``save_seconds`` (step → seconds) the
-    checkpoints' times."""
+    checkpoints' times, ``trace_path`` the ``--profile_dir`` trace's file."""
 
     def __init__(self, args):
         self.args = args
@@ -145,6 +157,7 @@ class Trainer:
         self.restored_step = None
         self.restore_seconds = None
         self.save_seconds: Dict[int, float] = {}
+        self.trace_path = None
 
     def run(self) -> TrainState:
         args = self.args
@@ -174,32 +187,46 @@ class Trainer:
         log.info("%s: %s on %s, %d parameters", TASK, args.model, device,
                  sum(p.numel() for p in model.parameters()))
 
-        reader = make_reader(fcfg, mcfg.vocab_size)
-        batches = batch_iterator(
-            reader, args.train_data_pattern, tcfg.batch_size,
-            num_epochs=tcfg.num_epochs if tcfg.num_epochs > 0 else None,
-            shuffle=True, shuffle_buffer=args.shuffle_buffer, seed=args.seed,
-        )
+        batches = self._batches(fcfg, mcfg, tcfg)
         log_every = max(args.log_every_n_steps, 1)
         last_log_time, last_log_step = time.time(), state.step
-        for batch in batches:
-            if tcfg.max_steps and state.step >= tcfg.max_steps:
-                break
-            device_batch = {k: torch.from_numpy(v).to(device)
-                            for k, v in batch.items() if k != "video_id"}
-            metrics = train_step(state, device_batch, key)
-            if state.step % log_every == 0:
-                self._log(state.step, metrics, batch["labels"], lr_schedule, last_log_time, last_log_step)
-                last_log_time, last_log_step = time.time(), state.step
-            if state.step % tcfg.save_checkpoint_every_n_steps == 0:
-                self._save(mngr, state)
-            if tcfg.export_model_steps and state.step % tcfg.export_model_steps == 0:
-                # the JAX trainer exports the config it builds, presampled
-                # only under --presample_frames
-                self._export(state, dataclasses.replace(mcfg, presampled=tcfg.presample_frames), fcfg)
+        with profile_session(args.profile_dir) as self.trace_path:
+            for batch in batches:
+                if tcfg.max_steps and state.step >= tcfg.max_steps:
+                    break
+                device_batch = {k: torch.from_numpy(v).to(device)
+                                for k, v in batch.items() if k != "video_id"}
+                metrics = train_step(state, device_batch, key)
+                if state.step % log_every == 0:
+                    self._log(state.step, metrics, batch["labels"], lr_schedule, last_log_time, last_log_step)
+                    last_log_time, last_log_step = time.time(), state.step
+                if state.step % tcfg.save_checkpoint_every_n_steps == 0:
+                    self._save(mngr, state)
+                if tcfg.export_model_steps and state.step % tcfg.export_model_steps == 0:
+                    # the JAX trainer exports the config it builds, presampled
+                    # only under --presample_frames
+                    self._export(state, dataclasses.replace(mcfg, presampled=tcfg.presample_frames), fcfg)
         self._save(mngr, state)
         log.info("%s: done; final checkpoint at step %d", TASK, state.step)
         return state
+
+    def _batches(self, fcfg, mcfg, tcfg):
+        """The training batches of the source the flags select, shuffled
+        from --seed (ref: train.py#Trainer.run)."""
+        args = self.args
+        num_epochs = tcfg.num_epochs if tcfg.num_epochs > 0 else None
+        if args.use_grain or args.packed_cache_dir:
+            return cli_flags.input_iterator(args, fcfg, args.train_data_pattern, tcfg.batch_size, num_epochs,
+                                            shuffle=True, seed=args.seed)
+        if args.use_native_reader:
+            return native_batch_iterator(
+                args.train_data_pattern, tcfg.batch_size, frame_level=fcfg.frame_features,
+                feature_sizes=fcfg.feature_sizes, feature_names=fcfg.feature_names,
+                num_classes=mcfg.vocab_size, max_frames=fcfg.max_frames, num_epochs=num_epochs,
+                shuffle=True, seed=args.seed, num_workers=args.num_readers)
+        return batch_iterator(make_reader(fcfg, mcfg.vocab_size), args.train_data_pattern, tcfg.batch_size,
+                              num_epochs=num_epochs, shuffle=True, shuffle_buffer=args.shuffle_buffer,
+                              seed=args.seed)
 
     def _log(self, step, metrics, labels, lr_schedule, since, since_step):
         loss = float(metrics["loss"])  # waits for the device

@@ -171,6 +171,43 @@ def test_item_11_flags_are_taken_as_the_jax_cli_takes_them(cli, name):
     assert getattr(mcfg, name) == value
 
 
+# item 7's flags, the input sources and --profile_dir, which the CLIs
+# refused before ingest was ported (one case for each (CLI, flag) that
+# NOT_PORTED held): each now selects what the JAX CLI selects
+ITEM_7 = ([(cli, name) for cli in ("inference", "eval", "train")
+           for name in ("num_readers", "use_grain", "grain_worker_count", "packed_cache_dir")]
+          + [("train", "use_native_reader"), ("train", "profile_dir")])
+
+
+@pytest.mark.parametrize("cli, name", ITEM_7)
+def test_item_7_flags_are_taken_as_the_jax_cli_takes_them(tmp_path, cli, name):
+    """A source flag reaches its source, which finds no files
+    (flags.py#input_iterator; train.py's --use_native_reader); a flag that
+    only tunes a source (--num_readers, --grain_worker_count) keeps the
+    streaming reader, as in the JAX CLIs; --profile_dir traces into its
+    directory (tests/test_torch_ingest_cli.py runs each source)."""
+    defaults = vars(CLIS[cli].build_parser().parse_args([]))
+    value = str(tmp_path / "cache") if name == "packed_cache_dir" else _off_default(defaults[name])
+    argv = _argv({name: value}) + ["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+                                   f"--train_data_pattern={tmp_path}/none*", f"--train_dir={tmp_path}/m"]
+    args = CLIS[cli].build_parser().parse_args([a for a in argv if cli == "train" or "train_data" not in a])
+    assert name not in NOT_PORTED[cli]
+    cli_flags.refuse_not_ported(args, NOT_PORTED[cli], defaults, f"{cli} CLI")
+    if name == "profile_dir":
+        from learnablepoolingmethods_torch.core.observability import profile_session
+
+        with profile_session(args.profile_dir) as trace:
+            assert os.path.dirname(trace) == args.profile_dir and trace.endswith(".pt.trace.json")
+        assert os.path.exists(trace)
+        return
+    fcfg, mcfg, tcfg = train.configs_from_args(train.build_parser().parse_args(argv))
+    with pytest.raises(IOError, match="Unable to find input files"):
+        if cli == "train":
+            next(train.Trainer(args)._batches(fcfg, mcfg, tcfg))
+        else:
+            next(cli_flags.input_iterator(args, fcfg, f"{tmp_path}/none*", 8, 1))
+
+
 def test_item_14_flag_is_taken_as_the_jax_cli_takes_it():
     """--export_model_steps, which the trainer refused before export was
     ported: the cadence of flags.py#training_config_from_flags."""

@@ -1,7 +1,9 @@
 """The port, chip_smoke.py and the port's tools import nothing of JAX, of
-the JAX package, of ml_dtypes, msgpack or tensorflow: the machine with the
-card has none of them (the port reads bf16 as uint16 bits, and flax's
-msgpack through its own codec).  The one tool that writes a TF checkpoint fixture imports tensorflow
+the JAX package, of ml_dtypes, msgpack, grain or tensorflow: the machine with
+the card has none of them (the port reads bf16 as uint16 bits, flax's
+msgpack through its own codec, and grain's order through torch's
+DataLoader).  The port builds its C++ reader from its own copy of the
+sources, never from the repo root's ``native/``.  The one tool that writes a TF checkpoint fixture imports tensorflow
 inside its writer; it runs where tensorflow is installed."""
 
 import ast
@@ -13,7 +15,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "learnablepoolingmethods_torch"
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "learnablepoolingmethods_tpu", "tensorflow",
-          "ml_dtypes", "msgpack")
+          "ml_dtypes", "msgpack", "grain")
 # scripts that may import tensorflow (inside a function, never at import)
 TF_WRITERS = ("torch_make_tf_bundle_fixture.py",)
 SCRIPTS = [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
@@ -42,6 +44,7 @@ def test_importing_the_port_loads_no_jax():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
         "print('BAD', bad)\n"
+        "print('BUILT', sys.modules['learnablepoolingmethods_torch.data.native_loader']._lib)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
@@ -50,6 +53,7 @@ def test_importing_the_port_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "BUILT None" in out.stdout, out.stdout  # nothing loads the C++ reader at import
 
 
 def test_the_guard_covers_the_kernel_modules():
@@ -63,7 +67,8 @@ def test_the_guard_covers_the_kernel_modules():
     for module in ("models.frame_level", "models.video_level", "models.attention", "eval", "inference", "train", "losses",
                    "core.observability", "core.step", "core.optimizers", "core.checkpoints",
                    "core.checkpoint_import", "core.train_state", "utils.tf_bundle", "data.readers",
-                   "data.fixtures", "export_model", "serving", "utils.flax_msgpack"):
+                   "data.fixtures", "export_model", "serving", "utils.flax_msgpack", "data.native_loader",
+                   "data.packed_cache", "data.grain_pipeline", "data.pipeline", "cli_flags"):
         assert f"learnablepoolingmethods_torch.{module}" in names, module
 
 
@@ -79,4 +84,34 @@ def test_port_sources_import_no_jax():
                 continue
             offenders += [f"{path.name}:{node.lineno} {m}" for m in mods if m.split(".")[0] in BANNED
                           and not (path.name in TF_WRITERS and m.split(".")[0] == "tensorflow")]
+    assert not offenders, offenders
+
+
+def _path_parts(path):
+    """The string constants that ``path``'s code builds a path from: the
+    operands of a ``/`` and the arguments of a ``join``."""
+    parts = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            parts += [node.left, node.right]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) == "join":
+            parts += node.args
+    return [n.value for n in parts if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+
+
+def test_the_port_builds_its_own_copy_of_the_native_sources():
+    """The C++ reader's sources are the port's (``learnablepoolingmethods_torch/
+    native``): the one path to a ``native`` directory in the port's code is
+    native_loader's, inside the package, and nothing names the repo root's
+    sources or library."""
+    from learnablepoolingmethods_torch.data import native_loader
+
+    assert native_loader.NATIVE_DIR == PORT / "native"
+    assert all((PORT / "native" / name).is_file() for name in native_loader.SOURCES)
+    assert native_loader.BUILD_DIR == ROOT / "build" / "host"
+    offenders = []
+    for path in _sources():
+        for value in _path_parts(path):
+            if (value.startswith("native") and path.name != "native_loader.py") or "libtfrecord_reader.so" in value:
+                offenders.append(f"{path.relative_to(ROOT)}: {value!r}")
     assert not offenders, offenders
