@@ -284,12 +284,14 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import http.client
 import importlib.util
 import json
 import logging
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -405,6 +407,8 @@ from learnablepoolingmethods_torch.ops.netvlad_train import (
     kernel_train_geometry,
     train_geometry,
 )
+from learnablepoolingmethods_torch.parallel import mesh as mesh_lib
+from learnablepoolingmethods_torch.parallel.collectives import column_shard
 from learnablepoolingmethods_torch.utils import prng
 
 # H100 SXM data-sheet peaks (dense, 700 W): HBM bytes/s and bf16 tensor-core
@@ -4086,6 +4090,337 @@ def phase_ingest(dev, workdir, smi, device_rates: dict) -> dict:
     return launches
 
 
+# data_parallel: Willow NetVLADModelLF at full width in f32 with
+# --fused_train_aggregation (rows 3-4), B=256, lr 1e-4.  (a) three steps of
+# the mesh step on one rank under NCCL against the plain TrainStep, bit for
+# bit; (b) two steps on a 2×1 data mesh and on a 1×2 model mesh of two ranks
+# on the one card over gloo (NCCL refuses two ranks on one device) against
+# the plain run's first two; the eval CLI with --model_parallelism=2 over the
+# two ranks against one process; the train CLI under torchrun.  The gloo
+# runs check correctness only: their times are not a speed of the card.
+DP_BATCH, DP_STEPS, DP_LR = 256, 3, 1e-4
+# each step's loss within LOSS_GATES' f32 limit of the plain run's
+DP_LOSS_GATE = LOSS_GATES[1][2]
+# the parameters after two steps: Adam moves an entry by about lr·sign(g) a
+# step, so an entry whose gradient is rounding noise may move the other way
+# on the mesh.  Set from the H100 readings of both meshes (max |Δ| 1.35e-5
+# and 1.36e-5; 2 and 3 of 306.6M entries past lr/10): no entry farther than
+# 5e-5 from the plain run's, and at most `max_over` entries past lr/10
+DP_PARAM_GATE = dict(max_abs=5e-5, over=DP_LR / 10, max_over=100)
+# the eval CLI's scores over two ranks against one process
+DP_EVAL_GATE = 1e-5
+DP_EVAL_VIDEOS = 128
+DP_TRAIN_CLI_FLAGS = ["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+                      "--feature_sizes=1024,128", "--batch_size=32", "--max_steps=2", "--device=cuda",
+                      "--fused_train_aggregation", "--netvlad_cluster_size=64", "--netvlad_hidden_size=256",
+                      "--log_every_n_steps=1", "--start_new_model"]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_config() -> tuple:
+    """Willow NetVLADModelLF in f32 with the training kernels, as the train
+    CLI builds it (presampled: the step gathers the frames)."""
+    mcfg = ModelConfig(fused_train_aggregation=True, presampled=True)
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    return mcfg, fcfg, TrainingConfig(batch_size=DP_BATCH, base_learning_rate=DP_LR)
+
+
+def dp_batches(n: int, b: int = DP_BATCH) -> list:
+    """``n`` global batches of ``b`` synthetic videos as host arrays."""
+    rng = np.random.default_rng(16)
+    return [{"features": rng.integers(0, 256, (b, F, DT), dtype=np.uint8),
+             "num_frames": rng.integers(1, F + 1, b).astype(np.int32),
+             "labels": (rng.random((b, 3862)) < 0.002).astype(np.float32),
+             "weights": np.ones(b, np.float32)} for _ in range(n)]
+
+
+def dp_train(dev, tree, batches, mesh=None, after_step=None) -> tuple:
+    """The train step over ``batches`` (each rank its rows of the global
+    batch on a mesh) from ``tree`` → (losses, per-step ms by CUDA events,
+    the TrainState, the names of the split parameters)."""
+    mcfg, _, tcfg = dp_config()
+    model = load_flax_variables(create_model("NetVLADModelLF", mcfg, DT), tree).to(dev)
+    split = mesh_lib.shard_model(model, mesh) if mesh is not None else []
+    state = TrainState.create(model, tcfg)
+    step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, True, mesh=mesh)
+    losses, ms = [], []
+    for i, batch in enumerate(batches):
+        rows = mesh_lib.local_batch(batch, mesh) if mesh is not None else batch
+        device_batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(state, device_batch, prng.key(0))
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        if after_step is not None:
+            after_step(i + 1, state)
+    return losses, ms, state, split
+
+
+def dp_kernel_checks(dev) -> dict:
+    """The kernels' offsets for a rank's rows, against their plain
+    versions: the front end's frames drawn from row 128 on (within the
+    bf16 tolerance of phase 3, and equal bit for bit to the same rows of a
+    launch over the whole batch), the dropout mask from row 64 on (bit for
+    bit), and FusedAdam's two-entry route with an identity reduction equal
+    bit for bit to its single entry and within phase fused_adam's bounds of
+    its plain version.  These launches are checks, not the main path."""
+    rng = np.random.default_rng(21)
+    out = {}
+    consts = frontend_consts(rng, dev)
+    x, nf = frames(rng, 192, dev)
+    key = prng.key(4)
+    whole = netvlad_frontend(x, key, nf, 30, *consts)
+    part = netvlad_frontend(x[128:].contiguous(), key, nf[128:], 30, *consts, row_offset=128)
+    want = netvlad_frontend_reference(x[128:], key, nf[128:], 30, *consts, row_offset=128)
+    out["netvlad_frontend_row_offset"] = max(compare(f"frontend row_offset {i}", g, w) for i, (g, w) in
+                                             enumerate(zip(part, want)))
+    if not all(bits_equal(a[128:], b) for a, b in zip(whole, part)):
+        raise AssertionError("data_parallel: the front end's rows from 128 differ from a whole batch's")
+    xd = torch.from_numpy(rng.normal(size=(32, F, 1024)).astype(np.float32)).to(dev, torch.bfloat16)
+    kp = 1.0 - DROPOUT_RATE
+    offset = 64 * F * 1024
+    got = dropout_kernel(xd, key, kp, tuple(xd.shape), "div", offset)
+    if not bits_equal(got, dropout_plain(xd, key, kp, tuple(xd.shape), "div", offset)):
+        raise AssertionError("data_parallel: the dropout kernel's mask at an offset differs from the plain one")
+    out["dropout_offset"] = 0.0
+    leaves = [(f"leaf{i}", [torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev, dt)
+                            for dt in (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.bfloat16)])
+              for i, n in enumerate((1 << 20, 8193, 7))]
+    for _, leaf in leaves:
+        leaf[3].abs_()
+    consts_adam = AdamConsts(1e-3, 2)
+    single = run_fused_adam(fused_adam_kernel, leaves, consts_adam, 1.0)
+    split = run_fused_adam(functools.partial(fused_adam_kernel, reduce_sumsq=lambda sq: sq), leaves, consts_adam, 1.0)
+    if not all(bits_equal(a, b) for sa, sb in zip(single, split) for a, b in zip(sa[1:], sb[1:])):
+        raise AssertionError("data_parallel: FusedAdam's two entry points differ from its single one")
+    plain = run_fused_adam(functools.partial(fused_adam_plain, reduce_sumsq=lambda sq: sq), leaves, consts_adam, 1.0)
+    if not all(bits_equal(a[2], b[2]) for a, b in zip(split, plain)):
+        raise AssertionError("data_parallel: FusedAdam's two-entry m differs from its plain version's")
+    out["fused_adam_split_p"] = max((a[1].float() - b[1].float()).abs().max().item() for a, b in zip(split, plain))
+    return out
+
+
+def dp_param_gap(model, ref, mesh) -> dict:
+    """max |Δ| and the count of entries past DP_PARAM_GATE["over"] between
+    the model's parameters (this rank's columns of a split one) and the
+    reference's (``ref``: name → (array or tensor,), as a checkpoint's
+    ``load_arrays``); a whole parameter counted on rank 0 only, a split one
+    on the ranks of data index 0."""
+    worst, over, entries = 0.0, 0, 0
+    for name, p in model.named_parameters():
+        shard = column_shard(p)
+        if (shard is None and mesh.rank != 0) or (shard is not None and mesh.data_index != 0):
+            continue
+        want = torch.as_tensor(ref["params/" + name.replace(".", "/")][0]).to(p.device)
+        if shard is not None:
+            want = want[..., shard.columns]
+        diff = (p.detach().float() - want.float()).abs()
+        worst = max(worst, diff.max().item())
+        over += int((diff > DP_PARAM_GATE["over"]).sum())
+        entries += diff.numel()
+    return {"max_abs": worst, "over": over, "entries": entries}
+
+
+def data_parallel_worker(spec_path: str) -> int:
+    """One rank of phase_data_parallel's gloo runs, launched by torchrun
+    with two ranks on cuda:0: the 2×1 data mesh and the 1×2 model mesh for
+    two steps each, their losses and parameter gaps against the one-process
+    checkpoint, then the eval CLI of ``spec["eval_argv"]``; rank 0 writes
+    every rank's numbers to ``spec["out"]``."""
+    import torch.distributed as dist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # NCCL refuses two ranks on one device: a gloo group, which
+    # distributed_init and the eval CLI then keep
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    dev = mesh_lib.distributed_init("cuda:0")
+    mcfg, fcfg, _ = dp_config()
+    tree = init_variables_np(mcfg, fcfg, seed=0, model_name="NetVLADModelLF")
+    data = np.load(spec["batches"])
+    batches = [{k: data[f"b{i}_{k}"] for k in ("features", "num_frames", "labels", "weights")} for i in range(2)]
+    ref = CheckpointManager(spec["train_dir"]).load_arrays(2, ("params/",))
+    out = {"rank": dist.get_rank()}
+    for name, model_axis in (("data_2x1", 1), ("model_1x2", 2)):
+        mesh = mesh_lib.create_mesh(model_parallelism=model_axis)
+        reset_counters()
+        t0 = time.perf_counter()
+        losses, _, state, split = dp_train(dev, tree, batches, mesh)
+        torch.cuda.synchronize()
+        out[name] = {"losses": losses, "seconds": time.perf_counter() - t0, "split": split,
+                     "launches": {k: KERNELS[k]["fn"].launches for k in TRAIN_KERNELS},
+                     **dp_param_gap(state.model, ref, mesh)}
+        del state
+        torch.cuda.empty_cache()
+    reset_counters()
+    t0 = time.perf_counter()
+    info = eval_cli.main(spec["eval_argv"])
+    out["eval"] = {"seconds": time.perf_counter() - t0,
+                   "scores": {k: float(info[k]) for k in EVAL_METRICS} if info is not None else None}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    if dist.get_rank() == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(ranks, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_data_parallel(dev, workdir, smi) -> dict:
+    """Item 15 on the card (module docstring, DP_*): returns the training
+    kernels' launches of the mesh runs."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    kernel_checks = dp_kernel_checks(dev)
+    mcfg, fcfg, _ = dp_config()
+    batches = dp_batches(DP_STEPS)
+    tree = init_variables_np(mcfg, fcfg, seed=0, model_name="NetVLADModelLF")
+    batches_path = os.path.join(workdir, "dp_batches.npz")
+    np.savez(batches_path, **{f"b{i}_{k}": v for i, b in enumerate(batches[:2]) for k, v in b.items()})
+    train_dir = os.path.join(workdir, "dp_one")
+    mngr = CheckpointManager(train_dir)
+
+    def save_step_2(step, state):
+        if step == 2:
+            mngr.save(step, state.state_tree())
+
+    # (a) the mesh step on one rank under NCCL against the plain step
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        probe = torch.ones(4, device=dev)
+        dist.all_reduce(probe)  # the NCCL communicator of a world of one
+        mesh = mesh_lib.create_mesh()
+        plain = dp_train(dev, tree, batches, after_step=save_step_2)
+        reset_counters()
+        meshed = dp_train(dev, tree, batches, mesh)
+        launches = counters()
+    finally:
+        dist.destroy_process_group()
+    if plain[0] != meshed[0]:
+        raise AssertionError(f"data_parallel: the one-rank mesh's losses {meshed[0]} != the plain step's {plain[0]}")
+    plain_tree, mesh_tree = plain[2].state_tree(), meshed[2].state_tree()
+    unequal = [k for k in plain_tree if not torch.equal(plain_tree[k], mesh_tree[k])]
+    if unequal:
+        raise AssertionError(f"data_parallel: one-rank mesh state differs from the plain step's: {unequal[:5]}")
+    for name in TRAIN_KERNELS:
+        if launches[name] != 2 * DP_STEPS:
+            raise AssertionError(f"data_parallel: {name} launched {launches[name]} times in {DP_STEPS} steps")
+    rates = {run: DP_BATCH / (statistics.median(ms[1:]) / 1e3) for run, ms in (("plain", plain[1]),
+                                                                                 ("mesh", meshed[1]))}
+    plain_losses = plain[0]
+    del plain, meshed, plain_tree, mesh_tree
+    torch.cuda.empty_cache()
+    seconds_a = time.perf_counter() - t_phase
+
+    # (b) two gloo ranks on the card, and the train CLI under torchrun
+    data = os.path.join(workdir, "dp_eval-0.tfrecord")
+    # up to 1,000 labels a video, so that an untrained model's top 20 hit
+    # some and GAP and Hit@1 compare more than zeros
+    write_frame_level_fixture(data, DP_EVAL_VIDEOS, num_classes=3862, rgb_size=D_RGB, audio_size=D_AUD,
+                              max_frames=F, seed=9, max_labels=1000)
+    eval_argv = ["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
+                 "--feature_sizes=1024,128", f"--eval_data_pattern={data}", f"--train_dir={train_dir}",
+                 "--batch_size=64", "--run_once"]
+    spec = {"batches": batches_path, "train_dir": train_dir, "out": os.path.join(workdir, "dp_ranks.json"),
+            "eval_argv": eval_argv + ["--device=cuda:0", "--model_parallelism=2"]}
+    spec_path = os.path.join(workdir, "dp_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    torchrun = [sys.executable, "-m", "torch.distributed.run"]
+    log_paths = {name: os.path.join(workdir, f"dp_{name}.log") for name in ("ranks", "train_cli")}
+    logs = {name: open(path, "w") for name, path in log_paths.items()}
+    t_b = time.perf_counter()
+    procs = {
+        "ranks": subprocess.Popen(torchrun + ["--nproc_per_node=2", f"--master_port={free_port()}",
+                                              os.path.abspath(__file__), "--data-parallel-worker", spec_path],
+                                  stdout=logs["ranks"], stderr=subprocess.STDOUT),
+        "train_cli": subprocess.Popen(torchrun + ["--nproc_per_node=1", f"--master_port={free_port()}", "-m",
+                                                  "learnablepoolingmethods_torch.train", *DP_TRAIN_CLI_FLAGS,
+                                                  f"--train_data_pattern={data}",
+                                                  f"--train_dir={os.path.join(workdir, 'dp_cli')}"],
+                                      stdout=logs["train_cli"], stderr=subprocess.STDOUT),
+    }
+    try:
+        t0 = time.perf_counter()
+        one_eval = eval_cli.main(eval_argv + ["--device=cuda"])
+        one_eval_s = time.perf_counter() - t0
+        rcs = {name: p.wait(timeout=300) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+    seconds_b = time.perf_counter() - t_b
+    tails = {}
+    for name, path in log_paths.items():
+        with open(path) as f:
+            tails[name] = f.read()
+        if rcs[name] != 0:
+            raise AssertionError(f"data_parallel: {name} exited {rcs[name]}\n{tails[name][-6000:]}")
+    if "done; final checkpoint at step 2" not in tails["train_cli"]:
+        raise AssertionError(f"data_parallel: the train CLI under torchrun did not finish\n{tails['train_cli'][-4000:]}")
+    with open(spec["out"]) as f:
+        ranks = json.load(f)
+
+    runs = {}
+    for name in ("data_2x1", "model_1x2"):
+        losses = ranks[0][name]["losses"]
+        if any(r[name]["losses"] != losses for r in ranks):
+            raise AssertionError(f"data_parallel: {name}: the ranks' losses differ")
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+        worst = max(r[name]["max_abs"] for r in ranks)
+        over = sum(r[name]["over"] for r in ranks)
+        entries = sum(r[name]["entries"] for r in ranks)
+        runs[name] = {"losses": losses, "loss_gap": loss_gap, "param_max_abs": worst, "param_over": over,
+                      "param_entries": entries, "split": ranks[0][name]["split"],
+                      "seconds_rank0_check_only": ranks[0][name]["seconds"],
+                      "launches": [r[name]["launches"] for r in ranks]}
+        if loss_gap > DP_LOSS_GATE:
+            raise AssertionError(f"data_parallel: {name}: loss gap {loss_gap:.3e} > {DP_LOSS_GATE}")
+        if worst > DP_PARAM_GATE["max_abs"] or over > DP_PARAM_GATE["max_over"]:
+            raise AssertionError(f"data_parallel: {name}: parameters max |Δ| {worst:.3e}, {over} of {entries} "
+                                 f"entries past {DP_PARAM_GATE['over']:.1e}")
+        for r in ranks:
+            for kernel, n in r[name]["launches"].items():
+                if n != 4:  # two steps, forward and backward each twice (rgb and audio)
+                    raise AssertionError(f"data_parallel: {name} rank {r['rank']}: {kernel} launched {n} times")
+                launches[kernel] += n
+    if len(runs["data_2x1"]["split"]) != 0 or set(runs["model_1x2"]["split"]) != {
+            "hidden1_weights", "MoeModel_0.gates_kernel", "MoeModel_0.experts_kernel"}:
+        raise AssertionError(f"data_parallel: split parameters {runs['model_1x2']['split']}")
+    mesh_eval = ranks[0]["eval"]["scores"]
+    eval_gaps = {k: abs(mesh_eval[k] - float(one_eval[k])) for k in EVAL_METRICS}
+    if ranks[1]["eval"]["scores"] is not None or max(eval_gaps.values()) > DP_EVAL_GATE:
+        raise AssertionError(f"data_parallel: eval over two ranks {mesh_eval} against one process {one_eval}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "data_parallel", "nvidia_smi": smi, "kernel_offset_checks": kernel_checks,
+          "nccl_one_rank": {"B": DP_BATCH, "steps": DP_STEPS, "bit_identical": True, "losses": plain_losses,
+                            "videos_per_s_plain": rates["plain"], "videos_per_s_mesh": rates["mesh"],
+                            "seconds": seconds_a},
+          "gloo_two_ranks_check_only": {**runs, "loss_gate": DP_LOSS_GATE, "param_gate": DP_PARAM_GATE},
+          "eval_model_parallel_2": {"scores": mesh_eval, "one_process": {k: float(one_eval[k]) for k in EVAL_METRICS},
+                                    "max_gap": max(eval_gaps.values()), "gate": DP_EVAL_GATE,
+                                    "seconds_check_only": ranks[0]["eval"]["seconds"],
+                                    "one_process_seconds": one_eval_s},
+          "train_cli_torchrun_1": {"flags": DP_TRAIN_CLI_FLAGS, "ok": True},
+          "subprocess_seconds": seconds_b, "seconds": seconds})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -4195,6 +4530,10 @@ def main() -> int:
         for name, n in phase_eval_e2e(dev, workdir, smi).items():
             launches[name] = launches.get(name, 0) + n
     done("eval_e2e")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as workdir:
+        for name, n in phase_data_parallel(dev, workdir, smi).items():
+            launches[name] = launches.get(name, 0) + n
+    done("data_parallel")
     emit({"phase": "seconds", **seconds, "total": clock[-1] - clock[0]})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
@@ -4210,4 +4549,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--data-parallel-worker":
+        sys.exit(data_parallel_worker(sys.argv[2]))
     sys.exit(main())

@@ -3,10 +3,9 @@ flags.py``), with its defaults and help, for the port's argparse CLIs, and
 the input source they select (:func:`input_iterator`).
 
 A JAX command line parses in the port's inference, eval and train CLIs:
-each defines every name below plus its JAX CLI's own flags.  A flag that a CLI
-does not port yet (the mesh's) raises, naming its ROADMAP.md queue-1 item,
-when it is set off its default (:func:`refuse_not_ported`); one that the JAX
-CLI reads nowhere on that path (the training schedule at inference,
+each defines every name below plus its JAX CLI's own flags, and every flag
+is ported (the mesh's through ``parallel/mesh.py``).  One that the JAX CLI
+reads nowhere on that path (the training schedule at inference,
 ``--num_gpu`` everywhere) is accepted and has no effect there either.  The
 defaults are the JAX package's.  This is a copy: the port imports nothing
 of the JAX package.
@@ -16,11 +15,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping
 
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig
 from learnablepoolingmethods_torch.data import grain_pipeline, packed_cache, pipeline
 from learnablepoolingmethods_torch.data.readers import make_reader
+from learnablepoolingmethods_torch.parallel.mesh import pad_batch_to_multiple
 from learnablepoolingmethods_torch.utils.misc import add_bool_flag
 
 # name → (default, help), in flags.py's order; a bool default makes an
@@ -106,15 +106,6 @@ FLAGS_PY: Dict[str, tuple] = {
     "fused_adam": (False, "bf16 params updated with stochastic rounding, no fp32 master."),
 }
 
-# flags of the parts whose port is queued → ROADMAP.md queue-1 item
-_MESH_ITEMS = dict.fromkeys(("model_parallelism", "dcn_parallelism"), 15)
-
-# what each CLI does not port yet → ROADMAP.md queue-1 item
-INFERENCE_NOT_PORTED: Dict[str, Union[int, str]] = dict(_MESH_ITEMS)
-EVAL_NOT_PORTED: Dict[str, Union[int, str]] = dict(_MESH_ITEMS)
-TRAIN_NOT_PORTED: Dict[str, Union[int, str]] = dict(_MESH_ITEMS)
-
-
 def add_flag(parser: argparse.ArgumentParser, name: str, default, help: str) -> None:
     """``--name`` of ``default``'s type; a bool an absl-style boolean."""
     if isinstance(default, bool):
@@ -123,26 +114,12 @@ def add_flag(parser: argparse.ArgumentParser, name: str, default, help: str) -> 
         parser.add_argument(f"--{name}", type=type(default), default=default, help=help)
 
 
-def add_flags(parser: argparse.ArgumentParser, own: Mapping[str, tuple],
-              not_ported: Mapping[str, Union[int, str]]) -> argparse.ArgumentParser:
+def add_flags(parser: argparse.ArgumentParser, own: Mapping[str, tuple]) -> argparse.ArgumentParser:
     """Define a CLI's ``own`` flags (name → (default, help)), then every
-    name of :data:`FLAGS_PY`; the help of each flag in ``not_ported`` says
-    that it raises when set."""
+    name of :data:`FLAGS_PY`."""
     for name, (default, help) in {**own, **FLAGS_PY}.items():
-        if name in not_ported:
-            help = f"{help} Not ported yet (ROADMAP item {not_ported[name]}): raises if set."
         add_flag(parser, name, default, help)
     return parser
-
-
-def refuse_not_ported(args: argparse.Namespace, not_ported: Mapping[str, Union[int, str]],
-                      defaults: Mapping[str, object], cli: str) -> None:
-    """Raise NotImplementedError for the first flag of ``not_ported`` that
-    ``args`` sets off its default (``defaults``: name → default)."""
-    for name, item in not_ported.items():
-        if getattr(args, name) != defaults[name]:
-            raise NotImplementedError(
-                f"--{name} is not ported to the PyTorch {cli} yet: ROADMAP item {item}")
 
 
 def model_config_from_args(args: argparse.Namespace, **overrides) -> ModelConfig:
@@ -167,7 +144,8 @@ def input_iterator(args: argparse.Namespace, fcfg: FeatureConfig, data_pattern: 
     shards wait for it), else ``--use_grain`` (``--grain_worker_count``
     worker processes; the last batch zero-padded to ``batch_size`` with
     weight 0 rows), else the streaming Python reader.  One process reads
-    shard 0 of 1; ``shard_index``/``num_shards`` give a process its share."""
+    shard 0 of 1; ``shard_index``/``num_shards`` give a node its share
+    (``parallel/mesh.py#Mesh.input_shard``)."""
     if args.packed_cache_dir and args.use_grain:
         raise ValueError("--packed_cache_dir and --use_grain are exclusive")
     if args.packed_cache_dir:
@@ -187,7 +165,7 @@ def input_iterator(args: argparse.Namespace, fcfg: FeatureConfig, data_pattern: 
             worker_count=args.grain_worker_count, shard_index=shard_index, num_shards=num_shards,
             feature_sizes=fcfg.feature_sizes, feature_names=fcfg.feature_names,
             num_classes=args.num_classes, max_frames=fcfg.max_frames)
-        return (pipeline.pad_batch_to_multiple(b, batch_size) for b in batches)
+        return (pad_batch_to_multiple(b, batch_size) for b in batches)
     return pipeline.batch_iterator(make_reader(fcfg, args.num_classes), data_pattern, batch_size,
                                    num_epochs=num_epochs, shuffle=shuffle, seed=seed,
                                    shard_index=shard_index, num_shards=num_shards)

@@ -39,26 +39,60 @@ package's ``with_fp32_master``): the chain runs in f32 on an f32 master
 copy, whose leaves are ``master/<param>`` and the chain's ``inner/…``.
 ``--fused_adam`` is ``ops/fused_adam.py#FusedAdam`` (Adam only): ``count``,
 ``m/<param>`` and ``nu/<param>``.
+
+A parameter that holds this rank's columns of a matrix split over a model
+group (``parallel/mesh.py#shard_model``) keeps state of its shape, and every
+reduction over the whole tensor sums over the group: the clip's norm, and
+Adafactor's row and column means, its update's RMS and the parameter's RMS.
+:meth:`Optimizer.state_shards` says which state a checkpoint gathers.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from learnablepoolingmethods_torch.config import TrainingConfig
+from learnablepoolingmethods_torch.parallel.collectives import ColumnShard, all_reduce_, column_shard, sum_sharded
 
 
-def clip_gradient_norms(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    """Per-tensor clip: g · min(1, max_norm / max(‖g‖, 1e-20)), ‖g‖ in f32."""
+def clip_gradient_norms(grads: Sequence[torch.Tensor], max_norm: float,
+                        shards: Optional[Sequence[Optional[ColumnShard]]] = None) -> List[torch.Tensor]:
+    """Per-tensor clip: g · min(1, max_norm / max(‖g‖, 1e-20)), ‖g‖ in f32;
+    the Σg² of a gradient with a ``shards`` entry summed over its group."""
+    sumsq = [torch.sum(torch.square(g.float())) for g in grads]
+    if shards is not None and any(s is not None for s in shards):
+        group = next(s.group for s in shards if s is not None)
+        sumsq = sum_sharded(sumsq, [s is not None for s in shards], group)
     out = []
-    for g in grads:
-        norm = torch.sqrt(torch.sum(torch.square(g.float())))
+    for g, sq in zip(grads, sumsq):
+        norm = torch.sqrt(sq)
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-20), max=1.0)
         out.append((g * scale).to(g.dtype))
     return out
+
+
+def global_shape(p: torch.Tensor) -> Tuple[int, ...]:
+    """The whole tensor's shape of a parameter or of its column shard."""
+    shard = column_shard(p)
+    return tuple(p.shape) if shard is None else tuple(p.shape[:-1]) + (shard.full,)
+
+
+def _mean(t: torch.Tensor, dim: int, shard: Optional[ColumnShard], split_dim: Optional[int]) -> torch.Tensor:
+    """torch.mean(t, dim), over the whole axis when ``dim`` is the axis
+    ``split_dim`` that ``shard``'s group splits."""
+    if shard is None or dim != split_dim:
+        return torch.mean(t, dim=dim)
+    return all_reduce_(torch.sum(t, dim=dim), shard.group) / shard.full
+
+
+def _mean_all(t: torch.Tensor, shard: Optional[ColumnShard]) -> torch.Tensor:
+    """torch.mean over every entry of the whole tensor."""
+    if shard is None:
+        return torch.mean(t)
+    return all_reduce_(torch.sum(t), shard.group) / (t.numel() * shard.size)
 
 
 def learning_rate_schedule(cfg: TrainingConfig) -> Callable[[int], float]:
@@ -94,6 +128,7 @@ class Optimizer:
                         for i, item in enumerate(named_params)]
         self.names = [name.replace(".", "/") for name, _ in named_params]
         self.params = [p for _, p in named_params]
+        self.shards = [column_shard(p) for p in self.params]
         self.clip_norm = cfg.clip_gradient_norm
         self.schedule = learning_rate_schedule(cfg)
         self.count = 0
@@ -106,9 +141,15 @@ class Optimizer:
     def _update(self, i: int, p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
         raise NotImplementedError
 
+    def slot_shard(self, slot: str, i: int) -> Optional[ColumnShard]:
+        """The ColumnShard along the last axis of parameter i's state
+        ``slot``, or None when the rank holds it whole: a slot of the
+        parameter's shape is split as the parameter is."""
+        return self.shards[i]
+
     def _each_update(self, grads):
         if self.clip_norm > 0:
-            grads = clip_gradient_norms(grads, self.clip_norm)
+            grads = clip_gradient_norms(grads, self.clip_norm, self.shards)
         lr = self.schedule(self.count)
         for i, (p, g) in enumerate(zip(self.params, grads)):
             yield p, self._update(i, p, g.float(), lr)
@@ -125,6 +166,14 @@ class Optimizer:
 
     def _prefix(self) -> str:
         return "1/" if self.clip_norm > 0 else "0/"
+
+    def state_shards(self) -> Dict[str, ColumnShard]:
+        """The leaves of :meth:`state_tree` that hold this rank's columns,
+        with their ColumnShard."""
+        prefix = self._prefix()
+        return {f"{prefix}{slot}/{name}": self.slot_shard(slot, i)
+                for slot in self.slots for i, name in enumerate(self.names)
+                if self.slot_shard(slot, i) is not None}
 
     def state_tree(self) -> Dict[str, torch.Tensor]:
         """Every state leaf under its path in the JAX ``opt_state`` (module
@@ -271,7 +320,8 @@ class Adafactor(Optimizer):
     def _slots(self):
         def shape_of(slot):
             def init(p):
-                dims = factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+                shape = global_shape(p)
+                dims = factored_dims(shape, self.min_dim_size_to_factor)
                 if dims is None:
                     shape = tuple(p.shape) if slot == "v" else (1,)
                 elif slot == "v":
@@ -284,29 +334,52 @@ class Adafactor(Optimizer):
 
         return {f"0/{slot}": shape_of(slot) for slot in ("v_row", "v_col", "v")}
 
+    def slot_shard(self, slot, i):
+        """v of an unfactored leaf is split as its parameter; v_row and v_col
+        are split while they keep the parameter's split last axis."""
+        shard = self.shards[i]
+        if shard is None:
+            return None
+        p = self.params[i]
+        dims = factored_dims(global_shape(p), self.min_dim_size_to_factor)
+        last = p.dim() - 1
+        if dims is None:
+            return shard if slot == "0/v" else None
+        if slot == "0/v":
+            return None
+        return shard if (dims[1] if slot == "0/v_row" else dims[0]) != last else None
+
     def _update(self, i, p, g, lr):
         t = np.float32(self.count + 1)
         rho = np.float32(1.0) - t ** np.float32(-self.decay_rate)
         one_minus = float(np.float32(1.0) - rho)
         rho = float(rho)
         grad_sqr = g * g + self.eps
-        dims = factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+        shard = self.shards[i]
+        last = p.dim() - 1
+        dims = factored_dims(global_shape(p), self.min_dim_size_to_factor)
         if dims is not None:
             d1, d0 = dims
             v_row, v_col = self.slots["0/v_row"][i], self.slots["0/v_col"][i]
-            v_row.copy_(rho * v_row + one_minus * grad_sqr.mean(dim=d0))
-            v_col.copy_(rho * v_col + one_minus * grad_sqr.mean(dim=d1))
+            v_row.copy_(rho * v_row + one_minus * _mean(grad_sqr, d0, shard, last))
+            v_col.copy_(rho * v_col + one_minus * _mean(grad_sqr, d1, shard, last))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            # v_row lost d0: the split axis is its last unless d0 was
+            row_split = last - 1 if d0 != last else None
+            if shard is None or reduced_d1 != row_split:
+                row_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            else:
+                row_mean = all_reduce_(torch.sum(v_row, dim=reduced_d1, keepdim=True), shard.group) / shard.full
+            row_factor = (v_row / row_mean) ** -0.5
             col_factor = v_col ** -0.5
             u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
         else:
             v = self.slots["0/v"][i]
             v.copy_(rho * v + one_minus * grad_sqr)
             u = g * v ** -0.5
-        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.clipping_threshold, min=1.0)
+        u = u / torch.clamp(torch.sqrt(_mean_all(u * u, shard)) / self.clipping_threshold, min=1.0)
         u = lr * u
-        rms = torch.sqrt(torch.mean(torch.square(p.float())))
+        rms = torch.sqrt(_mean_all(torch.square(p.float()), shard))
         u = u * torch.where(rms <= self.min_scale, torch.full_like(rms, self.min_scale), rms)
         return -1 * u
 
@@ -327,7 +400,18 @@ class Fp32Master:
         self.names = [name.replace(".", "/") for name, _ in named_params]
         self.params = [p for _, p in named_params]
         self.master = [p.detach().float().clone() for p in self.params]
+        for p, m in zip(self.params, self.master):
+            if column_shard(p) is not None:
+                m.column_shard = column_shard(p)
         self.inner = inner(list(zip(self.names, self.master)))
+
+    def state_shards(self) -> Dict[str, ColumnShard]:
+        """``master/<param>`` is split as its parameter, ``inner/…`` as the
+        chain's state."""
+        out = {f"master/{name}": column_shard(p) for name, p in zip(self.names, self.params)
+               if column_shard(p) is not None}
+        out.update({f"inner/{name}": shard for name, shard in self.inner.state_shards().items()})
+        return out
 
     @property
     def count(self) -> int:

@@ -44,6 +44,19 @@ The port gathers a sampling model's uint8 rows in the step and builds the
 model ``presampled``, which is exact: dequantize and ℓ2 are per frame and
 the BN runs after sampling.  Video-level input is never sampled.
 
+On a mesh (``TrainStep(..., mesh=...)``, ``parallel/mesh.py``) the batch
+holds this rank's rows of the global batch (``parallel/mesh.py#local_batch``)
+and the step computes the single-device step of the global batch:
+
+- the loss divides Σ(w·ℓ) by the global Σw (clamped to at least 1);
+- the model's BatchNorms take their statistics over the data group;
+- frames are drawn over the global batch's shape, this rank's rows of the
+  draw (``row_offset``), and so are the transformers' dropout masks;
+- the gradients are summed in f32 over the data group before the
+  per-tensor clip, and the regularization term enters the gradient on the
+  ranks of data index 0 only, so it counts once;
+- the reported loss is the global one.
+
 The eval and predict steps run the model with ``training=False`` (no
 dropout).  The JAX CLIs give the flax model ``rngs={"sampling":
 fold_in(key(0), batch)}``, so a sampling model draws from
@@ -68,6 +81,7 @@ from learnablepoolingmethods_torch.models.model_utils import sample_frame_featur
 from learnablepoolingmethods_torch.ops.metrics_ops import batch_topk_partials
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
+from learnablepoolingmethods_torch.parallel.collectives import all_reduce_, column_shard
 from learnablepoolingmethods_torch.utils import prng
 from learnablepoolingmethods_torch.utils.quantization import dequantize
 
@@ -88,7 +102,9 @@ def regularization_loss(
 ) -> torch.Tensor:
     """Slim-style L2, penalty · ½·Σ‖w‖², over the classifier-head kernels
     (the MoE gates and experts kernels at ``moe_l2``, a ``fc`` kernel at
-    ``l2_penalty``), or every matrix with ``all_kernels``."""
+    ``l2_penalty``), or every matrix with ``all_kernels``.  The ‖w‖² of a
+    column shard is the whole matrix's (its group's sum), and its gradient
+    is this rank's columns' own."""
     moe_l2 = l2_penalty if moe_l2 is None else moe_l2
     sq = 0.0
     if l2_penalty > 0 or moe_l2 > 0:
@@ -97,15 +113,39 @@ def regularization_loss(
             if p.dim() < 2:
                 continue
             if keys[-1] in _HEAD_KERNEL_NAMES:
-                sq = sq + moe_l2 * torch.sum(torch.square(p.float()))
+                penalty = moe_l2
             elif all_kernels or keys[-2:] == ["fc", "kernel"]:
-                sq = sq + l2_penalty * torch.sum(torch.square(p.float()))
+                penalty = l2_penalty
+            else:
+                continue
+            norm_sq = torch.sum(torch.square(p.float()))
+            shard = column_shard(p)
+            if shard is not None:
+                norm_sq = norm_sq + (all_reduce_(norm_sq.detach().clone(), shard.group) - norm_sq.detach())
+            sq = sq + penalty * norm_sq
     return 0.5 * torch.as_tensor(sq, dtype=torch.float32)
 
 
-def weighted_mean(per_example: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def weighted_mean(per_example: torch.Tensor, weights: torch.Tensor,
+                  total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Σ(w·ℓ) / max(Σw, 1); with ``total_weight``, the global batch's Σw
+    in place of these rows' (a rank's share of the global mean)."""
     w = weights.float()
-    return torch.sum(per_example.float() * w) / torch.clamp(torch.sum(w), min=1.0)
+    total = torch.sum(w) if total_weight is None else total_weight
+    return torch.sum(per_example.float() * w) / torch.clamp(total, min=1.0)
+
+
+def all_reduce_gradients(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """Σ of each gradient over ``group``, in f32 in one all-reduce, cast back
+    to each gradient's dtype."""
+    if group is None:
+        return grads
+    flat = all_reduce_(torch.cat([g.reshape(-1).float() for g in grads]), group)
+    out, start = [], 0
+    for g in grads:
+        out.append(flat[start:start + g.numel()].reshape(g.shape).to(g.dtype))
+        start += g.numel()
+    return out
 
 
 def gradient_taps(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -162,32 +202,50 @@ class TrainStep:
     frames."""
 
     def __init__(self, loss_obj: BaseLoss, tcfg: TrainingConfig, mcfg: ModelConfig,
-                 frame_features: bool):
+                 frame_features: bool, mesh=None):
         self.loss_obj, self.tcfg, self.mcfg = loss_obj, tcfg, mcfg
         self.frame_features = frame_features
         self.dtype = compute_dtype(mcfg)
         self.accum = max(1, int(tcfg.grad_accum_steps))
+        self.mesh = mesh
+        self.data_group = None if mesh is None else mesh.data_group
 
-    def frames(self, model, features, num_frames, sampling_key):
-        """The rows the model sees this step (module docstring)."""
+    def _row_offset(self, rows: int) -> int:
+        return 0 if self.mesh is None else self.mesh.row_offset(rows)
+
+    def _total_weight(self, weights: torch.Tensor) -> Optional[torch.Tensor]:
+        """The global batch's Σw on a mesh of more than one row block."""
+        if self.data_group is None:
+            return None
+        return all_reduce_(torch.sum(weights.float()), self.data_group)
+
+    def _counts_reg(self) -> bool:
+        return self.mesh is None or self.mesh.data_index == 0
+
+    def frames(self, model, features, num_frames, sampling_key, row_offset: int = 0):
+        """The rows the model sees this step (module docstring); the draw's
+        rows from ``row_offset``, the global index of the first."""
         mcfg = self.mcfg
         if not self.frame_features:
             return features
         if model.samples_frames and not mcfg.presampled:
             raise ValueError("the train step samples frames itself: build the model with presampled=True")
         if self.tcfg.presample_frames:
-            return sample_frame_features(features, num_frames, mcfg.iterations, sampling_key)
+            return sample_frame_features(features, num_frames, mcfg.iterations, sampling_key, row_offset)
         if model.samples_frames:
             return sample_model_input(features, num_frames, mcfg.iterations,
-                                      prng.flax_make_rng(sampling_key), mcfg.sample_random_frames)
+                                      prng.flax_make_rng(sampling_key), mcfg.sample_random_frames, row_offset)
         return features
 
-    def forward(self, model, features, num_frames, dropout_key=None) -> Dict[str, torch.Tensor]:
+    def forward(self, model, features, num_frames, dropout_key=None, row_offset: int = 0
+                ) -> Dict[str, torch.Tensor]:
         """The model in training mode on the step's rows, given
-        ``dropout_key`` if it takes one; under ``--use_remat`` inside a
-        checkpoint whose recompute leaves the BN statistics alone."""
+        ``dropout_key`` and ``row_offset`` if it takes them; under
+        ``--use_remat`` inside a checkpoint whose recompute leaves the BN
+        statistics alone.  ``row_offset`` keys the dropout masks (module
+        docstring)."""
         x = preprocess_input(features, self.dtype)
-        kwargs = {"dropout_key": dropout_key} if model.takes_dropout_key else {}
+        kwargs = {"dropout_key": dropout_key, "row_offset": row_offset} if model.takes_dropout_key else {}
         if not self.tcfg.use_remat:
             return model(x, num_frames, training=True, **kwargs)
         calls = []
@@ -215,12 +273,15 @@ class TrainStep:
                              "call the step")
         sampling_key, dropout_key = prng.split(prng.fold_in(key, state.step))
         num_frames = batch.get("num_frames") if self.frame_features else None
-        features = self.frames(state.model, batch["features"], num_frames, sampling_key)
+        offset = self._row_offset(batch["features"].shape[0])
+        features = self.frames(state.model, batch["features"], num_frames, sampling_key, offset)
         weights = self._weights(batch, features.shape[0], features.device)
-        predictions = self.forward(state.model, features, num_frames, dropout_key)["predictions"]
+        predictions = self.forward(state.model, features, num_frames, dropout_key, offset)["predictions"]
         per_ex = self.loss_obj.calculate_per_example_loss(predictions, batch["labels"].float())
-        label_loss = weighted_mean(per_ex, weights)
+        label_loss = weighted_mean(per_ex, weights, self._total_weight(weights))
         reg = self._reg(state.model).to(label_loss.device)
+        if not self._counts_reg():
+            return label_loss, label_loss, reg, predictions
         total = label_loss + self.tcfg.regularization_penalty * reg
         return total, label_loss, reg, predictions
 
@@ -237,14 +298,16 @@ class TrainStep:
         num_frames = batch.get("num_frames") if self.frame_features else None
         weights = self._weights(batch, b, features.device).float()
         labels = batch["labels"].float()
-        w_total = torch.clamp(torch.sum(weights), min=1.0)
+        total_weight = self._total_weight(weights)
+        w_total = torch.clamp(torch.sum(weights) if total_weight is None else total_weight, min=1.0)
+        offset = self._row_offset(mb)
         grads32, dtypes, preds = None, None, []
         label_loss = torch.zeros((), dtype=torch.float32, device=features.device)
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
             nfs = None if num_frames is None else num_frames[sl]
-            rows = self.frames(model, features[sl], nfs, prng.fold_in(sampling_key, i))
-            predictions = self.forward(model, rows, nfs, prng.fold_in(dropout_key, i))["predictions"]
+            rows = self.frames(model, features[sl], nfs, prng.fold_in(sampling_key, i), offset)
+            predictions = self.forward(model, rows, nfs, prng.fold_in(dropout_key, i), offset)["predictions"]
             per_ex = self.loss_obj.calculate_per_example_loss(predictions, labels[sl])
             label_i = torch.sum(per_ex.float() * weights[sl]) / w_total
             g = gradients(label_i, model)
@@ -257,39 +320,44 @@ class TrainStep:
             label_loss = label_loss + label_i.detach()
             preds.append(predictions.detach())
         reg = self._reg(model).to(label_loss.device)
-        if reg.requires_grad:
+        if reg.requires_grad and self._counts_reg():
             for acc, t in zip(grads32, gradients(reg, model)):
                 acc.add_(penalty * t.float())
         reg = reg.detach()
+        grads32 = all_reduce_gradients(grads32, self.data_group)
         grads = [t.to(dt) for t, dt in zip(grads32, dtypes)]
         return grads, label_loss + penalty * reg, label_loss, reg, torch.cat(preds, dim=0)
 
     def __call__(self, state: TrainState, batch, key) -> Dict[str, torch.Tensor]:
         if self.accum == 1:
             total, label_loss, reg, predictions = self.loss(state, batch, key)
-            grads = gradients(total, state.model)
+            grads = all_reduce_gradients(gradients(total, state.model), self.data_group)
         else:
             grads, total, label_loss, reg, predictions = self.accumulated(state, batch, key)
+        if self.data_group is not None:
+            label_loss = all_reduce_(label_loss.detach().clone(), self.data_group)
+            total = label_loss + self.tcfg.regularization_penalty * reg.detach()
         state.apply_gradients(grads)
         return {"loss": total.detach(), "label_loss": label_loss.detach(),
                 "reg_loss": reg.detach(), "predictions": predictions.detach()}
 
 
 def inference_forward(model, mcfg: ModelConfig, frame_features: bool):
-    """``fn(features, num_frames=None, key=None) -> predictions``: the
-    model's forward with ``training=False`` as ``model.apply(...,
-    rngs={"sampling": key})`` runs the flax model (without ``key`` flax
-    draws from ``key(0)`` itself)."""
+    """``fn(features, num_frames=None, key=None, row_offset=0) ->
+    predictions``: the model's forward with ``training=False`` as
+    ``model.apply(..., rngs={"sampling": key})`` runs the flax model
+    (without ``key`` flax draws from ``key(0)`` itself); ``row_offset``: the
+    global index of the first row, on a mesh."""
     dtype = compute_dtype(mcfg)
     samples = frame_features and mcfg.presampled
 
-    def forward(features, num_frames=None, key=None):
+    def forward(features, num_frames=None, key=None, row_offset: int = 0):
         if not frame_features:
             num_frames = None
         if samples:
             sampling_key = prng.key(0) if key is None else prng.flax_make_rng(key)
             features = sample_model_input(features, num_frames, mcfg.iterations, sampling_key,
-                                          mcfg.sample_random_frames)
+                                          mcfg.sample_random_frames, row_offset)
         with torch.no_grad():
             return model(preprocess_input(features, dtype), num_frames, training=False)["predictions"]
 
@@ -317,8 +385,8 @@ def make_eval_step(model, loss_obj: BaseLoss, mcfg: ModelConfig, frame_features:
     device; ``key`` is the batch's sampling key."""
     forward = inference_forward(model, mcfg, frame_features)
 
-    def eval_step(batch, key=None):
-        predictions = forward(batch["features"], batch.get("num_frames"), key)
+    def eval_step(batch, key=None, row_offset: int = 0):
+        predictions = forward(batch["features"], batch.get("num_frames"), key, row_offset)
         return eval_outputs(predictions, batch, loss_obj, top_k)
 
     return eval_step
@@ -330,8 +398,8 @@ def make_predict_step(model, mcfg: ModelConfig, frame_features: bool, top_k: int
     top-k (ref: core/step.py#make_predict_step)."""
     forward = inference_forward(model, mcfg, frame_features)
 
-    def predict_step(features, num_frames=None, key=None):
-        predictions = forward(features, num_frames, key).float()
+    def predict_step(features, num_frames=None, key=None, row_offset: int = 0):
+        predictions = forward(features, num_frames, key, row_offset).float()
         return top_k_exact(predictions, min(top_k, predictions.shape[-1]))
 
     return predict_step

@@ -451,12 +451,14 @@ def flax_to_state_dict(tree_np: Tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def state_dict_to_flax(model: torch.nn.Module, keep_bf16: bool = False) -> Tree:
+def state_dict_to_flax(model: torch.nn.Module, keep_bf16: bool = False, params=None) -> Tree:
     """The inverse of :func:`flax_to_state_dict`: a model's parameters under
     ``params`` and its buffers (BN statistics) under ``batch_stats``, as
     nested dicts of float32 NumPy arrays in the flax layout; with
     ``keep_bf16`` a bf16 tensor stays bf16, as its bits in a
-    ``flax_msgpack.BFloat16Bits`` (what an export writes)."""
+    ``flax_msgpack.BFloat16Bits`` (what an export writes).  ``params``
+    ((name, tensor) pairs) stands in for ``model.named_parameters()``, e.g.
+    the whole tensors of a model split over a mesh."""
 
     def leaf(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
@@ -467,7 +469,8 @@ def state_dict_to_flax(model: torch.nn.Module, keep_bf16: bool = False) -> Tree:
     def tree(named):
         return _unflatten({name.replace(".", "/"): leaf(t) for name, t in named})
 
-    return {"params": tree(model.named_parameters()), "batch_stats": tree(model.named_buffers())}
+    named = model.named_parameters() if params is None else params
+    return {"params": tree(named), "batch_stats": tree(model.named_buffers())}
 
 
 def load_flax_variables(model: torch.nn.Module, tree_np: Tree) -> torch.nn.Module:

@@ -18,7 +18,9 @@
 //
 // y[r·P + m] = op(x[r·P + m], keep[m]) for every row r < rows and mask index
 // m < P: P = the mask's size (x's size for mode 0, F·F for the attention
-// weights [B, H, F, F], rows = B·H).
+// weights [B, H, F, F], rows = B·H).  keep[m] hashes index offset + m: a rank
+// of a mesh that holds rows R … of the global batch passes R·(the mask's
+// size a row), so its mask is its share of the global mask, bit for bit.
 //
 // What bounds it: the bytes, read x once and write y once (2 × 157 MB for
 // the FFN output of config 5 at B=256, F=300, D=1024 in bf16, about 0.094
@@ -71,13 +73,13 @@ __device__ __forceinline__ float drop(float x, bool keep, float scale, int mode)
 template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows, long long period,
-               uint32_t k0, uint32_t k1, float keep_prob, float scale, int mode) {
+               uint32_t k0, uint32_t k1, float keep_prob, float scale, int mode, long long offset) {
   const long long m0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kVec;
   if (m0 >= period) return;
   bool keep[kVec];
 #pragma unroll
   for (int j = 0; j < kVec; ++j)
-    keep[j] = m0 + j < period && threefry_uniform(k0, k1, m0 + j) < keep_prob;
+    keep[j] = m0 + j < period && threefry_uniform(k0, k1, offset + m0 + j) < keep_prob;
   for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
     const long long base = r * period + m0;
     if (kAligned) {
@@ -113,7 +115,7 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows, long 
 
 template <typename T>
 int launch(const void* x, void* y, long long rows, long long period, uint32_t k0, uint32_t k1,
-           float keep_prob, float scale, int mode, cudaStream_t s) {
+           float keep_prob, float scale, int mode, long long offset, cudaStream_t s) {
   const long long per_block = (long long)kThreads * kVec;
   const long long gx = (period + per_block - 1) / per_block;
   if (gx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -127,10 +129,10 @@ int launch(const void* x, void* y, long long rows, long long period, uint32_t k0
   T* yt = static_cast<T*>(y);
   if (aligned)
     dropout_kernel<T, true><<<grid, kThreads, 0, s>>>(xt, yt, rows, period, k0, k1, keep_prob,
-                                                      scale, mode);
+                                                      scale, mode, offset);
   else
     dropout_kernel<T, false><<<grid, kThreads, 0, s>>>(xt, yt, rows, period, k0, k1, keep_prob,
-                                                       scale, mode);
+                                                       scale, mode, offset);
   return (int)cudaGetLastError();
 }
 
@@ -144,11 +146,13 @@ extern "C" {
 // (k0, k1): the key's words; keep_prob: f32(1 − rate); scale: keep_prob in
 // x's dtype (mode 0) or 1 / that in x's dtype (mode 1), widened to f32.
 int lpm_dropout(const void* x, void* y, long long rows, long long period, unsigned int k0,
-                unsigned int k1, float keep_prob, float scale, int mode, int bf16, void* stream) {
+                unsigned int k1, float keep_prob, float scale, int mode, int bf16, long long offset,
+                void* stream) {
   if (rows <= 0 || period <= 0) return 0;
+  if (offset < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(x, y, rows, period, k0, k1, keep_prob, scale, mode, s);
-  return launch<float>(x, y, rows, period, k0, k1, keep_prob, scale, mode, s);
+  if (bf16) return launch<__nv_bfloat16>(x, y, rows, period, k0, k1, keep_prob, scale, mode, offset, s);
+  return launch<float>(x, y, rows, period, k0, k1, keep_prob, scale, mode, offset, s);
 }
 
 }  // extern "C"

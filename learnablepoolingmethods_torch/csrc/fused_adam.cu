@@ -122,9 +122,19 @@ __device__ __forceinline__ float tree_sum(float x, float* red) {
   return v;  // valid in thread 0
 }
 
+// min(1, clip / max(√sumsq, 1e-20)) with NaN carried through, as
+// jnp.maximum and jnp.minimum carry it (fmaxf and fminf drop it)
+__device__ __forceinline__ float clip_scale(float sumsq, float clip) {
+  const float norm = sqrtf(sumsq);
+  const float q = clip / (norm != norm ? norm : fmaxf(norm, 1e-20f));
+  return q != q ? q : fminf(1.0f, q);
+}
+
+// scales[leaf] = the leaf's clip scale, or with out_sumsq its Σg² itself
 __global__ void __launch_bounds__(kThreads)
 norm_kernel(const Leaf* __restrict__ leaves, int n_leaves, float* __restrict__ partials,
-            unsigned int* __restrict__ counters, float* __restrict__ scales, float clip) {
+            unsigned int* __restrict__ counters, float* __restrict__ scales, float clip,
+            int out_sumsq) {
   __shared__ float red[kThreads];
   __shared__ int last;
   const long long chunk = blockIdx.x;
@@ -165,11 +175,7 @@ norm_kernel(const Leaf* __restrict__ leaves, int n_leaves, float* __restrict__ p
   }
   const float sumsq = tree_sum(s, red);
   if (threadIdx.x == 0) {
-    // min(1, clip / max(norm, 1e-20)) with NaN carried through, as
-    // jnp.maximum and jnp.minimum carry it (fmaxf and fminf drop it)
-    const float norm = sqrtf(sumsq);
-    const float q = clip / (norm != norm ? norm : fmaxf(norm, 1e-20f));
-    scales[li] = q != q ? q : fminf(1.0f, q);
+    scales[li] = out_sumsq ? sumsq : clip_scale(sumsq, clip);
     counters[li] = 0u;  // ready for the next step
   }
 }
@@ -187,11 +193,12 @@ struct Consts {
 
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const Leaf* __restrict__ leaves, int n_leaves, const float* __restrict__ scales,
-              Consts k, int clip, int stochastic, uint2 key, uint32_t count) {
+              Consts k, int clip, float clip_norm, int in_sumsq, int stochastic, uint2 key,
+              uint32_t count) {
   const long long chunk = blockIdx.x;
   const int li = find_leaf(leaves, n_leaves, chunk);
   const Leaf leaf = leaves[li];
-  const float scale = clip ? scales[li] : 1.0f;
+  const float scale = !clip ? 1.0f : in_sumsq ? clip_scale(scales[li], clip_norm) : scales[li];
   const long long base = (chunk - leaf.chunk0) * kChunk;
   for (int r = 0; r < kRows; ++r) {
     const long long i0 = base + (long long)r * kThreads * kVec + threadIdx.x * kVec;
@@ -296,14 +303,41 @@ int lpm_fused_adam(const void* leaves, int n_leaves, long long n_chunks, void* p
   if (use_clip) {
     norm_kernel<<<(unsigned int)n_chunks, kThreads, 0, s>>>(
         table, n_leaves, static_cast<float*>(partials), static_cast<unsigned int*>(counters),
-        static_cast<float*>(scales), clip);
+        static_cast<float*>(scales), clip, 0);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   Consts k{lr, b1, omb1, b2, omb2, eps, c1, c2};
   const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
   update_kernel<<<(unsigned int)n_chunks, kThreads, 0, s>>>(
-      table, n_leaves, static_cast<const float*>(scales), k, use_clip, stochastic, key, count);
+      table, n_leaves, static_cast<const float*>(scales), k, use_clip, clip, 0, stochastic, key,
+      count);
+  return (int)cudaGetLastError();
+}
+
+// The two launches of lpm_fused_adam apart, for leaves split over ranks: the
+// norm launch writes each leaf's Σg² into sumsq [n_leaves], the caller sums
+// a split leaf's over its ranks, and the update launch forms each scale from
+// sumsq (clip > 0) as the norm launch would.
+int lpm_fused_adam_sumsq(const void* leaves, int n_leaves, long long n_chunks, void* partials,
+                         void* counters, void* sumsq, void* stream) {
+  if (n_chunks <= 0) return 0;
+  norm_kernel<<<(unsigned int)n_chunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Leaf*>(leaves), n_leaves, static_cast<float*>(partials),
+      static_cast<unsigned int*>(counters), static_cast<float*>(sumsq), 0.0f, 1);
+  return (int)cudaGetLastError();
+}
+
+int lpm_fused_adam_update(const void* leaves, int n_leaves, long long n_chunks, const void* sumsq,
+                          float clip, float lr, float b1, float omb1, float b2, float omb2,
+                          float eps, float c1, float c2, int stochastic, unsigned long long seed,
+                          unsigned int count, void* stream) {
+  if (n_chunks <= 0) return 0;
+  Consts k{lr, b1, omb1, b2, omb2, eps, c1, c2};
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  update_kernel<<<(unsigned int)n_chunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Leaf*>(leaves), n_leaves, static_cast<const float*>(sumsq), k, clip > 0.0f,
+      clip, 1, stochastic, key, count);
   return (int)cudaGetLastError();
 }
 

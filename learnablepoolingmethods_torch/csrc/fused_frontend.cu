@@ -22,7 +22,9 @@
 //    F−1, with U = jax.random.uniform(key, (B, S))[b, s] computed by the
 //    threefry2x32 hash of counter (0, b·S + s) (jax_threefry_partitionable;
 //    threefry.cuh), bit for bit the index that utils/prng.py and the JAX
-//    package draw.  The host passes only the key's two words; drawing U
+//    package draw.  A rank of a mesh that holds rows row_offset … of the
+//    global batch hashes counters (row_offset + b)·S + s, its rows' share
+//    of the global draw.  The host passes only the key's two words; drawing U
 //    there cost each batch host time the device then waited for (PERF.md).
 //  - Sampling is a direct gather: ℓ2 and BN act row by row, so normalising
 //    only the S sampled rows gives the same rows as normalising all F and
@@ -68,12 +70,12 @@ frontend_prep_kernel(const uint8_t* __restrict__ x, uint32_t k0, uint32_t k1,
                      const int32_t* __restrict__ num_frames,
                      const float* __restrict__ in_scale, const float* __restrict__ in_bias,
                      __nv_bfloat16* __restrict__ xs, long long rows, int F, int DT, int S,
-                     float deq_scale, float deq_bias) {
+                     float deq_scale, float deq_bias, long long draw0) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kPrepRows + (threadIdx.x >> 5);  // b·S + s
   if (row >= rows) return;
   const int b = (int)(row / S);
-  const int f = sample_frame(k0, k1, row, num_frames[b], F);
+  const int f = sample_frame(k0, k1, draw0 + row, num_frames[b], F);
   __nv_bfloat16* dst = xs + row * DT;
   const uint8_t* src = x + ((long long)b * F + f) * DT;
 
@@ -137,9 +139,10 @@ extern "C" int lpm_netvlad_frontend(
     const void* c_aud, const void* s_aud, const void* b_aud, const void* c2_aud,
     void* out_rgb, void* out_aud, void* ws_x, void* ws_a_rgb, void* ws_a_aud,
     void* ws_colsq_rgb, void* ws_colsq_aud, int B, int F, int DT, int S, int d_rgb,
-    int k_rgb, int d_aud, int k_aud, float deq_scale, float deq_bias, void* stream) {
+    int k_rgb, int d_aud, int k_aud, float deq_scale, float deq_bias, long long row_offset,
+    void* stream) {
   using bf16 = __nv_bfloat16;
-  if (B < 1 || F < 1 || S < 1 || d_rgb < 1 || d_aud < 1 || d_rgb + d_aud != DT)
+  if (B < 1 || F < 1 || S < 1 || d_rgb < 1 || d_aud < 1 || d_rgb + d_aud != DT || row_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -154,10 +157,10 @@ extern "C" int lpm_netvlad_frontend(
   bf16* xs = static_cast<bf16*>(ws_x);
   if (vec)
     lpm::frontend_prep_kernel<true><<<blocks, lpm::kPrepThreads, 0, st>>>(
-        xu, k0, k1, nf, isc, ibi, xs, rows, F, DT, S, deq_scale, deq_bias);
+        xu, k0, k1, nf, isc, ibi, xs, rows, F, DT, S, deq_scale, deq_bias, row_offset * S);
   else
     lpm::frontend_prep_kernel<false><<<blocks, lpm::kPrepThreads, 0, st>>>(
-        xu, k0, k1, nf, isc, ibi, xs, rows, F, DT, S, deq_scale, deq_bias);
+        xu, k0, k1, nf, isc, ibi, xs, rows, F, DT, S, deq_scale, deq_bias, row_offset * S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = lpm::run_netvlad<bf16>(

@@ -162,25 +162,6 @@ def native_batch_iterator(
         yield _collate(pending, pad_to=batch_size if pad_final_batch else None)
 
 
-def pad_batch_to_multiple(batch: dict, multiple: int) -> dict:
-    """Zero-pad the batch axis to a multiple of ``multiple``, the padded
-    rows' ``weights`` 0 and ``video_id`` b"" (ref:
-    parallel/mesh.py#pad_batch_to_multiple)."""
-    n = batch["features"].shape[0]
-    pad = -n % multiple
-    if pad == 0:
-        return batch
-    out = {}
-    for k, v in batch.items():
-        if k == "video_id":
-            out[k] = list(v) + [b""] * pad
-        elif hasattr(v, "shape") and v.ndim >= 1 and v.shape[0] == n:
-            out[k] = np.concatenate([v, np.zeros((pad,) + v.shape[1:], dtype=v.dtype)])
-        else:
-            out[k] = v
-    return out
-
-
 def _collate(records, pad_to: Optional[int]) -> Dict[str, np.ndarray]:
     n = len(records)
     total = pad_to or n

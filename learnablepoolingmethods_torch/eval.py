@@ -23,10 +23,19 @@ evaluates the latest step once.  A weights-only ``variables.npz``
 is step 0, and so is ``--reference_checkpoint``, a reference-trained TF
 checkpoint (``core/checkpoint_import.py``), evaluated once without a
 summary.  It takes every flag of the JAX eval CLI under its name and
-default (``cli_flags.py``; those of ``cli_flags.EVAL_NOT_PORTED`` raise
-when set); ``--device`` (default ``cuda``) is the port's own.  Batches come
-from the source the flags select (``cli_flags.input_iterator``:
-``--packed_cache_dir``, ``--use_grain`` or the streaming reader).
+default (``cli_flags.py``); ``--device`` (default ``cuda``) is the port's
+own.  Batches come from the source the flags select
+(``cli_flags.input_iterator``: ``--packed_cache_dir``, ``--use_grain`` or
+the streaming reader).
+
+Under ``torchrun`` on one node it runs over the node's ranks, as the JAX
+CLI runs over the host's chips (``parallel/mesh.py``): every rank reads
+the stream, pads each batch to a multiple of the ranks and runs the forward
+on its row block, with ``--model_parallelism`` ranks splitting the hidden
+FC and the MoE kernels (on both routes); the rows are gathered and rank 0
+alone accumulates the metrics and writes the summary.  Over more than one
+node it raises the JAX CLI's RuntimeError, and a mesh that does not match
+the ranks its ValueError.
 
     python -m learnablepoolingmethods_torch.eval --run_once \\
         --model=NetVLADModelLF --frame_features --feature_names=rgb,audio \\
@@ -53,9 +62,16 @@ from learnablepoolingmethods_torch.core.weights import convert_flax_variables
 from learnablepoolingmethods_torch.inference import load_model, load_tree
 from learnablepoolingmethods_torch.losses import get_loss_by_name
 from learnablepoolingmethods_torch.metrics import eval_util
-from learnablepoolingmethods_torch.ops.fast_dispatch import fast_path_models, get_fast_path, int8_capable_models
+from learnablepoolingmethods_torch.ops.fast_dispatch import (
+    fast_path_models,
+    get_fast_path,
+    int8_capable_models,
+    shard_fast_params,
+)
+from learnablepoolingmethods_torch.parallel import mesh as mesh_lib
+from learnablepoolingmethods_torch.parallel.collectives import broadcast_object, gather_rows
 from learnablepoolingmethods_torch.utils import prng
-from learnablepoolingmethods_torch.utils.misc import InFlight, resolve_device
+from learnablepoolingmethods_torch.utils.misc import InFlight
 
 log = logging.getLogger(__name__)
 
@@ -79,41 +95,48 @@ _OWN_FLAGS = {
 
 def build_parser() -> argparse.ArgumentParser:
     """Every flag of the JAX eval CLI (cli_flags.py), its defaults, and
-    --device; the flags of cli_flags.EVAL_NOT_PORTED raise when set."""
+    --device."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    return cli_flags.add_flags(p, _OWN_FLAGS, cli_flags.EVAL_NOT_PORTED)
+    return cli_flags.add_flags(p, _OWN_FLAGS)
 
 
-def _fast_eval_step(args, fcfg: FeatureConfig, mcfg, loss_obj, tree, device):
-    """``eval_step(batch, key)`` of ``--fast_forward``: the fast path's
-    probabilities, then the loss and partials of core/step.py#eval_outputs."""
+def _fast_forward(args, fcfg: FeatureConfig, mcfg, tree, device, mesh):
+    """``forward(batch, key, row_offset)`` → probabilities of
+    ``--fast_forward``: the fast path, its product weights split over the
+    mesh's model group."""
     if args.model not in fast_path_models():
         raise ValueError(f"--fast_forward supports {fast_path_models()}, got {args.model!r}")
     if not fcfg.frame_features:
         raise ValueError(f"--fast_forward with {args.model} needs --frame_features")
     path = get_fast_path(args.model)
+    if args.int8_hidden and mesh.model_size > 1:
+        raise ValueError("--int8_hidden with --model_parallelism > 1 is not supported (see inference.py)")
     fp = path.prepare(convert_flax_variables(tree, mcfg, args.model), mcfg, int8_hidden=args.int8_hidden,
                       device=device)
+    fp = shard_fast_params(fp, mesh)
     fast = path.build(mcfg, return_probs=True)
 
-    def eval_step(batch, key):
-        predictions = fast(fp, batch["features"], batch["num_frames"], key).float()
-        return step_lib.eval_outputs(predictions, batch, loss_obj, args.top_k)
+    def forward(batch, key, row_offset):
+        return fast(fp, batch["features"], batch["num_frames"], key, row_offset=row_offset).float()
 
-    return eval_step
+    return forward
 
 
-def evaluate_checkpoint(args, step_num: int, tree: dict, fcfg: FeatureConfig, loss_obj, device) -> dict:
+def evaluate_checkpoint(args, step_num: int, tree: dict, fcfg: FeatureConfig, loss_obj, device, mesh) -> dict:
     """One pass over ``--eval_data_pattern`` with the weights of ``tree``
-    (flax ``{params, batch_stats}``) → {avg_hit_at_one, avg_perr, avg_loss,
-    gap, aps}."""
+    (flax ``{params, batch_stats}``) over the ranks of ``mesh`` →
+    {avg_hit_at_one, avg_perr, avg_loss, gap, aps} on rank 0, None on the
+    other ranks."""
     if args.fast_forward:
         mcfg = cli_flags.model_config_from_args(args)
-        eval_step = _fast_eval_step(args, fcfg, mcfg, loss_obj, tree, device)
+        forward = _fast_forward(args, fcfg, mcfg, tree, device, mesh)
     else:
         model, mcfg = load_model(args, fcfg, device, tree)
-        eval_step = step_lib.make_eval_step(model, loss_obj, mcfg, fcfg.frame_features,
-                                            top_k=args.top_k)
+        mesh_lib.shard_model(model, mesh)
+        model_forward = step_lib.inference_forward(model, mcfg, fcfg.frame_features)
+
+        def forward(batch, key, row_offset):
+            return model_forward(batch["features"], batch.get("num_frames"), key, row_offset)
 
     use_fast = args.fast_eval
     if use_fast:
@@ -145,13 +168,24 @@ def evaluate_checkpoint(args, step_num: int, tree: dict, fcfg: FeatureConfig, lo
 
     for batch_idx, batch in enumerate(cli_flags.input_iterator(args, fcfg, args.eval_data_pattern, args.batch_size,
                                                                num_epochs=1)):
-        device_batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "video_id"}
+        batch = mesh_lib.pad_batch_to_multiple(batch, mesh.ranks_per_input)
+        local = mesh_lib.local_batch(batch, mesh)
+        device_batch = {k: torch.from_numpy(v).to(device) for k, v in local.items()}
         # a fresh sampling key per batch; the results are read only once
         # `pipeline_depth` batches are in flight
-        out = eval_step(device_batch, prng.fold_in(prng.key(0), batch_idx))
+        predictions = forward(device_batch, prng.fold_in(prng.key(0), batch_idx),
+                              mesh.row_offset(local["features"].shape[0]))
+        if mesh.data_group is not None:
+            predictions = gather_rows(predictions, mesh.data_group)
+            device_batch = {k: torch.from_numpy(batch[k]).to(device) for k in ("labels", "weights")}
+        if mesh.rank != 0:
+            continue
+        out = step_lib.eval_outputs(predictions, device_batch, loss_obj, args.top_k)
         done = pipe.add((np.asarray(batch["weights"]), batch["labels"], out))
         if done is not None:
             accumulate_one(done)
+    if mesh.rank != 0:
+        return None
     for done in pipe.drain():
         accumulate_one(done)
 
@@ -179,31 +213,37 @@ def evaluate_checkpoint(args, step_num: int, tree: dict, fcfg: FeatureConfig, lo
 def evaluation_loop(args):
     """Evaluate the latest step of ``--train_dir`` once (``--run_once``) or
     each new step as it appears; returns the info of a ``--run_once``
-    evaluation (None if there was nothing to evaluate).  Summaries go to
-    ``<train_dir>/eval`` at the step evaluated."""
-    cli_flags.refuse_not_ported(args, cli_flags.EVAL_NOT_PORTED,
-                                vars(build_parser().parse_args([])), "eval CLI")
+    evaluation (None if there was nothing to evaluate, and on every rank but
+    0).  Summaries go to ``<train_dir>/eval`` at the step evaluated."""
     if args.int8_hidden and (not args.fast_forward or args.model not in int8_capable_models()):
         raise ValueError(f"--int8_hidden requires --fast_forward with one of {int8_capable_models()}")
-    device = resolve_device(args.device)
+    if mesh_lib.process_count() > 1:
+        # the reference's eval is a single machine: one node's ranks here
+        raise RuntimeError("eval runs on one node; launch it on one node "
+                           f"(process_count={mesh_lib.process_count()})")
+    device = mesh_lib.distributed_init(args.device)
+    mesh = mesh_lib.create_mesh(model_parallelism=args.model_parallelism,
+                                dcn_parallelism=args.dcn_parallelism)
     fcfg = FeatureConfig.from_flag_strings(args.feature_names, args.feature_sizes,
                                            args.frame_features, args.max_frames)
     loss_obj = get_loss_by_name(args.label_loss)
     if args.reference_checkpoint:
-        return evaluate_checkpoint(args, 0, load_tree(args, fcfg), fcfg, loss_obj, device)
+        return evaluate_checkpoint(args, 0, load_tree(args, fcfg), fcfg, loss_obj, device, mesh)
     root = os.path.dirname(args.train_dir) if os.path.isfile(args.train_dir) else args.train_dir
-    writer = MetricWriter(os.path.join(root, "eval"))
+    writer = MetricWriter(os.path.join(root, "eval")) if mesh.rank == 0 else None
     last = None
     try:
         while True:
-            step = latest_weights_step(args.train_dir)
+            # every rank evaluates the step rank 0 sees
+            step = broadcast_object(latest_weights_step(args.train_dir))
             if step is None:
                 log.info("No checkpoint yet in %s", args.train_dir)
             elif step != last:
                 info = evaluate_checkpoint(args, step, load_weights(args.train_dir, step), fcfg,
-                                           loss_obj, device)
-                writer.epoch_summary(step, info)
-                writer.flush()
+                                           loss_obj, device, mesh)
+                if writer is not None:
+                    writer.epoch_summary(step, info)
+                    writer.flush()
                 last = step
                 if args.run_once:
                     return info
@@ -211,7 +251,8 @@ def evaluation_loop(args):
                 return None
             time.sleep(args.poll_interval_secs)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
 
 
 def main(argv=None):

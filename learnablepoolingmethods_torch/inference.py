@@ -16,8 +16,14 @@ Kaggle submission CSV ``VideoId,LabelConfidencePairs``.  Two routes:
   models) raise ValueError, as the JAX CLI does.
 
 It takes every flag of the JAX CLI under its name and default
-(``cli_flags.py``; those not ported yet raise when set); ``--device``
-(default ``cuda``) is the port's own.  Batches come from the source the
+(``cli_flags.py``); ``--device`` (default ``cuda``) is the port's own.
+Under ``torchrun`` on one node it runs over the node's ranks, as the JAX
+CLI runs over the host's chips (``parallel/mesh.py``): each batch padded
+to a multiple of the ranks, each rank's row block through the forward,
+``--model_parallelism`` ranks splitting the hidden FC and the MoE kernels
+on both routes (``--int8_hidden`` with a model axis raises the JAX CLI's
+ValueError), the top-k gathered, and rank 0 alone writes the CSV.  Over
+more than one node it raises the JAX CLI's RuntimeError.  Batches come from the source the
 flags select (``cli_flags.input_iterator``: ``--packed_cache_dir``,
 ``--use_grain`` or the streaming reader), and the CSV is written by the C++
 formatter (``data/native_loader.py#format_csv``, ``format_lines``' bytes),
@@ -52,9 +58,11 @@ from learnablepoolingmethods_torch.core.step import make_predict_step
 from learnablepoolingmethods_torch.core.weights import convert_flax_variables, load_flax_variables
 from learnablepoolingmethods_torch.data import native_loader
 from learnablepoolingmethods_torch.models import create_model, find_class_by_name
-from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path, int8_capable_models
+from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path, int8_capable_models, shard_fast_params
+from learnablepoolingmethods_torch.parallel import mesh as mesh_lib
+from learnablepoolingmethods_torch.parallel.collectives import gather_rows
 from learnablepoolingmethods_torch.utils import prng
-from learnablepoolingmethods_torch.utils.misc import InFlight, resolve_device
+from learnablepoolingmethods_torch.utils.misc import InFlight
 
 log = logging.getLogger(__name__)
 
@@ -75,10 +83,10 @@ _OWN_FLAGS = {
 
 def build_parser() -> argparse.ArgumentParser:
     """Every flag of the JAX inference CLI (cli_flags.py), its defaults, and
-    --device; the flags of cli_flags.INFERENCE_NOT_PORTED raise when set,
-    and the training schedule's have no effect here, as in the JAX CLI."""
+    --device; the training schedule's have no effect here, as in the JAX
+    CLI."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    return cli_flags.add_flags(p, _OWN_FLAGS, cli_flags.INFERENCE_NOT_PORTED)
+    return cli_flags.add_flags(p, _OWN_FLAGS)
 
 
 def model_config_from_args(args) -> ModelConfig:
@@ -117,10 +125,15 @@ def load_tree(args, fcfg: FeatureConfig) -> dict:
 
 
 def inference(args) -> int:
-    """Write the CSV for ``args``; returns the number of videos written."""
-    cli_flags.refuse_not_ported(args, cli_flags.INFERENCE_NOT_PORTED,
-                                vars(build_parser().parse_args([])), "inference CLI")
-    device = resolve_device(args.device)
+    """Write the CSV for ``args``; returns the number of videos written (0
+    on every rank but 0)."""
+    if mesh_lib.process_count() > 1:
+        # single-controller by design (mirrors eval): one node's ranks
+        raise RuntimeError("inference runs on one node; launch it on one node "
+                           f"(process_count={mesh_lib.process_count()})")
+    device = mesh_lib.distributed_init(args.device)
+    mesh = mesh_lib.create_mesh(model_parallelism=args.model_parallelism,
+                                dcn_parallelism=args.dcn_parallelism)
     fcfg = FeatureConfig.from_flag_strings(
         args.feature_names, args.feature_sizes, args.frame_features, args.max_frames
     )
@@ -129,21 +142,25 @@ def inference(args) -> int:
     if args.int8_hidden and (not args.fast_infer or args.model not in int8_capable_models()):
         raise ValueError(f"--int8_hidden requires --fast_infer with one of {int8_capable_models()}")
     path = get_fast_path(args.model) if args.fast_infer else None
+    if args.fast_infer and args.int8_hidden and mesh.model_size > 1:
+        raise ValueError("--int8_hidden with --model_parallelism > 1 is not supported (int8 targets "
+                         "single-chip HBM; a sharded model already halves per-chip weight traffic)")
     tree = load_tree(args, fcfg)
     if args.fast_infer:
         mcfg = model_config_from_args(args)
         variables = convert_flax_variables(tree, mcfg, args.model)
-        fp = path.prepare(variables, mcfg, int8_hidden=args.int8_hidden, device=device)
+        fp = shard_fast_params(path.prepare(variables, mcfg, int8_hidden=args.int8_hidden, device=device), mesh)
         del variables
         fast = path.build(mcfg, top_k=args.top_k)
 
-        def predict(feats, nf, key):
-            return fast(fp, feats, nf, key)
+        def predict(feats, nf, key, row_offset):
+            return fast(fp, feats, nf, key, row_offset=row_offset)
     else:
         model, mcfg = load_model(args, fcfg, device, tree)
+        mesh_lib.shard_model(model, mesh)
         predict = make_predict_step(model, mcfg, fcfg.frame_features, top_k=args.top_k)
     del tree
-    log.info("loaded %s onto %s", args.model, device)
+    log.info("loaded %s onto %s, mesh %s", args.model, device, mesh)
 
     native_loader.load()  # the CSV's formatter: build it before the first batch
     pipe = InFlight(args.pipeline_depth)
@@ -163,24 +180,35 @@ def inference(args) -> int:
             num_examples, elapsed, num_examples / max(elapsed, 1e-9),
         )
 
-    with open(args.output_file, "wb") as out_file:
-        out_file.write(b"VideoId,LabelConfidencePairs\n")
+    out_file = open(args.output_file, "wb") if mesh.rank == 0 else None
+    try:
+        if out_file is not None:
+            out_file.write(b"VideoId,LabelConfidencePairs\n")
         batches = cli_flags.input_iterator(args, fcfg, args.input_data_pattern, args.batch_size, num_epochs=1)
         for batch_idx, batch in enumerate(batches):
             # a fresh sampling key per batch, as the JAX CLI's
             # fold_in(key(0), batch_idx): the same frames, bit for bit
             key = prng.fold_in(prng.key(0), batch_idx)
-            feats = torch.from_numpy(batch["features"]).to(device)
-            nf = torch.from_numpy(batch["num_frames"]).to(device) if "num_frames" in batch else None
-            values, indices = predict(feats, nf, key)
+            batch = mesh_lib.pad_batch_to_multiple(batch, mesh.ranks_per_input)
+            local = mesh_lib.local_batch(batch, mesh)
+            feats = torch.from_numpy(local["features"]).to(device)
+            nf = torch.from_numpy(local["num_frames"]).to(device) if "num_frames" in local else None
+            values, indices = predict(feats, nf, key, mesh.row_offset(feats.shape[0]))
+            values, indices = gather_rows(values, mesh.data_group), gather_rows(indices, mesh.data_group)
+            if out_file is None:
+                continue
             real = np.asarray(batch["weights"]) > 0
             vids = [v for v, keep in zip(batch["video_id"], real) if keep]
             done = pipe.add((vids, real, values, indices))
             if done is not None:
                 flush_one(out_file, done)
-        for done in pipe.drain():
-            flush_one(out_file, done)
-    log.info("done; wrote %s", args.output_file)
+        if out_file is not None:
+            for done in pipe.drain():
+                flush_one(out_file, done)
+            log.info("done; wrote %s", args.output_file)
+    finally:
+        if out_file is not None:
+            out_file.close()
     return num_examples
 
 

@@ -40,6 +40,7 @@ from learnablepoolingmethods_torch.models.base import register_model
 from learnablepoolingmethods_torch.models.frame_level import LFTailModel
 from learnablepoolingmethods_torch.models.model_utils import frame_mask
 from learnablepoolingmethods_torch.models.modules import NetVLAD, matmul_f32
+from learnablepoolingmethods_torch.parallel.collectives import full_param
 from learnablepoolingmethods_torch.ops.dropout import dropout
 from learnablepoolingmethods_torch.ops.fast_transformer import layer_norm
 from learnablepoolingmethods_torch.utils import prng
@@ -60,7 +61,7 @@ class DenseGeneral(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_in = math.prod(self.in_shape)
         lead = x.shape[:x.dim() - len(self.in_shape)]
-        kernel = self.kernel.to(self.dtype).reshape(n_in, -1)
+        kernel = full_param(self.kernel).to(self.dtype).reshape(n_in, -1)
         y = matmul_f32(x.to(self.dtype).reshape(*lead, n_in), kernel).to(self.dtype)
         return (y + self.bias.to(self.dtype).reshape(-1)).reshape(*lead, *self.out_shape)
 
@@ -125,16 +126,18 @@ class TransformerEncoderLayer(nn.Module):
         self.ff2 = DenseGeneral((ff_size,), (d_model,), dtype)
         self.ln2 = LayerNorm(d_model)
 
-    def forward(self, x, key_mask, dropout_key: Optional[torch.Tensor] = None, scope: tuple = ()):
+    def forward(self, x, key_mask, dropout_key: Optional[torch.Tensor] = None, scope: tuple = (),
+                row_offset: int = 0):
         """``scope``: the layer's flax path, under which its dropout keys are
-        made from ``dropout_key``."""
+        made from ``dropout_key``; ``row_offset``: the global index of the
+        first row, which keys the FFN dropout mask."""
         mha_key = ff_key = None
         if dropout_key is not None:
             mha_key = prng.flax_make_rng(dropout_key, 1, (*scope, "mha"))
             ff_key = prng.flax_make_rng(dropout_key, 1, (*scope, "Dropout_0"))
         x = self.ln1(x + self.mha(x, x, key_mask, mha_key))
         ff = self.ff2(torch.relu(self.ff1(x)))
-        ff = dropout(ff, ff_key, self.dropout_rate)
+        ff = dropout(ff, ff_key, self.dropout_rate, row_offset=row_offset)
         return self.ln2(x + ff)
 
 
@@ -150,9 +153,9 @@ class TransformerEncoder(nn.Module):
                 cfg.attention_hidden_size, cfg.attention_heads, cfg.transformer_ff_size,
                 cfg.attention_dropout, dtype))
 
-    def forward(self, x, key_mask, dropout_key: Optional[torch.Tensor] = None):
+    def forward(self, x, key_mask, dropout_key: Optional[torch.Tensor] = None, row_offset: int = 0):
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, key_mask, dropout_key, ("encoder", f"layer_{i}"))
+            x = getattr(self, f"layer_{i}")(x, key_mask, dropout_key, ("encoder", f"layer_{i}"), row_offset)
         return x
 
 
@@ -168,7 +171,7 @@ class AttentionPooling(nn.Module):
 
     def forward(self, x, key_mask):
         b = x.shape[0]
-        q = self.queries[None].expand(b, -1, -1).to(x.dtype)
+        q = full_param(self.queries)[None].expand(b, -1, -1).to(x.dtype)
         return self.pool_mha(q, x, key_mask).reshape(b, -1)
 
 
@@ -201,9 +204,10 @@ class TransformerEncoderModel(_AttentionModel):
         self.encoder = TransformerEncoder(cfg, self.dtype)
         self._init_tail(cfg.attention_hidden_size, cfg.attention_hidden_size, relu=False)
 
-    def forward(self, model_input, num_frames=None, training: bool = False, dropout_key=None):
+    def forward(self, model_input, num_frames=None, training: bool = False, dropout_key=None,
+                row_offset: int = 0):
         x, mask = self._frames(model_input, num_frames)
-        x = self.encoder(x, mask > 0, dropout_key if training else None)
+        x = self.encoder(x, mask > 0, dropout_key if training else None, row_offset)
         denom = torch.clamp(torch.sum(mask, dim=1, keepdim=True), min=1.0)
         pooled = torch.sum(x.float() * mask[:, :, None], dim=1) / denom
         return self._lf_tail(pooled.to(self.dtype), training)
@@ -243,8 +247,9 @@ class AttentionNetVLADModel(_AttentionModel):
         self.vlad = NetVLAD(d, k, add_batch_norm=cfg.netvlad_add_batch_norm, dtype=self.dtype)
         self._init_tail(d * k, cfg.netvlad_hidden_size, relu=cfg.netvlad_relu)
 
-    def forward(self, model_input, num_frames=None, training: bool = False, dropout_key=None):
+    def forward(self, model_input, num_frames=None, training: bool = False, dropout_key=None,
+                row_offset: int = 0):
         x, mask = self._frames(model_input, num_frames)
-        x = self.encoder(x, mask > 0, dropout_key if training else None)
+        x = self.encoder(x, mask > 0, dropout_key if training else None, row_offset)
         x = x * mask[:, :, None].to(x.dtype)
         return self._lf_tail(self.vlad(x, training), training)

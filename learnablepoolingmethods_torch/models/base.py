@@ -111,7 +111,8 @@ class BaseModel(nn.Module):
     # param_dtype: they stay f32 under --bf16_params (create_model)
     f32_param_prefixes: tuple = ()
     # whether forward takes ``dropout_key``, the train step's
-    # rngs={"dropout": key} (core/step.py)
+    # rngs={"dropout": key}, and ``row_offset``, the global index of the
+    # step's first row, which keys the masks (core/step.py)
     takes_dropout_key = False
 
     def forward(self, model_input, num_frames=None, training: bool = False):

@@ -36,8 +36,9 @@ from learnablepoolingmethods_torch.models.modules import (
     NetVLAD,
     NeXtVLAD,
     SoftDBoW,
-    matmul_f32,
+    matmul_param,
 )
+from learnablepoolingmethods_torch.parallel.collectives import full_param
 from learnablepoolingmethods_torch.utils import prng
 
 log = logging.getLogger(__name__)
@@ -168,7 +169,7 @@ class LFTailModel(BaseModel):
 
     def _lf_tail(self, pooled: torch.Tensor, training: bool):
         dtype = self.dtype
-        activation = matmul_f32(pooled.to(dtype), self.hidden1_weights.to(dtype))
+        activation = matmul_param(pooled.to(dtype), self.hidden1_weights, dtype)
         if hasattr(self, "hidden1_bn"):
             activation = self.hidden1_bn(activation, training)
         else:
@@ -218,7 +219,7 @@ class _LoupeLFBase(LFTailModel):
         if cfg.netvlad_add_batch_norm:
             frames = self.input_bn(frames, training)
         if cfg.netvlad_dimred > 0:
-            frames = matmul_f32(frames.to(dtype), self.dimred.to(dtype))
+            frames = matmul_param(frames.to(dtype), self.dimred, dtype)
         pools = [getattr(self, mod.name) for mod in self.layout]
         if self.split is None:
             pooled = pools[0](frames.to(dtype), training)
@@ -342,7 +343,7 @@ class DbofModel(BaseModel):
         frames = sample_model_frames(cfg, model_input, num_frames, sampling_key)
         if cfg.dbof_add_batch_norm:
             frames = self.input_bn(frames, training)
-        activation = matmul_f32(frames.to(dtype), self.cluster_weights.to(dtype))   # [B, S, C]
+        activation = matmul_param(frames.to(dtype), self.cluster_weights, dtype)    # [B, S, C]
         if cfg.dbof_add_batch_norm:
             activation = self.cluster_bn(activation, training)
         else:
@@ -350,7 +351,7 @@ class DbofModel(BaseModel):
         activation = relu6(activation)
         pooled = model_utils.frame_pooling(activation, cfg.dbof_pooling_method)
 
-        activation = matmul_f32(pooled.to(dtype), self.hidden1_weights.to(dtype))
+        activation = matmul_param(pooled.to(dtype), self.hidden1_weights, dtype)
         if cfg.dbof_add_batch_norm:
             activation = self.hidden1_bn(activation, training)
         else:
@@ -387,7 +388,7 @@ class _RecurrentCell(nn.Module):
                 setattr(self, side + g, DenseParams(width, features, side + g in bias_on))
 
     def _kernels(self, side: str) -> torch.Tensor:
-        return torch.cat([getattr(self, side + g).kernel for g in self.GATES], dim=1)
+        return torch.cat([full_param(getattr(self, side + g).kernel) for g in self.GATES], dim=1)
 
     def _biases(self, side: str) -> torch.Tensor:
         return torch.cat([getattr(self, side + g).bias for g in self.GATES])

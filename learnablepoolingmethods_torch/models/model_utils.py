@@ -19,42 +19,47 @@ from learnablepoolingmethods_torch.ops.fused_frontend import gather_frames, samp
 from learnablepoolingmethods_torch.utils import prng
 
 
-def sample_frame_features(features, num_frames, num_samples: int, key) -> torch.Tensor:
+def sample_frame_features(features, num_frames, num_samples: int, key, row_offset: int = 0) -> torch.Tensor:
     """iid frame sampling on a feature tensor ``[B, F, D]`` of any dtype →
     ``[B, num_samples, D]``: the train step's presampling of uint8 frames and
     the model's own sampling of float frames, bit for bit those of
     ``model_utils.py#sample_frame_features`` and ``#sample_random_frames``
-    under the same key."""
-    return gather_frames(features, sample_indices(key, num_frames, features.shape[1], num_samples))
+    under the same key.  ``row_offset``: the global index of the first row
+    (``ops/fused_frontend.py#sample_indices``)."""
+    return gather_frames(features, sample_indices(key, num_frames, features.shape[1], num_samples, row_offset))
 
 
-def sequence_indices(key, num_frames: torch.Tensor, max_frames: int, num_samples: int) -> torch.Tensor:
+def sequence_indices(key, num_frames: torch.Tensor, max_frames: int, num_samples: int,
+                     row_offset: int = 0) -> torch.Tensor:
     """The frames of one random window a video: ``[B, num_samples]`` int32,
     start floor(U·(max(nf − S, 0) + 1)) with U ``[B, 1]`` from ``key``, index
     min(start + s, nf − 1) clipped to [0, F − 1], nf = min(num_frames, F)
-    (ref: model_utils.py#sample_random_sequence)."""
+    (ref: model_utils.py#sample_random_sequence); U of rows ``row_offset`` …
+    of the draw."""
     b = num_frames.shape[0]
     nf = torch.clamp(num_frames.to(torch.int32), max=max_frames).reshape(b, 1)
-    u = prng.uniform(key, (b, 1), device=num_frames.device)
+    u = prng.uniform(key, (b, 1), device=num_frames.device, offset=row_offset)
     max_start = torch.clamp(nf - num_samples, min=0)
     start = (u * (max_start.float() + 1.0)).to(torch.int32)
     offset = torch.arange(num_samples, dtype=torch.int32, device=num_frames.device)[None, :]
     return torch.clamp(torch.minimum(start + offset, nf - 1), 0, max_frames - 1)
 
 
-def sample_random_sequence(features, num_frames, num_samples: int, key) -> torch.Tensor:
+def sample_random_sequence(features, num_frames, num_samples: int, key, row_offset: int = 0) -> torch.Tensor:
     """A random window of ``num_samples`` frames a video from ``[B, F, D]``
     features of any dtype, bit for bit that of
     ``model_utils.py#sample_random_sequence`` under the same key."""
-    return gather_frames(features, sequence_indices(key, num_frames, features.shape[1], num_samples))
+    return gather_frames(features, sequence_indices(key, num_frames, features.shape[1], num_samples, row_offset))
 
 
-def sample_model_input(features, num_frames, num_samples: int, key, random_frames: bool = True):
+def sample_model_input(features, num_frames, num_samples: int, key, random_frames: bool = True,
+                       row_offset: int = 0):
     """A sampling model's frames: iid (:func:`sample_frame_features`) with
     ``random_frames`` (``--sample_random_frames``), else one random window
-    (:func:`sample_random_sequence`)."""
+    (:func:`sample_random_sequence`); ``row_offset`` is the global index of
+    the first row."""
     sample = sample_frame_features if random_frames else sample_random_sequence
-    return sample(features, num_frames, num_samples, key)
+    return sample(features, num_frames, num_samples, key, row_offset)
 
 
 def frame_pooling(frames: torch.Tensor, method: str) -> torch.Tensor:

@@ -7,16 +7,30 @@ Parameter and statistic names follow the flax tree, so a module's
 ``params/NetVLAD_0/cluster_bn/scale`` (``core/weights.py`` converts).
 Matrix products take operands in the compute dtype and sum in f32, as
 ``preferred_element_type=float32`` does (:func:`matmul_f32`).
+
+On a mesh (``parallel/mesh.py#shard_model``) a parameter may hold only this
+rank's columns: a product with it is column-parallel
+(:func:`matmul_param`), any other use reads the whole matrix
+(``parallel/collectives.py#full_param``), and a BatchNorm in training takes
+its statistics over the data group's rows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from learnablepoolingmethods_torch.ops.fast_infer import matmul_f32 as _mm_f32
+from learnablepoolingmethods_torch.ops.fast_infer import matmul_f32_local as _mm_f32
 from learnablepoolingmethods_torch.ops.netvlad_train import netvlad_aggregate
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
+from learnablepoolingmethods_torch.parallel.collectives import (
+    all_reduce_,
+    all_reduce_sum,
+    column_shard,
+    full_param,
+    gather_last,
+)
 
 # TF slim.batch_norm defaults (decay=0.999, epsilon=0.001), as the JAX package
 BN_MOMENTUM = 0.999
@@ -60,6 +74,43 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, b.shape[-1])
 
 
+class _ColumnParallelMatmul(torch.autograd.Function):
+    """2-D ``a @ b`` for ``b`` this rank's columns of a matrix split over its
+    model group: the f32 product of the shard, all-gathered along the
+    columns.  The backward takes this rank's columns of the cotangent g: db
+    = aᵀ·g_shard, and da = g_shard·bᵀ summed in f32 over the group before it
+    is cast to a's dtype (the ranks' partial sums of g·Bᵀ)."""
+
+    @staticmethod
+    def forward(ctx, a, b, shard):
+        ctx.save_for_backward(a, b)
+        ctx.shard = shard
+        return gather_last(_mm_f32(a, b), shard.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g[:, ctx.shard.columns].contiguous()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = all_reduce_(_mm(g, b.t(), b.dtype).float(), ctx.shard.group).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _mm(a.t(), g, a.dtype).to(b.dtype)
+        return ga, gb, None
+
+
+def matmul_param(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`matmul_f32` of ``x`` and the parameter ``w`` cast to ``dtype``;
+    column-parallel when ``w`` holds this rank's columns of a split matrix,
+    whose output is then the whole product."""
+    shard = column_shard(w)
+    if shard is None:
+        return matmul_f32(x, w.to(dtype))
+    lead = x.shape[:-1]
+    out = _ColumnParallelMatmul.apply(x.reshape(-1, x.shape[-1]), w.to(dtype), shard)
+    return out.reshape(*lead, shard.full)
+
+
 class BatchNorm(nn.Module):
     """``flax.linen.BatchNorm`` over the last axis, in f32.
 
@@ -70,6 +121,10 @@ class BatchNorm(nn.Module):
       unless ``update_stats`` is off (``core/step.py#batch_stats_frozen``,
       the recompute of ``--use_remat``);
     - ``y = (x − μ)·(rsqrt(σ² + ε)·scale) + bias`` with ε = 1e-3.
+
+    With a ``data_group`` (``parallel/mesh.py#shard_model``) the statistics
+    are Σx and Σx² over the group's rows, padded rows included, divided by
+    their count: the global batch's, as flax takes them under GSPMD.
     """
 
     def __init__(self, features: int, momentum: float = BN_MOMENTUM, epsilon: float = BN_EPSILON):
@@ -81,13 +136,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.update_stats = True
+        self.data_group = None
 
     def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
         x = x.float()
         if training:
             axes = tuple(range(x.dim() - 1))
-            mean = torch.mean(x, dim=axes)
-            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
+            if self.data_group is None:
+                mean, mean_sq = torch.mean(x, dim=axes), torch.mean(x * x, dim=axes)
+            else:
+                sums = all_reduce_sum(torch.stack([torch.sum(x, dim=axes), torch.sum(x * x, dim=axes)]),
+                                      self.data_group)
+                # every rank of the group holds as many rows
+                count = float(x.numel() // x.shape[-1] * dist.get_world_size(self.data_group))
+                mean, mean_sq = sums[0] / count, sums[1] / count
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
@@ -115,7 +178,7 @@ class _AssignmentBase(nn.Module):
             self.cluster_biases = nn.Parameter(torch.zeros(cluster_size))
 
     def _logits(self, x: torch.Tensor, training: bool) -> torch.Tensor:
-        activation = matmul_f32(x, self.cluster_weights.to(self.dtype))
+        activation = matmul_param(x, self.cluster_weights, self.dtype)
         if hasattr(self, "cluster_bn"):
             return self.cluster_bn(activation, training)
         return activation + self.cluster_biases
@@ -142,17 +205,19 @@ class NetVLAD(_AssignmentBase):
         x = frames.to(self.dtype)
         activation = self._logits(x, training)                          # [B, F, K]
         if self.fused_aggregation:
-            c2 = self.cluster_weights2.reshape(d, k)
+            c2 = self.cluster_weights2
             if c2.dtype != torch.float32 and torch.is_grad_enabled():
                 # JAX's custom VJP hands back dC₂ in f32 against a bf16 C₂,
                 # and jax.grad keeps it f32; the step reads the gradient here
                 c2 = c2.float()
                 self.f32_gradient_taps = {"cluster_weights2": c2}
-            vlad = netvlad_aggregate(x, activation, c2)
+                if column_shard(self.cluster_weights2) is not None:
+                    c2.column_shard = column_shard(self.cluster_weights2)
+            vlad = netvlad_aggregate(x, activation, full_param(c2).reshape(d, k))
             return vlad.reshape(-1, d * k).to(self.dtype)
         a = torch.softmax(activation, dim=-1)
         a_sum = torch.sum(a, dim=1, keepdim=True)                        # [B, 1, K]
-        vlad = torch.einsum("bfk,bfd->bdk", a, x.float()) - a_sum * self.cluster_weights2
+        vlad = torch.einsum("bfk,bfd->bdk", a, x.float()) - a_sum * full_param(self.cluster_weights2)
         vlad = l2_normalize(vlad, dim=1)
         vlad = l2_normalize(vlad.reshape(-1, d * k), dim=1)
         return vlad.to(self.dtype)
@@ -201,11 +266,12 @@ class NetFV(_AssignmentBase):
     def forward(self, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
         d, k = self.feature_size, self.cluster_size
         x = frames.to(self.dtype)
-        covar = self.coupling_factor * self.cluster_weights if self.couple_weights else self.covar_weights
+        covar = (self.coupling_factor * full_param(self.cluster_weights) if self.couple_weights
+                 else full_param(self.covar_weights))
         covar = torch.square(covar).float() + 1e-6
         a = torch.softmax(self._logits(x, training), dim=-1)            # [B, F, K]
         a_sum = torch.sum(a, dim=1, keepdim=True)                        # [B, 1, K]
-        cw2 = self.cluster_weights2.float()
+        cw2 = full_param(self.cluster_weights2).float()
         fv1 = torch.einsum("bfk,bfd->bdk", a, x.float())
         fv2 = torch.einsum("bfk,bfd->bdk", a, torch.square(x).float())  # X² rounded in x's dtype
         fv2 = (a_sum * torch.square(cw2) + fv2 - 2.0 * (fv1 * cw2)) / torch.square(covar) - a_sum
@@ -256,15 +322,15 @@ class NeXtVLAD(nn.Module):
     def forward(self, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
         b, f, _ = frames.shape
         g, k, dp, dtype = self.groups, self.cluster_size, self.group_dim, self.dtype
-        xt = matmul_f32(frames.to(dtype), self.expansion_weights.to(dtype))          # [B, F, λD]
-        alpha = torch.sigmoid(matmul_f32(xt.to(dtype), self.group_attention_weights.to(dtype)))
-        logits = matmul_f32(xt.to(dtype), self.cluster_weights.to(dtype))           # [B, F, G·K]
+        xt = matmul_param(frames.to(dtype), self.expansion_weights, dtype)           # [B, F, λD]
+        alpha = torch.sigmoid(matmul_param(xt.to(dtype), self.group_attention_weights, dtype))
+        logits = matmul_param(xt.to(dtype), self.cluster_weights, dtype)            # [B, F, G·K]
         if hasattr(self, "cluster_bn"):
             logits = self.cluster_bn(logits, training)
         assign = torch.softmax(logits.reshape(b, f, g, k), dim=-1) * alpha[..., None]
         agg = torch.einsum("bfgk,bfgd->bkd", assign, xt.reshape(b, f, g, dp))
         a_sum = torch.sum(assign, dim=(1, 2))                                        # [B, K]
-        vlad = agg - a_sum[:, :, None] * self.cluster_weights2.float()[None]
+        vlad = agg - a_sum[:, :, None] * full_param(self.cluster_weights2).float()[None]
         vlad = l2_normalize(vlad, dim=-1).reshape(b, k * dp)
         if hasattr(self, "vlad_bn"):
             vlad = self.vlad_bn(vlad, training)
@@ -286,10 +352,11 @@ class ContextGating(nn.Module):
             self.gating_biases = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        w = self.gating_weights.to(self.dtype)
         if self.remove_diag:
-            w = w - torch.diag(torch.diag(w))
-        gates = matmul_f32(x.to(self.dtype), w)
+            w = full_param(self.gating_weights).to(self.dtype)
+            gates = matmul_f32(x.to(self.dtype), w - torch.diag(torch.diag(w)))
+        else:
+            gates = matmul_param(x.to(self.dtype), self.gating_weights, self.dtype)
         if hasattr(self, "gating_bn"):
             gates = self.gating_bn(gates, training)
         else:

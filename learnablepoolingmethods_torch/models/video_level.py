@@ -12,7 +12,7 @@ from torch import nn
 
 from learnablepoolingmethods_torch.config import ModelConfig
 from learnablepoolingmethods_torch.models.base import BaseModel, register_model
-from learnablepoolingmethods_torch.models.modules import matmul_f32
+from learnablepoolingmethods_torch.models.modules import matmul_param
 
 
 class Dense(nn.Module):
@@ -27,7 +27,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = matmul_f32(x.to(self.dtype), self.kernel.to(self.dtype)).to(self.dtype)
+        y = matmul_param(x.to(self.dtype), self.kernel, self.dtype).to(self.dtype)
         return y + self.bias.to(self.dtype)
 
 
@@ -63,9 +63,9 @@ class MoeModel(BaseModel):
     def forward(self, model_input, num_frames=None, training: bool = False):
         m, v = self.cfg.moe_num_mixtures, self.cfg.vocab_size
         x = model_input.to(self.dtype)
-        gate_activations = matmul_f32(x, self.gates_kernel.to(self.dtype)).reshape(-1, m + 1, v)
+        gate_activations = matmul_param(x, self.gates_kernel, self.dtype).reshape(-1, m + 1, v)
         expert_activations = (
-            matmul_f32(x, self.experts_kernel.to(self.dtype)) + self.experts_bias.float()
+            matmul_param(x, self.experts_kernel, self.dtype) + self.experts_bias.float()
         ).reshape(-1, m, v)
         gating = torch.softmax(gate_activations, dim=1)
         experts = torch.sigmoid(expert_activations)

@@ -39,7 +39,8 @@ from learnablepoolingmethods_torch.utils import prng
 
 MODES = {"div": 0, "mul": 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
-             ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_void_p]
 
 
 def _period(x: torch.Tensor, mask_shape: Sequence[int]) -> int:
@@ -63,10 +64,12 @@ def _scale(keep_prob: float, mode: str, dtype: torch.dtype) -> float:
     return float(kp if mode == "div" else torch.tensor(1, dtype=dtype) / kp)
 
 
-def keep_mask(key: torch.Tensor, keep_prob: float, mask_shape: Sequence[int], device=None) -> torch.Tensor:
+def keep_mask(key: torch.Tensor, keep_prob: float, mask_shape: Sequence[int], device=None,
+              offset: int = 0) -> torch.Tensor:
     """``jax.random.bernoulli(key, keep_prob, mask_shape)`` as a bool tensor,
-    drawn on the host."""
-    return torch.from_numpy(prng.bernoulli(key, keep_prob, mask_shape)).to(device)
+    drawn on the host; with ``offset``, the entries ``offset`` … of a larger
+    mask's draw."""
+    return torch.from_numpy(prng.bernoulli(key, keep_prob, mask_shape, offset)).to(device)
 
 
 def apply_mask(x: torch.Tensor, keep: torch.Tensor, keep_prob: float, mode: str) -> torch.Tensor:
@@ -79,17 +82,18 @@ def apply_mask(x: torch.Tensor, keep: torch.Tensor, keep_prob: float, mode: str)
 
 
 def dropout_plain(x: torch.Tensor, key: torch.Tensor, keep_prob: float, mask_shape: Sequence[int],
-                  mode: str = "div") -> torch.Tensor:
+                  mode: str = "div", offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of :func:`dropout_kernel`: the mask drawn on
     the host, then :func:`apply_mask`."""
     _period(x, mask_shape)
-    return apply_mask(x, keep_mask(key, keep_prob, mask_shape, x.device), keep_prob, mode)
+    return apply_mask(x, keep_mask(key, keep_prob, mask_shape, x.device, offset), keep_prob, mode)
 
 
 def dropout_kernel(x: torch.Tensor, key: torch.Tensor, keep_prob: float, mask_shape: Sequence[int],
-                   mode: str = "div") -> torch.Tensor:
+                   mode: str = "div", offset: int = 0) -> torch.Tensor:
     """``csrc/dropout.cu`` on a contiguous f32 or bf16 CUDA tensor: one
-    launch, the mask hashed on the card from the key's two words."""
+    launch, the mask hashed on the card from the key's two words (entries
+    ``offset`` … of the mask's draw)."""
     if x.device.type != "cuda" or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dropout_kernel takes an f32 or bf16 CUDA tensor, got {x.dtype} on {x.device}")
     if mode not in MODES:
@@ -102,7 +106,7 @@ def dropout_kernel(x: torch.Tensor, key: torch.Tensor, keep_prob: float, mask_sh
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), x.numel() // period if period else 0, period, k0, k1,
                 float(np.float32(keep_prob)), _scale(keep_prob, mode, x.dtype), MODES[mode],
-                int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+                int(x.dtype == torch.bfloat16), int(offset), torch.cuda.current_stream(x.device).cuda_stream)
     kernel_build.check(rc, "dropout")
     dropout_kernel.launches += 1
     return y
@@ -116,28 +120,34 @@ class _Dropout(torch.autograd.Function):
     mask regenerated from the key), through the host mask on the CPU."""
 
     @staticmethod
-    def forward(ctx, x, key, keep_prob, mask_shape, mode):
-        ctx.args = (key, keep_prob, tuple(mask_shape), mode)
+    def forward(ctx, x, key, keep_prob, mask_shape, mode, offset):
+        ctx.args = (key, keep_prob, tuple(mask_shape), mode, offset)
         if x.device.type == "cpu":
-            ctx.keep = keep_mask(key, keep_prob, mask_shape)
+            ctx.keep = keep_mask(key, keep_prob, mask_shape, offset=offset)
             return apply_mask(x, ctx.keep, keep_prob, mode)
-        return dropout_kernel(x, key, keep_prob, mask_shape, mode)
+        return dropout_kernel(x, key, keep_prob, mask_shape, mode, offset)
 
     @staticmethod
     def backward(ctx, g):
-        key, keep_prob, mask_shape, mode = ctx.args
+        key, keep_prob, mask_shape, mode, offset = ctx.args
         if g.device.type == "cpu":
-            return apply_mask(g, ctx.keep, keep_prob, mode), None, None, None, None
-        return dropout_kernel(g, key, keep_prob, mask_shape, mode), None, None, None, None
+            return apply_mask(g, ctx.keep, keep_prob, mode), None, None, None, None, None
+        return dropout_kernel(g, key, keep_prob, mask_shape, mode, offset), None, None, None, None, None
 
 
 def dropout(x: torch.Tensor, key: Optional[torch.Tensor], rate: float,
-            mask_shape: Optional[Tuple[int, ...]] = None, mode: str = "div") -> torch.Tensor:
+            mask_shape: Optional[Tuple[int, ...]] = None, mode: str = "div",
+            row_offset: int = 0) -> torch.Tensor:
     """flax's dropout of ``x`` at ``rate`` with the keep mask of ``key``
     over ``mask_shape`` (x's shape by default): ``x`` itself at rate 0 or
-    without a key (deterministic), zeros at rate 1, as flax."""
+    without a key (deterministic), zeros at rate 1, as flax.  A mask of x's
+    own shape takes rows ``row_offset`` … of the mask of a global batch
+    whose row ``row_offset`` is x's first (``parallel/mesh.py``); a mask
+    that the rows share needs none."""
     if key is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
-    return _Dropout.apply(x, key, 1.0 - rate, tuple(x.shape) if mask_shape is None else mask_shape, mode)
+    mask_shape = tuple(x.shape) if mask_shape is None else tuple(mask_shape)
+    offset = row_offset * (x.numel() // x.shape[0]) if mask_shape == tuple(x.shape) and x.dim() else 0
+    return _Dropout.apply(x, key, 1.0 - rate, mask_shape, mode, offset)

@@ -82,17 +82,18 @@ def build_fast_dbof_inference(
     compute_dtype: torch.dtype = torch.bfloat16,
     return_probs: bool = False,
 ):
-    """Return ``fn(fast_params, features, num_frames, key, presampled=False)``
-    → (values [B,k], indices [B,k]), or the probabilities [B, V] when
-    ``return_probs``.  ``key`` is a ``utils/prng.py`` key, which draws the
-    frames the JAX fast path draws."""
+    """Return ``fn(fast_params, features, num_frames, key, presampled=False,
+    row_offset=0)`` → (values [B,k], indices [B,k]), or the probabilities
+    [B, V] when ``return_probs``.  ``key`` is a ``utils/prng.py`` key, which
+    draws the frames the JAX fast path draws (``row_offset`` as in
+    ``ops/fast_infer.py``)."""
     m, v = mcfg.moe_num_mixtures, mcfg.vocab_size
     ct = compute_dtype
 
-    def forward(fp, features, num_frames, key, presampled: bool = False):
+    def forward(fp, features, num_frames, key, presampled: bool = False, row_offset: int = 0):
         b = features.shape[0]
         if not presampled:
-            idx = sample_indices(key, num_frames, features.shape[1], mcfg.iterations)
+            idx = sample_indices(key, num_frames, features.shape[1], mcfg.iterations, row_offset)
             features = gather_frames(features, idx)
         x = dequantize(features, dtype=ct) if features.dtype == torch.uint8 else features.to(ct)
         x = l2_normalize(x, dim=-1)

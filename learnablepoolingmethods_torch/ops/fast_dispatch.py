@@ -5,7 +5,10 @@
   and casts weights once → a flat dict of tensors on ``device``.  Raises
   ``ValueError`` on configs the fast path does not cover.
 - ``build(mcfg, top_k=20, use_kernels=True, return_probs=False)`` →
-  ``fn(fp, features, num_frames, key, presampled=False)``.
+  ``fn(fp, features, num_frames, key, presampled=False, row_offset=0)``.
+- :func:`shard_fast_params` splits a ``prepare`` tree's dense product
+  weights over a mesh's model group (JAX ``shard_params`` on the fast
+  tree); the front-end kernels keep their weights whole.
 - ``supports_int8``: whether ``prepare`` takes ``int8_hidden`` (the models
   of :func:`int8_capable_models`); the others raise with the JAX wording
   (:func:`reject_int8`).
@@ -20,6 +23,11 @@ package (``_NO_FAST_PATH``) raises ``ValueError`` as the JAX CLI does.
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+from learnablepoolingmethods_torch.parallel.collectives import ColumnShard
+from learnablepoolingmethods_torch.parallel.mesh import MIN_SHARD_SIZE, shard_rule
 
 
 class FastPath(NamedTuple):
@@ -150,3 +158,36 @@ def get_fast_path(model_name: str) -> FastPath:
     if model_name in _NO_FAST_PATH:
         raise ValueError(f"--fast_infer supports {fast_path_models()}, got {model_name!r}")
     raise ValueError(f"unknown model {model_name!r}; ported: {fast_path_models()}")
+
+
+# the fast trees' weights that only dense products read (``ops/fast_infer.py
+# #matmul_f32``): the hidden FC's row slices, DBoF's folded projections and
+# the MoE kernels
+COLUMN_SPLIT_LEAVES = ("w_rgb", "w_aud", "w1", "w2", "hidden_w", "cluster_w", "gates_kernel",
+                       "experts_kernel")
+
+
+def shard_fast_params(fp, mesh, min_size: int = MIN_SHARD_SIZE):
+    """``fp`` with each :data:`COLUMN_SPLIT_LEAVES` tensor that
+    ``parallel/mesh.py#shard_rule`` picks cut to this rank's columns and
+    marked with its ColumnShard, so that ``matmul_f32`` gathers its product;
+    everything else (the kernels' weights, biases, the gating) stays whole.
+    An int8 hidden FC is not split: ``--int8_hidden`` with a model axis
+    raises in the CLIs, as in the JAX package."""
+    if mesh.model_size == 1:
+        return fp
+    if isinstance(fp, dict):
+        out = {}
+        for k, v in fp.items():
+            if (k in COLUMN_SPLIT_LEAVES and isinstance(v, torch.Tensor)
+                    and shard_rule(v.shape, mesh.model_size, min_size)):
+                shard = ColumnShard(mesh.model_group, mesh.model_index, mesh.model_size, v.shape[-1])
+                v = v[..., shard.columns].contiguous()
+                v.column_shard = shard
+                out[k] = v
+            else:
+                out[k] = shard_fast_params(v, mesh, min_size)
+        return out
+    if isinstance(fp, list):
+        return [shard_fast_params(v, mesh, min_size) for v in fp]
+    return fp

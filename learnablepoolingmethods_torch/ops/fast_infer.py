@@ -44,6 +44,7 @@ from learnablepoolingmethods_torch.ops.netvlad_fused import (
 )
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
+from learnablepoolingmethods_torch.parallel.collectives import column_shard, gather_last
 from learnablepoolingmethods_torch.utils.misc import resolve_device
 from learnablepoolingmethods_torch.utils.quantization import dequantize
 
@@ -76,7 +77,7 @@ def hidden_fc(x: torch.Tensor, w, bias=None) -> torch.Tensor:
     return y if bias is None else y + bias
 
 
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_f32_local(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with a float32 result from inputs of either dtype, as
     ``jnp.matmul(..., preferred_element_type=float32)``: bf16 products are
     summed in f32 and never rounded to bf16.  On the card this is
@@ -87,6 +88,17 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`matmul_f32_local`, or for ``b`` this rank's columns of a weight
+    split over a model group (``ops/fast_dispatch.py#shard_fast_params``)
+    the product with its shard all-gathered along the columns: the whole
+    product on every rank of the group."""
+    shard = column_shard(b)
+    if shard is None:
+        return matmul_f32_local(a, b)
+    return gather_last(matmul_f32_local(a, b), shard.group)
 
 
 def gated_moe_tail(fp, h, m: int, v: int, ct, top_k: int, return_probs: bool):
@@ -199,9 +211,10 @@ def build_fast_netvlad_inference(
     fuse_frontend: bool = True,
     return_probs: bool = False,
 ):
-    """Return ``fn(fast_params, features, num_frames, key, presampled=False)``
-    → (values [B,k], indices [B,k]), or the probabilities [B, V] when
-    ``return_probs``.
+    """Return ``fn(fast_params, features, num_frames, key, presampled=False,
+    row_offset=0)`` → (values [B,k], indices [B,k]), or the probabilities
+    [B, V] when ``return_probs``; ``row_offset`` is the global index of the
+    first video, whose frames a rank of a mesh draws.
 
     ``use_kernels=False`` runs the plain PyTorch versions everywhere (the
     staged route with :func:`netvlad_reference`).  With kernels, uint8
@@ -219,7 +232,7 @@ def build_fast_netvlad_inference(
         out = fn(x, consts["cluster"], consts["scale"], consts["bias"], consts["c2"])
         return out.reshape(-1, d * k)
 
-    def forward(fp, features, num_frames, key, presampled: bool = False):
+    def forward(fp, features, num_frames, key, presampled: bool = False, row_offset: int = 0):
         b = features.shape[0]
         d_rgb, k_rgb = fp["rgb"]["cluster"].shape
         d_aud, k_aud = fp["aud"]["cluster"].shape
@@ -236,13 +249,14 @@ def build_fast_netvlad_inference(
                 fp["in_scale"], fp["in_bias"],
                 fp["rgb"]["cluster"], fp["rgb"]["scale"], fp["rgb"]["bias"], fp["rgb"]["c2"],
                 fp["aud"]["cluster"], fp["aud"]["scale"], fp["aud"]["bias"], fp["aud"]["c2"],
+                row_offset=row_offset,
             )
             vlad_rgb = out_rgb.reshape(b, d_rgb * k_rgb)
             vlad_aud = out_aud.reshape(b, d_aud * k_aud)
             return _tail(fp, vlad_rgb, vlad_aud)
 
         if not presampled:
-            idx = sample_indices(key, num_frames, features.shape[1], iterations)
+            idx = sample_indices(key, num_frames, features.shape[1], iterations, row_offset)
             features = gather_frames(features, idx)
 
         x = staged_frames(features, fp["in_scale"], fp["in_bias"], ct)

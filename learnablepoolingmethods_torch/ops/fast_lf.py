@@ -176,10 +176,11 @@ def build_fast_lf_inference(
     compute_dtype: torch.dtype = torch.bfloat16,
     return_probs: bool = False,
 ):
-    """Return ``fn(fast_params, features, num_frames, key, presampled=False)``
-    → (values [B,k], indices [B,k]), or the probabilities [B, V] when
-    ``return_probs``.  ``use_kernels=False`` runs the plain PyTorch versions
-    of the kernels."""
+    """Return ``fn(fast_params, features, num_frames, key, presampled=False,
+    row_offset=0)`` → (values [B,k], indices [B,k]), or the probabilities
+    [B, V] when ``return_probs`` (``row_offset`` as in
+    ``ops/fast_infer.py``).  ``use_kernels=False`` runs the plain PyTorch
+    versions of the kernels."""
     if model_name not in FAST_LF_MODELS:
         raise ValueError(f"unsupported fast-LF model {model_name!r}")
     m = mcfg.moe_num_mixtures
@@ -219,9 +220,9 @@ def build_fast_lf_inference(
         bow = l2_normalize(fn(*consts), dim=1).to(ct)
         return matmul_f32(bow, entry["w1"])
 
-    def forward(fp, features, num_frames, key, presampled: bool = False):
+    def forward(fp, features, num_frames, key, presampled: bool = False, row_offset: int = 0):
         if not presampled:
-            idx = sample_indices(key, num_frames, features.shape[1], iterations)
+            idx = sample_indices(key, num_frames, features.shape[1], iterations, row_offset)
             features = gather_frames(features, idx)
         x = staged_frames(features, fp["in_scale"], fp["in_bias"], ct)
         d_rgb = fp["mods"][0]["cluster"].shape[0]

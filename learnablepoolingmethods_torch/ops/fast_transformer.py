@@ -208,12 +208,12 @@ def build_fast_transformer_inference(
 ):
     """Return ``fn(fast_params, features, num_frames, key, presampled=False)``
     → (values [B,k], indices [B,k]), or the probabilities [B, V] when
-    ``return_probs``.  ``key`` and ``presampled`` are accepted for the
-    dispatch signature: the transformer reads every frame.
+    ``return_probs``.  ``key``, ``presampled`` and ``row_offset`` are
+    accepted for the dispatch signature: the transformer reads every frame.
     ``use_kernels=False`` runs the plain PyTorch attention."""
     m, v, heads, ct = mcfg.moe_num_mixtures, mcfg.vocab_size, mcfg.attention_heads, compute_dtype
 
-    def forward(fp, features, num_frames, key=None, presampled: bool = False):
+    def forward(fp, features, num_frames, key=None, presampled: bool = False, row_offset: int = 0):
         h, mask = _encode(fp, features, num_frames, heads, use_kernels, ct)
         denom = torch.clamp(torch.sum(mask, dim=1, keepdim=True), min=1.0)
         pooled = torch.sum(h.float() * mask[:, :, None], dim=1) / denom
@@ -236,7 +236,7 @@ def build_fast_attn_netvlad_inference(
     without) and the gated-MoE tail."""
     m, v, heads, ct = mcfg.moe_num_mixtures, mcfg.vocab_size, mcfg.attention_heads, compute_dtype
 
-    def forward(fp, features, num_frames, key=None, presampled: bool = False):
+    def forward(fp, features, num_frames, key=None, presampled: bool = False, row_offset: int = 0):
         h, mask = _encode(fp, features, num_frames, heads, use_kernels, ct)
         h = h * mask[:, :, None].to(h.dtype)
         vlad_fn = netvlad_fused if use_kernels else netvlad_reference

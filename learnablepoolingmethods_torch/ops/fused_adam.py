@@ -23,13 +23,14 @@ takes the plain version, a CUDA model the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from learnablepoolingmethods_torch.config import TrainingConfig
 from learnablepoolingmethods_torch.ops import kernel_build
+from learnablepoolingmethods_torch.parallel.collectives import column_shard, sum_sharded
 
 # csrc/fused_adam.cu: a block of THREADS threads takes CHUNK elements, each
 # thread VEC consecutive elements in each of ROWS rows
@@ -43,6 +44,9 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 3
              + [ctypes.c_float] * 9 + [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_void_p])
+_SUMSQ_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+_UPDATE_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_float] * 9
+                    + [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_void_p])
 
 
 def _mulhilo(a: int, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -156,14 +160,18 @@ def adam_leaf_f32(g32, p, m, v, k: Dict[str, torch.Tensor]):
 
 @torch.no_grad()
 def fused_adam_plain(grads, params, ms, nus, consts: AdamConsts, clip: Optional[float],
-                     stochastic: bool = True, seed: int = 0, count: int = 0) -> None:
+                     stochastic: bool = True, seed: int = 0, count: int = 0,
+                     reduce_sumsq: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> None:
     """Plain PyTorch version of :func:`fused_adam_kernel`: one step of
     every leaf, in place, the same arithmetic and bits."""
+    sumsq = [leaf_sumsq(g.float()) for g in grads] if clip is not None else None
+    if sumsq and reduce_sumsq is not None:
+        sumsq = list(reduce_sumsq(torch.stack(sumsq)))
     for i, (g, p, m, v) in enumerate(zip(grads, params, ms, nus)):
         k = consts.tensors(p.device)
         g32 = g.float()
         if clip is not None:
-            g32 = g32 * clip_scale(leaf_sumsq(g32), clip)
+            g32 = g32 * clip_scale(sumsq[i], clip)
         p32, m32, v32 = adam_leaf_f32(g32, p, m, v, k)
         if p.dtype == torch.bfloat16 and stochastic:
             bits = random_bits(p.numel(), seed, count, i, p.device).reshape(p.shape)
@@ -194,11 +202,15 @@ def leaf_table(grads, params, ms, nus) -> Tuple[np.ndarray, int]:
 
 @torch.no_grad()
 def fused_adam_kernel(grads, params, ms, nus, consts: AdamConsts, clip: Optional[float],
-                      stochastic: bool = True, seed: int = 0, count: int = 0) -> None:
+                      stochastic: bool = True, seed: int = 0, count: int = 0,
+                      reduce_sumsq: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> None:
     """One step of every leaf in place on the card: ``csrc/fused_adam.cu``,
     the norm launch (with a clip) and the update launch.  Each leaf's g, p,
     m and ν lie on one CUDA device and are contiguous; p, m, ν share a dtype
-    (bf16 or f32), g is bf16 or f32."""
+    (bf16 or f32), g is bf16 or f32.  With ``reduce_sumsq`` (and a clip)
+    the two launches go through their own entry points, and between them
+    ``reduce_sumsq`` maps the leaves' Σg² ``[n]`` to the whole leaves'
+    (the sums over the ranks of a split leaf)."""
     dev = params[0].device
     for g, p, m, v in zip(grads, params, ms, nus):
         for t in (g, p, m, v):
@@ -214,13 +226,22 @@ def fused_adam_kernel(grads, params, ms, nus, consts: AdamConsts, clip: Optional
         counters = _counters[(dev, n)] = torch.zeros(n, dtype=torch.int32, device=dev)
     partials = torch.empty(max(n_chunks, 1), dtype=torch.float32, device=dev)
     scales = torch.empty(n, dtype=torch.float32, device=dev)
-    fn = kernel_build.load_function("fused_adam", "lpm_fused_adam", _ARGTYPES)
     c = consts
+    tail = (float(c.lr), float(c.b1), float(c.omb1), float(c.b2), float(c.omb2), float(c.eps), float(c.c1),
+            float(c.c2), int(stochastic), seed, count)
     with torch.cuda.device(dev):
-        rc = fn(table.data_ptr(), n, n_chunks, partials.data_ptr(), counters.data_ptr(),
-                scales.data_ptr(), float(clip or 0.0), float(c.lr), float(c.b1), float(c.omb1),
-                float(c.b2), float(c.omb2), float(c.eps), float(c.c1), float(c.c2), int(stochastic),
-                seed, count, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if reduce_sumsq is None or clip is None:
+            fn = kernel_build.load_function("fused_adam", "lpm_fused_adam", _ARGTYPES)
+            rc = fn(table.data_ptr(), n, n_chunks, partials.data_ptr(), counters.data_ptr(),
+                    scales.data_ptr(), float(clip or 0.0), *tail, stream)
+        else:
+            fn = kernel_build.load_function("fused_adam", "lpm_fused_adam_sumsq", _SUMSQ_ARGTYPES)
+            kernel_build.check(fn(table.data_ptr(), n, n_chunks, partials.data_ptr(), counters.data_ptr(),
+                                  scales.data_ptr(), stream), "fused_adam")
+            sumsq = reduce_sumsq(scales).contiguous()
+            fn = kernel_build.load_function("fused_adam", "lpm_fused_adam_update", _UPDATE_ARGTYPES)
+            rc = fn(table.data_ptr(), n, n_chunks, sumsq.data_ptr(), float(clip), *tail, stream)
     kernel_build.check(rc, "fused_adam")
     fused_adam_kernel.launches += 1
 
@@ -229,10 +250,11 @@ fused_adam_kernel.launches = 0
 
 
 def fused_adam_update(grads, params, ms, nus, consts: AdamConsts, clip: Optional[float],
-                      stochastic: bool = True, seed: int = 0, count: int = 0) -> None:
+                      stochastic: bool = True, seed: int = 0, count: int = 0,
+                      reduce_sumsq: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> None:
     """The kernel for CUDA tensors, the plain version for CPU ones."""
     fn = fused_adam_plain if params[0].device.type == "cpu" else fused_adam_kernel
-    fn(grads, params, ms, nus, consts, clip, stochastic, seed, count)
+    fn(grads, params, ms, nus, consts, clip, stochastic, seed, count, reduce_sumsq)
 
 
 class FusedAdam:
@@ -240,7 +262,10 @@ class FusedAdam:
     which its train state calls through ``fused_apply``): ``step(grads)``
     updates every parameter in place.  Its state is JAX's
     ``FusedAdamState``: ``count``, ``m/<param>`` and ``nu/<param>``, in bf16
-    for a bf16 parameter and f32 otherwise."""
+    for a bf16 parameter and f32 otherwise.  A parameter split over a model
+    group (``parallel/collectives.py#ColumnShard``) is clipped by the whole
+    tensor's norm: its Σg² is summed over the group between the launches;
+    its random bits are keyed by its local elements."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -259,15 +284,27 @@ class FusedAdam:
         state_dtype = [torch.bfloat16 if p.dtype == torch.bfloat16 else torch.float32 for p in self.params]
         self.m = [torch.zeros_like(p, dtype=dt) for p, dt in zip(self.params, state_dtype)]
         self.nu = [torch.zeros_like(p, dtype=dt) for p, dt in zip(self.params, state_dtype)]
+        self.shards = [column_shard(p) for p in self.params]
 
     def consts(self) -> AdamConsts:
         return AdamConsts(self.schedule(self.count), self.count, self.b1, self.b2, self.eps)
 
+    def state_shards(self):
+        """``m/<param>`` and ``nu/<param>`` are split as their parameter."""
+        return {f"{slot}/{name}": shard for slot in ("m", "nu")
+                for name, shard in zip(self.names, self.shards) if shard is not None}
+
+    def _reduce_sumsq(self, sumsq: torch.Tensor) -> torch.Tensor:
+        split = [s is not None for s in self.shards]
+        group = next(s.group for s in self.shards if s is not None)
+        return torch.stack(sum_sharded(list(sumsq), split, group))
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         grads = [g.contiguous() for g in grads]
+        reduce = self._reduce_sumsq if any(s is not None for s in self.shards) else None
         fused_adam_update(grads, [p.data for p in self.params], self.m, self.nu, self.consts(),
-                          self.clip_norm, self.stochastic, self.seed, self.count)
+                          self.clip_norm, self.stochastic, self.seed, self.count, reduce)
         self.count += 1
 
     def state_tree(self) -> Dict[str, torch.Tensor]:

@@ -32,20 +32,23 @@ DEQ_SCALE = 4.0 / 255.0
 DEQ_BIAS = 4.0 / 512.0 - 2.0
 
 _ARGTYPES = [ctypes.c_void_p] + [ctypes.c_uint] * 2 + [ctypes.c_void_p] * 18 + [
-    ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
 
 
 def sample_indices(
-    key: torch.Tensor, num_frames: torch.Tensor, max_frames: int, num_samples: int
+    key: torch.Tensor, num_frames: torch.Tensor, max_frames: int, num_samples: int,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """floor(U·min(num_frames, F)) clamped to F−1: ``[B, num_samples]``
     int32 on ``num_frames``' device (ref: model_utils.py#SampleRandomFrames).
     ``key`` is a ``utils/prng.py`` key; U is ``jax.random.uniform(key,
     (B, num_samples))`` bit for bit, so the indices are those of the JAX
-    package's ``sample_indices`` under the same key."""
+    package's ``sample_indices`` under the same key.  With ``row_offset``
+    the rows are rows ``row_offset`` … of a larger batch's draw (a rank's
+    rows of the global batch, ``parallel/mesh.py``)."""
     b = num_frames.shape[0]
     nf = torch.clamp(num_frames.to(torch.int32), max=max_frames)
-    u = prng.uniform(key, (b, num_samples), device=num_frames.device)
+    u = prng.uniform(key, (b, num_samples), device=num_frames.device, offset=row_offset * num_samples)
     return torch.clamp((u * nf[:, None].float()).to(torch.int32), max=max_frames - 1)
 
 
@@ -67,15 +70,17 @@ def netvlad_frontend(
     in_scale, in_bias,          # [DT] folded input-BN affine
     c_rgb, s_rgb, b_rgb, c2_rgb,   # rgb NetVLAD consts
     c_aud, s_aud, b_aud, c2_aud,   # audio NetVLAD consts
+    row_offset: int = 0,        # global index of the first video (a rank's rows)
 ):
     """Returns (vlad_rgb [B, d_rgb, k_rgb], vlad_aud [B, d_aud, k_aud]) bf16.
 
     A CUDA tensor launches the kernel; a CPU tensor takes
-    :func:`netvlad_frontend_reference`.
+    :func:`netvlad_frontend_reference`.  The frames are those of rows
+    ``row_offset`` … of a batch's draw from ``key`` (:func:`sample_indices`).
     """
     args = (in_scale, in_bias, c_rgb, s_rgb, b_rgb, c2_rgb, c_aud, s_aud, b_aud, c2_aud)
     if x_u8.device.type == "cpu":
-        return netvlad_frontend_reference(x_u8, key, num_frames, num_samples, *args)
+        return netvlad_frontend_reference(x_u8, key, num_frames, num_samples, *args, row_offset=row_offset)
     if x_u8.device.type != "cuda":
         raise ValueError(f"netvlad_frontend: unsupported device {x_u8.device}")
     if x_u8.dim() != 3 or x_u8.dtype != torch.uint8 or not x_u8.is_contiguous():
@@ -131,7 +136,7 @@ def netvlad_frontend(
             x_u8.data_ptr(), k0, k1, nf.data_ptr(), *(t.data_ptr() for t in consts),
             out_rgb.data_ptr(), out_aud.data_ptr(), ws_x.data_ptr(),
             ws_a_rgb.data_ptr(), ws_a_aud.data_ptr(), ws_cs_rgb.data_ptr(), ws_cs_aud.data_ptr(),
-            b, f, dt, s, d_rgb, k_rgb, d_aud, k_aud, DEQ_SCALE, DEQ_BIAS,
+            b, f, dt, s, d_rgb, k_rgb, d_aud, k_aud, DEQ_SCALE, DEQ_BIAS, int(row_offset),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernel_build.check(rc, "netvlad_frontend")
@@ -146,11 +151,12 @@ def netvlad_frontend_reference(
     x_u8, key, num_frames, num_samples, in_scale, in_bias,
     c_rgb, s_rgb, b_rgb, c2_rgb,
     c_aud, s_aud, b_aud, c2_aud,
+    row_offset: int = 0,
 ):
     """Plain PyTorch twin (gather-based) of the fused front end — the
     parity oracle."""
     d_rgb = c_rgb.shape[0]
-    idx = sample_indices(key, num_frames, x_u8.shape[1], num_samples)
+    idx = sample_indices(key, num_frames, x_u8.shape[1], num_samples, row_offset)
     xf = x_u8.float() * DEQ_SCALE + DEQ_BIAS
     xf = l2_normalize(xf, dim=-1)
     xf = xf * in_scale.reshape(1, 1, -1) + in_bias.reshape(1, 1, -1)

@@ -111,12 +111,15 @@ def split(key_: torch.Tensor, num: int = 2) -> torch.Tensor:
 _CHUNK = 1 << 20
 
 
-def random_bits(key_: torch.Tensor, shape: Sequence[int]) -> np.ndarray:
-    """``jax.random.bits(key, shape, uint32)`` as a NumPy uint32 array.  A
-    draw of more than one chunk is hashed chunk by chunk on a pool of
-    threads (NumPy's uint32 ufuncs release the GIL)."""
+def random_bits(key_: torch.Tensor, shape: Sequence[int], offset: int = 0) -> np.ndarray:
+    """``jax.random.bits(key, shape, uint32)`` as a NumPy uint32 array, or
+    with ``offset`` the values ``offset`` … ``offset + n − 1`` of a larger
+    draw from the key (a rank's rows of a global batch's draw: each value
+    depends only on the key and its index).  A draw of more than one chunk
+    is hashed chunk by chunk on a pool of threads (NumPy's uint32 ufuncs
+    release the GIL)."""
     n = int(np.prod(shape, dtype=np.int64))
-    if n >= 2**32:
+    if offset + n > 2**32:
         raise ValueError("a draw of 2**32 values or more needs the high counter word")
     k0, k1 = key_words(key_)
     out = np.empty(n, np.uint32)
@@ -124,7 +127,7 @@ def random_bits(key_: torch.Tensor, shape: Sequence[int]) -> np.ndarray:
     def chunk(start: int) -> None:
         stop = min(start + _CHUNK, n)
         x0, x1 = threefry2x32(k0, k1, np.zeros(stop - start, np.uint32),
-                              np.arange(start, stop, dtype=np.uint32))
+                              np.arange(offset + start, offset + stop, dtype=np.uint32))
         np.bitwise_xor(x0, x1, out=out[start:stop])
 
     starts = range(0, n, _CHUNK)
@@ -137,24 +140,26 @@ def random_bits(key_: torch.Tensor, shape: Sequence[int]) -> np.ndarray:
     return out.reshape(tuple(shape))
 
 
-def _uniform_np(key_: torch.Tensor, shape: Sequence[int]) -> np.ndarray:
+def _uniform_np(key_: torch.Tensor, shape: Sequence[int], offset: int = 0) -> np.ndarray:
     """The top 23 bits of each draw as the mantissa of a float in [1, 2),
     minus 1."""
-    bits = random_bits(key_, shape)
+    bits = random_bits(key_, shape, offset)
     return ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
 
 
-def uniform(key_: torch.Tensor, shape: Sequence[int], device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` in [0, 1) on ``device``."""
-    u = torch.from_numpy(_uniform_np(key_, shape))
+def uniform(key_: torch.Tensor, shape: Sequence[int], device=None, offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1) on ``device``;
+    ``offset`` as in :func:`random_bits`."""
+    u = torch.from_numpy(_uniform_np(key_, shape, offset))
     device = torch.device("cpu") if device is None else torch.device(device)
     if device.type == "cuda":
         return u.pin_memory().to(device, non_blocking=True)
     return u.to(device)
 
 
-def bernoulli(key_: torch.Tensor, p: float, shape: Sequence[int]) -> np.ndarray:
+def bernoulli(key_: torch.Tensor, p: float, shape: Sequence[int], offset: int = 0) -> np.ndarray:
     """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p`` as
     a NumPy bool array: ``uniform(key, shape, float32) < float32(p)``
-    (``jax._src.random._bernoulli``, mode "low")."""
-    return _uniform_np(key_, shape) < np.float32(p)
+    (``jax._src.random._bernoulli``, mode "low"); ``offset`` as in
+    :func:`random_bits`."""
+    return _uniform_np(key_, shape, offset) < np.float32(p)

@@ -24,8 +24,6 @@ from learnablepoolingmethods_tpu.models import list_models as jax_models
 from learnablepoolingmethods_tpu.ops.fast_dispatch import get_fast_path as jax_get_fast_path
 
 CLIS = {"inference": inference, "eval": eval_cli, "train": train}
-NOT_PORTED = {"inference": cli_flags.INFERENCE_NOT_PORTED, "eval": cli_flags.EVAL_NOT_PORTED,
-              "train": cli_flags.TRAIN_NOT_PORTED}
 
 _DUMP = """
 import json, sys
@@ -77,8 +75,6 @@ def test_jax_command_line_at_its_defaults_parses_to_the_same_values(cli):
     for name, default in want.items():
         assert getattr(args, name) == default, name
     if cli in ("inference", "eval"):
-        cli_flags.refuse_not_ported(args, NOT_PORTED[cli],
-                                    vars(CLIS[cli].build_parser().parse_args([])), f"{cli} CLI")
         mcfg = cli_flags.model_config_from_args(args)
     else:
         _, mcfg, _ = train.configs_from_args(args)
@@ -93,12 +89,19 @@ def _off_default(default):
     return default + 2
 
 
-@pytest.mark.parametrize("cli, name", [(cli, n) for cli in sorted(NOT_PORTED) for n in NOT_PORTED[cli]])
-def test_unported_flag_off_its_default_raises_naming_its_item(tmp_path, cli, name):
-    defaults = vars(CLIS[cli].build_parser().parse_args([]))
-    argv = _argv({name: _off_default(defaults[name])})
-    match = f"--{name} is not ported .* ROADMAP item {NOT_PORTED[cli][name]}"
-    with pytest.raises(NotImplementedError, match=match):
+# the mesh's flags (ROADMAP item 15), which the CLIs refused with
+# NotImplementedError until the mesh was ported (one case for each (CLI,
+# flag)): on one process a mesh of two does not fit, and each CLI raises
+# create_mesh's ValueError, as the JAX CLI does on one device
+# (tests/test_torch_mesh.py holds the text to JAX's)
+ITEM_15 = [(cli, name) for cli in ("inference", "eval", "train") for name in ("model_parallelism", "dcn_parallelism")]
+
+
+@pytest.mark.parametrize("cli, name", ITEM_15)
+def test_item_15_mesh_flags_raise_create_meshs_value_error_on_one_process(tmp_path, cli, name):
+    argv = _argv({name: 2})
+    want = "mesh 1x0x2 != 1 devices" if name == "model_parallelism" else "mesh 2x0x1 != 1 devices"
+    with pytest.raises(ValueError, match=want):
         if cli == "inference":
             inference.main(argv + ["--fast_infer", "--model=NetVLADModelLF", "--frame_features",
                                    f"--input_data_pattern={tmp_path}/none*",
@@ -114,7 +117,7 @@ def test_unported_flag_off_its_default_raises_naming_its_item(tmp_path, cli, nam
 
 
 # item 12b's flags, which the CLIs refused before they were ported (one
-# case for each (CLI, flag) that NOT_PORTED held): what each does now, as
+# case for each (CLI, flag) they refused): what each does now, as
 # the JAX CLI
 ITEM_12B = [("inference", "bf16_params"), ("inference", "fused_adam"), ("eval", "bf16_params"),
             ("eval", "fused_adam"), ("eval", "int8_hidden"), ("train", "int8_hidden"), ("train", "use_remat"),
@@ -126,7 +129,6 @@ def test_item_12b_flags_are_taken_as_the_jax_cli_takes_them(tmp_path, cli, name)
     defaults = vars(CLIS[cli].build_parser().parse_args([]))
     args = CLIS[cli].build_parser().parse_args(
         _argv({name: _off_default(defaults[name])}) + ["--model=NetVLADModelLF", "--frame_features"])
-    assert name not in NOT_PORTED[cli]
     if name == "int8_hidden" and cli == "train":
         # the JAX trainer defines no --int8_hidden
         with pytest.raises(ValueError, match="the JAX trainer defines no such flag"):
@@ -149,7 +151,7 @@ def test_item_12b_flags_are_taken_as_the_jax_cli_takes_them(tmp_path, cli, name)
 
 
 # item 11's flags, the RNNs' widths, which the CLIs refused before the
-# RNNs were ported (one case for each (CLI, flag) that NOT_PORTED held):
+# RNNs were ported (one case for each (CLI, flag) they refused):
 # each builds the model's configuration at its value, as the JAX CLI does
 ITEM_11 = [(cli, name) for cli in ("inference", "eval", "train")
            for name in ("lstm_cells", "lstm_layers", "gru_cells", "gru_layers")]
@@ -161,19 +163,17 @@ def test_item_11_flags_are_taken_as_the_jax_cli_takes_them(cli, name):
     value = _off_default(defaults[name])
     model = "LstmModel" if name.startswith("lstm") else "GruModel"
     args = CLIS[cli].build_parser().parse_args(_argv({name: value}) + [f"--model={model}", "--frame_features"])
-    assert name not in NOT_PORTED[cli]
     if cli == "train":
         _, mcfg, _ = train.configs_from_args(args)
     else:
-        cli_flags.refuse_not_ported(args, NOT_PORTED[cli], defaults, f"{cli} CLI")
         mcfg = cli_flags.model_config_from_args(args)
     # flags.py#model_config_from_flags: the field of the flag's name
     assert getattr(mcfg, name) == value
 
 
 # item 7's flags, the input sources and --profile_dir, which the CLIs
-# refused before ingest was ported (one case for each (CLI, flag) that
-# NOT_PORTED held): each now selects what the JAX CLI selects
+# refused before ingest was ported (one case for each (CLI, flag) they
+# refused): each now selects what the JAX CLI selects
 ITEM_7 = ([(cli, name) for cli in ("inference", "eval", "train")
            for name in ("num_readers", "use_grain", "grain_worker_count", "packed_cache_dir")]
           + [("train", "use_native_reader"), ("train", "profile_dir")])
@@ -191,8 +191,6 @@ def test_item_7_flags_are_taken_as_the_jax_cli_takes_them(tmp_path, cli, name):
     argv = _argv({name: value}) + ["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",
                                    f"--train_data_pattern={tmp_path}/none*", f"--train_dir={tmp_path}/m"]
     args = CLIS[cli].build_parser().parse_args([a for a in argv if cli == "train" or "train_data" not in a])
-    assert name not in NOT_PORTED[cli]
-    cli_flags.refuse_not_ported(args, NOT_PORTED[cli], defaults, f"{cli} CLI")
     if name == "profile_dir":
         from learnablepoolingmethods_torch.core.observability import profile_session
 
@@ -211,7 +209,6 @@ def test_item_7_flags_are_taken_as_the_jax_cli_takes_them(tmp_path, cli, name):
 def test_item_14_flag_is_taken_as_the_jax_cli_takes_it():
     """--export_model_steps, which the trainer refused before export was
     ported: the cadence of flags.py#training_config_from_flags."""
-    assert "export_model_steps" not in cli_flags.TRAIN_NOT_PORTED
     args = train.build_parser().parse_args(["--export_model_steps=7", "--model=NetVLADModelLF",
                                             "--frame_features"])
     assert train.configs_from_args(args)[2].export_model_steps == 7
@@ -237,8 +234,8 @@ def test_flags_without_an_effect_here_are_accepted():
     training schedule's flags parse and raise nothing, as in the JAX CLI."""
     args = inference.build_parser().parse_args(
         ["--num_gpu=4", "--base_learning_rate=0.5", "--max_steps=7", "--seed=3", "--use_remat"])
-    cli_flags.refuse_not_ported(args, cli_flags.INFERENCE_NOT_PORTED,
-                                vars(inference.build_parser().parse_args([])), "inference CLI")
+    assert args.num_gpu == 4 and args.max_steps == 7
+    cli_flags.model_config_from_args(args)
     train.configs_from_args(train.build_parser().parse_args(
         ["--num_gpu=4", "--model=NetVLADModelLF", "--frame_features"]))
 

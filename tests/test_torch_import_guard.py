@@ -68,7 +68,8 @@ def test_the_guard_covers_the_kernel_modules():
                    "core.observability", "core.step", "core.optimizers", "core.checkpoints",
                    "core.checkpoint_import", "core.train_state", "utils.tf_bundle", "data.readers",
                    "data.fixtures", "export_model", "serving", "utils.flax_msgpack", "data.native_loader",
-                   "data.packed_cache", "data.grain_pipeline", "data.pipeline", "cli_flags"):
+                   "data.packed_cache", "data.grain_pipeline", "data.pipeline", "cli_flags", "parallel",
+                   "parallel.mesh", "parallel.collectives"):
         assert f"learnablepoolingmethods_torch.{module}" in names, module
 
 

@@ -204,10 +204,12 @@ def test_train_cli_writes_variables_the_inference_cli_reads(tmp_path):
 @pytest.mark.parametrize("flag, error", [
     # the JAX trainer defines no --int8_hidden (only eval, inference, serving)
     ("--int8_hidden", ValueError),
-    # the mesh (ROADMAP item 15); --profile_dir, which stood here until
-    # ingest was ported, traces (tests/test_torch_ingest_cli.py), and
-    # --export_model_steps exports (tests/test_torch_export.py)
-    ("--model_parallelism=2", NotImplementedError),
+    # a model axis of 2 on one process: create_mesh's ValueError, as the
+    # JAX CLI raises on one device (the mesh is ported, tests/test_torch_mesh.py);
+    # --profile_dir, which stood here until ingest was ported, traces
+    # (tests/test_torch_ingest_cli.py), and --export_model_steps exports
+    # (tests/test_torch_export.py)
+    ("--model_parallelism=2", ValueError),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, error):
     data = str(tmp_path / "train-0.tfrecord")
