@@ -12,7 +12,9 @@ error, and prints one JSON line per phase:
               kernel's sources: registers, static shared memory and spills
               per kernel; g++ builds the C++ TFRecord reader and CSV
               formatter (learnablepoolingmethods_torch/native) at the same
-              time;
+              time; the native runner's library (row 1's source compiled in,
+              linked with cuBLAS) builds among the kernels, then g++ links
+              lpm_serve with it;
 3. kernels    both inference kernels against their plain PyTorch versions
               (KERNEL_CHECKS): Willow shapes (D 1024/128, K 256/128), B=64,
               S=30, S=300 and S=1 (where each descriptor shows which frame the
@@ -82,6 +84,22 @@ error, and prints one JSON line per phase:
               127.0.0.1 with the BatchingQueue on the main thread, 8 clients
               × 16 requests × 4 videos, linger 2 ms: requests/s, videos/s,
               p50/p99 latency, the coalesced share;
+   native_serve
+              item 14b on the same weights (phase_native_serve): the export
+              with with_stablehlo=True at batch 32 and 256 (seconds, the
+              bytes of weights.bin, its arrays bit for bit the serve phase's
+              folded weights); ModelServer(native=True) through the native
+              runner (csrc/native_runner.cu: row 1, cuBLAS, four tail
+              kernels) with row 1 and each tail kernel once a batch by the
+              runner's own counts, its scores within 1e-2 of the plain
+              route, its probabilities within NATIVE_GATE of the fused
+              route with kernels at 32 and 256 and its top-k that of its own
+              probabilities; each tail kernel against its plain version
+              (TAIL_GATES) and timed beside its bound and torch; the native
+              route's videos/s beside predict_pairs'; lpm_serve (linked in
+              the build phase): --check, its answers equal to the in-process
+              runner's, the HTTP load of the serve phase beside the Python
+              server's, /statz coalescing, exit 0 on SIGTERM;
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -290,7 +308,9 @@ import importlib.util
 import json
 import logging
 import os
+import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -306,7 +326,7 @@ from learnablepoolingmethods_torch import eval as eval_cli
 from learnablepoolingmethods_torch import export_model as export_lib
 from learnablepoolingmethods_torch import inference, train
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig, TrainingConfig
-from learnablepoolingmethods_torch.core import checkpoints, optimizers
+from learnablepoolingmethods_torch.core import checkpoints, native_runtime, optimizers
 from learnablepoolingmethods_torch.core import step as step_lib
 from learnablepoolingmethods_torch.core.checkpoints import CheckpointManager, load_weights
 from learnablepoolingmethods_torch.core.step import TrainStep
@@ -335,6 +355,7 @@ from learnablepoolingmethods_torch.metrics import eval_util
 from learnablepoolingmethods_torch.models import create_model, find_class_by_name
 from learnablepoolingmethods_torch.models.frame_level import lf_layout
 from learnablepoolingmethods_torch.ops import dropout as dropout_ops
+from learnablepoolingmethods_torch.ops import native_tail
 from learnablepoolingmethods_torch.ops import fast_dbof, fast_infer, fast_lf, fast_transformer, kernel_build
 from learnablepoolingmethods_torch.ops.dropout import apply_mask, dropout_kernel, dropout_plain
 from learnablepoolingmethods_torch.ops.fast_dispatch import (
@@ -508,7 +529,32 @@ KERNELS = {
         replaces="learnablepoolingmethods_tpu/models/attention.py:49 nn.Dropout and :40 the attention-weight "
                  "dropout (flax; XLA fusion of jax.random.bernoulli, no pallas_call)",
     ),
+    # the native runner's tail (csrc/native_runner.cu): its launches on the
+    # main path are the runner's own counts (phase_native_serve)
+    "native_hidden_sum": dict(
+        fn=native_tail.hidden_sum,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_infer.py:272-276 (rgb + aud) + hidden_b and :70 "
+                 "h.astype(bf16) (XLA fusion, no pallas_call)",
+    ),
+    "native_gating": dict(
+        fn=native_tail.gating,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_infer.py:74 gating (XLA fusion, no pallas_call)",
+    ),
+    "native_moe_combine": dict(
+        fn=native_tail.moe_combine,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_infer.py:83-85 the MoE combine, with :81 + experts_bias "
+                 "(XLA fusion, no pallas_call)",
+    ),
+    "native_topk": dict(
+        fn=native_tail.topk,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/topk.py:29 top_k_exact (jax.lax.top_k, no pallas_call)",
+    ),
 }
+NATIVE_TAIL = ("native_hidden_sum", "native_gating", "native_moe_combine", "native_topk")
 TRAIN_KERNELS = ("netvlad_aggregate_forward", "netvlad_aggregate_backward")
 
 
@@ -623,9 +669,12 @@ PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train", "netfv_fused
 
 
 def phase_build():
-    """Every library, one nvcc per source, all started together; beside them
+    """Every library, one nvcc per source, all started together (the native
+    runner's compiles row 1's source too and links cuBLAS); beside them
     (same time) a -Xptxas -v compile of PTXAS_REPORT whose registers, shared
-    memory and spills per kernel are printed."""
+    memory and spills per kernel are printed, and g++'s C++ reader; then
+    lpm_serve, linked with the runner.  Returns lpm_serve's path and build
+    seconds."""
     start = time.perf_counter()
     reports = {name: kernel_build.ptxas_report_start(name) for name in PTXAS_REPORT}
     host = {}
@@ -633,14 +682,19 @@ def phase_build():
     host_build = threading.Thread(target=lambda: host.update(path=str(native_loader.build()),
                                                              seconds=time.perf_counter() - start))
     host_build.start()
-    per_source = kernel_build.build()
+    per_source = kernel_build.build()  # the native runner among them (nvcc, linked with cuBLAS)
     host_build.join()
     if "path" not in host:
         native_loader.build()  # raises with g++'s output
+    # lpm_serve links the runner: g++ once the runner's library is built
+    serve_start = time.perf_counter()
+    binary = native_runtime.build_serving_binary()
+    lpm_serve = {"path": str(binary), "seconds": time.perf_counter() - serve_start}
     emit({"phase": "build", "seconds": time.perf_counter() - start, "per_source": per_source,
-          "host_library": host})
+          "host_library": host, "lpm_serve": lpm_serve})
     for name, proc in reports.items():
         emit({"phase": "build", "ptxas": name, "kernels": kernel_build.ptxas_report_finish(proc)})
+    return lpm_serve
 
 
 def check_kernels(rng, dev, b: int, f: int, s: int, mods, errors) -> list:
@@ -3386,7 +3440,8 @@ def phase_serve(dev, workdir, fp, export: dict, smi) -> dict:
     SERVE_GATE of its plain route on the same padded batches; the
     model-forward route within SERVE_F32_GATE of make_predict_step; then
     predict_pairs' videos/s at SERVE_BATCHES and the HTTP load.  Returns
-    {kernel: launches}."""
+    ({kernel: launches}, {"throughput", "http"}: the fused server's rates,
+    which phase_native_serve prints beside the native route's)."""
     mcfg = ModelConfig()
     fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
     records = list(tfrecord_io.read_tfrecords(os.path.join(workdir, "videos-0.tfrecord")))
@@ -3460,7 +3515,383 @@ def phase_serve(dev, workdir, fp, export: dict, smi) -> dict:
     emit({"phase": "serve", "part": "http", **web, "card": smi})
     del server
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"throughput": rates, "http": web}
+
+
+# ---- item 14b: the native runner (csrc/native_runner.cu) and lpm_serve
+
+# the runner's probabilities against the fused route with kernels on the
+# same padded batches: both run row 1 and the same rounding points, and the
+# products are cuBLAS's in both.  They read equal bit for bit at B=32 and
+# 256 (measured on one H100 at 700 W); the gate leaves room for cuBLAS to pick
+# another split of the 262,144-long hidden-FC sums, no more
+NATIVE_GATE = 1e-5
+# each tail kernel against its plain version on the same inputs (atol as a
+# share of max|ref|, rtol): the sum and the top-k exactly, the gating within
+# one bf16 step of its output, the MoE combine within the f32 tolerance
+TAIL_GATES = {"native_hidden_sum": (0.0, 0.0), "native_gating": (0.0, 2 ** -8),
+              "native_moe_combine": TOLERANCE[torch.float32], "native_topk": (0.0, 0.0)}
+TAIL_WIDTHS = dict(h=1024, v=3862, m=2, k=20)  # Willow's hidden width, vocabulary, mixtures, top-k
+# lpm_serve's scores are printed with %.6f
+LPM_SERVE_ROUNDING = 1e-6
+LPM_SERVE_SIGTERM_S = 15
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device busy ms per call of ``fn`` from the profiler, which leaves out
+    the host's launch gaps between a short chain's kernels; CUDA events
+    around one call where the profiler records no device activity."""
+    busy = profile_device(fn, reps).get("device_busy_ms_per_call")
+    return busy if busy is not None else time_ms(fn)
+
+
+def tail_inputs(b: int, dev) -> dict:
+    """Random f32 inputs of the tail kernels at batch ``b``, Willow's widths;
+    the top-k's scores are the MoE's probabilities with exact ties (ten
+    copies of each row's largest, ten of an entry near the 20th)."""
+    gen = torch.Generator(device=dev).manual_seed(b)
+    h, v, m = TAIL_WIDTHS["h"], TAIL_WIDTHS["v"], TAIL_WIDTHS["m"]
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = dict(h_rgb=randn(b, h, scale=0.5), h_aud=randn(b, h, scale=0.2), bias=randn(h, scale=0.1),
+             gates=randn(b, h, scale=2.0), h=randn(b, h), g_scale=randn(h, scale=0.2) + 1.0,
+             g_bias=randn(h, scale=0.1), ga=randn(b, (m + 1) * v, scale=3.0), ea=randn(b, m * v, scale=3.0),
+             eb=randn(m * v, scale=0.5))
+    probs = native_tail.moe_combine_plain(x["ga"], x["ea"], x["eb"], m)
+    top = torch.sort(probs, dim=1, descending=True).values
+    probs[:, 3000:3010] = top[:, :1]
+    probs[:, 100:110] = top[:, 18:19]
+    x["probs"] = probs.contiguous()
+    return x
+
+
+def tail_calls(x: dict) -> dict:
+    """name → (kernel call, plain call, library call or None, bytes moved)."""
+    b, h = x["h"].shape
+    m, k = TAIL_WIDTHS["m"], TAIL_WIDTHS["k"]
+    v = x["probs"].shape[1]
+    return {
+        "native_hidden_sum": (lambda: native_tail.hidden_sum(x["h_rgb"], x["h_aud"], x["bias"]),
+                              lambda: native_tail.hidden_sum_plain(x["h_rgb"], x["h_aud"], x["bias"]),
+                              None, 2 * b * h * 4 + h * 4 + b * h * 6),
+        "native_gating": (lambda: native_tail.gating(x["gates"], x["h"], x["g_scale"], x["g_bias"]),
+                          lambda: native_tail.gating_plain(x["gates"], x["h"], x["g_scale"], x["g_bias"]),
+                          None, 2 * b * h * 4 + 2 * h * 4 + b * h * 2),
+        "native_moe_combine": (lambda: native_tail.moe_combine(x["ga"], x["ea"], x["eb"], m),
+                               lambda: native_tail.moe_combine_plain(x["ga"], x["ea"], x["eb"], m),
+                               None, b * (m + 1) * v * 4 + b * m * v * 4 + m * v * 4 + b * v * 4),
+        "native_topk": (lambda: native_tail.topk(x["probs"], k), lambda: native_tail.topk_plain(x["probs"], k),
+                        lambda: torch.topk(x["probs"], k), b * v * 4 + b * k * 8),
+    }
+
+
+def check_tail_kernels(dev, errors: dict) -> tuple:
+    """Each tail kernel against its plain version at SERVE_BATCHES within
+    TAIL_GATES (the gating's share of outputs equal bit for bit printed);
+    at the largest batch its device ms, the plain chain's, the library
+    call's (torch.topk) and the bound (bytes over the HBM rate).  → (timing,
+    library) for the kernels line."""
+    timing, library = {}, {}
+    for b in SERVE_BATCHES:
+        x = tail_inputs(b, dev)
+        calls = tail_calls(x)
+        line = {}
+        for name, (kernel, plain, lib, nbytes) in calls.items():
+            got, want = kernel(), plain()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            err = max(compare(f"{name} B={b}", g, w, tol=TAIL_GATES[name]) for g, w in zip(got, want))
+            errors[name] = max(errors.get(name, 0.0), err)
+            line[name] = {"max_abs_err": err, "bit_equal_share": float((got[0] == want[0]).float().mean())}
+        torch.cuda.synchronize()
+        emit({"phase": "native_serve", "part": "tail_kernels", "B": b, "checks": line, "gates": TAIL_GATES})
+    for name, (kernel, plain, lib, nbytes) in calls.items():
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        timing[name] = (device_ms(kernel), device_ms(plain), (bound_ms, "bytes"))
+        library[name] = device_ms(lib) if lib is not None else None
+    return timing, library
+
+
+def read_ready(proc: subprocess.Popen, timeout: float) -> int:
+    """lpm_serve's port from its readiness line; raises if it exits or says
+    nothing within ``timeout`` seconds."""
+    line = {}
+    reader = threading.Thread(target=lambda: line.update(text=proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout)
+    found = re.search(r"serving .* on :(\d+)", line.get("text", ""))
+    if not found:
+        raise AssertionError(f"lpm_serve: no readiness line in {timeout} s: {line.get('text')!r}, "
+                             f"exit {proc.poll()}")
+    return int(found.group(1))
+
+
+def http_call(port: int, method: str, path: str, body=None) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def cublas_libraries(pid) -> list:
+    """The libcublas files mapped into process ``pid``."""
+    with open(f"/proc/{pid}/maps") as f:
+        return sorted({line.split()[-1] for line in f if "libcublas" in line})
+
+
+def lpm_serve_answers(port: int, exe, fcfg: FeatureConfig, records: list) -> dict:
+    """Requests of HTTP_RECORDS records one after another, and one of 40
+    (two batches on lpm_serve's solo path), against the in-process runner
+    on the same padded batches: the same classes, scores within the
+    rounding."""
+    b = exe.batch_size
+    requests = [records[i:i + HTTP_RECORDS] for i in range(0, 8 * HTTP_RECORDS, HTTP_RECORDS)] + [records[:40]]
+    worst = 0.0
+    for recs in requests:
+        status, body = http_call(port, "POST", "/predict", frame_records(recs))
+        if status != 200:
+            raise AssertionError(f"lpm_serve: status {status}: {body[:200]!r}")
+        preds = json.loads(body)["predictions"]
+        want = []
+        for start in range(0, len(recs), b):
+            chunk = recs[start:start + b]
+            feats, nfs = export_lib.parse_serialized_records(fcfg, chunk + [chunk[-1]] * (b - len(chunk)))
+            values, indices = exe.run(feats, nfs)
+            want += list(zip(indices[:len(chunk)].tolist(), values[:len(chunk)]))
+        if len(preds) != len(recs):
+            raise AssertionError(f"lpm_serve: {len(preds)} predictions for {len(recs)} records")
+        for i, (p, (classes, scores)) in enumerate(zip(preds, want)):
+            gap = float(np.abs(np.asarray(p["scores"], np.float64) - scores).max())
+            if p["video_index"] != i or p["classes"] != classes or gap > LPM_SERVE_ROUNDING:
+                raise AssertionError(f"lpm_serve: record {i} answered {p['classes'][:5]} (gap {gap}), "
+                                     f"the runner {classes[:5]}")
+            worst = max(worst, gap)
+    return {"requests": len(requests), "records": sum(len(r) for r in requests), "max_abs_score_gap": worst}
+
+
+def lpm_serve_load(port: int, records: list) -> dict:
+    """HTTP_CLIENTS threads each post HTTP_REQUESTS requests of HTTP_RECORDS
+    records: requests/s, videos/s, p50/p99 latency (serve_http's load)."""
+    latencies, failures = [], []
+
+    def client(c: int):
+        for r in range(HTTP_REQUESTS):
+            first = (c * HTTP_REQUESTS + r) * HTTP_RECORDS
+            body = frame_records([records[(first + j) % len(records)] for j in range(HTTP_RECORDS)])
+            t0 = time.perf_counter()
+            status, payload = http_call(port, "POST", "/predict", body)
+            latencies.append(time.perf_counter() - t0)
+            if status != 200 or len(json.loads(payload)["predictions"]) != HTTP_RECORDS:
+                failures.append((status, payload[:200]))
+
+    before = json.loads(http_call(port, "GET", "/statz")[1])
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    after = json.loads(http_call(port, "GET", "/statz")[1])
+    stats = {key: after[key] - before[key] for key in after}
+    n = HTTP_CLIENTS * HTTP_REQUESTS
+    if failures or len(latencies) != n or stats["requests"] != n or stats["coalesced"] <= 0:
+        raise AssertionError(f"lpm_serve load: failures {failures[:3]}, {len(latencies)} of {n} answered, "
+                             f"statz {stats} (coalesced must be > 0)")
+    lat = sorted(ms * 1e3 for ms in latencies)
+    return {"clients": HTTP_CLIENTS, "requests": n, "videos": stats["rows"], "linger_ms": HTTP_LINGER_MS,
+            "wall_s": wall, "requests_per_s": n / wall, "videos_per_s": stats["rows"] / wall,
+            "latency_ms_p50": lat[len(lat) // 2], "latency_ms_p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "statz": stats, "coalesced_share": stats["coalesced"] / stats["requests"]}
+
+
+def phase_native_serve(dev, workdir, fp, smi, served: dict, lpm_serve: dict) -> tuple:
+    """Item 14b on phase_e2e's Willow tree at full width (the serve phase's
+    workdir, fp and measurements):
+
+    (a) export_model(with_stablehlo=True) at batch 32 and 256: seconds and
+        weights.bin's bytes; read_artifact's arrays equal bit for bit to fp;
+    (b) the runner in-process: ModelServer(native=True) at 32 (warmup, then
+        the 96 records) with row 1 and each tail kernel once a batch by the
+        runner's counts and no torch-route launch, its scores within
+        SERVE_GATE of plain_served_values; the runner's probabilities at 32
+        and 256 within NATIVE_GATE of the fused route with kernels on the
+        same padded batches, its top-k equal to top_k_exact of its own
+        probabilities; a profile of one runner batch;
+    (c) the tail kernels (check_tail_kernels);
+    (d) the native route's videos/s at 32 and 256 (the median of
+        SERVE_ROUNDS over 256 records), the runner's ms a batch, beside the
+        fused server's from phase_serve;
+    (e) lpm_serve: --check, the answers of the in-process runner on the same
+        records, the HTTP load beside serve_http's, /statz coalescing, exit 0
+        within LPM_SERVE_SIGTERM_S of SIGTERM.
+    Returns (errors, timing, library, launches) for the kernels line."""
+    mcfg = ModelConfig()
+    fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+    records = list(tfrecord_io.read_tfrecords(os.path.join(workdir, "videos-0.tfrecord")))
+    records256 = [records[i % len(records)] for i in range(max(SERVE_BATCHES))]
+    n_batches = -(-len(records) // 32)
+
+    # (a) the artifact
+    tree = load_variables_npz(os.path.join(workdir, "train"))
+    exports, export_s = {}, {}
+    for b in SERVE_BATCHES:
+        exports[b] = os.path.join(workdir, f"runner_export_b{b}")
+        start = time.perf_counter()
+        export_lib.export_model(exports[b], "NetVLADModelLF", mcfg, fcfg, tree["params"], tree["batch_stats"],
+                                with_stablehlo=True, stablehlo_batch_size=b)
+        export_s[b] = time.perf_counter() - start
+    del tree
+    manifest, arrays = native_runtime.read_artifact(exports[SERVE_BATCHES[0]])
+    bad = []
+    for name in native_runtime.ARRAYS:
+        got, want = native_runtime.array_of(arrays, name), native_runtime.array_of(fp, name).cpu()
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(
+                got.view(torch.int16 if got.dtype == torch.bfloat16 else torch.int32),
+                want.view(torch.int16 if want.dtype == torch.bfloat16 else torch.int32)):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"native_serve: the artifact's arrays differ from the serve phase's: {bad}")
+    del arrays
+    emit({"phase": "native_serve", "part": "export", "export_s": export_s,
+          "weights_bytes": os.path.getsize(os.path.join(exports[32], native_runtime.WEIGHTS_FILE)),
+          "arrays_bit_equal": len(native_runtime.ARRAYS), "route": manifest["route"],
+          "sampling_key": manifest["sampling_key"], "card": smi})
+
+    # (b) in process: the main path through ModelServer(native=True)
+    start = time.perf_counter()
+    servers = {32: ModelServer(exports[32], 32, native=True, device=dev)}
+    load_s = {32: time.perf_counter() - start}
+    exe = servers[32]._serve.executable
+    reset_counters()
+    exe.reset_launches()
+    servers[32].warmup()
+    pairs = servers[32].predict_pairs(records)
+    torch.cuda.synchronize()
+    runner_counts, torch_counts = exe.launches(), counters()
+    want = dict.fromkeys(native_runtime.COUNTERS, n_batches + 1)
+    if runner_counts != want or any(torch_counts.values()):
+        raise AssertionError(f"native_serve: the runner's launches {runner_counts} (expected {want}), the torch "
+                             f"route's {torch_counts} (expected none)")
+    gaps = {"served_vs_plain": served_gap("native", pairs, plain_served_values(fp, records, fcfg, mcfg, 32, dev),
+                                          SERVE_GATE)}
+    start = time.perf_counter()
+    servers[256] = ModelServer(exports[256], 32, native=True, device=dev)
+    load_s[256] = time.perf_counter() - start
+    if servers[256].batch_size != 256:
+        raise AssertionError(f"native_serve: the export's batch 256 did not override 32: {servers[256].batch_size}")
+    fused = build_fast_netvlad_inference(mcfg, return_probs=True)
+    prob_gap = {}
+    for b, server in servers.items():
+        runner = server._serve.executable
+        worst = 0.0
+        for start in range(0, len(records), b):
+            chunk = records[start:start + b]
+            feats, nfs = export_lib.parse_serialized_records(fcfg, chunk + [chunk[-1]] * (b - len(chunk)))
+            got = runner.probs(feats, nfs)
+            with torch.no_grad():
+                want_p = fused(fp, torch.from_numpy(feats).to(dev), torch.from_numpy(nfs).to(dev), prng.key(0))
+            got_t = torch.from_numpy(got)
+            if got.shape != (b, mcfg.vocab_size) or not np.isfinite(got).all():
+                raise AssertionError(f"native_serve B={b}: probabilities of shape {got.shape} or non-finite")
+            worst = max(worst, (got_t - want_p.float().cpu()).abs().max().item())
+            values, indices = runner.run(feats, nfs)
+            tv, ti = top_k_exact(got_t, 20)
+            if not (np.array_equal(indices, ti.numpy()) and np.array_equal(values.view(np.int32),
+                                                                           tv.numpy().view(np.int32))):
+                raise AssertionError(f"native_serve B={b}: the runner's top-k is not top_k_exact of its probs")
+        prob_gap[f"B={b}"] = worst
+    if max(prob_gap.values()) > NATIVE_GATE:
+        raise AssertionError(f"native_serve: runner probabilities {prob_gap} from the fused route's, over "
+                             f"{NATIVE_GATE}")
+    gaps["probs_vs_fused_kernels"] = prob_gap
+    launches = {"netvlad_frontend": runner_counts["netvlad_frontend"],
+                **{f"native_{name}": runner_counts[name] for name in native_runtime.COUNTERS[1:]}}
+    feats, nfs = export_lib.parse_serialized_records(fcfg, records256)
+    emit({"phase": "native_serve", "part": "in_process", "videos": len(records), "batch": 32,
+          "load_s": load_s, "max_abs_gap": gaps, "gates": {"probs": NATIVE_GATE, "served": SERVE_GATE},
+          "runner_launches": runner_counts, "torch_launches": "none",
+          "cublas_in_process": cublas_libraries("self"),
+          "profile_B256": profile_device(lambda: servers[256]._serve.executable.run(feats, nfs), reps=5),
+          "card": smi})
+
+    # (c) the tail kernels alone
+    errors = {}
+    timing, library = check_tail_kernels(dev, errors)
+
+    # (d) throughput of the native route in process
+    rates = {}
+    for b, server in servers.items():
+        runner = server._serve.executable
+        server.predict_pairs(records256[:b])
+        rounds = []
+        for _ in range(SERVE_ROUNDS):
+            t0 = time.perf_counter()
+            server.predict_pairs(records256)
+            rounds.append(time.perf_counter() - t0)
+        run_s = []
+        for start in range(0, len(records256), b):
+            t0 = time.perf_counter()
+            runner.run(feats[start:start + b], nfs[start:start + b])
+            run_s.append(time.perf_counter() - t0)
+        wall = statistics.median(rounds)
+        rates[f"B={b}"] = {"videos_per_s": len(records256) / wall,
+                           "videos_per_s_rounds": [len(records256) / r for r in rounds],
+                           "batch_ms": wall * 1e3 * b / len(records256),
+                           "runner_ms_per_batch": statistics.median(run_s) * 1e3,
+                           "fused_server_videos_per_s": served["throughput"][f"B={b}"]["videos_per_s"]}
+    emit({"phase": "native_serve", "part": "throughput", "route": "native", **rates, "card": smi})
+    servers[256]._serve.executable.close()
+    del servers[256]
+
+    # (e) lpm_serve
+    binary = lpm_serve["path"]
+    start = time.perf_counter()
+    check = subprocess.run([binary, f"--export_dir={exports[32]}", "--check"], capture_output=True, text=True,
+                           timeout=300)
+    check_s = time.perf_counter() - start
+    if check.returncode != 0:
+        raise AssertionError(f"lpm_serve --check: exit {check.returncode}: {check.stderr[-2000:]}")
+    (pred,) = json.loads(check.stdout)["predictions"]
+    if len(pred["classes"]) != 20 or len(pred["scores"]) != 20:
+        raise AssertionError(f"lpm_serve --check: {pred}")
+    proc = subprocess.Popen([binary, f"--export_dir={exports[32]}", "--port=0",
+                             f"--linger_ms={HTTP_LINGER_MS:g}"], stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    try:
+        start = time.perf_counter()
+        port = read_ready(proc, 300)
+        ready_s = time.perf_counter() - start
+        if http_call(port, "GET", "/healthz") != (200, b"ok"):
+            raise AssertionError("lpm_serve: /healthz")
+        cublas_binary = cublas_libraries(proc.pid)
+        answers = lpm_serve_answers(port, exe, fcfg, records)
+        web = lpm_serve_load(port, records)
+        statz = json.loads(http_call(port, "GET", "/statz")[1])
+        start = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=LPM_SERVE_SIGTERM_S)
+        stop_s = time.perf_counter() - start
+        if code != 0:
+            raise AssertionError(f"lpm_serve: exit {code} after SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    emit({"phase": "native_serve", "part": "lpm_serve", "build_s": lpm_serve["seconds"], "check_s": check_s,
+          "ready_s": ready_s, "cublas_in_binary": cublas_binary, "answers": answers, **web,
+          "python_server_http": {key: served["http"][key] for key in
+                                 ("requests_per_s", "videos_per_s", "latency_ms_p50", "latency_ms_p99",
+                                  "coalesced_share")},
+          "statz_total": statz, "sigterm_exit_s": stop_s, "card": smi})
+    exe.close()
+    del servers, exe
+    torch.cuda.empty_cache()
+    return errors, timing, library, launches
 
 
 # ---- items 10b and 11: the dropout kernel, the attention family and the RNNs
@@ -4437,7 +4868,7 @@ def main() -> int:
         seconds[phase] = clock[-1] - clock[-2]
 
     smi = phase_env()
-    phase_build()
+    lpm_serve = phase_build()
     done("build")
     errors, timing = phase_kernels(dev, smi)
     shapes = dict.fromkeys(timing, "B=512 S=30")
@@ -4462,9 +4893,18 @@ def main() -> int:
         for name, n in phase_int8_e2e(dev, workdir, fp, smi).items():
             launches[name] = launches.get(name, 0) + n
         done("kernels, e2e, int8_e2e")
-        for name, n in phase_serve(dev, workdir, fp, export, smi).items():
+        serve_counts, served = phase_serve(dev, workdir, fp, export, smi)
+        for name, n in serve_counts.items():
             launches[name] += n
         done("serve")
+        e, t, lib, native_launches = phase_native_serve(dev, workdir, fp, smi, served, lpm_serve)
+        errors.update(e)
+        timing.update(t)
+        library.update(lib)
+        shapes.update(dict.fromkeys(t, "B=256 (the larger serving batch), H=1024, V=3862, M=2, k=20; f32 in"))
+        for name, n in native_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        done("native_serve")
     device_rates = {"fused_inference_b512": phase_throughput(dev, fp, smi)}
     del fp
     done("throughput")

@@ -11,7 +11,15 @@ wrote:
 
 written and read by ``utils/flax_msgpack.py`` (flax's format, no ``flax`` or
 ``msgpack`` needed).  A JAX export may also hold StableHLO pieces; the port
-ignores them, and ``with_stablehlo=True`` raises (ROADMAP item 14b).
+ignores them.
+
+``with_stablehlo=True`` writes the native runner's artifact beside them
+(``core/native_runtime.py``): ``native_manifest.txt`` (the JAX package's
+lines and the port's) and ``weights.bin`` (the fast route's BN-folded
+arrays), for the Willow fast route of NetVLADModelLF; other models and
+configs raise NotImplementedError (ROADMAP item 14c) and write nothing.
+``load_exported_native`` serves such an export through the runner on the
+card.
 
 ``load_exported_model`` rebuilds the model and a ``serve(serialized_records)``
 callable: raw ``tf.SequenceExample`` / ``tf.Example`` bytes in,
@@ -32,6 +40,8 @@ import numpy as np
 import torch
 
 from learnablepoolingmethods_torch.config import FeatureConfig, ModelConfig
+from learnablepoolingmethods_torch.core import native_runtime
+from learnablepoolingmethods_torch.core.native_runtime import NativeExecutable
 from learnablepoolingmethods_torch.core.step import make_predict_step
 from learnablepoolingmethods_torch.core.weights import (
     convert_flax_variables,
@@ -42,6 +52,8 @@ from learnablepoolingmethods_torch.data import tfrecord_io
 from learnablepoolingmethods_torch.data.readers import fill_frame_record
 from learnablepoolingmethods_torch.models import create_model
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path, int8_capable_models
+from learnablepoolingmethods_torch.ops.fast_infer import prepare_fast_params
+from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS
 from learnablepoolingmethods_torch.utils import flax_msgpack, prng
 from learnablepoolingmethods_torch.utils.misc import resolve_device
 
@@ -53,7 +65,8 @@ STATS_FILE = "batch_stats.msgpack"
 FRAMEWORK = "learnablepoolingmethods_torch"
 # the packages whose exports this module reads: the JAX package's and its own
 FRAMEWORKS = ("learnablepoolingmethods_tpu", FRAMEWORK)
-NATIVE_NOT_PORTED = "the StableHLO export and the native runners are not ported yet: ROADMAP item 14b"
+# the model whose fast route the native runner runs
+NATIVE_MODEL = "NetVLADModelLF"
 
 
 def export_model(
@@ -70,9 +83,13 @@ def export_model(
     """Write the artifact of ``params`` and ``batch_stats`` (nested dicts of
     NumPy arrays in the flax layout, e.g. from
     ``core/weights.py#state_dict_to_flax(model, keep_bf16=True)``) into
-    ``export_dir``; returns ``export_dir``."""
-    if with_stablehlo:
-        raise NotImplementedError(f"with_stablehlo: {NATIVE_NOT_PORTED}")
+    ``export_dir``; returns ``export_dir``.
+
+    ``with_stablehlo``: also the native runner's artifact, for a batch of
+    ``stablehlo_batch_size`` (the keyword keeps the JAX package's name; the
+    port writes no StableHLO).  Raises NotImplementedError, before writing
+    anything, for a model or config outside the runner's route."""
+    arrays = native_arrays(model_name, mcfg, fcfg, params, batch_stats) if with_stablehlo else None
     os.makedirs(export_dir, exist_ok=True)
     meta = {
         "model": model_name,
@@ -86,7 +103,80 @@ def export_model(
     for name, tree in ((PARAMS_FILE, params), (STATS_FILE, batch_stats)):
         with open(os.path.join(export_dir, name), "wb") as f:
             flax_msgpack.dump(tree, f)
+    if arrays is not None:
+        _write_native_artifact(export_dir, model_name, mcfg, fcfg, top_k, stablehlo_batch_size, arrays)
     return export_dir
+
+
+def native_arrays(model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, params, batch_stats) -> dict:
+    """The native runner's arrays, ``prepare_fast_params(..., device="cpu")``
+    of the tree, by ``native_runtime.ARRAYS`` name.  Raises
+    NotImplementedError naming ROADMAP item 14c where the route does not
+    apply: another model, video-level or presampled features, or a config
+    that the fast route refuses."""
+    why = None
+    if model_name != NATIVE_MODEL:
+        why = f"model {model_name}"
+    elif not fcfg.frame_features or mcfg.presampled:
+        why = "video-level features" if not fcfg.frame_features else "a presampled config"
+    else:
+        try:
+            variables = convert_flax_variables({"params": params, "batch_stats": batch_stats}, mcfg, model_name)
+            fp = prepare_fast_params(variables, mcfg, device="cpu")
+        except (ValueError, KeyError) as e:
+            why = str(e)
+        else:
+            if max(fp["rgb"]["cluster"].shape[1], fp["aud"]["cluster"].shape[1]) > MAX_CLUSTERS:
+                why = f"more than {MAX_CLUSTERS} clusters"
+    if why is not None:
+        raise NotImplementedError(
+            f"with_stablehlo: the native runner runs the fast route of {NATIVE_MODEL} on frame-level "
+            f"features only, not this export ({why}); the other models and configs are ROADMAP item 14c")
+    return {name: native_runtime.array_of(fp, name) for name in native_runtime.ARRAYS}
+
+
+def _write_native_artifact(export_dir: str, model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig,
+                           top_k: int, batch: int, arrays: dict) -> None:
+    """``weights.bin`` (the arrays dense, row-major, little-endian, in
+    ``ARRAYS``' order) and then ``native_manifest.txt``: the JAX package's
+    lines (its ``#_write_native_manifest``: the model, batch, features,
+    call inputs and outputs), then the route, the sampling key
+    (``prng.key(0)``, as the server draws every batch), ``iterations``,
+    ``moe_num_mixtures`` and one named weight line per array."""
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"stablehlo_batch_size {batch}: the runner takes 1 to 65535 videos a batch")
+    k = min(top_k, mcfg.vocab_size)
+    rows = []
+    with open(os.path.join(export_dir, native_runtime.WEIGHTS_FILE), "wb") as f:
+        for name in native_runtime.ARRAYS:
+            t = arrays[name].contiguous()
+            tag = native_runtime.TAGS[t.dtype]
+            f.write((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+            rows.append(f"weight {name} {tag} {t.dim()} {' '.join(map(str, t.shape))}".rstrip())
+    lines = [
+        "lpm_native_manifest 1",
+        f"model {model_name}",
+        f"batch_size {batch}",
+        f"top_k {top_k}",
+        f"frame_features {int(fcfg.frame_features)}",
+        f"max_frames {fcfg.max_frames}",
+        f"n_features {len(fcfg.feature_names)}",
+        *(f"feature {name} {size}" for name, size in zip(fcfg.feature_names, fcfg.feature_sizes)),
+        "n_call_inputs 2",
+        f"call_input u8 3 {batch} {fcfg.max_frames} {fcfg.total_size}",
+        f"call_input s32 1 {batch}",
+        "n_outputs 2",
+        f"output f32 2 {batch} {k}",
+        f"output s32 2 {batch} {k}",
+        f"route {native_runtime.ROUTE}",
+        "sampling_key {} {}".format(*prng.key_words(prng.key(0))),
+        f"iterations {mcfg.iterations}",
+        f"moe_num_mixtures {mcfg.moe_num_mixtures}",
+        f"n_weights {len(rows)}",
+        *rows,
+    ]
+    with open(os.path.join(export_dir, native_runtime.MANIFEST_FILE), "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def _configs_from_meta(meta: dict) -> Tuple[ModelConfig, FeatureConfig]:
@@ -220,3 +310,24 @@ def parse_serialized_records(fcfg: FeatureConfig, serialized_records):
     for i, rec in enumerate(serialized_records):
         _, nfs[i] = fill_frame_record(out[i], rec, fcfg.feature_names, fcfg.feature_sizes)
     return out, nfs
+
+
+def load_exported_native(export_dir: str, device="cuda"):
+    """Serve an export through the native runner on the card
+    (``core/native_runtime.py``): no Python or torch in the execution path.
+
+    → (mcfg, fcfg, batch_size, serve), as the JAX package's: ``serve`` has
+    ``load_exported_model``'s record contract at a FIXED batch size, the
+    artifact's (callers pad to it); ``serve.executable`` is the runner.
+    Raises ValueError on the CPU and for a JAX export."""
+    exe = NativeExecutable.from_export_dir(export_dir, device=device)
+    with open(os.path.join(export_dir, CONFIG_FILE)) as f:
+        mcfg, fcfg = _configs_from_meta(json.load(f))
+
+    def serve(serialized_records: List[bytes]):
+        feats, nfs = parse_serialized_records(fcfg, serialized_records)
+        values, indices = exe.run(feats, nfs)
+        return indices, values
+
+    serve.executable = exe
+    return mcfg, fcfg, exe.batch_size, serve

@@ -37,6 +37,7 @@ from learnablepoolingmethods_torch.ops.fused_frontend import (
     sample_indices,
 )
 from learnablepoolingmethods_torch.ops.int8_matmul import device_weight, matmul_wi8, quantize_weight_int8
+from learnablepoolingmethods_torch.ops.native_tail import gating_plain, moe_combine_plain
 from learnablepoolingmethods_torch.ops.netvlad_fused import (
     fold_assignment_bn,
     netvlad_fused,
@@ -104,15 +105,11 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gated_moe_tail(fp, h, m: int, v: int, ct, top_k: int, return_probs: bool):
     """Folded context gating + vocab-major MoE + exact top-k (fp keys:
     gate_w/g_scale/g_bias/gates_kernel/experts_kernel/experts_bias).  The
-    MoE kernels keep column m·V + v, so the activations reshape to
-    ``[B, M+1, V]`` and ``[B, M, V]``."""
-    b = h.shape[0]
-    gates = matmul_f32(h.to(ct), fp["gate_w"]) * fp["g_scale"] + fp["g_bias"]
-    h = (h * torch.sigmoid(gates)).to(ct)
-
-    ga = matmul_f32(h, fp["gates_kernel"]).reshape(b, m + 1, v)
-    ea = (matmul_f32(h, fp["experts_kernel"]) + fp["experts_bias"]).reshape(b, m, v)
-    probs = torch.sum(torch.softmax(ga, dim=1)[:, :m] * torch.sigmoid(ea), dim=1)
+    MoE kernels keep column m·V + v (``ops/native_tail.py``'s plain
+    versions, which the native runner's tail kernels compute too)."""
+    h = gating_plain(matmul_f32(h.to(ct), fp["gate_w"]), h, fp["g_scale"], fp["g_bias"], ct)
+    probs = moe_combine_plain(matmul_f32(h, fp["gates_kernel"]), matmul_f32(h, fp["experts_kernel"]),
+                              fp["experts_bias"], m)
     if return_probs:
         return probs
     return top_k_exact(probs, min(top_k, v))

@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, which the wrappers call
-through ``ctypes``.  Libraries go to ``build/kernels/`` at the root of the
+through ``ctypes``.  A library of ``LIBRARY_PARTS`` also compiles other
+sources into itself and links more (the native runner: row 1's source and
+cuBLAS).  Libraries go to ``build/kernels/`` at the root of the
 checkout (git-ignored), named by a hash of the sources and flags, so an
 edited source is rebuilt and an unchanged one is reused.  Nothing here runs
 at import time: a module that wraps a kernel imports this one freely, and
@@ -24,7 +26,15 @@ from typing import Dict, Iterable, Sequence
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("fused_frontend", "netvlad_fused", "netvlad_train", "netfv_fused", "softdbow_fused",
-                  "masked_attention", "fused_adam", "int8_matmul", "dropout")
+                  "masked_attention", "fused_adam", "int8_matmul", "dropout", "native_runner")
+# libraries built from more than their own source: name → the other
+# ``csrc/*.cu`` compiled into it, the headers beside the ``.cuh`` files that
+# it includes, and its link flags (-Bsymbolic: its call of row 1's entry
+# point binds to its own copy, whatever else the process has loaded)
+LIBRARY_PARTS = {
+    "native_runner": dict(sources=("fused_frontend",), headers=("native_manifest.h",),
+                          link=("-lcublas", "-Xlinker", "-Bsymbolic")),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -41,10 +51,27 @@ def _nvcc() -> str:
     return found
 
 
+def sources(name: str) -> list:
+    """The ``.cu`` files that library ``name`` compiles."""
+    return [CSRC_DIR / f"{n}.cu" for n in (name, *LIBRARY_PARTS.get(name, {}).get("sources", ()))]
+
+
+def link_flags(name: str) -> list:
+    """Library ``name``'s link flags; a library that links the toolkit's
+    libraries finds them through its RUNPATH outside a process that has
+    loaded them already (``lpm_serve``)."""
+    flags = list(LIBRARY_PARTS.get(name, {}).get("link", ()))
+    if flags:
+        flags += ["-Xlinker", f"-rpath={Path(_nvcc()).resolve().parent.parent / 'lib64'}"]
+    return flags
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its sources and flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
+    """Where library ``name`` builds to, keyed by its sources and flags."""
+    parts = LIBRARY_PARTS.get(name, {})
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + parts.get("link", ())).encode())
+    headers = sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / h for h in parts.get("headers", ())]
+    for src in headers + sources(name):
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -62,7 +89,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources(name)), *link_flags(name)]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
@@ -125,10 +152,11 @@ def ptxas_report_finish(proc: subprocess.Popen) -> list:
     return kernels
 
 
-def load_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C function ``symbol`` of ``csrc/<name>.cu``, building the library
-    first if needed; it returns a ``cudaError_t`` as ``int``.  Bound once
-    and then reused, since the wrappers call it on every launch."""
+def load_function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of library ``name``, building the library
+    first if needed; a kernel's entry point returns a ``cudaError_t`` as
+    ``int`` (the default ``restype``).  Bound once and then reused, since the
+    wrappers call it on every launch."""
     fn = _functions.get((name, symbol))
     if fn is not None:
         return fn
@@ -140,7 +168,7 @@ def load_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPt
         lib = _loaded[name] = ctypes.CDLL(str(path))
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     _functions[(name, symbol)] = fn
     return fn
 

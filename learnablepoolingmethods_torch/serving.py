@@ -19,7 +19,11 @@ dispatch thread, the main thread, which owns the device; handler threads
 never touch torch.  ``--fast_serve`` serves through the model's fast path
 (the CUDA kernels on the card, ``--int8_hidden`` the W8A16 hidden FC), the
 default the model-forward route; ``--device=cpu`` runs the plain versions.
-``--native_serve`` (the C++ PJRT runner) is not ported: ROADMAP item 14b.
+``--native_serve`` serves an export written with ``with_stablehlo=True``
+through the native runner on the card (``core/native_runtime.py``: the
+Willow fast route in CUDA C++, no torch in its execution path), at the
+artifact's batch size; ``lpm_serve`` (``native/serving_main.cc``) serves
+the same artifact with no Python at all.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import numpy as np
 
 from learnablepoolingmethods_torch.data import fixtures
 from learnablepoolingmethods_torch.cli_flags import add_flag
-from learnablepoolingmethods_torch.export_model import NATIVE_NOT_PORTED, load_exported_model
+from learnablepoolingmethods_torch.export_model import load_exported_model, load_exported_native
 
 log = logging.getLogger(__name__)
 
@@ -55,7 +59,8 @@ _FLAGS = {
     "single_thread": (False, "Serve one request at a time on the main thread (no batching queue)."),
     "batch_linger_ms": (2.0, "How long the batching queue waits to coalesce concurrent requests "
                              "into one device batch."),
-    "native_serve": (False, "Serve through the native C++ runner. Not ported yet (ROADMAP item 14b): raises."),
+    "native_serve": (False, "Serve an export written with with_stablehlo=True through the native CUDA C++ "
+                            "runner on the card, at the export's batch size."),
     "fast_serve": (False, "Serve through the BN-folded fast forward when the model has one; the "
                           "model-forward route otherwise."),
     "int8_hidden": (False, "Weight-only int8 hidden FC on the fast path."),
@@ -94,7 +99,22 @@ class ModelServer:
     def __init__(self, export_dir: str, serving_batch_size: int = 32, fast_serve: bool = False,
                  int8_hidden: bool = False, native: bool = False, device="cuda"):
         if native:
-            raise NotImplementedError(f"--native_serve: {NATIVE_NOT_PORTED}")
+            # the native runner (csrc/native_runner.cu) runs the export's
+            # artifact with no torch in its execution path; its batch size
+            # is the artifact's, so it overrides the flag
+            if fast_serve or int8_hidden:
+                raise ValueError(
+                    "--native_serve serves the export's native artifact; it is "
+                    "exclusive with --fast_serve/--int8_hidden (the JAX "
+                    "package's rule; the runner has no int8 hidden FC)"
+                )
+            self.model = self.params = self.batch_stats = None
+            self.mcfg, self.fcfg, native_batch, self._serve = load_exported_native(export_dir, device=device)
+            if serving_batch_size != native_batch:
+                log.info("native module batch size %d overrides --serving_batch_size=%d",
+                         native_batch, serving_batch_size)
+            self.batch_size = native_batch
+            return
         (self.model, self.params, self.batch_stats,
          self.mcfg, self.fcfg, self._serve) = load_exported_model(
             export_dir, prefer_fast=fast_serve, int8_hidden=int8_hidden, device=device)

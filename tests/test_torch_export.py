@@ -268,9 +268,14 @@ def test_fast_serve_kernel_error_propagates(monkeypatch, exports):
 
 
 def test_stablehlo_export_raises_naming_item_14b(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
+    """(Named for the refusal it held before item 14b landed.)  The native
+    runner runs the fast route of NetVLADModelLF only: with_stablehlo on
+    another model raises NotImplementedError naming ROADMAP item 14c, and
+    writes nothing (tests/test_torch_native_export.py holds the route)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
         tem.export_model(str(tmp_path / "e"), "LogisticModel", ModelConfig(), VIDEO_FCFG, {}, {},
                          with_stablehlo=True)
+    assert not os.path.exists(tmp_path / "e")
 
 
 TRAIN_FLAGS = ["--model=NetVLADModelLF", "--frame_features", "--feature_names=rgb,audio",

@@ -62,14 +62,15 @@ def test_the_guard_covers_the_kernel_modules():
     names = _module_names()
     for module in ("fast_infer", "fast_lf", "fast_dispatch", "fused_frontend", "netvlad_fused",
                    "netvlad_train", "netfv_fused", "softdbow_fused", "kernel_build", "fast_transformer",
-                   "masked_attention", "fast_dbof", "metrics_ops", "fused_adam", "int8_matmul", "dropout"):
+                   "masked_attention", "fast_dbof", "metrics_ops", "fused_adam", "int8_matmul", "dropout",
+                   "native_tail"):
         assert f"learnablepoolingmethods_torch.ops.{module}" in names, module
     for module in ("models.frame_level", "models.video_level", "models.attention", "eval", "inference", "train", "losses",
                    "core.observability", "core.step", "core.optimizers", "core.checkpoints",
                    "core.checkpoint_import", "core.train_state", "utils.tf_bundle", "data.readers",
                    "data.fixtures", "export_model", "serving", "utils.flax_msgpack", "data.native_loader",
                    "data.packed_cache", "data.grain_pipeline", "data.pipeline", "cli_flags", "parallel",
-                   "parallel.mesh", "parallel.collectives"):
+                   "parallel.mesh", "parallel.collectives", "core.native_runtime"):
         assert f"learnablepoolingmethods_torch.{module}" in names, module
 
 

@@ -286,14 +286,19 @@ def test_try_fast_predict_covers_new_models(model_name, cfg_kw):
 
 
 def test_native_serve_raises_naming_item_14b(served):
-    """--native_serve, the JAX package's C++ runner, is not ported: the
-    server raises NotImplementedError naming its ROADMAP item, as does the
-    CLI."""
+    """(Named for the refusal it held before item 14b landed.)
+    --native_serve runs the native runner on the card: on the CPU the
+    server and the CLI raise ValueError, and with --fast_serve JAX's
+    ValueError (tests/test_torch_native_export.py has the rest)."""
     _, _, export_dir = served
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
+    with pytest.raises(ValueError, match="runs on the card"):
         serving.ModelServer(export_dir, 4, native=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
+    with pytest.raises(ValueError, match="runs on the card"):
         serving.main([f"--export_dir={export_dir}", "--native_serve", "--device=cpu"])
+    with pytest.raises(ValueError, match="exclusive with --fast_serve/--int8_hidden"):
+        serving.ModelServer(export_dir, 4, native=True, fast_serve=True, device="cpu")
+    with pytest.raises(ValueError, match="exclusive with --fast_serve/--int8_hidden"):
+        serving.main([f"--export_dir={export_dir}", "--native_serve", "--fast_serve", "--device=cpu"])
 
 
 class _Noop:
