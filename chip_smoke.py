@@ -100,6 +100,22 @@ error, and prints one JSON line per phase:
               the build phase): --check, its answers equal to the in-process
               runner's, the HTTP load of the serve phase beside the Python
               server's, /statz coalescing, exit 0 on SIGTERM;
+   native_routes
+              item 14c (phase_native_routes): LogisticModel and MoeModel
+              (video-level, f32), DbofModel-8192 (iid frames and one window
+              a video), NetRVLAD-256, SoftDBoW-4096, NetFV-64 and
+              NeXtVLAD-128, each exported with with_stablehlo=True at batch
+              256 and served by ModelServer(native=True) on 96 records with
+              the runner's launches of its route's kernels once a batch (rows
+              2, 6 and 5 twice: a modality each) and no torch-route launch;
+              the runner's probabilities on a padded batch of 256 within
+              NATIVE_ROUTE_GATES of the port's torch route on the card (the
+              f32 model forward; the fast route with its kernels; for the
+              DBoF window the plain versions), its top-k that of its
+              probabilities, its videos/s; lpm_serve answering LogisticModel
+              and NetRVLAD-256 over HTTP as the in-process runner does; then
+              each new kernel against its plain version (ROUTE_KERNEL_GATES)
+              at its main-path shape, timed beside its bound;
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -553,8 +569,58 @@ KERNELS = {
         source="learnablepoolingmethods_torch/csrc/native_runner.cu",
         replaces="learnablepoolingmethods_tpu/ops/topk.py:29 top_k_exact (jax.lax.top_k, no pallas_call)",
     ),
+    # the runner's steps of the other routes (ROADMAP item 14c): launched by
+    # the runner on its main path (phase_native_routes counts them)
+    "native_frame_stage": dict(
+        fn=native_tail.frame_stage,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_lf.py:305-319 sample_frame_features, dequantize, ℓ2 and the "
+                 "folded input BN, and ops/fast_dbof.py:78-92 without the BN (XLA fusion, no pallas_call)",
+    ),
+    "native_bias_sigmoid": dict(
+        fn=native_tail.bias_sigmoid,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/models/video_level.py:26-34 fc's bias and the sigmoid "
+                 "(XLA fusion, no pallas_call)",
+    ),
+    "native_bias_relu6": dict(
+        fn=native_tail.bias_relu6,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_dbof.py:94-100 + cluster_b and relu6, and :105-111 the "
+                 "hidden FC's (XLA fusion, no pallas_call)",
+    ),
+    "native_frame_pool": dict(
+        fn=native_tail.frame_pool,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_dbof.py:101-104 FramePooling max / average "
+                 "(XLA fusion, no pallas_call)",
+    ),
+    "native_row_l2": dict(
+        fn=native_tail.row_l2,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_lf.py:266-267 NeXtVLAD's intra-ℓ2 and folded vlad_bn, "
+                 ":302 SoftDBoW's ℓ2, core/step.py:44 preprocess_input (XLA fusion, no pallas_call)",
+    ),
+    "native_nextvlad_assign": dict(
+        fn=native_tail.nextvlad_assign,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_lf.py:244-258 σ(α) · softmax over K of the folded "
+                 "logits (XLA fusion, no pallas_call)",
+    ),
+    "native_nextvlad_residual": dict(
+        fn=native_tail.nextvlad_residual,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_lf.py:264-265 agg − Σ assign · c2 (XLA fusion, "
+                 "no pallas_call)",
+    ),
 }
-NATIVE_TAIL = ("native_hidden_sum", "native_gating", "native_moe_combine", "native_topk")
+
+
+def kernel_key(counter: str) -> str:
+    """The KERNELS name of a native runner counter (core/native_runtime.py
+    COUNTERS): the TPU-kernel rows keep theirs, the runner's own kernels
+    are native_<name>."""
+    return counter if counter in native_runtime.ROW_KERNELS else f"native_{counter}"
 TRAIN_KERNELS = ("netvlad_aggregate_forward", "netvlad_aggregate_backward")
 
 
@@ -670,19 +736,18 @@ PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train", "netfv_fused
 
 def phase_build():
     """Every library, one nvcc per source, all started together (the native
-    runner's compiles row 1's source too and links cuBLAS); beside them
-    (same time) a -Xptxas -v compile of PTXAS_REPORT whose registers, shared
-    memory and spills per kernel are printed, and g++'s C++ reader; then
+    runner's compile the sources of rows 1, 2, 5 and 6 and link cuBLAS),
+    PTXAS_REPORT's with -Xptxas -v, whose registers, shared memory and
+    spills per kernel are printed; beside them g++'s C++ reader; then
     lpm_serve, linked with the runner.  Returns lpm_serve's path and build
     seconds."""
     start = time.perf_counter()
-    reports = {name: kernel_build.ptxas_report_start(name) for name in PTXAS_REPORT}
     host = {}
     # the C++ TFRecord reader and CSV formatter (g++) build beside nvcc
     host_build = threading.Thread(target=lambda: host.update(path=str(native_loader.build()),
                                                              seconds=time.perf_counter() - start))
     host_build.start()
-    per_source = kernel_build.build()  # the native runner among them (nvcc, linked with cuBLAS)
+    per_source = kernel_build.build(ptxas=PTXAS_REPORT)  # the native runner among them (linked with cuBLAS)
     host_build.join()
     if "path" not in host:
         native_loader.build()  # raises with g++'s output
@@ -692,8 +757,8 @@ def phase_build():
     lpm_serve = {"path": str(binary), "seconds": time.perf_counter() - serve_start}
     emit({"phase": "build", "seconds": time.perf_counter() - start, "per_source": per_source,
           "host_library": host, "lpm_serve": lpm_serve})
-    for name, proc in reports.items():
-        emit({"phase": "build", "ptxas": name, "kernels": kernel_build.ptxas_report_finish(proc)})
+    for name in PTXAS_REPORT:
+        emit({"phase": "build", "ptxas": name, "kernels": kernel_build.ptxas_report(name)})
     return lpm_serve
 
 
@@ -3520,6 +3585,8 @@ def phase_serve(dev, workdir, fp, export: dict, smi) -> dict:
 
 # ---- item 14b: the native runner (csrc/native_runner.cu) and lpm_serve
 
+# the runner's launches on the Willow route, each once a batch
+WILLOW_COUNTERS = ("netvlad_frontend", "hidden_sum", "gating", "moe_combine", "topk")
 # the runner's probabilities against the fused route with kernels on the
 # same padded batches: both run row 1 and the same rounding points, and the
 # products are cuBLAS's in both.  They read equal bit for bit at B=32 and
@@ -3573,8 +3640,8 @@ def tail_calls(x: dict) -> dict:
     m, k = TAIL_WIDTHS["m"], TAIL_WIDTHS["k"]
     v = x["probs"].shape[1]
     return {
-        "native_hidden_sum": (lambda: native_tail.hidden_sum(x["h_rgb"], x["h_aud"], x["bias"]),
-                              lambda: native_tail.hidden_sum_plain(x["h_rgb"], x["h_aud"], x["bias"]),
+        "native_hidden_sum": (lambda: native_tail.hidden_sum([x["h_rgb"], x["h_aud"]], x["bias"]),
+                              lambda: native_tail.hidden_sum_plain([x["h_rgb"], x["h_aud"]], x["bias"]),
                               None, 2 * b * h * 4 + h * 4 + b * h * 6),
         "native_gating": (lambda: native_tail.gating(x["gates"], x["h"], x["g_scale"], x["g_bias"]),
                           lambda: native_tail.gating_plain(x["gates"], x["h"], x["g_scale"], x["g_bias"]),
@@ -3748,7 +3815,7 @@ def phase_native_serve(dev, workdir, fp, smi, served: dict, lpm_serve: dict) -> 
     del tree
     manifest, arrays = native_runtime.read_artifact(exports[SERVE_BATCHES[0]])
     bad = []
-    for name in native_runtime.ARRAYS:
+    for name in native_runtime.ARRAYS[native_runtime.ROUTE]:
         got, want = native_runtime.array_of(arrays, name), native_runtime.array_of(fp, name).cpu()
         if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(
                 got.view(torch.int16 if got.dtype == torch.bfloat16 else torch.int32),
@@ -3759,7 +3826,7 @@ def phase_native_serve(dev, workdir, fp, smi, served: dict, lpm_serve: dict) -> 
     del arrays
     emit({"phase": "native_serve", "part": "export", "export_s": export_s,
           "weights_bytes": os.path.getsize(os.path.join(exports[32], native_runtime.WEIGHTS_FILE)),
-          "arrays_bit_equal": len(native_runtime.ARRAYS), "route": manifest["route"],
+          "arrays_bit_equal": len(native_runtime.ARRAYS[native_runtime.ROUTE]), "route": manifest["route"],
           "sampling_key": manifest["sampling_key"], "card": smi})
 
     # (b) in process: the main path through ModelServer(native=True)
@@ -3773,7 +3840,7 @@ def phase_native_serve(dev, workdir, fp, smi, served: dict, lpm_serve: dict) -> 
     pairs = servers[32].predict_pairs(records)
     torch.cuda.synchronize()
     runner_counts, torch_counts = exe.launches(), counters()
-    want = dict.fromkeys(native_runtime.COUNTERS, n_batches + 1)
+    want = {name: n_batches + 1 if name in WILLOW_COUNTERS else 0 for name in native_runtime.COUNTERS}
     if runner_counts != want or any(torch_counts.values()):
         raise AssertionError(f"native_serve: the runner's launches {runner_counts} (expected {want}), the torch "
                              f"route's {torch_counts} (expected none)")
@@ -3809,8 +3876,7 @@ def phase_native_serve(dev, workdir, fp, smi, served: dict, lpm_serve: dict) -> 
         raise AssertionError(f"native_serve: runner probabilities {prob_gap} from the fused route's, over "
                              f"{NATIVE_GATE}")
     gaps["probs_vs_fused_kernels"] = prob_gap
-    launches = {"netvlad_frontend": runner_counts["netvlad_frontend"],
-                **{f"native_{name}": runner_counts[name] for name in native_runtime.COUNTERS[1:]}}
+    launches = {kernel_key(name): runner_counts[name] for name in WILLOW_COUNTERS}
     feats, nfs = export_lib.parse_serialized_records(fcfg, records256)
     emit({"phase": "native_serve", "part": "in_process", "videos": len(records), "batch": 32,
           "load_s": load_s, "max_abs_gap": gaps, "gates": {"probs": NATIVE_GATE, "served": SERVE_GATE},
@@ -3892,6 +3958,429 @@ def phase_native_serve(dev, workdir, fp, smi, served: dict, lpm_serve: dict) -> 
     del servers, exe
     torch.cuda.empty_cache()
     return errors, timing, library, launches
+
+
+# ---- item 14c: the runner's other routes (LogisticModel, MoeModel,
+# DbofModel, NetRVLADModelLF, SoftDbofModelLF, NetFVModelLF, NeXtVLADModel)
+
+NATIVE_ROUTES_BATCH = 256
+# run → (model, config overrides); each at its full default width
+NATIVE_ROUTE_RUNS = {
+    "LogisticModel": ("LogisticModel", {}),
+    "MoeModel": ("MoeModel", {}),
+    "DbofModel": ("DbofModel", {}),
+    "DbofModel_window": ("DbofModel", dict(sample_random_frames=False)),
+    "NetRVLADModelLF": ("NetRVLADModelLF", {}),
+    "SoftDbofModelLF": ("SoftDbofModelLF", {}),
+    "NetFVModelLF": ("NetFVModelLF", {}),
+    "NeXtVLADModel": ("NeXtVLADModel", {}),
+}
+# the runs that lpm_serve answers over HTTP (a video-level and a LOUPE route)
+NATIVE_ROUTES_HTTP = ("LogisticModel", "NetRVLADModelLF")
+# the runner's probabilities against the port's torch route on the same
+# padded batch of 256 (max |Δ|): the f32 model forward for the video-level
+# two, the fast route with its kernels for the bf16 routes (the DBoF window:
+# the plain versions on the card, as the torch fast path refuses windows).
+# Taken from the first two runs on one H100 at 700 W, which read alike:
+# DBoF (both draws), NetRVLAD and NetFV (second run only) equal bit for
+# bit, so NATIVE_GATE's 1e-5 (room for cuBLAS to split a sum another way);
+# LogisticModel 1.2e-7 and MoeModel 6.0e-8 (the f32 products' and the input
+# ℓ2's summation order), 1e-6; SoftDBoW 1.9e-6 (a row-ℓ2 rounding of the
+# histogram), 1e-5; NeXtVLAD 2.657e-4 in four runs, 5e-4: its trace
+# (NEXTVLAD_TRACE_GATES) puts the whole gap in h's bf16 rounding
+NATIVE_ROUTE_GATES = {**dict.fromkeys(NATIVE_ROUTE_RUNS, NATIVE_GATE), "LogisticModel": 1e-6, "MoeModel": 1e-6,
+                      "NeXtVLADModel": 5e-4}
+# NeXtVLAD's trace (nextvlad_trace) against the torch route, each step's max
+# |Δ| over max |torch route| (rel) and, for the VLAD, its share of entries
+# equal; from the first run, on one H100 at 700 W: the expansion and the
+# assignment equal bit for bit; the residual within 2.1e-7 (its Σ assign
+# summed in another order than torch.sum); the VLAD 99.995 % equal, the
+# rest one bf16 step apart (the residual's last bits and the intra-ℓ2's sum
+# order move its rounding); the hidden FC of the runner's VLAD through the
+# torch product equal to the runner's; so h within 1.1e-4, 1,251 of its
+# 262,144 bf16 roundings apart, and the torch tail from the runner's h
+# equal to the runner's probabilities.  A wrong group offset, stride or
+# affine moves a step by O(1).
+NEXTVLAD_TRACE_GATES = {"xt": 0.0, "assign": 0.0, "residual": 1e-6, "vlad": 2 ** -7, "vlad_equal_share": 0.9999,
+                        "product": 1e-6, "h": 1e-3, "tail": NATIVE_GATE}
+# the runner's launches a batch of each route (every route ends in topk)
+NATIVE_ROUTE_LAUNCHES = {
+    "LogisticModel": dict(row_l2=1, bias_sigmoid=1),
+    "MoeModel": dict(row_l2=1, moe_combine=1),
+    "DbofModel": dict(frame_stage=1, bias_relu6=2, frame_pool=1, moe_combine=1),
+    "NetRVLADModelLF": dict(frame_stage=1, netvlad_fused=2, hidden_sum=1, gating=1, moe_combine=1),
+    "SoftDbofModelLF": dict(frame_stage=1, softdbow_fused=2, row_l2=2, hidden_sum=1, gating=1, moe_combine=1),
+    "NetFVModelLF": dict(frame_stage=1, netfv_fused=2, hidden_sum=1, gating=1, moe_combine=1),
+    "NeXtVLADModel": dict(frame_stage=1, nextvlad_assign=2, nextvlad_residual=2, row_l2=2, hidden_sum=1,
+                          gating=1, moe_combine=1),
+}
+NATIVE_ROUTE_LAUNCHES["DbofModel_window"] = NATIVE_ROUTE_LAUNCHES["DbofModel"]
+# each kernel of these routes against its plain version on the card (atol as
+# a share of max|ref|, rtol): exact where both do the same f32 operations in
+# the same order; one bf16 step (at most 2⁻⁷ of the value) where the plain
+# version's reduction order (PyTorch's sums) can move a bf16 rounding, with
+# a small share of max|ref| beside it where an output near zero takes a large
+# relative error from that order; the f32 tolerance for the softmax's and
+# the residual's sum order
+ROUTE_KERNEL_GATES = {
+    "native_frame_stage": (2 ** -8, 2 ** -7),
+    "native_bias_sigmoid": TOLERANCE[torch.float32],
+    "native_bias_relu6": (0.0, 0.0),
+    "native_frame_pool": (2 ** -8, 2 ** -7),
+    "native_row_l2": (2 ** -9, 2 ** -7),
+    "native_nextvlad_assign": (1e-5, 2 ** -8),
+    "native_nextvlad_residual": TOLERANCE[torch.float32],
+    "native_hidden_sum": (0.0, 0.0),
+}
+# the one PyTorch call that computes a timed kernel's function on its
+# inputs, where there is one (the other kernels' functions take two calls or
+# more): frame_pool's max over S (f32 out; the kernel rounds to bf16 as it
+# writes)
+ROUTE_LIBRARY_CALLS = {"native_frame_pool": lambda x: torch.amax(x["pooled_in"], dim=1)}
+
+
+def route_config(name: str, overrides: dict) -> tuple:
+    """(ModelConfig, FeatureConfig) of a run at its model's default width:
+    the LOUPE four as the inference CLI builds them (lf_config), DBoF and
+    the video-level two at ModelConfig's defaults."""
+    mcfg = lf_config() if name in FAST_LF_MODELS else ModelConfig()
+    mcfg = dataclasses.replace(mcfg, **overrides)
+    if native_runtime.MODEL_ROUTES[name] in native_runtime.VIDEO_ROUTES:
+        return mcfg, FeatureConfig(("mean_rgb", "mean_audio"), (D_RGB, D_AUD), False)
+    return mcfg, FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
+
+
+def torch_route(name: str, tree: dict, mcfg: ModelConfig, fcfg: FeatureConfig, export_dir: str, dev):
+    """The port's torch route on the card for the runner's batches:
+    ``fn(feats, nfs) → probabilities`` (the weights prepared once)."""
+    if not fcfg.frame_features:
+        model = create_model(name, mcfg, fcfg.total_size)
+        load_flax_variables(model, tree)
+        forward = step_lib.inference_forward(model.to(dev).eval(), mcfg, False)
+        return lambda feats, nfs: forward(torch.from_numpy(feats).to(dev)).float()
+    if not mcfg.sample_random_frames:
+        manifest, arrays = native_runtime.read_artifact(export_dir)
+        arrays = native_runtime.tree_to(arrays, dev)
+        return lambda feats, nfs: native_runtime.plain_run(manifest, arrays, feats, nfs, return_probs=True,
+                                                           device=dev)
+    path = get_fast_path(name)
+    fp = path.prepare(convert_flax_variables(tree, mcfg, name), mcfg, device=dev)
+    fn = path.build(mcfg, return_probs=True)
+
+    def probs(feats, nfs):
+        with torch.no_grad():
+            return fn(fp, torch.from_numpy(feats).to(dev), torch.from_numpy(nfs).to(dev), prng.key(0))
+
+    return probs
+
+
+def lpm_serve_route(binary: str, export_dir: str, exe, fcfg: FeatureConfig, records: list) -> dict:
+    """lpm_serve on one artifact: --port=0, its answers against the
+    in-process runner's (lpm_serve_answers), exit 0 on SIGTERM."""
+    proc = subprocess.Popen([binary, f"--export_dir={export_dir}", "--port=0", f"--linger_ms={HTTP_LINGER_MS:g}"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        start = time.perf_counter()
+        port = read_ready(proc, 300)
+        ready_s = time.perf_counter() - start
+        answers = lpm_serve_answers(port, exe, fcfg, records)
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=LPM_SERVE_SIGTERM_S)
+        if code != 0:
+            raise AssertionError(f"lpm_serve: exit {code} after SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"ready_s": ready_s, "answers": answers}
+
+
+def route_kernel_inputs(dev) -> dict:
+    """Random inputs of the routes' kernels at the shapes their main path
+    gives them at B=256 (Willow's widths, S=30, V=3862; DBoF-8192,
+    NeXtVLAD-128's rgb module: λD=2048, G=8, D′=256; SoftDBoW-4096), and
+    in their ranges: the pooling takes relu6's outputs, whose means do not
+    cancel."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, v, c, h = NATIVE_ROUTES_BATCH, 30, 3862, 8192, 1024
+    g, k, dp = 8, 128, 256
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = torch.randint(0, 256, (b, F, DT), generator=gen, device=dev, dtype=torch.uint8)
+    nf = torch.randint(1, F + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    nf[0], nf[1] = 1, F
+    assign = torch.softmax(randn(b * s, g, k, scale=3.0), dim=-1) * torch.sigmoid(randn(b * s, g, 1))
+    return dict(x=x, nf=nf, s=s, in_scale=randn(DT, scale=0.1) + 1.0, in_bias=randn(DT, scale=0.05),
+                logits=randn(b, v, scale=3.0), fc_b=randn(v, scale=0.5), act=randn(b * s, c, scale=3.0),
+                c_b=randn(c), pooled_in=torch.clamp(randn(b, s, c, scale=3.0), 0.0, 6.0), hid=randn(b, h, scale=3.0),
+                h_b=randn(h),
+                vlad=randn(b * k, dp), vscale=randn(k * dp, scale=0.2) + 1.0, vbias=randn(k * dp, scale=0.1),
+                bow=randn(b, 4096).abs() * 30.0, video=randn(b, DT),
+                lp=randn(b * s, g * k, scale=2.0), gp=randn(b * s, g), a_scale=randn(g * k, scale=0.2) + 1.0,
+                a_bias=randn(g * k, scale=0.1), agg=randn(b, k, dp), assign=assign.reshape(b, s, g, k).contiguous(),
+                c2=randn(k, dp, scale=0.1), parts=[randn(b, h) for _ in range(4)], bias=randn(h, scale=0.1))
+
+
+def route_kernel_calls(x: dict) -> dict:
+    """name → [(check label, kernel call, plain call)], the timed call first,
+    with (bytes moved by the timed call) beside: each call's inputs read once
+    and its outputs written once."""
+    nt = native_tail
+    b, s = x["nf"].shape[0], x["s"]
+    key = prng.key(0)
+    rows, gk = x["lp"].shape
+    g = x["gp"].shape[1]
+    k, dp = x["c2"].shape
+    return {
+        "native_frame_stage": ([
+            ("affine", lambda: nt.frame_stage(x["x"], key, x["nf"], s, x["in_scale"], x["in_bias"]),
+             lambda: nt.frame_stage_plain(x["x"], key, x["nf"], s, x["in_scale"], x["in_bias"])),
+            ("window", lambda: nt.frame_stage(x["x"], key, x["nf"], s, window=True),
+             lambda: nt.frame_stage_plain(x["x"], key, x["nf"], s, window=True))],
+            b * s * DT + b * 4 + 2 * DT * 4 + b * s * DT * 2),
+        "native_bias_sigmoid": ([
+            ("logistic", lambda: nt.bias_sigmoid(x["logits"], x["fc_b"]),
+             lambda: nt.bias_sigmoid_plain(x["logits"], x["fc_b"]))],
+            2 * x["logits"].numel() * 4 + x["fc_b"].numel() * 4),
+        "native_bias_relu6": ([
+            ("cluster_f32", lambda: nt.bias_relu6(x["act"], x["c_b"]), lambda: nt.bias_relu6_plain(x["act"], x["c_b"])),
+            ("hidden_bf16", lambda: nt.bias_relu6(x["hid"], x["h_b"], torch.bfloat16),
+             lambda: nt.bias_relu6_plain(x["hid"], x["h_b"], torch.bfloat16))],
+            2 * x["act"].numel() * 4 + x["c_b"].numel() * 4),
+        "native_frame_pool": ([
+            ("max", lambda: nt.frame_pool(x["pooled_in"], "max"), lambda: nt.frame_pool_plain(x["pooled_in"], "max")),
+            ("average", lambda: nt.frame_pool(x["pooled_in"], "average"),
+             lambda: nt.frame_pool_plain(x["pooled_in"], "average"))],
+            x["pooled_in"].numel() * 4 + b * x["pooled_in"].shape[2] * 2),
+        "native_row_l2": ([
+            ("nextvlad_affine", lambda: nt.row_l2(x["vlad"], x["vscale"], x["vbias"]),
+             lambda: nt.row_l2_plain(x["vlad"], x["vscale"], x["vbias"])),
+            ("softdbow", lambda: nt.row_l2(x["bow"]), lambda: nt.row_l2_plain(x["bow"])),
+            ("video_f32", lambda: nt.row_l2(x["video"], dtype=torch.float32),
+             lambda: nt.row_l2_plain(x["video"], dtype=torch.float32))],
+            x["vlad"].numel() * 6 + 2 * x["vscale"].numel() * 4),
+        "native_nextvlad_assign": ([
+            ("rgb", lambda: nt.nextvlad_assign(x["lp"], x["a_scale"], x["a_bias"], x["gp"]),
+             lambda: nt.nextvlad_assign_plain(x["lp"], x["a_scale"], x["a_bias"], x["gp"]))],
+            rows * gk * 4 + rows * g * 4 + 2 * gk * 4 + rows * gk * 6),
+        "native_nextvlad_residual": ([
+            ("rgb", lambda: nt.nextvlad_residual(x["agg"], x["assign"], x["c2"]),
+             lambda: nt.nextvlad_residual_plain(x["agg"], x["assign"], x["c2"]))],
+            2 * x["agg"].numel() * 4 + x["assign"].numel() * 4 + k * dp * 4),
+        "native_hidden_sum": ([
+            ("netfv_four_parts", lambda: nt.hidden_sum(x["parts"], x["bias"], 2, True),
+             lambda: nt.hidden_sum_plain(x["parts"], x["bias"], 2, True))],
+            None),
+    }
+
+
+def check_route_kernels(dev, errors: dict) -> tuple:
+    """Each new kernel of the routes against its plain version on the card
+    within ROUTE_KERNEL_GATES at the main path's shapes (the share of
+    outputs equal bit for bit printed), and hidden_sum at NetFV's four
+    products; the first check's device ms, the plain version's and the bound
+    (bytes over the HBM rate), and ROUTE_LIBRARY_CALLS' device ms.  →
+    (timing, shapes, library) for the kernels line."""
+    x = route_kernel_inputs(dev)
+    timing, line = {}, {}
+    library = {name: device_ms(lambda: call(x)) for name, call in ROUTE_LIBRARY_CALLS.items()}
+    for name, (checks, nbytes) in route_kernel_calls(x).items():
+        for label, kernel, plain in checks:
+            got, want = kernel(), plain()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            err = max(compare(f"{name} {label}", g_, w_, tol=ROUTE_KERNEL_GATES[name]) for g_, w_ in zip(got, want))
+            errors[name] = max(errors.get(name, 0.0), err)
+            line[f"{name}/{label}"] = {"max_abs_err": err,
+                                       "bit_equal_share": float((got[0] == want[0]).float().mean())}
+        if nbytes is not None:
+            timing[name] = (device_ms(checks[0][1]), device_ms(checks[0][2]), (nbytes / PEAK_BYTES * 1e3, "bytes"))
+    torch.cuda.synchronize()
+    emit({"phase": "native_routes", "part": "kernels", "B": NATIVE_ROUTES_BATCH, "checks": line,
+          "gates": ROUTE_KERNEL_GATES})
+    shapes = {
+        "native_frame_stage": "B=256, F=300, S=30, DT=1152, uint8 in, folded input BN (LOUPE); window without (DBoF)",
+        "native_bias_sigmoid": "[256, 3862] f32 (LogisticModel's logits)",
+        "native_bias_relu6": "[7680, 8192] f32 in place (DbofModel-8192's cluster epilogue at B=256, S=30)",
+        "native_frame_pool": "[256, 30, 8192] f32 → bf16, max (average also checked)",
+        "native_row_l2": "[32768, 256] f32 → bf16 with the folded vlad_bn (NeXtVLAD-128 rgb at B=256)",
+        "native_nextvlad_assign": "R=7680, G=8, K=128 (NeXtVLAD-128 rgb at B=256, S=30)",
+        "native_nextvlad_residual": "B=256, S·G=240, K=128, D′=256 (NeXtVLAD-128 rgb)",
+    }
+    return timing, shapes, library
+
+
+def trace_diff(runner: torch.Tensor, torch_route: torch.Tensor) -> dict:
+    """max |Δ|, that over max |torch route|, and the share of entries equal
+    bit for bit, of one step's runner and torch-route values."""
+    a, b = runner.float().cpu(), torch_route.float().cpu()
+    d = (a - b).abs().max().item()
+    return {"max_abs": d, "rel": d / max(b.abs().max().item(), 1e-30), "equal_share": (a == b).float().mean().item()}
+
+
+def nextvlad_trace(exe, tree: dict, mcfg: ModelConfig, feats, nfs, dev, got: np.ndarray, want_p) -> dict:
+    """NeXtVLAD's gap to the torch route, step by step, on the batch the
+    runner ran last: the torch route again with its steps kept
+    (fast_lf.nextvlad_pool's trace; its probabilities must equal want_p's
+    bit for bit), beside the runner's buffers of that batch (exe.read):
+    each modality's expansion xt, assignment, residual, VLAD and hidden-FC
+    product, then h (trace_diff each, and the entries of h whose bf16
+    rounding differs); the hidden-FC product of the runner's VLAD through
+    the torch route's product against the runner's product, and the torch
+    intra-ℓ2 of the runner's residual against the runner's VLAD; and the
+    torch route's tail from the runner's h against the runner's
+    probabilities ``got``; all within NEXTVLAD_TRACE_GATES."""
+    name = "NeXtVLADModel"
+    fp = fast_lf.prepare_fast_lf_params(convert_flax_variables(tree, mcfg, name), mcfg, name, device=dev)
+    m, v = mcfg.moe_num_mixtures, mcfg.vocab_size
+    x, nf = torch.from_numpy(feats).to(dev), torch.from_numpy(nfs).to(dev)
+    steps, out = [], {}
+    with torch.no_grad():
+        xs = staged_frames(gather_frames(x, sample_indices(prng.key(0), nf, x.shape[1], mcfg.iterations)),
+                           fp["in_scale"], fp["in_bias"], torch.bfloat16)
+        parts, start = [], 0
+        for entry in fp["mods"]:
+            d = entry["cluster"].shape[0]
+            steps.append({})
+            parts.append(fast_lf.nextvlad_pool(xs[:, :, start:start + d], entry, torch.bfloat16, steps[-1]))
+            start += d
+        h, _ = native_tail.hidden_sum_plain(parts, fp["hidden_b"], 1, bias_first=True)
+        if not torch.equal(gated_moe_tail(fp, h, m, v, torch.bfloat16, 20, True), want_p):
+            raise AssertionError("native_routes NeXtVLADModel: the trace's torch route is not the torch route")
+        for i, (entry, trace) in enumerate(zip(fp["mods"], steps)):
+            mod = {}
+            for step, value in trace.items():
+                mod[step] = trace_diff(exe.read(f"mods/{i}/{step}", value.shape, value.dtype), value)
+            part = exe.read(f"part/{i}", parts[i].shape)
+            mod["part"] = trace_diff(part, parts[i])
+            vlad = exe.read(f"mods/{i}/vlad", trace["vlad"].shape, trace["vlad"].dtype)
+            mod["product_of_runner_vlad_vs_runner_part"] = trace_diff(matmul_f32(vlad.to(dev), entry["w1"]), part)
+            residual = exe.read(f"mods/{i}/residual", trace["residual"].shape).to(dev)
+            k, dp = entry["c2"].shape
+            mod["l2_of_runner_residual_vs_runner_vlad"] = trace_diff(
+                native_tail.row_l2_plain(residual.reshape(-1, dp), entry["vscale"], entry["vbias"]).reshape(vlad.shape),
+                vlad)
+            out[f"mods/{i}"] = mod
+        h_runner = exe.read("h", h.shape)
+        out["h"] = {**trace_diff(h_runner, h),
+                    "bf16_roundings_differ": int((h_runner.to(torch.bfloat16) != h.cpu().to(torch.bfloat16)).sum())}
+        tail = gated_moe_tail(fp, h_runner.to(dev), m, v, torch.bfloat16, 20, True)
+        out["tail_of_runner_h_vs_runner_probs"] = (tail.cpu() - torch.from_numpy(got)).abs().max().item()
+    g = NEXTVLAD_TRACE_GATES
+    over = [f"{mod} {step}" for mod, steps in out.items() if mod.startswith("mods/")
+            for step, key in (("xt", "xt"), ("assign", "assign"), ("residual", "residual"), ("vlad", "vlad"),
+                              ("product_of_runner_vlad_vs_runner_part", "product"))
+            if steps[step]["rel"] > g[key]]
+    over += [f"{mod} vlad equal share" for mod, steps in out.items()
+             if mod.startswith("mods/") and steps["vlad"]["equal_share"] < g["vlad_equal_share"]]
+    if out["h"]["rel"] > g["h"] or out["tail_of_runner_h_vs_runner_probs"] > g["tail"]:
+        over.append("h or the tail")
+    if over:
+        raise AssertionError(f"native_routes NeXtVLADModel: the trace is over NEXTVLAD_TRACE_GATES at {over}: {out}")
+    return out
+
+
+def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
+    """Item 14c on the card: for each NATIVE_ROUTE_RUNS model at its full
+    default width (weights from seeded_tree, BN statistics perturbed):
+
+    (a) export_model(with_stablehlo=True) at batch 256 (seconds, bytes of
+        weights.bin);
+    (b) ModelServer(native=True) on 96 records, one batch (the main path:
+        the counters zeroed just before, read just after): the runner's
+        launches equal NATIVE_ROUTE_LAUNCHES once a batch and no torch-route
+        launch;
+    (c) the runner's probabilities on a padded batch of 256 within
+        NATIVE_ROUTE_GATES of the port's torch route (torch_route),
+        its top-k equal to top_k_exact of its own probabilities;
+    (d) videos/s of the runner in process at 256 (the median of five
+        batches), beside the torch route's device ms a batch;
+    (e) lpm_serve (built in the build phase) answering NATIVE_ROUTES_HTTP
+        over HTTP, each answer the in-process runner's;
+    then the routes' kernels against their plain versions
+    (check_route_kernels).  Returns (errors, timing, shapes, library,
+    launches) for the kernels line."""
+    b = NATIVE_ROUTES_BATCH
+    frame_data = os.path.join(workdir, "routes_frames-0.tfrecord")
+    video_data = os.path.join(workdir, "routes_videos-0.tfrecord")
+    write_frame_level_fixture(frame_data, 96, seed=5)
+    write_video_level_fixture(video_data, 96, seed=6)
+    data = {True: list(tfrecord_io.read_tfrecords(frame_data)), False: list(tfrecord_io.read_tfrecords(video_data))}
+    launches = dict.fromkeys(KERNELS, 0)
+    for run, (name, overrides) in NATIVE_ROUTE_RUNS.items():
+        t_run = time.perf_counter()
+        mcfg, fcfg = route_config(name, overrides)
+        records = data[fcfg.frame_features]
+        batch = [records[i % len(records)] for i in range(b)]
+        tree = seeded_tree(name, mcfg, fcfg)
+        export_dir = os.path.join(workdir, f"route_{run}")
+        start = time.perf_counter()
+        export_lib.export_model(export_dir, name, mcfg, fcfg, tree["params"], tree["batch_stats"],
+                                with_stablehlo=True, stablehlo_batch_size=b)
+        export_s = time.perf_counter() - start
+        manifest = native_runtime.read_manifest(export_dir)
+
+        server = ModelServer(export_dir, 32, native=True, device=dev)
+        exe = server._serve.executable
+        server.warmup()
+        reset_counters()
+        exe.reset_launches()
+        pairs = server.predict_pairs(records)
+        torch.cuda.synchronize()
+        runner_counts, torch_counts = exe.launches(), counters()
+        n_batches = -(-len(records) // b)
+        want = {n: n_batches * ({**NATIVE_ROUTE_LAUNCHES[run], "topk": 1}.get(n, 0)) for n in native_runtime.COUNTERS}
+        if runner_counts != want or any(torch_counts.values()):
+            raise AssertionError(f"native_routes {run}: the runner's launches {runner_counts} (expected {want}), "
+                                 f"the torch route's {torch_counts} (expected none)")
+        for n, c in runner_counts.items():
+            launches[kernel_key(n)] += c
+
+        feats, nfs = export_lib.parse_serialized_records(fcfg, batch)
+        got = exe.probs(feats, nfs)
+        if got.shape != (b, mcfg.vocab_size) or not np.isfinite(got).all():
+            raise AssertionError(f"native_routes {run}: probabilities of shape {got.shape} or non-finite")
+        route_fn = torch_route(name, tree, mcfg, fcfg, export_dir, dev)
+        want_p = route_fn(feats, nfs)
+        gap = (torch.from_numpy(got) - want_p.float().cpu()).abs().max().item()
+        values, indices = exe.run(feats, nfs)
+        trace = nextvlad_trace(exe, tree, mcfg, feats, nfs, dev, got, want_p) if name == "NeXtVLADModel" else None
+        tv, ti = top_k_exact(torch.from_numpy(got), 20)
+        if not (np.array_equal(indices, ti.numpy()) and np.array_equal(values.view(np.int32),
+                                                                       tv.numpy().view(np.int32))):
+            raise AssertionError(f"native_routes {run}: the runner's top-k is not top_k_exact of its probs")
+        first = min(b, len(records))  # the server's first batch holds the same rows in the same places
+        if [c for c, _ in pairs[:first]] != indices[:first].tolist():
+            raise AssertionError(f"native_routes {run}: the server's classes differ from the runner's on the "
+                                 "same records")
+        if gap > NATIVE_ROUTE_GATES[run]:
+            raise AssertionError(f"native_routes {run}: runner probabilities {gap} from the torch route's, over "
+                                 f"{NATIVE_ROUTE_GATES[run]}")
+
+        run_s = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            exe.run(feats, nfs)
+            run_s.append(time.perf_counter() - t0)
+        runner_ms = statistics.median(run_s[1:]) * 1e3
+        torch_ms = time_ms(lambda: route_fn(feats, nfs), reps=3, warmup=1)
+        web = (lpm_serve_route(lpm_serve["path"], export_dir, exe, fcfg, records)
+               if run in NATIVE_ROUTES_HTTP else None)
+        emit({"phase": "native_routes", "run": run, "route": manifest["route"], "B": b, "export_s": export_s,
+              "weights_bytes": os.path.getsize(os.path.join(export_dir, native_runtime.WEIGHTS_FILE)),
+              "max_abs_prob_gap_vs_torch_route": gap, "gate": NATIVE_ROUTE_GATES[run],
+              "runner_launches": {n: c for n, c in runner_counts.items() if c},
+              "torch_launches": "none", "videos_per_s": b / (runner_ms / 1e3), "runner_ms_per_batch": runner_ms,
+              "torch_route_ms_per_batch": torch_ms, "lpm_serve": web, "trace": trace,
+              "seconds": time.perf_counter() - t_run, "card": smi})
+        exe.close()
+        del server, exe, tree, want_p, route_fn
+        shutil.rmtree(export_dir)
+        torch.cuda.empty_cache()
+    errors = {}
+    timing, shapes, library = check_route_kernels(dev, errors)
+    return errors, timing, shapes, library, launches
 
 
 # ---- items 10b and 11: the dropout kernel, the attention family and the RNNs
@@ -4905,6 +5394,15 @@ def main() -> int:
         for name, n in native_launches.items():
             launches[name] = launches.get(name, 0) + n
         done("native_serve")
+        e, t, route_shapes, lib, route_launches = phase_native_routes(dev, workdir, smi, lpm_serve)
+        for name, err in e.items():
+            errors[name] = max(errors.get(name, 0.0), err)
+        timing.update(t)
+        shapes.update(route_shapes)
+        library.update(lib)
+        for name, n in route_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        done("native_routes")
     device_rates = {"fused_inference_b512": phase_throughput(dev, fp, smi)}
     del fp
     done("throughput")

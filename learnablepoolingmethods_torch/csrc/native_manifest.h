@@ -7,26 +7,51 @@
 // One line per fact, as the JAX package's manifest has them (model,
 // batch_size, top_k, frame_features, max_frames, n_features, feature,
 // n_call_inputs, call_input, n_outputs, output), and the port's own lines:
-// route, sampling_key, iterations, moe_num_mixtures, n_weights and one named
-// weight line per array of weights.bin, in the file's order:
+// the route (kRoutes), the lines that its route needs (kRoutes' lines:
+// sampling_key, iterations, moe_num_mixtures, sampling, dbof_pooling_method,
+// nextvlad_groups, nextvlad_expansion), n_weights and one named weight line
+// per array of weights.bin, in the file's order:
 //
 //   weight <name> <f32|bf16> <ndim> <dims...>
 //
 // A JAX export's manifest has no route line, and its weight lines have no
-// name: LoadManifest refuses it and says to re-export through the port.
+// name: LoadManifest refuses it and says to re-export through the port.  An
+// unknown route, or a route without a line it needs, is refused with the
+// route's or the line's name.
 
 #pragma once
 
 #include <cstdint>
 #include <fstream>
 #include <map>
+#include <set>
 #include <sstream>
 #include <string>
 #include <vector>
 
 namespace lpm_native {
 
-constexpr const char* kRoute = "fast_netvlad_frontend";
+// The runner's routes (core/native_runtime.py ROUTES and ROUTE_LINES): the
+// route's name, whether it reads video-level features, and the port's lines
+// that it needs beside the route line.
+struct RouteSpec {
+  const char* name;
+  bool video_level;
+  const char* lines[5];
+};
+constexpr RouteSpec kRoutes[] = {
+    {"fast_netvlad_frontend", false, {"sampling_key", "iterations", "moe_num_mixtures"}},
+    {"video_logistic", true, {}},
+    {"video_moe", true, {"moe_num_mixtures"}},
+    {"fast_dbof", false,
+     {"sampling_key", "iterations", "moe_num_mixtures", "sampling", "dbof_pooling_method"}},
+    {"fast_lf_netrvlad", false, {"sampling_key", "iterations", "moe_num_mixtures"}},
+    {"fast_lf_softdbow", false, {"sampling_key", "iterations", "moe_num_mixtures"}},
+    {"fast_lf_netfv", false, {"sampling_key", "iterations", "moe_num_mixtures"}},
+    {"fast_lf_nextvlad", false,
+     {"sampling_key", "iterations", "moe_num_mixtures", "nextvlad_groups", "nextvlad_expansion"}},
+};
+constexpr int kNumRoutes = sizeof(kRoutes) / sizeof(kRoutes[0]);
 
 inline int64_t TagBytes(const std::string& tag) {
   if (tag == "f32" || tag == "s32") return 4;
@@ -49,13 +74,16 @@ struct ArraySpec {
 };
 
 struct Manifest {
-  std::string model, route;
+  std::string model, route, sampling, dbof_pooling_method;
+  int route_index = -1;  // into kRoutes
   int32_t batch_size = 0, top_k = 0, frame_features = 0, max_frames = 0;
-  int32_t iterations = 0, moe_num_mixtures = 0;
+  int32_t iterations = 0, moe_num_mixtures = 0, nextvlad_expansion = 0;
   uint32_t key0 = 0, key1 = 0;
+  std::vector<int32_t> nextvlad_groups;  // one a modality
   std::vector<std::string> feature_names;
   std::vector<int32_t> feature_sizes;
   std::vector<ArraySpec> call_inputs, outputs, weights;
+  std::set<std::string> lines;  // the keys of the lines read
 
   int32_t total_size() const {
     int32_t n = 0;
@@ -125,6 +153,18 @@ inline bool LoadManifest(const std::string& export_dir, Manifest* m, std::string
       ok = static_cast<bool>(in >> m->moe_num_mixtures);
     } else if (key == "sampling_key") {
       ok = static_cast<bool>(in >> m->key0 >> m->key1);
+    } else if (key == "sampling") {
+      ok = (in >> m->sampling) && (m->sampling == "iid" || m->sampling == "window");
+    } else if (key == "dbof_pooling_method") {
+      ok = (in >> m->dbof_pooling_method) &&
+           (m->dbof_pooling_method == "average" || m->dbof_pooling_method == "max");
+    } else if (key == "nextvlad_groups") {
+      int32_t g = 0;
+      while (in >> g) m->nextvlad_groups.push_back(g);
+      ok = !m->nextvlad_groups.empty();
+      for (int32_t v : m->nextvlad_groups) ok = ok && v > 0;
+    } else if (key == "nextvlad_expansion") {
+      ok = (in >> m->nextvlad_expansion) && m->nextvlad_expansion > 0;
     } else if (key == "feature") {
       std::string name;
       int32_t size = 0;
@@ -159,6 +199,7 @@ inline bool LoadManifest(const std::string& export_dir, Manifest* m, std::string
       *err = path + ":" + std::to_string(lineno) + ": malformed line '" + line + "'";
       return false;
     }
+    m->lines.insert(key);
   }
   if (lineno == 0) {
     *err = path + " is empty";
@@ -168,6 +209,18 @@ inline bool LoadManifest(const std::string& export_dir, Manifest* m, std::string
     *err = path + " has no route line: it is a JAX with_stablehlo export; re-export it through " +
            "learnablepoolingmethods_torch's export_model(..., with_stablehlo=True)";
     return false;
+  }
+  for (int i = 0; i < kNumRoutes; ++i)
+    if (m->route == kRoutes[i].name) m->route_index = i;
+  if (m->route_index < 0) {
+    *err = path + ": unknown route '" + m->route + "'";
+    return false;
+  }
+  for (const char* need : kRoutes[m->route_index].lines) {
+    if (need && !m->lines.count(need)) {
+      *err = path + ": route " + m->route + " needs the line '" + need + "'";
+      return false;
+    }
   }
   const std::pair<const char*, size_t> want[] = {
       {"n_features", m->feature_names.size()},

@@ -15,9 +15,10 @@ ignores them.
 
 ``with_stablehlo=True`` writes the native runner's artifact beside them
 (``core/native_runtime.py``): ``native_manifest.txt`` (the JAX package's
-lines and the port's) and ``weights.bin`` (the fast route's BN-folded
-arrays), for the Willow fast route of NetVLADModelLF; other models and
-configs raise NotImplementedError (ROADMAP item 14c) and write nothing.
+lines and the port's) and ``weights.bin`` (the route's arrays: a fast
+route's BN-folded prepare, or a video-level model's f32 head), for the
+route of each model in ``native_runtime.ROUTES``; other models and configs
+raise NotImplementedError (ROADMAP item 14c) and write nothing.
 ``load_exported_native`` serves such an export through the runner on the
 card.
 
@@ -52,7 +53,9 @@ from learnablepoolingmethods_torch.data import tfrecord_io
 from learnablepoolingmethods_torch.data.readers import fill_frame_record
 from learnablepoolingmethods_torch.models import create_model
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path, int8_capable_models
+from learnablepoolingmethods_torch.ops.fast_dbof import prepare_fast_dbof_params
 from learnablepoolingmethods_torch.ops.fast_infer import prepare_fast_params
+from learnablepoolingmethods_torch.ops.fast_lf import prepare_fast_lf_params
 from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS
 from learnablepoolingmethods_torch.utils import flax_msgpack, prng
 from learnablepoolingmethods_torch.utils.misc import resolve_device
@@ -65,8 +68,6 @@ STATS_FILE = "batch_stats.msgpack"
 FRAMEWORK = "learnablepoolingmethods_torch"
 # the packages whose exports this module reads: the JAX package's and its own
 FRAMEWORKS = ("learnablepoolingmethods_tpu", FRAMEWORK)
-# the model whose fast route the native runner runs
-NATIVE_MODEL = "NetVLADModelLF"
 
 
 def export_model(
@@ -88,7 +89,7 @@ def export_model(
     ``with_stablehlo``: also the native runner's artifact, for a batch of
     ``stablehlo_batch_size`` (the keyword keeps the JAX package's name; the
     port writes no StableHLO).  Raises NotImplementedError, before writing
-    anything, for a model or config outside the runner's route."""
+    anything, for a model or config outside the runner's routes."""
     arrays = native_arrays(model_name, mcfg, fcfg, params, batch_stats) if with_stablehlo else None
     os.makedirs(export_dir, exist_ok=True)
     meta = {
@@ -108,51 +109,116 @@ def export_model(
     return export_dir
 
 
+def _video_level_arrays(model_name: str, mcfg: ModelConfig, variables) -> dict:
+    """The f32 head of a video-level model as the runner reads it (its flax
+    layout: the MoE's kernels are vocab-major, column m·V + v, as
+    ``moe_combine`` reads them)."""
+    p = convert_flax_variables(variables, mcfg, model_name)["params"]
+
+    def f32(t):
+        return torch.as_tensor(t).float().contiguous()
+
+    if model_name == "LogisticModel":
+        return {"fc": {"kernel": f32(p["fc"]["kernel"]), "bias": f32(p["fc"]["bias"])}}
+    return {name: f32(p[name]) for name in native_runtime.MOE}
+
+
+def _route_arrays(route: str, model_name: str, mcfg: ModelConfig, variables) -> dict:
+    """The route's prepare on the CPU, or ValueError / KeyError with the
+    reason it does not apply."""
+    if route in native_runtime.VIDEO_ROUTES:
+        if mcfg.compute_dtype != "float32":
+            raise ValueError(f"compute_dtype {mcfg.compute_dtype}: the video-level routes run in f32")
+        return _video_level_arrays(model_name, mcfg, variables)
+    tree = convert_flax_variables(variables, mcfg, model_name)
+    if route == "fast_netvlad_frontend":
+        fp = prepare_fast_params(tree, mcfg, device="cpu")
+        if max(fp["rgb"]["cluster"].shape[1], fp["aud"]["cluster"].shape[1]) > MAX_CLUSTERS:
+            raise ValueError(f"more than {MAX_CLUSTERS} clusters")
+        return fp
+    if route == "fast_dbof":
+        # the runner also draws one window a video, which the torch fast
+        # path refuses (as the JAX package's does): the arrays are the same
+        return prepare_fast_dbof_params(tree, dataclasses.replace(mcfg, sample_random_frames=True), device="cpu")
+    fp = prepare_fast_lf_params(tree, mcfg, model_name, device="cpu")
+    if route in ("fast_lf_netrvlad", "fast_lf_netfv") and max(e["cluster"].shape[1] for e in fp["mods"]) > MAX_CLUSTERS:
+        raise ValueError(f"more than {MAX_CLUSTERS} clusters")
+    return fp
+
+
 def native_arrays(model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, params, batch_stats) -> dict:
-    """The native runner's arrays, ``prepare_fast_params(..., device="cpu")``
-    of the tree, by ``native_runtime.ARRAYS`` name.  Raises
-    NotImplementedError naming ROADMAP item 14c where the route does not
-    apply: another model, video-level or presampled features, or a config
-    that the fast route refuses."""
+    """The native runner's arrays of the model's route
+    (``native_runtime.ROUTES``): the route's prepare on the CPU
+    (``prepare_fast_params``, ``prepare_fast_dbof_params``,
+    ``prepare_fast_lf_params``, or the f32 head of a video-level model), by
+    ``native_runtime.route_arrays`` name.  Raises NotImplementedError naming
+    ROADMAP item 14c where no route applies: another model, features of the
+    other level, a presampled config, or a config that the route's prepare
+    refuses."""
+    route = native_runtime.MODEL_ROUTES.get(model_name)
+    video = route in native_runtime.VIDEO_ROUTES
     why = None
-    if model_name != NATIVE_MODEL:
-        why = f"model {model_name}"
-    elif not fcfg.frame_features or mcfg.presampled:
-        why = "video-level features" if not fcfg.frame_features else "a presampled config"
+    if route is None:
+        why = f"model {model_name} has no native route"
+    elif video == bool(fcfg.frame_features):
+        why = "frame-level features for a video-level model" if video else "video-level features"
+    elif mcfg.presampled and not video:
+        why = "a presampled config"
     else:
         try:
-            variables = convert_flax_variables({"params": params, "batch_stats": batch_stats}, mcfg, model_name)
-            fp = prepare_fast_params(variables, mcfg, device="cpu")
+            arrays = _route_arrays(route, model_name, mcfg, {"params": params, "batch_stats": batch_stats})
         except (ValueError, KeyError) as e:
             why = str(e)
-        else:
-            if max(fp["rgb"]["cluster"].shape[1], fp["aud"]["cluster"].shape[1]) > MAX_CLUSTERS:
-                why = f"more than {MAX_CLUSTERS} clusters"
     if why is not None:
         raise NotImplementedError(
-            f"with_stablehlo: the native runner runs the fast route of {NATIVE_MODEL} on frame-level "
-            f"features only, not this export ({why}); the other models and configs are ROADMAP item 14c")
-    return {name: native_runtime.array_of(fp, name) for name in native_runtime.ARRAYS}
+            f"with_stablehlo: the native runner has routes for {sorted(native_runtime.MODEL_ROUTES)} at their "
+            f"fast routes' configs, not this export ({why}); the other models and configs are ROADMAP item 14c")
+    n_mods = len(arrays["mods"]) if route in native_runtime.LF_ROUTES else 2
+    return {name: native_runtime.array_of(arrays, name) for name in native_runtime.route_arrays(route, n_mods)}
+
+
+def _route_lines(route: str, mcfg: ModelConfig, arrays: dict) -> List[str]:
+    """The port's manifest lines that ``route`` needs (ROUTE_LINES), after
+    its route line."""
+    lines = []
+    if route not in native_runtime.VIDEO_ROUTES:
+        # every batch draws from prng.key(0), as the server draws it
+        lines += ["sampling_key {} {}".format(*prng.key_words(prng.key(0))), f"iterations {mcfg.iterations}"]
+    if route != "video_logistic":
+        lines.append(f"moe_num_mixtures {mcfg.moe_num_mixtures}")
+    if route == "fast_dbof":
+        lines += [f"sampling {'iid' if mcfg.sample_random_frames else 'window'}",
+                  f"dbof_pooling_method {mcfg.dbof_pooling_method}"]
+    if route == "fast_lf_nextvlad":
+        mods = sorted({name.split("/")[1] for name in arrays if name.startswith("mods/")})
+        groups = [arrays[f"mods/{i}/wg"].shape[1] for i in mods]
+        d, width = arrays["mods/0/cluster"].shape
+        lines += [f"nextvlad_groups {' '.join(map(str, groups))}", f"nextvlad_expansion {width // d}"]
+    return lines
 
 
 def _write_native_artifact(export_dir: str, model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig,
                            top_k: int, batch: int, arrays: dict) -> None:
-    """``weights.bin`` (the arrays dense, row-major, little-endian, in
-    ``ARRAYS``' order) and then ``native_manifest.txt``: the JAX package's
+    """``weights.bin`` (the arrays dense, row-major, little-endian, in the
+    route's order) and then ``native_manifest.txt``: the JAX package's
     lines (its ``#_write_native_manifest``: the model, batch, features,
-    call inputs and outputs), then the route, the sampling key
-    (``prng.key(0)``, as the server draws every batch), ``iterations``,
-    ``moe_num_mixtures`` and one named weight line per array."""
+    call inputs and outputs), then the route, the lines it needs
+    (:func:`_route_lines`) and one named weight line per array."""
     if not 1 <= batch <= 65535:
         raise ValueError(f"stablehlo_batch_size {batch}: the runner takes 1 to 65535 videos a batch")
+    route = native_runtime.MODEL_ROUTES[model_name]
     k = min(top_k, mcfg.vocab_size)
     rows = []
     with open(os.path.join(export_dir, native_runtime.WEIGHTS_FILE), "wb") as f:
-        for name in native_runtime.ARRAYS:
-            t = arrays[name].contiguous()
+        for name, t in arrays.items():
+            t = t.contiguous()
             tag = native_runtime.TAGS[t.dtype]
             f.write((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
             rows.append(f"weight {name} {tag} {t.dim()} {' '.join(map(str, t.shape))}".rstrip())
+    if fcfg.frame_features:
+        call_inputs = [f"call_input u8 3 {batch} {fcfg.max_frames} {fcfg.total_size}", f"call_input s32 1 {batch}"]
+    else:
+        call_inputs = [f"call_input f32 2 {batch} {fcfg.total_size}"]
     lines = [
         "lpm_native_manifest 1",
         f"model {model_name}",
@@ -162,16 +228,13 @@ def _write_native_artifact(export_dir: str, model_name: str, mcfg: ModelConfig, 
         f"max_frames {fcfg.max_frames}",
         f"n_features {len(fcfg.feature_names)}",
         *(f"feature {name} {size}" for name, size in zip(fcfg.feature_names, fcfg.feature_sizes)),
-        "n_call_inputs 2",
-        f"call_input u8 3 {batch} {fcfg.max_frames} {fcfg.total_size}",
-        f"call_input s32 1 {batch}",
+        f"n_call_inputs {len(call_inputs)}",
+        *call_inputs,
         "n_outputs 2",
         f"output f32 2 {batch} {k}",
         f"output s32 2 {batch} {k}",
-        f"route {native_runtime.ROUTE}",
-        "sampling_key {} {}".format(*prng.key_words(prng.key(0))),
-        f"iterations {mcfg.iterations}",
-        f"moe_num_mixtures {mcfg.moe_num_mixtures}",
+        f"route {route}",
+        *_route_lines(route, mcfg, arrays),
         f"n_weights {len(rows)}",
         *rows,
     ]

@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from learnablepoolingmethods_torch.ops.fused_frontend import gather_frames, sample_indices
-from learnablepoolingmethods_torch.utils import prng
+from learnablepoolingmethods_torch.ops.fused_frontend import (
+    gather_frames,
+    sample_indices,
+    sequence_indices,
+)
 
 
 def sample_frame_features(features, num_frames, num_samples: int, key, row_offset: int = 0) -> torch.Tensor:
@@ -27,22 +30,6 @@ def sample_frame_features(features, num_frames, num_samples: int, key, row_offse
     under the same key.  ``row_offset``: the global index of the first row
     (``ops/fused_frontend.py#sample_indices``)."""
     return gather_frames(features, sample_indices(key, num_frames, features.shape[1], num_samples, row_offset))
-
-
-def sequence_indices(key, num_frames: torch.Tensor, max_frames: int, num_samples: int,
-                     row_offset: int = 0) -> torch.Tensor:
-    """The frames of one random window a video: ``[B, num_samples]`` int32,
-    start floor(U·(max(nf − S, 0) + 1)) with U ``[B, 1]`` from ``key``, index
-    min(start + s, nf − 1) clipped to [0, F − 1], nf = min(num_frames, F)
-    (ref: model_utils.py#sample_random_sequence); U of rows ``row_offset`` …
-    of the draw."""
-    b = num_frames.shape[0]
-    nf = torch.clamp(num_frames.to(torch.int32), max=max_frames).reshape(b, 1)
-    u = prng.uniform(key, (b, 1), device=num_frames.device, offset=row_offset)
-    max_start = torch.clamp(nf - num_samples, min=0)
-    start = (u * (max_start.float() + 1.0)).to(torch.int32)
-    offset = torch.arange(num_samples, dtype=torch.int32, device=num_frames.device)[None, :]
-    return torch.clamp(torch.minimum(start + offset, nf - 1), 0, max_frames - 1)
 
 
 def sample_random_sequence(features, num_frames, num_samples: int, key, row_offset: int = 0) -> torch.Tensor:

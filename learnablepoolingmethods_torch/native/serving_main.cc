@@ -9,13 +9,16 @@
 // {"requests", "executes", "rows", "coalesced"}.  It loads an artifact
 // exported with with_stablehlo=True by the port's export_model.py
 // (native_manifest.txt + weights.bin) into the native runner
-// (csrc/native_runner.cu: the Willow fast route on the card, cuBLAS and hand
+// (csrc/native_runner.cu: the artifact's route on the card, cuBLAS and hand
 // kernels) through the runner's C API, which takes no CUDA type: this file
 // includes no CUDA header, and g++ compiles it alone
 // (core/native_runtime.py#build_serving_binary links it with the runner).
 // Records are parsed by the port's wire-format parser
-// (native/tfrecord_reader.cc, lpm_parse_frame_record).  The whole request
-// path is native: socket → proto parse → the runner on the card → JSON.
+// (native/tfrecord_reader.cc): lpm_parse_frame_record for a frame-level
+// artifact (uint8 frames and frame counts), lpm_parse_video_record for a
+// video-level one (f32 features), as the manifest's frame_features says.
+// The whole request path is native: socket → proto parse → the runner on
+// the card → JSON.
 //
 // Threading (the C++ twin of serving.py#BatchingQueue): one detached
 // handler thread per connection does the socket I/O and record unframing
@@ -30,9 +33,8 @@
 // port, which the readiness line names.
 //
 // It differs from the JAX package's binary in what serves a batch (the
-// runner's C API in place of shr_* over a StableHLO module) and in taking
-// frame-level artifacts only: the runner's route is frame-level (video-level
-// models are ROADMAP item 14c).
+// runner's C API over the artifact's route in place of shr_* over a
+// StableHLO module); both parse frame-level and video-level records.
 
 #include <arpa/inet.h>
 #include <csignal>
@@ -71,6 +73,10 @@ int32_t lpm_parse_frame_record(const uint8_t* data, int64_t len,
                                const int32_t* feature_sizes,
                                int32_t n_features, const char* feature_names,
                                uint8_t* out_frames, int32_t* out_num_frames);
+int32_t lpm_parse_video_record(const uint8_t* data, int64_t len,
+                               const int32_t* feature_sizes,
+                               int32_t n_features, const char* feature_names,
+                               float* out_features);
 }
 
 namespace {
@@ -93,16 +99,18 @@ struct Server {
   int32_t total_size = 0;
   int32_t top_k = 0;  // the width of the outputs (min(top_k, vocabulary))
 
-  // batch buffers, sized once (batches are serialized on the executor)
-  std::vector<uint8_t> frames;
+  // batch buffers, sized once (batches are serialized on the executor):
+  // rows of uint8 frames [max_frames, total_size] and their frame counts,
+  // or rows of f32 features [total_size] (a video-level artifact)
+  std::vector<uint8_t> rows;
   std::vector<int32_t> num_frames;
   std::vector<float> values;
   std::vector<int32_t> indices;
 
   bool Load(const std::string& export_dir, std::string* err) {
     if (!lpm_native::LoadManifest(export_dir, &m, err)) return false;
-    if (m.frame_features != 1 || m.outputs.size() != 2 || m.outputs[0].dims.size() != 2) {
-      *err = "the manifest is not a frame-level artifact of the runner's route";
+    if (m.outputs.size() != 2 || m.outputs[0].dims.size() != 2) {
+      *err = "the manifest's outputs are not the runner's (values, indices)";
       return false;
     }
     names_packed = PackNames(m.feature_names);
@@ -114,20 +122,29 @@ struct Server {
       *err = errbuf;
       return false;
     }
-    frames.assign(static_cast<size_t>(m.batch_size) * RowBytes(), 0);
+    rows.assign(static_cast<size_t>(m.batch_size) * RowBytes(), 0);
     num_frames.assign(m.batch_size, 0);
     values.assign(static_cast<size_t>(m.batch_size) * top_k, 0.f);
     indices.assign(static_cast<size_t>(m.batch_size) * top_k, 0);
     return true;
   }
 
-  size_t RowBytes() const { return static_cast<size_t>(m.max_frames) * total_size; }
+  size_t RowBytes() const {
+    return m.frame_features ? static_cast<size_t>(m.max_frames) * total_size
+                            : sizeof(float) * total_size;
+  }
 
   // parse one serialized record into batch row `i`
   bool ParseOne(const uint8_t* rec, int64_t len, int32_t i, std::string* err) {
-    if (lpm_parse_frame_record(rec, len, m.max_frames, m.feature_sizes.data(),
-                               m.feature_sizes.size(), names_packed.c_str(),
-                               frames.data() + i * RowBytes(), &num_frames[i]) != 0) {
+    uint8_t* row = rows.data() + i * RowBytes();
+    const int32_t rc =
+        m.frame_features
+            ? lpm_parse_frame_record(rec, len, m.max_frames, m.feature_sizes.data(),
+                                     m.feature_sizes.size(), names_packed.c_str(), row,
+                                     &num_frames[i])
+            : lpm_parse_video_record(rec, len, m.feature_sizes.data(), m.feature_sizes.size(),
+                                     names_packed.c_str(), reinterpret_cast<float*>(row));
+    if (rc != 0) {
       *err = "malformed record";
       return false;
     }
@@ -139,7 +156,7 @@ struct Server {
   void PadRows(int32_t n_used, int32_t src) {
     const size_t rb = RowBytes();
     for (int32_t i = n_used; i < m.batch_size; i++) {
-      memcpy(frames.data() + i * rb, frames.data() + src * rb, rb);
+      memcpy(rows.data() + i * rb, rows.data() + src * rb, rb);
       num_frames[i] = num_frames[src];
     }
   }
@@ -147,8 +164,8 @@ struct Server {
   // one batch through the runner: the batch buffers → values and indices
   bool ExecuteOnce(std::string* err) {
     char errbuf[4096] = {0};
-    if (lpm_runner_run(handle, frames.data(), num_frames.data(), values.data(), indices.data(),
-                       errbuf, sizeof(errbuf)) != 0) {
+    if (lpm_runner_run(handle, rows.data(), m.frame_features ? num_frames.data() : nullptr,
+                       values.data(), indices.data(), errbuf, sizeof(errbuf)) != 0) {
       *err = errbuf;
       return false;
     }

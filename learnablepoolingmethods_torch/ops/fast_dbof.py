@@ -25,9 +25,9 @@ from typing import Any, Dict
 import torch
 
 from learnablepoolingmethods_torch.config import ModelConfig
-from learnablepoolingmethods_torch.models.model_utils import frame_pooling
 from learnablepoolingmethods_torch.ops.fast_infer import _require_moe_head, matmul_f32
 from learnablepoolingmethods_torch.ops.fused_frontend import gather_frames, sample_indices
+from learnablepoolingmethods_torch.ops.native_tail import bias_relu6_plain, frame_pool_plain, moe_combine_plain
 from learnablepoolingmethods_torch.ops.netvlad_fused import fold_assignment_bn
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
@@ -98,15 +98,11 @@ def build_fast_dbof_inference(
         x = dequantize(features, dtype=ct) if features.dtype == torch.uint8 else features.to(ct)
         x = l2_normalize(x, dim=-1)
 
-        act = torch.clamp(matmul_f32(x.reshape(-1, x.shape[-1]), fp["cluster_w"]) + fp["cluster_b"],
-                          0.0, 6.0)
-        pooled = frame_pooling(act.reshape(b, -1, act.shape[-1]), mcfg.dbof_pooling_method)
-        h = matmul_f32(pooled.to(ct), fp["hidden_w"]) + fp["hidden_b"]
-        h = torch.clamp(h, 0.0, 6.0).to(ct)
-
-        ga = matmul_f32(h, fp["gates_kernel"]).reshape(b, m + 1, v)
-        ea = (matmul_f32(h, fp["experts_kernel"]) + fp["experts_bias"]).reshape(b, m, v)
-        probs = torch.sum(torch.softmax(ga, dim=1)[:, :m] * torch.sigmoid(ea), dim=1)
+        act = bias_relu6_plain(matmul_f32(x.reshape(-1, x.shape[-1]), fp["cluster_w"]), fp["cluster_b"])
+        pooled = frame_pool_plain(act.reshape(b, -1, act.shape[-1]), mcfg.dbof_pooling_method, ct)
+        h = bias_relu6_plain(matmul_f32(pooled, fp["hidden_w"]), fp["hidden_b"], ct)
+        probs = moe_combine_plain(matmul_f32(h, fp["gates_kernel"]), matmul_f32(h, fp["experts_kernel"]),
+                                  fp["experts_bias"], m)
         if return_probs:
             return probs
         return top_k_exact(probs, min(top_k, v))

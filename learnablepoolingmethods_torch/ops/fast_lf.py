@@ -26,7 +26,7 @@ tail.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -42,13 +42,18 @@ from learnablepoolingmethods_torch.ops.fast_infer import (
     staged_frames,
 )
 from learnablepoolingmethods_torch.ops.fused_frontend import gather_frames, sample_indices
+from learnablepoolingmethods_torch.ops.native_tail import (
+    hidden_sum_plain,
+    nextvlad_assign_plain,
+    nextvlad_residual_plain,
+    row_l2_plain,
+)
 from learnablepoolingmethods_torch.ops.netfv_fused import netfv_fused, netfv_reference
 from learnablepoolingmethods_torch.ops.netvlad_fused import (
     fold_assignment_bn,
     netvlad_fused,
     netvlad_reference,
 )
-from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.ops.softdbow_fused import softdbow_fused, softdbow_reference
 from learnablepoolingmethods_torch.utils.misc import resolve_device
 
@@ -168,6 +173,49 @@ def prepare_fast_lf_params(
     }
 
 
+def nextvlad_pool(x_mod: torch.Tensor, entry: Dict[str, Any], ct: torch.dtype = torch.bfloat16,
+                  trace: Optional[dict] = None) -> torch.Tensor:
+    """One NeXtVLAD module's product of the hidden FC, [B, H] f32, from its
+    frames ``x_mod`` [B, S, D]: the expansion, the group attention and the
+    assignment as plain products (the JAX package leaves them to XLA), the
+    batched aggregation ``bfgk,bfgd->bkd`` of compute-dtype values summed in
+    f32, the residual, the intra-ℓ2 and the folded ``vlad_bn``.  A ``trace``
+    dict receives the steps (``xt``, ``assign``, ``residual``, ``vlad``) as
+    the native runner's ``NativeExecutable.read`` names them."""
+    b, s, d = x_mod.shape
+    k, dp = entry["c2"].shape
+    g = entry["wg"].shape[1]
+    xt = matmul_f32(x_mod.reshape(b * s, d), entry["cluster"]).to(ct)     # [B·S, λD]
+    assign, assign_ct = nextvlad_assign_plain(matmul_f32(xt, entry["wa"]), entry["scale"], entry["bias"],
+                                              matmul_f32(xt, entry["wg"]), ct)
+    agg = torch.einsum("bfgk,bfgd->bkd", assign_ct.reshape(b, s, g, k).float(), xt.reshape(b, s, g, dp).float())
+    residual = nextvlad_residual_plain(agg, assign.reshape(b, s, g, k), entry["c2"])
+    vlad = row_l2_plain(residual.reshape(b * k, dp), entry["vscale"], entry["vbias"], ct)
+    if trace is not None:
+        trace.update(xt=xt, assign=assign.reshape(b * s * g, k), residual=residual, vlad=vlad.reshape(b, k * dp))
+    return matmul_f32(vlad.reshape(b, k * dp), entry["w1"])
+
+
+def lf_hidden_parts(model_name: str, x_mod: torch.Tensor, entry: Dict[str, Any], use_kernels: bool = True,
+                    ct: torch.dtype = torch.bfloat16) -> list:
+    """One modality's products of the hidden FC, [B, H] f32 each (NetFV:
+    fv1's and fv2's), which the hidden sum adds left to right; the pooling
+    kernel, or its plain version without ``use_kernels``."""
+    b = x_mod.shape[0]
+    consts = (x_mod, entry["cluster"], entry["scale"], entry["bias"])
+    if model_name == "NeXtVLADModel":
+        return [nextvlad_pool(x_mod, entry, ct)]
+    if model_name == "NetFVModelLF":
+        fn = netfv_fused if use_kernels else netfv_reference
+        fv1, fv2 = fn(*consts, entry["c2"], entry["covar"])
+        return [hidden_fc(fv1.reshape(b, -1), entry["w1"]), hidden_fc(fv2.reshape(b, -1), entry["w2"])]
+    if model_name == "NetRVLADModelLF":
+        fn = netvlad_fused if use_kernels else netvlad_reference
+        return [hidden_fc(fn(*consts, entry["c2"]).reshape(b, -1), entry["w1"])]
+    fn = softdbow_fused if use_kernels else softdbow_reference
+    return [matmul_f32(row_l2_plain(fn(*consts), dtype=ct), entry["w1"])]
+
+
 def build_fast_lf_inference(
     mcfg: ModelConfig,
     model_name: str,
@@ -188,38 +236,6 @@ def build_fast_lf_inference(
     iterations = mcfg.iterations
     ct = compute_dtype
 
-    def nextvlad(x_mod, entry):
-        b, s, d = x_mod.shape
-        k, dp = entry["c2"].shape
-        g = entry["wg"].shape[1]
-        xt = matmul_f32(x_mod.reshape(b * s, d), entry["cluster"]).to(ct)     # [B·S, λD]
-        alpha = torch.sigmoid(matmul_f32(xt, entry["wg"])).reshape(b, s, g)
-        logits = (matmul_f32(xt, entry["wa"]) * entry["scale"] + entry["bias"]).reshape(b, s, g, k)
-        assign = torch.softmax(logits, dim=-1) * alpha[..., None]
-        # products of compute-dtype values, summed in f32
-        agg = torch.einsum("bfgk,bfgd->bkd", assign.to(ct).float(), xt.reshape(b, s, g, dp).float())
-        vlad = agg - torch.sum(assign, dim=(1, 2))[:, :, None] * entry["c2"][None]
-        vlad = l2_normalize(vlad, dim=-1).reshape(b, k * dp)
-        vlad = (vlad * entry["vscale"] + entry["vbias"]).to(ct)
-        return matmul_f32(vlad, entry["w1"])
-
-    def pooled_contrib(x_mod, entry):
-        """This modality's share of the hidden FC's output, [B, H] f32."""
-        b = x_mod.shape[0]
-        consts = (x_mod, entry["cluster"], entry["scale"], entry["bias"])
-        if model_name == "NeXtVLADModel":
-            return nextvlad(x_mod, entry)
-        if model_name == "NetFVModelLF":
-            fn = netfv_fused if use_kernels else netfv_reference
-            fv1, fv2 = fn(*consts, entry["c2"], entry["covar"])
-            return hidden_fc(fv1.reshape(b, -1), entry["w1"]) + hidden_fc(fv2.reshape(b, -1), entry["w2"])
-        if model_name == "NetRVLADModelLF":
-            fn = netvlad_fused if use_kernels else netvlad_reference
-            return hidden_fc(fn(*consts, entry["c2"]).reshape(b, -1), entry["w1"])
-        fn = softdbow_fused if use_kernels else softdbow_reference
-        bow = l2_normalize(fn(*consts), dim=1).to(ct)
-        return matmul_f32(bow, entry["w1"])
-
     def forward(fp, features, num_frames, key, presampled: bool = False, row_offset: int = 0):
         if not presampled:
             idx = sample_indices(key, num_frames, features.shape[1], iterations, row_offset)
@@ -227,9 +243,9 @@ def build_fast_lf_inference(
         x = staged_frames(features, fp["in_scale"], fp["in_bias"], ct)
         d_rgb = fp["mods"][0]["cluster"].shape[0]
         slices = [x[:, :, :d_rgb]] + ([x[:, :, d_rgb:]] if len(fp["mods"]) > 1 else [])
-        h = fp["hidden_b"]
-        for x_mod, entry in zip(slices, fp["mods"]):
-            h = h + pooled_contrib(x_mod, entry)
+        parts = [p for x_mod, entry in zip(slices, fp["mods"])
+                 for p in lf_hidden_parts(model_name, x_mod, entry, use_kernels, ct)]
+        h, _ = hidden_sum_plain(parts, fp["hidden_b"], len(parts) // len(slices), bias_first=True)
         return gated_moe_tail(fp, h, m, v, ct, top_k, return_probs)
 
     return forward

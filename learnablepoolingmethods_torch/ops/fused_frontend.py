@@ -52,6 +52,22 @@ def sample_indices(
     return torch.clamp((u * nf[:, None].float()).to(torch.int32), max=max_frames - 1)
 
 
+def sequence_indices(key, num_frames: torch.Tensor, max_frames: int, num_samples: int,
+                     row_offset: int = 0) -> torch.Tensor:
+    """The frames of one random window a video: ``[B, num_samples]`` int32,
+    start floor(U·(max(nf − S, 0) + 1)) with U ``[B, 1]`` from ``key``, index
+    min(start + s, nf − 1) clipped to [0, F − 1], nf = min(num_frames, F)
+    (ref: model_utils.py#sample_random_sequence); U of rows ``row_offset`` …
+    of the draw."""
+    b = num_frames.shape[0]
+    nf = torch.clamp(num_frames.to(torch.int32), max=max_frames).reshape(b, 1)
+    u = prng.uniform(key, (b, 1), device=num_frames.device, offset=row_offset)
+    max_start = torch.clamp(nf - num_samples, min=0)
+    start = (u * (max_start.float() + 1.0)).to(torch.int32)
+    offset = torch.arange(num_samples, dtype=torch.int32, device=num_frames.device)[None, :]
+    return torch.clamp(torch.minimum(start + offset, nf - 1), 0, max_frames - 1)
+
+
 def gather_frames(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``x[b, idx[b, s]]`` of ``x`` [B, F, C] → [B, S, C]; an index
     outside [0, F) gives a zero row, as the TPU's one-hot matmul on float

@@ -1,14 +1,17 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-its own shared library with a plain C interface, which the wrappers call
-through ``ctypes``.  A library of ``LIBRARY_PARTS`` also compiles other
-sources into itself and links more (the native runner: row 1's source and
-cuBLAS).  Libraries go to ``build/kernels/`` at the root of the
-checkout (git-ignored), named by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing here runs
-at import time: a module that wraps a kernel imports this one freely, and
-the first launch builds what it needs.
+a shared library with a plain C interface, which the wrappers call through
+``ctypes``: its own, or the library of ``LIBRARY_PARTS`` that compiles it
+(the native runner holds the sources of rows 1, 2, 5 and 6 and links
+cuBLAS; the rows' wrappers load them from it, so each exists in one copy).
+Each source of such a library is compiled to an object beside every other
+compile, and the objects are linked once all are done.  Libraries go to
+``build/kernels/`` at the root of the checkout (git-ignored), named by a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing here runs at import time: a module that
+wraps a kernel imports this one freely, and the first launch builds what it
+needs.
 """
 
 from __future__ import annotations
@@ -21,20 +24,21 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("fused_frontend", "netvlad_fused", "netvlad_train", "netfv_fused", "softdbow_fused",
-                  "masked_attention", "fused_adam", "int8_matmul", "dropout", "native_runner")
+# the libraries: each compiles its own ``csrc/<name>.cu`` and its parts
+KERNEL_SOURCES = ("netvlad_train", "masked_attention", "fused_adam", "int8_matmul", "dropout", "native_runner")
 # libraries built from more than their own source: name → the other
 # ``csrc/*.cu`` compiled into it, the headers beside the ``.cuh`` files that
-# it includes, and its link flags (-Bsymbolic: its call of row 1's entry
-# point binds to its own copy, whatever else the process has loaded)
+# it includes, and its link flags
 LIBRARY_PARTS = {
-    "native_runner": dict(sources=("fused_frontend",), headers=("native_manifest.h",),
-                          link=("-lcublas", "-Xlinker", "-Bsymbolic")),
+    "native_runner": dict(sources=("fused_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused"),
+                          headers=("native_manifest.h",), link=("-lcublas",)),
 }
+# a source compiled into another library → that library
+HOME = {part: name for name, spec in LIBRARY_PARTS.items() for part in spec["sources"]}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -42,6 +46,9 @@ NVCC_FLAGS = (
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[tuple, ctypes._CFuncPtr] = {}
+# source → what nvcc said of it, for the sources :func:`build` compiled with
+# ``-Xptxas -v`` in this process
+_ptxas_output: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -76,12 +83,21 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
+def _start(cmd: list) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def build(names: Iterable[str] = KERNEL_SOURCES, ptxas: Iterable[str] = ()) -> Dict[str, float]:
     """Compile every library in ``names`` that is not built yet, one ``nvcc``
-    per source, all started together.  Returns the seconds each took (0 for
-    one already built); raises with the compiler's output on failure."""
+    per source, all started together (a library of several sources is
+    linked from its objects when they are done); the sources named in
+    ``ptxas`` with ``-Xptxas -v`` (:func:`ptxas_report` reads it).  Returns
+    the seconds each took (0 for one already built); raises with the
+    compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
+    verbose = set(ptxas)
+    jobs = {}  # name → (the compiles' processes, sources and outputs, tmp, target, start)
     seconds = {}
     for name in names:
         target = library_path(name)
@@ -89,19 +105,36 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources(name)), *link_flags(name)]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp,
-            target,
-            time.perf_counter(),
-        )
+        srcs = sources(name)
+
+        def report(src):
+            return ["-Xptxas", "-v"] if src.stem in verbose else []
+
+        if len(srcs) == 1:
+            procs = [(_start([_nvcc(), *NVCC_FLAGS, *report(srcs[0]), "-o", str(tmp), str(srcs[0]),
+                              *link_flags(name)]), srcs[0], tmp)]
+        else:
+            procs = [(_start([_nvcc(), *compile_flags, *report(src), "-o", str(obj), str(src)]), src, obj)
+                     for src in srcs for obj in [target.with_suffix(f".{src.stem}.{os.getpid()}.o")]]
+        jobs[name] = (procs, tmp, target, time.perf_counter())
     failures = []
-    for name, (proc, tmp, target, start) in procs.items():
-        output, _ = proc.communicate()
+    for name, (procs, tmp, target, start) in jobs.items():
+        outputs = [(proc.communicate()[0], proc.returncode, out) for proc, _, out in procs]
+        for (_, src, _), (text, _, _) in zip(procs, outputs):
+            if src.stem in verbose:
+                _ptxas_output[src.stem] = text
+        bad = [text for text, rc, _ in outputs if rc != 0]
+        if len(procs) > 1:
+            objs = [str(out) for _, _, out in outputs]
+            if not bad:
+                link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *objs, *link_flags(name)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                bad = [link.stdout] if link.returncode != 0 else []
+            for obj in objs:
+                Path(obj).unlink(missing_ok=True)
         seconds[name] = time.perf_counter() - start
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu:\n{output}")
+        if bad:
+            failures.append(f"nvcc failed for {name}:\n" + "\n".join(bad))
             continue
         os.replace(tmp, target)
     if failures:
@@ -109,26 +142,15 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
     return seconds
 
 
-def ptxas_report_start(name: str) -> subprocess.Popen:
-    """Start compiling ``csrc/<name>.cu`` once more with ``-Xptxas -v`` into
-    a scratch file of the build directory; :func:`ptxas_report_finish` reads
-    what ptxas says of each kernel."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    scratch = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(scratch), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    proc.scratch = scratch
-    return proc
-
-
-def ptxas_report_finish(proc: subprocess.Popen) -> list:
-    """Per kernel of a :func:`ptxas_report_start` compile: registers, static
-    shared memory (the kernels' dynamic shared memory is sized at launch)
-    and spills, the names demangled where ``c++filt`` is at hand."""
-    output, _ = proc.communicate()
-    proc.scratch.unlink(missing_ok=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{output}")
+def ptxas_report(name: str) -> Optional[list]:
+    """Per kernel of ``csrc/<name>.cu`` as ptxas reported it when
+    :func:`build` compiled it with ``ptxas=`` naming it in this process
+    (None if it did not): registers, static shared memory (the kernels'
+    dynamic shared memory is sized at launch) and spills, the names
+    demangled where ``c++filt`` is at hand."""
+    output = _ptxas_output.get(name)
+    if output is None:
+        return None
     kernels, current = [], None
     for line in output.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -153,19 +175,21 @@ def ptxas_report_finish(proc: subprocess.Popen) -> list:
 
 
 def load_function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> ctypes._CFuncPtr:
-    """The C function ``symbol`` of library ``name``, building the library
+    """The C function ``symbol`` of source ``name``'s library (its own, or
+    the one of ``LIBRARY_PARTS`` that compiles it), building the library
     first if needed; a kernel's entry point returns a ``cudaError_t`` as
     ``int`` (the default ``restype``).  Bound once and then reused, since the
     wrappers call it on every launch."""
     fn = _functions.get((name, symbol))
     if fn is not None:
         return fn
-    lib = _loaded.get(name)
+    home = HOME.get(name, name)
+    lib = _loaded.get(home)
     if lib is None:
-        path = library_path(name)
+        path = library_path(home)
         if not path.exists():
-            build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+            build([home])
+        lib = _loaded[home] = ctypes.CDLL(str(path))
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = restype

@@ -3,14 +3,17 @@
 // tests can build and drive the port's lpm_serve with g++ alone.  Each row's
 // top-k is a fixed function of that row as the server parsed and padded it:
 //
-//   s    = the sum of the row's max_frames × width uint8 bytes
-//   base = s mod 9973 + 17 · num_frames
+//   s    = the sum of the row's max_frames × width uint8 bytes, or for a
+//          video-level artifact the sum of ⌊256 · x⌋ over its width f32
+//          features (exact: 256 · x is x's exponent moved)
+//   base = s mod 9973 + 17 · num_frames (no frame counts: 0)
 //   classes[j] = (base + 7 j) mod 97,  scores[j] = base / 2¹⁴ − j / 64
 //
 // (exact in f32), so a row that is misparsed, mis-padded or answered to the
 // wrong request shows; tests/test_torch_native_serve.py computes the same
 // from the Python parser's rows.
 
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -21,7 +24,8 @@
 namespace {
 
 struct Fake {
-  int64_t batch = 0, row_bytes = 0, k = 0;
+  int64_t batch = 0, row_elems = 0, k = 0;
+  bool video_level = false;
   long long runs = 0;
 };
 
@@ -38,7 +42,8 @@ void* lpm_runner_load(const char* export_dir, int /*device*/, char* err, long lo
   }
   auto* f = new Fake();
   f->batch = m.batch_size;
-  f->row_bytes = static_cast<int64_t>(m.max_frames) * m.total_size();
+  f->video_level = m.frame_features == 0;
+  f->row_elems = (f->video_level ? 1 : static_cast<int64_t>(m.max_frames)) * m.total_size();
   f->k = m.outputs[0].dims[1];
   return f;
 }
@@ -47,11 +52,16 @@ int lpm_runner_run(void* handle, const void* features, const void* num_frames, v
                    void* indices, char* /*err*/, long long /*err_cap*/) {
   auto* f = static_cast<Fake*>(handle);
   const auto* x = static_cast<const uint8_t*>(features);
+  const auto* xf = static_cast<const float*>(features);
   const auto* nf = static_cast<const int32_t*>(num_frames);
   for (int64_t b = 0; b < f->batch; ++b) {
     int64_t s = 0;
-    for (int64_t i = 0; i < f->row_bytes; ++i) s += x[b * f->row_bytes + i];
-    const int64_t base = s % 9973 + 17 * static_cast<int64_t>(nf[b]);
+    for (int64_t i = 0; i < f->row_elems; ++i) {
+      const int64_t at = b * f->row_elems + i;
+      s += f->video_level ? static_cast<int64_t>(std::floor(256.0f * xf[at])) : x[at];
+    }
+    s = ((s % 9973) + 9973) % 9973;
+    const int64_t base = s + 17 * static_cast<int64_t>(nf ? nf[b] : 0);
     for (int64_t j = 0; j < f->k; ++j) {
       static_cast<int32_t*>(indices)[b * f->k + j] = static_cast<int32_t>((base + 7 * j) % 97);
       static_cast<float*>(values)[b * f->k + j] =
