@@ -103,19 +103,25 @@ error, and prints one JSON line per phase:
    native_routes
               item 14c (phase_native_routes): LogisticModel and MoeModel
               (video-level, f32), DbofModel-8192 (iid frames and one window
-              a video), NetRVLAD-256, SoftDBoW-4096, NetFV-64 and
-              NeXtVLAD-128, each exported with with_stablehlo=True at batch
-              256 and served by ModelServer(native=True) on 96 records with
-              the runner's launches of its route's kernels once a batch (rows
-              2, 6 and 5 twice: a modality each) and no torch-route launch;
-              the runner's probabilities on a padded batch of 256 within
+              a video), NetRVLAD-256, SoftDBoW-4096, NetFV-64,
+              NeXtVLAD-128, and (item 14c.3) TransformerEncoderModel and
+              AttentionNetVLADModel at config 5's widths (row 7 once a layer)
+              and FrameLevelLogisticModel (f32), each exported with
+              with_stablehlo=True at batch 256 and served by
+              ModelServer(native=True) on 96 records with the runner's
+              launches of its route's kernels once a batch (rows 2, 6 and 5
+              twice: a modality each) and no torch-route launch; the
+              runner's probabilities on a padded batch of 256 within
               NATIVE_ROUTE_GATES of the port's torch route on the card (the
               f32 model forward; the fast route with its kernels; for the
               DBoF window the plain versions), its top-k that of its
-              probabilities, its videos/s; lpm_serve answering LogisticModel
-              and NetRVLAD-256 over HTTP as the in-process runner does; then
-              each new kernel against its plain version (ROUTE_KERNEL_GATES)
-              at its main-path shape, timed beside its bound;
+              probabilities, its videos/s; NeXtVLAD and the routes that read
+              every frame traced step by step against the torch route
+              (nextvlad_trace, all_frames_trace); lpm_serve answering
+              LogisticModel, NetRVLAD-256 and TransformerEncoderModel over
+              HTTP as the in-process runner does; then each new kernel
+              against its plain version (ROUTE_KERNEL_GATES) at its
+              main-path shape, timed beside its bound;
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -575,7 +581,8 @@ KERNELS = {
         fn=native_tail.frame_stage,
         source="learnablepoolingmethods_torch/csrc/native_runner.cu",
         replaces="learnablepoolingmethods_tpu/ops/fast_lf.py:305-319 sample_frame_features, dequantize, ℓ2 and the "
-                 "folded input BN, and ops/fast_dbof.py:78-92 without the BN (XLA fusion, no pallas_call)",
+                 "folded input BN, ops/fast_dbof.py:78-92 without the BN, and with no draw ops/fast_transformer.py:"
+                 "280-290 (bf16) and core/step.py:38-44 (f32) (XLA fusion, no pallas_call)",
     ),
     "native_bias_sigmoid": dict(
         fn=native_tail.bias_sigmoid,
@@ -613,14 +620,34 @@ KERNELS = {
         replaces="learnablepoolingmethods_tpu/ops/fast_lf.py:264-265 agg − Σ assign · c2 (XLA fusion, "
                  "no pallas_call)",
     ),
+    "native_bias_act": dict(
+        fn=native_tail.bias_act,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_transformer.py:177-180, :197-200, :205-212 and :290-294 "
+                 "+ bias (ReLU) .astype(bf16) after each encoder product (XLA fusion, no pallas_call)",
+    ),
+    "native_residual_layernorm": dict(
+        fn=native_tail.residual_layernorm,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_transformer.py:201-204, :213-216 and :256-259 the residual "
+                 "and _layernorm, with :418 h * mask (XLA fusion, no pallas_call)",
+    ),
+    "native_masked_mean": dict(
+        fn=native_tail.masked_mean,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/ops/fast_transformer.py:300-301 and models/frame_level.py:146-151 "
+                 "the masked mean over the frames (XLA fusion, no pallas_call)",
+    ),
 }
 
 
 def kernel_key(counter: str) -> str:
     """The KERNELS name of a native runner counter (core/native_runtime.py
-    COUNTERS): the TPU-kernel rows keep theirs, the runner's own kernels
-    are native_<name>."""
-    return counter if counter in native_runtime.ROW_KERNELS else f"native_{counter}"
+    COUNTERS): the TPU-kernel rows keep theirs (row 7's wrapper is
+    masked_attention_fused), the runner's own kernels are native_<name>."""
+    if counter in native_runtime.ROW_KERNELS:
+        return {"masked_attention": "masked_attention_fused"}.get(counter, counter)
+    return f"native_{counter}"
 TRAIN_KERNELS = ("netvlad_aggregate_forward", "netvlad_aggregate_backward")
 
 
@@ -3055,9 +3082,13 @@ def phase_int8_matmul(dev, smi) -> tuple:
 
 # the train CLI's item-12b modes at Willow training's settings (B=256,
 # S=30, bf16 compute, --fused_train_aggregation), TRAIN_12B_STEPS steps each
+# (two: every check reads the first update or the steps after it, and a
+# second step is one after it), each mode's step timed over
+# TRAIN_12B_TIMING_ROUNDS rounds of as many steps (time_train_step)
 TRAIN_12B_RUNS = {"bf16_params": ["--bf16_params"], "fused_adam": ["--fused_adam"],
                   "bf16_params_accum2": ["--bf16_params", "--grad_accum_steps=2"], "use_remat": ["--use_remat"]}
-TRAIN_12B_STEPS = 3
+TRAIN_12B_STEPS = 2
+TRAIN_12B_TIMING_ROUNDS = 3
 TRAIN_12B_FLAGS = [f for f in TRAIN_FLAGS if not f.startswith("--max_steps")] + [
     "--fused_train_aggregation", f"--max_steps={TRAIN_12B_STEPS}"]
 # --use_remat against the same steps without it: losses and BN statistics
@@ -3217,9 +3248,12 @@ def phase_train_12b(dev, workdir, smi) -> dict:
         gate = first_update_gap(dev, args, configs, zoo_first_batch(args, configs, data), tree)
         gate_s = time.perf_counter() - start
         torch.cuda.empty_cache()
+        start = time.perf_counter()
         line, _ = time_train_step(dev, "NetVLADModelLF", dataclasses.replace(mcfg, presampled=True),
                                   dataclasses.replace(tcfg, presample_frames=True),
-                                  random_train_batch(np.random.default_rng(2), 256, dev), tree=tree)
+                                  random_train_batch(np.random.default_rng(2), 256, dev), tree=tree,
+                                  rounds=TRAIN_12B_TIMING_ROUNDS)
+        timing_s = time.perf_counter() - start
         extra = {}
         if run == "use_remat":
             extra = remat_gaps(dev, tree)
@@ -3238,7 +3272,8 @@ def phase_train_12b(dev, workdir, smi) -> dict:
             launches["netvlad_frontend"] += ev["netvlad_frontend"]
             extra["eval_fast_forward_bf16_checkpoint"] = {k: float(info[k]) for k in EVAL_METRICS}
         shutil.rmtree(train_dir)
-        emit({"phase": "train_12b", "run": run, "flags": flags, "cli_s": cli_s, "gate_s": gate_s, "losses": losses,
+        emit({"phase": "train_12b", "run": run, "flags": flags, "cli_s": cli_s, "gate_s": gate_s, "timing_s": timing_s,
+              "losses": losses,
               "launches": got, "checkpoint_dtypes": dtypes, "first_update": gate, **extra, **line,
               "card": smi})
         torch.cuda.empty_cache()
@@ -3961,7 +3996,8 @@ def phase_native_serve(dev, workdir, fp, smi, served: dict, lpm_serve: dict) -> 
 
 
 # ---- item 14c: the runner's other routes (LogisticModel, MoeModel,
-# DbofModel, NetRVLADModelLF, SoftDbofModelLF, NetFVModelLF, NeXtVLADModel)
+# DbofModel, NetRVLADModelLF, SoftDbofModelLF, NetFVModelLF, NeXtVLADModel,
+# TransformerEncoderModel, AttentionNetVLADModel, FrameLevelLogisticModel)
 
 NATIVE_ROUTES_BATCH = 256
 # run → (model, config overrides); each at its full default width
@@ -3974,9 +4010,13 @@ NATIVE_ROUTE_RUNS = {
     "SoftDbofModelLF": ("SoftDbofModelLF", {}),
     "NetFVModelLF": ("NetFVModelLF", {}),
     "NeXtVLADModel": ("NeXtVLADModel", {}),
+    "TransformerEncoderModel": ("TransformerEncoderModel", {}),
+    "AttentionNetVLADModel": ("AttentionNetVLADModel", {}),
+    "FrameLevelLogisticModel": ("FrameLevelLogisticModel", {}),
 }
-# the runs that lpm_serve answers over HTTP (a video-level and a LOUPE route)
-NATIVE_ROUTES_HTTP = ("LogisticModel", "NetRVLADModelLF")
+# the runs that lpm_serve answers over HTTP (a video-level, a LOUPE and an
+# attention route)
+NATIVE_ROUTES_HTTP = ("LogisticModel", "NetRVLADModelLF", "TransformerEncoderModel")
 # the runner's probabilities against the port's torch route on the same
 # padded batch of 256 (max |Δ|): the f32 model forward for the video-level
 # two, the fast route with its kernels for the bf16 routes (the DBoF window:
@@ -3987,9 +4027,17 @@ NATIVE_ROUTES_HTTP = ("LogisticModel", "NetRVLADModelLF")
 # LogisticModel 1.2e-7 and MoeModel 6.0e-8 (the f32 products' and the input
 # ℓ2's summation order), 1e-6; SoftDBoW 1.9e-6 (a row-ℓ2 rounding of the
 # histogram), 1e-5; NeXtVLAD 2.657e-4 in four runs, 5e-4: its trace
-# (NEXTVLAD_TRACE_GATES) puts the whole gap in h's bf16 rounding
+# (NEXTVLAD_TRACE_GATES) puts the whole gap in h's bf16 rounding.  The
+# routes that read every frame, from the first two runs on one H100 at 700 W
+# (equal readings): TransformerEncoderModel 2.574e-4, 1e-3;
+# AttentionNetVLADModel 2.879e-5, 2e-4: their traces (ALL_FRAMES_TRACE_GATES)
+# put the whole gap in the residual LayerNorms' sums, whose order moves a
+# bf16 rounding of 6.5e-6 of the entries (the kernel check), compounded
+# over four of them; FrameLevelLogisticModel 6.0e-8 (the f32 ℓ2's and
+# mean's summation order), 1e-6 as the video-level two
 NATIVE_ROUTE_GATES = {**dict.fromkeys(NATIVE_ROUTE_RUNS, NATIVE_GATE), "LogisticModel": 1e-6, "MoeModel": 1e-6,
-                      "NeXtVLADModel": 5e-4}
+                      "NeXtVLADModel": 5e-4, "TransformerEncoderModel": 1e-3, "AttentionNetVLADModel": 2e-4,
+                      "FrameLevelLogisticModel": 1e-6}
 # NeXtVLAD's trace (nextvlad_trace) against the torch route, each step's max
 # |Δ| over max |torch route| (rel) and, for the VLAD, its share of entries
 # equal; from the first run, on one H100 at 700 W: the expansion and the
@@ -4003,6 +4051,26 @@ NATIVE_ROUTE_GATES = {**dict.fromkeys(NATIVE_ROUTE_RUNS, NATIVE_GATE), "Logistic
 # affine moves a step by O(1).
 NEXTVLAD_TRACE_GATES = {"xt": 0.0, "assign": 0.0, "residual": 1e-6, "vlad": 2 ** -7, "vlad_equal_share": 0.9999,
                         "product": 1e-6, "h": 1e-3, "tail": NATIVE_GATE}
+# the routes that read every frame, traced step by step (all_frames_trace)
+# against the torch route: each step's max |Δ| over max |torch route|.
+# From the first two runs on one H100 at 700 W (equal readings): the staged
+# frames and the mask equal bit for bit (bf16), the f32 frames and pool of
+# FrameLevelLogisticModel within 2.4e-7 and 1.5e-7 (the ℓ2's and the mean's
+# sum order); the encoder's output one bf16 step apart at most (rel 5.5e-3;
+# 87 % of the transformer's entries equal, 93 % of AttentionNetVLAD's), the
+# pool and the VLAD one step (2.9e-3, 5.6e-3), h 1.2e-3 and 1.8e-3; and each
+# step from the runner's own inputs equal bit for bit to the runner's (the
+# last FFN2 product and epilogue, the masked mean or row 2, the hidden
+# product): the gap enters in the LayerNorms alone (the kernel check reads
+# their one-step roundings).  A wrong stride, head or layer moves a step by
+# O(1).
+ALL_FRAMES_TRACE_GATES = {
+    **dict.fromkeys(native_runtime.ATTENTION_ROUTES, {
+        "frames": 0.0, "mask": 0.0, "encoder": 2 ** -7, "pooled": 2 ** -7, "vlad": 2 ** -7, "default": 5e-3,
+        "ffn2_of_runner_ffn1": 0.0, "pooled_of_runner_encoder": 0.0, "vlad_of_runner_encoder": 0.0,
+        "product_of_runner_pool": 0.0}),
+    "frame_logistic": {"default": 1e-6},
+}
 # the runner's launches a batch of each route (every route ends in topk)
 NATIVE_ROUTE_LAUNCHES = {
     "LogisticModel": dict(row_l2=1, bias_sigmoid=1),
@@ -4014,7 +4082,16 @@ NATIVE_ROUTE_LAUNCHES = {
     "NeXtVLADModel": dict(frame_stage=1, nextvlad_assign=2, nextvlad_residual=2, row_l2=2, hidden_sum=1,
                           gating=1, moe_combine=1),
 }
-NATIVE_ROUTE_LAUNCHES["DbofModel_window"] = NATIVE_ROUTE_LAUNCHES["DbofModel"]
+# the encoder of config 5 (two layers): the input projection and four
+# products a layer end in bias_act; two residual_layernorms a layer; row 7
+# once a layer
+ENCODER_LAUNCHES = dict(frame_stage=1, bias_act=1 + 4 * 2, masked_attention=2, residual_layernorm=2 * 2)
+NATIVE_ROUTE_LAUNCHES.update({
+    "DbofModel_window": NATIVE_ROUTE_LAUNCHES["DbofModel"],
+    "TransformerEncoderModel": dict(ENCODER_LAUNCHES, masked_mean=1, hidden_sum=1, gating=1, moe_combine=1),
+    "AttentionNetVLADModel": dict(ENCODER_LAUNCHES, netvlad_fused=1, hidden_sum=1, gating=1, moe_combine=1),
+    "FrameLevelLogisticModel": dict(frame_stage=1, masked_mean=1, bias_sigmoid=1),
+})
 # each kernel of these routes against its plain version on the card (atol as
 # a share of max|ref|, rtol): exact where both do the same f32 operations in
 # the same order; one bf16 step (at most 2⁻⁷ of the value) where the plain
@@ -4031,7 +4108,18 @@ ROUTE_KERNEL_GATES = {
     "native_nextvlad_assign": (1e-5, 2 ** -8),
     "native_nextvlad_residual": TOLERANCE[torch.float32],
     "native_hidden_sum": (0.0, 0.0),
+    "native_bias_act": (0.0, 0.0),
+    # one bf16 step: the LayerNorm's two sums in another order than
+    # torch.mean's (6.5e-6 of the entries a step apart in the first runs)
+    "native_residual_layernorm": (2 ** -8, 2 ** -7),
+    "native_masked_mean": (2 ** -8, 2 ** -7),
+    # the f32 outputs: the f32 tolerance (summation order only)
+    "native_frame_stage/all_f32": TOLERANCE[torch.float32],
+    "native_masked_mean/logistic_f32": TOLERANCE[torch.float32],
 }
+# the checks timed beside the first of their kernel (a main path's other
+# shape): frame_stage with no draw, the attention routes' 76,800 rows
+ROUTE_TIMED_CHECKS = ("native_frame_stage/all_bf16",)
 # the one PyTorch call that computes a timed kernel's function on its
 # inputs, where there is one (the other kernels' functions take two calls or
 # more): frame_pool's max over S (f32 out; the kernel rounds to bf16 as it
@@ -4052,12 +4140,15 @@ def route_config(name: str, overrides: dict) -> tuple:
 
 def torch_route(name: str, tree: dict, mcfg: ModelConfig, fcfg: FeatureConfig, export_dir: str, dev):
     """The port's torch route on the card for the runner's batches:
-    ``fn(feats, nfs) → probabilities`` (the weights prepared once)."""
-    if not fcfg.frame_features:
+    ``fn(feats, nfs) → probabilities`` (the weights prepared once): the
+    model's f32 forward for native_runtime.F32_ROUTES, else the fast
+    route."""
+    if native_runtime.MODEL_ROUTES[name] in native_runtime.F32_ROUTES:
         model = create_model(name, mcfg, fcfg.total_size)
         load_flax_variables(model, tree)
-        forward = step_lib.inference_forward(model.to(dev).eval(), mcfg, False)
-        return lambda feats, nfs: forward(torch.from_numpy(feats).to(dev)).float()
+        forward = step_lib.inference_forward(model.to(dev).eval(), mcfg, fcfg.frame_features)
+        return lambda feats, nfs: forward(torch.from_numpy(feats).to(dev),
+                                          None if nfs is None else torch.from_numpy(nfs).to(dev)).float()
     if not mcfg.sample_random_frames:
         manifest, arrays = native_runtime.read_artifact(export_dir)
         arrays = native_runtime.tree_to(arrays, dev)
@@ -4112,7 +4203,17 @@ def route_kernel_inputs(dev) -> dict:
     nf = torch.randint(1, F + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
     nf[0], nf[1] = 1, F
     assign = torch.softmax(randn(b * s, g, k, scale=3.0), dim=-1) * torch.sigmoid(randn(b * s, g, 1))
+    nf0 = nf.clone()
+    nf0[2] = 0  # a padding row of a served batch
+    d, ff = 1024, 2048  # config 5's encoder width and FFN
+    qkv_y = randn(b * F * 3 * d, scale=2.0)
+    enc_x = randn(b * F, d).to(torch.bfloat16)
     return dict(x=x, nf=nf, s=s, in_scale=randn(DT, scale=0.1) + 1.0, in_bias=randn(DT, scale=0.05),
+                nf0=nf0, qkv_y=qkv_y.view(b * F, 3 * d), qkv_b=randn(3 * d, scale=0.1),
+                ff_y=qkv_y[:b * F * ff].view(b * F, ff), ff_b=randn(ff, scale=0.1), enc_x=enc_x,
+                enc_y=randn(b * F, d).to(torch.bfloat16), ln_s=randn(d, scale=0.2) + 1.0, ln_b=randn(d, scale=0.1),
+                enc_mask=native_tail.key_mask(nf0, F).reshape(-1), enc=enc_x.view(b, F, d),
+                frames32=native_tail.frame_stage_all_plain(x, nf0, torch.float32)[0],
                 logits=randn(b, v, scale=3.0), fc_b=randn(v, scale=0.5), act=randn(b * s, c, scale=3.0),
                 c_b=randn(c), pooled_in=torch.clamp(randn(b, s, c, scale=3.0), 0.0, 6.0), hid=randn(b, h, scale=3.0),
                 h_b=randn(h),
@@ -4138,7 +4239,11 @@ def route_kernel_calls(x: dict) -> dict:
             ("affine", lambda: nt.frame_stage(x["x"], key, x["nf"], s, x["in_scale"], x["in_bias"]),
              lambda: nt.frame_stage_plain(x["x"], key, x["nf"], s, x["in_scale"], x["in_bias"])),
             ("window", lambda: nt.frame_stage(x["x"], key, x["nf"], s, window=True),
-             lambda: nt.frame_stage_plain(x["x"], key, x["nf"], s, window=True))],
+             lambda: nt.frame_stage_plain(x["x"], key, x["nf"], s, window=True)),
+            ("all_bf16", lambda: nt.frame_stage_all(x["x"], x["nf0"]),
+             lambda: nt.frame_stage_all_plain(x["x"], x["nf0"])),
+            ("all_f32", lambda: nt.frame_stage_all(x["x"], x["nf0"], torch.float32),
+             lambda: nt.frame_stage_all_plain(x["x"], x["nf0"], torch.float32))],
             b * s * DT + b * 4 + 2 * DT * 4 + b * s * DT * 2),
         "native_bias_sigmoid": ([
             ("logistic", lambda: nt.bias_sigmoid(x["logits"], x["fc_b"]),
@@ -4173,6 +4278,23 @@ def route_kernel_calls(x: dict) -> dict:
             ("netfv_four_parts", lambda: nt.hidden_sum(x["parts"], x["bias"], 2, True),
              lambda: nt.hidden_sum_plain(x["parts"], x["bias"], 2, True))],
             None),
+        "native_bias_act": ([
+            ("qkv", lambda: nt.bias_act(x["qkv_y"], x["qkv_b"]), lambda: nt.bias_act_plain(x["qkv_y"], x["qkv_b"])),
+            ("ffn1_relu", lambda: nt.bias_act(x["ff_y"], x["ff_b"], True),
+             lambda: nt.bias_act_plain(x["ff_y"], x["ff_b"], True))],
+            x["qkv_y"].numel() * (4 + 2) + x["qkv_b"].numel() * 4),
+        "native_residual_layernorm": ([
+            ("ln", lambda: nt.residual_layernorm(x["enc_x"], x["enc_y"], x["ln_s"], x["ln_b"]),
+             lambda: nt.residual_layernorm_plain(x["enc_x"], x["enc_y"], x["ln_s"], x["ln_b"])),
+            ("ln_zero_pads", lambda: nt.residual_layernorm(x["enc_x"], x["enc_y"], x["ln_s"], x["ln_b"], x["enc_mask"]),
+             lambda: nt.residual_layernorm_plain(x["enc_x"], x["enc_y"], x["ln_s"], x["ln_b"], x["enc_mask"]))],
+            x["enc_x"].numel() * (2 + 2 + 2) + 2 * x["ln_s"].numel() * 4),
+        "native_masked_mean": ([
+            ("encoder_bf16", lambda: nt.masked_mean(x["enc"], x["nf0"]), lambda: nt.masked_mean_plain(x["enc"], x["nf0"])),
+            ("logistic_f32", lambda: nt.masked_mean(x["frames32"], x["nf0"], torch.float32, False),
+             lambda: nt.masked_mean_plain(x["frames32"], x["nf0"], torch.float32, False))],
+            # the valid frames' rows only: the kernel reads no pad row
+            int(torch.clamp(x["nf0"], 0, F).sum()) * x["enc"].shape[2] * 2 + b * 4 + b * x["enc"].shape[2] * 2),
     }
 
 
@@ -4190,10 +4312,14 @@ def check_route_kernels(dev, errors: dict) -> tuple:
         for label, kernel, plain in checks:
             got, want = kernel(), plain()
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-            err = max(compare(f"{name} {label}", g_, w_, tol=ROUTE_KERNEL_GATES[name]) for g_, w_ in zip(got, want))
+            tol = ROUTE_KERNEL_GATES.get(f"{name}/{label}", ROUTE_KERNEL_GATES[name])
+            err = max(compare(f"{name} {label}", g_, w_, tol=tol) for g_, w_ in zip(got, want))
             errors[name] = max(errors.get(name, 0.0), err)
             line[f"{name}/{label}"] = {"max_abs_err": err,
                                        "bit_equal_share": float((got[0] == want[0]).float().mean())}
+            if f"{name}/{label}" in ROUTE_TIMED_CHECKS:
+                line[f"{name}/{label}"].update(ms=device_ms(kernel), plain_ms=device_ms(plain))
+            del got, want
         if nbytes is not None:
             timing[name] = (device_ms(checks[0][1]), device_ms(checks[0][2]), (nbytes / PEAK_BYTES * 1e3, "bytes"))
     torch.cuda.synchronize()
@@ -4207,6 +4333,12 @@ def check_route_kernels(dev, errors: dict) -> tuple:
         "native_row_l2": "[32768, 256] f32 → bf16 with the folded vlad_bn (NeXtVLAD-128 rgb at B=256)",
         "native_nextvlad_assign": "R=7680, G=8, K=128 (NeXtVLAD-128 rgb at B=256, S=30)",
         "native_nextvlad_residual": "B=256, S·G=240, K=128, D′=256 (NeXtVLAD-128 rgb)",
+        "native_bias_act": "[76800, 3072] f32 → bf16 (config 5's QKV epilogue at B=256, F=300; ReLU at FFN1's "
+                           "[76800, 2048] also checked)",
+        "native_residual_layernorm": "[76800, 1024] bf16 × 2 → bf16 (config 5 at B=256, F=300; × the key mask "
+                                     "also checked)",
+        "native_masked_mean": "[256, 300, 1024] bf16 → bf16 over the valid frames (config 5's pool); f32 [256, 300, "
+                              "1152] over num_frames also checked",
     }
     return timing, shapes, library
 
@@ -4281,6 +4413,57 @@ def nextvlad_trace(exe, tree: dict, mcfg: ModelConfig, feats, nfs, dev, got: np.
     return out
 
 
+def all_frames_trace(exe, export_dir: str, feats, nfs, dev, want_p) -> dict:
+    """A route that reads every frame, step by step, on the batch the runner
+    ran last: plain_run on the card with its steps kept (its probabilities
+    must equal the torch route's want_p bit for bit), each beside the
+    runner's buffer of that name (exe.read): the staged frames, the mask,
+    the encoder's output, the pool (or the VLAD), the hidden product and h
+    (trace_diff each; for h also the entries whose bf16 rounding differs).
+    Then each step of the runner's own inputs through the torch step,
+    against the runner's output of that step: the last layer's FFN2 product
+    and epilogue (the product's summation order alone), the pool (the
+    masked mean's, or row 2 on the same inputs) and the hidden product.
+    Every step's rel within ALL_FRAMES_TRACE_GATES."""
+    manifest, arrays = native_runtime.read_artifact(export_dir)
+    steps = {}
+    probs = native_runtime.plain_run(manifest, arrays, feats, nfs, return_probs=True, device=dev, trace=steps)
+    if not torch.equal(probs, want_p):
+        raise AssertionError(f"native_routes {manifest['route']}: the trace's route is not the torch route")
+    out, runner = {}, {}
+    for name, value in steps.items():
+        runner[name] = exe.read(name, value.shape, value.dtype)
+        out[name] = trace_diff(runner[name], value)
+        if name == "h":
+            out[name]["bf16_roundings_differ"] = int((runner[name].to(torch.bfloat16)
+                                                      != value.cpu().to(torch.bfloat16)).sum())
+    if manifest["route"] in native_runtime.ATTENTION_ROUTES:
+        nt = native_tail
+        with torch.no_grad():
+            last = native_runtime.tree_to(arrays["layers"][-1], dev)
+            b, f = feats.shape[:2]
+            d = last["w2"].shape[1]
+            ffn1 = exe.read("ffn1", (b * f, last["w1"].shape[1]), torch.bfloat16).to(dev)
+            out["ffn2_of_runner_ffn1"] = trace_diff(
+                nt.bias_act_plain(matmul_f32(ffn1, last["w2"]), last["b2"]),
+                exe.read("ffn2", (b * f, d), torch.bfloat16))
+            enc = runner["encoder"].to(dev)
+            if manifest["route"] == "fast_transformer":
+                pool, pool_name = nt.masked_mean_plain(enc, torch.from_numpy(nfs).to(dev)), "pooled"
+            else:
+                pool = netvlad_fused(enc, *(arrays[k].to(dev) for k in ("cluster", "c_scale", "c_bias", "c2")))
+                pool, pool_name = pool.reshape(b, -1), "vlad"
+            out[f"{pool_name}_of_runner_encoder"] = trace_diff(pool, runner[pool_name])
+            out["product_of_runner_pool"] = trace_diff(
+                matmul_f32(runner[pool_name].to(dev), arrays["hidden_w"].to(dev)), runner["part/0"])
+    gates = ALL_FRAMES_TRACE_GATES[manifest["route"]]
+    over = [name for name, d in out.items() if d["rel"] > gates.get(name, gates["default"])]
+    if over:
+        raise AssertionError(f"native_routes {manifest['route']}: the trace is over ALL_FRAMES_TRACE_GATES at {over}: "
+                             f"{out}")
+    return out
+
+
 def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
     """Item 14c on the card: for each NATIVE_ROUTE_RUNS model at its full
     default width (weights from seeded_tree, BN statistics perturbed):
@@ -4345,7 +4528,12 @@ def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
         want_p = route_fn(feats, nfs)
         gap = (torch.from_numpy(got) - want_p.float().cpu()).abs().max().item()
         values, indices = exe.run(feats, nfs)
-        trace = nextvlad_trace(exe, tree, mcfg, feats, nfs, dev, got, want_p) if name == "NeXtVLADModel" else None
+        if name == "NeXtVLADModel":
+            trace = nextvlad_trace(exe, tree, mcfg, feats, nfs, dev, got, want_p)
+        elif manifest["route"] in native_runtime.ALL_FRAME_ROUTES:
+            trace = all_frames_trace(exe, export_dir, feats, nfs, dev, want_p)
+        else:
+            trace = None
         tv, ti = top_k_exact(torch.from_numpy(got), 20)
         if not (np.array_equal(indices, ti.numpy()) and np.array_equal(values.view(np.int32),
                                                                        tv.numpy().view(np.int32))):

@@ -5,7 +5,7 @@ The JAX package runs its exported StableHLO module with XLA's PJRT CPU
 client (``native/stablehlo_runner.cc``).  The card's machine has neither,
 so the port's runner is a CUDA C++ program of each model's route
 (``csrc/native_runner.cu``): the TPU-kernel counterparts it needs (rows 1,
-2, 5 and 6), cuBLAS for the dense products, and the hand kernels of
+2, 5, 6 and 7), cuBLAS for the dense products, and the hand kernels of
 ``ops/native_tail.py``.  It reads the artifact that ``export_model(...,
 with_stablehlo=True)`` writes:
 
@@ -13,11 +13,13 @@ with_stablehlo=True)`` writes:
                           port's: the route, and the lines its route needs
                           (ROUTE_LINES: the sampling key and mode, iterations,
                           moe_num_mixtures, DBoF's pooling, NeXtVLAD's groups
-                          and expansion) and one named line per array
+                          and expansion, the encoder's layers and heads) and
+                          one named line per array
     weights.bin           the route's arrays (ARRAYS: the fast route's
                           prepare with BNs folded, bf16 and f32 as the
                           kernels read them; the f32 heads of the two
-                          video-level models), dense, row-major,
+                          video-level models and FrameLevelLogisticModel),
+                          dense, row-major,
                           little-endian, in the manifest's order
 
 The routes (ROUTES), one per model:
@@ -33,9 +35,17 @@ The routes (ROUTES), one per model:
     fast_lf_nextvlad       NeXtVLADModel: frame_stage, the expansion
                            (rounded to bf16 by cuBLAS), nextvlad_assign,
                            a batched product, nextvlad_residual, row_l2
+    fast_transformer       TransformerEncoderModel: frame_stage of every
+                           frame and the key mask, the encoder (each product
+                           then bias_act; row 7; residual_layernorm),
+                           masked_mean
+    fast_attn_netvlad      AttentionNetVLADModel: the same encoder (its last
+                           residual_layernorm zeroes the pad rows), row 2
+    frame_logistic         FrameLevelLogisticModel: frame_stage of every frame
+                           in f32, masked_mean, SGEMM, bias_sigmoid      (f32)
 
-and the LOUPE four end in the hidden FC's products, hidden_sum, gating,
-moe_combine; every route in topk.
+and the LOUPE four and the attention two end in the hidden FC's products,
+hidden_sum, gating, moe_combine; every route in topk.
 
 ``NativeExecutable`` binds the runner in-process through ``ctypes``;
 ``build_serving_binary`` links it into ``lpm_serve``
@@ -67,16 +77,21 @@ from learnablepoolingmethods_torch.data.native_loader import NATIVE_DIR
 from learnablepoolingmethods_torch.ops import kernel_build
 from learnablepoolingmethods_torch.ops.fast_infer import build_fast_netvlad_inference, matmul_f32_local
 from learnablepoolingmethods_torch.ops.fast_lf import lf_hidden_parts
+from learnablepoolingmethods_torch.ops.fast_transformer import encoder_stack
 from learnablepoolingmethods_torch.ops.native_tail import (
+    bias_act_plain,
     bias_relu6_plain,
     bias_sigmoid_plain,
     frame_pool_plain,
+    frame_stage_all_plain,
     frame_stage_plain,
     gating_plain,
     hidden_sum_plain,
+    masked_mean_plain,
     moe_combine_plain,
     row_l2_plain,
 )
+from learnablepoolingmethods_torch.ops.netvlad_fused import netvlad_fused
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
 from learnablepoolingmethods_torch.utils.misc import resolve_device
 
@@ -92,9 +107,19 @@ ROUTES = {
     "fast_lf_softdbow": "SoftDbofModelLF",
     "fast_lf_netfv": "NetFVModelLF",
     "fast_lf_nextvlad": "NeXtVLADModel",
+    "fast_transformer": "TransformerEncoderModel",
+    "fast_attn_netvlad": "AttentionNetVLADModel",
+    "frame_logistic": "FrameLevelLogisticModel",
 }
 MODEL_ROUTES = {model: route for route, model in ROUTES.items()}
 VIDEO_ROUTES = ("video_logistic", "video_moe")
+ATTENTION_ROUTES = ("fast_transformer", "fast_attn_netvlad")
+# the frame-level routes that draw no frames (S = F)
+ALL_FRAME_ROUTES = ATTENTION_ROUTES + ("frame_logistic",)
+# the logistic heads (fc/kernel, fc/bias; no MoE)
+LOGISTIC_ROUTES = ("video_logistic", "frame_logistic")
+# the routes of the model's f32 forward (the others: a fast route's bf16)
+F32_ROUTES = VIDEO_ROUTES + ("frame_logistic",)
 LF_ROUTES = ("fast_lf_netrvlad", "fast_lf_softdbow", "fast_lf_netfv", "fast_lf_nextvlad")
 # NetVLADModelLF's route, the runner's first
 ROUTE = "fast_netvlad_frontend"
@@ -107,17 +132,24 @@ LF_MOD_ARRAYS = {
     "fast_lf_netfv": ("cluster", "scale", "bias", "c2", "covar", "w1", "w2"),
     "fast_lf_nextvlad": ("cluster", "scale", "bias", "wg", "wa", "c2", "vscale", "vbias", "w1"),
 }
+# an encoder layer's arrays (ops/fast_transformer.py#_prepare_encoder_layers)
+LAYER_ARRAYS = ("wqkv", "bqkv", "wo", "bo", "ln1_s", "ln1_b", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2")
 
 
-def route_arrays(route: str, n_mods: int = 2) -> Tuple[str, ...]:
+def route_arrays(route: str, n_mods: int = 2, n_layers: int = 2) -> Tuple[str, ...]:
     """The runner's arrays of ``route`` in weights.bin's order: the keys of
     its prepare, "/" into nested dicts and lists ("rgb/cluster",
-    "mods/0/w1"); a LOUPE route of ``n_mods`` modalities."""
+    "mods/0/w1", "layers/1/wqkv"); a LOUPE route of ``n_mods`` modalities,
+    an attention route of ``n_layers`` encoder layers."""
+    if route in ATTENTION_ROUTES:
+        pool = ("hidden_w",) if route == "fast_transformer" else ("cluster", "c_scale", "c_bias", "c2", "hidden_w")
+        return (("w_proj", "b_proj") + tuple(f"layers/{i}/{a}" for i in range(n_layers) for a in LAYER_ARRAYS)
+                + pool + TAIL)
     if route == "fast_netvlad_frontend":
         return (("in_scale", "in_bias") + tuple(f"{m}/{a}" for m in ("rgb", "aud") for a in ("cluster", "scale",
                                                                                           "bias", "c2"))
                 + ("w_rgb", "w_aud") + TAIL)
-    if route == "video_logistic":
+    if route in LOGISTIC_ROUTES:
         return ("fc/kernel", "fc/bias")
     if route == "video_moe":
         return MOE
@@ -127,22 +159,24 @@ def route_arrays(route: str, n_mods: int = 2) -> Tuple[str, ...]:
             + TAIL)
 
 
-# each route's arrays in the two-modality layout of the default features
+# each route's arrays in the two-modality layout of the default features and
+# the default two encoder layers
 ARRAYS = {route: route_arrays(route) for route in ROUTES}
 # the port's manifest lines that each route needs beside the JAX package's
-# (csrc/native_runner.cu RequiredLines)
-ROUTE_LINES = {route: ("route",) + (() if route in VIDEO_ROUTES else ("sampling_key", "iterations"))
-               + (() if route == "video_logistic" else ("moe_num_mixtures",))
+# (csrc/native_manifest.h kRoutes)
+ROUTE_LINES = {route: ("route",) + (() if route in VIDEO_ROUTES + ALL_FRAME_ROUTES else ("sampling_key", "iterations"))
+               + (() if route in LOGISTIC_ROUTES else ("moe_num_mixtures",))
                + {"fast_dbof": ("sampling", "dbof_pooling_method"),
-                  "fast_lf_nextvlad": ("nextvlad_groups", "nextvlad_expansion")}.get(route, ())
+                  "fast_lf_nextvlad": ("nextvlad_groups", "nextvlad_expansion"),
+                  **dict.fromkeys(ATTENTION_ROUTES, ("transformer_layers", "attention_heads"))}.get(route, ())
                for route in ROUTES}
 TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the launches the runner counts (csrc/native_runner.cu kCounterNames)
-COUNTERS = ("netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "frame_stage", "bias_sigmoid",
-            "bias_relu6", "frame_pool", "row_l2", "nextvlad_assign", "nextvlad_residual",
-            "hidden_sum", "gating", "moe_combine", "topk")
-# the TPU-kernel counterparts among them (PERF.md's rows 1, 2, 6 and 5)
-ROW_KERNELS = ("netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused")
+COUNTERS = ("netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention", "frame_stage",
+            "bias_sigmoid", "bias_relu6", "frame_pool", "row_l2", "nextvlad_assign", "nextvlad_residual", "bias_act",
+            "residual_layernorm", "masked_mean", "hidden_sum", "gating", "moe_combine", "topk")
+# the TPU-kernel counterparts among them (PERF.md's rows 1, 2, 6, 5 and 7)
+ROW_KERNELS = ("netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention")
 
 LIBRARY = "native_runner"
 SERVE_SOURCES = ("serving_main.cc", "tfrecord_reader.cc")
@@ -248,7 +282,7 @@ def read_artifact(export_dir: str) -> Tuple[dict, Dict[str, object]]:
 
 def _sizes(manifest: dict) -> dict:
     shapes = {name: shape for name, _, shape in manifest["weights"]}
-    if manifest["route"] == "video_logistic":
+    if manifest["route"] in LOGISTIC_ROUTES:
         vocab = shapes["fc/bias"][0]
     else:
         vocab = shapes["experts_bias"][0] // manifest["moe_num_mixtures"]
@@ -278,9 +312,50 @@ def _frame_route_probs(manifest: dict, arrays: dict, x: torch.Tensor, nf: torch.
         d = entry["cluster"].shape[0]
         parts += lf_hidden_parts(ROUTES[route], xs[:, :, off:off + d], entry)
         off += d
-    h, hb = hidden_sum_plain(parts, arrays["hidden_b"], len(parts) // len(arrays["mods"]), bias_first=True)
+    return _gated_probs(parts, arrays, m, len(parts) // len(arrays["mods"]), bias_first=True)
+
+
+def _gated_probs(parts, arrays: dict, m: int, group: int = 1, bias_first: bool = False,
+                 trace: Optional[dict] = None) -> torch.Tensor:
+    """hidden_sum of the hidden FC's products, the gating product on its
+    bf16 rounding, gating, the MoE: the gated tail's probabilities (``trace``
+    keeps the products as "part/<i>" and h)."""
+    h, hb = hidden_sum_plain(parts, arrays["hidden_b"], group, bias_first)
+    if trace is not None:
+        trace.update({f"part/{i}": p for i, p in enumerate(parts)}, h=h)
     hg = gating_plain(matmul_f32_local(hb, arrays["gate_w"]), h, arrays["g_scale"], arrays["g_bias"])
     return _moe_probs(hg, arrays, m)
+
+
+def _all_frames_probs(manifest: dict, arrays: dict, x: torch.Tensor, nf: torch.Tensor,
+                      trace: Optional[dict] = None) -> torch.Tensor:
+    """The routes that read every frame: frame_stage with no draw (and the
+    key mask); the attention two's encoder (``ops/fast_transformer.py
+    #encoder_stack``: bias_act and residual_layernorm's plain versions, row
+    7's wrapper; AttentionNetVLAD's last LayerNorm zeroing the pad rows),
+    then masked_mean or row 2's wrapper, the hidden FC and the gated tail;
+    FrameLevelLogisticModel's f32 masked mean over num_frames, its product
+    and bias_sigmoid.  ``trace`` keeps the steps that the runner's buffers
+    of the same names hold (``NativeExecutable.read``)."""
+    route = manifest["route"]
+    b, f, dt = x.shape
+    trace = {} if trace is None else trace
+    if route == "frame_logistic":
+        xs, _ = frame_stage_all_plain(x, nf, torch.float32)
+        pooled = masked_mean_plain(xs, nf, torch.float32, count_valid=False)
+        trace.update(frames=xs, pooled=pooled)
+        return bias_sigmoid_plain(pooled @ arrays["fc"]["kernel"], arrays["fc"]["bias"])
+    xs, mask = frame_stage_all_plain(x, nf)
+    h = bias_act_plain(matmul_f32_local(xs.reshape(b * f, dt), arrays["w_proj"]), arrays["b_proj"])
+    h = encoder_stack(arrays["layers"], h.reshape(b, f, -1), mask, manifest["attention_heads"], True,
+                      torch.bfloat16, zero_pads=route == "fast_attn_netvlad")
+    if route == "fast_transformer":
+        pooled = masked_mean_plain(h, nf)
+    else:
+        pooled = netvlad_fused(h, arrays["cluster"], arrays["c_scale"], arrays["c_bias"], arrays["c2"]).reshape(b, -1)
+    trace.update({"frames": xs, "mask": mask, "encoder": h, "pooled" if route == "fast_transformer" else "vlad": pooled})
+    return _gated_probs([matmul_f32_local(pooled, arrays["hidden_w"])], arrays, manifest["moe_num_mixtures"],
+                        trace=trace)
 
 
 def tree_to(tree, device):
@@ -293,18 +368,20 @@ def tree_to(tree, device):
 
 
 def plain_run(manifest: dict, arrays: dict, features, num_frames=None, return_probs: bool = False,
-              device="cpu"):
+              device="cpu", trace: Optional[dict] = None):
     """The runner's plain PyTorch version, route by route over the
     artifact's arrays: every step in its plain version (a kernel's wrapper
     takes it for CPU tensors: row 1's is ``netvlad_frontend_reference``,
-    rows 2, 5 and 6 theirs; the tail's are ``ops/native_tail.py``'s), the
+    rows 2, 5, 6 and 7 theirs; the tail's are ``ops/native_tail.py``'s), the
     products summed in f32, the frames drawn from the manifest's key.  On
     the CPU each frame-level route equals ``load_exported_model(
     prefer_fast=True, device="cpu")``'s serve bit for bit (the DBoF window
-    has no fast route to equal), and the video-level routes compute the
-    model's f32 forward.  On a CUDA ``device`` the wrappers launch their
+    has no fast route to equal; FrameLevelLogisticModel has none and its
+    serve is the model's f32 forward), and the video-level routes compute
+    the model's f32 forward.  On a CUDA ``device`` the wrappers launch their
     kernels: the port's torch route.  → (values, indices) [B, k], or the
-    probabilities [B, V]."""
+    probabilities [B, V].  ``trace`` (a dict) receives the steps of a route
+    that reads every frame under the names of the runner's buffers."""
     sizes = _sizes(manifest)
     route = manifest["route"]
     x = torch.as_tensor(features).to(device)
@@ -323,6 +400,8 @@ def plain_run(manifest: dict, arrays: dict, features, num_frames=None, return_pr
             probs = bias_sigmoid_plain(x @ arrays["fc"]["kernel"], arrays["fc"]["bias"])
         elif route == "video_moe":
             probs = _moe_probs(x, arrays, manifest["moe_num_mixtures"])
+        elif route in ALL_FRAME_ROUTES:
+            probs = _all_frames_probs(manifest, arrays, x, nf, trace)
         else:
             probs = _frame_route_probs(manifest, arrays, x, nf)
     return probs if return_probs else top_k_exact(probs, sizes["k"])
@@ -420,8 +499,12 @@ class NativeExecutable:
     def read(self, name: str, shape, dtype=torch.float32) -> torch.Tensor:
         """The last batch's buffer ``name`` on the host, for tracing a route
         against its torch version: ``"h"`` and ``"part/<i>"`` (f32 [B, H]),
-        and a NeXtVLAD modality's ``"mods/<i>/xt"``, ``"assign"``,
-        ``"residual"`` and ``"vlad"`` (``csrc/native_runner.cu#buffers``)."""
+        a NeXtVLAD modality's ``"mods/<i>/xt"``, ``"assign"``,
+        ``"residual"`` and ``"vlad"``, an attention route's ``"frames"``,
+        ``"mask"``, ``"ffn1"`` and ``"ffn2"`` (its last layer's FFN),
+        ``"encoder"`` and ``"pooled"`` or ``"vlad"``,
+        FrameLevelLogisticModel's ``"frames"`` and ``"pooled"``
+        (``csrc/native_runner.cu#buffers``)."""
         out = torch.empty(shape, dtype=dtype)
         fn = _fn("lpm_runner_read", [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_longlong],
                  ctypes.c_longlong)

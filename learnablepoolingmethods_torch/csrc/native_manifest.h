@@ -9,8 +9,9 @@
 // n_call_inputs, call_input, n_outputs, output), and the port's own lines:
 // the route (kRoutes), the lines that its route needs (kRoutes' lines:
 // sampling_key, iterations, moe_num_mixtures, sampling, dbof_pooling_method,
-// nextvlad_groups, nextvlad_expansion), n_weights and one named weight line
-// per array of weights.bin, in the file's order:
+// nextvlad_groups, nextvlad_expansion, transformer_layers, attention_heads),
+// n_weights and one named weight line per array of weights.bin, in the
+// file's order:
 //
 //   weight <name> <f32|bf16> <ndim> <dims...>
 //
@@ -50,6 +51,9 @@ constexpr RouteSpec kRoutes[] = {
     {"fast_lf_netfv", false, {"sampling_key", "iterations", "moe_num_mixtures"}},
     {"fast_lf_nextvlad", false,
      {"sampling_key", "iterations", "moe_num_mixtures", "nextvlad_groups", "nextvlad_expansion"}},
+    {"fast_transformer", false, {"moe_num_mixtures", "transformer_layers", "attention_heads"}},
+    {"fast_attn_netvlad", false, {"moe_num_mixtures", "transformer_layers", "attention_heads"}},
+    {"frame_logistic", false, {}},
 };
 constexpr int kNumRoutes = sizeof(kRoutes) / sizeof(kRoutes[0]);
 
@@ -78,6 +82,7 @@ struct Manifest {
   int route_index = -1;  // into kRoutes
   int32_t batch_size = 0, top_k = 0, frame_features = 0, max_frames = 0;
   int32_t iterations = 0, moe_num_mixtures = 0, nextvlad_expansion = 0;
+  int32_t transformer_layers = 0, attention_heads = 0;
   uint32_t key0 = 0, key1 = 0;
   std::vector<int32_t> nextvlad_groups;  // one a modality
   std::vector<std::string> feature_names;
@@ -165,6 +170,10 @@ inline bool LoadManifest(const std::string& export_dir, Manifest* m, std::string
       for (int32_t v : m->nextvlad_groups) ok = ok && v > 0;
     } else if (key == "nextvlad_expansion") {
       ok = (in >> m->nextvlad_expansion) && m->nextvlad_expansion > 0;
+    } else if (key == "transformer_layers") {
+      ok = (in >> m->transformer_layers) && m->transformer_layers > 0;
+    } else if (key == "attention_heads") {
+      ok = (in >> m->attention_heads) && m->attention_heads > 0;
     } else if (key == "feature") {
       std::string name;
       int32_t size = 0;

@@ -33,10 +33,24 @@
 //       nextvlad_residual, row_l2 with the folded vlad_bn); the hidden FC's
 //       products (NetFV: fv1's and fv2's rows apart); hidden_sum
 //       (b + modality 0 + modality 1); the gated MoE tail.
+//   fast_transformer  TransformerEncoderModel (ops/fast_transformer.py, bf16):
+//       frame_stage with no draw (every frame, and the key mask); the input
+//       projection and bias_act; each encoder layer: the fused QKV product
+//       and bias_act, row 7 (masked_attention.cu), the out-projection and
+//       bias_act, residual_layernorm, FFN1 and bias_act with ReLU, FFN2 and
+//       bias_act, residual_layernorm; masked_mean over the valid frames;
+//       the hidden FC; hidden_sum; the gated MoE tail.
+//   fast_attn_netvlad  AttentionNetVLADModel: the same encoder, its last
+//       residual_layernorm times the key mask (pad rows zeroed); row 2
+//       (netvlad_fused.cu) with the vlad module's centres; the hidden FC;
+//       hidden_sum; the gated MoE tail.
+//   frame_logistic  FrameLevelLogisticModel, f32: frame_stage with no draw
+//       (dequantized in f32, the predict step's preprocess_input),
+//       masked_mean over num_frames, SGEMM, bias_sigmoid.
 //   The gated MoE tail: the gating product on the rounded h, gating, the
 //   MoE's gate and expert products, moe_combine; every route then topk.
 //
-// Rows 1, 2, 5 and 6 are compiled into this library and nowhere else
+// Rows 1, 2, 5, 6 and 7 are compiled into this library and nowhere else
 // (ops/kernel_build.py LIBRARY_PARTS): their Python wrappers call them here
 // too.  The JAX package leaves the products and the element-wise steps to
 // XLA; so cuBLAS computes the products here (bf16 × bf16 → f32, or rounded
@@ -45,8 +59,9 @@
 // bounds them: each reads its inputs and writes its outputs once (bytes;
 // at B=256, V=3862 moe_combine moves 20 MB, about 6 µs at 3.35 TB/s).
 // They are simple first: one thread an element for the element-wise ones
-// (grid-stride), one warp a row for frame_stage, row_l2 and
-// nextvlad_assign, one block a (video, cluster) for nextvlad_residual, and
+// (grid-stride) and for masked_mean (a (video, column), over the frames),
+// one warp a row for frame_stage, row_l2, nextvlad_assign and
+// residual_layernorm, one block a (video, cluster) for nextvlad_residual, and
 // for topk one block a row that keeps the row in shared memory and takes k
 // rounds of a block-wide argmax, each round over the entries that order
 // after the previous pick.  chip_smoke.py holds each against its plain
@@ -101,6 +116,8 @@ extern "C" int lpm_netfv_fused(const void* x, long long ldx, int x_is_bf16, cons
                                const void* scale, const void* bias, const void* c2,
                                const void* covar, void* out1, void* out2, void* ws_a,
                                void* ws_colsq, int B, int S, int D, int K, void* stream);
+extern "C" int lpm_masked_attention(const void* qkv, const void* mask, void* out, int is_bf16,
+                                    int B, int F, int H, int hd, void* stream);
 
 namespace lpm_native {
 
@@ -111,6 +128,8 @@ using bf16 = __nv_bfloat16;
 constexpr float kDeqScale = static_cast<float>(4.0 / 255.0);
 constexpr float kDeqBias = static_cast<float>(4.0 / 512.0 - 2.0);
 constexpr float kEps = 1e-12f;           // ops/normalize.py's ε on Σx²
+constexpr float kLnEps = 1e-6f;          // ops/native_tail.py LN_EPS (the fast path's LayerNorm)
+constexpr int kMaxHeadDim = 128;         // masked_attention.cu kAttnMaxHd
 constexpr int kMaxClusters = 512;        // netvlad_core.cuh kMaxClusters (rows 1, 2, 5)
 constexpr int kEwThreads = 256;
 constexpr int kRowThreads = 256;         // one warp a row, 8 rows a block
@@ -123,22 +142,37 @@ constexpr int kMaxMods = 2;
 
 // the counted launches, in lpm_runner_launches' names
 enum Counter {
-  kFrontend, kNetvladFused, kSoftdbowFused, kNetfvFused, kFrameStage, kBiasSigmoid, kBiasRelu6,
-  kFramePool, kRowL2, kNextvladAssign, kNextvladResidual, kHiddenSum, kGating,
-  kMoeCombine, kTopk, kNumCounters
+  kFrontend, kNetvladFused, kSoftdbowFused, kNetfvFused, kMaskedAttention, kFrameStage,
+  kBiasSigmoid, kBiasRelu6, kFramePool, kRowL2, kNextvladAssign, kNextvladResidual, kBiasAct,
+  kResidualLayernorm, kMaskedMean, kHiddenSum, kGating, kMoeCombine, kTopk, kNumCounters
 };
 const char* const kCounterNames[kNumCounters] = {
-    "netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "frame_stage",
-    "bias_sigmoid", "bias_relu6", "frame_pool", "row_l2", "nextvlad_assign",
-    "nextvlad_residual", "hidden_sum", "gating", "moe_combine", "topk"};
+    "netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention",
+    "frame_stage", "bias_sigmoid", "bias_relu6", "frame_pool", "row_l2", "nextvlad_assign",
+    "nextvlad_residual", "bias_act", "residual_layernorm", "masked_mean", "hidden_sum",
+    "gating", "moe_combine", "topk"};
 
 // kRoutes' order (native_manifest.h)
-enum Route { kNetvlad, kLogistic, kMoe, kDbof, kNetrvlad, kSoftdbow, kNetfv, kNextvlad };
+enum Route {
+  kNetvlad, kLogistic, kMoe, kDbof, kNetrvlad, kSoftdbow, kNetfv, kNextvlad, kTransformer,
+  kAttnNetvlad, kFrameLogistic
+};
+// bias_act_kernel's activations
+enum Act { kActSigmoid, kActRelu6, kActRelu, kActNone };
+
+bool attention_route(Route r) { return r == kTransformer || r == kAttnNetvlad; }
+// the routes that read every frame (no draw: S = F)
+bool all_frames_route(Route r) { return attention_route(r) || r == kFrameLogistic; }
+// the routes that end in hidden_sum and the gated MoE tail
+bool gated_route(Route r) { return r == kNetvlad || (r >= kNetrvlad && r <= kAttnNetvlad); }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ long long grid_start() {
   return (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -267,6 +301,38 @@ topk_kernel(const float* __restrict__ probs, float* __restrict__ values,
   }
 }
 
+// One warp's uint8 row of DT: dequantized (kF32: in f32; else in bf16,
+// rounded after the multiply and after the add), ℓ2 over the DT columns in
+// f32; kF32: f32 out; else rounded to bf16, and with in_scale the folded
+// input BN in f32 and one more rounding.
+template <bool kF32>
+__device__ __forceinline__ void stage_row(const uint8_t* __restrict__ src, int DT, float deq_scale,
+                                          float deq_bias, const float* __restrict__ in_scale,
+                                          const float* __restrict__ in_bias, bf16* __restrict__ dst,
+                                          float* __restrict__ dst_f32, int lane) {
+  const float qs = kF32 ? deq_scale : round_bf16(deq_scale);
+  const float qb = kF32 ? deq_bias : round_bf16(deq_bias);
+  auto deq = [&](int c) {
+    return kF32 ? __fadd_rn(__fmul_rn((float)src[c], qs), qb)
+                : round_bf16(__fadd_rn(round_bf16(__fmul_rn((float)src[c], qs)), qb));
+  };
+  float ss = 0.f;
+  for (int c = lane; c < DT; c += 32) {
+    const float t = deq(c);
+    ss = __fadd_rn(ss, __fmul_rn(t, t));
+  }
+  const float inv = rsqrtf(fmaxf(warp_sum(ss), kEps));
+  for (int c = lane; c < DT; c += 32) {
+    float y = __fmul_rn(deq(c), inv);
+    if (kF32) {
+      dst_f32[c] = y;
+      continue;
+    }
+    if (in_scale) y = __fadd_rn(__fmul_rn(round_bf16(y), in_scale[c]), in_bias[c]);
+    dst[c] = __float2bfloat16_rn(y);
+  }
+}
+
 // One warp a sampled row (b, s): the frame drawn from the key (iid:
 // floor(U·min(nf, F)) clamped to F−1 with U the draw of counter b·S + s, as
 // fused_frontend.cu draws it; window: the start floor(U·(max(nf − S, 0) + 1))
@@ -294,31 +360,42 @@ frame_stage_kernel(const uint8_t* __restrict__ x, uint32_t k0, uint32_t k1,
     const float u = lpm::threefry_uniform(k0, k1, row);
     f = min((int)__fmul_rn(u, (float)nf), F - 1);
   }
-  const float qs = round_bf16(deq_scale), qb = round_bf16(deq_bias);
-  const uint8_t* src = x + (b * F + f) * DT;
-  bf16* dst = out + row * DT;
-  float ss = 0.f;
-  for (int c = lane; c < DT; c += 32) {
-    const float t = round_bf16(__fadd_rn(round_bf16(__fmul_rn((float)src[c], qs)), qb));
-    ss = __fadd_rn(ss, __fmul_rn(t, t));
-  }
-  const float inv = rsqrtf(fmaxf(warp_sum(ss), kEps));
-  for (int c = lane; c < DT; c += 32) {
-    const float t = round_bf16(__fadd_rn(round_bf16(__fmul_rn((float)src[c], qs)), qb));
-    float y = __fmul_rn(t, inv);
-    if (in_scale) y = __fadd_rn(__fmul_rn(round_bf16(y), in_scale[c]), in_bias[c]);
-    dst[c] = __float2bfloat16_rn(y);
-  }
+  stage_row<false>(x + (b * F + f) * DT, DT, deq_scale, deq_bias, in_scale, in_bias,
+                   out + row * DT, nullptr, lane);
 }
 
-// out = act(y + bias[col]): kRelu6 clip(·, 0, 6), else σ; f32 (in place:
-// out_f32 may be y) and/or bf16 out
-template <bool kRelu6>
+// frame_stage with no draw: one warp a row b·F + f, frame f of video b, out
+// in bf16 (dequantized in bf16) or f32 (dequantized in f32), and mask[row] =
+// f < num_frames[b] (1 or 0) where mask is given.
+__global__ void __launch_bounds__(kRowThreads)
+frame_stage_all_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ num_frames,
+                       bf16* __restrict__ out_bf16, float* __restrict__ out_f32,
+                       float* __restrict__ mask, long long rows, int F, int DT, float deq_scale,
+                       float deq_bias) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);  // b·F + f
+  if (row >= rows) return;
+  const int f = (int)(row % F);
+  if (mask && lane == 0) mask[row] = f < num_frames[row / F] ? 1.f : 0.f;
+  if (out_f32)
+    stage_row<true>(x + row * DT, DT, deq_scale, deq_bias, nullptr, nullptr, nullptr,
+                    out_f32 + row * DT, lane);
+  else
+    stage_row<false>(x + row * DT, DT, deq_scale, deq_bias, nullptr, nullptr, out_bf16 + row * DT,
+                     nullptr, lane);
+}
+
+// out = act(y + bias[col]) (Act: σ, clip(·, 0, 6), ReLU or none); f32 (in
+// place: out_f32 may be y) and/or bf16 out
+template <int kAct>
 __global__ void bias_act_kernel(const float* y, const float* __restrict__ bias, float* out_f32,
                                 bf16* __restrict__ out_bf16, long long n, int N) {
   for (long long i = grid_start(); i < n; i += grid_step()) {
     const float v = __fadd_rn(y[i], bias[(int)(i % N)]);
-    const float a = kRelu6 ? fminf(fmaxf(v, 0.f), 6.f) : sigmoid(v);
+    const float a = kAct == kActRelu6  ? fminf(fmaxf(v, 0.f), 6.f)
+                    : kAct == kActRelu ? (v > 0.f || isnan(v) ? v : 0.f)
+                    : kAct == kActNone ? v
+                                       : sigmoid(v);
     if (out_f32) out_f32[i] = a;
     if (out_bf16) out_bf16[i] = __float2bfloat16_rn(a);
   }
@@ -359,6 +436,62 @@ row_l2_kernel(const float* __restrict__ x, const float* __restrict__ scale,
     if (scale) y = __fadd_rn(__fmul_rn(y, scale[a0 + c]), bias[a0 + c]);
     if (out_f32) out_f32[row * n + c] = y;
     if (out_bf16) out_bf16[row * n + c] = __float2bfloat16_rn(y);
+  }
+}
+
+// One warp a row of D: x = a + b in f32 (two bf16 rows), LayerNorm with
+// mean = Σx · inv_d, var = Σx² · inv_d − mean² (no clamp) and
+// rsqrt(var + 1e-6), then · scale + bias, rounded to bf16; with mask, that
+// rounding times mask[row].  out may be a (each lane writes the columns it
+// read, after the row's sums).
+__global__ void __launch_bounds__(kRowThreads)
+residual_layernorm_kernel(const bf16* a, const bf16* __restrict__ b,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          const float* __restrict__ mask, bf16* out, long long rows, int D,
+                          float inv_d) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const bf16* pa = a + row * D;
+  const bf16* pb = b + row * D;
+  float s = 0.f, ss = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float x = __fadd_rn(__bfloat162float(pa[c]), __bfloat162float(pb[c]));
+    s = __fadd_rn(s, x);
+    ss = __fadd_rn(ss, __fmul_rn(x, x));
+  }
+  const float mean = __fmul_rn(warp_sum(s), inv_d);
+  const float var = __fsub_rn(__fmul_rn(warp_sum(ss), inv_d), __fmul_rn(mean, mean));
+  const float r = rsqrtf(__fadd_rn(var, kLnEps));
+  const float m = mask ? mask[row] : 1.f;
+  for (int c = lane; c < D; c += 32) {
+    const float x = __fadd_rn(__bfloat162float(pa[c]), __bfloat162float(pb[c]));
+    float y = round_bf16(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), r), scale[c]), bias[c]));
+    if (mask) y = __fmul_rn(y, m);
+    out[row * D + c] = __float2bfloat16_rn(y);
+  }
+}
+
+// One thread a (video b, column c): Σ x[b, f, c] in f32 over the valid
+// frames f < min(num_frames[b], F) in frame order, over max(n, 1): n the
+// count of valid frames (count_valid) or num_frames[b] itself; f32 or bf16
+// out.
+template <typename T>
+__global__ void masked_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ num_frames,
+                                   float* __restrict__ out_f32, bf16* __restrict__ out_bf16, int B,
+                                   int F, int C, int count_valid) {
+  const long long n = (long long)B * C;
+  for (long long i = grid_start(); i < n; i += grid_step()) {
+    const long long b = i / C;
+    const int c = (int)(i % C);
+    const int nf = num_frames[b];
+    const int valid = max(0, min(nf, F));
+    const T* p = x + b * F * C + c;
+    float s = 0.f;
+    for (int f = 0; f < valid; ++f) s = __fadd_rn(s, to_f32(p[(long long)f * C]));
+    const float y = __fdiv_rn(s, fmaxf((float)(count_valid ? valid : nf), 1.f));
+    if (out_f32) out_f32[i] = y;
+    if (out_bf16) out_bf16[i] = __float2bfloat16_rn(y);
   }
 }
 
@@ -477,14 +610,60 @@ cudaError_t launch_frame_stage(const uint8_t* x, uint32_t k0, uint32_t k1, const
   return cudaGetLastError();
 }
 
-cudaError_t launch_bias_act(bool relu6, const float* y, const float* bias, float* out_f32,
+cudaError_t launch_frame_stage_all(const uint8_t* x, const int32_t* nf, bf16* out_bf16,
+                                   float* out_f32, float* mask, int B, int F, int DT,
+                                   float deq_scale, float deq_bias, cudaStream_t st) {
+  if (B < 1 || F < 1 || DT < 1 || (!out_bf16) == (!out_f32)) return cudaErrorInvalidValue;
+  const long long rows = (long long)B * F;
+  frame_stage_all_kernel<<<row_blocks(rows), kRowThreads, 0, st>>>(
+      x, nf, out_bf16, out_f32, mask, rows, F, DT, deq_scale, deq_bias);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bias_act(int act, const float* y, const float* bias, float* out_f32,
                             bf16* out_bf16, long long rows, int N, cudaStream_t st) {
-  if (rows < 1 || N < 1 || (!out_f32 && !out_bf16)) return cudaErrorInvalidValue;
+  if (rows < 1 || N < 1 || (!out_f32 && !out_bf16) || act < kActSigmoid || act > kActNone)
+    return cudaErrorInvalidValue;
   const long long n = rows * N;
-  if (relu6)
-    bias_act_kernel<true><<<ew_blocks(n), kEwThreads, 0, st>>>(y, bias, out_f32, out_bf16, n, N);
+  const unsigned blocks = ew_blocks(n);
+  switch (act) {
+    case kActSigmoid:
+      bias_act_kernel<kActSigmoid><<<blocks, kEwThreads, 0, st>>>(y, bias, out_f32, out_bf16, n, N);
+      break;
+    case kActRelu6:
+      bias_act_kernel<kActRelu6><<<blocks, kEwThreads, 0, st>>>(y, bias, out_f32, out_bf16, n, N);
+      break;
+    case kActRelu:
+      bias_act_kernel<kActRelu><<<blocks, kEwThreads, 0, st>>>(y, bias, out_f32, out_bf16, n, N);
+      break;
+    default:
+      bias_act_kernel<kActNone><<<blocks, kEwThreads, 0, st>>>(y, bias, out_f32, out_bf16, n, N);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_residual_layernorm(const bf16* a, const bf16* b, const float* scale,
+                                      const float* bias, const float* mask, bf16* out,
+                                      long long rows, int D, cudaStream_t st) {
+  if (rows < 1 || D < 1) return cudaErrorInvalidValue;
+  const float inv_d = (float)rows / (float)(rows * D);  // as PyTorch's mean scales its sum
+  residual_layernorm_kernel<<<row_blocks(rows), kRowThreads, 0, st>>>(a, b, scale, bias, mask, out,
+                                                                       rows, D, inv_d);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_masked_mean(const void* x, bool x_bf16, const int32_t* nf, float* out_f32,
+                               bf16* out_bf16, int B, int F, int C, int count_valid,
+                               cudaStream_t st) {
+  if (B < 1 || F < 1 || C < 1 || (!out_f32) == (!out_bf16)) return cudaErrorInvalidValue;
+  const unsigned blocks = ew_blocks((long long)B * C);
+  if (x_bf16)
+    masked_mean_kernel<bf16><<<blocks, kEwThreads, 0, st>>>(static_cast<const bf16*>(x), nf, out_f32,
+                                                            out_bf16, B, F, C, count_valid);
   else
-    bias_act_kernel<false><<<ew_blocks(n), kEwThreads, 0, st>>>(y, bias, out_f32, out_bf16, n, N);
+    masked_mean_kernel<float><<<blocks, kEwThreads, 0, st>>>(static_cast<const float*>(x), nf,
+                                                             out_f32, out_bf16, B, F, C,
+                                                             count_valid);
   return cudaGetLastError();
 }
 
@@ -565,12 +744,21 @@ struct Mod {
         *assign = nullptr, *agg = nullptr;
 };
 
+// One encoder layer's arrays (layers/<i>/…: ops/fast_transformer.py's prepare).
+struct Layer {
+  const bf16 *wqkv = nullptr, *wo = nullptr, *w1 = nullptr, *w2 = nullptr;
+  const float *bqkv = nullptr, *bo = nullptr, *ln1_s = nullptr, *ln1_b = nullptr,
+              *ln2_s = nullptr, *ln2_b = nullptr, *b1 = nullptr, *b2 = nullptr;
+};
+
 struct Runner {
   Manifest m;
   Route route = kNetvlad;
   int device = 0;
   int B = 0, F = 0, DT = 0, S = 0, H = 0, V = 0, M = 0, k = 0, C = 0, n_mods = 0, n_parts = 0;
+  int D = 0, FF = 0, heads = 0, hd = 0, K = 0;  // the encoder's width, FFN width, heads; NetVLAD's K
   Mod mods[kMaxMods];
+  std::vector<Layer> layers;
   cudaStream_t stream = nullptr;
   cublasHandle_t blas = nullptr;
   char* weights = nullptr;  // every array, each at a 256-byte boundary
@@ -590,6 +778,15 @@ struct Runner {
         *ga = nullptr, *ea = nullptr, *probs = nullptr, *values = nullptr;
   float* contrib[kMaxParts] = {nullptr, nullptr, nullptr, nullptr};
   int32_t* indices = nullptr;
+  // the routes that read every frame: the key mask [B, F]; the encoder's
+  // f32 products (its widest: [B·F, max(3D, FF)]), its state hx, the fused
+  // qkv, the attention's output att, a product's bf16 epilogue proj, the
+  // FFN's hidden ffb (bf16 [B·F, ·]); the transformer's pool (pooled),
+  // AttentionNetVLAD's vlad [B, D·K]; FrameLevelLogisticModel's f32 frames
+  // (xn) and pool
+  float *mask = nullptr, *prod = nullptr, *pooled_f32 = nullptr;
+  bf16 *hx = nullptr, *qkv = nullptr, *att = nullptr, *proj = nullptr, *ffb = nullptr,
+       *vlad = nullptr;
   // pinned staging on the host
   void* px = nullptr;
   int32_t* pnf = nullptr;
@@ -710,6 +907,7 @@ bool check_shapes(Runner* r, std::string* err) {
   if (video != (m.frame_features == 0))
     return c.fail(std::string("route ") + m.route + " reads " +
                   (video ? "video-level" : "frame-level") + " features, the manifest's are not");
+  if (all_frames_route(r->route)) r->S = r->F;
   if (!video && r->S < 1) return c.fail("iterations must be positive");
   if (r->B > 65535) return c.fail("the runner takes at most 65535 videos a batch");
   switch (r->route) {
@@ -766,6 +964,56 @@ bool check_shapes(Runner* r, std::string* err) {
       c.get("experts_kernel", "bf16", {r->H, (int64_t)r->M * r->V});
       break;
     }
+    case kTransformer:
+    case kAttnNetvlad: {
+      r->D = (int)c.dim("w_proj", "bf16", {DT, -1}, 1);
+      const int64_t D = r->D;
+      c.get("b_proj", "f32", {D});
+      const int L = m.transformer_layers;
+      r->heads = m.attention_heads;
+      if (c.ok && (L < 1 || r->heads < 1 || D % r->heads != 0))
+        return c.fail("transformer_layers and attention_heads must be positive, and the heads "
+                      "must divide the width " + std::to_string(D));
+      r->hd = c.ok ? (int)(D / r->heads) : 0;
+      if (c.ok && (r->hd < 8 || r->hd > kMaxHeadDim || r->hd % 8 != 0))
+        return c.fail("head width " + std::to_string(r->hd) +
+                      " must be a multiple of 8 in [8, 128] (row 7)");
+      r->FF = (int)c.dim("layers/0/w1", "bf16", {D, -1}, 1);
+      const int64_t FF = r->FF;
+      for (int i = 0; i < L && c.ok; ++i) {
+        const std::string p = "layers/" + std::to_string(i) + "/";
+        c.get(p + "wqkv", "bf16", {D, 3 * D});
+        c.get(p + "bqkv", "f32", {3 * D});
+        c.get(p + "wo", "bf16", {D, D});
+        c.get(p + "bo", "f32", {D});
+        for (const char* ln : {"ln1_s", "ln1_b", "ln2_s", "ln2_b"}) c.get(p + ln, "f32", {D});
+        c.get(p + "w1", "bf16", {D, FF});
+        c.get(p + "b1", "f32", {FF});
+        c.get(p + "w2", "bf16", {FF, D});
+        c.get(p + "b2", "f32", {D});
+      }
+      if (c.ok && m.weight("layers/" + std::to_string(L) + "/wqkv"))
+        return c.fail("weights.bin holds more encoder layers than transformer_layers (" +
+                      std::to_string(L) + ")");
+      int64_t in = D;
+      if (r->route == kAttnNetvlad) {
+        r->K = (int)c.dim("cluster", "bf16", {D, -1}, 1);
+        const int64_t K = r->K;
+        c.get("c_scale", "f32", {K});
+        c.get("c_bias", "f32", {K});
+        c.get("c2", "f32", {D, K});
+        if (c.ok && K > kMaxClusters) return c.fail("cluster has more than 512 clusters");
+        in = D * K;
+      }
+      r->H = (int)c.dim("hidden_w", "bf16", {in, -1}, 1);
+      check_tail(c, r);
+      r->n_parts = 1;
+      break;
+    }
+    case kFrameLogistic:
+      r->V = (int)c.dim("fc/bias", "f32", {-1}, 0);
+      c.get("fc/kernel", "f32", {DT, r->V});
+      break;
     default: {  // the LOUPE four
       r->n_mods = m.weight("mods/1/cluster") ? 2 : 1;
       r->H = (int)c.dim("gate_w", "bf16", {-1, -1}, 0);
@@ -856,12 +1104,11 @@ void plan(Runner* r) {
   r->need_ws(&r->probs, B * V);
   r->need_ws(&r->values, B * r->k);
   r->need_ws(&r->indices, B * r->k);
-  const bool tail = r->route != kLogistic && r->route != kMoe;
-  if (tail) {
+  if (r->route == kDbof || gated_route(r->route)) {
     r->need_ws(&r->ga, B * (M + 1) * V);
     r->need_ws(&r->ea, B * M * V);
   }
-  if (r->route == kNetvlad || r->route >= kNetrvlad) {
+  if (gated_route(r->route)) {
     r->need_ws(&r->h, B * H);
     r->need_ws(&r->hb, B * H);
     r->need_ws(&r->gates, B * H);
@@ -888,6 +1135,31 @@ void plan(Runner* r) {
         r->need_ws(&r->ga, B * (M + 1) * V);
         r->need_ws(&r->ea, B * M * V);
       }
+      break;
+    case kTransformer:
+    case kAttnNetvlad: {
+      const long long R = B * S, D = r->D, FF = r->FF;  // S = F
+      r->need_ws(&r->xs, R * DT);
+      r->need_ws(&r->mask, R);
+      r->need_ws(&r->prod, R * (3 * D > FF ? 3 * D : FF));
+      r->need_ws(&r->hx, R * D);
+      r->need_ws(&r->qkv, R * 3 * D);
+      r->need_ws(&r->att, R * D);
+      r->need_ws(&r->proj, R * D);
+      r->need_ws(&r->ffb, R * FF);
+      r->need_ws(&r->contrib[0], B * H);
+      if (r->route == kTransformer) {
+        r->need_ws(&r->pooled, B * D);
+      } else {
+        r->need_ws(&r->vlad, B * D * r->K);
+        r->need_ws(&r->ws_a_rgb, R * r->K);
+        r->need_ws(&r->ws_cs_rgb, B * dchunks(D) * r->K);
+      }
+      break;
+    }
+    case kFrameLogistic:
+      r->need_ws(&r->xn, B * S * DT);
+      r->need_ws(&r->pooled_f32, B * DT);
       break;
     case kDbof:
       r->need_ws(&r->xs, B * S * DT);
@@ -952,6 +1224,28 @@ void bind_mods(Runner* r) {
   }
 }
 
+// the device pointers of an attention route's encoder layers
+void bind_layers(Runner* r) {
+  if (!attention_route(r->route)) return;
+  r->layers.resize(r->m.transformer_layers);
+  for (int i = 0; i < r->m.transformer_layers; ++i) {
+    Layer& l = r->layers[i];
+    const std::string p = "layers/" + std::to_string(i) + "/";
+    l.wqkv = r->W<bf16>(p + "wqkv");
+    l.bqkv = r->W<float>(p + "bqkv");
+    l.wo = r->W<bf16>(p + "wo");
+    l.bo = r->W<float>(p + "bo");
+    l.ln1_s = r->W<float>(p + "ln1_s");
+    l.ln1_b = r->W<float>(p + "ln1_b");
+    l.ln2_s = r->W<float>(p + "ln2_s");
+    l.ln2_b = r->W<float>(p + "ln2_b");
+    l.w1 = r->W<bf16>(p + "w1");
+    l.b1 = r->W<float>(p + "b1");
+    l.w2 = r->W<bf16>(p + "w2");
+    l.b2 = r->W<float>(p + "b2");
+  }
+}
+
 size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
 bool load(Runner* r, const std::string& dir, std::string* err) {
@@ -1008,6 +1302,7 @@ bool load(Runner* r, const std::string& dir, std::string* err) {
       return false;
   }
   bind_mods(r);
+  bind_layers(r);
 
   plan(r);
   size_t ws_bytes = 0;
@@ -1109,7 +1404,7 @@ bool run_video(Runner* r, std::string* err) {
     if (!blas_ok(gemm_f32(r->blas, r->xn, r->W<float>("fc/kernel"), r->probs, B, V, DT),
                  "logistic product", err))
       return false;
-    if (!cuda_ok(launch_bias_act(false, r->probs, r->W<float>("fc/bias"), r->probs, nullptr, B,
+    if (!cuda_ok(launch_bias_act(kActSigmoid, r->probs, r->W<float>("fc/bias"), r->probs, nullptr, B,
                                  r->V, r->stream),
                  "bias_sigmoid", err))
       return false;
@@ -1147,7 +1442,7 @@ bool run_dbof(Runner* r, std::string* err) {
   if (!blas_ok(gemm_bf16(r->blas, r->xs, r->W<bf16>("cluster_w"), r->act, B * S, C, DT),
                "cluster product", err))
     return false;
-  if (!cuda_ok(launch_bias_act(true, r->act, r->W<float>("cluster_b"), r->act, nullptr, B * S,
+  if (!cuda_ok(launch_bias_act(kActRelu6, r->act, r->W<float>("cluster_b"), r->act, nullptr, B * S,
                                r->C, r->stream),
                "bias_relu6 (cluster)", err))
     return false;
@@ -1160,12 +1455,122 @@ bool run_dbof(Runner* r, std::string* err) {
   if (!blas_ok(gemm_bf16(r->blas, r->pooled, r->W<bf16>("hidden_w"), r->hh, B, H, C),
                "hidden product", err))
     return false;
-  if (!cuda_ok(launch_bias_act(true, r->hh, r->W<float>("hidden_b"), nullptr, r->hg, B, r->H,
+  if (!cuda_ok(launch_bias_act(kActRelu6, r->hh, r->W<float>("hidden_b"), nullptr, r->hg, B, r->H,
                                r->stream),
                "bias_relu6 (hidden)", err))
     return false;
   r->count(kBiasRelu6);
   return moe(r, r->hg, err);
+}
+
+// Every frame staged (bf16 out, or f32 out) and, with mask, the key mask.
+bool frames_all(Runner* r, bf16* out_bf16, float* out_f32, float* mask, std::string* err) {
+  if (!cuda_ok(launch_frame_stage_all(static_cast<const uint8_t*>(r->x), r->nf, out_bf16, out_f32,
+                                      mask, r->B, r->F, r->DT, kDeqScale, kDeqBias, r->stream),
+               "frame_stage", err))
+    return false;
+  r->count(kFrameStage);
+  return true;
+}
+
+// A bf16 × bf16 product [rows, N] summed in f32 into r->prod, then
+// bias_act's epilogue (+ bias, ReLU or none, one bf16 rounding) into out.
+bool product_epilogue(Runner* r, const bf16* a, const bf16* w, const float* bias, int act,
+                      bf16* out, long long rows, long long N, long long K, const char* what,
+                      std::string* err) {
+  if (!blas_ok(gemm_bf16(r->blas, a, w, r->prod, rows, N, K), what, err)) return false;
+  if (!cuda_ok(launch_bias_act(act, r->prod, bias, nullptr, out, rows, (int)N, r->stream), what,
+               err))
+    return false;
+  r->count(kBiasAct);
+  return true;
+}
+
+bool residual_layernorm(Runner* r, const float* scale, const float* bias, const float* mask,
+                        std::string* err) {
+  if (!cuda_ok(launch_residual_layernorm(r->hx, r->proj, scale, bias, mask, r->hx,
+                                         (long long)r->B * r->F, r->D, r->stream),
+               "residual_layernorm", err))
+    return false;
+  r->count(kResidualLayernorm);
+  return true;
+}
+
+// The attention routes' encoder (ops/fast_transformer.py#_encode): every
+// frame staged and the key mask, the input projection, then each layer; the
+// state ends in r->hx [B·F, D] bf16 (AttentionNetVLAD: pad rows times 0).
+bool encoder(Runner* r, std::string* err) {
+  const long long R = (long long)r->B * r->F, D = r->D, FF = r->FF;
+  if (!frames_all(r, r->xs, nullptr, r->mask, err)) return false;
+  if (!product_epilogue(r, r->xs, r->W<bf16>("w_proj"), r->W<float>("b_proj"), kActNone, r->hx, R,
+                        D, r->DT, "input projection", err))
+    return false;
+  for (size_t i = 0; i < r->layers.size(); ++i) {
+    const Layer& l = r->layers[i];
+    const bool last = i + 1 == r->layers.size();
+    if (!product_epilogue(r, r->hx, l.wqkv, l.bqkv, kActNone, r->qkv, R, 3 * D, D, "QKV product",
+                          err))
+      return false;
+    if (!cuda_ok((cudaError_t)lpm_masked_attention(r->qkv, r->mask, r->att, 1, r->B, r->F,
+                                                   r->heads, r->hd, r->stream),
+                 "masked_attention", err))
+      return false;
+    r->count(kMaskedAttention);
+    if (!product_epilogue(r, r->att, l.wo, l.bo, kActNone, r->proj, R, D, D, "out-projection",
+                          err) ||
+        !residual_layernorm(r, l.ln1_s, l.ln1_b, nullptr, err) ||
+        !product_epilogue(r, r->hx, l.w1, l.b1, kActRelu, r->ffb, R, FF, D, "FFN1", err) ||
+        !product_epilogue(r, r->ffb, l.w2, l.b2, kActNone, r->proj, R, D, FF, "FFN2", err) ||
+        !residual_layernorm(r, l.ln2_s, l.ln2_b,
+                            last && r->route == kAttnNetvlad ? r->mask : nullptr, err))
+      return false;
+  }
+  return true;
+}
+
+bool run_attention(Runner* r, std::string* err) {
+  const long long B = r->B, H = r->H, D = r->D;
+  if (!encoder(r, err)) return false;
+  if (r->route == kTransformer) {
+    if (!cuda_ok(launch_masked_mean(r->hx, true, r->nf, nullptr, r->pooled, r->B, r->F, r->D, 1,
+                                    r->stream),
+                 "masked_mean", err))
+      return false;
+    r->count(kMaskedMean);
+    if (!blas_ok(gemm_bf16(r->blas, r->pooled, r->W<bf16>("hidden_w"), r->contrib[0], B, H, D),
+                 "hidden FC", err))
+      return false;
+  } else {
+    const int rc = lpm_netvlad_fused(r->hx, D, 1, r->W<bf16>("cluster"), r->W<float>("c_scale"),
+                                     r->W<float>("c_bias"), r->W<float>("c2"), r->vlad, r->ws_a_rgb,
+                                     r->ws_cs_rgb, r->B, r->F, r->D, r->K, 0, r->stream);
+    if (!cuda_ok((cudaError_t)rc, "netvlad_fused", err)) return false;
+    r->count(kNetvladFused);
+    if (!blas_ok(gemm_bf16(r->blas, r->vlad, r->W<bf16>("hidden_w"), r->contrib[0], B, H,
+                           D * r->K),
+                 "hidden FC", err))
+      return false;
+  }
+  return gated_tail(r, false, err);
+}
+
+bool run_frame_logistic(Runner* r, std::string* err) {
+  const long long B = r->B, DT = r->DT, V = r->V;
+  if (!frames_all(r, nullptr, r->xn, nullptr, err)) return false;
+  if (!cuda_ok(launch_masked_mean(r->xn, false, r->nf, r->pooled_f32, nullptr, r->B, r->F, r->DT,
+                                  0, r->stream),
+               "masked_mean", err))
+    return false;
+  r->count(kMaskedMean);
+  if (!blas_ok(gemm_f32(r->blas, r->pooled_f32, r->W<float>("fc/kernel"), r->probs, B, V, DT),
+               "logistic product", err))
+    return false;
+  if (!cuda_ok(launch_bias_act(kActSigmoid, r->probs, r->W<float>("fc/bias"), r->probs, nullptr, B,
+                               r->V, r->stream),
+               "bias_sigmoid", err))
+    return false;
+  r->count(kBiasSigmoid);
+  return true;
 }
 
 // One NeXtVLAD modality's product of the hidden FC into out.
@@ -1290,6 +1695,9 @@ bool forward(Runner* r, const void* features, const void* num_frames, float* val
     case kLogistic:
     case kMoe: ok = run_video(r, err); break;
     case kDbof: ok = run_dbof(r, err); break;
+    case kTransformer:
+    case kAttnNetvlad: ok = run_attention(r, err); break;
+    case kFrameLogistic: ok = run_frame_logistic(r, err); break;
     default: ok = run_lf(r, err);
   }
   if (!ok) return false;
@@ -1320,12 +1728,30 @@ bool forward(Runner* r, const void* features, const void* num_frames, float* val
 
 // The buffers of the last batch that lpm_runner_read copies out: the hidden
 // layer h (f32 [B, H]) and its products (part/<i>, f32 [B, H] each) where
-// the route has them, and a NeXtVLAD modality's steps (mods/<i>/xt bf16
+// the route has them; a NeXtVLAD modality's steps (mods/<i>/xt bf16
 // [B·S, λD], assign f32 [B·S·G, K], residual f32 [B, K, D′], vlad bf16
-// [B, K·D′]).
+// [B, K·D′]); an attention route's frames (bf16 [B·F, DT]), mask (f32
+// [B, F]), its last layer's ffn1 (FFN1's output, bf16 [B·F, FF]) and ffn2
+// (FFN2's, bf16 [B·F, D]), encoder (its output, bf16 [B·F, D]) and pooled
+// (bf16 [B, D]) or vlad (bf16 [B, D·K]); FrameLevelLogisticModel's frames
+// (f32 [B·F, DT]) and pooled (f32 [B, DT]).
 std::vector<std::pair<std::string, std::pair<const void*, size_t>>> buffers(const Runner* r) {
   std::vector<std::pair<std::string, std::pair<const void*, size_t>>> out;
-  const size_t B = r->B, S = r->S, H = r->H;
+  const size_t B = r->B, S = r->S, H = r->H, DT = r->DT, D = r->D;
+  if (attention_route(r->route)) {
+    out.push_back({"frames", {r->xs, B * S * DT * 2}});
+    out.push_back({"mask", {r->mask, B * S * 4}});
+    out.push_back({"ffn1", {r->ffb, B * S * r->FF * 2}});
+    out.push_back({"ffn2", {r->proj, B * S * D * 2}});
+    out.push_back({"encoder", {r->hx, B * S * D * 2}});
+    if (r->route == kTransformer)
+      out.push_back({"pooled", {r->pooled, B * D * 2}});
+    else
+      out.push_back({"vlad", {r->vlad, B * D * r->K * 2}});
+  } else if (r->route == kFrameLogistic) {
+    out.push_back({"frames", {r->xn, B * S * DT * 4}});
+    out.push_back({"pooled", {r->pooled_f32, B * DT * 4}});
+  }
   if (!r->h) return out;
   out.push_back({"h", {r->h, B * H * 4}});
   const int n_parts = r->route == kNetvlad ? 2 : r->n_parts;
@@ -1475,16 +1901,48 @@ int lpm_frame_stage(const void* x, unsigned int k0, unsigned int k1, const void*
       static_cast<cudaStream_t>(stream));
 }
 
+int lpm_frame_stage_all(const void* x, const void* num_frames, void* out_bf16, void* out_f32,
+                        void* mask, int B, int F, int DT, float deq_scale, float deq_bias,
+                        void* stream) {
+  return (int)lpm_native::launch_frame_stage_all(
+      static_cast<const uint8_t*>(x), static_cast<const int32_t*>(num_frames),
+      static_cast<bf16*>(out_bf16), static_cast<float*>(out_f32), static_cast<float*>(mask), B, F,
+      DT, deq_scale, deq_bias, static_cast<cudaStream_t>(stream));
+}
+
+int lpm_bias_act(const void* y, const void* bias, void* out_bf16, int relu, long long rows, int N,
+                 void* stream) {
+  return (int)lpm_native::launch_bias_act(
+      relu ? lpm_native::kActRelu : lpm_native::kActNone, static_cast<const float*>(y),
+      static_cast<const float*>(bias), nullptr, static_cast<bf16*>(out_bf16), rows, N,
+      static_cast<cudaStream_t>(stream));
+}
+
+int lpm_residual_layernorm(const void* x, const void* y, const void* scale, const void* bias,
+                           const void* mask, void* out, long long rows, int D, void* stream) {
+  return (int)lpm_native::launch_residual_layernorm(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<bf16*>(out),
+      rows, D, static_cast<cudaStream_t>(stream));
+}
+
+int lpm_masked_mean(const void* x, int x_is_bf16, const void* num_frames, void* out_f32,
+                    void* out_bf16, int B, int F, int C, int count_valid, void* stream) {
+  return (int)lpm_native::launch_masked_mean(
+      x, x_is_bf16 != 0, static_cast<const int32_t*>(num_frames), static_cast<float*>(out_f32),
+      static_cast<bf16*>(out_bf16), B, F, C, count_valid, static_cast<cudaStream_t>(stream));
+}
+
 int lpm_bias_sigmoid(const void* y, const void* bias, void* out, long long rows, int N,
                      void* stream) {
-  return (int)lpm_native::launch_bias_act(false, static_cast<const float*>(y),
+  return (int)lpm_native::launch_bias_act(lpm_native::kActSigmoid, static_cast<const float*>(y),
                                           static_cast<const float*>(bias), static_cast<float*>(out),
                                           nullptr, rows, N, static_cast<cudaStream_t>(stream));
 }
 
 int lpm_bias_relu6(const void* y, const void* bias, void* out_f32, void* out_bf16, long long rows,
                    int N, void* stream) {
-  return (int)lpm_native::launch_bias_act(true, static_cast<const float*>(y),
+  return (int)lpm_native::launch_bias_act(lpm_native::kActRelu6, static_cast<const float*>(y),
                                           static_cast<const float*>(bias),
                                           static_cast<float*>(out_f32), static_cast<bf16*>(out_bf16),
                                           rows, N, static_cast<cudaStream_t>(stream));

@@ -16,7 +16,7 @@ ignores them.
 ``with_stablehlo=True`` writes the native runner's artifact beside them
 (``core/native_runtime.py``): ``native_manifest.txt`` (the JAX package's
 lines and the port's) and ``weights.bin`` (the route's arrays: a fast
-route's BN-folded prepare, or a video-level model's f32 head), for the
+route's BN-folded prepare, or a logistic or MoE model's f32 head), for the
 route of each model in ``native_runtime.ROUTES``; other models and configs
 raise NotImplementedError (ROADMAP item 14c) and write nothing.
 ``load_exported_native`` serves such an export through the runner on the
@@ -56,6 +56,11 @@ from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path, int8_
 from learnablepoolingmethods_torch.ops.fast_dbof import prepare_fast_dbof_params
 from learnablepoolingmethods_torch.ops.fast_infer import prepare_fast_params
 from learnablepoolingmethods_torch.ops.fast_lf import prepare_fast_lf_params
+from learnablepoolingmethods_torch.ops.fast_transformer import (
+    prepare_fast_attn_netvlad_params,
+    prepare_fast_transformer_params,
+)
+from learnablepoolingmethods_torch.ops.masked_attention import check_attention
 from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS
 from learnablepoolingmethods_torch.utils import flax_msgpack, prng
 from learnablepoolingmethods_torch.utils.misc import resolve_device
@@ -109,16 +114,16 @@ def export_model(
     return export_dir
 
 
-def _video_level_arrays(model_name: str, mcfg: ModelConfig, variables) -> dict:
-    """The f32 head of a video-level model as the runner reads it (its flax
-    layout: the MoE's kernels are vocab-major, column m·V + v, as
-    ``moe_combine`` reads them)."""
+def _f32_head_arrays(model_name: str, mcfg: ModelConfig, variables) -> dict:
+    """The f32 head of a video-level model or FrameLevelLogisticModel as the
+    runner reads it (its flax layout: the MoE's kernels are vocab-major,
+    column m·V + v, as ``moe_combine`` reads them)."""
     p = convert_flax_variables(variables, mcfg, model_name)["params"]
 
     def f32(t):
         return torch.as_tensor(t).float().contiguous()
 
-    if model_name == "LogisticModel":
+    if model_name in ("LogisticModel", "FrameLevelLogisticModel"):
         return {"fc": {"kernel": f32(p["fc"]["kernel"]), "bias": f32(p["fc"]["bias"])}}
     return {name: f32(p[name]) for name in native_runtime.MOE}
 
@@ -126,11 +131,21 @@ def _video_level_arrays(model_name: str, mcfg: ModelConfig, variables) -> dict:
 def _route_arrays(route: str, model_name: str, mcfg: ModelConfig, variables) -> dict:
     """The route's prepare on the CPU, or ValueError / KeyError with the
     reason it does not apply."""
-    if route in native_runtime.VIDEO_ROUTES:
+    if route in native_runtime.F32_ROUTES:
         if mcfg.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {mcfg.compute_dtype}: the video-level routes run in f32")
-        return _video_level_arrays(model_name, mcfg, variables)
+            raise ValueError(f"compute_dtype {mcfg.compute_dtype}: the route {route} runs in f32")
+        return _f32_head_arrays(model_name, mcfg, variables)
     tree = convert_flax_variables(variables, mcfg, model_name)
+    if route in native_runtime.ATTENTION_ROUTES:
+        d = mcfg.attention_hidden_size  # row 7's head width (ValueError past its range)
+        check_attention(torch.empty((1, 1, 3 * d), device="meta", dtype=torch.bfloat16),
+                        torch.empty((1, 1), device="meta"), mcfg.attention_heads)
+        if route == "fast_transformer":
+            return prepare_fast_transformer_params(tree, mcfg, device="cpu")
+        fp = prepare_fast_attn_netvlad_params(tree, mcfg, device="cpu")
+        if fp["cluster"].shape[1] > MAX_CLUSTERS:
+            raise ValueError(f"more than {MAX_CLUSTERS} clusters")
+        return fp
     if route == "fast_netvlad_frontend":
         fp = prepare_fast_params(tree, mcfg, device="cpu")
         if max(fp["rgb"]["cluster"].shape[1], fp["aud"]["cluster"].shape[1]) > MAX_CLUSTERS:
@@ -150,8 +165,10 @@ def native_arrays(model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, param
     """The native runner's arrays of the model's route
     (``native_runtime.ROUTES``): the route's prepare on the CPU
     (``prepare_fast_params``, ``prepare_fast_dbof_params``,
-    ``prepare_fast_lf_params``, or the f32 head of a video-level model), by
-    ``native_runtime.route_arrays`` name.  Raises NotImplementedError naming
+    ``prepare_fast_lf_params``, ``prepare_fast_transformer_params``,
+    ``prepare_fast_attn_netvlad_params``, or the f32 head of a video-level
+    model or FrameLevelLogisticModel), by ``native_runtime.route_arrays``
+    name.  Raises NotImplementedError naming
     ROADMAP item 14c where no route applies: another model, features of the
     other level, a presampled config, or a config that the route's prepare
     refuses."""
@@ -174,17 +191,19 @@ def native_arrays(model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, param
             f"with_stablehlo: the native runner has routes for {sorted(native_runtime.MODEL_ROUTES)} at their "
             f"fast routes' configs, not this export ({why}); the other models and configs are ROADMAP item 14c")
     n_mods = len(arrays["mods"]) if route in native_runtime.LF_ROUTES else 2
-    return {name: native_runtime.array_of(arrays, name) for name in native_runtime.route_arrays(route, n_mods)}
+    n_layers = len(arrays["layers"]) if route in native_runtime.ATTENTION_ROUTES else 2
+    return {name: native_runtime.array_of(arrays, name)
+            for name in native_runtime.route_arrays(route, n_mods, n_layers)}
 
 
 def _route_lines(route: str, mcfg: ModelConfig, arrays: dict) -> List[str]:
     """The port's manifest lines that ``route`` needs (ROUTE_LINES), after
     its route line."""
     lines = []
-    if route not in native_runtime.VIDEO_ROUTES:
+    if route not in native_runtime.VIDEO_ROUTES + native_runtime.ALL_FRAME_ROUTES:
         # every batch draws from prng.key(0), as the server draws it
         lines += ["sampling_key {} {}".format(*prng.key_words(prng.key(0))), f"iterations {mcfg.iterations}"]
-    if route != "video_logistic":
+    if route not in native_runtime.LOGISTIC_ROUTES:
         lines.append(f"moe_num_mixtures {mcfg.moe_num_mixtures}")
     if route == "fast_dbof":
         lines += [f"sampling {'iid' if mcfg.sample_random_frames else 'window'}",
@@ -194,6 +213,8 @@ def _route_lines(route: str, mcfg: ModelConfig, arrays: dict) -> List[str]:
         groups = [arrays[f"mods/{i}/wg"].shape[1] for i in mods]
         d, width = arrays["mods/0/cluster"].shape
         lines += [f"nextvlad_groups {' '.join(map(str, groups))}", f"nextvlad_expansion {width // d}"]
+    if route in native_runtime.ATTENTION_ROUTES:
+        lines += [f"transformer_layers {mcfg.transformer_layers}", f"attention_heads {mcfg.attention_heads}"]
     return lines
 
 

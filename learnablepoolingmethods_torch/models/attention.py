@@ -42,7 +42,7 @@ from learnablepoolingmethods_torch.models.model_utils import frame_mask
 from learnablepoolingmethods_torch.models.modules import NetVLAD, matmul_f32
 from learnablepoolingmethods_torch.parallel.collectives import full_param
 from learnablepoolingmethods_torch.ops.dropout import dropout
-from learnablepoolingmethods_torch.ops.fast_transformer import layer_norm
+from learnablepoolingmethods_torch.ops.native_tail import layer_norm
 from learnablepoolingmethods_torch.utils import prng
 
 

@@ -37,6 +37,13 @@ from learnablepoolingmethods_torch.ops.fast_infer import (
     int8_weight,
 )
 from learnablepoolingmethods_torch.ops.masked_attention import masked_attention_fused, masked_attention_plain
+from learnablepoolingmethods_torch.ops.native_tail import (
+    bias_act_plain,
+    frame_stage_all_plain,
+    key_mask,
+    masked_mean_plain,
+    residual_layernorm_plain,
+)
 from learnablepoolingmethods_torch.ops.netvlad_fused import (
     fold_assignment_bn,
     netvlad_fused,
@@ -44,9 +51,6 @@ from learnablepoolingmethods_torch.ops.netvlad_fused import (
 )
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.utils.misc import resolve_device
-from learnablepoolingmethods_torch.utils.quantization import dequantize
-
-LN_EPS = 1e-6
 
 
 def _prepare_encoder_layers(enc, n_layers: int, put, ct) -> list:
@@ -77,32 +81,25 @@ def _prepare_encoder_layers(enc, n_layers: int, put, ct) -> list:
     return layers
 
 
-def layer_norm(x32: torch.Tensor, scale, bias, clamp_var: bool = False) -> torch.Tensor:
-    """LayerNorm over the last axis in f32 with var = E[x²] − mean², as
-    flax's LayerNorm (``use_fast_variance``) and the JAX fast path compute
-    it; ``clamp_var`` takes max(0, var) first, as flax does (the fast path
-    does not)."""
-    mean = torch.mean(x32, dim=-1, keepdim=True)
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True) - mean * mean
-    if clamp_var:
-        var = torch.clamp(var, min=0.0)
-    return (x32 - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
-
-
-def _encoder_apply(layers, h: torch.Tensor, mask: torch.Tensor, heads: int, use_kernels: bool, ct):
+def encoder_stack(layers, h: torch.Tensor, mask: torch.Tensor, heads: int, use_kernels: bool, ct,
+                  zero_pads: bool = False):
     """The shared encoder stack on ``h`` [B, F, D] in ``ct``; every
-    materialised [B, F, ·] tensor stays in ``ct``."""
+    materialised [B, F, ·] tensor stays in ``ct``.  Each product's epilogue
+    is ``ops/native_tail.py#bias_act_plain`` and each residual + LayerNorm
+    ``#residual_layernorm_plain`` (the native runner's kernels of those
+    steps); ``zero_pads`` multiplies the last one's rows by ``mask``."""
     b, f, d = h.shape
     attention = masked_attention_fused if use_kernels else masked_attention_plain
     x = h.reshape(b * f, d)
-    for lp in layers:
-        qkv = (matmul_f32(x, lp["wqkv"]) + lp["bqkv"]).to(ct)
+    for i, lp in enumerate(layers):
+        qkv = bias_act_plain(matmul_f32(x, lp["wqkv"]), lp["bqkv"], dtype=ct)
         attn = attention(qkv.reshape(b, f, 3 * d), mask, heads).reshape(b * f, d)
-        attn = (matmul_f32(attn, lp["wo"]) + lp["bo"]).to(ct)
-        x = layer_norm(x.float() + attn.float(), lp["ln1_s"], lp["ln1_b"]).to(ct)
-        ff = torch.relu(matmul_f32(x, lp["w1"]) + lp["b1"]).to(ct)
-        ff = (matmul_f32(ff, lp["w2"]) + lp["b2"]).to(ct)
-        x = layer_norm(x.float() + ff.float(), lp["ln2_s"], lp["ln2_b"]).to(ct)
+        attn = bias_act_plain(matmul_f32(attn, lp["wo"]), lp["bo"], dtype=ct)
+        x = residual_layernorm_plain(x, attn, lp["ln1_s"], lp["ln1_b"])
+        ff = bias_act_plain(matmul_f32(x, lp["w1"]), lp["b1"], relu=True, dtype=ct)
+        ff = bias_act_plain(matmul_f32(ff, lp["w2"]), lp["b2"], dtype=ct)
+        last = zero_pads and i == len(layers) - 1
+        x = residual_layernorm_plain(x, ff, lp["ln2_s"], lp["ln2_b"], mask if last else None)
     return x.reshape(b, f, d)
 
 
@@ -187,16 +184,18 @@ def prepare_fast_attn_netvlad_params(
     return fp
 
 
-def _encode(fp, features, num_frames, heads: int, use_kernels: bool, ct):
+def _encode(fp, features, num_frames, heads: int, use_kernels: bool, ct, zero_pads: bool = False):
     """dequantize → ℓ2 → input projection → encoder; returns the encoder
-    output [B, F, D] in ``ct`` and the f32 frame mask [B, F]."""
+    output [B, F, D] in ``ct`` (``zero_pads``: pad rows times the mask) and
+    the f32 frame mask [B, F]."""
     b, f, dt = features.shape
-    x = dequantize(features, dtype=ct) if features.dtype == torch.uint8 else features.to(ct)
-    x = l2_normalize(x, dim=-1)
-    nf = torch.as_tensor(num_frames, device=features.device).reshape(-1, 1)
-    mask = (torch.arange(f, device=features.device)[None, :] < nf).float()
-    h = (matmul_f32(x.reshape(b * f, dt), fp["w_proj"]) + fp["b_proj"]).to(ct)
-    return _encoder_apply(fp["layers"], h.reshape(b, f, -1), mask, heads, use_kernels, ct), mask
+    nf = torch.as_tensor(num_frames, device=features.device)
+    if features.dtype == torch.uint8:
+        x, mask = frame_stage_all_plain(features, nf, ct)
+    else:
+        x, mask = l2_normalize(features.to(ct), dim=-1), key_mask(nf, f)
+    h = bias_act_plain(matmul_f32(x.reshape(b * f, dt), fp["w_proj"]), fp["b_proj"], dtype=ct)
+    return encoder_stack(fp["layers"], h.reshape(b, f, -1), mask, heads, use_kernels, ct, zero_pads), mask
 
 
 def build_fast_transformer_inference(
@@ -214,10 +213,9 @@ def build_fast_transformer_inference(
     m, v, heads, ct = mcfg.moe_num_mixtures, mcfg.vocab_size, mcfg.attention_heads, compute_dtype
 
     def forward(fp, features, num_frames, key=None, presampled: bool = False, row_offset: int = 0):
-        h, mask = _encode(fp, features, num_frames, heads, use_kernels, ct)
-        denom = torch.clamp(torch.sum(mask, dim=1, keepdim=True), min=1.0)
-        pooled = torch.sum(h.float() * mask[:, :, None], dim=1) / denom
-        h2 = matmul_f32(pooled.to(ct), fp["hidden_w"]) + fp["hidden_b"]
+        h, _ = _encode(fp, features, num_frames, heads, use_kernels, ct)
+        pooled = masked_mean_plain(h, torch.as_tensor(num_frames, device=h.device), ct)
+        h2 = matmul_f32(pooled, fp["hidden_w"]) + fp["hidden_b"]
         return gated_moe_tail(fp, h2, m, v, ct, top_k, return_probs)
 
     return forward
@@ -237,8 +235,7 @@ def build_fast_attn_netvlad_inference(
     m, v, heads, ct = mcfg.moe_num_mixtures, mcfg.vocab_size, mcfg.attention_heads, compute_dtype
 
     def forward(fp, features, num_frames, key=None, presampled: bool = False, row_offset: int = 0):
-        h, mask = _encode(fp, features, num_frames, heads, use_kernels, ct)
-        h = h * mask[:, :, None].to(h.dtype)
+        h, _ = _encode(fp, features, num_frames, heads, use_kernels, ct, zero_pads=True)
         vlad_fn = netvlad_fused if use_kernels else netvlad_reference
         vlad = vlad_fn(h, fp["cluster"], fp["c_scale"], fp["c_bias"], fp["c2"]).reshape(h.shape[0], -1)
         h2 = hidden_fc(vlad.to(ct), fp["hidden_w"], fp["hidden_b"])

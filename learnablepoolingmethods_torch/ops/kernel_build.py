@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, which the wrappers call through
 ``ctypes``: its own, or the library of ``LIBRARY_PARTS`` that compiles it
-(the native runner holds the sources of rows 1, 2, 5 and 6 and links
+(the native runner holds the sources of rows 1, 2, 5, 6 and 7 and links
 cuBLAS; the rows' wrappers load them from it, so each exists in one copy).
 Each source of such a library is compiled to an object beside every other
 compile, and the objects are linked once all are done.  Libraries go to
@@ -29,12 +29,13 @@ from typing import Dict, Iterable, Optional, Sequence
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # the libraries: each compiles its own ``csrc/<name>.cu`` and its parts
-KERNEL_SOURCES = ("netvlad_train", "masked_attention", "fused_adam", "int8_matmul", "dropout", "native_runner")
+KERNEL_SOURCES = ("netvlad_train", "fused_adam", "int8_matmul", "dropout", "native_runner")
 # libraries built from more than their own source: name → the other
 # ``csrc/*.cu`` compiled into it, the headers beside the ``.cuh`` files that
 # it includes, and its link flags
 LIBRARY_PARTS = {
-    "native_runner": dict(sources=("fused_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused"),
+    "native_runner": dict(sources=("fused_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused",
+                                   "masked_attention"),
                           headers=("native_manifest.h",), link=("-lcublas",)),
 }
 # a source compiled into another library → that library

@@ -10,7 +10,9 @@ out: they get −1e9 added to their f32 logit, so a row whose keys are all
 masked (a padding row of the CLI's last batch, ``num_frames`` 0) gets
 uniform weights, the mean of V over all F rows, as flax's
 ``MultiHeadDotProductAttention`` gives.  The kernel
-(``csrc/masked_attention.cu``) replaces
+(``csrc/masked_attention.cu``, compiled into the native runner's library,
+which launches it on the transformer family's routes:
+``ops/kernel_build.py#LIBRARY_PARTS``) replaces
 ``learnablepoolingmethods_tpu/ops/fast_transformer.py#masked_attention_fused``;
 :func:`attention_reference` transcribes that module's ``attention_reference``.
 """

@@ -1,6 +1,6 @@
 """The hand kernels of the native runner's routes (``csrc/native_runner.cu``),
 each between the runner's cuBLAS products and the TPU-kernel counterparts
-(rows 1, 2, 5 and 6) that it also launches.
+(rows 1, 2, 5, 6 and 7) that it also launches.
 
 The tail that every route with a MoE head ends in:
 
@@ -34,12 +34,30 @@ The steps of the other routes:
   σ(α)`` in f32 and rounded to bf16;
 - :func:`nextvlad_residual`: ``agg − (Σ_rows assign) · c2``.
 
+The steps of the routes that read every frame (the transformer family and
+FrameLevelLogisticModel):
+
+- :func:`frame_stage_all`: frame_stage's kernel with no draw: every frame
+  dequantized, ℓ2 over the row in f32, out in bf16 (dequantized in bf16) or
+  f32 (dequantized in f32, ``core/step.py#preprocess_input``), and the f32
+  key mask ``f < num_frames``;
+- :func:`bias_act`: ``bf16(y + b)``, or ``bf16(relu(y + b))``, a product's
+  epilogue;
+- :func:`residual_layernorm`: ``bf16(LN(f32(x) + f32(y)))`` with the fast
+  path's LayerNorm (var = E[x²] − mean², no clamp; ε 1e-6), then its scale
+  and bias; optionally times the key mask (AttentionNetVLAD's pad rows);
+- :func:`masked_mean`: ``Σ_f x · mask`` in f32 over ``max(count, 1)``: the
+  count of valid frames (the transformer's pooling) or ``num_frames``
+  itself (FrameLevelLogisticModel's).
+
 They replace no ``pallas_call``: the JAX package leaves this arithmetic to
 XLA's fusions (``learnablepoolingmethods_tpu/ops/fast_infer.py:64-88``,
-``ops/fast_dbof.py``, ``ops/fast_lf.py``, ``ops/topk.py``).  The ``*_plain``
-versions are that arithmetic in PyTorch; the fast routes compute with them
+``ops/fast_dbof.py``, ``ops/fast_lf.py``, ``ops/fast_transformer.py``,
+``models/frame_level.py``, ``ops/topk.py``).  The ``*_plain`` versions are
+that arithmetic in PyTorch; the fast routes compute with them
 (``ops/fast_infer.py#gated_moe_tail``, ``ops/fast_lf.py``,
-``ops/fast_dbof.py``), and so does the runner's plain version
+``ops/fast_dbof.py``, ``ops/fast_transformer.py``), and so does the
+runner's plain version
 (``core/native_runtime.py#plain_run``).  A wrapper takes its plain version
 for CPU tensors and launches the runner library's entry point for CUDA
 tensors (``chip_smoke.py`` holds each against its plain version); the
@@ -70,6 +88,7 @@ from learnablepoolingmethods_torch.utils.quantization import dequantize
 LIBRARY = "native_runner"
 MAX_PARTS = 4  # hidden_sum's products at most (NetFV: fv1 and fv2 of two modalities)
 POOLING = ("average", "max")
+LN_EPS = 1e-6
 _P, _I, _LL, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_float
 BF16 = torch.bfloat16
 
@@ -183,6 +202,60 @@ def nextvlad_residual_plain(agg: torch.Tensor, assign: torch.Tensor, c2: torch.T
     """``agg`` [B, K, D'] − Σ over ``assign`` [B, S, G, K]'s S and G · ``c2``
     [K, D'] (f32)."""
     return agg - torch.sum(assign, dim=(1, 2))[:, :, None] * c2[None]
+
+
+def key_mask(num_frames: torch.Tensor, frames: int) -> torch.Tensor:
+    """The f32 mask [B, F] of frames f < num_frames (``models/model_utils.py
+    #frame_mask``)."""
+    return (torch.arange(frames, device=num_frames.device)[None, :] < num_frames.reshape(-1, 1)).float()
+
+
+def frame_stage_all_plain(features: torch.Tensor, num_frames: torch.Tensor, dtype: torch.dtype = BF16):
+    """uint8 frames [B, F, DT] → (every frame dequantized in ``dtype`` and
+    ℓ2 over the row [B, F, DT] in ``dtype``, the f32 key mask [B, F])."""
+    return l2_normalize(dequantize(features, dtype=dtype), dim=-1), key_mask(num_frames, features.shape[1])
+
+
+def bias_act_plain(y: torch.Tensor, bias: torch.Tensor, relu: bool = False, dtype: torch.dtype = BF16):
+    """``y + bias`` (f32), with ``relu`` its ReLU, rounded once to ``dtype``."""
+    z = y + bias
+    return (torch.relu(z) if relu else z).to(dtype)
+
+
+def layer_norm(x32: torch.Tensor, scale, bias, clamp_var: bool = False) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 with var = E[x²] − mean², as
+    flax's LayerNorm (``use_fast_variance``) and the JAX fast path compute
+    it; ``clamp_var`` takes max(0, var) first, as flax does (the fast path
+    does not)."""
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True) - mean * mean
+    if clamp_var:
+        var = torch.clamp(var, min=0.0)
+    return (x32 - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
+
+
+def residual_layernorm_plain(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The encoder's residual and LayerNorm: rows of ``x`` and ``y`` [R, D]
+    (bf16) summed in f32, :func:`layer_norm` (no clamp), rounded to x's
+    dtype; with ``mask`` (R values) each row times its mask value after the
+    rounding, a multiply as ``h * mask`` gives it."""
+    out = layer_norm(x.float() + y.float(), scale, bias).to(x.dtype)
+    return out if mask is None else out * mask.reshape(-1, 1).to(out.dtype)
+
+
+def masked_mean_plain(x: torch.Tensor, num_frames: torch.Tensor, dtype: torch.dtype = BF16,
+                      count_valid: bool = True) -> torch.Tensor:
+    """``x`` [B, F, C] → Σ_f x · mask in f32 over max(n, 1) [B, C] in
+    ``dtype``: n the count of valid frames with ``count_valid`` (the
+    transformer's ``sum(mask)``), else ``num_frames`` itself
+    (FrameLevelLogisticModel's divisor)."""
+    mask = key_mask(num_frames, x.shape[1])
+    if count_valid:
+        denom = torch.clamp(torch.sum(mask, dim=1, keepdim=True), min=1.0)
+    else:
+        denom = torch.clamp(num_frames.float(), min=1.0).reshape(-1, 1)
+    return (torch.sum(x.float() * mask[:, :, None], dim=1) / denom).to(dtype)
 
 
 # ---- the kernels ---------------------------------------------------------------
@@ -412,7 +485,81 @@ def nextvlad_residual(agg: torch.Tensor, assign: torch.Tensor, c2: torch.Tensor)
     return out
 
 
+def frame_stage_all(features: torch.Tensor, num_frames: torch.Tensor, dtype: torch.dtype = BF16):
+    """:func:`frame_stage_all_plain` on the card (frame_stage's kernel with
+    no draw, counted as frame_stage's launch) or the CPU."""
+    if features.device.type == "cpu":
+        return frame_stage_all_plain(features, num_frames, dtype)
+    _check("frame_stage", torch.uint8, features)
+    _check("frame_stage", torch.int32, num_frames)
+    b, f, dt = features.shape
+    if num_frames.shape != (b,) or dtype not in (torch.float32, BF16):
+        raise ValueError(f"frame_stage: B={b}, num_frames {tuple(num_frames.shape)}, out dtype {dtype}")
+    out = torch.empty((b, f, dt), dtype=dtype, device=features.device)
+    mask = torch.empty((b, f), dtype=torch.float32, device=features.device)
+    f32_out, bf16_out = (out, None) if dtype == torch.float32 else (None, out)
+    _launch("frame_stage", "lpm_frame_stage_all", [_P] * 5 + [_I] * 3 + [_F, _F, _P],
+            features.data_ptr(), num_frames.data_ptr(), _ptr(bf16_out), _ptr(f32_out), mask.data_ptr(), b, f, dt,
+            DEQ_SCALE, DEQ_BIAS, device=features.device)
+    frame_stage.launches += 1
+    return out, mask
+
+
+def bias_act(y: torch.Tensor, bias: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    """:func:`bias_act_plain` (bf16 out) on the card (the kernel) or the
+    CPU."""
+    if y.device.type == "cpu":
+        return bias_act_plain(y, bias, relu)
+    rows, width = _bias_rows("bias_act", y, bias)
+    out = torch.empty(y.shape, dtype=BF16, device=y.device)
+    _launch("bias_act", "lpm_bias_act", [_P] * 3 + [_I, _LL, _I, _P],
+            y.data_ptr(), bias.data_ptr(), out.data_ptr(), int(relu), rows, width, device=y.device)
+    bias_act.launches += 1
+    return out
+
+
+def residual_layernorm(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`residual_layernorm_plain` (bf16) on the card (the kernel) or
+    the CPU."""
+    if x.device.type == "cpu":
+        return residual_layernorm_plain(x, y, scale, bias, mask)
+    _check("residual_layernorm", BF16, x, y)
+    _f32("residual_layernorm", scale, bias, *(() if mask is None else (mask,)))
+    rows, d = x.shape
+    if y.shape != x.shape or scale.shape != (d,) or bias.shape != (d,) or (mask is not None and mask.numel() != rows):
+        raise ValueError(f"residual_layernorm: shapes {tuple(x.shape)}, {tuple(y.shape)}, {tuple(scale.shape)}")
+    out = torch.empty_like(x)
+    _launch("residual_layernorm", "lpm_residual_layernorm", [_P] * 6 + [_LL, _I, _P],
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(mask), out.data_ptr(), rows, d,
+            device=x.device)
+    residual_layernorm.launches += 1
+    return out
+
+
+def masked_mean(x: torch.Tensor, num_frames: torch.Tensor, dtype: torch.dtype = BF16,
+                count_valid: bool = True) -> torch.Tensor:
+    """:func:`masked_mean_plain` (bf16 or f32 in and out) on the card (the
+    kernel) or the CPU."""
+    if x.device.type == "cpu":
+        return masked_mean_plain(x, num_frames, dtype, count_valid)
+    if x.dtype not in (torch.float32, BF16) or dtype not in (torch.float32, BF16):
+        raise ValueError(f"masked_mean: {x.dtype} in, {dtype} out")
+    _check("masked_mean", x.dtype, x)
+    _check("masked_mean", torch.int32, num_frames)
+    b, f, c = x.shape
+    if num_frames.shape != (b,):
+        raise ValueError(f"masked_mean: num_frames {tuple(num_frames.shape)} for B={b}")
+    out = torch.empty((b, c), dtype=dtype, device=x.device)
+    f32_out, bf16_out = (out, None) if dtype == torch.float32 else (None, out)
+    _launch("masked_mean", "lpm_masked_mean", [_P, _I, _P, _P, _P] + [_I] * 4 + [_P],
+            x.data_ptr(), int(x.dtype == BF16), num_frames.data_ptr(), _ptr(f32_out), _ptr(bf16_out), b, f, c,
+            int(count_valid), device=x.device)
+    masked_mean.launches += 1
+    return out
+
+
 WRAPPERS = (hidden_sum, gating, moe_combine, topk, frame_stage, bias_sigmoid, bias_relu6, frame_pool, row_l2,
-            nextvlad_assign, nextvlad_residual)
+            nextvlad_assign, nextvlad_residual, bias_act, residual_layernorm, masked_mean)
 for _wrapper in WRAPPERS:
     _wrapper.launches = 0

@@ -1,5 +1,6 @@
 """The native runner's routes beyond Willow's (ROADMAP items 14c.1 and
-14c.2): LogisticModel and MoeModel (video-level, f32), DbofModel (iid
+14c.2; the attention routes of 14c.3 are tests/test_torch_native_attention_routes.py's):
+LogisticModel and MoeModel (video-level, f32), DbofModel (iid
 frames, one window a video, max and average pooling), NetRVLADModelLF,
 SoftDbofModelLF, NetFVModelLF and NeXtVLADModel, at small widths.
 
@@ -410,13 +411,13 @@ def test_nextvlad_pool_traces_the_steps_the_runner_reads(root):
 
 
 def test_rows_on_the_runners_path_are_built_once():
-    """Rows 1, 2, 5 and 6 are compiled into the runner's library only: their
-    wrappers load it (``kernel_build.HOME``) and no library of their own is
-    built; a source that no build compiled with ``-Xptxas -v`` has no
+    """Rows 1, 2, 5, 6 and 7 are compiled into the runner's library only:
+    their wrappers load it (``kernel_build.HOME``) and no library of their
+    own is built; a source that no build compiled with ``-Xptxas -v`` has no
     report."""
     from learnablepoolingmethods_torch.ops import kernel_build as kb
 
-    rows = ("fused_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused")
+    rows = ("fused_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention")
     assert {row: kb.HOME[row] for row in rows} == dict.fromkeys(rows, nr.LIBRARY)
     assert not set(rows) & set(kb.KERNEL_SOURCES)
     assert [p.stem for p in kb.sources(nr.LIBRARY)] == [nr.LIBRARY, *rows]
@@ -432,10 +433,17 @@ OUTSIDE_THE_ROUTES = {
     "lf_window": ("NetRVLADModelLF", dict(sample_random_frames=False), LCFG),
     "lf_relu": ("SoftDbofModelLF", dict(netvlad_relu=True), LCFG),
     "video_bf16": ("MoeModel", dict(compute_dtype="bfloat16"), VCFG),
-    "attention": ("TransformerEncoderModel", dict(attention_hidden_size=8, attention_heads=2,
-                                                  transformer_ff_size=8), FCFG),
+    # TransformerEncoderModel, AttentionNetVLADModel and FrameLevelLogisticModel
+    # have routes since item 14c.3 (tests/test_torch_native_attention_routes.py):
+    # what stays outside is the rest of the attention family and of the
+    # frame-level models, and those routes' configs that they refuse
+    "attention": ("AttentionPoolingModel", dict(attention_hidden_size=16, attention_heads=2,
+                                                transformer_ff_size=8, attention_cluster_size=2), FCFG),
     "rnn": ("LstmModel", dict(lstm_cells=8), FCFG),
-    "frame_level_logistic": ("FrameLevelLogisticModel", {}, FCFG),
+    "frame_level_logistic": ("FrameLevelLogisticModel", dict(compute_dtype="bfloat16"), FCFG),
+    "gru": ("GruModel", dict(lstm_cells=8), FCFG),
+    "transformer_no_gating": ("TransformerEncoderModel", dict(attention_hidden_size=16, attention_heads=2,
+                                                              transformer_ff_size=8, gating=False), FCFG),
 }
 
 
