@@ -106,7 +106,10 @@ error, and prints one JSON line per phase:
               a video), NetRVLAD-256, SoftDBoW-4096, NetFV-64,
               NeXtVLAD-128, and (item 14c.3) TransformerEncoderModel and
               AttentionNetVLADModel at config 5's widths (row 7 once a layer)
-              and FrameLevelLogisticModel (f32), each exported with
+              and FrameLevelLogisticModel (f32), and (item 14c.5)
+              AttentionPoolingModel, LstmModel and GruModel at their
+              default widths (f32: pool_attention, 600 lstm_cell or
+              gru_cell launches a batch), each exported with
               with_stablehlo=True at batch 256 and served by
               ModelServer(native=True) on 96 records with the runner's
               launches of its route's kernels once a batch (rows 2, 6 and 5
@@ -117,11 +120,12 @@ error, and prints one JSON line per phase:
               DBoF window the plain versions), its top-k that of its
               probabilities, its videos/s; NeXtVLAD and the routes that read
               every frame traced step by step against the torch route
-              (nextvlad_trace, all_frames_trace); lpm_serve answering
-              LogisticModel, NetRVLAD-256 and TransformerEncoderModel over
-              HTTP as the in-process runner does; then each new kernel
-              against its plain version (ROUTE_KERNEL_GATES) at its
-              main-path shape, timed beside its bound;
+              (nextvlad_trace, all_frames_trace); cuDNN's LSTM and GRU over
+              the same frames as a yardstick for the RNN routes; lpm_serve
+              answering NATIVE_ROUTES_HTTP over HTTP as the in-process
+              runner does; then each new kernel against its plain version
+              (ROUTE_KERNEL_GATES) at its main-path shape, timed beside its
+              bound;
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -327,6 +331,7 @@ import dataclasses
 import functools
 import http.client
 import importlib.util
+import itertools
 import json
 import logging
 import os
@@ -355,6 +360,7 @@ from learnablepoolingmethods_torch.core.step import TrainStep
 from learnablepoolingmethods_torch.core.train_state import TrainState
 from learnablepoolingmethods_torch.core.weights import (
     convert_flax_variables,
+    init_memo,
     init_variables_np,
     load_flax_variables,
     load_variables_npz,
@@ -388,6 +394,7 @@ from learnablepoolingmethods_torch.ops.fast_dispatch import (
 from learnablepoolingmethods_torch.ops.fast_infer import (
     build_fast_netvlad_inference,
     gated_moe_tail,
+    int8_weight,
     matmul_f32,
     prepare_fast_params,
     staged_frames,
@@ -409,10 +416,10 @@ from learnablepoolingmethods_torch.ops.fused_frontend import (
     sample_indices,
 )
 from learnablepoolingmethods_torch.ops.int8_matmul import (
-    device_weight,
     int8_geometry,
     matmul_wi8,
     matmul_wi8_plain,
+    quantize_int8_tensor,
     quantize_weight_int8,
 )
 from learnablepoolingmethods_torch.ops.masked_attention import (
@@ -637,6 +644,25 @@ KERNELS = {
         source="learnablepoolingmethods_torch/csrc/native_runner.cu",
         replaces="learnablepoolingmethods_tpu/ops/fast_transformer.py:300-301 and models/frame_level.py:146-151 "
                  "the masked mean over the frames (XLA fusion, no pallas_call)",
+    ),
+    # the f32 routes of the models with no fast route (ROADMAP item 14c.5)
+    "native_lstm_cell": dict(
+        fn=native_tail.lstm_cell,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/models/frame_level.py:263-269 nn.RNN(nn.OptimizedLSTMCell) a step "
+                 "and the carry at seq_lengths − 1 (flax's lax.scan in XLA, no pallas_call)",
+    ),
+    "native_gru_cell": dict(
+        fn=native_tail.gru_cell,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/models/frame_level.py:284-290 nn.RNN(nn.GRUCell) a step and the "
+                 "carry at seq_lengths − 1 (flax's lax.scan in XLA, no pallas_call)",
+    ),
+    "native_pool_attention": dict(
+        fn=native_tail.pool_attention,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/models/attention.py:101-109 the learned queries through "
+                 "nn.MultiHeadDotProductAttention's masked softmax attention (XLA, no pallas_call)",
     ),
 }
 
@@ -1396,9 +1422,10 @@ def random_train_batch(rng: np.random.Generator, b: int, dev, frame_features: bo
 
 
 def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, batch: dict,
-                    frame_features: bool = True, tree=None, rounds: int = 5) -> tuple:
+                    frame_features: bool = True, tree=None, rounds: int = 5, state=None) -> tuple:
     """``name``'s train step at ``mcfg`` (weights ``tree``, by default from
-    init_variables_np) on ``batch``: the median of ``rounds`` rounds of
+    init_variables_np, or a TrainState ``state`` of ``tcfg`` that a caller
+    has stepped already) on ``batch``: the median of ``rounds`` rounds of
     ``rounds`` steps by CUDA events, forward, backward and optimizer ms
     (medians over ``rounds`` steps), peak memory.  Returns (line, step)
     where ``step()`` runs one more step."""
@@ -1406,9 +1433,11 @@ def time_train_step(dev, name: str, mcfg: ModelConfig, tcfg: TrainingConfig, bat
     b = batch["features"].shape[0]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = create_model(name, mcfg, DT)
-    load_flax_variables(model, tree or init_variables_np(mcfg, fcfg, seed=0, model_name=name)).to(dev)
-    state = TrainState.create(model, tcfg)
+    if state is None:
+        model = create_model(name, mcfg, DT)
+        load_flax_variables(model, tree or init_variables_np(mcfg, fcfg, seed=0, model_name=name)).to(dev)
+        state = TrainState.create(model, tcfg)
+    model = state.model
     step = TrainStep(CrossEntropyLoss(), tcfg, mcfg, frame_features)
     key = prng.key(0)
     for _ in range(2):
@@ -1484,6 +1513,9 @@ VIDEO_FLAGS = ["--feature_names=mean_rgb,mean_audio", "--feature_sizes=1024,128"
 # the step-1 loss of a model's f32 train step on the card against the same
 # step on the CPU (same first batch and weights): the summation order alone
 ZOO_CPU_GATE = 1e-5
+# the run of each model whose checkpoint the eval CLI reads back
+# (NetRVLADModelLF's four routes write checkpoints of one format)
+ZOO_EVAL_RUNS = [run for run in ZOO_RUNS if not run.startswith("NetRVLADModelLF/") or run == "NetRVLADModelLF/fused"]
 # NetRVLADModelLF's loss gates: at the CLI's lr of 0.01 the first Adam
 # update moves nearly every weight by ±0.01, whatever the size of its
 # gradient, and the two bf16 routes then drift from f32 each by its own
@@ -1593,13 +1625,15 @@ def phase_train_zoo_e2e(dev, workdir, smi):
       ZOO_GRAD_GATES of the plain f32 route's (the bf16 pair's losses at
       steps 2-5 are printed);
     - each model's f32 train step on the card against the same step on the
-      CPU, on the CLI's first batch and weights: within ZOO_CPU_GATE in loss;
-      NetRVLAD's f32 CLI runs' step-1 losses within it of the CPU's too;
+      CPU, on the CLI's first batch and weights: within ZOO_CPU_GATE in
+      loss; NetRVLAD's f32 CLI runs' step-1 losses within it of the CPU's
+      too;
     - launches: each training kernel once per pooling module a step in the
       fused runs (NetRVLAD 2, NetVLAD with --netvlad_dimred=256 1), no
       kernel anywhere else;
-    - the eval CLI (--run_once, the model-forward route) reads each trained
-      checkpoint back with a finite GAP, on 64 videos of the same kind.
+    - the eval CLI (--run_once, the model-forward route) reads a trained
+      checkpoint of each model back (ZOO_EVAL_RUNS) with a finite GAP, on 64
+      videos of the same kind.
     Returns {kernel: launches in the fused runs}."""
     frame = os.path.join(workdir, "train-0.tfrecord")
     video = os.path.join(workdir, "video-0.tfrecord")
@@ -1630,17 +1664,18 @@ def phase_train_zoo_e2e(dev, workdir, smi):
         losses = [h["loss"] for h in trainer.history]
         if len(losses) != 5 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"{run}: losses {losses}, want five finite values, the last below the first")
-        eval_flags = [f for f in zoo_model_flags(run) if f != "--fused_train_aggregation"]
-        start = time.perf_counter()
-        reset_counters()
-        info = eval_cli.main(eval_flags + ["--compute_dtype=bfloat16", "--device=cuda", "--batch_size=64",
-                                           "--run_once", f"--train_dir={train_dir}",
-                                           f"--eval_data_pattern={small['video' if flags is None else 'frame']}"])
-        torch.cuda.synchronize()
-        if counters() != none or not np.isfinite(float(info["gap"])):
-            raise AssertionError(f"{run}: eval GAP {info['gap']}, launches {counters()}")
-        runs[run] = {"cli_s": cli_s, "eval_s": time.perf_counter() - start, "losses": losses,
-                     "gap": [float(h["gap"]) for h in trainer.history], "eval_gap": float(info["gap"])}
+        runs[run] = {"cli_s": cli_s, "losses": losses, "gap": [float(h["gap"]) for h in trainer.history]}
+        if run in ZOO_EVAL_RUNS:
+            eval_flags = [f for f in zoo_model_flags(run) if f != "--fused_train_aggregation"]
+            start = time.perf_counter()
+            reset_counters()
+            info = eval_cli.main(eval_flags + ["--compute_dtype=bfloat16", "--device=cuda", "--batch_size=64",
+                                               "--run_once", f"--train_dir={train_dir}",
+                                               "--eval_data_pattern=" + small['video' if flags is None else 'frame']])
+            torch.cuda.synchronize()
+            if counters() != none or not np.isfinite(float(info["gap"])):
+                raise AssertionError(f"{run}: eval GAP {info['gap']}, launches {counters()}")
+            runs[run].update(eval_s=time.perf_counter() - start, eval_gap=float(info["gap"]))
         shutil.rmtree(train_dir)
     rel = {fused: [abs(a - b) / abs(b) for a, b in zip(runs[f"NetRVLADModelLF/{fused}"]["losses"],
                                                         runs[f"NetRVLADModelLF/{plain}"]["losses"])]
@@ -1844,6 +1879,9 @@ OPTIMIZER_RUNS = {"AdamOptimizer": {}, "AdamOptimizer-bf16": {"adam_bf16_momentu
 # parameters and gradients, max |Δ| over max |CPU update|: the two differ in
 # the f32 order of the clip's norm and of Adafactor's means
 OPTIMIZER_GATE = 1e-6
+# each optimizer's step timed as train_12b times its modes: three rounds of
+# three steps
+OPTIMIZER_TIMING_ROUNDS = 3
 
 
 def phase_optimizers(dev, smi):
@@ -1879,9 +1917,11 @@ def phase_optimizers(dev, smi):
         losses = [total.item()] + [float(step(state, batch, key)["loss"]) for _ in range(4)]
         worst[run] = max(gaps.items(), key=lambda kv: kv[1])
         check_s = time.perf_counter() - start
-        del state, model, step, total
-        torch.cuda.empty_cache()
-        line, _ = time_train_step(dev, "NetVLADModelLF", mcfg, tcfg, batch, tree=tree)
+        del model, step, total
+        # timed on the checked state, five steps in
+        line, _ = time_train_step(dev, "NetVLADModelLF", mcfg, tcfg, batch, rounds=OPTIMIZER_TIMING_ROUNDS,
+                                  state=state)
+        del state
         emit({"phase": "optimizers", "optimizer": run, "first_update_rel_gap_card_vs_cpu": worst[run],
               "limit": OPTIMIZER_GATE, "losses": losses, "check_s": check_s, **line, "card": smi})
         if worst[run][1] > OPTIMIZER_GATE or not all(np.isfinite(losses)):
@@ -2516,7 +2556,7 @@ def train_eval_model(dev, data: str, workdir: str, smi, name: str = "NetVLADMode
     EVAL_MAX_STEPS; then its variables.npz.  With --fused_train_aggregation
     each training kernel launches once per pooling module a step, the
     forward also once per module in each batch of the GAP reads.  Returns
-    (train_dir, info, launches)."""
+    (train_dir, info, launches, the tree that variables.npz holds)."""
     overrides = {"fused_train_aggregation": True} if overrides is None else overrides
     mcfg = eval_config(compute_dtype="bfloat16", presampled=True, **overrides)
     fcfg = FeatureConfig(("rgb", "audio"), (D_RGB, D_AUD), True, F)
@@ -2562,7 +2602,8 @@ def train_eval_model(dev, data: str, workdir: str, smi, name: str = "NetVLADMode
         raise AssertionError(f"eval_e2e training of {name}: launches {launches}, expected {want}")
     train_dir = os.path.join(workdir, name)
     os.makedirs(train_dir)
-    save_variables_npz(state_dict_to_flax(state.model), train_dir)
+    tree = state_dict_to_flax(state.model)
+    save_variables_npz(tree, train_dir)
     info = {"model": name, "steps": state.step, "train_gap": gaps[-1][1], "train_gap_at_step": gaps,
             "seconds": seconds, "ms_per_step": seconds / state.step * 1e3,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2570,7 +2611,7 @@ def train_eval_model(dev, data: str, workdir: str, smi, name: str = "NetVLADMode
             "lr": EVAL_LR, "card": smi}
     del state, model, feats
     torch.cuda.empty_cache()
-    return train_dir, info, launches
+    return train_dir, info, launches, tree
 
 
 def eval_cli_routes(name: str, data: str, train_dir: str, routes) -> tuple:
@@ -2624,7 +2665,7 @@ def phase_eval_e2e(dev, workdir, smi):
     none = dict.fromkeys(KERNELS, 0)
     launches = dict(none)
 
-    train_dir, train_info, got = train_eval_model(dev, data, workdir, smi)
+    train_dir, train_info, got, tree = train_eval_model(dev, data, workdir, smi)
     for n, c in got.items():
         launches[n] += c
     emit({"phase": "eval_e2e", "part": "train", "videos": EVAL_FIXTURE["num_videos"], "setup_s": setup_s,
@@ -2637,7 +2678,6 @@ def phase_eval_e2e(dev, workdir, smi):
     if paths != want:
         raise AssertionError(f"eval launches {paths}, expected {want}")
     mcfg = eval_config()
-    tree = load_variables_npz(train_dir)
     fp32 = prepare_fast_params(convert_flax_variables(tree, mcfg), mcfg, compute_dtype=torch.float32,
                                device=dev)
     plain32 = build_fast_netvlad_inference(mcfg, use_kernels=False, compute_dtype=torch.float32,
@@ -2777,7 +2817,7 @@ def eval_arm(dev, data: str, workdir: str, smi, batches, name: str, overrides, f
     accumulator and --fast_eval, against the f32 plain fast route in-process
     on the same frames: GAP >= EVAL_GAP_FLOOR and |ΔGAP| <= GAP_BUDGET.
     Returns {kernel: launches}."""
-    train_dir, info, launches = train_eval_model(dev, data, workdir, smi, name, overrides)
+    train_dir, info, launches, tree = train_eval_model(dev, data, workdir, smi, name, overrides)
     emit({"phase": "eval_e2e", "part": "train", **info})
     mcfg = eval_config(**{k: v for k, v in overrides.items() if k != "fused_train_aggregation"})
     infos, paths = eval_cli_routes(name, data, train_dir, {"fast_forward_bf16": ["--fast_forward", *flags]})
@@ -2789,7 +2829,6 @@ def eval_arm(dev, data: str, workdir: str, smi, batches, name: str, overrides, f
         for n, c in int8_eval(name, data, train_dir, flags, infos["fast_forward_bf16/default"]["gap"],
                               len(batches), kernel, INT8_ARMS[name], smi).items():
             launches[n] += c
-    tree = load_variables_npz(train_dir)
     fp, fn = f32_plain_route(name, tree, mcfg, dev)
     infos["fast_plain_f32"] = route_metrics(batches, lambda x, n, k: fn(fp, x, n, k))
     del fp, tree
@@ -3010,16 +3049,29 @@ INT8_BATCHES = (1, 32, 256, 512)
 INT8_GATE = 1e-5
 
 
+# the card's quantizer (int8_weight's) against the host's on this many
+# first rows of each weight, bit for bit
+INT8_HOST_ROWS = 8192
+
+
 def int8_inputs(gen, m: int, k: int, n: int, dev, zero_column: bool = False):
     """x [m, k] bf16 at a pooled descriptor's scale (unit rows), a weight
-    quantized from N(0, 1/√(k/16)) with column 0 zero when asked, its scales
-    and a bias."""
+    quantized on the card (fast_infer.int8_weight) from N(0, 1/√(k/16))
+    with column 0 zero when asked, its scales and a bias.  Raises unless the
+    card's quantizer gives the host's bits on the first INT8_HOST_ROWS
+    rows."""
     x = (torch.randn(m, k, generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
     w = torch.randn(k, n, generator=gen, device=dev) * (k / 16) ** -0.5
     if zero_column:
         w[:, 0] = 0
-    q, s = quantize_weight_int8(w.cpu())
-    return x, device_weight(q, dev), torch.from_numpy(s).to(dev), torch.randn(n, generator=gen, device=dev)
+    rows = w[:INT8_HOST_ROWS]
+    card_q, card_s = quantize_int8_tensor(rows)
+    host_q, host_s = quantize_weight_int8(rows.cpu())
+    if not (np.array_equal(card_q.cpu().numpy(), host_q)
+            and np.array_equal(card_s.cpu().numpy().view(np.int32), host_s.view(np.int32))):
+        raise AssertionError(f"int8 quantizer: the card's bits differ from the host's on [{rows.shape[0]}, {n}]")
+    fc = int8_weight(w, dev)
+    return x, fc["q"], fc["s"], torch.randn(n, generator=gen, device=dev)
 
 
 def check_int8(name, x, q, s, b, errors) -> float:
@@ -3211,6 +3263,7 @@ def phase_train_12b(dev, workdir, smi) -> dict:
     none = dict.fromkeys(KERNELS, 0)
     launches = dict(none)
     tree = None  # the CLI's initial weights: one seed and model for every run
+    first = None  # the CLI's first batch: one reader, shuffle and seed for every run
     for run, flags in TRAIN_12B_RUNS.items():
         train_dir = os.path.join(workdir, f"12b-{run}")
         argv = TRAIN_12B_FLAGS + flags + [f"--train_data_pattern={data}", f"--train_dir={train_dir}"]
@@ -3244,8 +3297,9 @@ def phase_train_12b(dev, workdir, smi) -> dict:
         del trainer, fresh, arrays
         torch.cuda.empty_cache()
         tree = zoo_init(args, configs) if tree is None else tree
+        first = zoo_first_batch(args, configs, data) if first is None else first
         start = time.perf_counter()
-        gate = first_update_gap(dev, args, configs, zoo_first_batch(args, configs, data), tree)
+        gate = first_update_gap(dev, args, configs, first, tree)
         gate_s = time.perf_counter() - start
         torch.cuda.empty_cache()
         start = time.perf_counter()
@@ -4013,10 +4067,16 @@ NATIVE_ROUTE_RUNS = {
     "TransformerEncoderModel": ("TransformerEncoderModel", {}),
     "AttentionNetVLADModel": ("AttentionNetVLADModel", {}),
     "FrameLevelLogisticModel": ("FrameLevelLogisticModel", {}),
+    "AttentionPoolingModel": ("AttentionPoolingModel", {}),
+    "LstmModel": ("LstmModel", {}),
+    "GruModel": ("GruModel", {}),
 }
-# the runs that lpm_serve answers over HTTP (a video-level, a LOUPE and an
-# attention route)
-NATIVE_ROUTES_HTTP = ("LogisticModel", "NetRVLADModelLF", "TransformerEncoderModel")
+# the runs that lpm_serve answers over HTTP: a video-level route (its
+# tf.Example parse), a LOUPE route, the transformer, and of item 14c.5 the
+# pooling route and one RNN route (rnn_lstm and rnn_gru share all but the
+# cell kernel, which the in-process run holds)
+NATIVE_ROUTES_HTTP = ("LogisticModel", "NetRVLADModelLF", "TransformerEncoderModel", "AttentionPoolingModel",
+                      "LstmModel")
 # the runner's probabilities against the port's torch route on the same
 # padded batch of 256 (max |Δ|): the f32 model forward for the video-level
 # two, the fast route with its kernels for the bf16 routes (the DBoF window:
@@ -4034,10 +4094,15 @@ NATIVE_ROUTES_HTTP = ("LogisticModel", "NetRVLADModelLF", "TransformerEncoderMod
 # put the whole gap in the residual LayerNorms' sums, whose order moves a
 # bf16 rounding of 6.5e-6 of the entries (the kernel check), compounded
 # over four of them; FrameLevelLogisticModel 6.0e-8 (the f32 ℓ2's and
-# mean's summation order), 1e-6 as the video-level two
+# mean's summation order), 1e-6 as the video-level two.  The f32 routes of
+# item 14c.5, from the first run on one H100 at 700 W: AttentionPoolingModel
+# 1.19e-7, LstmModel 5.96e-8, GruModel 8.94e-8 (the products' summation
+# order in cuBLAS against torch's; their traces, ALL_FRAMES_TRACE_GATES,
+# read every step within 8.2e-7 of max |torch route|), so 1e-6 each
 NATIVE_ROUTE_GATES = {**dict.fromkeys(NATIVE_ROUTE_RUNS, NATIVE_GATE), "LogisticModel": 1e-6, "MoeModel": 1e-6,
                       "NeXtVLADModel": 5e-4, "TransformerEncoderModel": 1e-3, "AttentionNetVLADModel": 2e-4,
-                      "FrameLevelLogisticModel": 1e-6}
+                      "FrameLevelLogisticModel": 1e-6, "AttentionPoolingModel": 1e-6, "LstmModel": 1e-6,
+                      "GruModel": 1e-6}
 # NeXtVLAD's trace (nextvlad_trace) against the torch route, each step's max
 # |Δ| over max |torch route| (rel) and, for the VLAD, its share of entries
 # equal; from the first run, on one H100 at 700 W: the expansion and the
@@ -4070,6 +4135,14 @@ ALL_FRAMES_TRACE_GATES = {
         "ffn2_of_runner_ffn1": 0.0, "pooled_of_runner_encoder": 0.0, "vlad_of_runner_encoder": 0.0,
         "product_of_runner_pool": 0.0}),
     "frame_logistic": {"default": 1e-6},
+    # the f32 routes of item 14c.5 (first run, one H100 at 700 W): every step
+    # within 8.2e-7 of max |torch route| (the f32 summation orders;
+    # plain_run on the card 0 from the RNNs' torch route, 2.2e-7 from the
+    # pooling's, whose gating BN it folds); pool_attention on the runner's
+    # keys and values 6.4e-8 from its plain version; the runner's carry equal
+    # to its own outputs at each row's last frame bit for bit
+    "attention_pooling": {"default": 1e-5, "att_of_runner_kv": 1e-6},
+    **dict.fromkeys(native_runtime.RNN_ROUTES, {"default": 1e-5, "final_of_runner_seq": 0.0}),
 }
 # the runner's launches a batch of each route (every route ends in topk)
 NATIVE_ROUTE_LAUNCHES = {
@@ -4091,6 +4164,12 @@ NATIVE_ROUTE_LAUNCHES.update({
     "TransformerEncoderModel": dict(ENCODER_LAUNCHES, masked_mean=1, hidden_sum=1, gating=1, moe_combine=1),
     "AttentionNetVLADModel": dict(ENCODER_LAUNCHES, netvlad_fused=1, hidden_sum=1, gating=1, moe_combine=1),
     "FrameLevelLogisticModel": dict(frame_stage=1, masked_mean=1, bias_sigmoid=1),
+    # the input projection's, the output projection's and the hidden FC's
+    # bias; the queries' projection is made at load
+    "AttentionPoolingModel": dict(frame_stage=1, bias_act=3, pool_attention=1, gating=1, moe_combine=1),
+    # two layers of F steps
+    "LstmModel": dict(frame_stage=1, lstm_cell=2 * F, moe_combine=1),
+    "GruModel": dict(frame_stage=1, gru_cell=2 * F, moe_combine=1),
 })
 # each kernel of these routes against its plain version on the card (atol as
 # a share of max|ref|, rtol): exact where both do the same f32 operations in
@@ -4116,6 +4195,13 @@ ROUTE_KERNEL_GATES = {
     # the f32 outputs: the f32 tolerance (summation order only)
     "native_frame_stage/all_f32": TOLERANCE[torch.float32],
     "native_masked_mean/logistic_f32": TOLERANCE[torch.float32],
+    "native_bias_act/f32": (0.0, 0.0),
+    "native_gating": (0.0, 0.0),
+    # the cells: PyTorch's element-wise operations in the same order
+    "native_lstm_cell": TOLERANCE[torch.float32],
+    "native_gru_cell": TOLERANCE[torch.float32],
+    # the dots', the softmax's and the weighted sum's order
+    "native_pool_attention": TOLERANCE[torch.float32],
 }
 # the checks timed beside the first of their kernel (a main path's other
 # shape): frame_stage with no draw, the attention routes' 76,800 rows
@@ -4124,7 +4210,29 @@ ROUTE_TIMED_CHECKS = ("native_frame_stage/all_bf16",)
 # inputs, where there is one (the other kernels' functions take two calls or
 # more): frame_pool's max over S (f32 out; the kernel rounds to bf16 as it
 # writes)
-ROUTE_LIBRARY_CALLS = {"native_frame_pool": lambda x: torch.amax(x["pooled_in"], dim=1)}
+ROUTE_LIBRARY_CALLS = {
+    "native_frame_pool": lambda x, t: torch.amax(x["pooled_in"], dim=1),
+    # the same cells from the same products (gate orders i, f, g, o and r,
+    # z, n, as flax's), on step t's inputs (contiguous copies): CUDA kernels
+    # only
+    "native_lstm_cell": lambda x, t: torch.ops.aten._thnn_fused_lstm_cell(
+        x["pre_steps"][t], x["hw_steps"][t], x["c_steps"][t], x["b_h"], x["zero_b4"]),
+    "native_gru_cell": lambda x, t: torch.ops.aten._thnn_fused_gru_cell(
+        x["gru_pre_steps"][t], x["gru_hw_steps"][t], x["h_steps"][t], x["b_i"], x["b_h3"]),
+    # SDPA on the biased heads [B, H, ·, hd] with the boolean key mask
+    "native_pool_attention": lambda x, t: torch.nn.functional.scaled_dot_product_attention(
+        x["sdpa_q"], x["sdpa_k"], x["sdpa_v"], attn_mask=x["sdpa_mask"]),
+}
+
+
+def stepping(call):
+    """A call without arguments that runs ``call(t)`` for t = 0, 1, …, F − 1,
+    0, … on successive calls: timed so, a cell reads each call inputs that
+    the calls before did not (a step of the pre-activations [B, F, G·H] and
+    of F products h·W_h and states, each set larger than the L2), so that
+    every byte of the bytes bound comes from HBM."""
+    steps = itertools.count()
+    return lambda: call(next(steps) % F)
 
 
 def route_config(name: str, overrides: dict) -> tuple:
@@ -4208,7 +4316,28 @@ def route_kernel_inputs(dev) -> dict:
     d, ff = 1024, 2048  # config 5's encoder width and FFN
     qkv_y = randn(b * F * 3 * d, scale=2.0)
     enc_x = randn(b * F, d).to(torch.bfloat16)
-    return dict(x=x, nf=nf, s=s, in_scale=randn(DT, scale=0.1) + 1.0, in_bias=randn(DT, scale=0.05),
+    hc, n_q, heads = 1024, 64, 8  # the RNNs' cells; AttentionPoolingModel's queries and heads (hd 128)
+    pre, hw, c_h = randn(b, F, 4 * hc, scale=2.0), randn(b, 4 * hc, scale=2.0), randn(b, hc)
+    b_hn = randn(hc, scale=0.5)
+    pool_q, kv, bkv = randn(n_q, d), randn(b, F, 2 * d), randn(2 * d, scale=0.1)
+    kvb = (kv + bkv).view(b, F, 2, heads, d // heads).permute(2, 0, 3, 1, 4)  # [2, B, H, F, hd]
+    # the cells' timed calls: a product h·W_h and a state for each step
+    steps_gen = torch.Generator(device=dev).manual_seed(8)
+    hw_steps = torch.randn((F, b, 4 * hc), generator=steps_gen, device=dev) * 2.0
+    c_steps = torch.randn((F, b, hc), generator=steps_gen, device=dev)
+    rnn = dict(pre=pre, pre_steps=pre.transpose(0, 1).contiguous(), hw=hw, b_h=randn(4 * hc, scale=0.5), c=c_h,
+               h=torch.tanh(c_h), b_i=randn(3 * hc, scale=0.5), b_hn=b_hn,
+               b_h3=torch.cat([torch.zeros(2 * hc, device=dev), b_hn]), zero_b4=torch.zeros(4 * hc, device=dev),
+               carry=randn(b, hc),
+               gru_pre_steps=pre[:, :, :3 * hc].transpose(0, 1).contiguous(), gru_hw=hw[:, :3 * hc].contiguous(),
+               hw_steps=hw_steps, c_steps=c_steps, gru_hw_steps=hw_steps[:, :, :3 * hc].contiguous(),
+               h_steps=torch.tanh(c_steps),
+               pool_q=pool_q, kv=kv, bkv=bkv, heads=heads,
+               sdpa_q=pool_q.view(n_q, heads, -1).permute(1, 0, 2)[None].expand(b, -1, -1, -1).contiguous(),
+               sdpa_k=kvb[0].contiguous(), sdpa_v=kvb[1].contiguous(),
+               sdpa_mask=native_tail.key_mask(nf0, F).bool()[:, None, None, :],
+               g_scale=randn(h, scale=0.2) + 1.0, g_bias=randn(h, scale=0.1))
+    return dict(**rnn, x=x, nf=nf, s=s, in_scale=randn(DT, scale=0.1) + 1.0, in_bias=randn(DT, scale=0.05),
                 nf0=nf0, qkv_y=qkv_y.view(b * F, 3 * d), qkv_b=randn(3 * d, scale=0.1),
                 ff_y=qkv_y[:b * F * ff].view(b * F, ff), ff_b=randn(ff, scale=0.1), enc_x=enc_x,
                 enc_y=randn(b * F, d).to(torch.bfloat16), ln_s=randn(d, scale=0.2) + 1.0, ln_b=randn(d, scale=0.1),
@@ -4224,12 +4353,28 @@ def route_kernel_inputs(dev) -> dict:
                 c2=randn(k, dp, scale=0.1), parts=[randn(b, h) for _ in range(4)], bias=randn(h, scale=0.1))
 
 
+def pool_attention_work(nf: torch.Tensor, frames: int, n_q: int, d: int) -> tuple:
+    """(bytes, operations) that pool_attention's function needs on this
+    data: the queries, each valid frame's key and value (every frame's
+    value for a video of no valid frame, which attends uniformly), the
+    output; two operations a multiply-add of the logits over the valid
+    frames and of the weighted sum over the frames with weight."""
+    valid = torch.clamp(nf, 0, frames).long()
+    weighted = int(torch.where(valid > 0, valid, frames).sum())
+    return (4 * (n_q * d + (int(valid.sum()) + weighted) * d + nf.shape[0] * n_q * d),
+            2 * n_q * d * (int(valid.sum()) + weighted))
+
+
 def route_kernel_calls(x: dict) -> dict:
     """name → [(check label, kernel call, plain call)], the timed call first,
-    with (bytes moved by the timed call) beside: each call's inputs read once
-    and its outputs written once."""
+    with the bytes moved by the timed call beside (each call's inputs read
+    once and its outputs written once), or (bytes, operations); the cells'
+    then a (kernel, plain) pair that is timed in the first check's place,
+    each call on the next step (stepping)."""
     nt = native_tail
     b, s = x["nf"].shape[0], x["s"]
+    hc = x["c"].shape[1]
+    last = F - 1
     key = prng.key(0)
     rows, gk = x["lp"].shape
     g = x["gp"].shape[1]
@@ -4281,7 +4426,9 @@ def route_kernel_calls(x: dict) -> dict:
         "native_bias_act": ([
             ("qkv", lambda: nt.bias_act(x["qkv_y"], x["qkv_b"]), lambda: nt.bias_act_plain(x["qkv_y"], x["qkv_b"])),
             ("ffn1_relu", lambda: nt.bias_act(x["ff_y"], x["ff_b"], True),
-             lambda: nt.bias_act_plain(x["ff_y"], x["ff_b"], True))],
+             lambda: nt.bias_act_plain(x["ff_y"], x["ff_b"], True)),
+            ("f32", lambda: nt.bias_act(x["ff_y"], x["ff_b"], dtype=torch.float32),
+             lambda: nt.bias_act_plain(x["ff_y"], x["ff_b"], dtype=torch.float32))],
             x["qkv_y"].numel() * (4 + 2) + x["qkv_b"].numel() * 4),
         "native_residual_layernorm": ([
             ("ln", lambda: nt.residual_layernorm(x["enc_x"], x["enc_y"], x["ln_s"], x["ln_b"]),
@@ -4295,6 +4442,42 @@ def route_kernel_calls(x: dict) -> dict:
              lambda: nt.masked_mean_plain(x["frames32"], x["nf0"], torch.float32, False))],
             # the valid frames' rows only: the kernel reads no pad row
             int(torch.clamp(x["nf0"], 0, F).sum()) * x["enc"].shape[2] * 2 + b * 4 + b * x["enc"].shape[2] * 2),
+        "native_gating": ([
+            ("f32", lambda: nt.gating(x["parts"][0], x["hid"], x["g_scale"], x["g_bias"], torch.float32),
+             lambda: nt.gating_plain(x["parts"][0], x["hid"], x["g_scale"], x["g_bias"], torch.float32))],
+            None),
+        "native_lstm_cell": ([
+            ("step", lambda: nt.lstm_cell(x["pre"][:, last], x["hw"], x["b_h"], x["c"]),
+             lambda: nt.lstm_cell_plain(x["pre"][:, last], x["hw"], x["b_h"], x["c"])),
+            ("carry_last_step", lambda: nt.lstm_cell(x["pre"][:, last], x["hw"], x["b_h"], x["c"], x["carry"], x["nf0"],
+                                                     last, F),
+             lambda: nt.lstm_cell_plain(x["pre"][:, last], x["hw"], x["b_h"], x["c"], x["carry"], x["nf0"], last, F)),
+            ("carry_first_step", lambda: nt.lstm_cell(x["pre"][:, 0], x["hw"], x["b_h"], x["c"], x["carry"], x["nf0"],
+                                                      0, F),
+             lambda: nt.lstm_cell_plain(x["pre"][:, 0], x["hw"], x["b_h"], x["c"], x["carry"], x["nf0"], 0, F))],
+            4 * (2 * b * 4 * hc + 4 * hc + 3 * b * hc),
+            (stepping(lambda t: nt.lstm_cell(x["pre"][:, t], x["hw_steps"][t], x["b_h"], x["c_steps"][t])),
+             stepping(lambda t: nt.lstm_cell_plain(x["pre"][:, t], x["hw_steps"][t], x["b_h"], x["c_steps"][t])))),
+        "native_gru_cell": ([
+            ("step", lambda: nt.gru_cell(x["pre"][:, last, :3 * hc], x["gru_hw"], x["b_i"], x["b_hn"], x["h"]),
+             lambda: nt.gru_cell_plain(x["pre"][:, last, :3 * hc], x["gru_hw"], x["b_i"], x["b_hn"], x["h"])),
+            ("carry_last_step", lambda: nt.gru_cell(x["pre"][:, last, :3 * hc], x["gru_hw"], x["b_i"], x["b_hn"],
+                                                    x["h"], x["carry"], x["nf0"], last, F),
+             lambda: nt.gru_cell_plain(x["pre"][:, last, :3 * hc], x["gru_hw"], x["b_i"], x["b_hn"], x["h"],
+                                       x["carry"], x["nf0"], last, F)),
+            ("carry_first_step", lambda: nt.gru_cell(x["pre"][:, 0, :3 * hc], x["gru_hw"], x["b_i"], x["b_hn"],
+                                                     x["h"], x["carry"], x["nf0"], 0, F),
+             lambda: nt.gru_cell_plain(x["pre"][:, 0, :3 * hc], x["gru_hw"], x["b_i"], x["b_hn"], x["h"],
+                                       x["carry"], x["nf0"], 0, F))],
+            4 * (2 * b * 3 * hc + 4 * hc + 2 * b * hc),
+            (stepping(lambda t: nt.gru_cell(x["pre"][:, t, :3 * hc], x["gru_hw_steps"][t], x["b_i"], x["b_hn"],
+                                            x["h_steps"][t])),
+             stepping(lambda t: nt.gru_cell_plain(x["pre"][:, t, :3 * hc], x["gru_hw_steps"][t], x["b_i"], x["b_hn"],
+                                                  x["h_steps"][t])))),
+        "native_pool_attention": ([
+            ("default_width", lambda: nt.pool_attention(x["pool_q"], x["kv"], x["bkv"], x["nf0"], x["heads"]),
+             lambda: nt.pool_attention_plain(x["pool_q"], x["kv"], x["bkv"], x["nf0"], x["heads"]))],
+            pool_attention_work(x["nf0"], F, *x["pool_q"].shape)),
     }
 
 
@@ -4307,8 +4490,8 @@ def check_route_kernels(dev, errors: dict) -> tuple:
     (timing, shapes, library) for the kernels line."""
     x = route_kernel_inputs(dev)
     timing, line = {}, {}
-    library = {name: device_ms(lambda: call(x)) for name, call in ROUTE_LIBRARY_CALLS.items()}
-    for name, (checks, nbytes) in route_kernel_calls(x).items():
+    library = {name: device_ms(stepping(functools.partial(call, x))) for name, call in ROUTE_LIBRARY_CALLS.items()}
+    for name, (checks, nbytes, *stepped) in route_kernel_calls(x).items():
         for label, kernel, plain in checks:
             got, want = kernel(), plain()
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -4321,7 +4504,10 @@ def check_route_kernels(dev, errors: dict) -> tuple:
                 line[f"{name}/{label}"].update(ms=device_ms(kernel), plain_ms=device_ms(plain))
             del got, want
         if nbytes is not None:
-            timing[name] = (device_ms(checks[0][1]), device_ms(checks[0][2]), (nbytes / PEAK_BYTES * 1e3, "bytes"))
+            nbytes, ops = nbytes if isinstance(nbytes, tuple) else (nbytes, 0)
+            kernel, plain = stepped[0] if stepped else checks[0][1:]
+            timing[name] = (device_ms(kernel), device_ms(plain),
+                            max((nbytes / PEAK_BYTES * 1e3, "bytes"), (ops / PEAK_CUDA_CORES * 1e3, "operations")))
     torch.cuda.synchronize()
     emit({"phase": "native_routes", "part": "kernels", "B": NATIVE_ROUTES_BATCH, "checks": line,
           "gates": ROUTE_KERNEL_GATES})
@@ -4339,14 +4525,23 @@ def check_route_kernels(dev, errors: dict) -> tuple:
                                      "also checked)",
         "native_masked_mean": "[256, 300, 1024] bf16 → bf16 over the valid frames (config 5's pool); f32 [256, 300, "
                               "1152] over num_frames also checked",
+        "native_lstm_cell": "B=256, H=1024: a step's rows of the [256, 300, 4096] f32 x·W_i, h·W_h [256, 4096] → h, "
+                            "c (LstmModel's default); the carry at t = 0 and F − 1 also checked; timed on another step, h·W_h and c "
+                            "each call",
+        "native_gru_cell": "B=256, H=1024: a step's rows of x·W_i (row stride 300·4096), h·W_h [256, 3072] → h "
+                           "(GruModel's default); the carry at t = 0 and F − 1 also checked; timed as lstm_cell",
+        "native_pool_attention": "B=256, F=300, 64 queries, 8 heads of 128, f32 [256, 300, 2048] keys and values "
+                                 "(AttentionPoolingModel's default), num_frames 0 included",
     }
     return timing, shapes, library
 
 
 def trace_diff(runner: torch.Tensor, torch_route: torch.Tensor) -> dict:
     """max |Δ|, that over max |torch route|, and the share of entries equal
-    bit for bit, of one step's runner and torch-route values."""
-    a, b = runner.float().cpu(), torch_route.float().cpu()
+    bit for bit, of one step's runner and torch-route values (on the torch
+    route's device)."""
+    b = torch_route.float()
+    a = runner.to(b.device).float()
     d = (a - b).abs().max().item()
     return {"max_abs": d, "rel": d / max(b.abs().max().item(), 1e-30), "equal_share": (a == b).float().mean().item()}
 
@@ -4424,13 +4619,24 @@ def all_frames_trace(exe, export_dir: str, feats, nfs, dev, want_p) -> dict:
     against the runner's output of that step: the last layer's FFN2 product
     and epilogue (the product's summation order alone), the pool (the
     masked mean's, or row 2 on the same inputs) and the hidden product.
+    The f32 routes of item 14c.5 (plain_run there within the gate of the
+    torch route): the pooling's frames, projections, keys and values,
+    attention (and pool_attention's plain version on the runner's keys and
+    values), h and gating; an RNN's frames, the top layer's x·W_i and
+    outputs (the carry after step 1 and step F) and the final carry, also
+    against the runner's own outputs at each row's last frame.
     Every step's rel within ALL_FRAMES_TRACE_GATES."""
     manifest, arrays = native_runtime.read_artifact(export_dir)
+    route = manifest["route"]
     steps = {}
     probs = native_runtime.plain_run(manifest, arrays, feats, nfs, return_probs=True, device=dev, trace=steps)
-    if not torch.equal(probs, want_p):
-        raise AssertionError(f"native_routes {manifest['route']}: the trace's route is not the torch route")
     out, runner = {}, {}
+    if route in ("attention_pooling",) + native_runtime.RNN_ROUTES:
+        # the model's f32 forward is the torch route here: plain_run folds the
+        # gating BN and projects the queries once, so it is held within the gate
+        out["plain_run_vs_torch_route"] = trace_diff(probs, want_p)
+    elif not torch.equal(probs, want_p):
+        raise AssertionError(f"native_routes {route}: the trace's route is not the torch route")
     for name, value in steps.items():
         runner[name] = exe.read(name, value.shape, value.dtype)
         out[name] = trace_diff(runner[name], value)
@@ -4456,12 +4662,44 @@ def all_frames_trace(exe, export_dir: str, feats, nfs, dev, want_p) -> dict:
             out[f"{pool_name}_of_runner_encoder"] = trace_diff(pool, runner[pool_name])
             out["product_of_runner_pool"] = trace_diff(
                 matmul_f32(runner[pool_name].to(dev), arrays["hidden_w"].to(dev)), runner["part/0"])
-    gates = ALL_FRAMES_TRACE_GATES[manifest["route"]]
+    nf = torch.from_numpy(nfs).to(dev)
+    if route == "attention_pooling":
+        # the kernel alone: pool_attention's plain version on the runner's keys
+        # and values against the runner's attention
+        with torch.no_grad():
+            on_dev = native_runtime.tree_to(arrays, dev)
+            att = native_tail.pool_attention_plain(native_runtime.pool_query(on_dev), runner["kv"].to(dev),
+                                                   on_dev["bkv"], nf, manifest["attention_heads"])
+        out["att_of_runner_kv"] = trace_diff(runner["att"], att)
+    if route in native_runtime.RNN_ROUTES:
+        seq = runner["seq/last"].to(dev)
+        f = seq.shape[1]
+        # the carry after the first and the last step, and the runner's carry
+        # against its own outputs at each row's last frame (the carry's copy)
+        out["seq/last step 1"] = trace_diff(seq[:, 0], steps["seq/last"][:, 0])
+        out["seq/last step F"] = trace_diff(seq[:, f - 1], steps["seq/last"][:, f - 1])
+        out["final_of_runner_seq"] = trace_diff(
+            runner["final"], seq[torch.arange(seq.shape[0], device=dev), native_tail.last_frame(nf, f)])
+    gates = ALL_FRAMES_TRACE_GATES[route]
     over = [name for name, d in out.items() if d["rel"] > gates.get(name, gates["default"])]
     if over:
-        raise AssertionError(f"native_routes {manifest['route']}: the trace is over ALL_FRAMES_TRACE_GATES at {over}: "
-                             f"{out}")
+        raise AssertionError(f"native_routes {route}: the trace is over ALL_FRAMES_TRACE_GATES at {over}: {out}")
     return out
+
+
+def cudnn_rnn_ms(name: str, mcfg: ModelConfig, feats: np.ndarray, nfs: np.ndarray, dev) -> float:
+    """cuDNN's ``torch.nn.LSTM`` / ``GRU`` (random weights, TF32 off) over
+    the batch's frames staged in f32, at the model's layers and cells: the
+    device ms of the layers alone, a yardstick for the RNN routes'."""
+    lstm = name == "LstmModel"
+    cells, layers = (mcfg.lstm_cells, mcfg.lstm_layers) if lstm else (mcfg.gru_cells, mcfg.gru_layers)
+    rnn = (torch.nn.LSTM if lstm else torch.nn.GRU)(DT, cells, num_layers=layers, batch_first=True).to(dev)
+    x, _ = native_tail.frame_stage_all_plain(torch.from_numpy(feats).to(dev), torch.from_numpy(nfs).to(dev),
+                                             torch.float32)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ms = time_ms(lambda: rnn(x), reps=3, warmup=1)
+    del rnn, x
+    return ms
 
 
 def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
@@ -4504,9 +4742,12 @@ def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
         export_s = time.perf_counter() - start
         manifest = native_runtime.read_manifest(export_dir)
 
+        torch.cuda.synchronize()
+        free = torch.cuda.mem_get_info(dev)[0]
         server = ModelServer(export_dir, 32, native=True, device=dev)
         exe = server._serve.executable
         server.warmup()
+        runner_bytes = free - torch.cuda.mem_get_info(dev)[0]  # its weights, workspaces and cuBLAS's
         reset_counters()
         exe.reset_launches()
         pairs = server.predict_pairs(records)
@@ -4555,12 +4796,13 @@ def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
         torch_ms = time_ms(lambda: route_fn(feats, nfs), reps=3, warmup=1)
         web = (lpm_serve_route(lpm_serve["path"], export_dir, exe, fcfg, records)
                if run in NATIVE_ROUTES_HTTP else None)
+        cudnn_ms = cudnn_rnn_ms(name, mcfg, feats, nfs, dev) if name in ("LstmModel", "GruModel") else None
         emit({"phase": "native_routes", "run": run, "route": manifest["route"], "B": b, "export_s": export_s,
               "weights_bytes": os.path.getsize(os.path.join(export_dir, native_runtime.WEIGHTS_FILE)),
-              "max_abs_prob_gap_vs_torch_route": gap, "gate": NATIVE_ROUTE_GATES[run],
+              "runner_device_bytes": runner_bytes, "max_abs_prob_gap_vs_torch_route": gap, "gate": NATIVE_ROUTE_GATES[run],
               "runner_launches": {n: c for n, c in runner_counts.items() if c},
               "torch_launches": "none", "videos_per_s": b / (runner_ms / 1e3), "runner_ms_per_batch": runner_ms,
-              "torch_route_ms_per_batch": torch_ms, "lpm_serve": web, "trace": trace,
+              "torch_route_ms_per_batch": torch_ms, "cudnn_layers_ms": cudnn_ms, "lpm_serve": web, "trace": trace,
               "seconds": time.perf_counter() - t_run, "card": smi})
         exe.close()
         del server, exe, tree, want_p, route_fn
@@ -4908,19 +5150,19 @@ def attn_fast_vs_model_forward(dev, name: str, mcfg: ModelConfig, train_dir: str
 def phase_train_attn_rnn_throughput(dev, smi):
     """The five models' train step at their default widths, B=256, F=300,
     bf16 compute (ATTN_RNN_RUNS without --bf16_params): videos/s (the median
-    of two rounds of two steps: an RNN step takes about a second), forward,
-    backward and optimizer ms,
+    of two rounds of two steps; for the RNNs, whose step takes about a
+    second, one round of one step), forward, backward and optimizer ms,
     peak memory; torch.profiler over the transformer's step (the top
     kernels, the idle share); then the model-forward inference route
     (make_predict_step, training off) of AttentionPoolingModel, LstmModel
-    and GruModel at B=256: videos/s, the median of three rounds."""
+    and GruModel at B=256: videos/s, the median of two rounds."""
     batch = random_train_batch(np.random.default_rng(4), 256, dev)
     tcfg = TrainingConfig(batch_size=256)
     for run, (name, extra) in ATTN_RNN_RUNS.items():
         if extra:
             continue
         mcfg = ModelConfig(compute_dtype="bfloat16")
-        line, step = time_train_step(dev, name, mcfg, tcfg, batch, rounds=2)
+        line, step = time_train_step(dev, name, mcfg, tcfg, batch, rounds=1 if name in ("LstmModel", "GruModel") else 2)
         emit({"phase": "train_attn_rnn_throughput", "model": name, **line,
               "dropout_launches_per_step": dropout_launches_per_step(name, mcfg), "card": smi})
         if name == "TransformerEncoderModel":
@@ -4933,7 +5175,7 @@ def phase_train_attn_rnn_throughput(dev, smi):
         mcfg = ModelConfig(compute_dtype="bfloat16")
         model = load_flax_variables(create_model(name, mcfg, DT), init_variables_np(mcfg, fcfg, model_name=name))
         predict = step_lib.make_predict_step(model.to(dev).eval(), mcfg, True)
-        rounds = [time_ms(lambda: predict(batch["features"], batch["num_frames"]), reps=3) for _ in range(3)]
+        rounds = [time_ms(lambda: predict(batch["features"], batch["num_frames"]), reps=3, warmup=1) for _ in range(2)]
         ms = statistics.median(rounds)
         emit({"phase": "attn_rnn_inference_throughput", "model": name, "route": "model-forward bf16", "B": 256,
               "F": F, "videos_per_s": 256 / (ms / 1e3), "batch_ms": ms,
@@ -5677,4 +5919,7 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--data-parallel-worker":
         sys.exit(data_parallel_worker(sys.argv[2]))
-    sys.exit(main())
+    # the phases build the same models over and over (the CLIs' initial
+    # weights among them): each distinct initial tree is drawn once
+    with init_memo():
+        sys.exit(main())

@@ -13,12 +13,15 @@ with_stablehlo=True)`` writes:
                           port's: the route, and the lines its route needs
                           (ROUTE_LINES: the sampling key and mode, iterations,
                           moe_num_mixtures, DBoF's pooling, NeXtVLAD's groups
-                          and expansion, the encoder's layers and heads) and
+                          and expansion, the encoder's layers and heads, the
+                          pooling's queries, the RNNs' layers and cells) and
                           one named line per array
     weights.bin           the route's arrays (ARRAYS: the fast route's
                           prepare with BNs folded, bf16 and f32 as the
-                          kernels read them; the f32 heads of the two
-                          video-level models and FrameLevelLogisticModel),
+                          kernels read them; the f32 leaves of the models
+                          with no fast route: the two video-level heads,
+                          FrameLevelLogisticModel, AttentionPoolingModel and
+                          the RNNs),
                           dense, row-major,
                           little-endian, in the manifest's order
 
@@ -43,6 +46,15 @@ The routes (ROUTES), one per model:
                            residual_layernorm zeroes the pad rows), row 2
     frame_logistic         FrameLevelLogisticModel: frame_stage of every frame
                            in f32, masked_mean, SGEMM, bias_sigmoid      (f32)
+    attention_pooling      AttentionPoolingModel: frame_stage in f32, the
+                           input projection and bias_act, the key/value
+                           SGEMM, pool_attention (the queries' projection
+                           made once at load), the output projection, the
+                           hidden FC, each with bias_act; gating, the MoE (f32)
+    rnn_lstm, rnn_gru      LstmModel, GruModel: frame_stage in f32, then a
+                           layer: one SGEMM x·W_i over every frame, and a
+                           step: the SGEMM h·W_h and lstm_cell / gru_cell
+                           (which keeps the final carry); the MoE        (f32)
 
 and the LOUPE four and the attention two end in the hidden FC's products,
 hidden_sum, gating, moe_combine; every route in topk.
@@ -86,9 +98,12 @@ from learnablepoolingmethods_torch.ops.native_tail import (
     frame_stage_all_plain,
     frame_stage_plain,
     gating_plain,
+    gru_cell_plain,
     hidden_sum_plain,
+    lstm_cell_plain,
     masked_mean_plain,
     moe_combine_plain,
+    pool_attention_plain,
     row_l2_plain,
 )
 from learnablepoolingmethods_torch.ops.netvlad_fused import netvlad_fused
@@ -110,16 +125,22 @@ ROUTES = {
     "fast_transformer": "TransformerEncoderModel",
     "fast_attn_netvlad": "AttentionNetVLADModel",
     "frame_logistic": "FrameLevelLogisticModel",
+    "attention_pooling": "AttentionPoolingModel",
+    "rnn_lstm": "LstmModel",
+    "rnn_gru": "GruModel",
 }
 MODEL_ROUTES = {model: route for route, model in ROUTES.items()}
 VIDEO_ROUTES = ("video_logistic", "video_moe")
 ATTENTION_ROUTES = ("fast_transformer", "fast_attn_netvlad")
+RNN_ROUTES = ("rnn_lstm", "rnn_gru")
+# the routes of the models with no fast route that read every frame
+FLAX_FRAME_ROUTES = ("frame_logistic", "attention_pooling") + RNN_ROUTES
 # the frame-level routes that draw no frames (S = F)
-ALL_FRAME_ROUTES = ATTENTION_ROUTES + ("frame_logistic",)
+ALL_FRAME_ROUTES = ATTENTION_ROUTES + FLAX_FRAME_ROUTES
 # the logistic heads (fc/kernel, fc/bias; no MoE)
 LOGISTIC_ROUTES = ("video_logistic", "frame_logistic")
 # the routes of the model's f32 forward (the others: a fast route's bf16)
-F32_ROUTES = VIDEO_ROUTES + ("frame_logistic",)
+F32_ROUTES = VIDEO_ROUTES + FLAX_FRAME_ROUTES
 LF_ROUTES = ("fast_lf_netrvlad", "fast_lf_softdbow", "fast_lf_netfv", "fast_lf_nextvlad")
 # NetVLADModelLF's route, the runner's first
 ROUTE = "fast_netvlad_frontend"
@@ -134,13 +155,25 @@ LF_MOD_ARRAYS = {
 }
 # an encoder layer's arrays (ops/fast_transformer.py#_prepare_encoder_layers)
 LAYER_ARRAYS = ("wqkv", "bqkv", "wo", "bo", "ln1_s", "ln1_b", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2")
+# an RNN layer's arrays: the gates' kernels side by side (LSTM i, f, g, o;
+# GRU r, z, n) and the biases flax gives them
+RNN_LAYER_ARRAYS = {"rnn_lstm": ("w_i", "w_h", "b_h"), "rnn_gru": ("w_i", "b_i", "w_h", "b_hn")}
+# AttentionPoolingModel's arrays: the input projection, the queries and
+# pool_mha's projections ([D, H·hd]; key and value side by side), the hidden
+# FC and the folded gating (f32)
+POOL_ARRAYS = ("w_proj", "b_proj", "queries", "wq", "bq", "wkv", "bkv", "wo", "bo", "hidden_w", "hidden_b",
+               "gate_w", "g_scale", "g_bias")
 
 
 def route_arrays(route: str, n_mods: int = 2, n_layers: int = 2) -> Tuple[str, ...]:
     """The runner's arrays of ``route`` in weights.bin's order: the keys of
     its prepare, "/" into nested dicts and lists ("rgb/cluster",
     "mods/0/w1", "layers/1/wqkv"); a LOUPE route of ``n_mods`` modalities,
-    an attention route of ``n_layers`` encoder layers."""
+    an attention or RNN route of ``n_layers`` layers."""
+    if route in RNN_ROUTES:
+        return tuple(f"layers/{i}/{a}" for i in range(n_layers) for a in RNN_LAYER_ARRAYS[route]) + MOE
+    if route == "attention_pooling":
+        return POOL_ARRAYS + MOE
     if route in ATTENTION_ROUTES:
         pool = ("hidden_w",) if route == "fast_transformer" else ("cluster", "c_scale", "c_bias", "c2", "hidden_w")
         return (("w_proj", "b_proj") + tuple(f"layers/{i}/{a}" for i in range(n_layers) for a in LAYER_ARRAYS)
@@ -168,13 +201,16 @@ ROUTE_LINES = {route: ("route",) + (() if route in VIDEO_ROUTES + ALL_FRAME_ROUT
                + (() if route in LOGISTIC_ROUTES else ("moe_num_mixtures",))
                + {"fast_dbof": ("sampling", "dbof_pooling_method"),
                   "fast_lf_nextvlad": ("nextvlad_groups", "nextvlad_expansion"),
-                  **dict.fromkeys(ATTENTION_ROUTES, ("transformer_layers", "attention_heads"))}.get(route, ())
+                  **dict.fromkeys(ATTENTION_ROUTES, ("transformer_layers", "attention_heads")),
+                  "attention_pooling": ("attention_heads", "attention_cluster_size"),
+                  **dict.fromkeys(RNN_ROUTES, ("rnn_layers", "rnn_cells"))}.get(route, ())
                for route in ROUTES}
 TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the launches the runner counts (csrc/native_runner.cu kCounterNames)
 COUNTERS = ("netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention", "frame_stage",
             "bias_sigmoid", "bias_relu6", "frame_pool", "row_l2", "nextvlad_assign", "nextvlad_residual", "bias_act",
-            "residual_layernorm", "masked_mean", "hidden_sum", "gating", "moe_combine", "topk")
+            "residual_layernorm", "masked_mean", "hidden_sum", "gating", "moe_combine", "topk", "lstm_cell",
+            "gru_cell", "pool_attention")
 # the TPU-kernel counterparts among them (PERF.md's rows 1, 2, 6, 5 and 7)
 ROW_KERNELS = ("netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention")
 
@@ -327,6 +363,57 @@ def _gated_probs(parts, arrays: dict, m: int, group: int = 1, bias_first: bool =
     return _moe_probs(hg, arrays, m)
 
 
+def pool_query(arrays: dict) -> torch.Tensor:
+    """AttentionPoolingModel's query projection with its bias [Q, H·hd]
+    (f32): it reads no input, so the runner makes it once, at load."""
+    return bias_act_plain(matmul_f32_local(arrays["queries"], arrays["wq"]), arrays["bq"], dtype=torch.float32)
+
+
+def recurrent_final(route: str, layers, x: torch.Tensor, num_frames: torch.Tensor,
+                    trace: Optional[dict] = None) -> torch.Tensor:
+    """The RNN routes' layers over every frame of ``x`` [B, F, D] (f32): a
+    layer's x·W_i over all frames at once, then, from a zero state, each
+    step's h·W_h and the cell (``lstm_cell_plain`` / ``gru_cell_plain``),
+    whose outputs are the next layer's input, pad frames included, as
+    flax's ``nn.RNN`` runs them → the top layer's carry at each row's
+    ``last_frame`` [B, H].  ``trace`` keeps the top layer's products x·W_i
+    ("pre/last") and outputs ("seq/last") and the carry ("final")."""
+    b, f, _ = x.shape
+    for i, lp in enumerate(layers):
+        pre = matmul_f32_local(x.reshape(b * f, -1), lp["w_i"]).reshape(b, f, -1)
+        h = c = carry = x.new_zeros(b, lp["w_h"].shape[0])
+        outs = []
+        for t in range(f):
+            hw = matmul_f32_local(h, lp["w_h"])
+            if route == "rnn_lstm":
+                h, c, carry = lstm_cell_plain(pre[:, t], hw, lp["b_h"], c, carry, num_frames, t, f)
+            else:
+                h, carry = gru_cell_plain(pre[:, t], hw, lp["b_i"], lp["b_hn"], h, carry, num_frames, t, f)
+            outs.append(h)
+        x = torch.stack(outs, dim=1)
+    if trace is not None:
+        trace.update({"pre/last": pre, "seq/last": x, "final": carry})
+    return carry
+
+
+def _attention_pool_probs(manifest: dict, arrays: dict, xs: torch.Tensor, nf: torch.Tensor,
+                          trace: dict) -> torch.Tensor:
+    """AttentionPoolingModel in f32 on the staged frames: the input
+    projection, the key/value product, pool_attention, the output
+    projection, the hidden FC (each + its bias), the gating and the MoE."""
+    b, f, dt = xs.shape
+    f32 = torch.float32
+    xp = bias_act_plain(matmul_f32_local(xs.reshape(b * f, dt), arrays["w_proj"]), arrays["b_proj"], dtype=f32)
+    kv = matmul_f32_local(xp, arrays["wkv"]).reshape(b, f, -1)
+    att = pool_attention_plain(pool_query(arrays), kv, arrays["bkv"], nf, manifest["attention_heads"])
+    pooled = bias_act_plain(matmul_f32_local(att.reshape(-1, att.shape[2]), arrays["wo"]), arrays["bo"],
+                            dtype=f32).reshape(b, -1)
+    h = bias_act_plain(matmul_f32_local(pooled, arrays["hidden_w"]), arrays["hidden_b"], dtype=f32)
+    gated = gating_plain(matmul_f32_local(h, arrays["gate_w"]), h, arrays["g_scale"], arrays["g_bias"], f32)
+    trace.update(proj=xp, kv=kv, att=att, pooled=pooled, h=h, gated=gated)
+    return _moe_probs(gated, arrays, manifest["moe_num_mixtures"])
+
+
 def _all_frames_probs(manifest: dict, arrays: dict, x: torch.Tensor, nf: torch.Tensor,
                       trace: Optional[dict] = None) -> torch.Tensor:
     """The routes that read every frame: frame_stage with no draw (and the
@@ -334,16 +421,24 @@ def _all_frames_probs(manifest: dict, arrays: dict, x: torch.Tensor, nf: torch.T
     #encoder_stack``: bias_act and residual_layernorm's plain versions, row
     7's wrapper; AttentionNetVLAD's last LayerNorm zeroing the pad rows),
     then masked_mean or row 2's wrapper, the hidden FC and the gated tail;
-    FrameLevelLogisticModel's f32 masked mean over num_frames, its product
-    and bias_sigmoid.  ``trace`` keeps the steps that the runner's buffers
-    of the same names hold (``NativeExecutable.read``)."""
+    the f32 routes on frames staged in f32: FrameLevelLogisticModel's
+    masked mean over num_frames, its product and bias_sigmoid;
+    AttentionPoolingModel's (:func:`_attention_pool_probs`); the RNNs'
+    (:func:`recurrent_final`) and the MoE.  ``trace`` keeps the steps that
+    the runner's buffers of the same names hold (``NativeExecutable.read``)."""
     route = manifest["route"]
     b, f, dt = x.shape
     trace = {} if trace is None else trace
-    if route == "frame_logistic":
+    if route in FLAX_FRAME_ROUTES:
         xs, _ = frame_stage_all_plain(x, nf, torch.float32)
+        trace.update(frames=xs)
+        if route == "attention_pooling":
+            return _attention_pool_probs(manifest, arrays, xs, nf, trace)
+        if route in RNN_ROUTES:
+            return _moe_probs(recurrent_final(route, arrays["layers"], xs, nf, trace), arrays,
+                              manifest["moe_num_mixtures"])
         pooled = masked_mean_plain(xs, nf, torch.float32, count_valid=False)
-        trace.update(frames=xs, pooled=pooled)
+        trace.update(pooled=pooled)
         return bias_sigmoid_plain(pooled @ arrays["fc"]["kernel"], arrays["fc"]["bias"])
     xs, mask = frame_stage_all_plain(x, nf)
     h = bias_act_plain(matmul_f32_local(xs.reshape(b * f, dt), arrays["w_proj"]), arrays["b_proj"])
@@ -378,7 +473,9 @@ def plain_run(manifest: dict, arrays: dict, features, num_frames=None, return_pr
     prefer_fast=True, device="cpu")``'s serve bit for bit (the DBoF window
     has no fast route to equal; FrameLevelLogisticModel has none and its
     serve is the model's f32 forward), and the video-level routes compute
-    the model's f32 forward.  On a CUDA ``device`` the wrappers launch their
+    the model's f32 forward; AttentionPoolingModel's and the RNNs' are
+    their model's f32 forward within 1e-6 (the gating BN folded, the query
+    projection made once).  On a CUDA ``device`` the wrappers launch their
     kernels: the port's torch route.  → (values, indices) [B, k], or the
     probabilities [B, V].  ``trace`` (a dict) receives the steps of a route
     that reads every frame under the names of the runner's buffers."""
@@ -503,8 +600,10 @@ class NativeExecutable:
         ``"residual"`` and ``"vlad"``, an attention route's ``"frames"``,
         ``"mask"``, ``"ffn1"`` and ``"ffn2"`` (its last layer's FFN),
         ``"encoder"`` and ``"pooled"`` or ``"vlad"``,
-        FrameLevelLogisticModel's ``"frames"`` and ``"pooled"``
-        (``csrc/native_runner.cu#buffers``)."""
+        FrameLevelLogisticModel's ``"frames"`` and ``"pooled"``,
+        AttentionPoolingModel's ``"frames"``, ``"proj"``, ``"kv"``,
+        ``"att"``, ``"pooled"``, ``"h"`` and ``"gated"``, an RNN's
+        ``"frames"``, ``"pre/last"``, ``"seq/last"`` and ``"final"`` (``csrc/native_runner.cu#buffers``)."""
         out = torch.empty(shape, dtype=dtype)
         fn = _fn("lpm_runner_read", [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_longlong],
                  ctypes.c_longlong)

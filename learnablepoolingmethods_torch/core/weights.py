@@ -28,11 +28,13 @@ the optax ``opt_state``, as numpy arrays) into the port's TrainState, and
 :func:`tree_paths`, which name a checkpoint's leaves (``core/checkpoints.py``).
 
 :func:`init_variables_np` makes a tree of the same keys, shapes and
-initial scales as ``model.init`` from a seed, for machines without JAX.
+initial scales as ``model.init`` from a seed, for machines without JAX;
+within :func:`init_memo` it draws each distinct tree once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from collections.abc import Mapping
 from typing import Any, Dict
@@ -501,7 +503,14 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
     models/frame_level.py, models/video_level.py, and the JAX package's
     models/attention.py), and BN scale 1, bias 0, mean 0, var 1.  The
     classifier head of a pooling model is ``--video_level_classifier_model``'s,
-    ``MoeModel_0`` or ``LogisticModel_0``."""
+    ``MoeModel_0`` or ``LogisticModel_0``.  Within :func:`init_memo` a tree
+    drawn before for the same draw is handed out again as a copy."""
+    if _memo is not None:
+        return _memo.tree(mcfg, fcfg, seed, model_name)
+    return _draw_variables_np(mcfg, fcfg, seed, model_name)
+
+
+def _draw_variables_np(mcfg, fcfg: FeatureConfig, seed: int, model_name: str) -> Tree:
     head = mcfg.video_level_classifier_model
     if head not in ("MoeModel", "LogisticModel") and model_name not in SINGLE_LAYER_MODELS:
         raise ValueError(f"init_variables_np builds a MoeModel or LogisticModel head, not {head!r}")
@@ -616,3 +625,62 @@ def init_variables_np(mcfg: ModelConfig, fcfg: FeatureConfig, seed: int = 0,
 
     params.update(classifier(h))
     return {"params": params, "batch_stats": stats}
+
+
+class _ReadLog:
+    """A ModelConfig whose attribute reads are kept (name → value)."""
+
+    def __init__(self, cfg: ModelConfig):
+        self._cfg, self._reads = cfg, {}
+
+    def __getattr__(self, name: str):
+        value = getattr(self._cfg, name)
+        self._reads[name] = value
+        return value
+
+
+def _copy_tree(tree: Tree) -> Tree:
+    return {k: _copy_tree(v) if isinstance(v, Mapping) else np.array(v, copy=True) for k, v in tree.items()}
+
+
+class _InitMemo:
+    """The trees drawn while :func:`init_memo` is open, the most recently
+    used last: (model, seed, FeatureConfig), the ModelConfig fields the draw
+    read with their values, the tree, its bytes."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes, self.entries = max_bytes, []
+
+    def tree(self, mcfg: ModelConfig, fcfg: FeatureConfig, seed: int, model_name: str) -> Tree:
+        key = (model_name, seed, fcfg)
+        for i, (k, reads, tree, _) in enumerate(self.entries):
+            if k == key and all(getattr(mcfg, name) == value for name, value in reads.items()):
+                self.entries.append(self.entries.pop(i))
+                return _copy_tree(tree)
+        log = _ReadLog(mcfg)
+        tree = _draw_variables_np(log, fcfg, seed, model_name)
+        self.entries.append((key, log._reads, tree, sum(a.nbytes for a in _flatten(tree).values())))
+        while len(self.entries) > 1 and sum(e[3] for e in self.entries) > self.max_bytes:
+            self.entries.pop(0)
+        return _copy_tree(tree)
+
+
+_memo = None
+
+
+@contextlib.contextmanager
+def init_memo(max_bytes: int = 12 << 30):
+    """Within the block :func:`init_variables_np` draws each distinct tree
+    once and hands out copies of it.  The draw is a function of the model,
+    the seed, the FeatureConfig and the ModelConfig fields it reads, so a
+    later call whose ModelConfig holds the same values in those fields (say
+    another ``compute_dtype``) takes a copy of the earlier tree, bit for
+    bit the tree it would draw.  Past ``max_bytes`` of trees the least
+    recently used go first.  For a process that builds the same models many
+    times over, as ``chip_smoke.py`` does."""
+    global _memo
+    outer, _memo = _memo, _InitMemo(max_bytes)
+    try:
+        yield _memo
+    finally:
+        _memo = outer

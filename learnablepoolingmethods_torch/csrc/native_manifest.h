@@ -9,7 +9,8 @@
 // n_call_inputs, call_input, n_outputs, output), and the port's own lines:
 // the route (kRoutes), the lines that its route needs (kRoutes' lines:
 // sampling_key, iterations, moe_num_mixtures, sampling, dbof_pooling_method,
-// nextvlad_groups, nextvlad_expansion, transformer_layers, attention_heads),
+// nextvlad_groups, nextvlad_expansion, transformer_layers, attention_heads,
+// attention_cluster_size, rnn_layers, rnn_cells),
 // n_weights and one named weight line per array of weights.bin, in the
 // file's order:
 //
@@ -54,6 +55,9 @@ constexpr RouteSpec kRoutes[] = {
     {"fast_transformer", false, {"moe_num_mixtures", "transformer_layers", "attention_heads"}},
     {"fast_attn_netvlad", false, {"moe_num_mixtures", "transformer_layers", "attention_heads"}},
     {"frame_logistic", false, {}},
+    {"attention_pooling", false, {"moe_num_mixtures", "attention_heads", "attention_cluster_size"}},
+    {"rnn_lstm", false, {"moe_num_mixtures", "rnn_layers", "rnn_cells"}},
+    {"rnn_gru", false, {"moe_num_mixtures", "rnn_layers", "rnn_cells"}},
 };
 constexpr int kNumRoutes = sizeof(kRoutes) / sizeof(kRoutes[0]);
 
@@ -82,7 +86,8 @@ struct Manifest {
   int route_index = -1;  // into kRoutes
   int32_t batch_size = 0, top_k = 0, frame_features = 0, max_frames = 0;
   int32_t iterations = 0, moe_num_mixtures = 0, nextvlad_expansion = 0;
-  int32_t transformer_layers = 0, attention_heads = 0;
+  int32_t transformer_layers = 0, attention_heads = 0, attention_cluster_size = 0;
+  int32_t rnn_layers = 0, rnn_cells = 0;
   uint32_t key0 = 0, key1 = 0;
   std::vector<int32_t> nextvlad_groups;  // one a modality
   std::vector<std::string> feature_names;
@@ -174,6 +179,12 @@ inline bool LoadManifest(const std::string& export_dir, Manifest* m, std::string
       ok = (in >> m->transformer_layers) && m->transformer_layers > 0;
     } else if (key == "attention_heads") {
       ok = (in >> m->attention_heads) && m->attention_heads > 0;
+    } else if (key == "attention_cluster_size") {
+      ok = (in >> m->attention_cluster_size) && m->attention_cluster_size > 0;
+    } else if (key == "rnn_layers") {
+      ok = (in >> m->rnn_layers) && m->rnn_layers > 0;
+    } else if (key == "rnn_cells") {
+      ok = (in >> m->rnn_cells) && m->rnn_cells > 0;
     } else if (key == "feature") {
       std::string name;
       int32_t size = 0;

@@ -47,6 +47,18 @@
 //   frame_logistic  FrameLevelLogisticModel, f32: frame_stage with no draw
 //       (dequantized in f32, the predict step's preprocess_input),
 //       masked_mean over num_frames, SGEMM, bias_sigmoid.
+//   attention_pooling  AttentionPoolingModel, f32 (the flax graph's
+//       arithmetic; no fast route exists): frame_stage with no draw in f32,
+//       the input projection and bias_act, the key/value SGEMM,
+//       pool_attention (Q learned queries over every frame; their
+//       projection made once at load), the output projection, the hidden
+//       FC, each with bias_act; the gating product and gating (f32 out);
+//       the MoE in f32.
+//   rnn_lstm, rnn_gru  LstmModel, GruModel, f32: frame_stage with no draw in
+//       f32; a layer: one SGEMM x·W_i over every frame, then per frame the
+//       SGEMM h·W_h and lstm_cell or gru_cell (the step's output, the next
+//       layer's input, and the final carry at each row's last frame); the
+//       MoE in f32 on the top layer's carry.
 //   The gated MoE tail: the gating product on the rounded h, gating, the
 //   MoE's gate and expert products, moe_combine; every route then topk.
 //
@@ -55,7 +67,7 @@
 // too.  The JAX package leaves the products and the element-wise steps to
 // XLA; so cuBLAS computes the products here (bf16 × bf16 → f32, or rounded
 // once to bf16 from the f32 sum for NeXtVLAD's expansion, or f32 with TF32
-// off for the two video-level routes), and the rest are small hand kernels.  What
+// off for the f32 routes), and the rest are small hand kernels.  What
 // bounds them: each reads its inputs and writes its outputs once (bytes;
 // at B=256, V=3862 moe_combine moves 20 MB, about 6 µs at 3.35 TB/s).
 // They are simple first: one thread an element for the element-wise ones
@@ -64,7 +76,8 @@
 // residual_layernorm, one block a (video, cluster) for nextvlad_residual, and
 // for topk one block a row that keeps the row in shared memory and takes k
 // rounds of a block-wide argmax, each round over the entries that order
-// after the previous pick.  chip_smoke.py holds each against its plain
+// after the previous pick; one thread a (row, unit) for the RNN cells, one
+// block a (video, head) for pool_attention (its logits in shared memory).  chip_smoke.py holds each against its plain
 // version (ops/native_tail.py) and times it beside its bound.
 //
 // Arithmetic that the gate against the torch route needs: the sigmoid is
@@ -83,6 +96,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -136,33 +150,43 @@ constexpr int kRowThreads = 256;         // one warp a row, 8 rows a block
 constexpr int kRowsPerBlock = kRowThreads / 32;
 constexpr int kResidualThreads = 128;
 constexpr int kTopkThreads = 256;
-constexpr int kMaxTopkSmem = 232448;  // an H100 block's dynamic shared memory at most
+constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory at most
 constexpr int kMaxParts = 4;          // hidden_sum's products (NetFV: fv1, fv2 of two modalities)
 constexpr int kMaxMods = 2;
+constexpr int kPoolThreads = 256;
+constexpr int kPoolTile = 32;    // keys (or values) a shared-memory tile
+constexpr int kPoolRows = 64;    // queries a pass: a thread a query and 8 keys of a tile
+constexpr int kPoolMaxHd = 128;  // the values' pass: a thread a column
 
 // the counted launches, in lpm_runner_launches' names
 enum Counter {
   kFrontend, kNetvladFused, kSoftdbowFused, kNetfvFused, kMaskedAttention, kFrameStage,
   kBiasSigmoid, kBiasRelu6, kFramePool, kRowL2, kNextvladAssign, kNextvladResidual, kBiasAct,
-  kResidualLayernorm, kMaskedMean, kHiddenSum, kGating, kMoeCombine, kTopk, kNumCounters
+  kResidualLayernorm, kMaskedMean, kHiddenSum, kGating, kMoeCombine, kTopk, kLstmCell, kGruCell,
+  kPoolAttention, kNumCounters
 };
 const char* const kCounterNames[kNumCounters] = {
     "netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention",
     "frame_stage", "bias_sigmoid", "bias_relu6", "frame_pool", "row_l2", "nextvlad_assign",
     "nextvlad_residual", "bias_act", "residual_layernorm", "masked_mean", "hidden_sum",
-    "gating", "moe_combine", "topk"};
+    "gating", "moe_combine", "topk", "lstm_cell", "gru_cell", "pool_attention"};
 
 // kRoutes' order (native_manifest.h)
 enum Route {
   kNetvlad, kLogistic, kMoe, kDbof, kNetrvlad, kSoftdbow, kNetfv, kNextvlad, kTransformer,
-  kAttnNetvlad, kFrameLogistic
+  kAttnNetvlad, kFrameLogistic, kAttnPool, kLstm, kGru
 };
 // bias_act_kernel's activations
 enum Act { kActSigmoid, kActRelu6, kActRelu, kActNone };
 
 bool attention_route(Route r) { return r == kTransformer || r == kAttnNetvlad; }
+bool rnn_route(Route r) { return r == kLstm || r == kGru; }
+// the routes of the models with no fast route that end in the MoE (f32)
+bool flax_moe_route(Route r) { return r == kAttnPool || rnn_route(r); }
 // the routes that read every frame (no draw: S = F)
-bool all_frames_route(Route r) { return attention_route(r) || r == kFrameLogistic; }
+bool all_frames_route(Route r) {
+  return attention_route(r) || r == kFrameLogistic || flax_moe_route(r);
+}
 // the routes that end in hidden_sum and the gated MoE tail
 bool gated_route(Route r) { return r == kNetvlad || (r >= kNetrvlad && r <= kAttnNetvlad); }
 
@@ -214,14 +238,17 @@ __global__ void hidden_sum_kernel(const float* __restrict__ p0, const float* __r
   }
 }
 
-// out = bf16(h · σ(gates · g_scale[col] + g_bias[col]))
+// out = h · σ(gates · g_scale[col] + g_bias[col]), rounded to bf16 and/or f32
 __global__ void gating_kernel(const float* __restrict__ gates, const float* __restrict__ h,
                               const float* __restrict__ g_scale, const float* __restrict__ g_bias,
-                              bf16* __restrict__ out, long long n, int H) {
+                              bf16* __restrict__ out, float* __restrict__ out_f32, long long n,
+                              int H) {
   for (long long i = grid_start(); i < n; i += grid_step()) {
     const int c = (int)(i % H);
     const float g = __fadd_rn(__fmul_rn(gates[i], g_scale[c]), g_bias[c]);
-    out[i] = __float2bfloat16_rn(__fmul_rn(h[i], sigmoid(g)));
+    const float y = __fmul_rn(h[i], sigmoid(g));
+    if (out) out[i] = __float2bfloat16_rn(y);
+    if (out_f32) out_f32[i] = y;
   }
 }
 
@@ -547,6 +574,177 @@ nextvlad_residual_kernel(const float* agg, const float* __restrict__ assign,
     out[base + d] = __fsub_rn(agg[base + d], __fmul_rn(asum, c2[(long long)k * Dp + d]));
 }
 
+// The carry index of a row: min(num_frames, F) − 1 mod F, as flax's
+// _select_last_carry reads x[seq_lengths − 1] (a row of no frames takes the
+// carry after frame F − 1).
+__device__ __forceinline__ int last_frame(int nf, int F) {
+  const int n = (min(nf, F) - 1) % F;
+  return n < 0 ? n + F : n;
+}
+
+// One step t of flax's OptimizedLSTMCell for every row, f32: one thread a
+// (row b, unit j); the gates (hw + b_h) + pre in the order i, f, g, o (pre:
+// row b at b·ld_pre, the step's x·W_i), c′ = σ(f)·c + σ(i)·tanh(g), h′ =
+// σ(o)·tanh(c′), each product and sum rounded as PyTorch's element-wise ops
+// round them.  h′ to h_out, to seq (row b at b·ld_seq) and, where t is the
+// row's last frame, to carry.  c_out may be c_in.  It replaces no
+// pallas_call: flax's cell runs in XLA's lax.scan (JAX
+// models/frame_level.py:263-269).  Bytes bound it (the step's two [B, 4H]
+// products in, h and c out: about 3 µs at B=256, H=1024 and 3.35 TB/s); a
+// thread reads its unit's four gates from each product, coalesced across a
+// warp.
+__global__ void lstm_cell_kernel(const float* __restrict__ pre, long long ld_pre,
+                                 const float* __restrict__ hw, const float* __restrict__ b_h,
+                                 const float* c_in, float* c_out, float* __restrict__ h_out,
+                                 float* __restrict__ seq, long long ld_seq,
+                                 float* __restrict__ carry, const int32_t* __restrict__ nf, int B,
+                                 int F, int H, int t) {
+  const long long n = (long long)B * H;
+  for (long long i = grid_start(); i < n; i += grid_step()) {
+    const long long b = i / H;
+    const int j = (int)(i % H);
+    const float* p = pre + b * ld_pre + j;
+    const float* w = hw + b * 4 * H + j;
+    float z[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) z[g] = __fadd_rn(__fadd_rn(w[g * H], b_h[g * H + j]), p[g * H]);
+    const float c = __fadd_rn(__fmul_rn(sigmoid(z[1]), c_in[i]), __fmul_rn(sigmoid(z[0]), tanhf(z[2])));
+    const float h = __fmul_rn(sigmoid(z[3]), tanhf(c));
+    c_out[i] = c;
+    h_out[i] = h;
+    if (seq) seq[b * ld_seq + j] = h;
+    if (carry && t == last_frame(nf[b], F)) carry[i] = h;
+  }
+}
+
+// One step t of flax's GRUCell for every row, f32, as lstm_cell: r, z =
+// σ((pre + b_i) + hw), n = tanh((pre_n + b_in) + r·(hw_n + b_hn)), h′ =
+// (1 − z)·n + z·h.  h_out may be h_in.  It replaces no pallas_call (JAX
+// models/frame_level.py:284-290, XLA); bytes bound it, as lstm_cell.
+__global__ void gru_cell_kernel(const float* __restrict__ pre, long long ld_pre,
+                                const float* __restrict__ hw, const float* __restrict__ b_i,
+                                const float* __restrict__ b_hn, const float* h_in, float* h_out,
+                                float* __restrict__ seq, long long ld_seq, float* __restrict__ carry,
+                                const int32_t* __restrict__ nf, int B, int F, int H, int t) {
+  const long long n = (long long)B * H;
+  for (long long i = grid_start(); i < n; i += grid_step()) {
+    const long long b = i / H;
+    const int j = (int)(i % H);
+    const float* p = pre + b * ld_pre + j;
+    const float* w = hw + b * 3 * H + j;
+    const float r = sigmoid(__fadd_rn(__fadd_rn(p[0], b_i[j]), w[0]));
+    const float z = sigmoid(__fadd_rn(__fadd_rn(p[H], b_i[H + j]), w[H]));
+    const float nn = tanhf(__fadd_rn(__fadd_rn(p[2 * H], b_i[2 * H + j]),
+                                     __fmul_rn(r, __fadd_rn(w[2 * H], b_hn[j]))));
+    const float h = __fadd_rn(__fmul_rn(__fsub_rn(1.f, z), nn), __fmul_rn(z, h_in[i]));
+    h_out[i] = h;
+    if (seq) seq[b * ld_seq + j] = h;
+    if (carry && t == last_frame(nf[b], F)) carry[i] = h;
+  }
+}
+
+long long pool_attention_smem(long long Q, long long F, long long hd) {
+  return 4 * ((Q + kPoolTile) * (hd + 1) + Q * F);
+}
+
+// Learned-query attention, f32: one block a (video b, head), of kPoolThreads.
+// In shared memory: the head's Q queries q / √hd (q [Q, H·hd], their
+// projection with its bias), a tile of 32 keys (kv's row f: key, then value,
+// each [H·hd], plus bkv), the Q × F logits.  The logits: a thread a query
+// and keys r0, r0 + 4, … of the tile (a warp reads one key row at once),
+// summed over d by fmaf; frames f ≥ min(num_frames, F) get finfo(f32).min.
+// The softmax: a warp a query, exp(x − max) / Σ exp(x − max) (all masked:
+// uniform).  The values: tiles of 32, a thread a column d and the queries
+// of its parity (32 accumulators), Σ_f w·v by fmaf in frame order.  out
+// [B, Q, H·hd].  It replaces no pallas_call: flax's MultiHeadDotProductAttention
+// runs in XLA (JAX models/attention.py:101-109), and row 7 takes only
+// Lq = Lk.  Operations bound it (2·Q·H·hd multiply-adds a valid frame at the
+// f32 CUDA-core rate, about 0.16 ms at AttentionPoolingModel's default
+// width and B=256); this first design keeps every operand in shared memory
+// and runs on the CUDA cores (one block an SM for its 126 KB at F=300).
+__global__ void __launch_bounds__(kPoolThreads)
+pool_attention_kernel(const float* __restrict__ q, const float* __restrict__ kv,
+                      const float* __restrict__ bkv, const int32_t* __restrict__ nf,
+                      float* __restrict__ out, int F, int Q, int H, int hd) {
+  extern __shared__ float smem[];
+  const int ld = hd + 1;
+  float* qs = smem;                          // [Q][hd + 1]
+  float* tile = qs + (long long)Q * ld;      // [kPoolTile][hd + 1]
+  float* logits = tile + kPoolTile * ld;     // [Q][F]
+  const int b = blockIdx.x / H, head = blockIdx.x % H;
+  const int tid = threadIdx.x;
+  const long long D = (long long)H * hd;
+  const float* kvb = kv + (long long)b * F * 2 * D + (long long)head * hd;
+  const float* bk = bkv + (long long)head * hd;
+  const float scale = sqrtf((float)hd);
+  for (int i = tid; i < Q * hd; i += kPoolThreads)
+    qs[(i / hd) * ld + i % hd] = __fdiv_rn(q[(long long)(i / hd) * D + head * hd + i % hd], scale);
+  const int valid = min(nf[b], F);
+  const int r0 = tid / kPoolRows;
+  for (int f0 = 0; f0 < F; f0 += kPoolTile) {
+    const int nt = min(kPoolTile, F - f0);
+    __syncthreads();  // the queries are in place; the last tile is read
+    for (int i = tid; i < nt * hd; i += kPoolThreads)
+      tile[(i / hd) * ld + i % hd] = __fadd_rn(kvb[(long long)(f0 + i / hd) * 2 * D + i % hd], bk[i % hd]);
+    __syncthreads();
+    for (int q0 = 0; q0 < Q; q0 += kPoolRows) {
+      const int qi = q0 + tid % kPoolRows;
+      if (qi >= Q) break;
+      float acc[kPoolTile / 4] = {};
+      for (int d = 0; d < hd; ++d) {
+        const float x = qs[qi * ld + d];
+#pragma unroll
+        for (int j = 0; j < kPoolTile / 4; ++j) acc[j] = fmaf(x, tile[(r0 + 4 * j) * ld + d], acc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kPoolTile / 4; ++j) {
+        const int r = r0 + 4 * j;
+        if (r < nt) logits[(long long)qi * F + f0 + r] = f0 + r < valid ? acc[j] : -FLT_MAX;
+      }
+    }
+  }
+  __syncthreads();
+  const int lane = tid & 31;
+  for (int qi = tid >> 5; qi < Q; qi += kPoolThreads / 32) {
+    float* l = logits + (long long)qi * F;
+    float mx = -INFINITY;
+    for (int f = lane; f < F; f += 32) mx = fmaxf(mx, l[f]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int f = lane; f < F; f += 32) sum = __fadd_rn(sum, expf(__fsub_rn(l[f], mx)));
+    sum = warp_sum(sum);
+    for (int f = lane; f < F; f += 32) l[f] = __fdiv_rn(expf(__fsub_rn(l[f], mx)), sum);
+  }
+  constexpr int kAcc = kPoolRows * kPoolMaxHd / kPoolThreads;
+  const int d = tid % kPoolMaxHd, qg = tid / kPoolMaxHd;
+  for (int q0 = 0; q0 < Q; q0 += kPoolRows) {
+    float acc[kAcc] = {};
+    for (int f0 = 0; f0 < F; f0 += kPoolTile) {
+      const int nt = min(kPoolTile, F - f0);
+      __syncthreads();  // the softmax is done; the last tile is read
+      for (int i = tid; i < nt * hd; i += kPoolThreads)
+        tile[(i / hd) * ld + i % hd] =
+            __fadd_rn(kvb[(long long)(f0 + i / hd) * 2 * D + D + i % hd], bk[D + i % hd]);
+      __syncthreads();
+      if (d >= hd) continue;
+      for (int r = 0; r < nt; ++r) {
+        const float v = tile[r * ld + d];
+#pragma unroll
+        for (int j = 0; j < kAcc; ++j) {
+          const int qi = q0 + qg + (kPoolThreads / kPoolMaxHd) * j;
+          if (qi < Q) acc[j] = fmaf(logits[(long long)qi * F + f0 + r], v, acc[j]);
+        }
+      }
+    }
+    if (d >= hd) continue;
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) {
+      const int qi = q0 + qg + (kPoolThreads / kPoolMaxHd) * j;
+      if (qi < Q) out[(((long long)b * Q + qi) * H + head) * hd + d] = acc[j];
+    }
+  }
+}
+
 unsigned ew_blocks(long long n) {
   const long long blocks = (n + kEwThreads - 1) / kEwThreads;
   return (unsigned)(blocks < 4096 ? (blocks < 1 ? 1 : blocks) : 4096);
@@ -571,10 +769,49 @@ cudaError_t launch_hidden_sum(const float* const* parts, int n_parts, int group,
 }
 
 cudaError_t launch_gating(const float* gates, const float* h, const float* g_scale,
-                          const float* g_bias, bf16* out, long long rows, int H, cudaStream_t st) {
-  if (rows < 1 || H < 1) return cudaErrorInvalidValue;
+                          const float* g_bias, bf16* out, float* out_f32, long long rows, int H,
+                          cudaStream_t st) {
+  if (rows < 1 || H < 1 || (!out && !out_f32)) return cudaErrorInvalidValue;
   const long long n = rows * H;
-  gating_kernel<<<ew_blocks(n), kEwThreads, 0, st>>>(gates, h, g_scale, g_bias, out, n, H);
+  gating_kernel<<<ew_blocks(n), kEwThreads, 0, st>>>(gates, h, g_scale, g_bias, out, out_f32, n, H);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_lstm_cell(const float* pre, long long ld_pre, const float* hw, const float* b_h,
+                             const float* c_in, float* c_out, float* h_out, float* seq,
+                             long long ld_seq, float* carry, const int32_t* nf, int B, int F, int H,
+                             int t, cudaStream_t st) {
+  if (B < 1 || F < 1 || H < 1 || t < 0 || t >= F || ld_pre < 4LL * H || (seq && ld_seq < H) ||
+      (carry && !nf))
+    return cudaErrorInvalidValue;
+  lstm_cell_kernel<<<ew_blocks((long long)B * H), kEwThreads, 0, st>>>(
+      pre, ld_pre, hw, b_h, c_in, c_out, h_out, seq, ld_seq, carry, nf, B, F, H, t);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gru_cell(const float* pre, long long ld_pre, const float* hw, const float* b_i,
+                            const float* b_hn, const float* h_in, float* h_out, float* seq,
+                            long long ld_seq, float* carry, const int32_t* nf, int B, int F, int H,
+                            int t, cudaStream_t st) {
+  if (B < 1 || F < 1 || H < 1 || t < 0 || t >= F || ld_pre < 3LL * H || (seq && ld_seq < H) ||
+      (carry && !nf))
+    return cudaErrorInvalidValue;
+  gru_cell_kernel<<<ew_blocks((long long)B * H), kEwThreads, 0, st>>>(
+      pre, ld_pre, hw, b_i, b_hn, h_in, h_out, seq, ld_seq, carry, nf, B, F, H, t);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_pool_attention(const float* q, const float* kv, const float* bkv,
+                                  const int32_t* nf, float* out, int B, int F, int Q, int H, int hd,
+                                  cudaStream_t st) {
+  const long long smem = pool_attention_smem(Q, F, hd);
+  if (B < 1 || F < 1 || Q < 1 || H < 1 || hd < 1 || hd > kPoolMaxHd || smem > kMaxSmem ||
+      (long long)B * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute((const void*)pool_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  pool_attention_kernel<<<B * H, kPoolThreads, smem, st>>>(q, kv, bkv, nf, out, F, Q, H, hd);
   return cudaGetLastError();
 }
 
@@ -589,7 +826,7 @@ cudaError_t launch_moe_combine(const float* ga, const float* ea, const float* eb
 cudaError_t launch_topk(const float* probs, float* values, int32_t* indices, int B, int V, int k,
                         cudaStream_t st) {
   const long long smem = (long long)V * sizeof(float);
-  if (B < 1 || V < 1 || k < 1 || k > V || smem > kMaxTopkSmem)
+  if (B < 1 || V < 1 || k < 1 || k > V || smem > kMaxSmem)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute((const void*)topk_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -757,6 +994,7 @@ struct Runner {
   int device = 0;
   int B = 0, F = 0, DT = 0, S = 0, H = 0, V = 0, M = 0, k = 0, C = 0, n_mods = 0, n_parts = 0;
   int D = 0, FF = 0, heads = 0, hd = 0, K = 0;  // the encoder's width, FFN width, heads; NetVLAD's K
+  int Q = 0, L = 0;  // AttentionPoolingModel's queries; an RNN's layers (H: its cells)
   Mod mods[kMaxMods];
   std::vector<Layer> layers;
   cudaStream_t stream = nullptr;
@@ -787,6 +1025,18 @@ struct Runner {
   float *mask = nullptr, *prod = nullptr, *pooled_f32 = nullptr;
   bf16 *hx = nullptr, *qkv = nullptr, *att = nullptr, *proj = nullptr, *ffb = nullptr,
        *vlad = nullptr;
+  // the f32 routes of the models with no fast route (xn: the frames):
+  // AttentionPoolingModel's input projection xp [B·F, D], key/value product
+  // kvp [B·F, 2D], queries' projection qproj [Q, D] (made at load),
+  // attention patt [B, Q, D], output projection (pooled_f32, [B, Q·D]),
+  // hidden layer h and gating product gates [B, H], gating's output gated;
+  // an RNN layer's product x·W_i pre [B·F, G·H] and outputs seq [B·F, H]
+  // (each layer's product reads the layer below's outputs before its cells
+  // overwrite them, in stream order), state hs and cs [B, H], the step's
+  // product hw [B, G·H], the final carry [B, H]
+  float *xp = nullptr, *kvp = nullptr, *qproj = nullptr, *patt = nullptr, *gated = nullptr,
+        *hs = nullptr, *cs = nullptr, *hw = nullptr, *carry = nullptr, *pre = nullptr,
+        *seq = nullptr;
   // pinned staging on the host
   void* px = nullptr;
   int32_t* pnf = nullptr;
@@ -878,18 +1128,25 @@ struct ShapeCheck {
   }
 };
 
-// the gated MoE tail's arrays (every LOUPE route's and Willow's)
-void check_tail(ShapeCheck& c, Runner* r) {
-  const int64_t H = r->H, M = r->M;
-  c.get("hidden_b", "f32", {H});
-  c.get("gate_w", "bf16", {H, H});
-  c.get("g_scale", "f32", {H});
-  c.get("g_bias", "f32", {H});
+// the MoE head's arrays on `width` inputs (kernels of `tag`); sizes r->V
+void check_moe(ShapeCheck& c, Runner* r, int64_t width, const char* tag) {
+  const int64_t M = r->M;
   if (c.ok && (M < 1 || c.dim("experts_bias", "f32", {-1}, 0) % M != 0))
     c.fail("moe_num_mixtures must be positive and divide experts_bias's length");
   r->V = c.ok ? (int)(c.dim("experts_bias", "f32", {-1}, 0) / M) : 0;
-  c.get("gates_kernel", "bf16", {H, (M + 1) * r->V});
-  c.get("experts_kernel", "bf16", {H, M * r->V});
+  c.get("gates_kernel", tag, {width, (M + 1) * r->V});
+  c.get("experts_kernel", tag, {width, M * r->V});
+}
+
+// the gated MoE tail's arrays (every LOUPE route's and Willow's, bf16; the
+// pooling route's, f32)
+void check_tail(ShapeCheck& c, Runner* r, const char* tag = "bf16") {
+  const int64_t H = r->H;
+  c.get("hidden_b", "f32", {H});
+  c.get("gate_w", tag, {H, H});
+  c.get("g_scale", "f32", {H});
+  c.get("g_bias", "f32", {H});
+  check_moe(c, r, H, tag);
 }
 
 // The route's arrays against one another, the manifest's lines and its
@@ -944,24 +1201,62 @@ bool check_shapes(Runner* r, std::string* err) {
       r->V = (int)c.dim("fc/bias", "f32", {-1}, 0);
       c.get("fc/kernel", "f32", {DT, r->V});
       break;
-    case kMoe: {
-      if (r->M < 1 || c.dim("experts_bias", "f32", {-1}, 0) % r->M != 0)
-        return c.fail("moe_num_mixtures must be positive and divide experts_bias's length");
-      r->V = (int)(c.dim("experts_bias", "f32", {-1}, 0) / r->M);
-      c.get("gates_kernel", "f32", {DT, (int64_t)(r->M + 1) * r->V});
-      c.get("experts_kernel", "f32", {DT, (int64_t)r->M * r->V});
+    case kMoe:
+      check_moe(c, r, DT, "f32");
       break;
-    }
     case kDbof: {
       r->C = (int)c.dim("cluster_w", "bf16", {DT, -1}, 1);
       r->H = (int)c.dim("hidden_w", "bf16", {r->C, -1}, 1);
       c.get("cluster_b", "f32", {r->C});
       c.get("hidden_b", "f32", {r->H});
-      if (c.ok && (r->M < 1 || c.dim("experts_bias", "f32", {-1}, 0) % r->M != 0))
-        return c.fail("moe_num_mixtures must be positive and divide experts_bias's length");
-      r->V = c.ok ? (int)(c.dim("experts_bias", "f32", {-1}, 0) / r->M) : 0;
-      c.get("gates_kernel", "bf16", {r->H, (int64_t)(r->M + 1) * r->V});
-      c.get("experts_kernel", "bf16", {r->H, (int64_t)r->M * r->V});
+      check_moe(c, r, r->H, "bf16");
+      break;
+    }
+    case kAttnPool: {
+      r->D = (int)c.dim("w_proj", "f32", {DT, -1}, 1);
+      const int64_t D = r->D;
+      r->heads = m.attention_heads;
+      r->Q = m.attention_cluster_size;
+      if (c.ok && D % r->heads != 0)
+        return c.fail("attention_heads must divide the width " + std::to_string(D));
+      r->hd = c.ok ? (int)(D / r->heads) : 0;
+      if (c.ok && (r->hd > kPoolMaxHd || pool_attention_smem(r->Q, r->F, r->hd) > kMaxSmem))
+        return c.fail("pool_attention takes a head width of at most 128 and its " +
+                      std::to_string(r->Q) + " × " + std::to_string(r->F) +
+                      " logits in a block's shared memory");
+      const int64_t Q = r->Q;
+      c.get("b_proj", "f32", {D});
+      c.get("queries", "f32", {Q, D});
+      c.get("wq", "f32", {D, D});
+      c.get("bq", "f32", {D});
+      c.get("wkv", "f32", {D, 2 * D});
+      c.get("bkv", "f32", {2 * D});
+      c.get("wo", "f32", {D, D});
+      c.get("bo", "f32", {D});
+      r->H = (int)c.dim("hidden_w", "f32", {Q * D, -1}, 1);
+      check_tail(c, r, "f32");
+      break;
+    }
+    case kLstm:
+    case kGru: {
+      const int64_t G = r->route == kLstm ? 4 : 3;
+      r->L = m.rnn_layers;
+      r->H = m.rnn_cells;
+      const int64_t H = r->H;
+      for (int i = 0; i < r->L && c.ok; ++i) {
+        const std::string p = "layers/" + std::to_string(i) + "/";
+        c.get(p + "w_i", "f32", {i ? H : DT, G * H});
+        c.get(p + "w_h", "f32", {H, G * H});
+        if (r->route == kLstm) {
+          c.get(p + "b_h", "f32", {G * H});
+        } else {
+          c.get(p + "b_i", "f32", {G * H});
+          c.get(p + "b_hn", "f32", {H});
+        }
+      }
+      if (c.ok && m.weight("layers/" + std::to_string(r->L) + "/w_i"))
+        return c.fail("weights.bin holds more layers than rnn_layers (" + std::to_string(r->L) + ")");
+      check_moe(c, r, H, "f32");
       break;
     }
     case kTransformer:
@@ -1088,7 +1383,7 @@ bool check_shapes(Runner* r, std::string* err) {
     return c.fail(std::string("manifest call inputs or outputs are not (") +
                   (video ? "f32 [B, DT]" : "u8 [B, F, DT], s32 [B]") +
                   ") → (f32 [B, k], s32 [B, k])");
-  if ((int64_t)r->V * sizeof(float) > kMaxTopkSmem) return c.fail("the vocabulary is over topk's row");
+  if ((int64_t)r->V * sizeof(float) > kMaxSmem) return c.fail("the vocabulary is over topk's row");
   return true;
 }
 
@@ -1104,7 +1399,7 @@ void plan(Runner* r) {
   r->need_ws(&r->probs, B * V);
   r->need_ws(&r->values, B * r->k);
   r->need_ws(&r->indices, B * r->k);
-  if (r->route == kDbof || gated_route(r->route)) {
+  if (r->route == kDbof || gated_route(r->route) || flax_moe_route(r->route)) {
     r->need_ws(&r->ga, B * (M + 1) * V);
     r->need_ws(&r->ea, B * M * V);
   }
@@ -1161,6 +1456,31 @@ void plan(Runner* r) {
       r->need_ws(&r->xn, B * S * DT);
       r->need_ws(&r->pooled_f32, B * DT);
       break;
+    case kAttnPool: {
+      const long long R = B * S, D = r->D, Q = r->Q;  // S = F
+      r->need_ws(&r->xn, R * DT);
+      r->need_ws(&r->xp, R * D);
+      r->need_ws(&r->kvp, R * 2 * D);
+      r->need_ws(&r->qproj, Q * D);
+      r->need_ws(&r->patt, B * Q * D);
+      r->need_ws(&r->pooled_f32, B * Q * D);
+      r->need_ws(&r->h, B * H);
+      r->need_ws(&r->gates, B * H);
+      r->need_ws(&r->gated, B * H);
+      break;
+    }
+    case kLstm:
+    case kGru: {
+      const long long R = B * S, GH = (r->route == kLstm ? 4 : 3) * H;
+      r->need_ws(&r->xn, R * DT);
+      r->need_ws(&r->pre, R * GH);
+      r->need_ws(&r->seq, R * H);
+      r->need_ws(&r->hs, B * H);
+      if (r->route == kLstm) r->need_ws(&r->cs, B * H);
+      r->need_ws(&r->hw, B * GH);
+      r->need_ws(&r->carry, B * H);
+      break;
+    }
     case kDbof:
       r->need_ws(&r->xs, B * S * DT);
       r->need_ws(&r->act, B * S * r->C);
@@ -1248,6 +1568,8 @@ void bind_layers(Runner* r) {
 
 size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
+bool pool_queries(Runner* r, std::string* err);
+
 bool load(Runner* r, const std::string& dir, std::string* err) {
   if (!LoadManifest(dir, &r->m, err)) return false;
   r->route = static_cast<Route>(r->m.route_index);
@@ -1329,7 +1651,7 @@ bool load(Runner* r, const std::string& dir, std::string* err) {
     *p.first = r->pinned + off;
     off += align256(p.second);
   }
-  return true;
+  return r->route != kAttnPool || pool_queries(r, err);
 }
 
 // The gated MoE tail from the hidden FC's products: hidden_sum, the gating
@@ -1352,6 +1674,42 @@ bool moe(Runner* r, const bf16* hidden, std::string* err) {
   return true;
 }
 
+// The MoE head in f32 on x [B, K] (f32 kernels, TF32 off) → probs.
+bool moe_f32(Runner* r, const float* x, long long K, std::string* err) {
+  const long long B = r->B, M = r->M, V = r->V;
+  if (!blas_ok(gemm_f32(r->blas, x, r->W<float>("gates_kernel"), r->ga, B, (M + 1) * V, K),
+               "MoE gate product", err) ||
+      !blas_ok(gemm_f32(r->blas, x, r->W<float>("experts_kernel"), r->ea, B, M * V, K),
+               "MoE expert product", err))
+    return false;
+  if (!cuda_ok(launch_moe_combine(r->ga, r->ea, r->W<float>("experts_bias"), r->probs, r->B, r->M,
+                                  r->V, r->stream),
+               "moe_combine", err))
+    return false;
+  r->count(kMoeCombine);
+  return true;
+}
+
+// y [rows, N] f32 + the array `bias` [N], in place (bias_act, no activation).
+bool bias_add(Runner* r, float* y, const char* bias, long long rows, long long N, const char* what,
+              std::string* err) {
+  if (!cuda_ok(launch_bias_act(kActNone, y, r->W<float>(bias), y, nullptr, rows, (int)N, r->stream),
+               what, err))
+    return false;
+  r->count(kBiasAct);
+  return true;
+}
+
+// AttentionPoolingModel's query projection with its bias [Q, D]: it reads
+// no input, so it is made once, at load.
+bool pool_queries(Runner* r, std::string* err) {
+  return blas_ok(gemm_f32(r->blas, r->W<float>("queries"), r->W<float>("wq"), r->qproj, r->Q, r->D,
+                          r->D),
+                 "query projection", err) &&
+         bias_add(r, r->qproj, "bq", r->Q, r->D, "query projection", err) &&
+         cuda_ok(cudaStreamSynchronize(r->stream), "query projection", err);
+}
+
 bool gated_tail(Runner* r, bool bias_first, std::string* err) {
   const long long B = r->B, H = r->H;
   const int n_parts = r->route == kNetvlad ? 2 : r->n_parts;
@@ -1365,7 +1723,7 @@ bool gated_tail(Runner* r, bool bias_first, std::string* err) {
                "gating product", err))
     return false;
   if (!cuda_ok(launch_gating(r->gates, r->h, r->W<float>("g_scale"), r->W<float>("g_bias"), r->hg,
-                             B, r->H, r->stream),
+                             nullptr, B, r->H, r->stream),
                "gating", err))
     return false;
   r->count(kGating);
@@ -1394,7 +1752,7 @@ bool run_netvlad(Runner* r, std::string* err) {
 }
 
 bool run_video(Runner* r, std::string* err) {
-  const long long B = r->B, DT = r->DT, V = r->V, M = r->M;
+  const long long B = r->B, DT = r->DT, V = r->V;
   const float* x = static_cast<const float*>(r->x);
   if (!cuda_ok(launch_row_l2(x, nullptr, nullptr, 0, r->xn, nullptr, B, r->DT, r->stream), "row_l2",
                err))
@@ -1411,17 +1769,7 @@ bool run_video(Runner* r, std::string* err) {
     r->count(kBiasSigmoid);
     return true;
   }
-  if (!blas_ok(gemm_f32(r->blas, r->xn, r->W<float>("gates_kernel"), r->ga, B, (M + 1) * V, DT),
-               "MoE gate product", err) ||
-      !blas_ok(gemm_f32(r->blas, r->xn, r->W<float>("experts_kernel"), r->ea, B, M * V, DT),
-               "MoE expert product", err))
-    return false;
-  if (!cuda_ok(launch_moe_combine(r->ga, r->ea, r->W<float>("experts_bias"), r->probs, r->B, r->M,
-                                  r->V, r->stream),
-               "moe_combine", err))
-    return false;
-  r->count(kMoeCombine);
-  return true;
+  return moe_f32(r, r->xn, DT, err);
 }
 
 bool frames(Runner* r, bool affine, std::string* err) {
@@ -1573,6 +1921,78 @@ bool run_frame_logistic(Runner* r, std::string* err) {
   return true;
 }
 
+// AttentionPoolingModel (f32): every frame staged in f32, the input
+// projection, the key/value product, pool_attention against the queries'
+// projection, the output projection, the hidden FC (each + its bias), the
+// gating product and gating, the MoE.
+bool run_pool(Runner* r, std::string* err) {
+  const long long B = r->B, R = B * r->F, DT = r->DT, D = r->D, Q = r->Q, H = r->H;
+  if (!frames_all(r, nullptr, r->xn, nullptr, err)) return false;
+  if (!blas_ok(gemm_f32(r->blas, r->xn, r->W<float>("w_proj"), r->xp, R, D, DT), "input projection",
+               err) ||
+      !bias_add(r, r->xp, "b_proj", R, D, "input projection", err) ||
+      !blas_ok(gemm_f32(r->blas, r->xp, r->W<float>("wkv"), r->kvp, R, 2 * D, D),
+               "key/value product", err))
+    return false;
+  if (!cuda_ok(launch_pool_attention(r->qproj, r->kvp, r->W<float>("bkv"), r->nf, r->patt, r->B,
+                                     r->F, r->Q, r->heads, r->hd, r->stream),
+               "pool_attention", err))
+    return false;
+  r->count(kPoolAttention);
+  if (!blas_ok(gemm_f32(r->blas, r->patt, r->W<float>("wo"), r->pooled_f32, B * Q, D, D),
+               "output projection", err) ||
+      !bias_add(r, r->pooled_f32, "bo", B * Q, D, "output projection", err) ||
+      !blas_ok(gemm_f32(r->blas, r->pooled_f32, r->W<float>("hidden_w"), r->h, B, H, Q * D),
+               "hidden FC", err) ||
+      !bias_add(r, r->h, "hidden_b", B, H, "hidden FC", err) ||
+      !blas_ok(gemm_f32(r->blas, r->h, r->W<float>("gate_w"), r->gates, B, H, H), "gating product",
+               err))
+    return false;
+  if (!cuda_ok(launch_gating(r->gates, r->h, r->W<float>("g_scale"), r->W<float>("g_bias"), nullptr,
+                             r->gated, B, r->H, r->stream),
+               "gating", err))
+    return false;
+  r->count(kGating);
+  return moe_f32(r, r->gated, H, err);
+}
+
+// LstmModel and GruModel (f32): every frame staged in f32; a layer: x·W_i
+// over every frame (the frames, or the layer below's outputs seq) into pre,
+// the state zeroed, then per frame t the product h·W_h and the cell, which
+// writes h′ to the state and to the layer's outputs seq (the next layer's
+// input) and the final carry at each row's last frame; the MoE on the top
+// layer's carry.
+bool run_rnn(Runner* r, std::string* err) {
+  const bool lstm = r->route == kLstm;
+  const long long B = r->B, F = r->F, R = B * F, H = r->H, GH = (lstm ? 4 : 3) * H;
+  if (!frames_all(r, nullptr, r->xn, nullptr, err)) return false;
+  for (int i = 0; i < r->L; ++i) {
+    const std::string p = "layers/" + std::to_string(i) + "/";
+    float *pre = r->pre, *seq = r->seq;
+    if (!blas_ok(gemm_f32(r->blas, i ? seq : r->xn, r->W<float>(p + "w_i"), pre, R, GH, i ? H : r->DT),
+                 "input product", err) ||
+        !cuda_ok(cudaMemsetAsync(r->hs, 0, B * H * sizeof(float), r->stream), "zero state", err) ||
+        (lstm && !cuda_ok(cudaMemsetAsync(r->cs, 0, B * H * sizeof(float), r->stream), "zero state",
+                          err)))
+      return false;
+    const float* w_h = r->W<float>(p + "w_h");
+    for (int t = 0; t < F; ++t) {
+      if (!blas_ok(gemm_f32(r->blas, r->hs, w_h, r->hw, B, GH, H), "recurrent product", err))
+        return false;
+      const cudaError_t e =
+          lstm ? launch_lstm_cell(pre + t * GH, F * GH, r->hw, r->W<float>(p + "b_h"), r->cs, r->cs,
+                                  r->hs, seq + t * H, F * H, r->carry, r->nf, r->B, r->F, r->H, t,
+                                  r->stream)
+               : launch_gru_cell(pre + t * GH, F * GH, r->hw, r->W<float>(p + "b_i"),
+                                 r->W<float>(p + "b_hn"), r->hs, r->hs, seq + t * H, F * H,
+                                 r->carry, r->nf, r->B, r->F, r->H, t, r->stream);
+      if (!cuda_ok(e, lstm ? "lstm_cell" : "gru_cell", err)) return false;
+      r->count(lstm ? kLstmCell : kGruCell);
+    }
+  }
+  return moe_f32(r, r->carry, H, err);
+}
+
 // One NeXtVLAD modality's product of the hidden FC into out.
 bool nextvlad(Runner* r, Mod& md, float* out, std::string* err) {
   const long long B = r->B, S = r->S, rows = B * S, H = r->H, gk = (long long)md.g * md.k;
@@ -1698,6 +2118,9 @@ bool forward(Runner* r, const void* features, const void* num_frames, float* val
     case kTransformer:
     case kAttnNetvlad: ok = run_attention(r, err); break;
     case kFrameLogistic: ok = run_frame_logistic(r, err); break;
+    case kAttnPool: ok = run_pool(r, err); break;
+    case kLstm:
+    case kGru: ok = run_rnn(r, err); break;
     default: ok = run_lf(r, err);
   }
   if (!ok) return false;
@@ -1734,7 +2157,14 @@ bool forward(Runner* r, const void* features, const void* num_frames, float* val
 // [B, F]), its last layer's ffn1 (FFN1's output, bf16 [B·F, FF]) and ffn2
 // (FFN2's, bf16 [B·F, D]), encoder (its output, bf16 [B·F, D]) and pooled
 // (bf16 [B, D]) or vlad (bf16 [B, D·K]); FrameLevelLogisticModel's frames
-// (f32 [B·F, DT]) and pooled (f32 [B, DT]).
+// (f32 [B·F, DT]) and pooled (f32 [B, DT]); AttentionPoolingModel's frames
+// (f32 [B·F, DT]), proj (the input projection, f32 [B·F, D]), kv (the
+// key/value product, f32 [B·F, 2D]), att (pool_attention's output, f32 [B,
+// Q·D]), pooled (the output projection, f32 [B, Q·D]), h and gated (f32
+// [B, H]); an RNN's frames, pre/last (the top layer's x·W_i, f32 [B·F,
+// G·H]),
+// seq/last (the top layer's outputs, f32 [B·F, H]) and final (the carry,
+// f32 [B, H]).
 std::vector<std::pair<std::string, std::pair<const void*, size_t>>> buffers(const Runner* r) {
   std::vector<std::pair<std::string, std::pair<const void*, size_t>>> out;
   const size_t B = r->B, S = r->S, H = r->H, DT = r->DT, D = r->D;
@@ -1751,6 +2181,23 @@ std::vector<std::pair<std::string, std::pair<const void*, size_t>>> buffers(cons
   } else if (r->route == kFrameLogistic) {
     out.push_back({"frames", {r->xn, B * S * DT * 4}});
     out.push_back({"pooled", {r->pooled_f32, B * DT * 4}});
+  } else if (r->route == kAttnPool) {
+    const size_t QD = (size_t)r->Q * D;
+    out.push_back({"frames", {r->xn, B * S * DT * 4}});
+    out.push_back({"proj", {r->xp, B * S * D * 4}});
+    out.push_back({"kv", {r->kvp, B * S * 2 * D * 4}});
+    out.push_back({"att", {r->patt, B * QD * 4}});
+    out.push_back({"pooled", {r->pooled_f32, B * QD * 4}});
+    out.push_back({"h", {r->h, B * H * 4}});
+    out.push_back({"gated", {r->gated, B * H * 4}});
+    return out;
+  } else if (rnn_route(r->route)) {
+    const size_t GH = (r->route == kLstm ? 4 : 3) * H;
+    out.push_back({"frames", {r->xn, B * S * DT * 4}});
+    out.push_back({"pre/last", {r->pre, B * S * GH * 4}});
+    out.push_back({"seq/last", {r->seq, B * S * H * 4}});
+    out.push_back({"final", {r->carry, B * H * 4}});
+    return out;
   }
   if (!r->h) return out;
   out.push_back({"h", {r->h, B * H * 4}});
@@ -1870,11 +2317,12 @@ int lpm_hidden_sum(const void* p0, const void* p1, const void* p2, const void* p
 }
 
 int lpm_gating(const void* gates, const void* h, const void* g_scale, const void* g_bias,
-               void* out, long long rows, int H, void* stream) {
+               void* out_bf16, void* out_f32, long long rows, int H, void* stream) {
   return (int)lpm_native::launch_gating(
       static_cast<const float*>(gates), static_cast<const float*>(h),
       static_cast<const float*>(g_scale), static_cast<const float*>(g_bias),
-      static_cast<bf16*>(out), rows, H, static_cast<cudaStream_t>(stream));
+      static_cast<bf16*>(out_bf16), static_cast<float*>(out_f32), rows, H,
+      static_cast<cudaStream_t>(stream));
 }
 
 int lpm_moe_combine(const void* ga, const void* ea, const void* experts_bias, void* probs, int B,
@@ -1910,12 +2358,12 @@ int lpm_frame_stage_all(const void* x, const void* num_frames, void* out_bf16, v
       DT, deq_scale, deq_bias, static_cast<cudaStream_t>(stream));
 }
 
-int lpm_bias_act(const void* y, const void* bias, void* out_bf16, int relu, long long rows, int N,
-                 void* stream) {
+int lpm_bias_act(const void* y, const void* bias, void* out_bf16, void* out_f32, int relu,
+                 long long rows, int N, void* stream) {
   return (int)lpm_native::launch_bias_act(
       relu ? lpm_native::kActRelu : lpm_native::kActNone, static_cast<const float*>(y),
-      static_cast<const float*>(bias), nullptr, static_cast<bf16*>(out_bf16), rows, N,
-      static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(bias), static_cast<float*>(out_f32), static_cast<bf16*>(out_bf16),
+      rows, N, static_cast<cudaStream_t>(stream));
 }
 
 int lpm_residual_layernorm(const void* x, const void* y, const void* scale, const void* bias,
@@ -1975,6 +2423,35 @@ int lpm_nextvlad_residual(const void* agg, const void* assign, const void* c2, v
   return (int)lpm_native::launch_nextvlad_residual(
       static_cast<const float*>(agg), static_cast<const float*>(assign),
       static_cast<const float*>(c2), static_cast<float*>(out), B, SG, K, Dp,
+      static_cast<cudaStream_t>(stream));
+}
+
+int lpm_lstm_cell(const void* pre, long long ld_pre, const void* hw, const void* b_h,
+                  const void* c_in, void* c_out, void* h_out, void* seq, long long ld_seq,
+                  void* carry, const void* num_frames, int B, int F, int H, int t, void* stream) {
+  return (int)lpm_native::launch_lstm_cell(
+      static_cast<const float*>(pre), ld_pre, static_cast<const float*>(hw),
+      static_cast<const float*>(b_h), static_cast<const float*>(c_in), static_cast<float*>(c_out),
+      static_cast<float*>(h_out), static_cast<float*>(seq), ld_seq, static_cast<float*>(carry),
+      static_cast<const int32_t*>(num_frames), B, F, H, t, static_cast<cudaStream_t>(stream));
+}
+
+int lpm_gru_cell(const void* pre, long long ld_pre, const void* hw, const void* b_i,
+                 const void* b_hn, const void* h_in, void* h_out, void* seq, long long ld_seq,
+                 void* carry, const void* num_frames, int B, int F, int H, int t, void* stream) {
+  return (int)lpm_native::launch_gru_cell(
+      static_cast<const float*>(pre), ld_pre, static_cast<const float*>(hw),
+      static_cast<const float*>(b_i), static_cast<const float*>(b_hn),
+      static_cast<const float*>(h_in), static_cast<float*>(h_out), static_cast<float*>(seq), ld_seq,
+      static_cast<float*>(carry), static_cast<const int32_t*>(num_frames), B, F, H, t,
+      static_cast<cudaStream_t>(stream));
+}
+
+int lpm_pool_attention(const void* q, const void* kv, const void* bkv, const void* num_frames,
+                       void* out, int B, int F, int Q, int H, int hd, void* stream) {
+  return (int)lpm_native::launch_pool_attention(
+      static_cast<const float*>(q), static_cast<const float*>(kv), static_cast<const float*>(bkv),
+      static_cast<const int32_t*>(num_frames), static_cast<float*>(out), B, F, Q, H, hd,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -16,7 +16,8 @@ ignores them.
 ``with_stablehlo=True`` writes the native runner's artifact beside them
 (``core/native_runtime.py``): ``native_manifest.txt`` (the JAX package's
 lines and the port's) and ``weights.bin`` (the route's arrays: a fast
-route's BN-folded prepare, or a logistic or MoE model's f32 head), for the
+route's BN-folded prepare; for the models with no fast route, the f32
+leaves of the flax graph as its kernels read them), for the
 route of each model in ``native_runtime.ROUTES``; other models and configs
 raise NotImplementedError (ROADMAP item 14c) and write nothing.
 ``load_exported_native`` serves such an export through the runner on the
@@ -54,14 +55,15 @@ from learnablepoolingmethods_torch.data.readers import fill_frame_record
 from learnablepoolingmethods_torch.models import create_model
 from learnablepoolingmethods_torch.ops.fast_dispatch import get_fast_path, int8_capable_models
 from learnablepoolingmethods_torch.ops.fast_dbof import prepare_fast_dbof_params
-from learnablepoolingmethods_torch.ops.fast_infer import prepare_fast_params
+from learnablepoolingmethods_torch.ops.fast_infer import _require_moe_head, prepare_fast_params
 from learnablepoolingmethods_torch.ops.fast_lf import prepare_fast_lf_params
 from learnablepoolingmethods_torch.ops.fast_transformer import (
     prepare_fast_attn_netvlad_params,
     prepare_fast_transformer_params,
 )
 from learnablepoolingmethods_torch.ops.masked_attention import check_attention
-from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS
+from learnablepoolingmethods_torch.ops.native_tail import POOL_MAX_HEAD_DIM, pool_attention_fits
+from learnablepoolingmethods_torch.ops.netvlad_fused import MAX_CLUSTERS, fold_assignment_bn
 from learnablepoolingmethods_torch.utils import flax_msgpack, prng
 from learnablepoolingmethods_torch.utils.misc import resolve_device
 
@@ -119,21 +121,89 @@ def _f32_head_arrays(model_name: str, mcfg: ModelConfig, variables) -> dict:
     runner reads it (its flax layout: the MoE's kernels are vocab-major,
     column m·V + v, as ``moe_combine`` reads them)."""
     p = convert_flax_variables(variables, mcfg, model_name)["params"]
-
-    def f32(t):
-        return torch.as_tensor(t).float().contiguous()
-
     if model_name in ("LogisticModel", "FrameLevelLogisticModel"):
-        return {"fc": {"kernel": f32(p["fc"]["kernel"]), "bias": f32(p["fc"]["bias"])}}
-    return {name: f32(p[name]) for name in native_runtime.MOE}
+        return {"fc": {"kernel": _f32(p["fc"]["kernel"]), "bias": _f32(p["fc"]["bias"])}}
+    return {name: _f32(p[name]) for name in native_runtime.MOE}
 
 
-def _route_arrays(route: str, model_name: str, mcfg: ModelConfig, variables) -> dict:
+def _rnn_arrays(route: str, mcfg: ModelConfig, params) -> dict:
+    """An RNN's layers as the runner reads them (f32): each layer's gate
+    kernels side by side, ``w_i`` [D, G·H] and ``w_h`` [H, G·H] in flax's
+    gate order (LSTM i, f, g, o; GRU r, z, n), and the biases flax gives
+    them: the LSTM's ``b_h`` [4H] (``h<g>``), the GRU's ``b_i`` [3H]
+    (``i<g>``) and ``b_hn`` [H]; then the MoE head."""
+    _require_moe_head(params, mcfg)
+    lstm = route == "rnn_lstm"
+    prefix, gates = ("OptimizedLSTMCell_", "ifgo") if lstm else ("GRUCell_", "rzn")
+    n_layers = mcfg.lstm_layers if lstm else mcfg.gru_layers
+
+    def cat(cell, side, leaf):
+        return torch.cat([_f32(cell[side + g][leaf]) for g in gates], dim=-1)
+
+    layers = []
+    for i in range(n_layers):
+        cell = params[f"{prefix}{i}"]
+        layer = {"w_i": cat(cell, "i", "kernel"), "w_h": cat(cell, "h", "kernel")}
+        if lstm:
+            layer["b_h"] = cat(cell, "h", "bias")
+        else:
+            layer.update(b_i=cat(cell, "i", "bias"), b_hn=_f32(cell["hn"]["bias"]))
+        layers.append(layer)
+    return {"layers": layers, **{name: _f32(params["MoeModel_0"][name]) for name in native_runtime.MOE}}
+
+
+def _pool_arrays(mcfg: ModelConfig, fcfg: FeatureConfig, variables) -> dict:
+    """AttentionPoolingModel's leaves as the runner reads them (f32):
+    pool_mha's projections flattened to [D, H·hd] (key and value side by
+    side), the gating BN folded to a scale and bias (the diagonal of the
+    gating weights removed under ``--gating_remove_diag``, as flax's
+    ContextGating does); ValueError for what the route does not run."""
+    if not mcfg.gating or not mcfg.netvlad_add_batch_norm:
+        raise ValueError("the attention_pooling route runs the gated tail with its gating BN (--gating, "
+                         "--netvlad_add_batch_norm)")
+    d, heads, n_q = mcfg.attention_hidden_size, mcfg.attention_heads, mcfg.attention_cluster_size
+    if heads < 1 or d % heads:
+        raise ValueError(f"attention_heads {heads} must divide attention_hidden_size {d}")
+    if not pool_attention_fits(n_q, fcfg.max_frames, d // heads):
+        raise ValueError(f"pool_attention takes a head width of at most {POOL_MAX_HEAD_DIM} and its "
+                         f"{n_q} × {fcfg.max_frames} logits in a block's shared memory")
+    p, s = variables["params"], variables["batch_stats"]
+    _require_moe_head(p, mcfg)
+    mha = {name: {leaf: _f32(t) for leaf, t in proj.items()} for name, proj in p["attn_pool"]["pool_mha"].items()}
+    gate_w = _f32(p["gating"]["gating_weights"])
+    if mcfg.gating_remove_diag:
+        gate_w = gate_w - torch.diag(torch.diag(gate_w))
+    g_scale, g_bias = fold_assignment_bn(*(_f32(t) for t in (p["gating"]["gating_bn"]["scale"],
+                                                             p["gating"]["gating_bn"]["bias"],
+                                                             s["gating"]["gating_bn"]["mean"],
+                                                             s["gating"]["gating_bn"]["var"])))
+    return {
+        "w_proj": _f32(p["input_proj"]["kernel"]), "b_proj": _f32(p["input_proj"]["bias"]),
+        "queries": _f32(p["attn_pool"]["queries"]),
+        "wq": mha["query"]["kernel"].reshape(d, -1), "bq": mha["query"]["bias"].reshape(-1),
+        "wkv": torch.cat([mha["key"]["kernel"].reshape(d, -1), mha["value"]["kernel"].reshape(d, -1)], dim=1),
+        "bkv": torch.cat([mha["key"]["bias"].reshape(-1), mha["value"]["bias"].reshape(-1)]),
+        "wo": mha["out"]["kernel"].reshape(-1, d), "bo": mha["out"]["bias"],
+        "hidden_w": _f32(p["hidden1_weights"]), "hidden_b": _f32(p["hidden1_biases"]),
+        "gate_w": gate_w, "g_scale": g_scale, "g_bias": g_bias,
+        **{name: _f32(p["MoeModel_0"][name]) for name in native_runtime.MOE},
+    }
+
+
+def _f32(t) -> torch.Tensor:
+    return torch.as_tensor(t).float().contiguous()
+
+
+def _route_arrays(route: str, model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, variables) -> dict:
     """The route's prepare on the CPU, or ValueError / KeyError with the
     reason it does not apply."""
     if route in native_runtime.F32_ROUTES:
         if mcfg.compute_dtype != "float32":
             raise ValueError(f"compute_dtype {mcfg.compute_dtype}: the route {route} runs in f32")
+        if route == "attention_pooling":
+            return _pool_arrays(mcfg, fcfg, convert_flax_variables(variables, mcfg, model_name))
+        if route in native_runtime.RNN_ROUTES:
+            return _rnn_arrays(route, mcfg, convert_flax_variables(variables, mcfg, model_name)["params"])
         return _f32_head_arrays(model_name, mcfg, variables)
     tree = convert_flax_variables(variables, mcfg, model_name)
     if route in native_runtime.ATTENTION_ROUTES:
@@ -183,7 +253,7 @@ def native_arrays(model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, param
         why = "a presampled config"
     else:
         try:
-            arrays = _route_arrays(route, model_name, mcfg, {"params": params, "batch_stats": batch_stats})
+            arrays = _route_arrays(route, model_name, mcfg, fcfg, {"params": params, "batch_stats": batch_stats})
         except (ValueError, KeyError) as e:
             why = str(e)
     if why is not None:
@@ -191,7 +261,7 @@ def native_arrays(model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, param
             f"with_stablehlo: the native runner has routes for {sorted(native_runtime.MODEL_ROUTES)} at their "
             f"fast routes' configs, not this export ({why}); the other models and configs are ROADMAP item 14c")
     n_mods = len(arrays["mods"]) if route in native_runtime.LF_ROUTES else 2
-    n_layers = len(arrays["layers"]) if route in native_runtime.ATTENTION_ROUTES else 2
+    n_layers = len(arrays["layers"]) if "layers" in arrays else 2
     return {name: native_runtime.array_of(arrays, name)
             for name in native_runtime.route_arrays(route, n_mods, n_layers)}
 
@@ -215,6 +285,11 @@ def _route_lines(route: str, mcfg: ModelConfig, arrays: dict) -> List[str]:
         lines += [f"nextvlad_groups {' '.join(map(str, groups))}", f"nextvlad_expansion {width // d}"]
     if route in native_runtime.ATTENTION_ROUTES:
         lines += [f"transformer_layers {mcfg.transformer_layers}", f"attention_heads {mcfg.attention_heads}"]
+    if route == "attention_pooling":
+        lines += [f"attention_heads {mcfg.attention_heads}", f"attention_cluster_size {mcfg.attention_cluster_size}"]
+    if route in native_runtime.RNN_ROUTES:
+        layers = sorted({name.split("/")[1] for name in arrays if name.startswith("layers/")})
+        lines += [f"rnn_layers {len(layers)}", f"rnn_cells {arrays['layers/0/w_h'].shape[0]}"]
     return lines
 
 

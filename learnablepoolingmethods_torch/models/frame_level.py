@@ -38,6 +38,7 @@ from learnablepoolingmethods_torch.models.modules import (
     SoftDBoW,
     matmul_param,
 )
+from learnablepoolingmethods_torch.ops.native_tail import gru_cell_plain, lstm_cell_plain
 from learnablepoolingmethods_torch.parallel.collectives import full_param
 from learnablepoolingmethods_torch.utils import prng
 
@@ -412,9 +413,7 @@ class OptimizedLSTMCell(_RecurrentCell):
         h = c = x.new_zeros(x.shape[0], self.features)
         outs = []
         for t in range(x.shape[1]):
-            i, f, g, o = torch.chunk((torch.matmul(h, w_h) + b_h) + pre[:, t], 4, dim=1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
+            h, c = lstm_cell_plain(pre[:, t], torch.matmul(h, w_h), b_h, c)
             outs.append(h)
         return torch.stack(outs, dim=1)
 
@@ -433,16 +432,11 @@ class GRUCell(_RecurrentCell):
     def run(self, x: torch.Tensor) -> torch.Tensor:
         """As :meth:`OptimizedLSTMCell.run`."""
         w_i, b_i, w_h, b_hn = self._kernels("i"), self._biases("i"), self._kernels("h"), self.hn.bias
-        pre = torch.matmul(x, w_i) + b_i                              # [B, F, 3H]
+        pre = torch.matmul(x, w_i)                                    # [B, F, 3H]
         h = x.new_zeros(x.shape[0], self.features)
         outs = []
         for t in range(x.shape[1]):
-            x_r, x_z, x_n = torch.chunk(pre[:, t], 3, dim=1)
-            h_r, h_z, h_n = torch.chunk(torch.matmul(h, w_h), 3, dim=1)
-            r = torch.sigmoid(x_r + h_r)
-            z = torch.sigmoid(x_z + h_z)
-            n = torch.tanh(x_n + r * (h_n + b_hn))
-            h = (1.0 - z) * n + z * h
+            h = gru_cell_plain(pre[:, t], torch.matmul(h, w_h), b_i, b_hn, h)
             outs.append(h)
         return torch.stack(outs, dim=1)
 

@@ -10,7 +10,9 @@ column, symmetric:
 
 int8 → bf16 is exact, so the only error beside a bf16 weight's is the
 quantization of w.  :func:`quantize_weight_int8` is the host-side numpy
-quantizer, equal to the JAX package's bit for bit.  :func:`matmul_wi8` runs
+quantizer, equal to the JAX package's bit for bit, and
+:func:`quantize_int8_tensor` the same arithmetic in torch on the weight's
+own device, equal to it bit for bit.  :func:`matmul_wi8` runs
 ``csrc/int8_matmul.cu`` on a CUDA tensor (the int8 tiles go through shared
 memory into the tensor cores; no bf16 copy of the weight is written) and
 :func:`matmul_wi8_plain` on a CPU tensor.  The kernel reads the weight
@@ -50,6 +52,20 @@ def quantize_weight_int8(w):
     scales = (amax / 127.0).astype(np.float32)
     safe = np.where(scales == 0.0, 1.0, scales)
     q = np.clip(np.rint(w / safe[None, :]), -127, 127).astype(np.int8)
+    return q, scales
+
+
+def quantize_int8_tensor(w: torch.Tensor):
+    """:func:`quantize_weight_int8` in torch on ``w``'s device → (q ``[K, N]``
+    int8, scales ``[N]`` f32), bit for bit the same: every operation is an
+    exact or correctly rounded f32 one (the scale's division by a tensor of
+    127, since torch may take a division by a Python scalar as a product with
+    its reciprocal; ``round`` is half to even, as ``rint``)."""
+    w = w.detach().float()
+    amax = w.abs().amax(dim=0)
+    scales = amax / torch.full_like(amax, 127.0)
+    safe = torch.where(scales == 0.0, torch.ones_like(scales), scales)
+    q = torch.round(w / safe[None, :]).clamp_(-127, 127).to(torch.int8)
     return q, scales
 
 

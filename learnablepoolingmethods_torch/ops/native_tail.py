@@ -50,6 +50,24 @@ FrameLevelLogisticModel):
   count of valid frames (the transformer's pooling) or ``num_frames``
   itself (FrameLevelLogisticModel's).
 
+The steps of the f32 routes of the models with no fast route
+(AttentionPoolingModel and the RNNs; ``models/attention.py``,
+``models/frame_level.py``), each the flax graph's f32 arithmetic:
+
+- :func:`lstm_cell`: one step of flax's ``OptimizedLSTMCell`` for every row
+  from the step's products: the gates ``(h·W_h + b_h) + x_t·W_i`` in the
+  order i, f, g, o, then c′ = σ(f)·c + σ(i)·tanh(g), h′ = σ(o)·tanh(c′);
+- :func:`gru_cell`: one step of flax's ``GRUCell`` (reset after): r, z =
+  σ((x·W_i + b_i) + h·W_h), n = tanh((x·W_in + b_in) + r·(h·W_hn + b_hn)),
+  h′ = (1 − z)·n + z·h;
+  both optionally set the final carry's rows whose last index
+  (:func:`last_frame`, flax's ``_select_last_carry``) is this step to h′;
+- :func:`pool_attention`: learned-query attention: Q queries (their
+  projection, computed once) over every frame's key and value (the product
+  plus its bias), q / √hd before the dot, masked logits set to
+  ``finfo(f32).min`` (a video of no frames attends uniformly), the softmax
+  over the frames, the weighted sum of the values.
+
 They replace no ``pallas_call``: the JAX package leaves this arithmetic to
 XLA's fusions (``learnablepoolingmethods_tpu/ops/fast_infer.py:64-88``,
 ``ops/fast_dbof.py``, ``ops/fast_lf.py``, ``ops/fast_transformer.py``,
@@ -89,6 +107,10 @@ LIBRARY = "native_runner"
 MAX_PARTS = 4  # hidden_sum's products at most (NetFV: fv1 and fv2 of two modalities)
 POOLING = ("average", "max")
 LN_EPS = 1e-6
+# pool_attention's block (csrc/native_runner.cu kPoolMaxHd, kPoolTile,
+# kMaxSmem): a head width of at most 128, and the scaled queries, a tile of
+# keys (each row padded by one) and the Q × F logits in shared memory
+POOL_MAX_HEAD_DIM, POOL_TILE, POOL_MAX_SMEM = 128, 32, 232448
 _P, _I, _LL, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_float
 BF16 = torch.bfloat16
 
@@ -258,6 +280,78 @@ def masked_mean_plain(x: torch.Tensor, num_frames: torch.Tensor, dtype: torch.dt
     return (torch.sum(x.float() * mask[:, :, None], dim=1) / denom).to(dtype)
 
 
+def last_frame(num_frames: torch.Tensor, frames: int) -> torch.Tensor:
+    """The carry index of each row, min(num_frames, F) − 1 mod F: flax's
+    ``x[seq_lengths − 1, arange(B)]`` (``_select_last_carry``), so a row of
+    no frames takes the carry after the last frame."""
+    return torch.remainder(torch.clamp(num_frames.long(), max=frames) - 1, frames)
+
+
+def lstm_cell_plain(pre_t: torch.Tensor, hw: torch.Tensor, b_h: torch.Tensor, c: torch.Tensor,
+                    carry: Optional[torch.Tensor] = None, num_frames: Optional[torch.Tensor] = None,
+                    t: int = 0, frames: int = 1):
+    """One LSTM step (f32): ``pre_t`` [B, 4H] the step's x·W_i, ``hw`` [B, 4H]
+    the product h·W_h, ``c`` [B, H] → (h′, c′); with ``carry`` [B, H] also the
+    carry with the rows whose :func:`last_frame` of ``frames`` is ``t`` set to
+    h′ (a new tensor)."""
+    i, f, g, o = torch.chunk((hw + b_h) + pre_t, 4, dim=1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    if carry is None:
+        return h, c
+    return h, c, torch.where((last_frame(num_frames, frames) == t)[:, None], h, carry)
+
+
+def gru_cell_plain(pre_t: torch.Tensor, hw: torch.Tensor, b_i: torch.Tensor, b_hn: torch.Tensor, h: torch.Tensor,
+                   carry: Optional[torch.Tensor] = None, num_frames: Optional[torch.Tensor] = None,
+                   t: int = 0, frames: int = 1):
+    """One GRU step (f32): ``pre_t`` [B, 3H] the step's x·W_i (no bias),
+    ``hw`` [B, 3H] the product h·W_h, ``b_i`` [3H], ``b_hn`` [H], ``h`` [B, H]
+    → h′, with ``carry`` as :func:`lstm_cell_plain` → (h′, carry′)."""
+    x_r, x_z, x_n = torch.chunk(pre_t + b_i, 3, dim=1)
+    h_r, h_z, h_n = torch.chunk(hw, 3, dim=1)
+    r = torch.sigmoid(x_r + h_r)
+    z = torch.sigmoid(x_z + h_z)
+    n = torch.tanh(x_n + r * (h_n + b_hn))
+    h = (1.0 - z) * n + z * h
+    if carry is None:
+        return h
+    return h, torch.where((last_frame(num_frames, frames) == t)[:, None], h, carry)
+
+
+def pool_attention_smem(n_q: int, frames: int, hd: int) -> int:
+    """The bytes of shared memory of pool_attention's block."""
+    return 4 * ((n_q + POOL_TILE) * (hd + 1) + n_q * frames)
+
+
+def pool_attention_fits(n_q: int, frames: int, hd: int) -> bool:
+    """Whether pool_attention's kernel takes Q queries over F frames at head
+    width hd."""
+    return n_q >= 1 and frames >= 1 and 1 <= hd <= POOL_MAX_HEAD_DIM and \
+        pool_attention_smem(n_q, frames, hd) <= POOL_MAX_SMEM
+
+
+def pool_attention_plain(q: torch.Tensor, kv: torch.Tensor, bkv: torch.Tensor, num_frames: torch.Tensor,
+                         heads: int) -> torch.Tensor:
+    """Learned-query attention in f32: ``q`` [Q, H·hd] the queries'
+    projection with its bias, ``kv`` [B, F, 2·H·hd] the frames' key and value
+    products (key first), ``bkv`` [2·H·hd] their biases → [B, Q, H·hd], as
+    flax's ``MultiHeadDotProductAttention`` computes it before its output
+    projection (``models/attention.py#MultiHeadAttention``)."""
+    b, f, two_d = kv.shape
+    d = two_d // 2
+    hd = d // heads
+    kv = kv + bkv
+    k, v = kv[..., :d].reshape(b, f, heads, hd), kv[..., d:].reshape(b, f, heads, hd)
+    qs = (q / torch.sqrt(torch.tensor(float(hd)))).reshape(-1, heads, hd)
+    logits = torch.einsum("qhd,bkhd->bhqk", qs, k)
+    mask = key_mask(num_frames, f) > 0
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.tensor(torch.finfo(torch.float32).min, device=logits.device))
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, -1, d)
+
+
 # ---- the kernels ---------------------------------------------------------------
 
 def _check(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
@@ -302,18 +396,23 @@ def hidden_sum(parts: Sequence[torch.Tensor], bias: torch.Tensor, group: int = 1
     return h, hb
 
 
-def gating(gates: torch.Tensor, h: torch.Tensor, g_scale: torch.Tensor, g_bias: torch.Tensor) -> torch.Tensor:
-    """:func:`gating_plain` (bf16 out) on the card (the kernel) or the CPU."""
+def gating(gates: torch.Tensor, h: torch.Tensor, g_scale: torch.Tensor, g_bias: torch.Tensor,
+           dtype: torch.dtype = BF16) -> torch.Tensor:
+    """:func:`gating_plain` (bf16 or f32 out) on the card (the kernel) or
+    the CPU."""
     if gates.device.type == "cpu":
-        return gating_plain(gates, h, g_scale, g_bias)
+        return gating_plain(gates, h, g_scale, g_bias, dtype)
     _f32("gating", gates, h, g_scale, g_bias)
     rows, width = gates.shape
-    if h.shape != gates.shape or g_scale.shape != (width,) or g_bias.shape != (width,):
-        raise ValueError(f"gating: shapes {tuple(gates.shape)}, {tuple(h.shape)}, {tuple(g_scale.shape)}")
-    out = torch.empty(gates.shape, dtype=BF16, device=gates.device)
-    _launch("gating", "lpm_gating", [_P] * 5 + [_LL, _I, _P],
-            gates.data_ptr(), h.data_ptr(), g_scale.data_ptr(), g_bias.data_ptr(), out.data_ptr(), rows, width,
-            device=gates.device)
+    if (h.shape != gates.shape or g_scale.shape != (width,) or g_bias.shape != (width,)
+            or dtype not in (torch.float32, BF16)):
+        raise ValueError(f"gating: shapes {tuple(gates.shape)}, {tuple(h.shape)}, {tuple(g_scale.shape)}, "
+                         f"out dtype {dtype}")
+    out = torch.empty(gates.shape, dtype=dtype, device=gates.device)
+    f32_out, bf16_out = (out, None) if dtype == torch.float32 else (None, out)
+    _launch("gating", "lpm_gating", [_P] * 6 + [_LL, _I, _P],
+            gates.data_ptr(), h.data_ptr(), g_scale.data_ptr(), g_bias.data_ptr(), _ptr(bf16_out), _ptr(f32_out),
+            rows, width, device=gates.device)
     gating.launches += 1
     return out
 
@@ -505,15 +604,18 @@ def frame_stage_all(features: torch.Tensor, num_frames: torch.Tensor, dtype: tor
     return out, mask
 
 
-def bias_act(y: torch.Tensor, bias: torch.Tensor, relu: bool = False) -> torch.Tensor:
-    """:func:`bias_act_plain` (bf16 out) on the card (the kernel) or the
-    CPU."""
+def bias_act(y: torch.Tensor, bias: torch.Tensor, relu: bool = False, dtype: torch.dtype = BF16) -> torch.Tensor:
+    """:func:`bias_act_plain` (bf16 out, or f32: the f32 routes' bias adds)
+    on the card (the kernel) or the CPU."""
     if y.device.type == "cpu":
-        return bias_act_plain(y, bias, relu)
+        return bias_act_plain(y, bias, relu, dtype)
     rows, width = _bias_rows("bias_act", y, bias)
-    out = torch.empty(y.shape, dtype=BF16, device=y.device)
-    _launch("bias_act", "lpm_bias_act", [_P] * 3 + [_I, _LL, _I, _P],
-            y.data_ptr(), bias.data_ptr(), out.data_ptr(), int(relu), rows, width, device=y.device)
+    if dtype not in (torch.float32, BF16):
+        raise ValueError(f"bias_act: out dtype {dtype}")
+    out = torch.empty(y.shape, dtype=dtype, device=y.device)
+    f32_out, bf16_out = (out, None) if dtype == torch.float32 else (None, out)
+    _launch("bias_act", "lpm_bias_act", [_P] * 4 + [_I, _LL, _I, _P],
+            y.data_ptr(), bias.data_ptr(), _ptr(bf16_out), _ptr(f32_out), int(relu), rows, width, device=y.device)
     bias_act.launches += 1
     return out
 
@@ -559,7 +661,93 @@ def masked_mean(x: torch.Tensor, num_frames: torch.Tensor, dtype: torch.dtype = 
     return out
 
 
+def _rows(name: str, t: torch.Tensor, rows: int, width: int) -> int:
+    """The row stride of ``t``, a [rows, width] f32 CUDA tensor whose rows
+    are contiguous (a step's slice of [B, F, ·] products passes as is)."""
+    if (t.device.type != "cuda" or t.dtype != torch.float32 or t.shape != (rows, width)
+            or (width > 1 and t.stride(1) != 1)):
+        raise ValueError(f"{name}: needs f32 CUDA [{rows}, {width}] with contiguous rows, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.stride(0)
+
+
+def _cell_carry(name: str, carry, num_frames, b: int, width: int):
+    if carry is None:
+        return None
+    _f32(name, carry)
+    _check(name, torch.int32, num_frames)
+    if carry.shape != (b, width) or num_frames.shape != (b,):
+        raise ValueError(f"{name}: carry {tuple(carry.shape)}, num_frames {tuple(num_frames.shape)} for B={b}")
+    return carry.clone()
+
+
+def lstm_cell(pre_t: torch.Tensor, hw: torch.Tensor, b_h: torch.Tensor, c: torch.Tensor,
+              carry: Optional[torch.Tensor] = None, num_frames: Optional[torch.Tensor] = None,
+              t: int = 0, frames: int = 1):
+    """:func:`lstm_cell_plain` on the card (the kernel; ``pre_t`` may be a
+    step's rows of the [B, F, 4H] products) or the CPU."""
+    if c.device.type == "cpu":
+        return lstm_cell_plain(pre_t, hw, b_h, c, carry, num_frames, t, frames)
+    b, width = c.shape
+    ld = _rows("lstm_cell", pre_t, b, 4 * width)
+    _f32("lstm_cell", hw, b_h, c)
+    if hw.shape != (b, 4 * width) or b_h.shape != (4 * width,) or not 0 <= t < frames:
+        raise ValueError(f"lstm_cell: hw {tuple(hw.shape)}, b_h {tuple(b_h.shape)}, t={t} of {frames}")
+    carry = _cell_carry("lstm_cell", carry, num_frames, b, width)
+    h, c_out = torch.empty_like(c), torch.empty_like(c)
+    _launch("lstm_cell", "lpm_lstm_cell", [_P, _LL] + [_P] * 6 + [_LL] + [_P] * 2 + [_I] * 4 + [_P],
+            pre_t.data_ptr(), ld, hw.data_ptr(), b_h.data_ptr(), c.data_ptr(), c_out.data_ptr(), h.data_ptr(), None,
+            0, _ptr(carry), _ptr(num_frames), b, frames, width, t, device=c.device)
+    lstm_cell.launches += 1
+    return (h, c_out) if carry is None else (h, c_out, carry)
+
+
+def gru_cell(pre_t: torch.Tensor, hw: torch.Tensor, b_i: torch.Tensor, b_hn: torch.Tensor, h: torch.Tensor,
+             carry: Optional[torch.Tensor] = None, num_frames: Optional[torch.Tensor] = None,
+             t: int = 0, frames: int = 1):
+    """:func:`gru_cell_plain` on the card (the kernel; ``pre_t`` as in
+    :func:`lstm_cell`) or the CPU."""
+    if h.device.type == "cpu":
+        return gru_cell_plain(pre_t, hw, b_i, b_hn, h, carry, num_frames, t, frames)
+    b, width = h.shape
+    ld = _rows("gru_cell", pre_t, b, 3 * width)
+    _f32("gru_cell", hw, b_i, b_hn, h)
+    if (hw.shape != (b, 3 * width) or b_i.shape != (3 * width,) or b_hn.shape != (width,)
+            or not 0 <= t < frames):
+        raise ValueError(f"gru_cell: hw {tuple(hw.shape)}, b_i {tuple(b_i.shape)}, b_hn {tuple(b_hn.shape)}, "
+                         f"t={t} of {frames}")
+    carry = _cell_carry("gru_cell", carry, num_frames, b, width)
+    out = torch.empty_like(h)
+    _launch("gru_cell", "lpm_gru_cell", [_P, _LL] + [_P] * 6 + [_LL] + [_P] * 2 + [_I] * 4 + [_P],
+            pre_t.data_ptr(), ld, hw.data_ptr(), b_i.data_ptr(), b_hn.data_ptr(), h.data_ptr(), out.data_ptr(), None,
+            0, _ptr(carry), _ptr(num_frames), b, frames, width, t, device=h.device)
+    gru_cell.launches += 1
+    return out if carry is None else (out, carry)
+
+
+def pool_attention(q: torch.Tensor, kv: torch.Tensor, bkv: torch.Tensor, num_frames: torch.Tensor,
+                   heads: int) -> torch.Tensor:
+    """:func:`pool_attention_plain` on the card (the kernel) or the CPU."""
+    if kv.device.type == "cpu":
+        return pool_attention_plain(q, kv, bkv, num_frames, heads)
+    _f32("pool_attention", q, kv, bkv)
+    _check("pool_attention", torch.int32, num_frames)
+    b, f, two_d = kv.shape
+    n_q, d = q.shape
+    if (two_d != 2 * d or bkv.shape != (two_d,) or num_frames.shape != (b,) or heads < 1 or d % heads
+            or not pool_attention_fits(n_q, f, d // heads)):
+        raise ValueError(f"pool_attention: q {tuple(q.shape)}, kv {tuple(kv.shape)}, bkv {tuple(bkv.shape)}, "
+                         f"{heads} heads")
+    out = torch.empty((b, n_q, d), dtype=torch.float32, device=kv.device)
+    _launch("pool_attention", "lpm_pool_attention", [_P] * 5 + [_I] * 5 + [_P],
+            q.data_ptr(), kv.data_ptr(), bkv.data_ptr(), num_frames.data_ptr(), out.data_ptr(), b, f, n_q, heads,
+            d // heads, device=kv.device)
+    pool_attention.launches += 1
+    return out
+
+
 WRAPPERS = (hidden_sum, gating, moe_combine, topk, frame_stage, bias_sigmoid, bias_relu6, frame_pool, row_l2,
-            nextvlad_assign, nextvlad_residual, bias_act, residual_layernorm, masked_mean)
+            nextvlad_assign, nextvlad_residual, bias_act, residual_layernorm, masked_mean, lstm_cell, gru_cell,
+            pool_attention)
 for _wrapper in WRAPPERS:
     _wrapper.launches = 0

@@ -57,6 +57,25 @@ def test_quantizer_matches_jax_bit_for_bit():
     assert got_s[3] == 0.0 and not got_q[:, 3].any() and np.abs(got_q).max() == 127
 
 
+def test_tensor_quantizer_equals_the_host_quantizer():
+    """quantize_int8_tensor (torch, on the weight's device) gives the host
+    quantizer's bits, and int8_weight lays them out as device_weight does."""
+    rng = np.random.default_rng(2)
+    w = (rng.normal(size=(4112, 40)) * 3.0).astype(np.float32)
+    w[:, 3] = 0.0
+    w[5, 7] = np.float32(2.5) * np.abs(w[:, 7]).max()
+    w[:, 9] = np.float32(0.5) * np.arange(4112) / 4111
+    for src in (w, torch.from_numpy(w).to(torch.bfloat16)):
+        want_q, want_s = tq.quantize_weight_int8(src)
+        got_q, got_s = tq.quantize_int8_tensor(src if isinstance(src, torch.Tensor) else torch.from_numpy(src))
+        np.testing.assert_array_equal(got_q.numpy(), want_q)
+        np.testing.assert_array_equal(got_s.numpy().view(np.int32), want_s.view(np.int32))
+        got = fast_infer.int8_weight(src, "cpu")
+        want = tq.device_weight(want_q, "cpu")
+        assert got["q"].stride() == want.stride() and torch.equal(got["q"], want)
+        np.testing.assert_array_equal(got["s"].numpy(), want_s)
+
+
 def test_matmul_matches_jax():
     rng = np.random.default_rng(1)
     w = rng.normal(size=(4112, 40)).astype(np.float32)

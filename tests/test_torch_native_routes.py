@@ -433,15 +433,16 @@ OUTSIDE_THE_ROUTES = {
     "lf_window": ("NetRVLADModelLF", dict(sample_random_frames=False), LCFG),
     "lf_relu": ("SoftDbofModelLF", dict(netvlad_relu=True), LCFG),
     "video_bf16": ("MoeModel", dict(compute_dtype="bfloat16"), VCFG),
-    # TransformerEncoderModel, AttentionNetVLADModel and FrameLevelLogisticModel
-    # have routes since item 14c.3 (tests/test_torch_native_attention_routes.py):
-    # what stays outside is the rest of the attention family and of the
-    # frame-level models, and those routes' configs that they refuse
+    # every model of the registry has a route since item 14c.5
+    # (tests/test_torch_native_attention_routes.py,
+    # tests/test_torch_native_rnn_routes.py): what stays outside is the
+    # configs that those routes refuse
     "attention": ("AttentionPoolingModel", dict(attention_hidden_size=16, attention_heads=2,
-                                                transformer_ff_size=8, attention_cluster_size=2), FCFG),
-    "rnn": ("LstmModel", dict(lstm_cells=8), FCFG),
+                                                transformer_ff_size=8, attention_cluster_size=2,
+                                                compute_dtype="bfloat16"), FCFG),
+    "rnn": ("LstmModel", dict(lstm_cells=8), VCFG),
     "frame_level_logistic": ("FrameLevelLogisticModel", dict(compute_dtype="bfloat16"), FCFG),
-    "gru": ("GruModel", dict(lstm_cells=8), FCFG),
+    "gru": ("GruModel", dict(gru_cells=8), VCFG),
     "transformer_no_gating": ("TransformerEncoderModel", dict(attention_hidden_size=16, attention_heads=2,
                                                               transformer_ff_size=8, gating=False), FCFG),
 }
