@@ -46,8 +46,10 @@ error, and prints one JSON line per phase:
    int8_matmul
               the W8A16 kernel (csrc/int8_matmul.cu) against its plain
               version at the --int8_hidden FC shapes, B 1, 32, 256, 512, the
-              bias fused, K=4,112 with a zero column (INT8_GATE); times at the
-              Willow rgb FC beside the bound and cuBLAS bf16;
+              bias fused, K=4,112 with a zero column (INT8_GATE); the
+              library's tiles against int8_geometry's; times at the Willow
+              rgb FC beside the bound and cuBLAS bf16 (CUDA events and the
+              profiler's device clock);
    dropout    the dropout kernel (csrc/dropout.cu, flax's nn.Dropout and
               attention-weight dropout): its keep mask equal bit for bit to
               utils/prng.py's at [1, 1, 300, 300], [76,800, 1024] and sizes
@@ -124,8 +126,8 @@ error, and prints one JSON line per phase:
               the same frames as a yardstick for the RNN routes; lpm_serve
               answering NATIVE_ROUTES_HTTP over HTTP as the in-process
               runner does; then each new kernel against its plain version
-              (ROUTE_KERNEL_GATES) at its main-path shape, timed beside its
-              bound;
+              (ROUTE_KERNEL_GATES) at its main-path shape (pool_attention
+              also at POOL_EDGE_SHAPES), timed beside its bound;
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -327,6 +329,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import http.client
@@ -416,7 +419,12 @@ from learnablepoolingmethods_torch.ops.fused_frontend import (
     sample_indices,
 )
 from learnablepoolingmethods_torch.ops.int8_matmul import (
+    BATCH_TILES,
+    H100_SMS,
+    TILE_K,
+    TILE_N,
     int8_geometry,
+    logical_weight,
     matmul_wi8,
     matmul_wi8_plain,
     quantize_int8_tensor,
@@ -3081,7 +3089,8 @@ def check_int8(name, x, q, s, b, errors) -> float:
     got = matmul_wi8(x, q, s, b)
     again = matmul_wi8(x, q, s, b)
     # plus two f32 roundings of the result (the scale, the bias)
-    allow = INT8_GATE * (x.float().abs() @ q.float().abs()) * s.abs() + 2.0 ** -22 * want.abs()
+    allow = (INT8_GATE * (x.float().abs() @ logical_weight(q, x.shape[1]).float().abs()) * s.abs()
+             + 2.0 ** -22 * want.abs())
     diff = (got - want).abs()
     if not torch.equal(got, again):
         raise AssertionError(f"int8_matmul {name}: a second launch differs")
@@ -3099,6 +3108,11 @@ def phase_int8_matmul(dev, smi) -> tuple:
     column; times at the Willow rgb FC for each B beside the bound and
     cuBLAS bf16 on the weight dequantized once (library_ms)."""
     errors, worst, times = {}, {}, {}
+    # the library's tiles, which int8_geometry mirrors
+    tile = (ctypes.c_int * 4)()
+    kernel_build.load_function("int8_matmul", "lpm_int8_matmul_tile", [ctypes.c_void_p], restype=None)(tile)
+    if list(tile) != [TILE_N, TILE_K, BATCH_TILES[-1], H100_SMS]:
+        raise AssertionError(f"int8_matmul: the library's tiles {list(tile)} differ from int8_geometry's")
     gen = torch.Generator(device=dev).manual_seed(7)
     for name, (k, n) in {**INT8_SHAPES, "edge_k4112_n200": (4112, 200)}.items():
         edge = name.startswith("edge")
@@ -3109,7 +3123,8 @@ def phase_int8_matmul(dev, smi) -> tuple:
             if name == "willow_rgb":
                 worst[f"{name}+bias B={m}"] = check_int8(f"{name}+bias B={m}", xm, q, s, b, errors)
         if name == "willow_rgb":
-            w_bf16 = q.float().to(torch.bfloat16)  # the library's operand: dequantized once, unscaled
+            # the library's operand: dequantized once, unscaled, [K, N]
+            w_bf16 = logical_weight(q, k).float().to(torch.bfloat16)
             for m in INT8_BATCHES:
                 xm = x[:m].contiguous()
                 ms = time_ms(lambda: matmul_wi8(xm, q, s))
@@ -3117,14 +3132,18 @@ def phase_int8_matmul(dev, smi) -> tuple:
                 library_ms = time_ms(lambda: torch.matmul(xm, w_bf16))
                 flops, nbytes = 2 * m * k * n, k * n + m * k * 2 + m * n * 4 + n * 4
                 bound = max((flops / PEAK_BF16 * 1e3, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
-                times[m] = (ms, plain_ms, bound, library_ms)
+                # the same two on the profiler's device clock, without the
+                # host's launch gap inside the events (the wrapper's Python)
+                device = (device_ms(lambda: matmul_wi8(xm, q, s)), device_ms(lambda: torch.matmul(xm, w_bf16)))
+                times[m] = (ms, plain_ms, bound, library_ms, device)
             del w_bf16
         del x, q
         torch.cuda.empty_cache()
     k, n = INT8_SHAPES["willow_rgb"]
     emit({"phase": "int8_matmul", "gate": INT8_GATE, "worst_diff_over_allowance": worst,
           "times_willow_rgb": {f"B={m}": {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
-                                          "bound_by": t[2][1], "cublas_bf16_ms": t[3]}
+                                          "bound_by": t[2][1], "cublas_bf16_ms": t[3], "device_ms": t[4][0],
+                                          "cublas_bf16_device_ms": t[4][1]}
                                for m, t in times.items()},
           "geometry": {f"B={m}": int8_geometry(m, n, k) for m in INT8_BATCHES}, "card": smi})
     t = times[512]
@@ -4294,6 +4313,32 @@ def lpm_serve_route(binary: str, export_dir: str, exe, fcfg: FeatureConfig, reco
     return {"ready_s": ready_s, "answers": answers}
 
 
+# pool_attention's edge shapes beside the default width: (B, F, Q, heads,
+# head width, num_frames) — ragged (a head width that is not a multiple of
+# 4 takes the 4-byte copies; more than 64 queries two query blocks) with
+# videos of 0, 1, F and more frames, and F = 900 past the first design's
+# shared memory (Q × F logits), with videos of 0, 1 and F frames
+POOL_EDGE_SHAPES = {
+    "ragged_f37_q5_hd40": (6, 37, 5, 3, 40, (0, 1, 37, 20, 50, 36)),
+    "ragged_f37_q70_hd42": (4, 37, 70, 2, 42, (0, 1, 37, 5)),
+    "f900_q64_hd128": (16, 900, 64, 8, 128, (0, 1, 900, 899, 450, 33, 32, 64, 700, 5, 900, 0, 2, 31, 97, 800)),
+}
+
+
+def pool_edge_inputs(dev) -> dict:
+    """pool_attention's inputs at POOL_EDGE_SHAPES: label → (q, kv, bkv,
+    num_frames, heads)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for label, (b, f, n_q, heads, hd, nf) in POOL_EDGE_SHAPES.items():
+        d = heads * hd
+        out[label] = (torch.randn((n_q, d), generator=gen, device=dev),
+                      torch.randn((b, f, 2 * d), generator=gen, device=dev),
+                      torch.randn((2 * d,), generator=gen, device=dev) * 0.1,
+                      torch.tensor(nf, dtype=torch.int32, device=dev), heads)
+    return {"pool_edges": out}
+
+
 def route_kernel_inputs(dev) -> dict:
     """Random inputs of the routes' kernels at the shapes their main path
     gives them at B=256 (Willow's widths, S=30, V=3862; DBoF-8192,
@@ -4337,7 +4382,8 @@ def route_kernel_inputs(dev) -> dict:
                sdpa_k=kvb[0].contiguous(), sdpa_v=kvb[1].contiguous(),
                sdpa_mask=native_tail.key_mask(nf0, F).bool()[:, None, None, :],
                g_scale=randn(h, scale=0.2) + 1.0, g_bias=randn(h, scale=0.1))
-    return dict(**rnn, x=x, nf=nf, s=s, in_scale=randn(DT, scale=0.1) + 1.0, in_bias=randn(DT, scale=0.05),
+    return dict(**rnn, **pool_edge_inputs(dev), x=x, nf=nf, s=s, in_scale=randn(DT, scale=0.1) + 1.0,
+                in_bias=randn(DT, scale=0.05),
                 nf0=nf0, qkv_y=qkv_y.view(b * F, 3 * d), qkv_b=randn(3 * d, scale=0.1),
                 ff_y=qkv_y[:b * F * ff].view(b * F, ff), ff_b=randn(ff, scale=0.1), enc_x=enc_x,
                 enc_y=randn(b * F, d).to(torch.bfloat16), ln_s=randn(d, scale=0.2) + 1.0, ln_b=randn(d, scale=0.1),
@@ -4476,7 +4522,9 @@ def route_kernel_calls(x: dict) -> dict:
                                                   x["h_steps"][t])))),
         "native_pool_attention": ([
             ("default_width", lambda: nt.pool_attention(x["pool_q"], x["kv"], x["bkv"], x["nf0"], x["heads"]),
-             lambda: nt.pool_attention_plain(x["pool_q"], x["kv"], x["bkv"], x["nf0"], x["heads"]))],
+             lambda: nt.pool_attention_plain(x["pool_q"], x["kv"], x["bkv"], x["nf0"], x["heads"]))] + [
+            (label, functools.partial(nt.pool_attention, *args), functools.partial(nt.pool_attention_plain, *args))
+            for label, args in x["pool_edges"].items()],
             pool_attention_work(x["nf0"], F, *x["pool_q"].shape)),
     }
 
@@ -4531,7 +4579,8 @@ def check_route_kernels(dev, errors: dict) -> tuple:
         "native_gru_cell": "B=256, H=1024: a step's rows of x·W_i (row stride 300·4096), h·W_h [256, 3072] → h "
                            "(GruModel's default); the carry at t = 0 and F − 1 also checked; timed as lstm_cell",
         "native_pool_attention": "B=256, F=300, 64 queries, 8 heads of 128, f32 [256, 300, 2048] keys and values "
-                                 "(AttentionPoolingModel's default), num_frames 0 included",
+                                 "(AttentionPoolingModel's default), num_frames 0 included; also checked at "
+                                 "POOL_EDGE_SHAPES (F=37 ragged, F=900)",
     }
     return timing, shapes, library
 

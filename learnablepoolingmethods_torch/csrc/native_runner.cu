@@ -77,12 +77,14 @@
 // for topk one block a row that keeps the row in shared memory and takes k
 // rounds of a block-wide argmax, each round over the entries that order
 // after the previous pick; one thread a (row, unit) for the RNN cells, one
-// block a (video, head) for pool_attention (its logits in shared memory).  chip_smoke.py holds each against its plain
+// block a (video, head, 64 queries) for pool_attention (an online softmax
+// over cp.async tiles of 32 frames, register micro-tiles on the CUDA cores).  chip_smoke.py holds each against its plain
 // version (ops/native_tail.py) and times it beside its bound.
 //
 // Arithmetic that the gate against the torch route needs: the sigmoid is
 // 1 / (1 + expf(−x)) and the softmax exp(x − max) / Σ, each with expf (not
-// __expf), as PyTorch computes them on the card; products and sums round
+// __expf), as PyTorch computes them on the card (pool_attention's online
+// softmax divides Σ exp(x − m)·v by Σ exp(x − m) once, at the end); products and sums round
 // where the route rounds (__fmul_rn / __fadd_rn keep nvcc from fusing them);
 // the bf16 dequantize rounds after its multiply and after its add, as
 // PyTorch's bf16 arithmetic does.
@@ -107,6 +109,7 @@
 #include <vector>
 
 #include "native_manifest.h"
+#include "tensor_core.cuh"
 #include "threefry.cuh"
 
 extern "C" int lpm_netvlad_frontend(
@@ -154,9 +157,11 @@ constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory at mo
 constexpr int kMaxParts = 4;          // hidden_sum's products (NetFV: fv1, fv2 of two modalities)
 constexpr int kMaxMods = 2;
 constexpr int kPoolThreads = 256;
-constexpr int kPoolTile = 32;    // keys (or values) a shared-memory tile
-constexpr int kPoolRows = 64;    // queries a pass: a thread a query and 8 keys of a tile
-constexpr int kPoolMaxHd = 128;  // the values' pass: a thread a column
+constexpr int kPoolTile = 32;              // frames a key (and value) tile
+constexpr int kPoolRows = 64;              // queries a block
+constexpr int kPoolMaxHd = 128;            // head width at most
+constexpr int kPoolPitch = kPoolMaxHd + 8; // floats a query, key or value row in shared memory
+constexpr int kPoolPPitch = kPoolRows + 8; // floats a frame's row of weights
 
 // the counted launches, in lpm_runner_launches' names
 enum Counter {
@@ -643,104 +648,228 @@ __global__ void gru_cell_kernel(const float* __restrict__ pre, long long ld_pre,
   }
 }
 
-long long pool_attention_smem(long long Q, long long F, long long hd) {
-  return 4 * ((Q + kPoolTile) * (hd + 1) + Q * F);
-}
+// pool_attention's block: the scaled queries [kPoolRows][kPoolPitch], two
+// stages of a key tile and a value tile [kPoolTile][kPoolPitch] each, the
+// tile's weights frame-major [kPoolTile][kPoolPPitch], and a rescale (then
+// the softmax sum) a query.  It does not grow with F.
+constexpr int kPoolSmemFloats =
+    kPoolRows * kPoolPitch + 4 * kPoolTile * kPoolPitch + kPoolTile * kPoolPPitch + kPoolRows;
+constexpr int kPoolSmem = 4 * kPoolSmemFloats;
+static_assert(kPoolThreads == 256 && kPoolRows == 64 && kPoolTile == 32 && kPoolMaxHd == 128,
+              "the micro-tiles below assume this block");
 
-// Learned-query attention, f32: one block a (video b, head), of kPoolThreads.
-// In shared memory: the head's Q queries q / √hd (q [Q, H·hd], their
-// projection with its bias), a tile of 32 keys (kv's row f: key, then value,
-// each [H·hd], plus bkv), the Q × F logits.  The logits: a thread a query
-// and keys r0, r0 + 4, … of the tile (a warp reads one key row at once),
-// summed over d by fmaf; frames f ≥ min(num_frames, F) get finfo(f32).min.
-// The softmax: a warp a query, exp(x − max) / Σ exp(x − max) (all masked:
-// uniform).  The values: tiles of 32, a thread a column d and the queries
-// of its parity (32 accumulators), Σ_f w·v by fmaf in frame order.  out
-// [B, Q, H·hd].  It replaces no pallas_call: flax's MultiHeadDotProductAttention
-// runs in XLA (JAX models/attention.py:101-109), and row 7 takes only
-// Lq = Lk.  Operations bound it (2·Q·H·hd multiply-adds a valid frame at the
-// f32 CUDA-core rate, about 0.16 ms at AttentionPoolingModel's default
-// width and B=256); this first design keeps every operand in shared memory
-// and runs on the CUDA cores (one block an SM for its 126 KB at F=300).
-__global__ void __launch_bounds__(kPoolThreads)
+// Learned-query attention, f32: one block a (video b, head, 64 queries),
+// of kPoolThreads.  out [B, Q, H·hd] = softmax(q·kᵀ / √hd, masked) · v per
+// head, with q [Q, H·hd] the queries' projection with its bias, kv's row f
+// the frame's key then value ([H·hd] each) and bkv their biases.  It
+// replaces no pallas_call: flax's MultiHeadDotProductAttention runs in XLA
+// (JAX models/attention.py:101-109), and row 7 takes only Lq = Lk.
+//
+// Bound: operations, 2·Q·hd multiply-adds a frame with weight for each
+// (video, head) on the f32 CUDA cores (about 0.16 ms at
+// AttentionPoolingModel's default width, B=256, on chip_smoke.py's frame
+// counts); the keys and values of the valid frames are about 0.1 ms of
+// bytes.  The design keeps the FMA units fed:
+//  - one pass over tiles of 32 frames with an online softmax (a running max
+//    m and sum l a query; the accumulators are rescaled by exp(m − m′) when
+//    the max grows, and divided by l once at the end), so the block's
+//    shared memory (111 KB) does not grow with F and two blocks share an SM;
+//  - register micro-tiles: the logits 4 queries × 4 frames a thread over
+//    every other 4 columns of d (a float4 of q and of k a step: 64 fmaf for 8
+//    shared loads), the two halves of d summed by a shuffle; the weighted
+//    sum 4 queries × 8 columns (32 fmaf for 3 float4 loads a frame); rows
+//    padded to 136 floats, so a warp's loads hit distinct banks;
+//  - the next tile's keys and values come by cp.async while this one is
+//    used; each thread adds the bias to the elements it copied, once, by
+//    __fadd_rn, when they land;
+//  - the tiles wholly past valid = min(num_frames, F) are never read when
+//    valid ≥ 1: their weights are exactly 0 (expf(−FLT_MAX − m) = 0).  A
+//    video of no valid frame (every pad row of a served batch) reads all F
+//    frames and attends to them uniformly, as flax does: its logits are
+//    finfo(f32).min, never −inf, so m = −FLT_MAX and every weight is 1.
+//    Frames past F in the last tile get −inf (weight 0), never 0/0.
+// The weighted sum adds the frames in order; split-TF32 on mma.sync was not
+// taken: the FMA core keeps the f32 route's arithmetic and its 1e-5 checks.
+__global__ void __launch_bounds__(kPoolThreads, 2)
 pool_attention_kernel(const float* __restrict__ q, const float* __restrict__ kv,
                       const float* __restrict__ bkv, const int32_t* __restrict__ nf,
-                      float* __restrict__ out, int F, int Q, int H, int hd) {
-  extern __shared__ float smem[];
-  const int ld = hd + 1;
-  float* qs = smem;                          // [Q][hd + 1]
-  float* tile = qs + (long long)Q * ld;      // [kPoolTile][hd + 1]
-  float* logits = tile + kPoolTile * ld;     // [Q][F]
-  const int b = blockIdx.x / H, head = blockIdx.x % H;
-  const int tid = threadIdx.x;
+                      float* __restrict__ out, int F, int Q, int H, int hd, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                                   // [kPoolRows][kPoolPitch], q / √hd
+  float* kvs = qs + kPoolRows * kPoolPitch;           // [stage][key, value][kPoolTile][kPoolPitch]
+  float* pt = kvs + 4 * kPoolTile * kPoolPitch;       // [kPoolTile][kPoolPPitch], weights of a tile
+  float* qstat = pt + kPoolTile * kPoolPPitch;        // [kPoolRows]: this tile's rescale, then l
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x / H, head = blockIdx.x % H, q0 = blockIdx.y * kPoolRows;
   const long long D = (long long)H * hd;
   const float* kvb = kv + (long long)b * F * 2 * D + (long long)head * hd;
   const float* bk = bkv + (long long)head * hd;
   const float scale = sqrtf((float)hd);
-  for (int i = tid; i < Q * hd; i += kPoolThreads)
-    qs[(i / hd) * ld + i % hd] = __fdiv_rn(q[(long long)(i / hd) * D + head * hd + i % hd], scale);
-  const int valid = min(nf[b], F);
-  const int r0 = tid / kPoolRows;
-  for (int f0 = 0; f0 < F; f0 += kPoolTile) {
-    const int nt = min(kPoolTile, F - f0);
-    __syncthreads();  // the queries are in place; the last tile is read
-    for (int i = tid; i < nt * hd; i += kPoolThreads)
-      tile[(i / hd) * ld + i % hd] = __fadd_rn(kvb[(long long)(f0 + i / hd) * 2 * D + i % hd], bk[i % hd]);
-    __syncthreads();
-    for (int q0 = 0; q0 < Q; q0 += kPoolRows) {
-      const int qi = q0 + tid % kPoolRows;
-      if (qi >= Q) break;
-      float acc[kPoolTile / 4] = {};
-      for (int d = 0; d < hd; ++d) {
-        const float x = qs[qi * ld + d];
-#pragma unroll
-        for (int j = 0; j < kPoolTile / 4; ++j) acc[j] = fmaf(x, tile[(r0 + 4 * j) * ld + d], acc[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < kPoolTile / 4; ++j) {
-        const int r = r0 + 4 * j;
-        if (r < nt) logits[(long long)qi * F + f0 + r] = f0 + r < valid ? acc[j] : -FLT_MAX;
-      }
-    }
-  }
-  __syncthreads();
-  const int lane = tid & 31;
-  for (int qi = tid >> 5; qi < Q; qi += kPoolThreads / 32) {
-    float* l = logits + (long long)qi * F;
-    float mx = -INFINITY;
-    for (int f = lane; f < F; f += 32) mx = fmaxf(mx, l[f]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int f = lane; f < F; f += 32) sum = __fadd_rn(sum, expf(__fsub_rn(l[f], mx)));
-    sum = warp_sum(sum);
-    for (int f = lane; f < F; f += 32) l[f] = __fdiv_rn(expf(__fsub_rn(l[f], mx)), sum);
-  }
-  constexpr int kAcc = kPoolRows * kPoolMaxHd / kPoolThreads;
-  const int d = tid % kPoolMaxHd, qg = tid / kPoolMaxHd;
-  for (int q0 = 0; q0 < Q; q0 += kPoolRows) {
-    float acc[kAcc] = {};
-    for (int f0 = 0; f0 < F; f0 += kPoolTile) {
-      const int nt = min(kPoolTile, F - f0);
-      __syncthreads();  // the softmax is done; the last tile is read
-      for (int i = tid; i < nt * hd; i += kPoolThreads)
-        tile[(i / hd) * ld + i % hd] =
-            __fadd_rn(kvb[(long long)(f0 + i / hd) * 2 * D + D + i % hd], bk[D + i % hd]);
-      __syncthreads();
-      if (d >= hd) continue;
-      for (int r = 0; r < nt; ++r) {
-        const float v = tile[r * ld + d];
-#pragma unroll
-        for (int j = 0; j < kAcc; ++j) {
-          const int qi = q0 + qg + (kPoolThreads / kPoolMaxHd) * j;
-          if (qi < Q) acc[j] = fmaf(logits[(long long)qi * F + f0 + r], v, acc[j]);
+  const int valid = max(0, min(nf[b], F));
+  const int lim = valid > 0 ? valid : F;  // the frames read
+  const int n_tiles = (lim + kPoolTile - 1) / kPoolTile;
+  const int hd8 = (hd + 7) & ~7;
+
+  // a tile's keys and values (frames past lim and columns past hd are zero);
+  // with `bias`, instead add the bias to the elements this thread copied
+  auto tile_pass = [&](int t, bool bias) {
+    float* ks = kvs + (t & 1) * 2 * kPoolTile * kPoolPitch;
+    if (vec) {
+      for (int c = tid; c < 2 * kPoolTile * (kPoolMaxHd / 4); c += kPoolThreads) {
+        const int side = c / (kPoolTile * kPoolMaxHd / 4), rem = c % (kPoolTile * kPoolMaxHd / 4);
+        const int r = rem / (kPoolMaxHd / 4), d = (rem % (kPoolMaxHd / 4)) * 4;
+        const int f = t * kPoolTile + r;
+        const bool in = f < lim && d < hd;
+        float* dst = ks + (side * kPoolTile + r) * kPoolPitch + d;
+        if (!bias) {
+          lpm::cp_async_16(lpm::smem_addr(dst), in ? kvb + (long long)f * 2 * D + side * D + d : kvb, in ? 16 : 0);
+        } else if (in) {
+          const float4 x = *reinterpret_cast<float4*>(dst);
+          const float4 y = __ldg(reinterpret_cast<const float4*>(bk + side * D + d));
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y), __fadd_rn(x.z, y.z), __fadd_rn(x.w, y.w));
         }
       }
+    } else {
+      for (int c = tid; c < 2 * kPoolTile * kPoolMaxHd; c += kPoolThreads) {
+        const int side = c / (kPoolTile * kPoolMaxHd), rem = c % (kPoolTile * kPoolMaxHd);
+        const int r = rem / kPoolMaxHd, d = rem % kPoolMaxHd;
+        const int f = t * kPoolTile + r;
+        const bool in = f < lim && d < hd;
+        float* dst = ks + (side * kPoolTile + r) * kPoolPitch + d;
+        if (!bias)
+          lpm::cp_async_4(lpm::smem_addr(dst), in ? kvb + (long long)f * 2 * D + side * D + d : kvb, in ? 4 : 0);
+        else if (in)
+          *dst = __fadd_rn(*dst, __ldg(bk + side * D + d));
+      }
     }
-    if (d >= hd) continue;
+    if (!bias) lpm::cp_async_commit();
+  };
+  tile_pass(0, false);
+  for (int i = tid; i < kPoolRows * kPoolMaxHd; i += kPoolThreads) {
+    const int r = i / kPoolMaxHd, d = i % kPoolMaxHd;
+    qs[r * kPoolPitch + d] =
+        q0 + r < Q && d < hd ? __fdiv_rn(q[(long long)(q0 + r) * D + (long long)head * hd + d], scale) : 0.f;
+  }
+  // the logits' micro-tile: queries lq + 16i, frames lf + 8j of the tile,
+  // the columns 8m + 4h (h the lane's low bit; the other half in lane ^ 1)
+  const int h = lane & 1, lq = 4 * (warp & 3) + (lane >> 3), lf = 4 * (warp >> 2) + ((lane >> 1) & 3);
+  // the softmax: query sq, frames part + 4k of the tile
+  const int sq = 8 * warp + (lane & 7), part = lane >> 3;
+  float m_run = -INFINITY, l_run = 0.f;
+  // the weighted sum: queries 4·vq + i, columns 4·vd + c and 64 + 4·vd + c
+  const int vq = 4 * (warp & 3) + (lane >> 3), vd = 8 * (warp >> 2) + (lane & 7);
+  float o[4][8];
 #pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      const int qi = q0 + qg + (kPoolThreads / kPoolMaxHd) * j;
-      if (qi < Q) out[(((long long)b * Q + qi) * H + head) * hd + d] = acc[j];
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    lpm::cp_async_wait<0>();
+    tile_pass(t, true);
+    __syncthreads();  // tile t is in, with its bias; the last tile's readers are done
+    if (t + 1 < n_tiles) tile_pass(t + 1, false);
+    const float* ks = kvs + (t & 1) * 2 * kPoolTile * kPoolPitch;
+    const float* vs = ks + kPoolTile * kPoolPitch;
+    {  // logits → pt (frame-major), masked
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int d = 4 * h; d < hd8; d += 8) {
+        float4 a[4], k[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qs + (lq + 16 * i) * kPoolPitch + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) k[j] = *reinterpret_cast<const float4*>(ks + (lf + 8 * j) * kPoolPitch + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i].x, k[j].x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, k[j].y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, k[j].z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, k[j].w, s[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // the even columns' sum first in both lanes, so both hold the same bits
+          const float other = __shfl_xor_sync(0xffffffffu, s[i][j], 1);
+          s[i][j] = h ? __fadd_rn(other, s[i][j]) : __fadd_rn(s[i][j], other);
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int f = t * kPoolTile + lf + 8 * j;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)  // lane h writes queries 2h, 2h + 1 of its four
+          if (i >> 1 == h)
+            pt[(lf + 8 * j) * kPoolPPitch + lq + 16 * i] = f >= F ? -INFINITY : f < valid ? s[i][j] : -FLT_MAX;
+      }
+    }
+    __syncthreads();
+    {  // the online softmax: the tile's max, its weights, the rescale
+      float mx = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < kPoolTile / 4; ++k) mx = fmaxf(mx, pt[(part + 4 * k) * kPoolPPitch + sq]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m_run, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < kPoolTile / 4; ++k) {
+        float* p = pt + (part + 4 * k) * kPoolPPitch + sq;
+        const float w = expf(__fsub_rn(*p, m_new));
+        *p = w;
+        sum = __fadd_rn(sum, w);
+      }
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 8));
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 16));
+      const float alpha = expf(__fsub_rn(m_run, m_new));  // 0 on the first tile
+      l_run = __fadd_rn(__fmul_rn(l_run, alpha), sum);
+      m_run = m_new;
+      if (part == 0) qstat[sq] = alpha;
+    }
+    __syncthreads();
+    {  // the weighted sum over the tile's frames with weight
+      const float4 al = *reinterpret_cast<const float4*>(qstat + 4 * vq);
+      const float a4[4] = {al.x, al.y, al.z, al.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[i][c] = __fmul_rn(o[i][c], a4[i]);
+      const int rows = min(kPoolTile, lim - t * kPoolTile);
+      for (int r = 0; r < rows; ++r) {
+        const float4 p = *reinterpret_cast<const float4*>(pt + r * kPoolPPitch + 4 * vq);
+        const float4 v0 = *reinterpret_cast<const float4*>(vs + r * kPoolPitch + 4 * vd);
+        const float4 v1 = *reinterpret_cast<const float4*>(vs + r * kPoolPitch + 64 + 4 * vd);
+        const float pw[4] = {p.x, p.y, p.z, p.w};
+        const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[i][c] = fmaf(pw[i], vv[c], o[i][c]);
+      }
+    }
+  }
+  __syncthreads();  // the last tile's rescales are read
+  if (part == 0) qstat[sq] = l_run;
+  __syncthreads();
+  const float4 l4 = *reinterpret_cast<const float4*>(qstat + 4 * vq);
+  const float ls[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + 4 * vq + i;
+    if (qi >= Q) continue;
+    float* dst = out + ((long long)b * Q + qi) * D + (long long)head * hd;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int d = (c < 4 ? 0 : 64) + 4 * vd + (c & 3);
+      if (d < hd) dst[d] = __fdiv_rn(o[i][c], ls[i]);
     }
   }
 }
@@ -804,14 +933,24 @@ cudaError_t launch_gru_cell(const float* pre, long long ld_pre, const float* hw,
 cudaError_t launch_pool_attention(const float* q, const float* kv, const float* bkv,
                                   const int32_t* nf, float* out, int B, int F, int Q, int H, int hd,
                                   cudaStream_t st) {
-  const long long smem = pool_attention_smem(Q, F, hd);
-  if (B < 1 || F < 1 || Q < 1 || H < 1 || hd < 1 || hd > kPoolMaxHd || smem > kMaxSmem ||
-      (long long)B * H > 0x7fffffffLL)
+  if (B < 1 || F < 1 || Q < 1 || H < 1 || hd < 1 || hd > kPoolMaxHd ||
+      (long long)B * H > 0x7fffffffLL || (Q + kPoolRows - 1) / kPoolRows > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute((const void*)pool_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  pool_attention_kernel<<<B * H, kPoolThreads, smem, st>>>(q, kv, bkv, nf, out, F, Q, H, hd);
+  static std::once_flag once;
+  static cudaError_t configured = cudaSuccess;
+  std::call_once(once, [] {
+    configured = cudaFuncSetAttribute((const void*)pool_attention_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kPoolSmem);
+    if (configured == cudaSuccess)
+      configured = cudaFuncSetAttribute((const void*)pool_attention_kernel,
+                                        cudaFuncAttributePreferredSharedMemoryCarveout,
+                                        (int)cudaSharedmemCarveoutMaxShared);
+  });
+  if (configured != cudaSuccess) return configured;
+  // 16-byte copies where every row of a head starts on 16 bytes
+  const int vec = hd % 4 == 0 && reinterpret_cast<uintptr_t>(kv) % 16 == 0;
+  dim3 grid(B * H, (Q + kPoolRows - 1) / kPoolRows);
+  pool_attention_kernel<<<grid, kPoolThreads, kPoolSmem, st>>>(q, kv, bkv, nf, out, F, Q, H, hd, vec);
   return cudaGetLastError();
 }
 
@@ -1220,10 +1359,9 @@ bool check_shapes(Runner* r, std::string* err) {
       if (c.ok && D % r->heads != 0)
         return c.fail("attention_heads must divide the width " + std::to_string(D));
       r->hd = c.ok ? (int)(D / r->heads) : 0;
-      if (c.ok && (r->hd > kPoolMaxHd || pool_attention_smem(r->Q, r->F, r->hd) > kMaxSmem))
-        return c.fail("pool_attention takes a head width of at most 128 and its " +
-                      std::to_string(r->Q) + " × " + std::to_string(r->F) +
-                      " logits in a block's shared memory");
+      if (c.ok && r->hd > kPoolMaxHd)
+        return c.fail("pool_attention takes a head width of at most 128, not " +
+                      std::to_string(r->hd));
       const int64_t Q = r->Q;
       c.get("b_proj", "f32", {D});
       c.get("queries", "f32", {Q, D});

@@ -12,7 +12,9 @@
 //  - ldmatrix_x4 / ldmatrix_x4_trans: four 8×8 bf16 matrices from shared
 //    memory, lanes 8i..8i+7 giving the row addresses of matrix i;
 //  - cp_async_16: a 16-byte global → shared copy that bypasses the
-//    registers and L1, with zero fill when src_bytes < 16 (0: no read).
+//    registers and L1, with zero fill when src_bytes < 16 (0: no read);
+//    cp_async_4 the same for 4 bytes (native_runner.cu's pool_attention
+//    at a head width that is not a multiple of 4).
 //
 // Shared-memory tiles read by ldmatrix keep a row pitch of (width + 8) bf16,
 // an odd number of 16-byte chunks, so the eight row addresses of one 8×8
@@ -53,6 +55,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) 
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
+               : "memory");
+}
+
+// a 4-byte copy (cached at all levels), zero fill when src_bytes is 0
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
                : "memory");
 }
 

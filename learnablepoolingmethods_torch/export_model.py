@@ -165,14 +165,14 @@ def _pool_arrays(mcfg: ModelConfig, fcfg: FeatureConfig, variables) -> dict:
     if heads < 1 or d % heads:
         raise ValueError(f"attention_heads {heads} must divide attention_hidden_size {d}")
     if not pool_attention_fits(n_q, fcfg.max_frames, d // heads):
-        raise ValueError(f"pool_attention takes a head width of at most {POOL_MAX_HEAD_DIM} and its "
-                         f"{n_q} × {fcfg.max_frames} logits in a block's shared memory")
+        raise ValueError(f"pool_attention takes a head width of at most {POOL_MAX_HEAD_DIM}, "
+                         f"not {d // heads}")
     p, s = variables["params"], variables["batch_stats"]
     _require_moe_head(p, mcfg)
     mha = {name: {leaf: _f32(t) for leaf, t in proj.items()} for name, proj in p["attn_pool"]["pool_mha"].items()}
     gate_w = _f32(p["gating"]["gating_weights"])
     if mcfg.gating_remove_diag:
-        gate_w = gate_w - torch.diag(torch.diag(gate_w))
+        gate_w = _without_diagonal(gate_w)
     g_scale, g_bias = fold_assignment_bn(*(_f32(t) for t in (p["gating"]["gating_bn"]["scale"],
                                                              p["gating"]["gating_bn"]["bias"],
                                                              s["gating"]["gating_bn"]["mean"],
@@ -194,9 +194,26 @@ def _f32(t) -> torch.Tensor:
     return torch.as_tensor(t).float().contiguous()
 
 
+def _without_diagonal(w: torch.Tensor) -> torch.Tensor:
+    """The gating weights with their diagonal zeroed, as flax's ContextGating
+    uses them under ``--gating_remove_diag`` (zeroing a bf16 array's diagonal
+    is zeroing before the rounding)."""
+    return w - torch.diag(torch.diag(w))
+
+
 def _route_arrays(route: str, model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, variables) -> dict:
     """The route's prepare on the CPU, or ValueError / KeyError with the
-    reason it does not apply."""
+    reason it does not apply.  The fast prepares keep the gating diagonal
+    (the fast paths ignore ``--gating_remove_diag``, as JAX's do); the
+    runner serves the flax graph, so a gated route's ``gate_w`` loses it
+    here under the flag."""
+    arrays = _route_prepare(route, model_name, mcfg, fcfg, variables)
+    if mcfg.gating_remove_diag and route not in native_runtime.F32_ROUTES and "gate_w" in arrays:
+        arrays["gate_w"] = _without_diagonal(arrays["gate_w"])
+    return arrays
+
+
+def _route_prepare(route: str, model_name: str, mcfg: ModelConfig, fcfg: FeatureConfig, variables) -> dict:
     if route in native_runtime.F32_ROUTES:
         if mcfg.compute_dtype != "float32":
             raise ValueError(f"compute_dtype {mcfg.compute_dtype}: the route {route} runs in f32")

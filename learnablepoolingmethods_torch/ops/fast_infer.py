@@ -37,7 +37,7 @@ from learnablepoolingmethods_torch.ops.fused_frontend import (
     netvlad_frontend,
     sample_indices,
 )
-from learnablepoolingmethods_torch.ops.int8_matmul import matmul_wi8, quantize_int8_tensor
+from learnablepoolingmethods_torch.ops.int8_matmul import device_weight, matmul_wi8, quantize_int8_tensor
 from learnablepoolingmethods_torch.ops.native_tail import gating_plain, moe_combine_plain
 from learnablepoolingmethods_torch.ops.netvlad_fused import (
     fold_assignment_bn,
@@ -66,11 +66,11 @@ def int8_weight(w, device) -> Dict[str, torch.Tensor]:
     """``--int8_hidden``: a hidden-FC slice ``[K, N]`` (numpy or torch)
     quantized per column on ``device`` (``ops/int8_matmul.py#
     quantize_int8_tensor``, the host quantizer's bits) → {"q": the int8
-    weight as the kernel reads it, n-major as ``device_weight`` lays it out,
-    "s": its f32 scales}."""
+    weight as the kernel reads it (``device_weight``'s layout), "s": its f32
+    scales}."""
     w = w.detach() if isinstance(w, torch.Tensor) else torch.from_numpy(np.asarray(w))
     q, scales = quantize_int8_tensor(w.to(device=device, dtype=torch.float32))
-    return {"q": q.t().contiguous().t(), "s": scales}
+    return {"q": device_weight(q, device), "s": scales}
 
 
 def hidden_fc(x: torch.Tensor, w, bias=None) -> torch.Tensor:

@@ -107,10 +107,14 @@ LIBRARY = "native_runner"
 MAX_PARTS = 4  # hidden_sum's products at most (NetFV: fv1 and fv2 of two modalities)
 POOLING = ("average", "max")
 LN_EPS = 1e-6
-# pool_attention's block (csrc/native_runner.cu kPoolMaxHd, kPoolTile,
-# kMaxSmem): a head width of at most 128, and the scaled queries, a tile of
-# keys (each row padded by one) and the Q × F logits in shared memory
-POOL_MAX_HEAD_DIM, POOL_TILE, POOL_MAX_SMEM = 128, 32, 232448
+# pool_attention's block (csrc/native_runner.cu kPoolMaxHd, kPoolRows,
+# kPoolTile, kPoolPitch, kPoolPPitch): a head width of at most 128; 64
+# scaled queries, two stages of a key and a value tile of 32 frames (rows of
+# 136 floats), the tile's weights (rows of 72) and a float a query in shared
+# memory, whatever Q and F
+POOL_MAX_HEAD_DIM, POOL_ROWS, POOL_TILE = 128, 64, 32
+POOL_SMEM = 4 * (POOL_ROWS * (POOL_MAX_HEAD_DIM + 8) + 4 * POOL_TILE * (POOL_MAX_HEAD_DIM + 8)
+                 + POOL_TILE * (POOL_ROWS + 8) + POOL_ROWS)
 _P, _I, _LL, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_float
 BF16 = torch.bfloat16
 
@@ -319,16 +323,10 @@ def gru_cell_plain(pre_t: torch.Tensor, hw: torch.Tensor, b_i: torch.Tensor, b_h
     return h, torch.where((last_frame(num_frames, frames) == t)[:, None], h, carry)
 
 
-def pool_attention_smem(n_q: int, frames: int, hd: int) -> int:
-    """The bytes of shared memory of pool_attention's block."""
-    return 4 * ((n_q + POOL_TILE) * (hd + 1) + n_q * frames)
-
-
 def pool_attention_fits(n_q: int, frames: int, hd: int) -> bool:
     """Whether pool_attention's kernel takes Q queries over F frames at head
-    width hd."""
-    return n_q >= 1 and frames >= 1 and 1 <= hd <= POOL_MAX_HEAD_DIM and \
-        pool_attention_smem(n_q, frames, hd) <= POOL_MAX_SMEM
+    width hd: any Q and F, a head width of at most 128."""
+    return n_q >= 1 and frames >= 1 and 1 <= hd <= POOL_MAX_HEAD_DIM
 
 
 def pool_attention_plain(q: torch.Tensor, kv: torch.Tensor, bkv: torch.Tensor, num_frames: torch.Tensor,

@@ -172,7 +172,8 @@ def test_dispatch_and_what_is_not_ported(flax_models):
     # --int8_hidden: AttentionNetVLAD's D·K hidden FC in int8 (its tests in
     # test_torch_int8_matmul.py), the transformer refused in JAX's wording
     fp8 = get_fast_path("AttentionNetVLADModel").prepare(tv, cfg, int8_hidden=True, device="cpu")
-    assert fp8["hidden_w"]["q"].dtype == torch.int8 and fp8["hidden_w"]["q"].shape == (16 * 4, 16)
+    # (the [K, N] = [16·4, 16] weight in the kernel's layout: N rows of one 64-deep block)
+    assert fp8["hidden_w"]["q"].dtype == torch.int8 and fp8["hidden_w"]["q"].shape == (16, 1, 64)
     with pytest.raises(ValueError, match="int8_hidden is only supported on the models with the giant"):
         get_fast_path("TransformerEncoderModel").prepare(tv, cfg, int8_hidden=True, device="cpu")
     with pytest.raises(ValueError, match="relu off"):

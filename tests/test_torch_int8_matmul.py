@@ -84,9 +84,15 @@ def test_matmul_matches_jax():
     want = np.asarray(jq.matmul_wi8(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s)))
     got = tq.matmul_wi8(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
-    # the n-major weight of the kernel is the same [K, N] matrix
+    # the kernel's layout holds the same [K, N] matrix: n-major, K padded
+    # with zeros to 65 blocks of 64, byte p of a block holding k K_ORDER[p]
     view = tq.device_weight(q, "cpu")
-    assert view.shape == q.shape and view.stride() == (1, 4112)
+    assert view.shape == (40, 65, 64) and view.is_contiguous()
+    assert sorted(tq.K_ORDER.tolist()) == list(range(64))
+    blocks = np.zeros((65 * 64, 40), np.int8)
+    blocks[:4112] = q
+    np.testing.assert_array_equal(view.numpy(), blocks.T.reshape(40, 65, 64)[:, :, tq.K_ORDER])
+    np.testing.assert_array_equal(tq.logical_weight(view, 4112).numpy(), q)
     np.testing.assert_array_equal(tq.matmul_wi8(torch.from_numpy(x), view, torch.from_numpy(s)).numpy(), got)
     bias = rng.normal(size=40).astype(np.float32)
     np.testing.assert_allclose(
@@ -95,12 +101,16 @@ def test_matmul_matches_jax():
 
 
 def test_kernel_geometry_covers_k():
-    """int8_geometry's splits cover every K step once, with no empty split."""
+    """int8_geometry's splits cover every K step once, with no empty split,
+    in one wave of blocks; the batch tile is the least that holds B."""
     for m, n, k in ((1, 1024, 262144), (32, 1024, 262144), (512, 1024, 262144), (512, 1024, 16384),
-                    (37, 200, 4112), (256, 1024, 131072)):
+                    (37, 200, 4112), (256, 1024, 131072), (1, 1024, 64)):
         geo = tq.int8_geometry(m, n, k)
         assert (geo["splits"] - 1) * geo["kb_per_split"] < geo["k_steps"] <= geo["splits"] * geo["kb_per_split"]
         assert geo["k_steps"] == -(-k // tq.TILE_K)
+        assert geo["tiles"] == -(-m // geo["batch_tile"]) * -(-n // tq.TILE_N)
+        assert geo["tiles"] * geo["splits"] <= tq.H100_SMS
+    assert [tq.batch_tile(m) for m in (1, 8, 9, 32, 37, 64, 65, 256, 512)] == [8, 8, 16, 32, 64, 64, 128, 128, 128]
 
 
 def _variables(model_name, mcfg):

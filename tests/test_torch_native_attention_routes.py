@@ -68,17 +68,22 @@ CASES = {
     "FrameLevelLogisticModel": ("FrameLevelLogisticModel", {}),
 }
 ATTENTION = tuple(c for c in CASES if CASES[c][0] != "FrameLevelLogisticModel")
+# the two under --gating_remove_diag: the export zeroes the gating diagonal
+# that the fast prepare keeps (flax's ContextGating drops it)
+REMOVE_DIAG = {f"{c}_remove_diag": (CASES[c][0], dict(gating_remove_diag=True))
+               for c in ("TransformerEncoderModel", "AttentionNetVLADModel")}
+ALL_CASES = {**CASES, **REMOVE_DIAG}
 FAKE_RUNNER = Path(__file__).resolve().parent / "_torch_fake_runner.cc"
 
 
 def _mcfg(case):
-    return ModelConfig(**{**SMALL, **CASES[case][1]})
+    return ModelConfig(**{**SMALL, **ALL_CASES[case][1]})
 
 
 def _tree(case):
     """A seeded tree with BN statistics off their init and the heads scaled
     up, so that folding is exercised and scores spread."""
-    model = CASES[case][0]
+    model = ALL_CASES[case][0]
     tree = weights.init_variables_np(_mcfg(case), FCFG, seed=3, model_name=model)
 
     def shifted(stats):
@@ -124,7 +129,7 @@ def _exports(root, case):
     """The case's tree exported with with_stablehlo=True by both packages
     (once a module)."""
     if case not in _EXPORTS:
-        model = CASES[case][0]
+        model = ALL_CASES[case][0]
         mcfg, tree = _mcfg(case), _tree(case)
         jm = jconfig.ModelConfig(**dataclasses.asdict(mcfg))
         jf = jconfig.FeatureConfig(**dataclasses.asdict(FCFG))
@@ -254,7 +259,7 @@ def test_plain_run_against_the_jax_fast_route(root, case):
         np.testing.assert_allclose(got.numpy(), want, atol=JAX_FAST_TOL)
 
 
-@pytest.mark.parametrize("case", ATTENTION)
+@pytest.mark.parametrize("case", ATTENTION + tuple(REMOVE_DIAG))
 def test_plain_run_against_the_jax_flax_serve(root, case):
     """Against JAX's flax serve, the graph that its --native_serve exports,
     batch by batch as a server pads them."""

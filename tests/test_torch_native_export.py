@@ -17,6 +17,7 @@ the fast route and the JAX package, at a small Willow-shaped config.
   batch of another size, a truncated weights.bin.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -81,23 +82,38 @@ def _batches(records):
 
 
 def _jax_configs(mcfg, fcfg):
-    import dataclasses
-
     return jconfig.ModelConfig(**dataclasses.asdict(mcfg)), jconfig.FeatureConfig(**dataclasses.asdict(fcfg))
 
 
+_EXPORTS = {}
+
+
 @pytest.fixture(scope="module")
-def exports(tmp_path_factory):
-    """The same tree exported with with_stablehlo=True by both packages."""
-    root = tmp_path_factory.mktemp("native")
-    tree = _tree()
-    jm, jf = _jax_configs(MCFG, FCFG)
-    jax_dir = jem.export_model(str(root / "jax"), "NetVLADModelLF", jm, jf, tree["params"], tree["batch_stats"],
-                               top_k=TOP_K, with_stablehlo=True, stablehlo_batch_size=BATCH)
-    assert not os.path.exists(os.path.join(jax_dir, "stablehlo_error.txt"))
-    port_dir = tem.export_model(str(root / "port"), "NetVLADModelLF", MCFG, FCFG, tree["params"],
-                                tree["batch_stats"], top_k=TOP_K, with_stablehlo=True, stablehlo_batch_size=BATCH)
-    return {"tree": tree, "jax": jax_dir, "port": port_dir}
+def root(tmp_path_factory):
+    return tmp_path_factory.mktemp("native")
+
+
+def _exported(root, remove_diag=False):
+    """The same tree exported with with_stablehlo=True by both packages (once
+    a module), with or without --gating_remove_diag."""
+    if remove_diag not in _EXPORTS:
+        mcfg = dataclasses.replace(MCFG, gating_remove_diag=remove_diag)
+        tag = "_remove_diag" if remove_diag else ""
+        tree = _tree()
+        jm, jf = _jax_configs(mcfg, FCFG)
+        jax_dir = jem.export_model(str(root / f"jax{tag}"), "NetVLADModelLF", jm, jf, tree["params"],
+                                   tree["batch_stats"], top_k=TOP_K, with_stablehlo=True, stablehlo_batch_size=BATCH)
+        assert not os.path.exists(os.path.join(jax_dir, "stablehlo_error.txt"))
+        port_dir = tem.export_model(str(root / f"port{tag}"), "NetVLADModelLF", mcfg, FCFG, tree["params"],
+                                    tree["batch_stats"], top_k=TOP_K, with_stablehlo=True,
+                                    stablehlo_batch_size=BATCH)
+        _EXPORTS[remove_diag] = {"tree": tree, "jax": jax_dir, "port": port_dir}
+    return _EXPORTS[remove_diag]
+
+
+@pytest.fixture(scope="module")
+def exports(root):
+    return _exported(root)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -167,10 +183,15 @@ def _close(got, want, tol):
         assert all(abs(g[c] - w[c]) <= tol for c in shared)
 
 
-@pytest.mark.parametrize("jax_route", ["fast", "flax"])
-def test_plain_run_against_the_jax_serves(exports, jax_route):
+@pytest.mark.parametrize("jax_route,remove_diag", [pytest.param("fast", False, id="fast"),
+                                                    pytest.param("flax", False, id="flax"),
+                                                    pytest.param("flax", True, id="flax_remove_diag")])
+def test_plain_run_against_the_jax_serves(root, jax_route, remove_diag):
     """Against JAX's fast serve and its flax serve (JAX's --native_serve
-    graph), batch by batch as a server pads them."""
+    graph), batch by batch as a server pads them; under --gating_remove_diag
+    against the flax serve only (JAX's fast serve keeps the diagonal, as the
+    port's does: ROADMAP item 6)."""
+    exports = _exported(root, remove_diag)
     manifest, arrays = nr.read_artifact(exports["port"])
     *_, jax_serve = jem.load_exported_model(exports["jax"], prefer_fast=jax_route == "fast")
     for batch in _batches(_records()):

@@ -69,17 +69,26 @@ CASES = {
     "GruModel": ("GruModel", {}),
     "GruModel_three_layers": ("GruModel", dict(gru_layers=3)),
 }
+# 64 queries over 900 frames at a head width of 8: pool_attention's first
+# design kept the 64 × 900 logits in shared memory and refused this export
+LONG_FCFG = FeatureConfig(("rgb", "audio"), (12, 4), True, 900)
+LONG = {"AttentionPoolingModel_900_frames": ("AttentionPoolingModel", dict(attention_cluster_size=64))}
+ALL_CASES = {**CASES, **LONG}
 FAKE_RUNNER = Path(__file__).resolve().parent / "_torch_fake_runner.cc"
 
 
 def _mcfg(case):
-    return ModelConfig(**{**SMALL, **CASES[case][1]})
+    return ModelConfig(**{**SMALL, **ALL_CASES[case][1]})
+
+
+def _fcfg(case):
+    return LONG_FCFG if case in LONG else FCFG
 
 
 def _tree(case):
     """A seeded tree with BN statistics off their init and the MoE scaled
     up, so that folding is exercised and scores spread."""
-    tree = weights.init_variables_np(_mcfg(case), FCFG, seed=3, model_name=CASES[case][0])
+    tree = weights.init_variables_np(_mcfg(case), _fcfg(case), seed=3, model_name=ALL_CASES[case][0])
 
     def shifted(stats):
         return {k: shifted(v) if isinstance(v, dict) else v + np.float32(0.1) for k, v in stats.items()}
@@ -91,20 +100,21 @@ def _tree(case):
     return tree
 
 
-def _records():
+def _records(fcfg=FCFG):
     """Records of as many, fewer and more frames than max_frames, one frame,
     none, and audio shorter than rgb."""
     rng = np.random.default_rng(1)
     out = []
-    for i, (n_rgb, n_aud) in enumerate(((6, 6), (3, 3), (9, 9), (0, 0), (1, 1), (5, 2), (2, 2), (6, 6))):
-        rgb = rng.integers(0, 256, (n_rgb, FCFG.feature_sizes[0]), dtype=np.uint8)
-        aud = rng.integers(0, 256, (n_aud, FCFG.feature_sizes[1]), dtype=np.uint8)
-        out.append(fixtures.encode_frame_sequence_example(b"v%d" % i, [1], rgb, aud, feature_names=FCFG.feature_names))
+    f = fcfg.max_frames
+    for i, (n_rgb, n_aud) in enumerate(((f, f), (3, 3), (f + 3, f + 3), (0, 0), (1, 1), (5, 2), (2, 2), (f, f))):
+        rgb = rng.integers(0, 256, (n_rgb, fcfg.feature_sizes[0]), dtype=np.uint8)
+        aud = rng.integers(0, 256, (n_aud, fcfg.feature_sizes[1]), dtype=np.uint8)
+        out.append(fixtures.encode_frame_sequence_example(b"v%d" % i, [1], rgb, aud, feature_names=fcfg.feature_names))
     return out
 
 
-def _batches():
-    records = _records()
+def _batches(fcfg=FCFG):
+    records = _records(fcfg)
     for start in range(0, len(records), BATCH):
         yield records[start:start + BATCH]
 
@@ -121,14 +131,14 @@ def _exports(root, case):
     """The case's tree exported with with_stablehlo=True by both packages
     (once a module)."""
     if case not in _EXPORTS:
-        model = CASES[case][0]
+        model, fcfg = ALL_CASES[case][0], _fcfg(case)
         mcfg, tree = _mcfg(case), _tree(case)
         jm = jconfig.ModelConfig(**dataclasses.asdict(mcfg))
-        jf = jconfig.FeatureConfig(**dataclasses.asdict(FCFG))
+        jf = jconfig.FeatureConfig(**dataclasses.asdict(fcfg))
         jax_dir = jem.export_model(str(root / f"jax_{case}"), model, jm, jf, tree["params"], tree["batch_stats"],
                                    top_k=TOP_K, with_stablehlo=True, stablehlo_batch_size=BATCH)
         assert not os.path.exists(os.path.join(jax_dir, "stablehlo_error.txt"))
-        port_dir = tem.export_model(str(root / f"port_{case}"), model, mcfg, FCFG, tree["params"],
+        port_dir = tem.export_model(str(root / f"port_{case}"), model, mcfg, fcfg, tree["params"],
                                     tree["batch_stats"], top_k=TOP_K, with_stablehlo=True,
                                     stablehlo_batch_size=BATCH)
         _EXPORTS[case] = {"tree": tree, "jax": jax_dir, "port": port_dir}
@@ -246,7 +256,7 @@ def test_plain_run_is_the_port_model_forward(root, case):
         np.testing.assert_allclose(values.numpy(), want_values, atol=MODEL_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + list(LONG))
 def test_plain_run_against_the_jax_predict_step(root, case):
     """Against JAX's make_predict_step on the CPU (the graph its export
     serves): every probability within F32_TOL, on batches that hold a row
@@ -257,20 +267,21 @@ def test_plain_run_against_the_jax_predict_step(root, case):
     from learnablepoolingmethods_tpu.models import create_model as jcreate
 
     ex = _exports(root, case)
+    fcfg = _fcfg(case)
     jm = jconfig.ModelConfig(**dataclasses.asdict(_mcfg(case)))
     vocab = SMALL["vocab_size"]
-    predict = jax.jit(jstep.make_predict_step(jcreate(CASES[case][0], jm), jm, True, top_k=vocab))
+    predict = jax.jit(jstep.make_predict_step(jcreate(ALL_CASES[case][0], jm), jm, True, top_k=vocab))
     manifest, arrays = nr.read_artifact(ex["port"])
     seen = set()
-    for batch in _batches():
-        feats, nfs = tem.parse_serialized_records(FCFG, batch)
+    for batch in _batches(fcfg):
+        feats, nfs = tem.parse_serialized_records(fcfg, batch)
         seen |= set(nfs.tolist())
         got = nr.plain_run(manifest, arrays, feats, nfs, return_probs=True).numpy()
         values, indices = (np.asarray(a) for a in predict(ex["tree"]["params"], ex["tree"]["batch_stats"], feats, nfs))
         want = np.zeros_like(got)
         np.put_along_axis(want, indices, values, axis=1)
         np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=0)
-    assert {0, MAXF} <= seen
+    assert {0, fcfg.max_frames} <= seen
 
 
 # ---- the new kernels' plain versions against float64 loops
@@ -372,10 +383,14 @@ def test_pool_attention_plain_in_float64():
 
 
 def test_pool_attention_fits_the_block():
+    """The kernel's shared memory does not grow with Q or F (an online
+    softmax over tiles of 32 frames): 64 queries, two stages of a key and a
+    value tile, the tile's weights and a float a query, two blocks an SM."""
     assert nt.pool_attention_fits(64, 300, 128)
     assert not nt.pool_attention_fits(64, 300, 256)
-    assert not nt.pool_attention_fits(64, 900, 128)
-    assert nt.pool_attention_smem(64, 300, 128) == 4 * ((64 + 32) * 129 + 64 * 300)
+    assert nt.pool_attention_fits(64, 900, 128) and nt.pool_attention_fits(5, 100_000, 40)
+    assert nt.POOL_SMEM == 4 * (64 * 136 + 4 * 32 * 136 + 32 * 72 + 64)
+    assert 2 * (nt.POOL_SMEM + 1024) <= 233_472
 
 
 def test_the_new_wrappers_take_their_plain_versions_on_the_cpu():

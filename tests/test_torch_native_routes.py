@@ -76,20 +76,27 @@ CASES = {
     "NetFVModelLF": ("NetFVModelLF", {}, LCFG),
     "NeXtVLADModel": ("NeXtVLADModel", {}, LCFG),
 }
+# the gated LOUPE routes under --gating_remove_diag: the export zeroes the
+# gating diagonal that the fast prepare keeps (flax's ContextGating drops it)
+REMOVE_DIAG = {
+    "NetRVLADModelLF_remove_diag": ("NetRVLADModelLF", dict(gating_remove_diag=True), LCFG),
+    "SoftDbofModelLF_remove_diag": ("SoftDbofModelLF", dict(gating_remove_diag=True), LCFG),
+}
+ALL_CASES = {**CASES, **REMOVE_DIAG}
 VIDEO = ("LogisticModel", "MoeModel")
 FAST = tuple(c for c in CASES if c not in VIDEO and c != "DbofModel_window")
 FAKE_RUNNER = Path(__file__).resolve().parent / "_torch_fake_runner.cc"
 
 
 def _mcfg(case):
-    return ModelConfig(**{**SMALL, **CASES[case][1]})
+    return ModelConfig(**{**SMALL, **ALL_CASES[case][1]})
 
 
 def _tree(case):
     """A seeded tree with BN statistics off their init and the heads scaled
     up, so that folding is exercised and scores spread (frames from another
     key would then move them past 3e-2)."""
-    model, _, fcfg = CASES[case]
+    model, _, fcfg = ALL_CASES[case]
     tree = weights.init_variables_np(_mcfg(case), fcfg, seed=3, model_name=model)
 
     def shifted(stats):
@@ -138,7 +145,7 @@ def _exports(root, case):
     """The case's tree exported with with_stablehlo=True by both packages
     (once a module)."""
     if case not in _EXPORTS:
-        model, _, fcfg = CASES[case]
+        model, _, fcfg = ALL_CASES[case]
         mcfg, tree = _mcfg(case), _tree(case)
         jm = jconfig.ModelConfig(**dataclasses.asdict(mcfg))
         jf = jconfig.FeatureConfig(**dataclasses.asdict(fcfg))
@@ -245,12 +252,12 @@ def _close(got, want, tol):
         assert all(abs(g[c] - w[c]) <= tol for c in shared)
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c not in VIDEO])
+@pytest.mark.parametrize("case", [c for c in CASES if c not in VIDEO] + list(REMOVE_DIAG))
 def test_plain_run_against_the_jax_flax_serve(root, case):
     """Against JAX's flax serve, the graph that its --native_serve exports,
     batch by batch as a server pads them; both draw from key(0)."""
     ex = _exports(root, case)
-    fcfg = CASES[case][2]
+    fcfg = ALL_CASES[case][2]
     manifest, arrays = nr.read_artifact(ex["port"])
     *_, jax_serve = jem.load_exported_model(ex["jax"], prefer_fast=False)
     for batch in _batches(_records(fcfg)):
@@ -258,6 +265,22 @@ def test_plain_run_against_the_jax_flax_serve(root, case):
         values, indices = nr.plain_run(manifest, arrays, feats, nfs)
         wi, wv = jax_serve(batch)
         _close((indices.numpy(), values.float().numpy()), (np.asarray(wi), np.asarray(wv)), BF16_TOL)
+
+
+@pytest.mark.parametrize("case", list(REMOVE_DIAG))
+def test_gate_w_diagonal_follows_gating_remove_diag(root, case):
+    """The written gating weights: the flax leaf's diagonal without the flag
+    (in the route's dtype), zeros with it, the rest equal."""
+    base = case.removesuffix("_remove_diag")
+    _, kept = nr.read_artifact(_exports(root, base)["port"])
+    _, removed = nr.read_artifact(_exports(root, case)["port"])
+    kept, removed = nr.array_of(kept, "gate_w"), nr.array_of(removed, "gate_w")
+    leaf = torch.from_numpy(np.asarray(_exports(root, base)["tree"]["params"]["gating"]["gating_weights"]))
+    assert torch.equal(torch.diagonal(kept), torch.diagonal(leaf).to(kept.dtype))
+    assert torch.count_nonzero(torch.diagonal(kept)) == kept.shape[0]
+    assert torch.count_nonzero(torch.diagonal(removed)) == 0
+    off = ~torch.eye(kept.shape[0], dtype=torch.bool)
+    assert torch.equal(_bits(removed[off]), _bits(kept[off]))
 
 
 @pytest.mark.parametrize("case", VIDEO)

@@ -40,8 +40,8 @@ CARRY = "if (carry && t == last_frame(nf[b], F)) carry[i] = h;"
 FAULTS = (
     ("__fmul_rn(sigmoid(z[1]), c_in[i]), __fmul_rn(sigmoid(z[0]), tanhf(z[2]))",
      "__fmul_rn(sigmoid(z[0]), c_in[i]), __fmul_rn(sigmoid(z[1]), tanhf(z[2]))"),
-    ("__fdiv_rn(q[(long long)(i / hd) * D + head * hd + i % hd], scale)",
-     "__fdiv_rn(q[(long long)(i / hd) * D + head * hd + i % hd], 1.f)"),
+    ("__fdiv_rn(q[(long long)(q0 + r) * D + (long long)head * hd + d], scale)",
+     "__fdiv_rn(q[(long long)(q0 + r) * D + (long long)head * hd + d], 1.f)"),
 )
 
 
