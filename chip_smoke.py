@@ -51,13 +51,20 @@ error, and prints one JSON line per phase:
               rgb FC beside the bound and cuBLAS bf16 (CUDA events and the
               profiler's device clock);
    dropout    the dropout kernel (csrc/dropout.cu, flax's nn.Dropout and
-              attention-weight dropout): its keep mask equal bit for bit to
-              utils/prng.py's at [1, 1, 300, 300], [76,800, 1024] and sizes
-              1, 7, 1,023 and 2²⁴ + 3; both rules forward and backward in bf16
+              attention-weight dropout): its keep mask, and the forward's
+              bits, equal bit for bit to utils/prng.py's (packed by
+              ops/dropout.py#pack_mask) at [1, 1, 300, 300], [76,800, 1024]
+              and sizes 1, 7, 1,023 and 2²⁴ + 3; both rules forward and
+              backward (the backward launch from the forward's bits) in bf16
               and f32 equal bit for bit to the plain arithmetic on the
-              host's mask, a second launch too; its time at config 5's FFN
-              output (B=256) beside the bound, the plain version (host draw
-              included) and F.dropout (context), the attention call's too;
+              host's mask, a second launch too, and the backward launch on
+              the inverted bits equal to the inverted mask's (it reads the
+              bits, it hashes nothing); the forward's and the backward's
+              times at config 5's FFN output (B=256) beside their bounds
+              (the hash at the integer issue rate, PEAK_INT_OPS), the plain
+              versions (the forward's host draw included) and F.dropout's and
+              native_dropout_backward's (context), the attention call's too,
+              and the forward kernel's SASS by integer pipe;
 4. e2e        full-width Willow GatedNetVLAD-256 weights from a seed (hidden
               FC 278528×1024, V=3862, M=2, BN stats perturbed) and 96
               synthetic videos driven down two paths, each with the launch
@@ -110,8 +117,8 @@ error, and prints one JSON line per phase:
               AttentionNetVLADModel at config 5's widths (row 7 once a layer)
               and FrameLevelLogisticModel (f32), and (item 14c.5)
               AttentionPoolingModel, LstmModel and GruModel at their
-              default widths (f32: pool_attention, 600 lstm_cell or
-              gru_cell launches a batch), each exported with
+              default widths (f32: pool_attention, 600 lstm_cell launches
+              or 2 gru_layer launches a batch), each exported with
               with_stablehlo=True at batch 256 and served by
               ModelServer(native=True) on 96 records with the runner's
               launches of its route's kernels once a batch (rows 2, 6 and 5
@@ -123,11 +130,14 @@ error, and prints one JSON line per phase:
               probabilities, its videos/s; NeXtVLAD and the routes that read
               every frame traced step by step against the torch route
               (nextvlad_trace, all_frames_trace); cuDNN's LSTM and GRU over
-              the same frames as a yardstick for the RNN routes; lpm_serve
+              the same frames as a yardstick for the RNN routes (the GRU's
+              one layer also alone, gru_layer's library time); lpm_serve
               answering NATIVE_ROUTES_HTTP over HTTP as the in-process
               runner does; then each new kernel against its plain version
               (ROUTE_KERNEL_GATES) at its main-path shape (pool_attention
-              also at POOL_EDGE_SHAPES), timed beside its bound;
+              also at POOL_EDGE_SHAPES; gru_layer at B=256, F=300, H=1024,
+              the carry at the first and last frame and of a row of no
+              frames, and at GRU_EDGE_SHAPES), timed beside its bound;
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -473,9 +483,14 @@ from learnablepoolingmethods_torch.utils import prng
 # FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
-# float32 outside the tensor cores: the CUDA cores' rate, at which the
-# dropout kernel's hash (integer operations) is counted
+# float32 outside the tensor cores: the CUDA cores' rate
 PEAK_CUDA_CORES = 67e12
+# integer instructions: an SM issues at most 128 a clock, 64 on the ALU pipe
+# and 64 more as IMAD forms on the FMA pipe (LOP3 and SHF run only on the
+# ALU pipe, at 64), on 132 SMs at the 1,980 MHz boost clock the data-sheet
+# rates assume; the dropout kernel's hash is counted at this rate
+SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9
+PEAK_INT_OPS = 128 * SM_COUNT * SM_CLOCK_HZ
 DT, D_RGB, D_AUD, K_RGB, K_AUD, F = 1152, 1024, 128, 256, 128, 300
 MODS = ((D_RGB, K_RGB), (D_AUD, K_AUD))
 # the kernels whose bf16 instantiation was redesigned for Hopper: the
@@ -666,6 +681,15 @@ KERNELS = {
         replaces="learnablepoolingmethods_tpu/models/frame_level.py:284-290 nn.RNN(nn.GRUCell) a step and the "
                  "carry at seq_lengths − 1 (flax's lax.scan in XLA, no pallas_call)",
     ),
+    # the GRU route's kernel since its redesign: the layer's recurrence in
+    # one launch (gru_cell stays an entry point, off the main path)
+    "native_gru_layer": dict(
+        fn=native_tail.gru_layer,
+        source="learnablepoolingmethods_torch/csrc/native_runner.cu",
+        replaces="learnablepoolingmethods_tpu/models/frame_level.py:276-290 nn.RNN(nn.GRUCell) over every frame, "
+                 "h·W_h and the cell each step, the carry at seq_lengths − 1 (flax's lax.scan in XLA, no "
+                 "pallas_call)",
+    ),
     "native_pool_attention": dict(
         fn=native_tail.pool_attention,
         source="learnablepoolingmethods_torch/csrc/native_runner.cu",
@@ -792,7 +816,8 @@ def phase_env():
 
 
 # the sources whose kernels nvcc's -Xptxas -v reports in the build phase
-PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train", "netfv_fused", "fused_adam", "int8_matmul")
+PTXAS_REPORT = ("netvlad_fused", "fused_frontend", "netvlad_train", "netfv_fused", "fused_adam", "int8_matmul", "dropout",
+                "native_runner")
 
 
 def phase_build():
@@ -4117,7 +4142,9 @@ NATIVE_ROUTES_HTTP = ("LogisticModel", "NetRVLADModelLF", "TransformerEncoderMod
 # item 14c.5, from the first run on one H100 at 700 W: AttentionPoolingModel
 # 1.19e-7, LstmModel 5.96e-8, GruModel 8.94e-8 (the products' summation
 # order in cuBLAS against torch's; their traces, ALL_FRAMES_TRACE_GATES,
-# read every step within 8.2e-7 of max |torch route|), so 1e-6 each
+# read every step within 8.2e-7 of max |torch route|), so 1e-6 each; the
+# GRU route on gru_layer (h·W_h summed by FMA in its own fixed order) read
+# 5.96e-8, its steps within 9.8e-7, on one H100 at 700 W
 NATIVE_ROUTE_GATES = {**dict.fromkeys(NATIVE_ROUTE_RUNS, NATIVE_GATE), "LogisticModel": 1e-6, "MoeModel": 1e-6,
                       "NeXtVLADModel": 5e-4, "TransformerEncoderModel": 1e-3, "AttentionNetVLADModel": 2e-4,
                       "FrameLevelLogisticModel": 1e-6, "AttentionPoolingModel": 1e-6, "LstmModel": 1e-6,
@@ -4188,7 +4215,7 @@ NATIVE_ROUTE_LAUNCHES.update({
     "AttentionPoolingModel": dict(frame_stage=1, bias_act=3, pool_attention=1, gating=1, moe_combine=1),
     # two layers of F steps
     "LstmModel": dict(frame_stage=1, lstm_cell=2 * F, moe_combine=1),
-    "GruModel": dict(frame_stage=1, gru_cell=2 * F, moe_combine=1),
+    "GruModel": dict(frame_stage=1, gru_layer=2, moe_combine=1),
 })
 # each kernel of these routes against its plain version on the card (atol as
 # a share of max|ref|, rtol): exact where both do the same f32 operations in
@@ -4219,12 +4246,20 @@ ROUTE_KERNEL_GATES = {
     # the cells: PyTorch's element-wise operations in the same order
     "native_lstm_cell": TOLERANCE[torch.float32],
     "native_gru_cell": TOLERANCE[torch.float32],
+    # h·W_h's summation order (k in order by FMA against cuBLAS's), over
+    # every step of the layer
+    "native_gru_layer": TOLERANCE[torch.float32],
     # the dots', the softmax's and the weighted sum's order
     "native_pool_attention": TOLERANCE[torch.float32],
 }
 # the checks timed beside the first of their kernel (a main path's other
 # shape): frame_stage with no draw, the attention routes' 76,800 rows
 ROUTE_TIMED_CHECKS = ("native_frame_stage/all_bf16",)
+# kernels timed by CUDA events, not the profiler: a gru_layer launch (about
+# 15 ms) holds no host time worth the name, and in the whole script the
+# profiler's device clock read it at half of that (7.4 ms, at its bound) on
+# one H100 at 700 W, as it reads pool_attention at a third of its time alone
+ROUTE_EVENT_TIMED = ("native_gru_layer",)
 # the one PyTorch call that computes a timed kernel's function on its
 # inputs, where there is one (the other kernels' functions take two calls or
 # more): frame_pool's max over S (f32 out; the kernel rounds to bf16 as it
@@ -4339,6 +4374,47 @@ def pool_edge_inputs(dev) -> dict:
     return {"pool_edges": out}
 
 
+# gru_layer's checks off the default width: label → (B, F, H, num_frames or
+# None for random ones): a width off the 16-unit and 4-float grids and rows
+# of no frames and past F; H=2048, whose W_h slice does not fit in shared
+# memory and whose 256 tiles outnumber the resident blocks (W_h streamed,
+# blocks walking several tiles); B=300, past two 128-row tiles
+GRU_EDGE_SHAPES = {
+    "ragged_b5_f9_h37": (5, 9, 37, (0, 1, 9, 14, 4)),
+    "streamed_b256_f8_h2048": (256, 8, 2048, None),
+    "rows_b300_f7_h64": (300, 7, 64, None),
+}
+
+
+def gru_recurrent_kernel(h: int, gen) -> torch.Tensor:
+    """W_h [H, 3H]: three orthogonal blocks, as flax's GRUCell initialises
+    its recurrent kernel."""
+    return torch.cat([torch.linalg.qr(torch.randn((h, h), generator=gen, device=gen.device))[0]
+                      for _ in range(3)], dim=1).contiguous()
+
+
+def gru_edge_inputs(dev) -> dict:
+    """gru_layer's inputs at GRU_EDGE_SHAPES: label → (pre, w_h, b_i, b_hn,
+    num_frames)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+    for label, (b, f, h, nf) in GRU_EDGE_SHAPES.items():
+        frames_ = (torch.tensor(nf, dtype=torch.int32, device=dev) if nf is not None else
+                   torch.randint(0, f + 3, (b,), generator=gen, device=dev, dtype=torch.int32))
+        out[label] = (torch.randn((b, f, 3 * h), generator=gen, device=dev) * 2.0, gru_recurrent_kernel(h, gen),
+                      torch.randn((3 * h,), generator=gen, device=dev) * 0.5,
+                      torch.randn((h,), generator=gen, device=dev) * 0.5, frames_)
+    return out
+
+
+def gru_layer_work(b: int, f: int, h: int) -> tuple:
+    """(bytes, operations) of one GRU layer over F frames: W_h, the biases,
+    x·W_i and num_frames read once, the outputs and the carry written once;
+    2·B·H·3H operations a step of h·W_h for the F − 1 steps after the first
+    (h is 0 before it)."""
+    return 4 * (3 * h * h + 4 * h + b * f * 3 * h + b * f * h + b * h + b), 2 * b * h * 3 * h * (f - 1)
+
+
 def route_kernel_inputs(dev) -> dict:
     """Random inputs of the routes' kernels at the shapes their main path
     gives them at B=256 (Willow's widths, S=30, V=3862; DBoF-8192,
@@ -4365,6 +4441,9 @@ def route_kernel_inputs(dev) -> dict:
     pre, hw, c_h = randn(b, F, 4 * hc, scale=2.0), randn(b, 4 * hc, scale=2.0), randn(b, hc)
     b_hn = randn(hc, scale=0.5)
     pool_q, kv, bkv = randn(n_q, d), randn(b, F, 2 * d), randn(2 * d, scale=0.1)
+    # gru_layer's: a contiguous [B, F, 3H] x·W_i and flax's kind of W_h
+    gru = dict(gru_pre=pre[:, :, :3 * hc].contiguous(), gru_w_h=gru_recurrent_kernel(hc, gen),
+               gru_edges=gru_edge_inputs(dev))
     kvb = (kv + bkv).view(b, F, 2, heads, d // heads).permute(2, 0, 3, 1, 4)  # [2, B, H, F, hd]
     # the cells' timed calls: a product h·W_h and a state for each step
     steps_gen = torch.Generator(device=dev).manual_seed(8)
@@ -4382,7 +4461,7 @@ def route_kernel_inputs(dev) -> dict:
                sdpa_k=kvb[0].contiguous(), sdpa_v=kvb[1].contiguous(),
                sdpa_mask=native_tail.key_mask(nf0, F).bool()[:, None, None, :],
                g_scale=randn(h, scale=0.2) + 1.0, g_bias=randn(h, scale=0.1))
-    return dict(**rnn, **pool_edge_inputs(dev), x=x, nf=nf, s=s, in_scale=randn(DT, scale=0.1) + 1.0,
+    return dict(**rnn, **gru, **pool_edge_inputs(dev), x=x, nf=nf, s=s, in_scale=randn(DT, scale=0.1) + 1.0,
                 in_bias=randn(DT, scale=0.05),
                 nf0=nf0, qkv_y=qkv_y.view(b * F, 3 * d), qkv_b=randn(3 * d, scale=0.1),
                 ff_y=qkv_y[:b * F * ff].view(b * F, ff), ff_b=randn(ff, scale=0.1), enc_x=enc_x,
@@ -4520,6 +4599,12 @@ def route_kernel_calls(x: dict) -> dict:
                                             x["h_steps"][t])),
              stepping(lambda t: nt.gru_cell_plain(x["pre"][:, t, :3 * hc], x["gru_hw_steps"][t], x["b_i"], x["b_hn"],
                                                   x["h_steps"][t])))),
+        "native_gru_layer": ([
+            ("default_width", lambda: nt.gru_layer(x["gru_pre"], x["gru_w_h"], x["b_i"], x["b_hn"], x["nf0"]),
+             lambda: nt.gru_layer_plain(x["gru_pre"], x["gru_w_h"], x["b_i"], x["b_hn"], x["nf0"]))] + [
+            (label, functools.partial(nt.gru_layer, *args), functools.partial(nt.gru_layer_plain, *args))
+            for label, args in x["gru_edges"].items()],
+            gru_layer_work(b, F, hc)),
         "native_pool_attention": ([
             ("default_width", lambda: nt.pool_attention(x["pool_q"], x["kv"], x["bkv"], x["nf0"], x["heads"]),
              lambda: nt.pool_attention_plain(x["pool_q"], x["kv"], x["bkv"], x["nf0"], x["heads"]))] + [
@@ -4534,7 +4619,8 @@ def check_route_kernels(dev, errors: dict) -> tuple:
     within ROUTE_KERNEL_GATES at the main path's shapes (the share of
     outputs equal bit for bit printed), and hidden_sum at NetFV's four
     products; the first check's device ms, the plain version's and the bound
-    (bytes over the HBM rate), and ROUTE_LIBRARY_CALLS' device ms.  →
+    (bytes over the HBM rate; by CUDA events for ROUTE_EVENT_TIMED), and
+    ROUTE_LIBRARY_CALLS' device ms.  →
     (timing, shapes, library) for the kernels line."""
     x = route_kernel_inputs(dev)
     timing, line = {}, {}
@@ -4554,7 +4640,8 @@ def check_route_kernels(dev, errors: dict) -> tuple:
         if nbytes is not None:
             nbytes, ops = nbytes if isinstance(nbytes, tuple) else (nbytes, 0)
             kernel, plain = stepped[0] if stepped else checks[0][1:]
-            timing[name] = (device_ms(kernel), device_ms(plain),
+            clock = time_ms if name in ROUTE_EVENT_TIMED else device_ms
+            timing[name] = (clock(kernel), clock(plain),
                             max((nbytes / PEAK_BYTES * 1e3, "bytes"), (ops / PEAK_CUDA_CORES * 1e3, "operations")))
     torch.cuda.synchronize()
     emit({"phase": "native_routes", "part": "kernels", "B": NATIVE_ROUTES_BATCH, "checks": line,
@@ -4578,6 +4665,10 @@ def check_route_kernels(dev, errors: dict) -> tuple:
                             "each call",
         "native_gru_cell": "B=256, H=1024: a step's rows of x·W_i (row stride 300·4096), h·W_h [256, 3072] → h "
                            "(GruModel's default); the carry at t = 0 and F − 1 also checked; timed as lstm_cell",
+        "native_gru_layer": "B=256, F=300, H=1024, f32: x·W_i [256, 300, 3072] → the outputs [256, 300, 1024] and "
+                            "the carry (a GruModel layer), num_frames 1, 300 and 0 included; also checked at "
+                            "GRU_EDGE_SHAPES; library: cuDNN's one GRU layer over the route's staged frames "
+                            "[256, 300, 1152] (its input product included), TF32 off",
         "native_pool_attention": "B=256, F=300, 64 queries, 8 heads of 128, f32 [256, 300, 2048] keys and values "
                                  "(AttentionPoolingModel's default), num_frames 0 included; also checked at "
                                  "POOL_EDGE_SHAPES (F=37 ragged, F=900)",
@@ -4736,19 +4827,24 @@ def all_frames_trace(exe, export_dir: str, feats, nfs, dev, want_p) -> dict:
     return out
 
 
-def cudnn_rnn_ms(name: str, mcfg: ModelConfig, feats: np.ndarray, nfs: np.ndarray, dev) -> float:
+def cudnn_rnn_ms(name: str, mcfg: ModelConfig, feats: np.ndarray, nfs: np.ndarray, dev) -> tuple:
     """cuDNN's ``torch.nn.LSTM`` / ``GRU`` (random weights, TF32 off) over
     the batch's frames staged in f32, at the model's layers and cells: the
-    device ms of the layers alone, a yardstick for the RNN routes'."""
+    device ms of the layers alone, a yardstick for the RNN routes', and for
+    the GRU also of its first layer alone (gru_layer's library time; None
+    for the LSTM)."""
     lstm = name == "LstmModel"
     cells, layers = (mcfg.lstm_cells, mcfg.lstm_layers) if lstm else (mcfg.gru_cells, mcfg.gru_layers)
-    rnn = (torch.nn.LSTM if lstm else torch.nn.GRU)(DT, cells, num_layers=layers, batch_first=True).to(dev)
     x, _ = native_tail.frame_stage_all_plain(torch.from_numpy(feats).to(dev), torch.from_numpy(nfs).to(dev),
                                              torch.float32)
-    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        ms = time_ms(lambda: rnn(x), reps=3, warmup=1)
-    del rnn, x
-    return ms
+    out = []
+    for n in (layers,) if lstm else (layers, 1):
+        rnn = (torch.nn.LSTM if lstm else torch.nn.GRU)(DT, cells, num_layers=n, batch_first=True).to(dev)
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            out.append(time_ms(lambda: rnn(x), reps=3, warmup=1))
+        del rnn
+    del x
+    return out[0], out[1] if len(out) > 1 else None
 
 
 def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
@@ -4778,6 +4874,7 @@ def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
     write_video_level_fixture(video_data, 96, seed=6)
     data = {True: list(tfrecord_io.read_tfrecords(frame_data)), False: list(tfrecord_io.read_tfrecords(video_data))}
     launches = dict.fromkeys(KERNELS, 0)
+    gru_library_ms = None
     for run, (name, overrides) in NATIVE_ROUTE_RUNS.items():
         t_run = time.perf_counter()
         mcfg, fcfg = route_config(name, overrides)
@@ -4845,13 +4942,17 @@ def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
         torch_ms = time_ms(lambda: route_fn(feats, nfs), reps=3, warmup=1)
         web = (lpm_serve_route(lpm_serve["path"], export_dir, exe, fcfg, records)
                if run in NATIVE_ROUTES_HTTP else None)
-        cudnn_ms = cudnn_rnn_ms(name, mcfg, feats, nfs, dev) if name in ("LstmModel", "GruModel") else None
+        cudnn_ms, cudnn_layer_ms = (cudnn_rnn_ms(name, mcfg, feats, nfs, dev) if name in ("LstmModel", "GruModel")
+                                    else (None, None))
+        if name == "GruModel":
+            gru_library_ms = cudnn_layer_ms
         emit({"phase": "native_routes", "run": run, "route": manifest["route"], "B": b, "export_s": export_s,
               "weights_bytes": os.path.getsize(os.path.join(export_dir, native_runtime.WEIGHTS_FILE)),
               "runner_device_bytes": runner_bytes, "max_abs_prob_gap_vs_torch_route": gap, "gate": NATIVE_ROUTE_GATES[run],
               "runner_launches": {n: c for n, c in runner_counts.items() if c},
               "torch_launches": "none", "videos_per_s": b / (runner_ms / 1e3), "runner_ms_per_batch": runner_ms,
-              "torch_route_ms_per_batch": torch_ms, "cudnn_layers_ms": cudnn_ms, "lpm_serve": web, "trace": trace,
+              "torch_route_ms_per_batch": torch_ms, "cudnn_layers_ms": cudnn_ms, "cudnn_one_layer_ms": cudnn_layer_ms,
+              "lpm_serve": web, "trace": trace,
               "seconds": time.perf_counter() - t_run, "card": smi})
         exe.close()
         del server, exe, tree, want_p, route_fn
@@ -4859,6 +4960,7 @@ def phase_native_routes(dev, workdir, smi, lpm_serve: dict) -> tuple:
         torch.cuda.empty_cache()
     errors = {}
     timing, shapes, library = check_route_kernels(dev, errors)
+    library["native_gru_layer"] = gru_library_ms
     return errors, timing, shapes, library, launches
 
 
@@ -4876,20 +4978,24 @@ DROPOUT_MASK_SHAPES = ((1, 1, F, F), (256 * F, 1024), (1,), (7,), (1023,), ((1 <
 DROPOUT_FFN_SHAPE, DROPOUT_ATTN_SHAPE = (256 * F, 1024), (256, 8, F, F)
 # the attention rule's bit-for-bit checks, in bf16 and f32
 DROPOUT_ATTN_CHECK_SHAPE = (64, 8, F, F)
-# operations counted for the bound: per mask element the hash (20 rounds of
-# add, rotate and xor, five key injections of three adds, the two first
-# adds) and the draw (xor, shift, or, subtract, compare): 82; per element
-# the select or product: 1
+# integer instructions counted for the forward's bound: per mask element the
+# hash (20 rounds of add, rotate and xor, five key injections of three adds,
+# the two first adds) and the draw (xor, shift, or, subtract, compare): 82,
+# at PEAK_INT_OPS; per element the select or product: 1 (f32, at
+# PEAK_CUDA_CORES)
 DROPOUT_HASH_OPS, DROPOUT_APPLY_OPS = 82, 1
 
 
-def dropout_bound(n: int, period: int, elt: int):
-    """Least time (ms) of one dropout call over ``n`` elements of ``elt``
-    bytes under a mask of ``period`` elements: x read and y written once over
-    the HBM rate, or the mask's hashes and the per-element select over the
-    CUDA cores' rate, whichever is larger."""
-    bytes_ms = 2 * n * elt / PEAK_BYTES * 1e3
-    ops_ms = (period * DROPOUT_HASH_OPS + n * DROPOUT_APPLY_OPS) / PEAK_CUDA_CORES * 1e3
+def dropout_bound(n: int, period: int, elt: int, backward: bool = False):
+    """Least time (ms) of one dropout launch over ``n`` elements of ``elt``
+    bytes under a mask of ``period`` elements: x read and y written once and
+    the mask's bits written (the forward) or read (the backward) once over
+    the HBM rate; and for the forward the mask's hashes over the integer
+    issue rate with the per-element select over the CUDA cores' rate;
+    whichever is larger."""
+    bytes_ms = (2 * n * elt + 4 * -(-period // 32)) / PEAK_BYTES * 1e3
+    ops_ms = 0.0 if backward else (period * DROPOUT_HASH_OPS / PEAK_INT_OPS
+                                   + n * DROPOUT_APPLY_OPS / PEAK_CUDA_CORES) * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -4904,18 +5010,26 @@ def phase_dropout(dev, smi) -> tuple:
     plain version, on a key that flax's make_rng hands the first encoder
     layer's FFN dropout:
 
-    - its keep mask (from a launch on ones) equal bit for bit to
-      ``prng.bernoulli``'s, which is built from ``prng.random_bits``, at every
+    - its keep mask (from a forward launch on ones) and the forward's bits
+      equal bit for bit to ``prng.bernoulli``'s, which is built from
+      ``prng.random_bits`` (the bits as ``pack_mask`` packs it), at every
       DROPOUT_MASK_SHAPES shape;
     - both rules (nn.Dropout's select and the attention's product under a
       [1, 1, F, F] mask over [B, H, F, F]), forward and backward through the
-      autograd function, x in bf16 and f32: equal bit for bit to the plain
-      arithmetic on the host's mask, and a second launch to the first;
-    - times at the FFN output of config 5 at B=256 in bf16 beside the bound,
-      the plain version (the host draw included) and torch's F.dropout
-      (Philox bits, another function: context only); the attention call's
-      time beside its bound.
-    Returns (errors, timing, library)."""
+      autograd function (the backward launch reading the forward's bits), x
+      in bf16 and f32: equal bit for bit to the plain arithmetic on the
+      host's mask, a second forward launch to the first, the backward launch
+      on the host mask's bits to the plain arithmetic and to
+      ``dropout_from_bits_plain``, and on the inverted bits to the inverted
+      mask's arithmetic (the backward reads the bits; it hashes nothing);
+    - times at the FFN output of config 5 at B=256 in bf16: the forward and
+      the backward launch, each beside its bound, its plain version (the
+      forward's host draw included) and one torch call (F.dropout, Philox
+      bits, another function; ``native_dropout_backward`` on a bool mask, the
+      product by 1/keep_prob, another rounding: context only); the
+      attention call's forward and backward beside their bounds; the
+      forward kernel's SASS by integer pipe (``kernel_build.sass_opcodes``).
+    Returns (errors, timing, library, extra)."""
     key = prng.flax_make_rng(prng.key(17), 1, ("encoder", "layer_0", "Dropout_0"))
     kp = 1.0 - DROPOUT_RATE
     masks = []
@@ -4923,10 +5037,15 @@ def phase_dropout(dev, smi) -> tuple:
         start = time.perf_counter()
         want = torch.from_numpy(prng.bernoulli(key, kp, shape))
         host_s = time.perf_counter() - start
-        got = (dropout_kernel(torch.ones(shape, device=dev), key, kp, shape) != 0).cpu()
+        y, bits = dropout_kernel(torch.ones(shape, device=dev), key, kp, shape)
+        got = (y != 0).cpu()
         if not torch.equal(got, want):
             raise AssertionError(f"dropout mask {shape}: {(got != want).sum().item()} entries differ from prng's")
-        masks.append({"shape": list(shape), "kept_share": want.float().mean().item(), "host_draw_s": host_s})
+        if not torch.equal(bits, dropout_ops.pack_mask(want.to(dev))):
+            raise AssertionError(f"dropout bits {shape}: the forward's bits are not prng's mask packed")
+        masks.append({"shape": list(shape), "kept_share": want.float().mean().item(), "host_draw_s": host_s,
+                      "bits_equal": True})
+        del y, bits
     gen = torch.Generator(device=dev).manual_seed(11)
     errors, checks = {"dropout": 0.0}, []
     for mode, shape, mask_shape in (("div", DROPOUT_FFN_SHAPE, DROPOUT_FFN_SHAPE),
@@ -4938,34 +5057,61 @@ def phase_dropout(dev, smi) -> tuple:
             xr = x.clone().requires_grad_(True)
             y = dropout_ops.dropout(xr, key, DROPOUT_RATE, mask_shape, mode)
             y.backward(g)
-            again = dropout_kernel(x, key, kp, mask_shape, mode)
+            again, bits = dropout_kernel(x, key, kp, mask_shape, mode)
+            host_bits = dropout_ops.pack_mask(keep)
+            from_bits = dropout_ops.dropout_from_bits(g, host_bits, kp, mask_shape, mode)
+            inverted = dropout_ops.dropout_from_bits(g, dropout_ops.pack_mask(~keep), kp, mask_shape, mode)
             torch.cuda.synchronize()
             want_y, want_g = apply_mask(x, keep, kp, mode), apply_mask(g, keep, kp, mode)
             ok = {"forward": bits_equal(y.detach(), want_y), "backward": bits_equal(xr.grad, want_g),
-                  "second_launch": bits_equal(again, y.detach())}
+                  "second_launch": bits_equal(again, y.detach()), "bits": torch.equal(bits, host_bits),
+                  "backward_from_host_bits": bits_equal(from_bits, want_g) and bits_equal(
+                      from_bits, dropout_ops.dropout_from_bits_plain(g, host_bits, kp, mask_shape, mode)),
+                  "backward_from_inverted_bits": bits_equal(inverted, apply_mask(g, ~keep, kp, mode))}
             if not all(ok.values()):
                 raise AssertionError(f"dropout {mode} {shape} {dtype}: bit for bit {ok}")
             checks.append({"mode": mode, "shape": list(shape), "dtype": str(dtype), **ok})
-            del x, g, xr, y, again, want_y, want_g
+            del x, g, xr, y, again, bits, host_bits, from_bits, inverted, want_y, want_g
         torch.cuda.empty_cache()
     x = torch.randn(DROPOUT_FFN_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    _, bits = dropout_kernel(x, key, kp, DROPOUT_FFN_SHAPE)
     ms = time_ms(lambda: dropout_kernel(x, key, kp, DROPOUT_FFN_SHAPE))
+    back_ms = time_ms(lambda: dropout_ops.dropout_from_bits(x, bits, kp, DROPOUT_FFN_SHAPE))
     plain_ms = time_ms(lambda: dropout_plain(x, key, kp, DROPOUT_FFN_SHAPE), reps=1, warmup=0)
+    back_plain_ms = time_ms(lambda: dropout_ops.dropout_from_bits_plain(x, bits, kp, DROPOUT_FFN_SHAPE))
     library_ms = time_ms(lambda: torch.nn.functional.dropout(x, DROPOUT_RATE, training=True))
+    keep = dropout_ops.unpack_mask(bits, DROPOUT_FFN_SHAPE)
+    back_library_ms = time_ms(lambda: torch.ops.aten.native_dropout_backward(x, keep, 1.0 / kp))
     bound = dropout_bound(x.numel(), x.numel(), 2)
+    back_bound = dropout_bound(x.numel(), x.numel(), 2, backward=True)
     w = torch.rand(DROPOUT_ATTN_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
     attn_mask = (1, 1, *DROPOUT_ATTN_SHAPE[2:])
+    _, attn_bits = dropout_kernel(w, key, kp, attn_mask, "mul")
     attn_ms = time_ms(lambda: dropout_kernel(w, key, kp, attn_mask, "mul"))
+    attn_back_ms = time_ms(lambda: dropout_ops.dropout_from_bits(w, attn_bits, kp, attn_mask, "mul"))
     attn_bound = dropout_bound(w.numel(), int(np.prod(attn_mask)), 2)
-    emit({"phase": "dropout", "masks": masks, "checks": checks, "card": smi})
+    attn_back_bound = dropout_bound(w.numel(), int(np.prod(attn_mask)), 2, backward=True)
+    sass = {fn: {k: c[k] for k in ("fma_pipe", "alu_pipe")} for fn, c in
+            kernel_build.sass_opcodes("dropout", "dropout_kernel").items()}
+    emit({"phase": "dropout", "masks": masks, "checks": checks, "sass_integer_pipes": sass, "card": smi})
+    # the launches alone on the profiler's device clock (CUDA events around
+    # a call also hold the wrapper's host time before its launch)
+    extra = {"backward_ms": back_ms, "backward_plain_ms": back_plain_ms, "backward_bound_ms": back_bound[0],
+             "backward_bound_by": back_bound[1], "backward_library_ms": back_library_ms,
+             "device_ms": device_ms(lambda: dropout_kernel(x, key, kp, DROPOUT_FFN_SHAPE)),
+             "backward_device_ms": device_ms(lambda: dropout_ops.dropout_from_bits(x, bits, kp, DROPOUT_FFN_SHAPE))}
     emit({"phase": "kernel_times", "kernel": "dropout", "shape": list(DROPOUT_FFN_SHAPE), "dtype": "bfloat16",
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound[0], "bound_by": bound[1],
+          **extra,
           "attention_call": {"shape": list(DROPOUT_ATTN_SHAPE), "ms": attn_ms, "bound_ms": attn_bound[0],
-                             "bound_by": attn_bound[1]},
-          "library": "torch.nn.functional.dropout (Philox bits: another function)", "card": smi})
-    del x, w
+                             "bound_by": attn_bound[1], "backward_ms": attn_back_ms,
+                             "backward_bound_ms": attn_back_bound[0]},
+          "library": "torch.nn.functional.dropout (Philox bits: another function); backward: "
+                     "aten.native_dropout_backward on a bool mask (g · mask · 1/keep_prob: another rounding)",
+          "card": smi})
+    del x, w, bits, attn_bits, keep
     torch.cuda.empty_cache()
-    return errors, {"dropout": (ms, plain_ms, bound)}, {"dropout": library_ms}
+    return errors, {"dropout": (ms, plain_ms, bound)}, {"dropout": library_ms}, {"dropout": extra}
 
 
 def dropout_launches_per_step(name: str, mcfg: ModelConfig) -> int:
@@ -5586,8 +5732,9 @@ def dp_kernel_checks(dev) -> dict:
     xd = torch.from_numpy(rng.normal(size=(32, F, 1024)).astype(np.float32)).to(dev, torch.bfloat16)
     kp = 1.0 - DROPOUT_RATE
     offset = 64 * F * 1024
-    got = dropout_kernel(xd, key, kp, tuple(xd.shape), "div", offset)
-    if not bits_equal(got, dropout_plain(xd, key, kp, tuple(xd.shape), "div", offset)):
+    got, bits = dropout_kernel(xd, key, kp, tuple(xd.shape), "div", offset)
+    if not (bits_equal(got, dropout_plain(xd, key, kp, tuple(xd.shape), "div", offset)) and torch.equal(
+            bits, dropout_ops.pack_mask(dropout_ops.keep_mask(key, kp, tuple(xd.shape), dev, offset)))):
         raise AssertionError("data_parallel: the dropout kernel's mask at an offset differs from the plain one")
     out["dropout_offset"] = 0.0
     leaves = [(f"leaf{i}", [torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev, dt)
@@ -5849,7 +5996,7 @@ def main() -> int:
     timing.update(t)
     library.update(lib)
     shapes["int8_matmul"] = "B=512, [512, 262144] x [262144, 1024] (Willow rgb hidden FC)"
-    e, t, lib = phase_dropout(dev, smi)
+    e, t, lib, extra = phase_dropout(dev, smi)
     errors.update(e)
     timing.update(t)
     library.update(lib)
@@ -5956,7 +6103,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], "max_abs_err": errors[name], "ms": timing[name][0],
          "plain_ms": timing[name][1], "bound_ms": timing[name][2][0],
-         "bound_by": timing[name][2][1], "library_ms": library.get(name), "shape": shapes[name]}
+         "bound_by": timing[name][2][1], "library_ms": library.get(name), "shape": shapes[name],
+         **extra.get(name, {})}
         for name, spec in KERNELS.items()
     ]})
     print(smi, flush=True)

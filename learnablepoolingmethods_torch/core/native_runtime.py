@@ -52,9 +52,10 @@ The routes (ROUTES), one per model:
                            made once at load), the output projection, the
                            hidden FC, each with bias_act; gating, the MoE (f32)
     rnn_lstm, rnn_gru      LstmModel, GruModel: frame_stage in f32, then a
-                           layer: one SGEMM x·W_i over every frame, and a
-                           step: the SGEMM h·W_h and lstm_cell / gru_cell
-                           (which keeps the final carry); the MoE        (f32)
+                           layer: one SGEMM x·W_i over every frame, then
+                           a step: the SGEMM h·W_h and lstm_cell, or one
+                           gru_layer over every frame (each keeps the final
+                           carry); the MoE                              (f32)
 
 and the LOUPE four and the attention two end in the hidden FC's products,
 hidden_sum, gating, moe_combine; every route in topk.
@@ -98,7 +99,7 @@ from learnablepoolingmethods_torch.ops.native_tail import (
     frame_stage_all_plain,
     frame_stage_plain,
     gating_plain,
-    gru_cell_plain,
+    gru_layer_plain,
     hidden_sum_plain,
     lstm_cell_plain,
     masked_mean_plain,
@@ -210,7 +211,7 @@ TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 COUNTERS = ("netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention", "frame_stage",
             "bias_sigmoid", "bias_relu6", "frame_pool", "row_l2", "nextvlad_assign", "nextvlad_residual", "bias_act",
             "residual_layernorm", "masked_mean", "hidden_sum", "gating", "moe_combine", "topk", "lstm_cell",
-            "gru_cell", "pool_attention")
+            "gru_cell", "pool_attention", "gru_layer")
 # the TPU-kernel counterparts among them (PERF.md's rows 1, 2, 6, 5 and 7)
 ROW_KERNELS = ("netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention")
 
@@ -373,22 +374,23 @@ def recurrent_final(route: str, layers, x: torch.Tensor, num_frames: torch.Tenso
                     trace: Optional[dict] = None) -> torch.Tensor:
     """The RNN routes' layers over every frame of ``x`` [B, F, D] (f32): a
     layer's x·W_i over all frames at once, then, from a zero state, each
-    step's h·W_h and the cell (``lstm_cell_plain`` / ``gru_cell_plain``),
-    whose outputs are the next layer's input, pad frames included, as
-    flax's ``nn.RNN`` runs them → the top layer's carry at each row's
-    ``last_frame`` [B, H].  ``trace`` keeps the top layer's products x·W_i
-    ("pre/last") and outputs ("seq/last") and the carry ("final")."""
+    step's h·W_h and the cell (``lstm_cell_plain``; the GRU's loop is
+    ``gru_layer_plain``), whose outputs are the next layer's input, pad
+    frames included, as flax's ``nn.RNN`` runs them → the top layer's carry
+    at each row's ``last_frame`` [B, H].  ``trace`` keeps the top layer's
+    products x·W_i ("pre/last") and outputs ("seq/last") and the carry
+    ("final")."""
     b, f, _ = x.shape
     for i, lp in enumerate(layers):
         pre = matmul_f32_local(x.reshape(b * f, -1), lp["w_i"]).reshape(b, f, -1)
+        if route == "rnn_gru":
+            x, carry = gru_layer_plain(pre, lp["w_h"], lp["b_i"], lp["b_hn"], num_frames)
+            continue
         h = c = carry = x.new_zeros(b, lp["w_h"].shape[0])
         outs = []
         for t in range(f):
-            hw = matmul_f32_local(h, lp["w_h"])
-            if route == "rnn_lstm":
-                h, c, carry = lstm_cell_plain(pre[:, t], hw, lp["b_h"], c, carry, num_frames, t, f)
-            else:
-                h, carry = gru_cell_plain(pre[:, t], hw, lp["b_i"], lp["b_hn"], h, carry, num_frames, t, f)
+            h, c, carry = lstm_cell_plain(pre[:, t], matmul_f32_local(h, lp["w_h"]), lp["b_h"], c, carry,
+                                          num_frames, t, f)
             outs.append(h)
         x = torch.stack(outs, dim=1)
     if trace is not None:

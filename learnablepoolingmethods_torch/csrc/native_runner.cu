@@ -55,10 +55,12 @@
 //       FC, each with bias_act; the gating product and gating (f32 out);
 //       the MoE in f32.
 //   rnn_lstm, rnn_gru  LstmModel, GruModel, f32: frame_stage with no draw in
-//       f32; a layer: one SGEMM x·W_i over every frame, then per frame the
-//       SGEMM h·W_h and lstm_cell or gru_cell (the step's output, the next
-//       layer's input, and the final carry at each row's last frame); the
-//       MoE in f32 on the top layer's carry.
+//       f32; a layer: one SGEMM x·W_i over every frame, then for the LSTM
+//       per frame the SGEMM h·W_h and lstm_cell, for the GRU one gru_layer
+//       launch over every frame (W_h kept in shared memory, a grid barrier a
+//       step) (the steps' outputs, the next layer's input, and the final
+//       carry at each row's last frame); the MoE in f32 on the top layer's
+//       carry.
 //   The gated MoE tail: the gating product on the rounded h, gating, the
 //   MoE's gate and expert products, moe_combine; every route then topk.
 //
@@ -76,7 +78,9 @@
 // residual_layernorm, one block a (video, cluster) for nextvlad_residual, and
 // for topk one block a row that keeps the row in shared memory and takes k
 // rounds of a block-wide argmax, each round over the entries that order
-// after the previous pick; one thread a (row, unit) for the RNN cells, one
+// after the previous pick; one thread a (row, unit) for the RNN cells (gru_layer:
+// a persistent cluster of two blocks a tile of 128 rows × 32 units,
+// gru_layer_kernel), one
 // block a (video, head, 64 queries) for pool_attention (an online softmax
 // over cp.async tiles of 32 frames, register micro-tiles on the CUDA cores).  chip_smoke.py holds each against its plain
 // version (ops/native_tail.py) and times it beside its bound.
@@ -95,6 +99,7 @@
 
 #include <cublas_v2.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -139,6 +144,7 @@ extern "C" int lpm_masked_attention(const void* qkv, const void* mask, void* out
 namespace lpm_native {
 
 using bf16 = __nv_bfloat16;
+namespace cg = cooperative_groups;
 
 // ops/fused_frontend.py's DEQ_SCALE and DEQ_BIAS, rounded to f32 as ctypes
 // rounds the Python floats
@@ -162,19 +168,29 @@ constexpr int kPoolRows = 64;              // queries a block
 constexpr int kPoolMaxHd = 128;            // head width at most
 constexpr int kPoolPitch = kPoolMaxHd + 8; // floats a query, key or value row in shared memory
 constexpr int kPoolPPitch = kPoolRows + 8; // floats a frame's row of weights
+constexpr int kGruThreads = 256;
+constexpr int kGruRows = 128;               // a tile's rows (videos)
+constexpr int kGruUnits = 32;               // a tile's hidden units, each with its three gates
+constexpr int kGruCols = 3 * kGruUnits;     // W_h's columns of a tile, gate-major: g·32 + unit
+constexpr int kGruRowGroups = 16;           // a thread's rows: rg + 16·i
+constexpr int kGruRowsPerThread = kGruRows / kGruRowGroups;
+constexpr int kGruChunk = 16;               // k a ring stage holds
+constexpr int kGruStageH = kGruRows * kGruChunk;       // a stage's h floats, [row][16]
+constexpr int kGruWPitch = kGruChunk + 4;   // floats a column of a streamed stage's W_h
+constexpr int kGruStages = 4;
 
 // the counted launches, in lpm_runner_launches' names
 enum Counter {
   kFrontend, kNetvladFused, kSoftdbowFused, kNetfvFused, kMaskedAttention, kFrameStage,
   kBiasSigmoid, kBiasRelu6, kFramePool, kRowL2, kNextvladAssign, kNextvladResidual, kBiasAct,
   kResidualLayernorm, kMaskedMean, kHiddenSum, kGating, kMoeCombine, kTopk, kLstmCell, kGruCell,
-  kPoolAttention, kNumCounters
+  kPoolAttention, kGruLayer, kNumCounters
 };
 const char* const kCounterNames[kNumCounters] = {
     "netvlad_frontend", "netvlad_fused", "softdbow_fused", "netfv_fused", "masked_attention",
     "frame_stage", "bias_sigmoid", "bias_relu6", "frame_pool", "row_l2", "nextvlad_assign",
     "nextvlad_residual", "bias_act", "residual_layernorm", "masked_mean", "hidden_sum",
-    "gating", "moe_combine", "topk", "lstm_cell", "gru_cell", "pool_attention"};
+    "gating", "moe_combine", "topk", "lstm_cell", "gru_cell", "pool_attention", "gru_layer"};
 
 // kRoutes' order (native_manifest.h)
 enum Route {
@@ -648,6 +664,241 @@ __global__ void gru_cell_kernel(const float* __restrict__ pre, long long ld_pre,
   }
 }
 
+// One GRU layer over every frame, f32, in one cooperative launch: flax's
+// nn.RNN(nn.GRUCell) (JAX models/frame_level.py:276-290, lax.scan in XLA,
+// no pallas_call) from a zero state, given pre = x·W_i [B, F, 3H] (row b at
+// b·ld_pre_b, step t at t·ld_pre_t).  Step t: hw = h_{t−1}·W_h by f32 FMA in
+// a fixed order (no atomics: each of a cluster's two blocks sums its half
+// of k in increasing k, then hw = sum₀ + sum₁; hw = 0 at t = 0), then
+// gru_cell_kernel's arithmetic; h_t to seq (row b at b·ld_seq_b, step t at
+// t·ld_seq_t), to carry where t is the row's last_frame (no carry: carry and
+// nf null), and to the ping-pong state hbuf [2][B][Hp] (Hp = H rounded up
+// to 4, columns H … Hp − 1 kept 0) that step t + 1 reads after a grid
+// barrier.
+//
+// Bound: operations, 2·B·H·3H a step on the CUDA cores (24 µs at B=256,
+// H=1024 and 67 TFLOP/s, 7.2 ms a layer of 300 frames); its bytes (W_h once,
+// pre and seq once: 1.3 GB a layer, 0.38 ms) are far below.  It replaces the
+// per-frame pair of a cuBLAS SGEMM and gru_cell, which read W_h (12.6 MB)
+// from L2 each step, wrote hw to memory and read it back, and left two
+// launch gaps a step.  Besides the FMA, a step is paced by the L2 → SM
+// traffic of h (a block of 128 rows and all of k would read 512 KB a step,
+// 64 MB over the card), by the shared memory's 32 lane-values a clock
+// against 128 FMA, and by the cell's loads; tools/torch_gru_layer_phases.py
+// times each phase on the card (PERF.md: the k loop's shared-memory loads
+// now lead).  Design:
+//  - a tile is 128 rows × 32 units with their three gates (96 columns of
+//    W_h), taken by a cluster of two blocks that split k in halves: a block
+//    reads 256 KB of h a step (32 MB over the card), and its slice of W_h
+//    [96 × H/2] (192 KB at H=1024) stays in shared memory for the whole
+//    layer (kResident); at most one block an SM, every block resident
+//    (cooperative launch), one tile a cluster at B=256, H=1024 (64
+//    clusters);
+//  - each thread keeps 8 rows (rg + 16·i) × 2 units (v, v + 16) × 3 gates =
+//    48 accumulators: 14 loads of shared memory for 48 FMA a k (a thread of
+//    8 rows × 3 columns, 11 loads for 24 FMA, left the FMA units waiting);
+//  - after the k loop each block hands its partner, through distributed
+//    shared memory, its sums of the units the partner finishes (block r of
+//    the cluster finishes units v + 16r), and finishes 8 rows × 1 unit a
+//    thread: hw = sum₀ + sum₁, then the cell;
+//  - h_{t−1} streams through a four-stage cp.async ring of [128 × 16]
+//    chunks (16-byte .cg copies, from L2 only: hbuf changes between steps),
+//    one __syncthreads a stage; float4s of h and W_h along k, a quarter-warp
+//    reading one row of h (a broadcast) and eight units' W_h (pitch Kh + 4
+//    floats: distinct banks);
+//  - the cell's x·W_i is prefetched from HBM into L2 at the step's start;
+//    it and the cell's other inputs (h_{t−1} of the thread's unit, the
+//    biases, num_frames) are loaded after the k loop, all in flight at once
+//    under the exchange (held in registers through the loop, they left too
+//    few for the loop's loads);
+//  - cooperative_groups' grid.sync() between steps (header-only since CUDA
+//    11: the build needs no -rdc), cluster.sync() around the exchange;
+//  - a shape whose clusters outnumber the resident ones, or whose slice of
+//    W_h does not fit (Kh > 512), streams W_h's [96 × 16] chunk beside h's
+//    through the same ring (4-byte copies, transposed to k-major), each
+//    cluster walking its tiles in turn each step (!kResident).
+template <bool kResident>
+__global__ void __launch_bounds__(kGruThreads, 1)
+gru_layer_kernel(const float* __restrict__ pre, long long ld_pre_b, long long ld_pre_t,
+                 const float* __restrict__ w_h, const float* __restrict__ b_i,
+                 const float* __restrict__ b_hn, float* hbuf, float* __restrict__ seq,
+                 long long ld_seq_b, long long ld_seq_t, float* __restrict__ carry,
+                 const int32_t* __restrict__ nf, int B, int F, int H, int Hp, int Kh) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kStageFloats = kGruStageH + (kResident ? 0 : kGruCols * kGruWPitch);
+  const int w_pitch = kResident ? Kh + 4 : kGruWPitch;
+  float* ring = smem + (kResident ? kGruCols * w_pitch : 0);
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();           // this block's half of k
+  const int cluster_id = blockIdx.x / 2, clusters = gridDim.x / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int v = (warp & 1) * 8 + (lane & 7);            // units v and v + 16 of the tile
+  const int rg = (warp >> 1) * 4 + (lane >> 3);         // rows rg + 16·i
+  const int unit_tiles = (H + kGruUnits - 1) / kGruUnits;
+  const int tiles = (B + kGruRows - 1) / kGruRows * unit_tiles;
+  const int kbase = rank * Kh, nstages = Kh / kGruChunk;
+  const long long G3 = 3LL * H;
+
+  if (kResident && cluster_id < tiles) {
+    // the tile's 96 columns of W_h over this block's half of k, k-major, by
+    // 4-byte copies all in flight at once; rows k ≥ H and units j ≥ H zero
+    const int j0 = (cluster_id % unit_tiles) * kGruUnits;
+    for (int idx = threadIdx.x; idx < Kh * kGruCols; idx += kGruThreads) {
+      const int kk = idx / kGruCols, c = idx % kGruCols, j = j0 + c % kGruUnits, k = kbase + kk;
+      const bool in = k < H && j < H;
+      lpm::cp_async_4(lpm::smem_addr(smem + c * w_pitch + kk),
+                      in ? w_h + (long long)k * G3 + (long long)(c / kGruUnits) * H + j : w_h, in ? 4 : 0);
+    }
+    lpm::cp_async_commit();
+    lpm::cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (int t = 0; t < F; ++t) {
+    const float* h_prev = hbuf + (long long)((t + 1) & 1) * B * Hp;
+    float* h_next = hbuf + (long long)(t & 1) * B * Hp;
+    for (int tile = cluster_id; tile < tiles; tile += clusters) {
+      const int row0 = tile / unit_tiles * kGruRows;
+      const int j0 = tile % unit_tiles * kGruUnits;
+      const int j = j0 + v + 16 * rank;  // the unit whose cell this thread finishes
+      const bool unit = j < H;
+      // the cells' x·W_i, from HBM into L2 while the k loop runs
+#pragma unroll
+      for (int i = 0; i < kGruRowsPerThread; ++i) {
+        const long long b = row0 + rg + kGruRowGroups * i;
+        if (b < B && unit)
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(pre + b * ld_pre_b + t * ld_pre_t + (long long)g * H + j));
+      }
+      // the cells' other inputs, loaded all at once (after the k loop, whose
+      // loads need the registers; their latency under the exchange)
+      float xin[kGruRowsPerThread][3], hp[kGruRowsPerThread], bias[4];
+      int frames[kGruRowsPerThread];
+      auto load_cells = [&]() {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) bias[g] = unit ? __ldg(b_i + g * H + j) : 0.f;
+        bias[3] = unit ? __ldg(b_hn + j) : 0.f;
+#pragma unroll
+        for (int i = 0; i < kGruRowsPerThread; ++i) {
+          const long long b = row0 + rg + kGruRowGroups * i;
+          const bool live = b < B && unit;
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            xin[i][g] = live ? __ldcs(pre + b * ld_pre_b + t * ld_pre_t + (long long)g * H + j) : 0.f;
+          hp[i] = live && t > 0 ? __ldcg(h_prev + b * Hp + j) : 0.f;
+          frames[i] = live && carry ? __ldg(nf + b) : 0;
+        }
+      };
+      // acc[i][2g + s]: row rg + 16·i, gate g of unit v + 16·s
+      float acc[kGruRowsPerThread][6];
+#pragma unroll
+      for (int i = 0; i < kGruRowsPerThread; ++i)
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[i][c] = 0.f;
+      if (t > 0) {
+        // this thread's two 16-byte pieces of each stage's h chunk: rows
+        // tid/4 and tid/4 + 64, k 4·(tid % 4) … + 3, addresses fixed for the
+        // step and advanced by a stage's k
+        static_assert(kGruStageH / 4 == 2 * kGruThreads, "two 16-byte copies a thread a stage");
+        const int r0 = threadIdx.x >> 2, kq = kbase + 4 * (threadIdx.x & 3);
+        const bool in0 = row0 + r0 < B, in1 = row0 + r0 + kGruRows / 2 < B;
+        const float* src0 = in0 ? h_prev + (long long)(row0 + r0) * Hp + kq : h_prev;
+        const float* src1 = in1 ? h_prev + (long long)(row0 + r0 + kGruRows / 2) * Hp + kq : h_prev;
+        const uint32_t dst0 = lpm::smem_addr(ring + 4 * threadIdx.x);
+        auto load_stage = [&](int m, int s) {
+          const int k = m * kGruChunk;
+          const uint32_t dst = dst0 + 4 * s * kStageFloats;
+          const bool kin = kq + k < Hp;
+          lpm::cp_async_16(dst, in0 && kin ? src0 + k : h_prev, in0 && kin ? 16 : 0);
+          lpm::cp_async_16(dst + 4 * kGruStageH / 2, in1 && kin ? src1 + k : h_prev, in1 && kin ? 16 : 0);
+          if (!kResident) {
+            const int k0 = kbase + k;
+            float* ws = ring + s * kStageFloats + kGruStageH;
+            for (int e = threadIdx.x; e < kGruChunk * kGruCols; e += kGruThreads) {
+              const int kk = e / kGruCols, c = e % kGruCols, jj = j0 + c % kGruUnits;
+              const bool in = k0 + kk < H && jj < H;
+              lpm::cp_async_4(lpm::smem_addr(ws + c * kGruWPitch + kk),
+                              in ? w_h + (long long)(k0 + kk) * G3 + (long long)(c / kGruUnits) * H + jj : w_h,
+                              in ? 4 : 0);
+            }
+          }
+        };
+#pragma unroll
+        for (int s = 0; s < kGruStages - 1; ++s) {
+          if (s < nstages) load_stage(s, s);
+          lpm::cp_async_commit();
+        }
+        for (int m = 0; m < nstages; ++m) {
+          lpm::cp_async_wait<kGruStages - 2>();  // stage m has landed
+          __syncthreads();                       // for every thread; stage m − 1 is done with
+          if (m + kGruStages - 1 < nstages) load_stage(m + kGruStages - 1, (m + kGruStages - 1) % kGruStages);
+          lpm::cp_async_commit();
+          const float* hs = ring + (m % kGruStages) * kStageFloats;
+          const float* ws = kResident ? smem + m * kGruChunk : hs + kGruStageH;
+#pragma unroll
+          for (int q = 0; q < kGruChunk / 4; ++q) {
+            float4 w[6];
+#pragma unroll
+            for (int c = 0; c < 6; ++c)
+              w[c] = *reinterpret_cast<const float4*>(ws + ((c >> 1) * kGruUnits + v + 16 * (c & 1)) * w_pitch + 4 * q);
+#pragma unroll
+            for (int i = 0; i < kGruRowsPerThread; ++i) {
+              const float4 h4 = *reinterpret_cast<const float4*>(hs + (rg + kGruRowGroups * i) * kGruChunk + 4 * q);
+#pragma unroll
+              for (int c = 0; c < 6; ++c) {
+                acc[i][c] = fmaf(h4.x, w[c].x, acc[i][c]);
+                acc[i][c] = fmaf(h4.y, w[c].y, acc[i][c]);
+                acc[i][c] = fmaf(h4.z, w[c].z, acc[i][c]);
+                acc[i][c] = fmaf(h4.w, w[c].w, acc[i][c]);
+              }
+            }
+          }
+        }
+        load_cells();
+        // the two halves' sums: each block writes into its partner's ring
+        // ([i·3 + g][thread]) its sums of the units the partner finishes,
+        // then hw = sum₀ + sum₁ into acc[i][2g]
+        cluster.sync();  // both blocks are done with their rings
+        float* remote = cluster.map_shared_rank(ring, rank ^ 1);
+#pragma unroll
+        for (int i = 0; i < kGruRowsPerThread; ++i)
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            remote[(i * 3 + g) * kGruThreads + threadIdx.x] = rank == 0 ? acc[i][2 * g + 1] : acc[i][2 * g];
+        cluster.sync();
+#pragma unroll
+        for (int i = 0; i < kGruRowsPerThread; ++i)
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            const float other = ring[(i * 3 + g) * kGruThreads + threadIdx.x];
+            acc[i][2 * g] = rank == 0 ? __fadd_rn(acc[i][2 * g], other) : __fadd_rn(other, acc[i][2 * g + 1]);
+          }
+        __syncthreads();  // the ring is free for the next tile's stages
+      } else {
+        load_cells();
+      }
+#pragma unroll
+      for (int i = 0; i < kGruRowsPerThread; ++i) {
+        const long long b = row0 + rg + kGruRowGroups * i;
+        if (b >= B) continue;
+        if (!unit) {
+          if (j < Hp) h_next[b * Hp + j] = 0.f;
+          continue;
+        }
+        const float r = sigmoid(__fadd_rn(__fadd_rn(xin[i][0], bias[0]), acc[i][0]));
+        const float z = sigmoid(__fadd_rn(__fadd_rn(xin[i][1], bias[1]), acc[i][2]));
+        const float n = tanhf(__fadd_rn(__fadd_rn(xin[i][2], bias[2]), __fmul_rn(r, __fadd_rn(acc[i][4], bias[3]))));
+        const float h = __fadd_rn(__fmul_rn(__fsub_rn(1.f, z), n), __fmul_rn(z, hp[i]));
+        h_next[b * Hp + j] = h;
+        seq[b * ld_seq_b + t * ld_seq_t + j] = h;
+        if (carry && t == last_frame(frames[i], F)) carry[b * H + j] = h;
+      }
+    }
+    if (t + 1 < F) grid.sync();
+  }
+}
+
 // pool_attention's block: the scaled queries [kPoolRows][kPoolPitch], two
 // stages of a key tile and a value tile [kPoolTile][kPoolPitch] each, the
 // tile's weights frame-major [kPoolTile][kPoolPPitch], and a rescale (then
@@ -928,6 +1179,79 @@ cudaError_t launch_gru_cell(const float* pre, long long ld_pre, const float* hw,
   gru_cell_kernel<<<ew_blocks((long long)B * H), kEwThreads, 0, st>>>(
       pre, ld_pre, hw, b_i, b_hn, h_in, h_out, seq, ld_seq, carry, nf, B, F, H, t);
   return cudaGetLastError();
+}
+
+// The ring of !kResident stages (h and W_h chunks), and the resident slice
+// of W_h with the ring of h chunks, in bytes
+size_t gru_streamed_smem() { return 4 * (size_t)kGruStages * (kGruStageH + kGruCols * kGruWPitch); }
+size_t gru_resident_smem(int Kh) {
+  return 4 * ((size_t)kGruCols * (Kh + 4) + (size_t)kGruStages * kGruStageH);
+}
+
+cudaError_t launch_gru_layer(const float* pre, long long ld_pre_b, long long ld_pre_t,
+                             const float* w_h, const float* b_i, const float* b_hn, float* hbuf,
+                             float* seq, long long ld_seq_b, long long ld_seq_t, float* carry,
+                             const int32_t* nf, int B, int F, int H, cudaStream_t st) {
+  if (B < 1 || F < 1 || H < 1 || ld_pre_t < 3LL * H || ld_pre_b < (long long)F * ld_pre_t ||
+      ld_seq_t < H || ld_seq_b < (long long)F * ld_seq_t || !hbuf || !seq || (carry && !nf) ||
+      reinterpret_cast<uintptr_t>(hbuf) % 16 != 0 || (long long)B * ((H + 3) / 4 * 4) > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  static std::once_flag once;
+  static cudaError_t configured = cudaSuccess;
+  std::call_once(once, [] {
+    for (const void* fn : {(const void*)gru_layer_kernel<true>, (const void*)gru_layer_kernel<false>}) {
+      if (configured == cudaSuccess)
+        configured = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    }
+  });
+  if (configured != cudaSuccess) return configured;
+  int Hp = (H + 3) / 4 * 4;
+  int Kh = ((H + 1) / 2 + kGruChunk - 1) / kGruChunk * kGruChunk;  // a block's half of k, padded
+  const long long tiles =
+      (long long)((B + kGruRows - 1) / kGruRows) * ((H + kGruUnits - 1) / kGruUnits);
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 2;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kGruThreads);
+  cfg.stream = st;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  // the clusters that can be resident at once, one block an SM (asked
+  // with the cluster's attribute alone)
+  auto resident_clusters = [&](const void* fn, size_t smem, int* n) {
+    cfg.gridDim = dim3(2 * (unsigned)tiles);
+    cfg.dynamicSmemBytes = smem;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(n, fn, &cfg);
+    cfg.numAttrs = 2;
+    return err;
+  };
+  int fit = 0;
+  bool resident = false;
+  size_t smem = gru_resident_smem(Kh);
+  cudaError_t e = cudaSuccess;
+  if (smem <= (size_t)kMaxSmem) {
+    e = resident_clusters((const void*)gru_layer_kernel<true>, smem, &fit);
+    if (e != cudaSuccess) return e;
+    resident = fit >= 1 && tiles <= fit;
+  }
+  if (!resident) {
+    smem = gru_streamed_smem();
+    e = resident_clusters((const void*)gru_layer_kernel<false>, smem, &fit);
+    if (e != cudaSuccess) return e;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+  }
+  cfg.gridDim = dim3(2 * (unsigned)(tiles < fit ? tiles : fit));
+  cfg.dynamicSmemBytes = smem;
+  return resident ? cudaLaunchKernelEx(&cfg, gru_layer_kernel<true>, pre, ld_pre_b, ld_pre_t, w_h, b_i, b_hn, hbuf,
+                                       seq, ld_seq_b, ld_seq_t, carry, nf, B, F, H, Hp, Kh)
+                  : cudaLaunchKernelEx(&cfg, gru_layer_kernel<false>, pre, ld_pre_b, ld_pre_t, w_h, b_i, b_hn, hbuf,
+                                       seq, ld_seq_b, ld_seq_t, carry, nf, B, F, H, Hp, Kh);
 }
 
 cudaError_t launch_pool_attention(const float* q, const float* kv, const float* bkv,
@@ -1613,9 +1937,13 @@ void plan(Runner* r) {
       r->need_ws(&r->xn, R * DT);
       r->need_ws(&r->pre, R * GH);
       r->need_ws(&r->seq, R * H);
-      r->need_ws(&r->hs, B * H);
-      if (r->route == kLstm) r->need_ws(&r->cs, B * H);
-      r->need_ws(&r->hw, B * GH);
+      if (r->route == kLstm) {
+        r->need_ws(&r->hs, B * H);
+        r->need_ws(&r->cs, B * H);
+        r->need_ws(&r->hw, B * GH);
+      } else {
+        r->need_ws(&r->hs, 2 * B * ((H + 3) / 4 * 4));  // gru_layer's ping-pong state
+      }
       r->need_ws(&r->carry, B * H);
       break;
     }
@@ -2096,10 +2424,11 @@ bool run_pool(Runner* r, std::string* err) {
 
 // LstmModel and GruModel (f32): every frame staged in f32; a layer: x·W_i
 // over every frame (the frames, or the layer below's outputs seq) into pre,
-// the state zeroed, then per frame t the product h·W_h and the cell, which
-// writes h′ to the state and to the layer's outputs seq (the next layer's
-// input) and the final carry at each row's last frame; the MoE on the top
-// layer's carry.
+// then the recurrence, which writes each step's h′ to the layer's outputs
+// seq (the next layer's input) and the final carry at each row's last
+// frame: for the LSTM, from a zeroed state, per frame t the product h·W_h
+// and lstm_cell; for the GRU, one gru_layer launch over all frames.  The
+// MoE on the top layer's carry.
 bool run_rnn(Runner* r, std::string* err) {
   const bool lstm = r->route == kLstm;
   const long long B = r->B, F = r->F, R = B * F, H = r->H, GH = (lstm ? 4 : 3) * H;
@@ -2108,24 +2437,28 @@ bool run_rnn(Runner* r, std::string* err) {
     const std::string p = "layers/" + std::to_string(i) + "/";
     float *pre = r->pre, *seq = r->seq;
     if (!blas_ok(gemm_f32(r->blas, i ? seq : r->xn, r->W<float>(p + "w_i"), pre, R, GH, i ? H : r->DT),
-                 "input product", err) ||
-        !cuda_ok(cudaMemsetAsync(r->hs, 0, B * H * sizeof(float), r->stream), "zero state", err) ||
-        (lstm && !cuda_ok(cudaMemsetAsync(r->cs, 0, B * H * sizeof(float), r->stream), "zero state",
-                          err)))
+                 "input product", err))
       return false;
     const float* w_h = r->W<float>(p + "w_h");
-    for (int t = 0; t < F; ++t) {
-      if (!blas_ok(gemm_f32(r->blas, r->hs, w_h, r->hw, B, GH, H), "recurrent product", err))
+    if (!lstm) {
+      if (!cuda_ok(launch_gru_layer(pre, F * GH, GH, w_h, r->W<float>(p + "b_i"), r->W<float>(p + "b_hn"),
+                                    r->hs, seq, F * H, H, r->carry, r->nf, r->B, r->F, r->H, r->stream),
+                   "gru_layer", err))
         return false;
-      const cudaError_t e =
-          lstm ? launch_lstm_cell(pre + t * GH, F * GH, r->hw, r->W<float>(p + "b_h"), r->cs, r->cs,
-                                  r->hs, seq + t * H, F * H, r->carry, r->nf, r->B, r->F, r->H, t,
-                                  r->stream)
-               : launch_gru_cell(pre + t * GH, F * GH, r->hw, r->W<float>(p + "b_i"),
-                                 r->W<float>(p + "b_hn"), r->hs, r->hs, seq + t * H, F * H,
-                                 r->carry, r->nf, r->B, r->F, r->H, t, r->stream);
-      if (!cuda_ok(e, lstm ? "lstm_cell" : "gru_cell", err)) return false;
-      r->count(lstm ? kLstmCell : kGruCell);
+      r->count(kGruLayer);
+      continue;
+    }
+    if (!cuda_ok(cudaMemsetAsync(r->hs, 0, B * H * sizeof(float), r->stream), "zero state", err) ||
+        !cuda_ok(cudaMemsetAsync(r->cs, 0, B * H * sizeof(float), r->stream), "zero state", err))
+      return false;
+    for (int t = 0; t < F; ++t) {
+      if (!blas_ok(gemm_f32(r->blas, r->hs, w_h, r->hw, B, GH, H), "recurrent product", err) ||
+          !cuda_ok(launch_lstm_cell(pre + t * GH, F * GH, r->hw, r->W<float>(p + "b_h"), r->cs, r->cs,
+                                    r->hs, seq + t * H, F * H, r->carry, r->nf, r->B, r->F, r->H, t,
+                                    r->stream),
+                   "lstm_cell", err))
+        return false;
+      r->count(kLstmCell);
     }
   }
   return moe_f32(r, r->carry, H, err);
@@ -2583,6 +2916,20 @@ int lpm_gru_cell(const void* pre, long long ld_pre, const void* hw, const void* 
       static_cast<const float*>(h_in), static_cast<float*>(h_out), static_cast<float*>(seq), ld_seq,
       static_cast<float*>(carry), static_cast<const int32_t*>(num_frames), B, F, H, t,
       static_cast<cudaStream_t>(stream));
+}
+
+// One GRU layer over all F frames (gru_layer_kernel): hbuf is a scratch of
+// 2·B·round_up(H, 4) f32 on 16 bytes; carry and num_frames may be null
+// (no carry).
+int lpm_gru_layer(const void* pre, long long ld_pre_b, long long ld_pre_t, const void* w_h,
+                  const void* b_i, const void* b_hn, void* hbuf, void* seq, long long ld_seq_b,
+                  long long ld_seq_t, void* carry, const void* num_frames, int B, int F, int H,
+                  void* stream) {
+  return (int)lpm_native::launch_gru_layer(
+      static_cast<const float*>(pre), ld_pre_b, ld_pre_t, static_cast<const float*>(w_h),
+      static_cast<const float*>(b_i), static_cast<const float*>(b_hn), static_cast<float*>(hbuf),
+      static_cast<float*>(seq), ld_seq_b, ld_seq_t, static_cast<float*>(carry),
+      static_cast<const int32_t*>(num_frames), B, F, H, static_cast<cudaStream_t>(stream));
 }
 
 int lpm_pool_attention(const void* q, const void* kv, const void* bkv, const void* num_frames,

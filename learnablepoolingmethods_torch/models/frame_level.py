@@ -38,7 +38,7 @@ from learnablepoolingmethods_torch.models.modules import (
     SoftDBoW,
     matmul_param,
 )
-from learnablepoolingmethods_torch.ops.native_tail import gru_cell_plain, lstm_cell_plain
+from learnablepoolingmethods_torch.ops.native_tail import gru_layer_plain, lstm_cell_plain
 from learnablepoolingmethods_torch.parallel.collectives import full_param
 from learnablepoolingmethods_torch.utils import prng
 
@@ -432,13 +432,7 @@ class GRUCell(_RecurrentCell):
     def run(self, x: torch.Tensor) -> torch.Tensor:
         """As :meth:`OptimizedLSTMCell.run`."""
         w_i, b_i, w_h, b_hn = self._kernels("i"), self._biases("i"), self._kernels("h"), self.hn.bias
-        pre = torch.matmul(x, w_i)                                    # [B, F, 3H]
-        h = x.new_zeros(x.shape[0], self.features)
-        outs = []
-        for t in range(x.shape[1]):
-            h = gru_cell_plain(pre[:, t], torch.matmul(h, w_h), b_i, b_hn, h)
-            outs.append(h)
-        return torch.stack(outs, dim=1)
+        return gru_layer_plain(torch.matmul(x, w_i), w_h, b_i, b_hn)
 
 
 class _RecurrentModel(BaseModel):

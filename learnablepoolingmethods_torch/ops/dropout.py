@@ -16,11 +16,15 @@ flax's from the same key:
   dtype.
 
 The two round differently in bf16.  Both are linear in x with one mask, so
-the backward is the same function of the cotangent: the kernel regenerates
-the mask from the key (nothing is stored between forward and backward), the
-plain version keeps the host's mask.  A host draw costs about 0.2 µs a
-value, seconds a step at full width, so a CUDA tensor always takes the
-kernel; there is no fallback.
+the backward is the same function of the cotangent.  On the card the
+forward launch hashes the mask and also writes it as bits
+(:func:`pack_mask`'s layout: word w, bit b = keep[32·w + b]), which the
+autograd function keeps for the backward launch, which reads them and
+hashes nothing (:func:`dropout_from_bits`); that is ceil(P / 32) words
+held from the forward to the backward (9.6 MB for config 5's FFN output,
+11 KB for the attention's [1, 1, 300, 300]).  The CPU path keeps the host's
+mask.  A host draw costs about 0.2 µs a value, seconds a step at full
+width, so a CUDA tensor always takes the kernel; there is no fallback.
 
     y = dropout(x, key, rate=0.1)                              # nn.Dropout
     w = dropout(w, key, rate=0.1, mask_shape=(1, 1, F, F), mode="mul")
@@ -38,9 +42,9 @@ from learnablepoolingmethods_torch.ops import kernel_build
 from learnablepoolingmethods_torch.utils import prng
 
 MODES = {"div": 0, "mul": 1}
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
-             ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 def _period(x: torch.Tensor, mask_shape: Sequence[int]) -> int:
@@ -72,6 +76,24 @@ def keep_mask(key: torch.Tensor, keep_prob: float, mask_shape: Sequence[int], de
     return torch.from_numpy(prng.bernoulli(key, keep_prob, mask_shape, offset)).to(device)
 
 
+def pack_mask(keep: torch.Tensor) -> torch.Tensor:
+    """A keep mask as the kernel's bits: ceil(n / 32) int32 words (the
+    uint32 bit patterns), word w bit b = keep.flatten()[32·w + b], the bits
+    past n zero."""
+    flat = keep.reshape(-1).to(torch.int64)
+    flat = torch.nn.functional.pad(flat, (0, -flat.numel() % 32)).view(-1, 32)
+    words = (flat << torch.arange(32, device=flat.device)).sum(dim=1)
+    return (words - (words >> 31 << 32)).to(torch.int32)
+
+
+def unpack_mask(bits: torch.Tensor, mask_shape: Sequence[int]) -> torch.Tensor:
+    """:func:`pack_mask`'s inverse: the bool mask of ``mask_shape``."""
+    n = int(np.prod(mask_shape, dtype=np.int64))
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+    keep = (words[:, None] >> torch.arange(32, device=bits.device)) & 1
+    return keep.reshape(-1)[:n].bool().reshape(tuple(mask_shape))
+
+
 def apply_mask(x: torch.Tensor, keep: torch.Tensor, keep_prob: float, mode: str) -> torch.Tensor:
     """The plain version of the kernel's arithmetic for a mask ``keep`` that
     broadcasts over ``x``."""
@@ -89,50 +111,81 @@ def dropout_plain(x: torch.Tensor, key: torch.Tensor, keep_prob: float, mask_sha
     return apply_mask(x, keep_mask(key, keep_prob, mask_shape, x.device, offset), keep_prob, mode)
 
 
-def dropout_kernel(x: torch.Tensor, key: torch.Tensor, keep_prob: float, mask_shape: Sequence[int],
-                   mode: str = "div", offset: int = 0) -> torch.Tensor:
-    """``csrc/dropout.cu`` on a contiguous f32 or bf16 CUDA tensor: one
-    launch, the mask hashed on the card from the key's two words (entries
-    ``offset`` … of the mask's draw)."""
+def dropout_from_bits_plain(g: torch.Tensor, bits: torch.Tensor, keep_prob: float, mask_shape: Sequence[int],
+                            mode: str = "div") -> torch.Tensor:
+    """Plain PyTorch version of :func:`dropout_from_bits`: the rule on
+    ``g`` under the mask that ``bits`` holds."""
+    _period(g, mask_shape)
+    return apply_mask(g, unpack_mask(bits, mask_shape).to(g.device), keep_prob, mode)
+
+
+def _launch(x: torch.Tensor, keep_prob: float, mask_shape: Sequence[int], mode: str, bits: torch.Tensor,
+            key=None, offset: int = 0) -> torch.Tensor:
     if x.device.type != "cuda" or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dropout_kernel takes an f32 or bf16 CUDA tensor, got {x.dtype} on {x.device}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     period = _period(x, mask_shape)
+    if bits.shape != (-(-period // 32),) or bits.dtype != torch.int32 or bits.device != x.device:
+        raise ValueError(f"dropout bits: {bits.dtype} {tuple(bits.shape)} on {bits.device} for a mask of {period}")
     x = x.contiguous()
     y = torch.empty_like(x)
-    k0, k1 = prng.key_words(key)
+    k0, k1 = (0, 0) if key is None else prng.key_words(key)
     fn = kernel_build.load_function("dropout", "lpm_dropout", _ARGTYPES)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), y.data_ptr(), x.numel() // period if period else 0, period, k0, k1,
+        rc = fn(x.data_ptr(), y.data_ptr(), bits.data_ptr(), x.numel() // period if period else 0, period, k0, k1,
                 float(np.float32(keep_prob)), _scale(keep_prob, mode, x.dtype), MODES[mode],
-                int(x.dtype == torch.bfloat16), int(offset), torch.cuda.current_stream(x.device).cuda_stream)
+                int(x.dtype == torch.bfloat16), int(offset), int(key is None),
+                torch.cuda.current_stream(x.device).cuda_stream)
     kernel_build.check(rc, "dropout")
     dropout_kernel.launches += 1
     return y
+
+
+def dropout_kernel(x: torch.Tensor, key: torch.Tensor, keep_prob: float, mask_shape: Sequence[int],
+                   mode: str = "div", offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/dropout.cu``'s forward on a contiguous f32 or bf16 CUDA tensor:
+    one launch, the mask hashed on the card from the key's two words
+    (entries ``offset`` … of the mask's draw) → (y, the mask's bits, as
+    :func:`pack_mask`)."""
+    bits = torch.empty(-(-_period(x, mask_shape) // 32), dtype=torch.int32, device=x.device)
+    return _launch(x, keep_prob, mask_shape, mode, bits, key, offset), bits
+
+
+def dropout_from_bits(g: torch.Tensor, bits: torch.Tensor, keep_prob: float, mask_shape: Sequence[int],
+                      mode: str = "div") -> torch.Tensor:
+    """``csrc/dropout.cu``'s backward: one launch that applies the rule to
+    ``g`` under the mask of a forward's ``bits``, with no hash; counted on
+    ``dropout_kernel.launches``."""
+    return _launch(g, keep_prob, mask_shape, mode, bits)
 
 
 dropout_kernel.launches = 0
 
 
 class _Dropout(torch.autograd.Function):
-    """Forward and backward through :func:`dropout_kernel` on the card (the
-    mask regenerated from the key), through the host mask on the CPU."""
+    """Forward through :func:`dropout_kernel` and backward through
+    :func:`dropout_from_bits` on the forward's bits on the card; through
+    the host mask on the CPU."""
 
     @staticmethod
     def forward(ctx, x, key, keep_prob, mask_shape, mode, offset):
-        ctx.args = (key, keep_prob, tuple(mask_shape), mode, offset)
+        ctx.args = (keep_prob, tuple(mask_shape), mode)
         if x.device.type == "cpu":
             ctx.keep = keep_mask(key, keep_prob, mask_shape, offset=offset)
             return apply_mask(x, ctx.keep, keep_prob, mode)
-        return dropout_kernel(x, key, keep_prob, mask_shape, mode, offset)
+        y, bits = dropout_kernel(x, key, keep_prob, mask_shape, mode, offset)
+        ctx.save_for_backward(bits)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        key, keep_prob, mask_shape, mode, offset = ctx.args
+        keep_prob, mask_shape, mode = ctx.args
         if g.device.type == "cpu":
-            return apply_mask(g, ctx.keep, keep_prob, mode), None, None, None, None, None
-        return dropout_kernel(g, key, keep_prob, mask_shape, mode, offset), None, None, None, None, None
+            gx = apply_mask(g, ctx.keep, keep_prob, mode)
+        else:
+            gx = dropout_from_bits(g, ctx.saved_tensors[0], keep_prob, mask_shape, mode)
+        return gx, None, None, None, None, None
 
 
 def dropout(x: torch.Tensor, key: Optional[torch.Tensor], rate: float,

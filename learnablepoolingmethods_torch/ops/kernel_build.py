@@ -175,6 +175,37 @@ def ptxas_report(name: str) -> Optional[list]:
     return kernels
 
 
+# SASS opcodes by the SM's integer pipe that issues them (Hopper): IMAD
+# forms on the FMA pipe, the rest of the integer and logic work on the ALU
+FMA_PIPE_OPS = ("IMAD", "IMUL")
+ALU_PIPE_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "IABS", "IMNMX", "FLO", "POPC", "BMSK")
+
+
+def sass_opcodes(name: str, kernel: str) -> Dict[str, Dict[str, int]]:
+    """The SASS opcodes (with their modifiers) of the built library
+    ``name``'s kernels whose mangled name contains ``kernel``, counted per
+    kernel, from the toolkit's ``cuobjdump -sass``; with each kernel's
+    counts by integer pipe under ``"fma_pipe"`` and ``"alu_pipe"``."""
+    cuobjdump = Path(_nvcc()).resolve().parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library_path(HOME.get(name, name)))],
+                          capture_output=True, text=True, check=True).stdout
+    out: Dict[str, Dict[str, int]] = {}
+    counts = None
+    for line in sass.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            counts = out.setdefault(func.group(1), {}) if kernel in func.group(1) else None
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if counts is not None and op:
+            counts[op.group(1)] = counts.get(op.group(1), 0) + 1
+    for counts in out.values():
+        base = {op: n for op, n in counts.items()}
+        counts["fma_pipe"] = sum(n for op, n in base.items() if op.split(".")[0] in FMA_PIPE_OPS)
+        counts["alu_pipe"] = sum(n for op, n in base.items() if op.split(".")[0] in ALU_PIPE_OPS)
+    return out
+
+
 def load_function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C function ``symbol`` of source ``name``'s library (its own, or
     the one of ``LIBRARY_PARTS`` that compiles it), building the library

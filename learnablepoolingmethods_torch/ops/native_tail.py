@@ -62,6 +62,10 @@ The steps of the f32 routes of the models with no fast route
   h′ = (1 − z)·n + z·h;
   both optionally set the final carry's rows whose last index
   (:func:`last_frame`, flax's ``_select_last_carry``) is this step to h′;
+- :func:`gru_layer`: a whole GRU layer over every frame from a zero state,
+  each step's h·W_h and :func:`gru_cell`'s arithmetic, the outputs and the
+  carry: one persistent launch that keeps W_h in shared memory (the native
+  runner's GRU route; :func:`gru_cell` stays as an entry point);
 - :func:`pool_attention`: learned-query attention: Q queries (their
   projection, computed once) over every frame's key and value (the product
   plus its bias), q / √hd before the dot, masked logits set to
@@ -321,6 +325,27 @@ def gru_cell_plain(pre_t: torch.Tensor, hw: torch.Tensor, b_i: torch.Tensor, b_h
     if carry is None:
         return h
     return h, torch.where((last_frame(num_frames, frames) == t)[:, None], h, carry)
+
+
+def gru_layer_plain(pre: torch.Tensor, w_h: torch.Tensor, b_i: torch.Tensor, b_hn: torch.Tensor,
+                    num_frames: Optional[torch.Tensor] = None):
+    """One GRU layer over every frame (f32), flax's ``nn.RNN(nn.GRUCell)``
+    from a zero state: ``pre`` [B, F, 3H] the frames' x·W_i (no bias),
+    ``w_h`` [H, 3H]; each step's product h·W_h and :func:`gru_cell_plain`
+    → the outputs [B, F, H], and with ``num_frames`` the carry at each
+    row's :func:`last_frame` [B, H] → (outputs, carry)."""
+    b, f, _ = pre.shape
+    h = pre.new_zeros(b, w_h.shape[0])
+    carry = None if num_frames is None else h
+    outs = []
+    for t in range(f):
+        if carry is None:
+            h = gru_cell_plain(pre[:, t], h @ w_h, b_i, b_hn, h)
+        else:
+            h, carry = gru_cell_plain(pre[:, t], h @ w_h, b_i, b_hn, h, carry, num_frames, t, f)
+        outs.append(h)
+    seq = torch.stack(outs, dim=1)
+    return seq if carry is None else (seq, carry)
 
 
 def pool_attention_fits(n_q: int, frames: int, hd: int) -> bool:
@@ -723,6 +748,33 @@ def gru_cell(pre_t: torch.Tensor, hw: torch.Tensor, b_i: torch.Tensor, b_hn: tor
     return out if carry is None else (out, carry)
 
 
+def gru_layer(pre: torch.Tensor, w_h: torch.Tensor, b_i: torch.Tensor, b_hn: torch.Tensor,
+              num_frames: Optional[torch.Tensor] = None):
+    """:func:`gru_layer_plain` on the card (one cooperative launch over all
+    F frames, ``pre`` a contiguous [B, F, 3H]) or the CPU."""
+    if pre.device.type == "cpu":
+        return gru_layer_plain(pre, w_h, b_i, b_hn, num_frames)
+    _f32("gru_layer", pre, w_h, b_i, b_hn)
+    b, f, g3 = pre.shape
+    width = w_h.shape[0]
+    if g3 != 3 * width or w_h.shape != (width, g3) or b_i.shape != (g3,) or b_hn.shape != (width,):
+        raise ValueError(f"gru_layer: pre {tuple(pre.shape)}, w_h {tuple(w_h.shape)}, b_i {tuple(b_i.shape)}, "
+                         f"b_hn {tuple(b_hn.shape)}")
+    carry = None
+    if num_frames is not None:
+        _check("gru_layer", torch.int32, num_frames)
+        if num_frames.shape != (b,):
+            raise ValueError(f"gru_layer: num_frames {tuple(num_frames.shape)} for B={b}")
+        carry = torch.empty((b, width), dtype=torch.float32, device=pre.device)
+    seq = torch.empty((b, f, width), dtype=torch.float32, device=pre.device)
+    state = torch.empty(2 * b * (-(-width // 4) * 4), dtype=torch.float32, device=pre.device)
+    _launch("gru_layer", "lpm_gru_layer", [_P, _LL, _LL] + [_P] * 5 + [_LL, _LL] + [_P] * 2 + [_I] * 3 + [_P],
+            pre.data_ptr(), f * g3, g3, w_h.data_ptr(), b_i.data_ptr(), b_hn.data_ptr(), state.data_ptr(),
+            seq.data_ptr(), f * width, width, _ptr(carry), _ptr(num_frames), b, f, width, device=pre.device)
+    gru_layer.launches += 1
+    return seq if carry is None else (seq, carry)
+
+
 def pool_attention(q: torch.Tensor, kv: torch.Tensor, bkv: torch.Tensor, num_frames: torch.Tensor,
                    heads: int) -> torch.Tensor:
     """:func:`pool_attention_plain` on the card (the kernel) or the CPU."""
@@ -746,6 +798,6 @@ def pool_attention(q: torch.Tensor, kv: torch.Tensor, bkv: torch.Tensor, num_fra
 
 WRAPPERS = (hidden_sum, gating, moe_combine, topk, frame_stage, bias_sigmoid, bias_relu6, frame_pool, row_l2,
             nextvlad_assign, nextvlad_residual, bias_act, residual_layernorm, masked_mean, lstm_cell, gru_cell,
-            pool_attention)
+            pool_attention, gru_layer)
 for _wrapper in WRAPPERS:
     _wrapper.launches = 0

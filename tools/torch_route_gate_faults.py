@@ -9,7 +9,8 @@ directory with one fault in each new kernel, built there and loaded in
 place of the real library:
 
 - ``lstm_cell`` with its input and forget gates swapped;
-- ``gru_cell`` writing the final carry one frame before each row's last;
+- ``gru_layer`` (the GRU route's kernel) writing the final carry one frame
+  before each row's last;
 - ``pool_attention`` without q / √hd.
 
 Then chip_smoke.phase_native_routes runs each route alone at full width,
@@ -35,19 +36,20 @@ from learnablepoolingmethods_torch.core import native_runtime  # noqa: E402
 from learnablepoolingmethods_torch.ops import kernel_build  # noqa: E402
 
 RUNS = ("AttentionPoolingModel", "LstmModel", "GruModel")
-CARRY = "if (carry && t == last_frame(nf[b], F)) carry[i] = h;"
-# (text, its replacement) in the runner's source, each once
+# (text, its replacement) in the runner's source, each once: the LSTM's
+# gates swapped, the GRU layer's carry a frame early, the queries unscaled
 FAULTS = (
     ("__fmul_rn(sigmoid(z[1]), c_in[i]), __fmul_rn(sigmoid(z[0]), tanhf(z[2]))",
      "__fmul_rn(sigmoid(z[0]), c_in[i]), __fmul_rn(sigmoid(z[1]), tanhf(z[2]))"),
+    ("if (carry && t == last_frame(frames[i], F)) carry[b * H + j] = h;",
+     "if (carry && t == last_frame(frames[i], F) - 1) carry[b * H + j] = h;"),
     ("__fdiv_rn(q[(long long)(q0 + r) * D + (long long)head * hd + d], scale)",
      "__fdiv_rn(q[(long long)(q0 + r) * D + (long long)head * hd + d], 1.f)"),
 )
 
 
 def faulty_sources(tmp: Path) -> Path:
-    """csrc/ copied into ``tmp`` with FAULTS and the GRU's carry a frame
-    early (the second of the two cells' carry writes)."""
+    """csrc/ copied into ``tmp`` with FAULTS."""
     csrc = tmp / "csrc"
     shutil.copytree(kernel_build.CSRC_DIR, csrc)
     runner = csrc / kernel_build.sources(native_runtime.LIBRARY)[0].name
@@ -56,10 +58,6 @@ def faulty_sources(tmp: Path) -> Path:
         if src.count(old) != 1:
             raise AssertionError(f"the fault's text is not in {runner.name} once: {old}")
         src = src.replace(old, new)
-    if src.count(CARRY) != 2:
-        raise AssertionError("the cells' carry writes are not two")
-    gru = src.index(CARRY) + len(CARRY)
-    src = src[:gru] + src[gru:].replace(CARRY, CARRY.replace("F)", "F) - 1"))
     runner.write_text(src)
     return csrc
 
