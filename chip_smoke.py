@@ -104,7 +104,9 @@ error, and prints one JSON line per phase:
               route, its probabilities within NATIVE_GATE of the fused
               route with kernels at 32 and 256 and its top-k that of its own
               probabilities; each tail kernel against its plain version
-              (TAIL_GATES) and timed beside its bound and torch; the native
+              (TAIL_GATES; the top-k bit for bit, also on rows of ±0 and
+              ±NaN, at every path of topk and moe_combine: tail_paths)
+              and timed beside its bound and torch; the native
               route's videos/s beside predict_pairs'; lpm_serve (linked in
               the build phase): --check, its answers equal to the in-process
               runner's, the HTTP load of the serve phase beside the Python
@@ -3732,6 +3734,12 @@ NATIVE_GATE = 1e-5
 TAIL_GATES = {"native_hidden_sum": (0.0, 0.0), "native_gating": (0.0, 2 ** -8),
               "native_moe_combine": TOLERANCE[torch.float32], "native_topk": (0.0, 0.0)}
 TAIL_WIDTHS = dict(h=1024, v=3862, m=2, k=20)  # Willow's hidden width, vocabulary, mixtures, top-k
+# moe_combine and topk are timed on this many input sets in turn (at B=256,
+# 23.7 MB of MoE products, 3.95 MB of probabilities a set: either way more
+# than the 50 MB L2), so that their bytes come from HBM as the bound counts
+# them; their time on one set read again is printed beside
+TAIL_COLD_SETS = 16
+COLD_TAIL = ("native_moe_combine", "native_topk")
 # lpm_serve's scores are printed with %.6f
 LPM_SERVE_ROUNDING = 1e-6
 LPM_SERVE_SIGTERM_S = 15
@@ -3745,12 +3753,15 @@ def device_ms(fn, reps: int = 20) -> float:
     return busy if busy is not None else time_ms(fn)
 
 
-def tail_inputs(b: int, dev) -> dict:
-    """Random f32 inputs of the tail kernels at batch ``b``, Willow's widths;
-    the top-k's scores are the MoE's probabilities with exact ties (ten
-    copies of each row's largest, ten of an entry near the 20th)."""
-    gen = torch.Generator(device=dev).manual_seed(b)
-    h, v, m = TAIL_WIDTHS["h"], TAIL_WIDTHS["v"], TAIL_WIDTHS["m"]
+def tail_inputs(b: int, dev, v: int = TAIL_WIDTHS["v"], m: int = TAIL_WIDTHS["m"], seed=None) -> dict:
+    """Random f32 inputs of the tail kernels at batch ``b``, Willow's widths
+    (or ``v`` classes, ``m`` mixtures), drawn from ``seed`` (else from
+    ``b``); the top-k's scores are the MoE's
+    probabilities with exact ties (ten copies of each row's largest, ten of
+    an entry near the 20th) and, in rows 0–3, the floats that only the total
+    order ranks (topk_special_rows)."""
+    gen = torch.Generator(device=dev).manual_seed(b if seed is None else seed)
+    h = TAIL_WIDTHS["h"]
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -3763,8 +3774,41 @@ def tail_inputs(b: int, dev) -> dict:
     top = torch.sort(probs, dim=1, descending=True).values
     probs[:, 3000:3010] = top[:, :1]
     probs[:, 100:110] = top[:, 18:19]
-    x["probs"] = probs.contiguous()
+    x["probs"] = topk_special_rows(probs.contiguous())
     return x
+
+
+# float bits that only jax.lax.top_k's total order ranks: +NaN of three
+# payloads (one signalling) above +inf, −NaN below −inf
+TOPK_NAN_BITS = (0x7FC00000, 0x7FC00001, 0x7F800001, 0x7F800000, 0xFFC00000, 0xFF800000, 0xFFFFFFFF)
+
+
+def topk_special_rows(probs: torch.Tensor) -> torch.Tensor:
+    """``probs`` [B ≥ 4, V ≥ 64] with rows 0–3 rewritten so that ties only
+    the bits break sit at the top-20's boundary: row 0, 15 positives, the
+    rest negative but 6 +0 and 6 −0 interleaved (the top 20 takes five +0,
+    the lowest indices first); row 1, TOPK_NAN_BITS twice each (equal bits
+    at two indices) among the probabilities; row 2, 25 copies of one +NaN
+    and 5 of −NaN; row 3, only ±0 in turn."""
+    v = probs.shape[1]
+    bits = probs.view(torch.int32)
+
+    def put(row: int, at, words) -> None:
+        at = torch.as_tensor(at, device=probs.device)
+        words = torch.as_tensor(np.asarray(words, dtype=np.uint32).view(np.int32), device=probs.device)
+        bits[row, at] = words.expand(at.shape)
+
+    probs[0] = -probs[0].abs()
+    probs[0, 7:v:v // 15][:15] = torch.arange(1, 16, device=probs.device, dtype=torch.float32)
+    zeros = torch.arange(3, v, v // 12, device=probs.device)[:12]
+    put(0, zeros[0::2], [0x00000000])
+    put(0, zeros[1::2], [0x80000000])
+    nan_at = torch.arange(11, v, v // (2 * len(TOPK_NAN_BITS)), device=probs.device)[:2 * len(TOPK_NAN_BITS)]
+    put(1, nan_at, list(TOPK_NAN_BITS) * 2)
+    put(2, torch.arange(5, v, v // 30, device=probs.device)[:25], [0x7FC00000])
+    put(2, torch.arange(9, v, v // 5, device=probs.device)[:5], [0xFFC00000])
+    put(3, torch.arange(v, device=probs.device), [0x00000000, 0x80000000] * (v // 2) + [0x00000000] * (v % 2))
+    return probs
 
 
 def tail_calls(x: dict) -> dict:
@@ -3787,12 +3831,64 @@ def tail_calls(x: dict) -> dict:
     }
 
 
+def compare_topk(name: str, got: tuple, want: tuple) -> float:
+    """0.0 where the top-k's values equal ``want``'s bit for bit (as int32:
+    NaNs and ±0 included, which ``compare`` cannot take) and its indices
+    exactly; raises else."""
+    if got[0].shape != want[0].shape or got[1].shape != want[1].shape:
+        raise AssertionError(f"{name}: shapes {tuple(got[0].shape)}, {tuple(got[1].shape)}")
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and torch.equal(got[1], want[1])):
+        bad = (got[0].view(torch.int32) != want[0].view(torch.int32)) | (got[1] != want[1])
+        raise AssertionError(f"{name}: {int(bad.sum())} of {bad.numel()} entries differ from topk_plain's, "
+                             f"first in row {int(bad.nonzero()[0, 0])}")
+    return 0.0
+
+
+def tail_paths(dev, errors: dict) -> dict:
+    """Every path inside topk and moe_combine against its plain version:
+    topk at k = 1, 20, 64, TOPK_FAST_K + 1 and V on tail_inputs' rows (the
+    block select's 16 entries a thread, then the rounds) at each of
+    SERVE_BATCHES; at B=32 a row of 10,007 (the select's 64 entries a
+    thread) at k = 20 and 64, and of 20,011 (the rounds) at k = 20;
+    moe_combine at M = 1 … 5 (the four in registers, then the loop) on an
+    even and an odd V.  → {check: max |Δ|}."""
+    line = {}
+    v = TAIL_WIDTHS["v"]
+    for b in SERVE_BATCHES:
+        x = tail_inputs(b, dev)
+        for k in sorted({1, 20, 64, native_tail.TOPK_FAST_K + 1, v}):
+            line[f"topk B={b} V={v} k={k}"] = compare_topk(f"native_topk B={b} k={k}", native_tail.topk(x["probs"], k),
+                                                           native_tail.topk_plain(x["probs"], k))
+        del x
+        for m in (1, 2, 3, 4, 5):
+            for vm in (v, v + 1):
+                x = tail_inputs(b, dev, vm, m)
+                line[f"moe_combine B={b} M={m} V={vm}"] = compare(
+                    f"native_moe_combine B={b} M={m} V={vm}", native_tail.moe_combine(x["ga"], x["ea"], x["eb"], m),
+                    native_tail.moe_combine_plain(x["ga"], x["ea"], x["eb"], m), tol=TAIL_GATES["native_moe_combine"])
+                del x
+    for vk, ks in ((10007, (20, 64)), (20011, (20,))):
+        probs = topk_special_rows(torch.rand((32, vk), generator=torch.Generator(device=dev).manual_seed(vk),
+                                             device=dev))
+        for k in ks:
+            line[f"topk B=32 V={vk} k={k}"] = compare_topk(f"native_topk V={vk} k={k}", native_tail.topk(probs, k),
+                                                           native_tail.topk_plain(probs, k))
+    torch.cuda.synchronize()
+    for name in ("native_topk", "native_moe_combine"):
+        key = name.removeprefix("native_")
+        errors[name] = max([errors.get(name, 0.0)] + [e for c, e in line.items() if c.startswith(key)])
+    return line
+
+
 def check_tail_kernels(dev, errors: dict) -> tuple:
     """Each tail kernel against its plain version at SERVE_BATCHES within
-    TAIL_GATES (the gating's share of outputs equal bit for bit printed);
-    at the largest batch its device ms, the plain chain's, the library
-    call's (torch.topk) and the bound (bytes over the HBM rate).  → (timing,
-    library) for the kernels line."""
+    TAIL_GATES (the gating's share of outputs equal bit for bit printed; the
+    top-k bit for bit, NaNs and ±0 included, compare_topk), then every path
+    of topk and moe_combine (tail_paths); at the largest batch each one's
+    device ms, the plain chain's, the library call's (torch.topk) and the
+    bound (bytes over the HBM rate), moe_combine and topk on
+    TAIL_COLD_SETS input sets in turn.  → (timing, library) for the
+    kernels line."""
     timing, library = {}, {}
     for b in SERVE_BATCHES:
         x = tail_inputs(b, dev)
@@ -3801,16 +3897,39 @@ def check_tail_kernels(dev, errors: dict) -> tuple:
         for name, (kernel, plain, lib, nbytes) in calls.items():
             got, want = kernel(), plain()
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-            err = max(compare(f"{name} B={b}", g, w, tol=TAIL_GATES[name]) for g, w in zip(got, want))
+            if name == "native_topk":
+                err = compare_topk(f"{name} B={b}", got, want)
+                equal = got[0].view(torch.int32) == want[0].view(torch.int32)
+            else:
+                err = max(compare(f"{name} B={b}", g, w, tol=TAIL_GATES[name]) for g, w in zip(got, want))
+                equal = got[0] == want[0]
             errors[name] = max(errors.get(name, 0.0), err)
-            line[name] = {"max_abs_err": err, "bit_equal_share": float((got[0] == want[0]).float().mean())}
+            line[name] = {"max_abs_err": err, "bit_equal_share": float(equal.float().mean())}
         torch.cuda.synchronize()
         emit({"phase": "native_serve", "part": "tail_kernels", "B": b, "checks": line, "gates": TAIL_GATES})
+    emit({"phase": "native_serve", "part": "tail_paths", "checks": tail_paths(dev, errors),
+          "gates": TAIL_GATES})
+    sets = [calls] + [tail_calls(tail_inputs(max(SERVE_BATCHES), dev, seed=s)) for s in range(1, TAIL_COLD_SETS)]
+    warm = {}
     for name, (kernel, plain, lib, nbytes) in calls.items():
         bound_ms = nbytes / PEAK_BYTES * 1e3
+        if name in COLD_TAIL:
+            warm[name] = device_ms(kernel)
+            kernel, plain = rotating(sets, name, 0), rotating(sets, name, 1)
+            lib = rotating(sets, name, 2) if lib is not None else None
         timing[name] = (device_ms(kernel), device_ms(plain), (bound_ms, "bytes"))
         library[name] = device_ms(lib) if lib is not None else None
+    emit({"phase": "native_serve", "part": "tail_times", "B": max(SERVE_BATCHES), "device_ms": timing,
+          "library_device_ms": library, "same_inputs_device_ms": warm, "input_sets": TAIL_COLD_SETS})
+    del sets
     return timing, library
+
+
+def rotating(sets: list, name: str, which: int):
+    """A call that runs entry ``which`` of ``name`` (0 the kernel, 1 the
+    plain version, 2 the library call) on each of ``sets`` in turn."""
+    turn = itertools.cycle(sets)
+    return lambda: next(turn)[name][which]()
 
 
 def read_ready(proc: subprocess.Popen, timeout: float) -> int:

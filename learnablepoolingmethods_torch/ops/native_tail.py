@@ -11,8 +11,8 @@ The tail that every route with a MoE head ends in:
   context gating after its product;
 - :func:`moe_combine`: ``Σ_m softmax_m(ga) · σ(ea + experts_bias)`` over the
   vocab-major MoE products (class v's mixture m in column m·V + v);
-- :func:`topk`: exact top-k, sorted descending, the lowest index first
-  among equal scores (``jax.lax.top_k``).
+- :func:`topk`: exact top-k in ``jax.lax.top_k``'s order (the float total
+  order, the lowest index first among equal bits: ``ops/topk.py``).
 
 The steps of the other routes:
 
@@ -121,6 +121,11 @@ POOL_SMEM = 4 * (POOL_ROWS * (POOL_MAX_HEAD_DIM + 8) + 4 * POOL_TILE * (POOL_MAX
                  + POOL_TILE * (POOL_ROWS + 8) + POOL_ROWS)
 _P, _I, _LL, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_float
 BF16 = torch.bfloat16
+# topk's block select (csrc/native_runner.cu kTopkThreads, kTopkFastK,
+# kTopkPerSmall, kTopkPerLarge): a block of 256 threads a row, k at most
+# 64, a thread's entries t + 256·j in registers, 16 of them (V ≤ 4,096) or
+# 64 (V ≤ 16,384); a larger k or row takes k rounds of a block-wide argmax
+TOPK_THREADS, TOPK_FAST_K, TOPK_PER_THREAD = 256, 64, (16, 64)
 
 
 # ---- plain versions ----------------------------------------------------------

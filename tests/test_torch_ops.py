@@ -15,6 +15,7 @@ from learnablepoolingmethods_tpu.ops.normalize import l2_normalize as j_l2
 from learnablepoolingmethods_tpu.ops.topk import top_k_exact as j_topk
 from learnablepoolingmethods_tpu.utils import quantization as jq
 from learnablepoolingmethods_torch.ops import fused_frontend as tff
+from learnablepoolingmethods_torch.ops import native_tail
 from learnablepoolingmethods_torch.ops import netvlad_fused as tnv
 from learnablepoolingmethods_torch.ops.normalize import l2_normalize
 from learnablepoolingmethods_torch.ops.topk import top_k_exact
@@ -67,6 +68,58 @@ def test_top_k_ties_lowest_index_first(rng):
     gv, gi = top_k_exact(_t(scores), 20)
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+
+# the floats that jax.lax.top_k orders by their bits (the float total order
+# +NaN > +inf > … > +0 > −0 > … > −inf > −NaN, NaNs by payload): ±0, ±inf,
+# the quiet ±NaN, ±NaN of the smallest and the largest payload
+SPECIAL_BITS = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000,
+                         0x7F800001, 0xFF800001, 0x7FFFFFFF, 0xFFFFFFFF], dtype=np.uint32)
+TOP_K_FUNCTIONS = {
+    "top_k_exact": top_k_exact,
+    "topk_plain": native_tail.topk_plain,
+}
+
+
+def special_rows(rng, rows: int, v: int) -> np.ndarray:
+    """f32 rows of random bit patterns (about 1 in 256 a NaN or an inf of
+    random payload), a tenth of each row then overwritten with
+    SPECIAL_BITS, so that equal bits repeat at many indices."""
+    bits = rng.integers(0, 2 ** 32, size=(rows, v), dtype=np.uint64).astype(np.uint32)
+    at = rng.random((rows, v)) < 0.1
+    bits[at] = rng.choice(SPECIAL_BITS, size=int(at.sum()))
+    return bits.view(np.float32)
+
+
+def assert_lax_top_k(got, scores, k):
+    """(values, indices) equal to jax.lax.top_k's: values as bits, indices
+    exactly."""
+    wv, wi = jax.lax.top_k(jnp.asarray(scores), k)
+    gv, gi = got
+    np.testing.assert_array_equal(gv.numpy().view(np.uint32), np.asarray(wv).view(np.uint32))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+@pytest.mark.parametrize("fn", sorted(TOP_K_FUNCTIONS))
+def test_top_k_orders_signed_zeros_and_nans_as_lax(fn):
+    """0.5, −NaN, −0, +0, −inf, +NaN, +0, −0: lax.top_k puts +NaN first,
+    then 0.5, both +0 before both −0 (each pair by index), −inf, and −NaN
+    last; a sort on the float values ties ±0 and puts every NaN first."""
+    row = np.array([[0x3F000000, 0xFFC00000, 0x80000000, 0, 0xFF800000, 0x7FC00000, 0, 0x80000000]],
+                   dtype=np.uint32).view(np.float32)
+    got = TOP_K_FUNCTIONS[fn](torch.from_numpy(row.copy()), 8)
+    np.testing.assert_array_equal(got[1].numpy(), [[5, 0, 3, 6, 2, 7, 4, 1]])
+    assert_lax_top_k(got, row, 8)
+
+
+@pytest.mark.parametrize("k", [1, 8, 20, 64, 3862])
+@pytest.mark.parametrize("fn", sorted(TOP_K_FUNCTIONS))
+def test_top_k_total_order_matches_lax(fn, k):
+    """64 rows of V=3862 random bit patterns with ±0, ±inf and ±NaN mixed
+    in: values bit for bit, indices exactly, at every k up to V."""
+    scores = special_rows(np.random.default_rng(k), 64, 3862)
+    assert_lax_top_k(TOP_K_FUNCTIONS[fn](torch.from_numpy(scores.copy()), k), scores, k)
 
 
 def _vlad_inputs(rng, b, f, d, k):

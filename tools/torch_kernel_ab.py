@@ -1,6 +1,7 @@
-"""Time the W8A16 hidden FC, ``pool_attention``, the GRU layer and the
-dropout kernel's two launches of the checkout in the working directory,
-so that two checkouts can be compared in one run on one card.
+"""Time the W8A16 hidden FC, ``pool_attention``, the GRU layer, the
+dropout kernel's two launches and the runner's tail kernels of the
+checkout in the working directory, so that two checkouts can be compared
+in one run on one card.
 
 The W8A16 kernel is timed by ``chip_smoke.phase_int8_matmul`` (the Willow
 rgb FC at every batch of ``INT8_BATCHES``, beside cuBLAS bf16 on the
@@ -17,19 +18,26 @@ cuDNN's GRU over the same frames (one layer and two, TF32 off).  The
 dropout kernel at config 5's FFN output [76,800, 1024] bf16 and the
 attention weights [256, 8, 300, 300] under a [1, 1, 300, 300] mask: its
 forward and its backward launch (from the forward's bits where the
-checkout keeps them, else the hashing launch again).  It prints one JSON
-line with the card's name and power limit.
+checkout keeps them, else the hashing launch again).  The runner's tail
+kernels, ``topk`` (k = 20) and ``moe_combine`` (M = 2), at Willow's widths
+and B=256 on inputs drawn here (the same in every checkout), on the
+profiler's device clock and by CUDA events, beside ``torch.topk``; and
+inside the runner's batch (random weights and frames): Willow's route at
+B=32 and 256 and NetRVLAD's at 256, each batch's host ms and the device ms
+of its ``topk`` and ``moe_combine`` kernels.  It prints one JSON line with
+the card's name and power limit.
 
 Compare a change with its parent (``git archive`` of each unpacked into
 git-ignored directories), in turns: parent, change, change, parent::
 
     for d in parent change change parent; do (cd $d && python3 ../tools/torch_kernel_ab.py --label $d); done
 
-``--parts gru,dropout`` times only those parts (of int8, pool, gru,
-dropout).
+``--parts tail`` times only those parts (of int8, pool, gru, dropout,
+tail).
 """
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -193,10 +201,88 @@ def dropout_times(dev) -> dict:
     return out
 
 
+
+# the runner's routes timed with their tail kernels, and their batches
+TAIL_ROUTES = (("NetVLADModelLF", (32, 256)), ("NetRVLADModelLF", (256,)))
+
+
+def kernel_device_ms(fn, needles: tuple, reps: int = 5) -> dict:
+    """The profiler's device ms a call of ``fn`` of each kernel whose name
+    holds one of ``needles`` (summed by needle)."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {needle: 0.0 for needle in needles}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for needle in needles:
+                if needle in e.name:
+                    out[needle] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+def tail_times(dev) -> dict:
+    """topk and moe_combine alone at B=256, on one input set read again and
+    on 16 sets in turn (more bytes than the L2 holds), and in the runner's
+    batches."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    b, v, m, k = 256, 3862, 2, 20
+    sets = []
+    for _ in range(16):
+        ga = torch.randn((b, (m + 1) * v), generator=gen, device=dev) * 3.0
+        ea = torch.randn((b, m * v), generator=gen, device=dev) * 3.0
+        eb = torch.randn((m * v,), generator=gen, device=dev) * 0.5
+        sets.append((ga, ea, eb, native_tail.moe_combine_plain(ga, ea, eb, m)))
+    ga, ea, eb, probs = sets[0]
+    got, want = native_tail.topk(probs, k), native_tail.topk_plain(probs, k)
+    out = {"topk_equal_to_plain": bool(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                                       and torch.equal(got[1], want[1])),
+           "moe_combine_max_abs_err": (native_tail.moe_combine(ga, ea, eb, m)
+                                       - native_tail.moe_combine_plain(ga, ea, eb, m)).abs().max().item()}
+    calls = {"topk": lambda x: native_tail.topk(x[3], k), "moe_combine": lambda x: native_tail.moe_combine(*x[:3], m),
+             "torch_topk": lambda x: torch.topk(x[3], k)}
+    for name, fn in calls.items():
+        turn = itertools.cycle(sets)
+        out[name] = {"device_ms": chip_smoke.device_ms(lambda: fn(sets[0])),
+                     "event_ms": chip_smoke.time_ms(lambda: fn(sets[0]), reps=50),
+                     "sets_in_turn_device_ms": chip_smoke.device_ms(lambda: fn(next(turn))),
+                     "sets_in_turn_event_ms": chip_smoke.time_ms(lambda: fn(next(turn)), reps=50)}
+    out["topk"]["bound_ms"] = (b * v * 4 + b * k * 8) / chip_smoke.PEAK_BYTES * 1e3
+    out["moe_combine"]["bound_ms"] = (b * (m + 1) * v + b * m * v + m * v + b * v) * 4 / chip_smoke.PEAK_BYTES * 1e3
+    del sets, ga, ea, eb, probs
+    rng = np.random.default_rng(5)
+    for name, batches in TAIL_ROUTES:
+        mcfg, fcfg = chip_smoke.route_config(name, {})
+        tree = chip_smoke.seeded_tree(name, mcfg, fcfg)
+        for batch in batches:
+            feats = rng.integers(0, 256, (batch, chip_smoke.F, chip_smoke.DT), dtype=np.uint8)
+            nfs = rng.integers(1, chip_smoke.F + 1, batch).astype(np.int32)
+            with tempfile.TemporaryDirectory(prefix="kernel_ab_") as export_dir:
+                export_lib.export_model(export_dir, name, mcfg, fcfg, tree["params"], tree["batch_stats"],
+                                        with_stablehlo=True, stablehlo_batch_size=batch)
+                exe = native_runtime.NativeExecutable.from_export_dir(export_dir, dev)
+                exe.run(feats, nfs)
+                runs = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    exe.run(feats, nfs)
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                out[f"{name}_B{batch}"] = {"route_ms_per_batch": statistics.median(runs),
+                                           "kernel_device_ms": kernel_device_ms(lambda: exe.run(feats, nfs),
+                                                                                ("topk", "moe_combine"))}
+                exe.close()
+        del tree
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
-    parser.add_argument("--parts", default="int8,pool,gru,dropout")
+    parser.add_argument("--parts", default="int8,pool,gru,dropout,tail")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -216,6 +302,8 @@ def main() -> None:
         line["gru"] = gru_times(dev)
     if "dropout" in parts:
         line["dropout"] = dropout_times(dev)
+    if "tail" in parts:
+        line["tail"] = tail_times(dev)
     print(json.dumps(line), flush=True)
 
 
