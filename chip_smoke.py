@@ -140,6 +140,12 @@ error, and prints one JSON line per phase:
               also at POOL_EDGE_SHAPES; gru_layer at B=256, F=300, H=1024,
               the carry at the first and last frame and of a row of no
               frames, and at GRU_EDGE_SHAPES), timed beside its bound;
+              frame_stage's four modes on its word and byte paths and an
+              unaligned base, nextvlad_residual at NeXtVLAD's rgb and audio
+              widths and an odd shape (check_stage_paths), and both timed
+              alone on input sets in turn that outrun the L2 and on one set
+              read again, on the profiler's device clock and by CUDA events
+              (stage_timing);
 5. throughput the fused inference route at B=512, S=30: videos/s (the median
               of five rounds of timed batches) and per-stage ms; then
    profile    torch.profiler over five fused batches: device ms per kernel
@@ -429,6 +435,7 @@ from learnablepoolingmethods_torch.ops.fused_frontend import (
     netvlad_frontend,
     netvlad_frontend_reference,
     sample_indices,
+    sequence_indices,
 )
 from learnablepoolingmethods_torch.ops.int8_matmul import (
     BATCH_TILES,
@@ -1303,21 +1310,42 @@ def phase_throughput(dev, fp, smi):
     return videos_per_s
 
 
+# The profiler keeps no record of the first launches after it starts (on
+# one H100: 1–3 of 20 one-kernel calls lost in a process's sessions; about
+# half of them late in the whole script, which read frame_stage's all-frames
+# mode and pool_attention below their bounds), and a busy time over the
+# calls made then reads low.  So profile_device launches ``fn`` for
+# PROFILE_LEAD_S of host time first and counts only the records between two
+# marker kernels (torch.cuda._sleep's) around the timed calls.
+PROFILE_LEAD_S = 0.02
+PROFILE_MARKER = "spin_kernel"
+
+
 def profile_device(fn, reps: int = 5) -> dict:
     """Device time per call of ``fn`` by kernel name, from torch.profiler's
-    CUDA activity over ``reps`` calls, and the device's idle share between
-    the first kernel's start and the last one's end."""
+    CUDA activity over ``reps`` calls (between the two markers), the
+    records it kept, and the device's idle share between the first
+    kernel's start and the last one's end."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        lead = time.perf_counter()
+        fn()
+        while time.perf_counter() - lead < PROFILE_LEAD_S:
+            fn()
+        torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void "))
-                   for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    records = sorted((e.time_range.start, e.time_range.end, e.name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void "))
+                     for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [i for i, r in enumerate(records) if PROFILE_MARKER in r[2]]
+    spans = records[marks[0] + 1:marks[1]] if len(marks) == 2 else []
     if not spans:
-        return {"device_ms_per_call": "not measured: the profiler recorded no device activity"}
+        return {"device_ms_per_call": f"not measured: {len(marks)} of the 2 markers and {len(spans)} records "
+                                      "between them kept"}
     by_name = {}
     busy_us, reach = 0.0, spans[0][0]
     for start, end, name in spans:
@@ -1326,7 +1354,7 @@ def profile_device(fn, reps: int = 5) -> dict:
         reach = max(reach, end)
     window_us = reach - spans[0][0]
     return {"device_busy_ms_per_call": busy_us / 1e3 / reps,
-            "device_window_ms_per_call": window_us / 1e3 / reps,
+            "device_window_ms_per_call": window_us / 1e3 / reps, "device_records": len(spans),
             "idle_share": 1.0 - busy_us / window_us,
             "kernels_ms_per_call": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])}
 
@@ -3745,6 +3773,23 @@ LPM_SERVE_ROUNDING = 1e-6
 LPM_SERVE_SIGTERM_S = 15
 
 
+def kernel_clock(fn, reps: int = 20) -> dict:
+    """One call of ``fn`` on the profiler's device clock (device_ms), the
+    device records the profiler kept against the calls profiled (a call of
+    one kernel makes one), and by CUDA events around a run of ``reps``
+    calls (event_ms: the host's pace where a call's launch takes longer
+    than its kernel)."""
+    prof = profile_device(fn, reps)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"device_ms": prof.get("device_busy_ms_per_call"), "event_ms": start.elapsed_time(end) / reps,
+            "profiler_records": prof.get("device_records"), "calls_profiled": reps}
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Device busy ms per call of ``fn`` from the profiler, which leaves out
     the host's launch gaps between a short chain's kernels; CUDA events
@@ -4371,9 +4416,26 @@ ROUTE_KERNEL_GATES = {
     # the dots', the softmax's and the weighted sum's order
     "native_pool_attention": TOLERANCE[torch.float32],
 }
-# the checks timed beside the first of their kernel (a main path's other
-# shape): frame_stage with no draw, the attention routes' 76,800 rows
-ROUTE_TIMED_CHECKS = ("native_frame_stage/all_bf16",)
+# frame_stage's paths off the main path's shape (label → B, F, DT, S, the
+# base's byte offset, num_frames): the word path (DT=1152, 4-byte rows), the
+# byte path (DT=1151; DT=1152 on a base one byte off the 4-byte grid, a view
+# into a larger buffer), each with videos of no frame and of more than F
+STAGE_PATH_SHAPES = {
+    "words_dt1152": (6, 37, 1152, 5, 0, (0, 1, 37, 42, 20, 3)),
+    "bytes_dt1151": (6, 37, 1151, 5, 0, (0, 1, 37, 42, 20, 3)),
+    "bytes_dt1152_offset1": (6, 37, 1152, 5, 1, (0, 1, 37, 42, 20, 3)),
+}
+# nextvlad_residual's shapes (label → B, S·G, K, D′): NeXtVLAD-128's rgb and
+# audio modules at B=256 (D′ = λD/G = 256 and 32: float4 streams) and an odd
+# one (a tile of 5 clusters after one of 32, D′ = 33: scalar streams)
+RESIDUAL_PATH_SHAPES = {"rgb": (256, 240, 128, 256), "audio": (256, 240, 128, 32),
+                        "odd_k37_dp33_sg7": (5, 7, 37, 33)}
+# frame_stage and nextvlad_residual are timed on this many input sets in
+# turn, so that their bytes come from HBM as the bound counts them: frames
+# of 88.5 MB a set (the sampled modes draw 8.8 MB of each, eight sets 71 MB
+# past the 50 MB L2; the all-frames modes read all of each), the residual's
+# 65 MB of agg and assign a set; their time on one set read again beside
+STAGE_COLD_SETS, RESIDUAL_COLD_SETS = 8, 4
 # kernels timed by CUDA events, not the profiler: a gru_layer launch (about
 # 15 ms) holds no host time worth the name, and in the whole script the
 # profiler's device clock read it at half of that (7.4 ms, at its bound) on
@@ -4633,7 +4695,7 @@ def route_kernel_calls(x: dict) -> dict:
              lambda: nt.frame_stage_all_plain(x["x"], x["nf0"])),
             ("all_f32", lambda: nt.frame_stage_all(x["x"], x["nf0"], torch.float32),
              lambda: nt.frame_stage_all_plain(x["x"], x["nf0"], torch.float32))],
-            b * s * DT + b * 4 + 2 * DT * 4 + b * s * DT * 2),
+            None),  # timed by stage_timing
         "native_bias_sigmoid": ([
             ("logistic", lambda: nt.bias_sigmoid(x["logits"], x["fc_b"]),
              lambda: nt.bias_sigmoid_plain(x["logits"], x["fc_b"]))],
@@ -4662,7 +4724,7 @@ def route_kernel_calls(x: dict) -> dict:
         "native_nextvlad_residual": ([
             ("rgb", lambda: nt.nextvlad_residual(x["agg"], x["assign"], x["c2"]),
              lambda: nt.nextvlad_residual_plain(x["agg"], x["assign"], x["c2"]))],
-            2 * x["agg"].numel() * 4 + x["assign"].numel() * 4 + k * dp * 4),
+            None),  # timed by stage_timing
         "native_hidden_sum": ([
             ("netfv_four_parts", lambda: nt.hidden_sum(x["parts"], x["bias"], 2, True),
              lambda: nt.hidden_sum_plain(x["parts"], x["bias"], 2, True))],
@@ -4733,6 +4795,115 @@ def route_kernel_calls(x: dict) -> dict:
     }
 
 
+def stage_calls(x: torch.Tensor, nf: torch.Tensor, s: int, in_scale: torch.Tensor, in_bias: torch.Tensor,
+                key=None) -> dict:
+    """frame_stage's four modes on frames ``x``: mode → (kernel call, plain
+    call): the sampled modes (S=``s``; iid with the folded input BN, one
+    window without) and every frame in bf16 and in f32 with the key mask."""
+    nt = native_tail
+    key = prng.key(0) if key is None else key
+    return {
+        "affine": (lambda: nt.frame_stage(x, key, nf, s, in_scale, in_bias),
+                   lambda: nt.frame_stage_plain(x, key, nf, s, in_scale, in_bias)),
+        "window": (lambda: nt.frame_stage(x, key, nf, s, window=True),
+                   lambda: nt.frame_stage_plain(x, key, nf, s, window=True)),
+        "all_bf16": (lambda: nt.frame_stage_all(x, nf), lambda: nt.frame_stage_all_plain(x, nf)),
+        "all_f32": (lambda: nt.frame_stage_all(x, nf, torch.float32),
+                    lambda: nt.frame_stage_all_plain(x, nf, torch.float32)),
+    }
+
+
+def stage_bytes(x: torch.Tensor, nf: torch.Tensor, s: int, mode: str, key=None) -> int:
+    """The bytes that frame_stage's ``mode`` must move on these inputs: the
+    distinct rows drawn (the sampled modes) or every row, read once; the
+    frame counts and the affine; the output and the key mask written once."""
+    b, f, dt = x.shape
+    if mode in ("affine", "window"):
+        draw = sequence_indices if mode == "window" else sample_indices
+        idx = draw(prng.key(0) if key is None else key, nf, f, s)
+        rows = sum(len(torch.unique(r)) for r in idx.cpu())
+        return rows * dt + b * 4 + b * s * dt * 2 + (2 * dt * 4 if mode == "affine" else 0)
+    return b * f * dt + b * 4 + b * f * dt * (2 if mode == "all_bf16" else 4) + b * f * 4
+
+
+def residual_inputs(gen, b: int, sg: int, k: int, dp: int) -> tuple:
+    """nextvlad_residual's (agg [B, K, D′], assign [B, S·G, 1, K] a softmax
+    over K, c2 [K, D′]) from ``gen``."""
+    dev = gen.device
+    return (torch.randn((b, k, dp), generator=gen, device=dev),
+            torch.softmax(torch.randn((b, sg, 1, k), generator=gen, device=dev) * 3.0, dim=-1),
+            torch.randn((k, dp), generator=gen, device=dev) * 0.1)
+
+
+def check_stage_paths(dev, errors: dict) -> dict:
+    """frame_stage's four modes at STAGE_PATH_SHAPES and nextvlad_residual
+    at RESIDUAL_PATH_SHAPES against their plain versions within
+    ROUTE_KERNEL_GATES, the key mask equal bit for bit.  → {check: max
+    |Δ|}."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    line = {}
+    name = "native_frame_stage"
+    for label, (b, f, dt, s, offset, nfs) in STAGE_PATH_SHAPES.items():
+        buf = torch.randint(0, 256, (offset + b * f * dt,), generator=gen, device=dev, dtype=torch.uint8)
+        x = buf[offset:].view(b, f, dt)
+        nf = torch.tensor(nfs, dtype=torch.int32, device=dev)
+        scale = torch.randn((dt,), generator=gen, device=dev) * 0.1 + 1.0
+        bias = torch.randn((dt,), generator=gen, device=dev) * 0.05
+        for mode, (kernel, plain) in stage_calls(x, nf, s, scale, bias, prng.key(3)).items():
+            got, want = kernel(), plain()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            err = compare(f"{name} {label} {mode}", got[0], want[0],
+                          tol=ROUTE_KERNEL_GATES.get(f"{name}/{mode}", ROUTE_KERNEL_GATES[name]))
+            if len(got) > 1 and not torch.equal(got[1], want[1]):
+                raise AssertionError(f"{name} {label} {mode}: the key mask differs from the plain version's")
+            errors[name] = max(errors.get(name, 0.0), err)
+            line[f"frame_stage {label} {mode}"] = err
+    name = "native_nextvlad_residual"
+    for label, shape in RESIDUAL_PATH_SHAPES.items():
+        agg, assign, c2 = residual_inputs(gen, *shape)
+        err = compare(f"{name} {label}", native_tail.nextvlad_residual(agg, assign, c2),
+                      native_tail.nextvlad_residual_plain(agg, assign, c2), tol=ROUTE_KERNEL_GATES[name])
+        errors[name] = max(errors.get(name, 0.0), err)
+        line[f"nextvlad_residual {label}"] = err
+    torch.cuda.synchronize()
+    return line
+
+
+def stage_timing(dev, x: dict) -> dict:
+    """frame_stage's four modes at B=256, F=300, S=30 (route_kernel_inputs'
+    frames and STAGE_COLD_SETS − 1 more sets) and nextvlad_residual at
+    NeXtVLAD-128's rgb and audio widths (RESIDUAL_COLD_SETS sets): the
+    kernel and its plain version on the sets in turn, the kernel on one set
+    read again, each by kernel_clock; the bound (bytes over the HBM rate).
+    → "kernel/mode" → times."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b = x["nf"].shape[0]
+    frame_sets = [(x["x"], x["nf0"])] + [
+        (torch.randint(0, 256, x["x"].shape, generator=gen, device=dev, dtype=torch.uint8),
+         torch.randint(0, F + 1, (b,), generator=gen, device=dev, dtype=torch.int32))
+        for _ in range(STAGE_COLD_SETS - 1)]
+    sets = [stage_calls(fx, nf, x["s"], x["in_scale"], x["in_bias"]) for fx, nf in frame_sets]
+    out = {}
+    for mode in sets[0]:
+        nbytes = statistics.mean(stage_bytes(fx, nf, x["s"], mode) for fx, nf in frame_sets)
+        out[f"native_frame_stage/{mode}"] = {
+            "in_turn": kernel_clock(rotating(sets, mode, 0)), "plain_in_turn": kernel_clock(rotating(sets, mode, 1)),
+            "one_set": kernel_clock(sets[0][mode][0]), "bound_ms": nbytes / PEAK_BYTES * 1e3}
+    del sets, frame_sets
+    for label in ("rgb", "audio"):
+        res = [residual_inputs(gen, *RESIDUAL_PATH_SHAPES[label]) for _ in range(RESIDUAL_COLD_SETS)]
+        sets = [{"k": (functools.partial(native_tail.nextvlad_residual, *r),
+                       functools.partial(native_tail.nextvlad_residual_plain, *r))} for r in res]
+        agg, assign, c2 = res[0]
+        out[f"native_nextvlad_residual/{label}"] = {
+            "in_turn": kernel_clock(rotating(sets, "k", 0)), "plain_in_turn": kernel_clock(rotating(sets, "k", 1)),
+            "one_set": kernel_clock(sets[0]["k"][0]),
+            "bound_ms": (2 * agg.numel() + assign.numel() + c2.numel()) * 4 / PEAK_BYTES * 1e3}
+        del res, sets, agg, assign, c2
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_route_kernels(dev, errors: dict) -> tuple:
     """Each new kernel of the routes against its plain version on the card
     within ROUTE_KERNEL_GATES at the main path's shapes (the share of
@@ -4753,8 +4924,6 @@ def check_route_kernels(dev, errors: dict) -> tuple:
             errors[name] = max(errors.get(name, 0.0), err)
             line[f"{name}/{label}"] = {"max_abs_err": err,
                                        "bit_equal_share": float((got[0] == want[0]).float().mean())}
-            if f"{name}/{label}" in ROUTE_TIMED_CHECKS:
-                line[f"{name}/{label}"].update(ms=device_ms(kernel), plain_ms=device_ms(plain))
             del got, want
         if nbytes is not None:
             nbytes, ops = nbytes if isinstance(nbytes, tuple) else (nbytes, 0)
@@ -4765,6 +4934,16 @@ def check_route_kernels(dev, errors: dict) -> tuple:
     torch.cuda.synchronize()
     emit({"phase": "native_routes", "part": "kernels", "B": NATIVE_ROUTES_BATCH, "checks": line,
           "gates": ROUTE_KERNEL_GATES})
+    emit({"phase": "native_routes", "part": "stage_paths", "checks": check_stage_paths(dev, errors),
+          "gates": {n: ROUTE_KERNEL_GATES[n] for n in ROUTE_KERNEL_GATES if "frame_stage" in n or "residual" in n}})
+    times = stage_timing(dev, x)
+    emit({"phase": "native_routes", "part": "stage_times", "B": NATIVE_ROUTES_BATCH, "times": times,
+          "input_sets": {"frame_stage": STAGE_COLD_SETS, "nextvlad_residual": RESIDUAL_COLD_SETS}})
+    # the kernels line: the main path's first mode, on the sets in turn
+    for name, mode in (("native_frame_stage", "affine"), ("native_nextvlad_residual", "rgb")):
+        t = times[f"{name}/{mode}"]
+        timing[name] = tuple(c["device_ms"] if c["device_ms"] is not None else c["event_ms"]
+                             for c in (t["in_turn"], t["plain_in_turn"])) + ((t["bound_ms"], "bytes"),)
     shapes = {
         "native_frame_stage": "B=256, F=300, S=30, DT=1152, uint8 in, folded input BN (LOUPE); window without (DBoF)",
         "native_bias_sigmoid": "[256, 3862] f32 (LogisticModel's logits)",

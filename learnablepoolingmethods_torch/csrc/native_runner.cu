@@ -75,8 +75,11 @@
 // They are simple first: one thread an element for the element-wise ones
 // (grid-stride) and for masked_mean (a (video, column), over the frames),
 // two adjacent classes a thread on a 2-D grid for moe_combine,
-// one warp a row for frame_stage, row_l2, nextvlad_assign and
-// residual_layernorm, one block a (video, cluster) for nextvlad_residual, and
+// one warp a row for row_l2, nextvlad_assign and residual_layernorm and
+// for frame_stage (a row read once as 4-byte words; the sampled rows in one
+// wave, a few a warp, the next row's loads in flight), one block
+// a (tile of 32 clusters, video) for nextvlad_residual (coalesced column
+// sums in a fixed order, then float4 streams of agg and c2), and
 // for topk one block a row that reads each entry once and selects in one
 // pass (topk_select_kernel; k rounds of a block-wide argmax past its k or
 // row, topk_rounds_kernel); one thread a (row, unit) for the RNN cells (gru_layer:
@@ -158,7 +161,13 @@ constexpr int kMaxClusters = 512;        // netvlad_core.cuh kMaxClusters (rows 
 constexpr int kEwThreads = 256;
 constexpr int kRowThreads = 256;         // one warp a row, 8 rows a block
 constexpr int kRowsPerBlock = kRowThreads / 32;
-constexpr int kResidualThreads = 128;
+constexpr int kStageThreads = 256;      // frame_stage: 8 warps a block
+constexpr int kStageWarps = kStageThreads / 32;
+constexpr int kStageWords = 9;          // the word path's 4-byte words a lane of a row
+constexpr int kStageDT = 32 * 4 * kStageWords;  // the word path's row: 1152 bytes
+constexpr int kResidualThreads = 256;   // nextvlad_residual: 8 warps over a video's rows
+constexpr int kResidualWarps = kResidualThreads / 32;
+constexpr int kResidualTile = 32;       // clusters a block, one a lane
 constexpr int kMoeThreads = 128;       // moe_combine: two classes a thread
 constexpr int kTopkThreads = 256;
 constexpr int kTopkWarps = kTopkThreads / 32;
@@ -537,88 +546,224 @@ topk_rounds_kernel(const float* __restrict__ probs, float* __restrict__ values,
   }
 }
 
-// One warp's uint8 row of DT: dequantized (kF32: in f32; else in bf16,
-// rounded after the multiply and after the add), ℓ2 over the DT columns in
-// f32; kF32: f32 out; else rounded to bf16, and with in_scale the folded
-// input BN in f32 and one more rounding.
-template <bool kF32>
-__device__ __forceinline__ void stage_row(const uint8_t* __restrict__ src, int DT, float deq_scale,
-                                          float deq_bias, const float* __restrict__ in_scale,
-                                          const float* __restrict__ in_bias, bf16* __restrict__ dst,
-                                          float* __restrict__ dst_f32, int lane) {
-  const float qs = kF32 ? deq_scale : round_bf16(deq_scale);
-  const float qb = kF32 ? deq_bias : round_bf16(deq_bias);
+// frame_stage: a staged route's frames (the sampled mode: each video's S
+// frames drawn from the key, iid or one window) or every frame (the all-frames
+// modes), each uint8 row of DT dequantized, ℓ2 over the row in f32 and written
+// out; it replaces no pallas_call (XLA fuses ops/fast_lf.py:305-319,
+// ops/fast_transformer.py:280-290 and core/step.py:38-44 in the JAX package).
+// What bounds it: bytes (at B=256, F=300, S=30, DT=1152: 26.5 MB sampled with
+// the affine, 265 MB for every frame in bf16, 442 MB in f32; 7.9, 79 and 132
+// µs at 3.35 TB/s).  Its design: a warp takes every W-th row (W the grid's
+// warps, so the grid sweeps the rows in order: every frame a row a warp, block
+// after block; the sampled rows in one wave, a few a warp); its lanes resolve
+// the sources of 32 of its rows at a time (lane i the draw and num_frames of
+// its i-th, or the key mask) and hand each out with a shuffle; on the word
+// path (DT = kStageDT, 4-byte aligned rows) a lane loads its 9 words of a row
+// (words l + 32·j: 128 contiguous bytes a warp-load) before any math, the next
+// row's words in flight under the current row's math, and dequantizes them
+// once into registers (bytes to exact floats by their bits, the bf16
+// dequantize as two bf16x2 FMAs of one rounding each); Σx² in one warp sum;
+// out as 8-byte (4 × bf16) or 16-byte (4 × f32) stores; the affine by float4.
+// Any other DT or alignment takes the byte path in the same entry point: a
+// lane the columns l + 32·j, read twice.
+enum StageMode { kStageSampled, kStageAllBf16, kStageAllF32 };
+
+struct StageArgs {
+  const uint8_t* x;
+  const int32_t* num_frames;
+  const float* in_scale;  // the sampled mode's folded input BN, or null
+  const float* in_bias;
+  bf16* out_bf16;
+  float* out_f32;
+  float* mask;            // the all-frames modes' key mask, or null
+  int rows, F, DT, S, window;
+  uint32_t k0, k1;
+  float deq_scale, deq_bias;
+};
+
+// byte i of w as an exact float: the bits 0x4B0000XX are 2²³ + XX
+__device__ __forceinline__ float byte_f32(uint32_t w, int i) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | i)), 8388608.0f);
+}
+// two floats rounded to bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+// a·b + c on two bf16 pairs, one rounding each
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+constexpr uint32_t kBf16x2One = 0x3F803F80u, kBf16x2NegZero = 0x80008000u;
+
+// The source row of staged row `row` (b·F + f), and in the all-frames modes
+// its key mask f < num_frames[b]: iid, floor(U·min(nf, F)) clamped to F − 1
+// with U the draw of counter b·S + s, as fused_frontend.cu draws it;
+// window, the start floor(U·(max(nf − S, 0) + 1)) with U the draw of
+// counter b, frame min(start + s, nf − 1) clipped to [0, F)
+template <int kMode>
+__device__ __forceinline__ int stage_source(const StageArgs& a, int row) {
+  if (kMode != kStageSampled) {
+    if (a.mask) {
+      const int b = row / a.F;
+      a.mask[row] = row - b * a.F < a.num_frames[b] ? 1.f : 0.f;
+    }
+    return row;
+  }
+  const int b = row / a.S, s = row - b * a.S;
+  const int nf = min(a.num_frames[b], a.F);
+  int f;
+  if (a.window) {
+    const float u = lpm::threefry_uniform(a.k0, a.k1, b);
+    const int start = (int)__fmul_rn(u, __fadd_rn((float)max(nf - a.S, 0), 1.0f));
+    f = max(0, min(min(start + s, nf - 1), a.F - 1));
+  } else {
+    const float u = lpm::threefry_uniform(a.k0, a.k1, row);
+    f = min((int)__fmul_rn(u, (float)nf), a.F - 1);
+  }
+  return b * a.F + f;
+}
+
+// the dequantize's constants: f32 (kStageAllF32) as given, else rounded
+// to bf16 (and as bf16 pairs)
+struct StageDeq {
+  float qs, qb;
+  uint32_t qs2, qb2;
+  template <int kMode>
+  __device__ static StageDeq make(const StageArgs& a) {
+    const bool f32 = kMode == kStageAllF32;
+    const float qs = f32 ? a.deq_scale : round_bf16(a.deq_scale);
+    const float qb = f32 ? a.deq_bias : round_bf16(a.deq_bias);
+    return {qs, qb, pack_bf16x2(qs, qs), pack_bf16x2(qb, qb)};
+  }
+};
+
+// the four values of word w: in f32 v·qs + qb; in bf16 bf16(bf16(v·qs) + qb)
+// (v exact in bf16; each FMA's product or sum exact in f32 before its one
+// rounding), bit for bit the byte path's
+template <int kMode>
+__device__ __forceinline__ void stage_deq4(uint32_t w, const StageDeq& q, float (&v)[4]) {
+  if (kMode == kStageAllF32) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = __fadd_rn(__fmul_rn(byte_f32(w, e), q.qs), q.qb);
+    return;
+  }
+  uint32_t lo = pack_bf16x2(byte_f32(w, 0), byte_f32(w, 1));
+  uint32_t hi = pack_bf16x2(byte_f32(w, 2), byte_f32(w, 3));
+  lo = bf16x2_fma(bf16x2_fma(lo, q.qs2, kBf16x2NegZero), kBf16x2One, q.qb2);
+  hi = bf16x2_fma(bf16x2_fma(hi, q.qs2, kBf16x2NegZero), kBf16x2One, q.qb2);
+  v[0] = bf16_lo(lo);
+  v[1] = bf16_hi(lo);
+  v[2] = bf16_lo(hi);
+  v[3] = bf16_hi(hi);
+}
+
+// the word path's loads of source row src: lane l the words l + 32·j
+template <int kW>
+__device__ __forceinline__ void stage_load(const uint8_t* x, int src, int lane, uint32_t (&w)[kW]) {
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(x + (size_t)src * (32 * 4 * kW)) + lane;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) w[j] = __ldg(p + 32 * j);
+}
+
+// one row from its words: dequantized once, Σx² (a lane's 4·kW values in
+// order, then the warp's butterfly), x · rsqrt(max(Σ, ε)), out
+template <int kMode, int kW>
+__device__ __forceinline__ void stage_words(const uint32_t (&w)[kW], const StageArgs& a, const StageDeq& q,
+                                            int row, int lane) {
+  float v[kW][4];
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    stage_deq4<kMode>(w[j], q, v[j]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ss = __fadd_rn(ss, __fmul_rn(v[j][e], v[j][e]));
+  }
+  const float inv = rsqrtf(fmaxf(warp_sum(ss), kEps));
+  const size_t base = (size_t)row * (32 * 4 * kW);
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    const int c = 4 * (lane + 32 * j);
+    float y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[e] = __fmul_rn(v[j][e], inv);
+    if (kMode == kStageAllF32) {
+      *reinterpret_cast<float4*>(a.out_f32 + base + c) = make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+      if (kMode == kStageSampled && a.in_scale) {
+        const float4 s = __ldg(reinterpret_cast<const float4*>(a.in_scale + c));
+        const float4 t = __ldg(reinterpret_cast<const float4*>(a.in_bias + c));
+        y[0] = __fadd_rn(__fmul_rn(round_bf16(y[0]), s.x), t.x);
+        y[1] = __fadd_rn(__fmul_rn(round_bf16(y[1]), s.y), t.y);
+        y[2] = __fadd_rn(__fmul_rn(round_bf16(y[2]), s.z), t.z);
+        y[3] = __fadd_rn(__fmul_rn(round_bf16(y[3]), s.w), t.w);
+      }
+      *reinterpret_cast<uint2*>(a.out_bf16 + base + c) =
+          make_uint2(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]));
+    }
+  }
+}
+
+// one row on the byte path: lane l the columns l + 32·j, read for Σx² and
+// again to write, the same dequantize and arithmetic
+template <int kMode>
+__device__ void stage_byte_row(const StageArgs& a, const StageDeq& q, int src, int row, int lane) {
+  const uint8_t* x = a.x + (size_t)src * a.DT;
   auto deq = [&](int c) {
-    return kF32 ? __fadd_rn(__fmul_rn((float)src[c], qs), qb)
-                : round_bf16(__fadd_rn(round_bf16(__fmul_rn((float)src[c], qs)), qb));
+    const float v = x[c];
+    return kMode == kStageAllF32 ? __fadd_rn(__fmul_rn(v, q.qs), q.qb)
+                                 : round_bf16(__fadd_rn(round_bf16(__fmul_rn(v, q.qs)), q.qb));
   };
   float ss = 0.f;
-  for (int c = lane; c < DT; c += 32) {
+  for (int c = lane; c < a.DT; c += 32) {
     const float t = deq(c);
     ss = __fadd_rn(ss, __fmul_rn(t, t));
   }
   const float inv = rsqrtf(fmaxf(warp_sum(ss), kEps));
-  for (int c = lane; c < DT; c += 32) {
+  const size_t base = (size_t)row * a.DT;
+  for (int c = lane; c < a.DT; c += 32) {
     float y = __fmul_rn(deq(c), inv);
-    if (kF32) {
-      dst_f32[c] = y;
-      continue;
+    if (kMode == kStageAllF32) {
+      a.out_f32[base + c] = y;
+    } else {
+      if (kMode == kStageSampled && a.in_scale)
+        y = __fadd_rn(__fmul_rn(round_bf16(y), a.in_scale[c]), a.in_bias[c]);
+      a.out_bf16[base + c] = __float2bfloat16_rn(y);
     }
-    if (in_scale) y = __fadd_rn(__fmul_rn(round_bf16(y), in_scale[c]), in_bias[c]);
-    dst[c] = __float2bfloat16_rn(y);
   }
 }
 
-// One warp a sampled row (b, s): the frame drawn from the key (iid:
-// floor(U·min(nf, F)) clamped to F−1 with U the draw of counter b·S + s, as
-// fused_frontend.cu draws it; window: the start floor(U·(max(nf − S, 0) + 1))
-// with U the draw of counter b, frame min(start + s, nf − 1) clipped to
-// [0, F)), its uint8 row dequantized in bf16 (rounded after the multiply and
-// after the add), ℓ2 over the DT columns in f32, rounded to bf16, and with
-// in_scale the folded input BN in f32 and one more rounding.
-__global__ void __launch_bounds__(kRowThreads)
-frame_stage_kernel(const uint8_t* __restrict__ x, uint32_t k0, uint32_t k1,
-                   const int32_t* __restrict__ num_frames, const float* __restrict__ in_scale,
-                   const float* __restrict__ in_bias, bf16* __restrict__ out, long long rows,
-                   int F, int DT, int S, int window, float deq_scale, float deq_bias) {
+// kW > 0: the word path (DT = 128·kW); 0: the byte path
+template <int kMode, int kW>
+__global__ void __launch_bounds__(kStageThreads) frame_stage_kernel(const StageArgs a) {
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);  // b·S + s
-  if (row >= rows) return;
-  const long long b = row / S;
-  const int s = (int)(row % S);
-  const int nf = min(num_frames[b], F);
-  int f;
-  if (window) {
-    const float u = lpm::threefry_uniform(k0, k1, b);
-    const int start = (int)__fmul_rn(u, __fadd_rn((float)max(nf - S, 0), 1.0f));
-    f = max(0, min(min(start + s, nf - 1), F - 1));
-  } else {
-    const float u = lpm::threefry_uniform(k0, k1, row);
-    f = min((int)__fmul_rn(u, (float)nf), F - 1);
+  const long long warps = (long long)gridDim.x * kStageWarps;
+  const long long warp = (long long)blockIdx.x * kStageWarps + (threadIdx.x >> 5);
+  const StageDeq q = StageDeq::make<kMode>(a);
+  // the warp's rows warp + i·warps (the grid sweeps the rows in order), 32
+  // at a time: lane i resolves the i-th's source
+  for (long long r0 = warp; r0 < a.rows; r0 += 32 * warps) {
+    const int n = (int)min(32LL, (a.rows - r0 + warps - 1) / warps);
+    const int src = lane < n ? stage_source<kMode>(a, (int)(r0 + lane * warps)) : 0;
+    if constexpr (kW > 0) {
+      uint32_t cur[kW], next[kW];
+      stage_load(a.x, __shfl_sync(0xffffffffu, src, 0), lane, cur);
+      for (int i = 0; i < n; ++i) {
+        if (i + 1 < n) stage_load(a.x, __shfl_sync(0xffffffffu, src, i + 1), lane, next);
+        stage_words<kMode, kW>(cur, a, q, (int)(r0 + i * warps), lane);
+#pragma unroll
+        for (int j = 0; j < kW; ++j) cur[j] = next[j];
+      }
+    } else {
+      for (int i = 0; i < n; ++i)
+        stage_byte_row<kMode>(a, q, __shfl_sync(0xffffffffu, src, i), (int)(r0 + i * warps), lane);
+    }
   }
-  stage_row<false>(x + (b * F + f) * DT, DT, deq_scale, deq_bias, in_scale, in_bias,
-                   out + row * DT, nullptr, lane);
-}
-
-// frame_stage with no draw: one warp a row b·F + f, frame f of video b, out
-// in bf16 (dequantized in bf16) or f32 (dequantized in f32), and mask[row] =
-// f < num_frames[b] (1 or 0) where mask is given.
-__global__ void __launch_bounds__(kRowThreads)
-frame_stage_all_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ num_frames,
-                       bf16* __restrict__ out_bf16, float* __restrict__ out_f32,
-                       float* __restrict__ mask, long long rows, int F, int DT, float deq_scale,
-                       float deq_bias) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);  // b·F + f
-  if (row >= rows) return;
-  const int f = (int)(row % F);
-  if (mask && lane == 0) mask[row] = f < num_frames[row / F] ? 1.f : 0.f;
-  if (out_f32)
-    stage_row<true>(x + row * DT, DT, deq_scale, deq_bias, nullptr, nullptr, nullptr,
-                    out_f32 + row * DT, lane);
-  else
-    stage_row<false>(x + row * DT, DT, deq_scale, deq_bias, nullptr, nullptr, out_bf16 + row * DT,
-                     nullptr, lane);
 }
 
 // out = act(y + bias[col]) (Act: σ, clip(·, 0, 6), ReLU or none); f32 (in
@@ -762,25 +907,62 @@ nextvlad_assign_kernel(const float* __restrict__ prod, const float* __restrict__
   }
 }
 
-// One block a (video b, cluster k): Σ_r assign[b·SG + r, k] over the video's
-// S·G rows, then out[b, k, :] = agg[b, k, :] − Σ · c2[k, :] (out may be agg)
+// nextvlad_residual: out[b, k, :] = agg[b, k, :] − (Σ_r assign[b·SG + r, k])
+// · c2[k, :] over a video's S·G rows (out may be agg); it replaces no
+// pallas_call (XLA fuses ops/fast_lf.py:264-265).  What bounds it:
+// bytes (at NeXtVLAD-128 rgb, B=256: 98.7 MB, 29.5 µs at 3.35 TB/s).  Its
+// design: a block a (tile of kResidualTile clusters, video) on a 2-D grid;
+// lane l sums column k0 + l and warp w the rows w, w + 8, … in order, so a
+// row's 32 floats come in one 128-byte load; the eight warps' partial sums
+// are added in warp order in shared memory (no atomics: the same bits
+// every run); then the tile's rows of agg and c2, contiguous, stream
+// through as float4 (scalar where D′ % 4 ≠ 0 or a base is not 16-byte
+// aligned), each element read by the thread that writes it.
 __global__ void __launch_bounds__(kResidualThreads)
 nextvlad_residual_kernel(const float* agg, const float* __restrict__ assign,
-                         const float* __restrict__ c2, float* out, int SG, int K, int Dp) {
-  __shared__ float partial[kResidualThreads / 32];
-  const long long b = blockIdx.x / K;
-  const int k = (int)(blockIdx.x % K);
-  float s = 0.f;
-  for (int r = threadIdx.x; r < SG; r += kResidualThreads)
-    s = __fadd_rn(s, assign[(b * SG + r) * K + k]);
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = s;
-  __syncthreads();
-  float asum = 0.f;
-  for (int w = 0; w < kResidualThreads / 32; ++w) asum = __fadd_rn(asum, partial[w]);
-  const long long base = (b * K + k) * Dp;
-  for (int d = threadIdx.x; d < Dp; d += kResidualThreads)
-    out[base + d] = __fsub_rn(agg[base + d], __fmul_rn(asum, c2[(long long)k * Dp + d]));
+                         const float* __restrict__ c2, float* out, int B, int SG, int K, int Dp,
+                         int vec) {
+  __shared__ float partial[kResidualWarps][kResidualTile];
+  __shared__ float asum[kResidualTile];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * kResidualTile;
+  const int nk = min(kResidualTile, K - k0);
+  const int n = nk * Dp;  // the tile's entries of a video
+  const float* ct = c2 + (size_t)k0 * Dp;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    float s = 0.f;
+    if (lane < nk) {
+      const float* col = assign + (size_t)b * SG * K + k0 + lane;
+#pragma unroll 6
+      for (int r = warp; r < SG; r += kResidualWarps) s = __fadd_rn(s, __ldg(col + (size_t)r * K));
+    }
+    partial[warp][lane] = s;
+    __syncthreads();
+    if (warp == 0) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kResidualWarps; ++w) t = __fadd_rn(t, partial[w][lane]);
+      asum[lane] = t;
+    }
+    __syncthreads();
+    const size_t base = ((size_t)b * K + k0) * Dp;
+    const float* at = agg + base;
+    float* ot = out + base;
+    if (vec) {
+      for (int i = threadIdx.x; 4 * i < n; i += kResidualThreads) {
+        const float t = asum[4 * i / Dp];  // a float4 stays in one cluster's row (D′ % 4 = 0)
+        const float4 x = *reinterpret_cast<const float4*>(at + 4 * i);
+        const float4 c = __ldg(reinterpret_cast<const float4*>(ct + 4 * i));
+        *reinterpret_cast<float4*>(ot + 4 * i) =
+            make_float4(__fsub_rn(x.x, __fmul_rn(t, c.x)), __fsub_rn(x.y, __fmul_rn(t, c.y)),
+                        __fsub_rn(x.z, __fmul_rn(t, c.z)), __fsub_rn(x.w, __fmul_rn(t, c.w)));
+      }
+    } else {
+      for (int i = threadIdx.x; i < n; i += kResidualThreads)
+        ot[i] = __fsub_rn(at[i], __fmul_rn(asum[i / Dp], ct[i]));
+    }
+    __syncthreads();  // asum and partial are rewritten for the next video
+  }
 }
 
 // The carry index of a row: min(num_frames, F) − 1 mod F, as flax's
@@ -1508,26 +1690,70 @@ cudaError_t launch_topk(const float* probs, float* values, int32_t* indices, int
   return cudaGetLastError();
 }
 
+bool aligned_to(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
+// one launch of frame_stage_kernel<kMode, kW>: a row a warp for every frame
+// (block after block); the sampled mode's rows in one wave of the blocks
+// the card holds at once (found at the first launch), so that a warp draws
+// for several rows at once and has its next row's loads in flight under
+// the current row's math (on one H100 each grid was the faster for its
+// mode: 0.092 against 0.100 ms for every frame in bf16, 0.0102 against
+// 0.0121 for the sampled frames)
+template <int kMode, int kW>
+cudaError_t stage_launch(const StageArgs& a, cudaStream_t st) {
+  long long blocks = ((long long)a.rows + kStageWarps - 1) / kStageWarps;
+  if (kMode == kStageSampled) {
+    static std::atomic<int> resident{0};
+    int fit = resident.load();
+    if (fit < 1) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frame_stage_kernel<kMode, kW>,
+                                                          kStageThreads, 0);
+      if (e != cudaSuccess) return e;
+      fit = sms * per_sm > 1 ? sms * per_sm : 1;
+      resident.store(fit);
+    }
+    if (blocks > fit) blocks = fit;
+  }
+  frame_stage_kernel<kMode, kW><<<(unsigned)blocks, kStageThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// the word path where the row is kStageDT bytes and every pointer is
+// aligned to its loads and stores, else the byte path
+template <int kMode>
+cudaError_t stage_dispatch(const StageArgs& a, cudaStream_t st) {
+  const bool f32 = kMode == kStageAllF32;
+  const bool words = a.DT == kStageDT && aligned_to(a.x, 4) &&
+                     (f32 ? aligned_to(a.out_f32, 16) : aligned_to(a.out_bf16, 8)) &&
+                     (!a.in_scale || (aligned_to(a.in_scale, 16) && aligned_to(a.in_bias, 16)));
+  return words ? stage_launch<kMode, kStageWords>(a, st) : stage_launch<kMode, 0>(a, st);
+}
+
 cudaError_t launch_frame_stage(const uint8_t* x, uint32_t k0, uint32_t k1, const int32_t* nf,
                                const float* in_scale, const float* in_bias, bf16* out, int B,
                                int F, int DT, int S, int window, float deq_scale,
                                float deq_bias, cudaStream_t st) {
-  if (B < 1 || F < 1 || DT < 1 || S < 1 || (in_scale == nullptr) != (in_bias == nullptr))
+  // the rows and the source rows index in int
+  if (B < 1 || F < 1 || DT < 1 || S < 1 || (in_scale == nullptr) != (in_bias == nullptr) ||
+      (long long)B * (F > S ? F : S) > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const long long rows = (long long)B * S;
-  frame_stage_kernel<<<row_blocks(rows), kRowThreads, 0, st>>>(
-      x, k0, k1, nf, in_scale, in_bias, out, rows, F, DT, S, window, deq_scale, deq_bias);
-  return cudaGetLastError();
+  const StageArgs a = {x, nf, in_scale, in_bias, out, nullptr, nullptr, B * S, F, DT, S, window,
+                       k0, k1, deq_scale, deq_bias};
+  return stage_dispatch<kStageSampled>(a, st);
 }
 
 cudaError_t launch_frame_stage_all(const uint8_t* x, const int32_t* nf, bf16* out_bf16,
                                    float* out_f32, float* mask, int B, int F, int DT,
                                    float deq_scale, float deq_bias, cudaStream_t st) {
-  if (B < 1 || F < 1 || DT < 1 || (!out_bf16) == (!out_f32)) return cudaErrorInvalidValue;
-  const long long rows = (long long)B * F;
-  frame_stage_all_kernel<<<row_blocks(rows), kRowThreads, 0, st>>>(
-      x, nf, out_bf16, out_f32, mask, rows, F, DT, deq_scale, deq_bias);
-  return cudaGetLastError();
+  if (B < 1 || F < 1 || DT < 1 || (!out_bf16) == (!out_f32) || (long long)B * F > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const StageArgs a = {x, nf, nullptr, nullptr, out_bf16, out_f32, mask, B * F, F, DT, F, 0,
+                       0, 0, deq_scale, deq_bias};
+  return out_f32 ? stage_dispatch<kStageAllF32>(a, st) : stage_dispatch<kStageAllBf16>(a, st);
 }
 
 cudaError_t launch_bias_act(int act, const float* y, const float* bias, float* out_f32,
@@ -1611,8 +1837,10 @@ cudaError_t launch_nextvlad_assign(const float* prod, const float* scale, const 
 cudaError_t launch_nextvlad_residual(const float* agg, const float* assign, const float* c2,
                                      float* out, int B, int SG, int K, int Dp, cudaStream_t st) {
   if (B < 1 || SG < 1 || K < 1 || Dp < 1) return cudaErrorInvalidValue;
-  nextvlad_residual_kernel<<<(unsigned)((long long)B * K), kResidualThreads, 0, st>>>(
-      agg, assign, c2, out, SG, K, Dp);
+  const dim3 grid((K + kResidualTile - 1) / kResidualTile, B < 65535 ? B : 65535);
+  const int vec = Dp % 4 == 0 && aligned_to(agg, 16) && aligned_to(c2, 16) && aligned_to(out, 16);
+  nextvlad_residual_kernel<<<grid, kResidualThreads, 0, st>>>(agg, assign, c2, out, B, SG, K, Dp,
+                                                              vec);
   return cudaGetLastError();
 }
 

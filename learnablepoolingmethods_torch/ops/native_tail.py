@@ -32,7 +32,8 @@ The steps of the other routes:
   ``core/step.py#preprocess_input``);
 - :func:`nextvlad_assign`: NeXtVLAD's assignment ``softmax_K(l · s + b) ·
   σ(α)`` in f32 and rounded to bf16;
-- :func:`nextvlad_residual`: ``agg − (Σ_rows assign) · c2``.
+- :func:`nextvlad_residual`: ``agg − (Σ_rows assign) · c2`` (the kernel sums
+  each cluster's column in a fixed order: ``RESIDUAL_TILE``).
 
 The steps of the routes that read every frame (the transformer family and
 FrameLevelLogisticModel):
@@ -126,6 +127,17 @@ BF16 = torch.bfloat16
 # 64, a thread's entries t + 256·j in registers, 16 of them (V ≤ 4,096) or
 # 64 (V ≤ 16,384); a larger k or row takes k rounds of a block-wide argmax
 TOPK_THREADS, TOPK_FAST_K, TOPK_PER_THREAD = 256, 64, (16, 64)
+# frame_stage's word path (csrc/native_runner.cu kStageThreads, kStageWords,
+# kStageDT): blocks of 8 warps, each warp a run of consecutive rows; on a
+# row of 1152 bytes (4-byte aligned) lane l holds the 9 words l + 32·j, its
+# 36 values summed in that order, then the warp's butterfly; any other row
+# (or alignment) the byte path: lane l the columns l + 32·j
+STAGE_THREADS, STAGE_WORDS = 256, 9
+STAGE_DT = 32 * 4 * STAGE_WORDS
+# nextvlad_residual's block (kResidualThreads, kResidualTile): a tile of 32
+# clusters of one video, lane l column k0 + l, warp w the rows w, w + 8, …
+# in order, the 8 warps' sums added in warp order
+RESIDUAL_THREADS, RESIDUAL_TILE = 256, 32
 
 
 # ---- plain versions ----------------------------------------------------------

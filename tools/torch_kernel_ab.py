@@ -24,8 +24,18 @@ and B=256 on inputs drawn here (the same in every checkout), on the
 profiler's device clock and by CUDA events, beside ``torch.topk``; and
 inside the runner's batch (random weights and frames): Willow's route at
 B=32 and 256 and NetRVLAD's at 256, each batch's host ms and the device ms
-of its ``topk`` and ``moe_combine`` kernels.  It prints one JSON line with
-the card's name and power limit.
+of its ``topk`` and ``moe_combine`` kernels.  The runner's stage kernels,
+``frame_stage`` in its four modes (iid with the folded input BN, one window,
+every frame in bf16 and in f32 with the key mask; B=256, F=300, S=30,
+DT=1152) and ``nextvlad_residual`` at NeXtVLAD-128's rgb and audio widths
+(B=256, S·G=240, K=128, D′=256 and 32), each on input sets in turn that
+outrun the 50 MB L2 and on one set read again, on the profiler's device
+clock (with the count of kernel records it kept) and by CUDA events, beside
+the bytes bound; and inside the runner's batch of 256 (random weights and
+frames): NeXtVLAD, NetRVLAD, TransformerEncoderModel and
+FrameLevelLogisticModel, each batch's host ms and the device ms of its
+``frame_stage`` and ``nextvlad_residual`` kernels.  It prints one JSON line
+with the card's name and power limit.
 
 Compare a change with its parent (``git archive`` of each unpacked into
 git-ignored directories), in turns: parent, change, change, parent::
@@ -33,7 +43,7 @@ git-ignored directories), in turns: parent, change, change, parent::
     for d in parent change change parent; do (cd $d && python3 ../tools/torch_kernel_ab.py --label $d); done
 
 ``--parts tail`` times only those parts (of int8, pool, gru, dropout,
-tail).
+tail, stage).
 """
 
 import argparse
@@ -206,22 +216,41 @@ def dropout_times(dev) -> dict:
 TAIL_ROUTES = (("NetVLADModelLF", (32, 256)), ("NetRVLADModelLF", (256,)))
 
 
-def kernel_device_ms(fn, needles: tuple, reps: int = 5) -> dict:
-    """The profiler's device ms a call of ``fn`` of each kernel whose name
-    holds one of ``needles`` (summed by needle)."""
+def device_records(fn, reps: int) -> list:
+    """(name, µs) of each device record the profiler kept for ``reps``
+    calls of ``fn``: between two marker kernels (torch.cuda._sleep's),
+    after lead calls for 20 ms of host time, as ``chip_smoke.profile_device``
+    counts them (the profiler drops the records of the first launches after
+    it starts); raises if a marker was dropped."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        lead = time.perf_counter()
+        fn()
+        while time.perf_counter() - lead < 0.02:
+            fn()
+        torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+    records = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [i for i, r in enumerate(records) if "spin_kernel" in r[2]]
+    if len(marks) != 2:
+        raise RuntimeError(f"the profiler kept {len(marks)} of its 2 marker kernels")
+    return [(name, end - start) for start, end, name in records[marks[0] + 1:marks[1]]]
+
+
+def kernel_device_ms(fn, needles: tuple, reps: int = 5) -> dict:
+    """The profiler's device ms a call of ``fn`` of each kernel whose name
+    holds one of ``needles`` (summed by needle)."""
     out = {needle: 0.0 for needle in needles}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for needle in needles:
-                if needle in e.name:
-                    out[needle] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    for name, us in device_records(fn, reps):
+        for needle in needles:
+            if needle in name:
+                out[needle] += us / 1e3 / reps
     return out
 
 
@@ -279,10 +308,148 @@ def tail_times(dev) -> dict:
     return out
 
 
+# the runner's routes timed with their stage kernels, at batch 256
+STAGE_ROUTES = ("NeXtVLADModel", "NetRVLADModelLF", "TransformerEncoderModel", "FrameLevelLogisticModel")
+# input sets in turn: frames of 88.5 MB a set (the sampled modes draw 8.8 MB
+# of each), the residual's 65 MB of agg and assign (rgb) a set
+STAGE_SETS, RESIDUAL_SETS = 8, 4
+
+
+def clock(fn, needle: str, reps: int = 20) -> dict:
+    """``fn`` on the profiler's device clock (the kernels named by
+    ``needle``, ms a call; device_records) with the count of those kernels'
+    records it kept for ``reps`` calls, and by CUDA events around a run of ``reps`` calls
+    (the host's pace where a call's launch takes longer than its kernel)."""
+    spans = [us for name, us in device_records(fn, reps) if needle in name]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"device_ms": sum(spans) / 1e3 / reps, "records": len(spans), "calls": reps,
+            "event_ms": start.elapsed_time(end) / reps}
+
+
+def stage_times(dev) -> dict:
+    """stage_alone and stage_routes."""
+    return {**stage_alone(dev), **stage_routes(dev)}
+
+
+def stage_alone(dev) -> dict:
+    """frame_stage's four modes and nextvlad_residual (rgb, audio) alone at
+    B=256 on sets in turn and on one set, beside an HBM copy of as many
+    bytes as every frame in bf16 moves and a fill of as many as every frame
+    in f32 writes."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    b, f, s, dt = 256, chip_smoke.F, 30, chip_smoke.DT
+    key = prng.key(0)
+    in_scale = torch.randn((dt,), generator=gen, device=dev) * 0.1 + 1.0
+    in_bias = torch.randn((dt,), generator=gen, device=dev) * 0.05
+    frame_sets = [(torch.randint(0, 256, (b, f, dt), generator=gen, device=dev, dtype=torch.uint8),
+                   torch.randint(0, f + 1, (b,), generator=gen, device=dev, dtype=torch.int32))
+                  for _ in range(STAGE_SETS)]
+    modes = {
+        "affine": (lambda x, nf: native_tail.frame_stage(x, key, nf, s, in_scale, in_bias),
+                   lambda x, nf: native_tail.frame_stage_plain(x, key, nf, s, in_scale, in_bias)),
+        "window": (lambda x, nf: native_tail.frame_stage(x, key, nf, s, window=True),
+                   lambda x, nf: native_tail.frame_stage_plain(x, key, nf, s, window=True)),
+        "all_bf16": (lambda x, nf: native_tail.frame_stage_all(x, nf), native_tail.frame_stage_all_plain),
+        "all_f32": (lambda x, nf: native_tail.frame_stage_all(x, nf, torch.float32),
+                    lambda x, nf: native_tail.frame_stage_all_plain(x, nf, torch.float32)),
+    }
+    # a device-to-device copy that moves as many bytes as every frame in bf16
+    # (88.5 MB read, 177 MB written: 132.7 MB each way), the rate a stream
+    # of reads and writes reaches on this card
+    src = torch.empty((b * f * dt * 3 // 2,), dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy = clock(lambda: dst.copy_(src), "")
+    out = {"hbm_copy_265MB": dict(copy, tb_per_s=2 * src.numel() / (copy["device_ms"] * 1e-3) / 1e12)}
+    del src, dst
+    # a fill of as many bytes as every frame in f32 writes (354 MB): the rate
+    # of writes alone
+    dst = torch.empty((b * f * dt,), dtype=torch.float32, device=dev)
+    fill = clock(lambda: dst.fill_(1.0), "")
+    out["hbm_fill_354MB"] = dict(fill, tb_per_s=4 * dst.numel() / (fill["device_ms"] * 1e-3) / 1e12)
+    del dst
+    for mode, (kernel, plain) in modes.items():
+        got, want = kernel(*frame_sets[0]), plain(*frame_sets[0])
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        turn = itertools.cycle(frame_sets)
+        out[f"frame_stage/{mode}"] = {
+            "max_abs_err": (got[0].float() - want[0].float()).abs().max().item(),
+            "in_turn": clock(lambda: kernel(*next(turn)), "frame_stage"),
+            "one_set": clock(lambda: kernel(*frame_sets[0]), "frame_stage"),
+            "bound_ms": statistics.mean(stage_bytes(x, nf, s, mode, key) for x, nf in frame_sets)
+            / chip_smoke.PEAK_BYTES * 1e3}
+        del got, want
+    del frame_sets
+    for label, dp in (("rgb", 256), ("audio", 32)):
+        k, sg = 128, 240
+        sets = [(torch.randn((b, k, dp), generator=gen, device=dev),
+                 torch.softmax(torch.randn((b, sg, 1, k), generator=gen, device=dev) * 3.0, dim=-1),
+                 torch.randn((k, dp), generator=gen, device=dev) * 0.1) for _ in range(RESIDUAL_SETS)]
+        turn = itertools.cycle(sets)
+        out[f"nextvlad_residual/{label}"] = {
+            "max_abs_err": (native_tail.nextvlad_residual(*sets[0])
+                            - native_tail.nextvlad_residual_plain(*sets[0])).abs().max().item(),
+            "in_turn": clock(lambda: native_tail.nextvlad_residual(*next(turn)), "nextvlad_residual"),
+            "one_set": clock(lambda: native_tail.nextvlad_residual(*sets[0]), "nextvlad_residual"),
+            "bound_ms": (2 * b * k * dp + b * sg * k + k * dp) * 4 / chip_smoke.PEAK_BYTES * 1e3}
+        del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_routes(dev) -> dict:
+    """The runner's batches of STAGE_ROUTES at 256 (random weights and
+    frames): host ms a batch, its frame_stage and nextvlad_residual
+    kernels' device ms."""
+    b, f, dt = 256, chip_smoke.F, chip_smoke.DT
+    out = {}
+    rng = np.random.default_rng(5)
+    feats = rng.integers(0, 256, (b, f, dt), dtype=np.uint8)
+    nfs = rng.integers(1, f + 1, b).astype(np.int32)
+    for name in STAGE_ROUTES:
+        mcfg, fcfg = chip_smoke.route_config(name, {})
+        tree = chip_smoke.seeded_tree(name, mcfg, fcfg)
+        with tempfile.TemporaryDirectory(prefix="kernel_ab_") as export_dir:
+            export_lib.export_model(export_dir, name, mcfg, fcfg, tree["params"], tree["batch_stats"],
+                                    with_stablehlo=True, stablehlo_batch_size=b)
+            exe = native_runtime.NativeExecutable.from_export_dir(export_dir, dev)
+            exe.run(feats, nfs)
+            runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                exe.run(feats, nfs)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            out[f"{name}_B{b}"] = {"route_ms_per_batch": statistics.median(runs),
+                                   "kernel_device_ms": kernel_device_ms(lambda: exe.run(feats, nfs),
+                                                                        ("frame_stage", "nextvlad_residual"))}
+            exe.close()
+        del tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_bytes(x, nf, s: int, mode: str, key) -> int:
+    """The bytes frame_stage's ``mode`` must move (the distinct rows drawn,
+    or every row; the output and the key mask once), as
+    ``chip_smoke.stage_bytes`` counts them (a parent's chip_smoke may lack
+    it)."""
+    b, f, dt = x.shape
+    if mode in ("affine", "window"):
+        from learnablepoolingmethods_torch.ops import fused_frontend
+        draw = fused_frontend.sequence_indices if mode == "window" else fused_frontend.sample_indices
+        rows = sum(len(torch.unique(r)) for r in draw(key, nf, f, s).cpu())
+        return rows * dt + b * 4 + b * s * dt * 2 + (2 * dt * 4 if mode == "affine" else 0)
+    return b * f * dt + b * 4 + b * f * dt * (2 if mode == "all_bf16" else 4) + b * f * 4
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
-    parser.add_argument("--parts", default="int8,pool,gru,dropout,tail")
+    parser.add_argument("--parts", default="int8,pool,gru,dropout,tail,stage")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -304,6 +471,8 @@ def main() -> None:
         line["dropout"] = dropout_times(dev)
     if "tail" in parts:
         line["tail"] = tail_times(dev)
+    if "stage" in parts:
+        line["stage"] = stage_times(dev)
     print(json.dumps(line), flush=True)
 
 
