@@ -3757,9 +3757,10 @@ WILLOW_COUNTERS = ("netvlad_frontend", "hidden_sum", "gating", "moe_combine", "t
 # another split of the 262,144-long hidden-FC sums, no more
 NATIVE_GATE = 1e-5
 # each tail kernel against its plain version on the same inputs (atol as a
-# share of max|ref|, rtol): the sum and the top-k exactly, the gating within
-# one bf16 step of its output, the MoE combine within the f32 tolerance
-TAIL_GATES = {"native_hidden_sum": (0.0, 0.0), "native_gating": (0.0, 2 ** -8),
+# share of max|ref|, rtol): the sum, the gating (the same operations as
+# PyTorch's, in its order: bit for bit on one H100 at 700 W) and the top-k
+# exactly, the MoE combine within the f32 tolerance
+TAIL_GATES = {"native_hidden_sum": (0.0, 0.0), "native_gating": (0.0, 0.0),
               "native_moe_combine": TOLERANCE[torch.float32], "native_topk": (0.0, 0.0)}
 TAIL_WIDTHS = dict(h=1024, v=3862, m=2, k=20)  # Willow's hidden width, vocabulary, mixtures, top-k
 # moe_combine and topk are timed on this many input sets in turn (at B=256,
@@ -3925,11 +3926,67 @@ def tail_paths(dev, errors: dict) -> dict:
     return line
 
 
+# hidden_sum's (products, group, bias_first) on each route that ends in the
+# gated tail
+HIDDEN_ROUTE_SUMS = {"willow": (2, 1, False), "lf_one_modality": (1, 1, True), "lf_two_modalities": (2, 1, True),
+                     "netfv": (4, 2, True), "transformer_and_attention_netvlad": (1, 1, False)}
+# hidden_sum's and gating's paths (label → rows, H, the inputs' offset in
+# floats): float4s at Willow's width, at B=1, past one tile of 1,024
+# columns, at four tiles; the scalar path at an odd width and on views one
+# float in
+HIDDEN_PATH_SHAPES = {"vector": (256, 1024, 0), "vector_b1": (1, 1024, 0), "vector_ragged_tile": (5, 1100, 0),
+                      "vector_four_tiles": (3, 4096, 0), "scalar_odd_width": (256, 1003, 0),
+                      "scalar_offset_view": (256, 1024, 1)}
+
+
+def equal_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """0.0 where ``got`` equals ``want`` bit for bit; raises else."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got.view(ints[got.dtype]),
+                                                                             want.view(ints[want.dtype])):
+        raise AssertionError(f"{name}: differs from the plain version's bits (max |Δ| "
+                             f"{(got.float() - want.float()).abs().max().item():.3e})")
+    return 0.0
+
+
+def hidden_paths(dev, errors: dict) -> dict:
+    """hidden_sum at every route's (products, group, bias_first) and gating
+    in bf16 and f32 out, each at HIDDEN_PATH_SHAPES (the vector and the
+    scalar path), against their plain versions bit for bit (h, its bf16
+    rounding, the gated output).  → {check: 0.0}."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    line = {}
+    for label, (rows, h, offset) in HIDDEN_PATH_SHAPES.items():
+        def view(scale: float) -> torch.Tensor:
+            buf = torch.randn((offset + rows * h,), generator=gen, device=dev) * scale
+            return buf[offset:].view(rows, h)
+
+        parts = [view(0.5) for _ in range(4)]
+        bias = torch.randn((h,), generator=gen, device=dev) * 0.1
+        for route, (n, group, bias_first) in HIDDEN_ROUTE_SUMS.items():
+            got = native_tail.hidden_sum(parts[:n], bias, group, bias_first)
+            want = native_tail.hidden_sum_plain(parts[:n], bias, group, bias_first)
+            name = f"hidden_sum {label} {route}"
+            line[name] = max(equal_bits(f"{name} {out}", g, w) for out, g, w in zip(("h", "hb"), got, want))
+        gates, hid = view(2.0), view(1.0)
+        g_scale, g_bias = torch.randn((h,), generator=gen, device=dev) * 0.2 + 1.0, bias
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"gating {label} {str(dtype).removeprefix('torch.')}"
+            line[name] = equal_bits(name, native_tail.gating(gates, hid, g_scale, g_bias, dtype),
+                                    native_tail.gating_plain(gates, hid, g_scale, g_bias, dtype))
+    torch.cuda.synchronize()
+    for name in ("native_hidden_sum", "native_gating"):
+        key = name.removeprefix("native_")
+        errors[name] = max([errors.get(name, 0.0)] + [e for c, e in line.items() if c.startswith(key)])
+    return line
+
+
 def check_tail_kernels(dev, errors: dict) -> tuple:
     """Each tail kernel against its plain version at SERVE_BATCHES within
     TAIL_GATES (the gating's share of outputs equal bit for bit printed; the
     top-k bit for bit, NaNs and ±0 included, compare_topk), then every path
-    of topk and moe_combine (tail_paths); at the largest batch each one's
+    of topk and moe_combine (tail_paths) and of hidden_sum and gating, bit
+    for bit (hidden_paths); at the largest batch each one's
     device ms, the plain chain's, the library call's (torch.topk) and the
     bound (bytes over the HBM rate), moe_combine and topk on
     TAIL_COLD_SETS input sets in turn.  → (timing, library) for the
@@ -3954,6 +4011,8 @@ def check_tail_kernels(dev, errors: dict) -> tuple:
         emit({"phase": "native_serve", "part": "tail_kernels", "B": b, "checks": line, "gates": TAIL_GATES})
     emit({"phase": "native_serve", "part": "tail_paths", "checks": tail_paths(dev, errors),
           "gates": TAIL_GATES})
+    emit({"phase": "native_serve", "part": "hidden_paths", "checks": hidden_paths(dev, errors),
+          "gates": "bit for bit"})
     sets = [calls] + [tail_calls(tail_inputs(max(SERVE_BATCHES), dev, seed=s)) for s in range(1, TAIL_COLD_SETS)]
     warm = {}
     for name, (kernel, plain, lib, nbytes) in calls.items():

@@ -74,6 +74,8 @@
 // at B=256, V=3862 moe_combine moves 23.7 MB, about 7.1 µs at 3.35 TB/s).
 // They are simple first: one thread an element for the element-wise ones
 // (grid-stride) and for masked_mean (a (video, column), over the frames),
+// a block a tile of 1,024 columns of a row for hidden_sum and gating (a
+// float4 or two of each input a thread, every load before the math),
 // two adjacent classes a thread on a 2-D grid for moe_combine,
 // one warp a row for row_l2, nextvlad_assign and residual_layernorm and
 // for frame_stage (a row read once as 4-byte words; the sampled rows in one
@@ -176,6 +178,12 @@ constexpr int kTopkPerSmall = 16;      // the block select's entries a thread: V
 constexpr int kTopkPerLarge = 64;      // or V ≤ 16,384
 constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory at most
 constexpr int kMaxParts = 4;          // hidden_sum's products (NetFV: fv1, fv2 of two modalities)
+constexpr int kHiddenThreads = 128;   // hidden_sum: a block's threads
+constexpr int kHiddenVecs = 2;        // hidden_sum: the float4s a thread takes of each input a row
+constexpr int kHiddenTile = 4 * kHiddenThreads * kHiddenVecs;  // a block's columns of a row (both)
+constexpr int kGatingThreads = 256;   // gating: a block's threads
+constexpr int kGatingVecs = 1;        // gating: one float4 of each input a thread a row
+static_assert(4 * kGatingThreads * kGatingVecs == kHiddenTile, "gating takes hidden_sum's tiles");
 constexpr int kMaxMods = 2;
 constexpr int kPoolThreads = 256;
 constexpr int kPoolTile = 32;              // frames a key (and value) tile
@@ -230,6 +238,12 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+// two floats rounded to bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -251,40 +265,133 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// h = the products p[0..n) taken `group` at a time (a modality's, summed
-// left to right), then bias + G_0 + G_1 … (bias_first: the LF routes) or
-// (G_0 + G_1 …) + bias (Willow's); and h rounded to bf16.  rows × H entries.
-__global__ void hidden_sum_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
-                                  const float* __restrict__ p2, const float* __restrict__ p3,
-                                  int n_parts, int group, int bias_first,
-                                  const float* __restrict__ bias, float* __restrict__ h,
-                                  bf16* __restrict__ hb, long long n, int H) {
-  const float* parts[kMaxParts] = {p0, p1, p2, p3};
-  for (long long i = grid_start(); i < n; i += grid_step()) {
-    const float b = bias[(int)(i % H)];
-    float acc = b;
-    for (int g = 0; g < n_parts; g += group) {
-      float s = parts[g][i];
-      for (int j = 1; j < group; ++j) s = __fadd_rn(s, parts[g + j][i]);
-      acc = (bias_first || g > 0) ? __fadd_rn(acc, s) : s;
-    }
-    if (!bias_first) acc = __fadd_rn(acc, b);
-    h[i] = acc;
-    hb[i] = __float2bfloat16_rn(acc);
+// The gated tail's element-wise steps on [rows, H] f32 (ops/native_tail.py
+// hidden_sum_plain, gating_plain).  Each is bound by bytes: at B=256, H=1024
+// hidden_sum moves 3.67 MB on Willow's two products (1.10 µs at 3.35 TB/s)
+// and gating 2.63 MB (0.78 µs); the route's products come straight from
+// cuBLAS and sit in the L2.  At a few µs the time is a thread's latency,
+// not the rate: a block takes kHiddenTile columns of one row (the row from
+// blockIdx.y, rows past the grid's by stride; no division), thread t of T
+// the columns 4q … 4q + 3 of q = blockIdx.x · kHiddenTile / 4 + j · T + t
+// for j < V, and every load of its row is issued before the first add
+// (tests/test_torch_native_tail.py models the map).  hidden_sum takes T =
+// 128, V = 2; gating, whose expf and division make each entry's chain the
+// longer, T = 256, V = 1 (on one H100 at B=256, H=1024: gating 0.0020
+// against 0.0022 ms the other way round, hidden_sum 0.0017 either way).
+// On the vector path (H % 4 = 0, every f32 pointer on 16 bytes, a bf16
+// output on 8) each is one float4 of each input, the f32 output a float4
+// store and the bf16 one four roundings in 8 bytes; the scalar path takes
+// the same columns one at a time, those below H.  The arithmetic is the
+// first draft's, in its order, so both read bit for bit as before: the
+// sums by __fadd_rn in the route's order, the gating's product then its
+// sum (no FMA), the sigmoid with expf and an IEEE division.
+template <bool kVec>
+__device__ __forceinline__ void load_cols(float (&d)[4], const float* __restrict__ src, int c, int H) {
+  if (kVec) {
+    const float4 v = c < H ? __ldg(reinterpret_cast<const float4*>(src + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] = c + e < H ? __ldg(src + c + e) : 0.f;
   }
 }
 
-// out = h · σ(gates · g_scale[col] + g_bias[col]), rounded to bf16 and/or f32
-__global__ void gating_kernel(const float* __restrict__ gates, const float* __restrict__ h,
-                              const float* __restrict__ g_scale, const float* __restrict__ g_bias,
-                              bf16* __restrict__ out, float* __restrict__ out_f32, long long n,
-                              int H) {
-  for (long long i = grid_start(); i < n; i += grid_step()) {
-    const int c = (int)(i % H);
-    const float g = __fadd_rn(__fmul_rn(gates[i], g_scale[c]), g_bias[c]);
-    const float y = __fmul_rn(h[i], sigmoid(g));
-    if (out) out[i] = __float2bfloat16_rn(y);
-    if (out_f32) out_f32[i] = y;
+// y to f32 (f) and/or rounded to bf16 (b), the columns c … c + 3 below H
+template <bool kVec>
+__device__ __forceinline__ void store_cols(float* __restrict__ f, bf16* __restrict__ b, const float (&y)[4], int c,
+                                           int H) {
+  if (kVec) {
+    if (c >= H) return;
+    if (f) *reinterpret_cast<float4*>(f + c) = make_float4(y[0], y[1], y[2], y[3]);
+    if (b) *reinterpret_cast<uint2*>(b + c) = make_uint2(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c + e >= H) break;
+      if (f) f[c + e] = y[e];
+      if (b) b[c + e] = __float2bfloat16_rn(y[e]);
+    }
+  }
+}
+
+template <int kThreads>
+__device__ __forceinline__ int tile_col(int j) {
+  return 4 * (blockIdx.x * (kHiddenTile / 4) + j * kThreads + threadIdx.x);
+}
+
+struct HiddenSumArgs {
+  const float* p[kMaxParts];
+  const float* bias;
+  float* h;
+  bf16* hb;
+  long long rows;
+  int H;
+};
+
+// h = the products p[0..kParts) taken kGroup at a time (a modality's,
+// summed left to right), then bias + G_0 + G_1 … (kBiasFirst: the LF
+// routes) or (G_0 + G_1 …) + bias (Willow's, the transformer's); and h
+// rounded to bf16
+template <int kParts, int kGroup, bool kBiasFirst, bool kVec>
+__global__ void __launch_bounds__(kHiddenThreads) hidden_sum_kernel(const HiddenSumArgs a) {
+  for (long long r = blockIdx.y; r < a.rows; r += gridDim.y) {
+    const long long row = r * a.H;
+    float p[kHiddenVecs][kParts][4], b[kHiddenVecs][4];
+#pragma unroll
+    for (int j = 0; j < kHiddenVecs; ++j) {
+      load_cols<kVec>(b[j], a.bias, tile_col<kHiddenThreads>(j), a.H);
+#pragma unroll
+      for (int i = 0; i < kParts; ++i) load_cols<kVec>(p[j][i], a.p[i] + row, tile_col<kHiddenThreads>(j), a.H);
+    }
+#pragma unroll
+    for (int j = 0; j < kHiddenVecs; ++j) {
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float acc = b[j][e];
+#pragma unroll
+        for (int g = 0; g < kParts; g += kGroup) {
+          float s = p[j][g][e];
+#pragma unroll
+          for (int i = 1; i < kGroup; ++i) s = __fadd_rn(s, p[j][g + i][e]);
+          acc = (kBiasFirst || g > 0) ? __fadd_rn(acc, s) : s;
+        }
+        y[e] = kBiasFirst ? acc : __fadd_rn(acc, b[j][e]);
+      }
+      store_cols<kVec>(a.h + row, a.hb + row, y, tile_col<kHiddenThreads>(j), a.H);
+    }
+  }
+}
+
+// out = h · σ(gates · g_scale[col] + g_bias[col]), rounded to bf16 (kBf16)
+// and/or f32 (kF32)
+template <bool kBf16, bool kF32, bool kVec>
+__global__ void __launch_bounds__(kGatingThreads)
+gating_kernel(const float* __restrict__ gates, const float* __restrict__ h, const float* __restrict__ g_scale,
+              const float* __restrict__ g_bias, bf16* __restrict__ out, float* __restrict__ out_f32, long long rows,
+              int H) {
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const long long row = r * H;
+    float x[kGatingVecs][4], hv[kGatingVecs][4], s[kGatingVecs][4], t[kGatingVecs][4];
+#pragma unroll
+    for (int j = 0; j < kGatingVecs; ++j) {
+      load_cols<kVec>(x[j], gates + row, tile_col<kGatingThreads>(j), H);
+      load_cols<kVec>(hv[j], h + row, tile_col<kGatingThreads>(j), H);
+      load_cols<kVec>(s[j], g_scale, tile_col<kGatingThreads>(j), H);
+      load_cols<kVec>(t[j], g_bias, tile_col<kGatingThreads>(j), H);
+    }
+#pragma unroll
+    for (int j = 0; j < kGatingVecs; ++j) {
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[e] = __fmul_rn(hv[j][e], sigmoid(__fadd_rn(__fmul_rn(x[j][e], s[j][e]), t[j][e])));
+      store_cols<kVec>(kF32 ? out_f32 + row : nullptr, kBf16 ? out + row : nullptr, y,
+                       tile_col<kGatingThreads>(j), H);
+    }
   }
 }
 
@@ -584,12 +691,6 @@ struct StageArgs {
 // byte i of w as an exact float: the bits 0x4B0000XX are 2²³ + XX
 __device__ __forceinline__ float byte_f32(uint32_t w, int i) {
   return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | i)), 8388608.0f);
-}
-// two floats rounded to bf16, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
 }
 // a·b + c on two bf16 pairs, one rounding each
 __device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
@@ -1504,26 +1605,81 @@ unsigned row_blocks(long long rows) {
   return (unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock);
 }
 
+bool aligned_to(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
+// hidden_sum and gating: a block a tile of kHiddenTile columns of a row
+dim3 hidden_grid(long long rows, int H) {
+  return dim3((unsigned)((H + kHiddenTile - 1) / kHiddenTile), (unsigned)(rows < 65535 ? rows : 65535));
+}
+
+template <int kParts, int kGroup, bool kBiasFirst>
+void hidden_sum_launch(const HiddenSumArgs& a, bool vec, cudaStream_t st) {
+  if (vec)
+    hidden_sum_kernel<kParts, kGroup, kBiasFirst, true><<<hidden_grid(a.rows, a.H), kHiddenThreads, 0, st>>>(a);
+  else
+    hidden_sum_kernel<kParts, kGroup, kBiasFirst, false><<<hidden_grid(a.rows, a.H), kHiddenThreads, 0, st>>>(a);
+}
+
+template <int kParts, int kGroup>
+void hidden_sum_launch(const HiddenSumArgs& a, bool bias_first, bool vec, cudaStream_t st) {
+  if (bias_first)
+    hidden_sum_launch<kParts, kGroup, true>(a, vec, st);
+  else
+    hidden_sum_launch<kParts, kGroup, false>(a, vec, st);
+}
+
+constexpr int parts_key(int n_parts, int group) { return n_parts * 8 + group; }
+
+// one instantiation a (n_parts, group, bias_first), on the vector path
+// where H % 4 = 0 and every pointer is aligned for it
 cudaError_t launch_hidden_sum(const float* const* parts, int n_parts, int group, int bias_first,
                               const float* bias, float* h, bf16* hb, long long rows, int H,
                               cudaStream_t st) {
   if (rows < 1 || H < 1 || n_parts < 1 || n_parts > kMaxParts || group < 1 ||
       n_parts % group)
     return cudaErrorInvalidValue;
-  const float* p[kMaxParts] = {nullptr, nullptr, nullptr, nullptr};
-  for (int i = 0; i < n_parts; ++i) p[i] = parts[i];
-  const long long n = rows * H;
-  hidden_sum_kernel<<<ew_blocks(n), kEwThreads, 0, st>>>(p[0], p[1], p[2], p[3], n_parts, group,
-                                                         bias_first, bias, h, hb, n, H);
+  HiddenSumArgs a = {{nullptr, nullptr, nullptr, nullptr}, bias, h, hb, rows, H};
+  bool vec = H % 4 == 0 && aligned_to(bias, 16) && aligned_to(h, 16) && aligned_to(hb, 8);
+  for (int i = 0; i < n_parts; ++i) {
+    a.p[i] = parts[i];
+    vec = vec && aligned_to(parts[i], 16);
+  }
+  switch (parts_key(n_parts, group)) {
+    case parts_key(1, 1): hidden_sum_launch<1, 1>(a, bias_first, vec, st); break;
+    case parts_key(2, 1): hidden_sum_launch<2, 1>(a, bias_first, vec, st); break;
+    case parts_key(2, 2): hidden_sum_launch<2, 2>(a, bias_first, vec, st); break;
+    case parts_key(3, 1): hidden_sum_launch<3, 1>(a, bias_first, vec, st); break;
+    case parts_key(3, 3): hidden_sum_launch<3, 3>(a, bias_first, vec, st); break;
+    case parts_key(4, 1): hidden_sum_launch<4, 1>(a, bias_first, vec, st); break;
+    case parts_key(4, 2): hidden_sum_launch<4, 2>(a, bias_first, vec, st); break;
+    default: hidden_sum_launch<4, 4>(a, bias_first, vec, st);  // the checks leave only (4, 4)
+  }
   return cudaGetLastError();
+}
+
+template <bool kBf16, bool kF32>
+void gating_launch(const float* gates, const float* h, const float* g_scale, const float* g_bias, bf16* out,
+                   float* out_f32, long long rows, int H, bool vec, cudaStream_t st) {
+  if (vec)
+    gating_kernel<kBf16, kF32, true><<<hidden_grid(rows, H), kGatingThreads, 0, st>>>(gates, h, g_scale, g_bias,
+                                                                                        out, out_f32, rows, H);
+  else
+    gating_kernel<kBf16, kF32, false><<<hidden_grid(rows, H), kGatingThreads, 0, st>>>(gates, h, g_scale, g_bias,
+                                                                                         out, out_f32, rows, H);
 }
 
 cudaError_t launch_gating(const float* gates, const float* h, const float* g_scale,
                           const float* g_bias, bf16* out, float* out_f32, long long rows, int H,
                           cudaStream_t st) {
   if (rows < 1 || H < 1 || (!out && !out_f32)) return cudaErrorInvalidValue;
-  const long long n = rows * H;
-  gating_kernel<<<ew_blocks(n), kEwThreads, 0, st>>>(gates, h, g_scale, g_bias, out, out_f32, n, H);
+  const bool vec = H % 4 == 0 && aligned_to(gates, 16) && aligned_to(h, 16) && aligned_to(g_scale, 16) &&
+                   aligned_to(g_bias, 16) && aligned_to(out, 8) && aligned_to(out_f32, 16);
+  if (out && out_f32)
+    gating_launch<true, true>(gates, h, g_scale, g_bias, out, out_f32, rows, H, vec, st);
+  else if (out)
+    gating_launch<true, false>(gates, h, g_scale, g_bias, out, out_f32, rows, H, vec, st);
+  else
+    gating_launch<false, true>(gates, h, g_scale, g_bias, out, out_f32, rows, H, vec, st);
   return cudaGetLastError();
 }
 
@@ -1689,8 +1845,6 @@ cudaError_t launch_topk(const float* probs, float* values, int32_t* indices, int
     topk_rounds_kernel<<<B, kTopkThreads, 0, st>>>(probs, values, indices, V, k);
   return cudaGetLastError();
 }
-
-bool aligned_to(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
 // one launch of frame_stage_kernel<kMode, kW>: a row a warp for every frame
 // (block after block); the sampled mode's rows in one wave of the blocks

@@ -147,7 +147,7 @@ def ptxas_report(name: str) -> Optional[list]:
     """Per kernel of ``csrc/<name>.cu`` as ptxas reported it when
     :func:`build` compiled it with ``ptxas=`` naming it in this process
     (None if it did not): registers, static shared memory (the kernels'
-    dynamic shared memory is sized at launch) and spills, the names
+    dynamic shared memory is sized at launch), stack frame and spills, the names
     demangled where ``c++filt`` is at hand."""
     output = _ptxas_output.get(name)
     if output is None:
@@ -160,7 +160,7 @@ def ptxas_report(name: str) -> Optional[list]:
             kernels.append(current)
         elif current is not None and "spill stores" in line:
             nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
-            current["spill_stores"], current["spill_loads"] = nums[1], nums[2]
+            current["stack_frame"], current["spill_stores"], current["spill_loads"] = nums
         elif current is not None and "Used" in line:
             current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
             smem = re.search(r"(\d+) bytes smem", line)

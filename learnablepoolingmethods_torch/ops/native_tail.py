@@ -138,6 +138,16 @@ STAGE_DT = 32 * 4 * STAGE_WORDS
 # clusters of one video, lane l column k0 + l, warp w the rows w, w + 8, …
 # in order, the 8 warps' sums added in warp order
 RESIDUAL_THREADS, RESIDUAL_TILE = 256, 32
+# hidden_sum's and gating's blocks (kHiddenThreads, kHiddenVecs,
+# kGatingThreads, kGatingVecs): a tile of 1,024 columns of one row (the row
+# from blockIdx.y); of T threads, thread t takes the columns 4q … 4q + 3 of
+# q = blockIdx.x · 256 + j · T + t, j < V: a float4 of each input where
+# H % 4 = 0 and every pointer is 16-byte aligned (a bf16 output 8), else
+# the same columns one at a time.  hidden_sum T = 128, V = 2; gating
+# T = 256, V = 1
+HIDDEN_THREADS, HIDDEN_VECS = 128, 2
+GATING_THREADS, GATING_VECS = 256, 1
+HIDDEN_TILE = 4 * HIDDEN_THREADS * HIDDEN_VECS
 
 
 # ---- plain versions ----------------------------------------------------------

@@ -1,7 +1,7 @@
 """Time the W8A16 hidden FC, ``pool_attention``, the GRU layer, the
-dropout kernel's two launches and the runner's tail kernels of the
-checkout in the working directory, so that two checkouts can be compared
-in one run on one card.
+dropout kernel's two launches and the runner's tail, stage and gated-tail
+kernels of the checkout in the working directory, so that two checkouts
+can be compared in one run on one card.
 
 The W8A16 kernel is timed by ``chip_smoke.phase_int8_matmul`` (the Willow
 rgb FC at every batch of ``INT8_BATCHES``, beside cuBLAS bf16 on the
@@ -34,8 +34,17 @@ clock (with the count of kernel records it kept) and by CUDA events, beside
 the bytes bound; and inside the runner's batch of 256 (random weights and
 frames): NeXtVLAD, NetRVLAD, TransformerEncoderModel and
 FrameLevelLogisticModel, each batch's host ms and the device ms of its
-``frame_stage`` and ``nextvlad_residual`` kernels.  It prints one JSON line
-with the card's name and power limit.
+``frame_stage`` and ``nextvlad_residual`` kernels.  The gated tail's
+``hidden_sum`` (Willow's two products; NetFV's four in pairs) and
+``gating`` (bf16 and f32 out) alone at B=256, H=1024, on one input set read
+again and on 16 sets in turn, on the profiler's device clock (with its
+record count) and by CUDA events, beside a device copy and PyTorch's
+element-wise kernel over as many bytes and the bytes bound, with nvcc's
+registers, stack frame and spills of each of their kernels; and inside the
+runner's batch (random weights and frames): Willow's route at B=32 and 256
+and NetFV's at 256, each batch's host ms and the device ms of its
+``hidden_sum`` and ``gating`` kernels.  It prints one JSON line with the
+card's name and power limit.
 
 Compare a change with its parent (``git archive`` of each unpacked into
 git-ignored directories), in turns: parent, change, change, parent::
@@ -43,13 +52,14 @@ git-ignored directories), in turns: parent, change, change, parent::
     for d in parent change change parent; do (cd $d && python3 ../tools/torch_kernel_ab.py --label $d); done
 
 ``--parts tail`` times only those parts (of int8, pool, gru, dropout,
-tail, stage).
+tail, stage, gated).
 """
 
 import argparse
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +74,7 @@ import chip_smoke  # noqa: E402  (the checkout's own)
 from learnablepoolingmethods_torch import export_model as export_lib  # noqa: E402
 from learnablepoolingmethods_torch.core import native_runtime  # noqa: E402
 from learnablepoolingmethods_torch.ops import dropout as dropout_ops  # noqa: E402
+from learnablepoolingmethods_torch.ops import kernel_build  # noqa: E402
 from learnablepoolingmethods_torch.ops import native_tail  # noqa: E402
 from learnablepoolingmethods_torch.utils import prng  # noqa: E402
 
@@ -283,8 +294,18 @@ def tail_times(dev) -> dict:
     out["topk"]["bound_ms"] = (b * v * 4 + b * k * 8) / chip_smoke.PEAK_BYTES * 1e3
     out["moe_combine"]["bound_ms"] = (b * (m + 1) * v + b * m * v + m * v + b * v) * 4 / chip_smoke.PEAK_BYTES * 1e3
     del sets, ga, ea, eb, probs
+    out.update(runner_batches(dev, TAIL_ROUTES, ("topk", "moe_combine")))
+    return out
+
+
+def runner_batches(dev, routes, needles: tuple) -> dict:
+    """The runner's batches of ``routes`` ((model, batches) pairs; random
+    weights and frames from one seed): each batch's host ms (the median of
+    five, the frames' copy included) and the device ms of its kernels whose
+    names hold one of ``needles``."""
+    out = {}
     rng = np.random.default_rng(5)
-    for name, batches in TAIL_ROUTES:
+    for name, batches in routes:
         mcfg, fcfg = chip_smoke.route_config(name, {})
         tree = chip_smoke.seeded_tree(name, mcfg, fcfg)
         for batch in batches:
@@ -301,10 +322,10 @@ def tail_times(dev) -> dict:
                     exe.run(feats, nfs)
                     runs.append((time.perf_counter() - t0) * 1e3)
                 out[f"{name}_B{batch}"] = {"route_ms_per_batch": statistics.median(runs),
-                                           "kernel_device_ms": kernel_device_ms(lambda: exe.run(feats, nfs),
-                                                                                ("topk", "moe_combine"))}
+                                           "kernel_device_ms": kernel_device_ms(lambda: exe.run(feats, nfs), needles)}
                 exe.close()
         del tree
+    torch.cuda.empty_cache()
     return out
 
 
@@ -402,34 +423,9 @@ def stage_alone(dev) -> dict:
 
 
 def stage_routes(dev) -> dict:
-    """The runner's batches of STAGE_ROUTES at 256 (random weights and
-    frames): host ms a batch, its frame_stage and nextvlad_residual
-    kernels' device ms."""
-    b, f, dt = 256, chip_smoke.F, chip_smoke.DT
-    out = {}
-    rng = np.random.default_rng(5)
-    feats = rng.integers(0, 256, (b, f, dt), dtype=np.uint8)
-    nfs = rng.integers(1, f + 1, b).astype(np.int32)
-    for name in STAGE_ROUTES:
-        mcfg, fcfg = chip_smoke.route_config(name, {})
-        tree = chip_smoke.seeded_tree(name, mcfg, fcfg)
-        with tempfile.TemporaryDirectory(prefix="kernel_ab_") as export_dir:
-            export_lib.export_model(export_dir, name, mcfg, fcfg, tree["params"], tree["batch_stats"],
-                                    with_stablehlo=True, stablehlo_batch_size=b)
-            exe = native_runtime.NativeExecutable.from_export_dir(export_dir, dev)
-            exe.run(feats, nfs)
-            runs = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                exe.run(feats, nfs)
-                runs.append((time.perf_counter() - t0) * 1e3)
-            out[f"{name}_B{b}"] = {"route_ms_per_batch": statistics.median(runs),
-                                   "kernel_device_ms": kernel_device_ms(lambda: exe.run(feats, nfs),
-                                                                        ("frame_stage", "nextvlad_residual"))}
-            exe.close()
-        del tree
-    torch.cuda.empty_cache()
-    return out
+    """The runner's batches of STAGE_ROUTES at 256: host ms a batch, its
+    frame_stage and nextvlad_residual kernels' device ms."""
+    return runner_batches(dev, [(name, (256,)) for name in STAGE_ROUTES], ("frame_stage", "nextvlad_residual"))
 
 
 def stage_bytes(x, nf, s: int, mode: str, key) -> int:
@@ -446,10 +442,98 @@ def stage_bytes(x, nf, s: int, mode: str, key) -> int:
     return b * f * dt + b * 4 + b * f * dt * (2 if mode == "all_bf16" else 4) + b * f * 4
 
 
+# the runner's routes timed with hidden_sum and gating, and their batches
+GATED_ROUTES = (("NetVLADModelLF", (32, 256)), ("NetFVModelLF", (256,)))
+# hidden_sum's and gating's input sets in turn at B=256, H=1024: 8 MB of
+# inputs a set, 128 MB in all, past the 50 MB L2
+GATED_SETS = 16
+GATED_KERNELS = ("hidden_sum_kernel", "gating_kernel")
+
+
+def gated_calls(b: int, h: int) -> dict:
+    """name → (the kernel's call on an input set, its plain version's, the
+    bytes it must move: each input read once, each output written once)."""
+    nt = native_tail
+    sum_out, bias = b * h * (4 + 2), h * 4
+    return {
+        "hidden_sum/two_parts": (lambda x: nt.hidden_sum(x["parts"][:2], x["bias"]),
+                                 lambda x: nt.hidden_sum_plain(x["parts"][:2], x["bias"]), 2 * b * h * 4 + bias + sum_out),
+        "hidden_sum/four_parts_in_pairs": (lambda x: nt.hidden_sum(x["parts"], x["bias"], 2, True),
+                                           lambda x: nt.hidden_sum_plain(x["parts"], x["bias"], 2, True),
+                                           4 * b * h * 4 + bias + sum_out),
+        "gating/bf16": (lambda x: nt.gating(x["gates"], x["h"], x["g_scale"], x["g_bias"]),
+                        lambda x: nt.gating_plain(x["gates"], x["h"], x["g_scale"], x["g_bias"]),
+                        2 * b * h * 4 + 2 * h * 4 + b * h * 2),
+        "gating/f32": (lambda x: nt.gating(x["gates"], x["h"], x["g_scale"], x["g_bias"], torch.float32),
+                       lambda x: nt.gating_plain(x["gates"], x["h"], x["g_scale"], x["g_bias"], torch.float32),
+                       2 * b * h * 4 + 2 * h * 4 + b * h * 4),
+    }
+
+
+def gated_times(dev) -> dict:
+    """hidden_sum and gating alone at B=256, H=1024 (equal to their plain
+    versions bit for bit or not), each on the profiler's device clock with
+    its record count, on one input set read again (as the route finds its
+    products, in the L2) and on GATED_SETS sets in turn, beside a device
+    copy_ of as many bytes (half read, half written; a DMA copy) and
+    PyTorch's element-wise kernel over them (torch.neg, half read, half
+    written), each on one buffer pair and on GATED_SETS pairs in turn, and
+    the bytes bound; then the runner's batches of GATED_ROUTES."""
+    gen = torch.Generator(device=dev).manual_seed(37)
+    b, h = 256, 1024
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    sets = [dict(parts=[randn(b, h, scale=0.5) for _ in range(4)], bias=randn(h, scale=0.1),
+                 gates=randn(b, h, scale=2.0), h=randn(b, h), g_scale=randn(h, scale=0.2) + 1.0,
+                 g_bias=randn(h, scale=0.1)) for _ in range(GATED_SETS)]
+    out = {}
+    for name, (kernel, plain, nbytes) in gated_calls(b, h).items():
+        got, want = kernel(sets[0]), plain(sets[0])
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        equal = all(torch.equal(g.view(ints[g.dtype]), w.view(ints[w.dtype])) for g, w in zip(got, want))
+        pairs = [(torch.ones((nbytes // 8,), device=dev), torch.empty((nbytes // 8,), device=dev))
+                 for _ in range(GATED_SETS)]
+        needle = next(k for k in GATED_KERNELS if name.startswith(k.removesuffix("_kernel")))
+        turn, copy_turn = itertools.cycle(sets), itertools.cycle(pairs)
+        out[name] = {"equal_to_plain": equal, "bytes": nbytes,
+                     "one_set": clock(lambda: kernel(sets[0]), needle),
+                     "in_turn": clock(lambda: kernel(next(turn)), needle),
+                     "copy_one_set": clock(lambda: pairs[0][1].copy_(pairs[0][0]), ""),
+                     "copy_in_turn": clock(lambda: (lambda p: p[1].copy_(p[0]))(next(copy_turn)), ""),
+                     "elementwise_one_set": clock(lambda: torch.neg(pairs[0][0], out=pairs[0][1]), ""),
+                     "elementwise_in_turn": clock(lambda: (lambda p: torch.neg(p[0], out=p[1]))(next(copy_turn)), ""),
+                     "bound_ms": nbytes / chip_smoke.PEAK_BYTES * 1e3}
+        del got, want, pairs
+    del sets
+    out.update(runner_batches(dev, GATED_ROUTES, ("hidden_sum", "gating")))
+    return out
+
+
+def ptxas_resources(text: str, needles: tuple) -> dict:
+    """Registers, stack frame and spill bytes of each kernel whose mangled
+    name holds one of ``needles``, from nvcc's -Xptxas -v output ``text``."""
+    out, current = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            current = entry.group(1) if any(n in entry.group(1) for n in needles) else None
+            if current:
+                out[current] = {}
+        elif current and "stack frame" in line:
+            out[current].update(zip(("stack_frame", "spill_stores", "spill_loads"),
+                                    (int(n) for n in re.findall(r"(\d+) bytes", line))))
+        elif current and "Used" in line:
+            out[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
-    parser.add_argument("--parts", default="int8,pool,gru,dropout,tail,stage")
+    parser.add_argument("--parts", default="int8,pool,gru,dropout,tail,stage,gated")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -460,6 +544,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     line = {"label": args.label, "card": smi}
+    if "gated" in parts:  # built first, so that nvcc's report of the runner's kernels is kept
+        kernel_build.build(["native_runner"], ptxas=["native_runner"])
+        line["gated_ptxas"] = ptxas_resources(kernel_build._ptxas_output.get("native_runner", ""), GATED_KERNELS)
     if "int8" in parts:
         _, timing, library = chip_smoke.phase_int8_matmul(dev, smi)
         line.update(int8_matmul_b512=timing["int8_matmul"][0], cublas_b512=library["int8_matmul"])
@@ -473,6 +560,8 @@ def main() -> None:
         line["tail"] = tail_times(dev)
     if "stage" in parts:
         line["stage"] = stage_times(dev)
+    if "gated" in parts:
+        line["gated"] = gated_times(dev)
     print(json.dumps(line), flush=True)
 
 
